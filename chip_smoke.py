@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``nbody_tpu_torch/csrc`` into a clean
-build directory, holds each kernel against its plain PyTorch version on
-the card, checks the pair-symmetric kernel at N = 1,048,576 against the
-direct-form ``rect_forces`` on sampled rows, drives the port's main path
-(``python -m nbody_tpu_torch validate`` at N = 8192 with ``--impl auto``
-and ``--impl pallas``) with the kernels' launch counters reset just before
-and read just after, runs 200 steps under the momentum and angular-momentum
-gates, and benchmarks.  Any failed check raises and the script exits
-nonzero; without a CUDA card it exits 1 before doing anything.
+build directory (one ``nvcc`` per source, all at once), holds each kernel
+against its plain PyTorch version on the card (K1, K2; the resident
+kernels K3 and K4 also bit for bit against the per-step K2 path; K8 also
+against a float64 direct sum at N = 1,048,576), checks K2 at N = 1,048,576
+against the direct-form ``rect_forces``, then drives the port's main
+paths through the CLI with the kernels' launch counters reset just before
+and read just after: ``validate`` at N = 8192, and the ``run`` verb
+(resident K3 with a checkpoint, K4 with yoshida4, auto routing, N = 1M
+with ``--energy``, and a resume that must equal one uninterrupted run).
+Then 200 steps under the momentum and angular-momentum gates, the
+K1/K2 and resident crossovers that set ``auto``, and the bench lines.
+Any failed check raises and the script exits nonzero; without a CUDA
+card it exits 1 before doing anything.
 
 The last three lines of standard output are the kernels' JSON record, the
 ``nvidia-smi`` name / power-limit line, and
@@ -21,6 +26,7 @@ The last three lines of standard output are the kernels' JSON record, the
 import importlib.metadata
 import importlib.util
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -32,28 +38,52 @@ import time
 REL_TOL = 1e-4
 ABS_FLOOR = 1e-6
 
+# Published H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit):
+# float32 outside the tensor cores, and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+# Flops a kernel needs per interaction, counting an FMA as two: one-sided
+# force (3 sub, 6 for d2 + eps2, 2 for the cube, 1 rsqrt, 1 mass, 6 for
+# the accumulate), pair-symmetric force for both bodies of a pair (one
+# more multiply for m_i m_j, 3 for F r, 6 adds into both sums), and the
+# pair potential (3 sub, 6 for d2 + eps2, 1 rsqrt, 2 for the accumulate).
+FLOPS_ONE_SIDED, FLOPS_PAIR, FLOPS_PE = 19, 23, 12
+# Integrator flops per body and (sub-)step: reference kick + drift, KDK
+# two kicks + drift.
+FLOPS_REF_UPDATE, FLOPS_KDK_UPDATE = 12, 18
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+
 
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
 
 
-def compare(name, got, want):
+def compare(name, got, want, rel_tol=REL_TOL):
     """Gate ``got`` against ``want``; returns (max abs err, max rel err)."""
     import numpy as np
     from nbody_tpu_torch.oracle.numpy_oracle import relative_mismatch
     g = got.detach().cpu().double().numpy()
     w = want.detach().cpu().double().numpy()
     scale = float(np.abs(w).max())
-    bad = int(relative_mismatch(g, w, REL_TOL, ABS_FLOOR * scale).sum())
+    bad = int(relative_mismatch(g, w, rel_tol, ABS_FLOOR * scale).sum())
     max_abs = float(np.abs(g - w).max())
     max_rel = max_abs / scale
     check(np.isfinite(g).all(), f"{name}: non-finite output")
     print(f"[check] {name}: max rel err {max_rel:.3e} (max abs "
           f"{max_abs:.3e}), {bad} of {g.size} components outside "
-          f"rel {REL_TOL:g} + {ABS_FLOOR:g}*max")
+          f"rel {rel_tol:g} + {ABS_FLOOR:g}*max")
     check(bad == 0, f"{name}: {bad} components outside tolerance")
     return max_abs, max_rel
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the flops over the float32
+    peak and the bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def bodies(n, seed, device):
@@ -62,6 +92,336 @@ def bodies(n, seed, device):
     pos = torch.empty(n, 3, device=device).uniform_(-1e5, 1e5, generator=g)
     mass = torch.empty(n, device=device).uniform_(1e5, 1e9, generator=g)
     return pos, mass
+
+
+def states_equal(a, b):
+    import torch
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("pos", "vel", "acc"))
+
+
+def check_forces(dev, eps2, record):
+    """K1 and K2 against their plain twins; K2 reproducible and chunk-
+    invariant, and right for real zero-mass bodies."""
+    import torch
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
+    for n in (1000, 8192):
+        pos, mass = bodies(n, n, dev)
+        got = k1.forces_tiled(pos, mass, eps2)
+        want = k1.rect_forces_tiled_plain(pos, pos, mass, eps2)
+        torch.cuda.synchronize()
+        err = compare(f"K1 forces_tiled vs plain, N={n}", got, want)
+        if n == 8192:
+            record["forces_tiled"] = {
+                "shape": "N=8192, one force evaluation",
+                "max_abs_err": err[0],
+                "ms": time_ms(lambda: k1.forces_tiled(pos, mass, eps2), dev),
+                "plain_ms": time_ms(lambda: k1.rect_forces_tiled_plain(
+                    pos, pos, mass, eps2), dev, iters=3),
+                "bound": bound(FLOPS_ONE_SIDED * n * (n - 1), 28 * n)}
+    for n in (1000, 3001, 8192):
+        pos, mass = bodies(n, n + 1, dev)
+        got = k2.forces_sym(pos, mass, eps2)
+        want = k2.forces_sym_plain(pos, mass, eps2)
+        torch.cuda.synchronize()
+        err = compare(f"K2 forces_sym vs plain, N={n}", got, want)
+        again = k2.forces_sym(pos, mass, eps2)
+        check(torch.equal(got, again), f"K2 N={n}: not bit-reproducible")
+        chunked = k2.forces_sym(pos, mass, eps2,
+                                slot_budget=24 * (-(-n // 256) * 256))
+        check(torch.equal(got, chunked),
+              f"K2 N={n}: one offset per chunk differs from one chunk")
+        if n == 8192:
+            record["forces_sym"] = {
+                "shape": "N=8192, one force evaluation",
+                "max_abs_err": err[0],
+                "ms": time_ms(lambda: k2.forces_sym(pos, mass, eps2), dev),
+                "plain_ms": time_ms(lambda: k2.forces_sym_plain(
+                    pos, mass, eps2), dev, iters=3),
+                "bound": bound(FLOPS_PAIR * n * (n - 1) // 2, 28 * n)}
+    pos, mass = bodies(1000, 7, dev)
+    mass[[3, 400, 999]] = 0.0
+    compare("K2 with three real zero-mass bodies vs direct form",
+            k2.forces_sym(pos, mass, eps2), rect_forces(pos, pos, mass, eps2))
+    print("[check] K2 bit-reproducible run to run and across offset chunks")
+
+
+def check_resident(dev, record):
+    """K3 and K4 against their plain twins and, bit for bit, against the
+    per-step K2 path; chunk invariance; real zero-mass bodies."""
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.ops import resident
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
+    print(f"[resident] co-resident grid: K3 {resident.max_blocks(False)} "
+          f"blocks, K4 {resident.max_blocks(True)} blocks of 256 threads")
+    cases = [("reference", 1000, 10), ("reference", 8192, 10),
+             ("kdk", 8192, 5), ("yoshida4", 8192, 5)]
+    errs = {"resident": 0.0, "resident_kdk": 0.0}
+    for integrator, n, steps in cases:
+        cfg = nt.SimConfig(n_bodies=n, impl="pallas_sym2",
+                           integrator=integrator, seed=n + 11)
+        state = nt.init_state(cfg)
+        if integrator != "reference":
+            state = nt.ops.step.prime_kdk(state, cfg)
+        kname = "resident" if integrator == "reference" else "resident_kdk"
+        what = f"{'K3' if kname == 'resident' else 'K4'} {integrator} N={n}"
+        one = resident.run_steps_resident(state, cfg, 1)
+        plain = resident.run_steps_resident_plain(state, cfg, 1)
+        for k in ("pos", "vel", "acc"):
+            err = compare(f"{what}, 1 step, {k} vs plain", getattr(one, k),
+                          getattr(plain, k))
+            if n == 8192:
+                errs[kname] = max(errs[kname], err[0])
+        got = resident.run_steps_resident(state, cfg, steps)
+        per_step = nt.run_steps(state, cfg, steps, impl="pallas_sym2")
+        check(states_equal(got, per_step),
+              f"{what}: {steps} resident steps differ from {steps} "
+              f"per-step K2 steps")
+        split = steps // 2 - 1
+        chained = resident.run_steps_resident(
+            resident.run_steps_resident(state, cfg, split), cfg,
+            steps - split)
+        check(states_equal(got, chained),
+              f"{what}: {split}+{steps - split} steps differ from {steps}")
+        plain = resident.run_steps_resident_plain(state, cfg, steps)
+        drift = float((got.pos - plain.pos).abs().max()
+                      / plain.pos.abs().max())
+        print(f"[check] {what}: {steps} steps bit-equal to {steps} per-step "
+              f"K2 steps and to {split}+{steps - split}; pos vs plain after "
+              f"{steps} steps max rel {drift:.3e}")
+    cfg = nt.SimConfig(n_bodies=1000, impl="pallas_sym2", seed=7)
+    state = nt.init_state(cfg)
+    mass = state.mass.clone()
+    mass[[3, 400, 999]] = 0.0
+    state = state._replace(mass=mass)
+    compare("K3 with three real zero-mass bodies vs direct form",
+            resident.run_steps_resident(state, cfg, 1).acc,
+            rect_forces(state.pos, state.pos, mass, cfg.eps2))
+
+    # Times at the run verb's shapes: one launch of 1000 steps (K3) and
+    # of 100 yoshida4 steps (K4) at N = 8192.
+    n = 8192
+    for kname, integrator, steps in (("resident", "reference", 1000),
+                                     ("resident_kdk", "yoshida4", 100)):
+        cfg = nt.SimConfig(n_bodies=n, impl="pallas_sym2",
+                           integrator=integrator)
+        state = nt.init_state(cfg)
+        if integrator != "reference":
+            state = nt.ops.step.prime_kdk(state, cfg)
+        ref = integrator == "reference"
+        evals = steps * (1 if ref else 3)
+        flops = evals * (FLOPS_PAIR * n * (n - 1) // 2 + n * (
+            FLOPS_REF_UPDATE if ref else FLOPS_KDK_UPDATE))
+        ms = time_ms(lambda: resident.run_steps_resident(state, cfg, steps),
+                     dev, iters=3, warmup=1)
+        plain_ms = time_ms(lambda: resident.run_steps_resident_plain(
+            state, cfg, steps), dev, iters=1, warmup=0)
+        record[kname] = {
+            "shape": f"N=8192, one launch of {steps} {integrator} steps",
+            "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
+            "bound": bound(flops, (64 if ref else 76) * n)}
+
+
+def check_pe(dev, record, smi):
+    """K8 against its plain twin at N = 8192 and against a float64 direct
+    sum on 4096 sampled rows at N = 1,048,576; the energy at 1M."""
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.models.energy import total_energy_bounded
+    from nbody_tpu_torch.ops import pe
+    from nbody_tpu_torch.utils.timing import time_ms
+    eps2 = 0.002
+    n = 8192
+    pos, mass = bodies(n, 81, dev)
+    got = pe.pe_rows(pos, mass, pos, mass, eps2)
+    want = pe.pe_rows_plain(pos, mass, pos, mass, eps2)
+    err = compare(f"K8 pe_rows vs plain, N={n}", got, want)
+    record["pe"] = {
+        "shape": "N=8192 rows against N=8192 bodies (a full energy)",
+        "max_abs_err": err[0],
+        "ms": time_ms(lambda: pe.pe_rows(pos, mass, pos, mass, eps2), dev),
+        "plain_ms": time_ms(lambda: pe.pe_rows_plain(pos, mass, pos, mass,
+                                                     eps2), dev, iters=3),
+        "bound": bound(FLOPS_PE * n * n, 16 * n + 16 * n + 8 * n)}
+
+    n = 1 << 20
+    state = nt.init_state(nt.SimConfig(n_bodies=n, seed=1))
+    pos, mass = state.pos, state.mass
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(1))[
+        :4096].to(dev)
+    got = pe.pe_rows(pos[rows].contiguous(), mass[rows].contiguous(), pos,
+                     mass, eps2)
+    # The float64 direct sum, computed on the card (torch float64), rows
+    # in chunks of 64: the host would take minutes for 4e9 pairs.
+    p64, m64 = pos.double(), mass.double()
+    want = torch.cat([
+        m64[r] * (m64[None, :] / torch.sqrt(
+            ((p64[None, :, :] - p64[r][:, None, :]) ** 2).sum(-1) + eps2)
+        ).sum(1) for r in rows.split(64)])
+    compare("K8 at N=1,048,576, 4096 sampled rows vs float64 direct sum",
+            got, want, rel_tol=1e-5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    energy = total_energy_bounded(state, eps2)
+    torch.cuda.synchronize()
+    e_s = time.perf_counter() - t0
+    k8_ms = time_ms(lambda: pe.pe_rows(pos, mass, pos, mass, eps2), dev,
+                    iters=2, warmup=0)
+    record["pe"]["ms_1m"] = k8_ms
+    record["pe"]["bound_ms_1m"] = bound(FLOPS_PE * n * n, 40 * n)[0]
+    print(f"[1M] total energy {energy:.10e} in {e_s:.3f} s "
+          f"(total_energy_bounded); K8 {k8_ms:.2f} ms per launch over "
+          f"1,048,576 rows ({smi})")
+
+
+def check_k2_1m(dev):
+    """K2 at the 1M headline, sampled rows vs the direct form."""
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
+    n = 1 << 20
+    cfg = nt.SimConfig(n_bodies=n, device="cuda")
+    check(nt.resolve_impl(cfg) == "pallas_sym2", "auto at 1M is not K2")
+    state = nt.init_state(cfg)
+    t0 = time.perf_counter()
+    acc = nt.compute_forces(state.pos, state.mass, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    eval_ms = time_ms(lambda: nt.compute_forces(state.pos, state.mass, cfg),
+                      dev, iters=2, warmup=0)
+    print(f"[1M] compute_forces (K2) first call {first_s:.3f} s; "
+          f"{eval_ms:.2f} ms per evaluation")
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:4096]
+    rows = rows.to(dev)
+    ref = rect_forces(state.pos[rows], state.pos, state.mass, cfg.eps2,
+                      chunk=64)
+    compare("K2 at N=1,048,576, 4096 sampled rows vs rect_forces",
+            acc[rows], ref)
+
+
+def crossovers(dev, smi):
+    """K1 / K2 per force evaluation, and the resident kernels against the
+    per-step K2 path per step, over N."""
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops import resident
+    from nbody_tpu_torch.ops.forces import SYM_CROSSOVER_N
+    from nbody_tpu_torch.utils.timing import time_ms
+    eps2 = 0.002
+    # Median of five alternating rounds of 100 launches each.
+    print(f"[crossover] N, K1 ms, K2 ms, median of 5 ({smi}); auto takes "
+          f"K2 from N={SYM_CROSSOVER_N}")
+    for n in (512, 1024, 1536, 2048, 3072, 4096, 8192, 16384):
+        pos, mass = bodies(n, 3, dev)
+        t1, t2 = [], []
+        for _ in range(5):
+            t1.append(time_ms(lambda: k1.forces_tiled(pos, mass, eps2), dev,
+                              iters=100))
+            t2.append(time_ms(lambda: k2.forces_sym(pos, mass, eps2), dev,
+                              iters=100))
+        t1, t2 = statistics.median(t1), statistics.median(t2)
+        print(f"[crossover] {n} {t1:.4f} {t2:.4f} "
+              f"{'K2' if t2 < t1 else 'K1'} faster")
+    # ms per step: one resident launch against the per-step loop on the
+    # same chunk, alternating, median of the rounds.
+    print(f"[resident crossover] integrator, N, resident ms/step, per-step "
+          f"K2 ms/step, median of rounds of chunks ({smi}); auto window "
+          f"{resident.RESIDENT_AUTO_MIN_N}..{resident.RESIDENT_AUTO_MAX_N}")
+    for integrator, chunk, rounds in (("reference", 1000, 5),
+                                      ("yoshida4", 200, 3)):
+        for n in (1536, 2048, 4096, 8192, 12288, 16384, 32768):
+            cfg = nt.SimConfig(n_bodies=n, impl="pallas_sym2",
+                               integrator=integrator)
+            state = nt.init_state(cfg)
+            tr, ts = [], []
+            for _ in range(rounds):
+                tr.append(time_ms(lambda: resident.run_steps_resident(
+                    state, cfg, chunk), dev, iters=1, warmup=1) / chunk)
+                ts.append(time_ms(lambda: nt.run_steps(
+                    state, cfg, chunk, impl="pallas_sym2"), dev, iters=1,
+                    warmup=1) / chunk)
+            tr, ts = statistics.median(tr), statistics.median(ts)
+            print(f"[resident crossover] {integrator} {n} {tr:.5f} {ts:.5f} "
+                  f"{'resident' if tr < ts else 'per-step'} faster "
+                  f"({ts / tr:.3f}x)")
+
+
+def main_path(counts, reset):
+    """The CLI's main paths with the launch counters: validate at N = 8192
+    (K1 and K2), and the run verb (K3, K4, auto, K8 at 1M, resume).
+    Returns the launches of every kernel over all of them."""
+    import numpy as np
+    from nbody_tpu_torch.cli import main as cli_main
+
+    def phase(what, argv, expect=None):
+        before = counts()
+        rc = cli_main(argv)
+        check(rc == 0, f"{what}: exit {rc}")
+        delta = {k: v - before[k] for k, v in counts().items()}
+        print(f"[main path] {what}: launches {delta}")
+        for k, v in (expect or {}).items():
+            check(v(delta[k]), f"{what}: {k} launched {delta[k]} times")
+        return delta
+
+    reset()
+    # The float64 gates run at seed 5: at seeds 0, 1, 2 and 4 the uniform
+    # box holds close encounters whose 10-step outcome differs between
+    # float32 and float64 arithmetic, and there the numpy oracle run in
+    # float32 misses the float64 gate on the same components as the
+    # kernels (PERF.md, "Validate horizon at N=8192").  Seed 0, the
+    # default, is gated against the float32 oracle.
+    for impl, kernel, extra in (
+            ("auto", "forces_sym", ["--seed", "5"]),
+            ("pallas", "forces_tiled", ["--seed", "5"]),
+            ("auto", "forces_sym", ["--seed", "0", "--oracle-f32"])):
+        phase(f"validate --impl {impl} {' '.join(extra)}",
+              ["validate", "--n", "8192", "--steps", "10", "--long-steps",
+               "0", "--impl", impl, *extra],
+              {k: (lambda v: v == 10) if k == kernel else (lambda v: v == 0)
+               for k in counts()})
+
+    os.makedirs(WORK, exist_ok=True)
+    a, b, c = (os.path.join(WORK, f"{x}.npz") for x in "abc")
+    never = (lambda v: v == 0)
+    phase("run --n 8192 --steps 1000 --resident on --checkpoint",
+          ["run", "--n", "8192", "--steps", "1000", "--resident", "on",
+           "--checkpoint", a],
+          {"resident": lambda v: v >= 1, "forces_sym": never,
+           "resident_kdk": never})
+    phase("run --resume (500 more steps)",
+          ["run", "--resume", a, "--steps", "500", "--checkpoint", b],
+          {"resident": lambda v: v >= 1, "forces_sym": never})
+    phase("run --n 8192 --steps 1500 --resident on (uninterrupted)",
+          ["run", "--n", "8192", "--steps", "1500", "--resident", "on",
+           "--checkpoint", c], {"resident": lambda v: v >= 1})
+    with np.load(b) as zb, np.load(c) as zc:
+        check(int(zb["step"]) == int(zc["step"]) == 1500, "resume steps")
+        for k in ("pos", "vel", "acc", "mass"):
+            check(np.array_equal(zb[k], zc[k]),
+                  f"resume: {k} after 1000 + 500 steps differs from 1500")
+    print("[main path] resume: 1000 + 500 steps bit-equal to 1500 steps")
+    phase("run --n 8192 --integrator yoshida4 --resident on --steps 100",
+          ["run", "--n", "8192", "--integrator", "yoshida4", "--resident",
+           "on", "--steps", "100"],
+          {"resident_kdk": lambda v: v >= 1, "resident": never})
+    delta = phase("run --n 8192 --steps 1000 (auto)",
+                  ["run", "--n", "8192", "--steps", "1000"])
+    print(f"[main path] auto at N=8192 ran "
+          f"{'resident K3' if delta['resident'] else 'per-step K2'}")
+    phase("run --n 1048576 --steps 2 --energy",
+          ["run", "--n", "1048576", "--steps", "2", "--energy"],
+          {"forces_sym": lambda v: v == 2, "pe": lambda v: v == 2})
+    launches = counts()
+    print(f"[main path] launch counts: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main path did not launch: {launches}")
+    return launches
 
 
 def main():
@@ -87,133 +447,53 @@ def main():
     name = torch.cuda.get_device_name(0)
     print(f"device: {name}; nvidia-smi name, power.limit: {smi}")
 
-    # 2. Build both kernels from a clean build directory.
+    # 2. Build every kernel from a clean build directory, in parallel.
+    libs = ("forces_tiled", "forces_sym", "resident", "pe")
     shutil.rmtree(_build.BUILD_ROOT, ignore_errors=True)
-    for lib in ("forces_tiled", "forces_sym"):
+    shutil.rmtree(WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    _build.build_all(libs)
+    print(f"[build] all {len(libs)} libraries: "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
         _build.load(lib)
-        print(f"[build] {lib}.cu: {_build.BUILD_SECONDS[lib]:.2f} s")
+        print(f"[build] {lib}.cu: done at {_build.BUILD_SECONDS[lib]:.2f} s")
         for line in _build.BUILD_LOG[lib].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
 
+    import nbody_tpu_torch as nt
     from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.ops import forces_tiled as k1
-    from nbody_tpu_torch.ops.forces import SYM_CROSSOVER_N
-    from nbody_tpu_torch.ops.forces_torch import rect_forces
-    from nbody_tpu_torch.utils.timing import time_ms
-    eps2 = 0.002
+    from nbody_tpu_torch.ops import pe, resident
 
-    # 3. Kernel vs plain twin on the card.
+    # 3. Every kernel against its plain twin on the card.
     record = {}
-    for n in (1000, 8192):
-        pos, mass = bodies(n, n, dev)
-        got = k1.forces_tiled(pos, mass, eps2)
-        want = k1.rect_forces_tiled_plain(pos, pos, mass, eps2)
-        torch.cuda.synchronize()
-        err = compare(f"K1 forces_tiled vs plain, N={n}", got, want)
-        if n == 8192:
-            record["forces_tiled"] = {
-                "max_abs_err": err[0],
-                "ms": time_ms(lambda: k1.forces_tiled(pos, mass, eps2), dev),
-                "plain_ms": time_ms(lambda: k1.rect_forces_tiled_plain(
-                    pos, pos, mass, eps2), dev, iters=3)}
-    for n in (1000, 3001, 8192):
-        pos, mass = bodies(n, n + 1, dev)
-        got = k2.forces_sym(pos, mass, eps2)
-        want = k2.forces_sym_plain(pos, mass, eps2)
-        torch.cuda.synchronize()
-        err = compare(f"K2 forces_sym vs plain, N={n}", got, want)
-        again = k2.forces_sym(pos, mass, eps2)
-        check(torch.equal(got, again), f"K2 N={n}: not bit-reproducible")
-        chunked = k2.forces_sym(pos, mass, eps2,
-                                slot_budget=24 * (-(-n // 256) * 256))
-        check(torch.equal(got, chunked),
-              f"K2 N={n}: one offset per chunk differs from one chunk")
-        if n == 8192:
-            record["forces_sym"] = {
-                "max_abs_err": err[0],
-                "ms": time_ms(lambda: k2.forces_sym(pos, mass, eps2), dev),
-                "plain_ms": time_ms(lambda: k2.forces_sym_plain(
-                    pos, mass, eps2), dev, iters=3)}
-    pos, mass = bodies(1000, 7, dev)
-    mass[[3, 400, 999]] = 0.0
-    compare("K2 with three real zero-mass bodies vs direct form",
-            k2.forces_sym(pos, mass, eps2), rect_forces(pos, pos, mass, eps2))
-    print("[check] K2 bit-reproducible run to run and across offset chunks")
+    check_forces(dev, 0.002, record)
+    check_resident(dev, record)
+    check_pe(dev, record, smi)
     for kname, r in record.items():
-        print(f"[time] {kname} N=8192: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms ({smi})")
+        print(f"[time] {kname} ({r['shape']}): kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}) ({smi})")
 
-    # K1 / K2 crossover: force-evaluation times over N, the median of five
-    # alternating rounds of 100 launches each.
-    print(f"[crossover] N, K1 ms, K2 ms, median of 5 ({smi}); auto takes "
-          f"K2 from N={SYM_CROSSOVER_N}")
-    for n in (512, 1024, 1536, 2048, 3072, 4096, 8192, 16384):
-        pos, mass = bodies(n, 3, dev)
-        t1, t2 = [], []
-        for _ in range(5):
-            t1.append(time_ms(lambda: k1.forces_tiled(pos, mass, eps2), dev,
-                              iters=100))
-            t2.append(time_ms(lambda: k2.forces_sym(pos, mass, eps2), dev,
-                              iters=100))
-        t1, t2 = statistics.median(t1), statistics.median(t2)
-        print(f"[crossover] {n} {t1:.4f} {t2:.4f} "
-              f"{'K2' if t2 < t1 else 'K1'} faster")
+    # 4. K2 at the 1M headline.
+    check_k2_1m(dev)
 
-    # 4. K2 at the 1M headline, sampled rows vs the direct form.
-    import nbody_tpu_torch as nt
-    n = 1 << 20
-    cfg = nt.SimConfig(n_bodies=n, device="cuda")
-    check(nt.resolve_impl(cfg) == "pallas_sym2", "auto at 1M is not K2")
-    state = nt.init_state(cfg)
-    t0 = time.perf_counter()
-    acc = nt.compute_forces(state.pos, state.mass, cfg)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    eval_ms = time_ms(lambda: nt.compute_forces(state.pos, state.mass, cfg),
-                      dev, iters=2, warmup=0)
-    print(f"[1M] compute_forces (K2) first call {first_s:.3f} s; "
-          f"{eval_ms:.2f} ms per evaluation")
-    rows = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:4096]
-    rows = rows.to(dev)
-    ref = rect_forces(state.pos[rows], state.pos, state.mass, cfg.eps2,
-                      chunk=64)
-    compare("K2 at N=1,048,576, 4096 sampled rows vs rect_forces",
-            acc[rows], ref)
-    del state, acc, ref
-
-    # 5. The main path, through the CLI, with the launch counters.  The
-    # float64 gates run at seed 5: at seeds 0, 1, 2 and 4 the uniform box
-    # holds close encounters whose 10-step outcome differs between float32
-    # and float64 arithmetic, and there the numpy oracle run in float32
-    # misses the float64 gate on the same components as the kernels
-    # (PERF.md, "Validate horizon at N=8192").  Seed 0, the default, is
-    # gated against the float32 oracle, the reference's CPU precision.
-    from nbody_tpu_torch.cli import main as cli_main
+    # 5. The main paths, through the CLI, with the launch counters.
+    wrappers = {"forces_tiled": k1.forces_tiled, "forces_sym": k2.forces_sym,
+                "resident": resident.resident_steps,
+                "resident_kdk": resident.resident_steps_kdk,
+                "pe": pe.pe_rows}
 
     def counts():
-        return {"forces_tiled": k1.forces_tiled.launches,
-                "forces_sym": k2.forces_sym.launches}
+        return {k: w.launches for k, w in wrappers.items()}
 
-    k1.forces_tiled.launches = 0
-    k2.forces_sym.launches = 0
-    # impl -> the one kernel its 10 steps must launch 10 times.
-    for impl, kernel, extra in (
-            ("auto", "forces_sym", ["--seed", "5"]),
-            ("pallas", "forces_tiled", ["--seed", "5"]),
-            ("auto", "forces_sym", ["--seed", "0", "--oracle-f32"])):
-        before = counts()
-        rc = cli_main(["validate", "--n", "8192", "--steps", "10",
-                       "--long-steps", "0", "--impl", impl, *extra])
-        check(rc == 0, f"validate --impl {impl} {' '.join(extra)} failed")
-        delta = {k: v - before[k] for k, v in counts().items()}
-        expect = {k: 10 if k == kernel else 0 for k in delta}
-        check(delta == expect, f"validate --impl {impl} launched {delta}, "
-              f"expected {expect}")
-    launches = counts()
-    print(f"[main path] launch counts: {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path did not launch: {launches}")
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    launches = main_path(counts, reset)
 
     # 6. Invariants over 200 device-only steps.
     from nbody_tpu_torch.analysis import invariant_drifts
@@ -228,12 +508,16 @@ def main():
           f"|P|/scale {p_drift:.3e}, |L|/scale {l_drift:.3e} (gate 1e-3)")
     check(p_drift <= 1e-3 and l_drift <= 1e-3, "invariant gate")
 
-    # 7. Bench lines.
+    # 7. Crossovers.
+    crossovers(dev, smi)
+
+    # 8. Bench lines.
     from nbody_tpu_torch.bench_lib import run_benchmark
-    for n, impl in ((8192, "auto"), (8192, "pallas"), (8192, "xla"),
-                    (1 << 20, "auto")):
-        res = run_benchmark(n=n, impl=impl)
-        check(res["finite"], f"bench N={n} {impl}: non-finite")
+    for kw in ({"n": 8192}, {"n": 8192, "resident": False},
+               {"n": 8192, "resident": True}, {"n": 8192, "impl": "pallas"},
+               {"n": 8192, "impl": "xla"}, {"n": 1 << 20, "energy": True}):
+        res = run_benchmark(**kw)
+        check(res["finite"], f"bench {kw}: non-finite")
         print("[bench] " + json.dumps(res))
 
     kernels = []
@@ -241,10 +525,22 @@ def main():
             ("forces_tiled", "nbody_tpu_torch/csrc/forces_tiled.cu",
              "nbody_tpu/ops/forces_pallas.py:147"),
             ("forces_sym", "nbody_tpu_torch/csrc/forces_sym.cu",
-             "nbody_tpu/ops/forces_pallas_sym.py:353")):
+             "nbody_tpu/ops/forces_pallas_sym.py:353"),
+            ("resident", "nbody_tpu_torch/csrc/resident.cu",
+             "nbody_tpu/ops/resident.py:320"),
+            ("resident_kdk", "nbody_tpu_torch/csrc/resident.cu",
+             "nbody_tpu/ops/resident.py:362"),
+            ("pe", "nbody_tpu_torch/csrc/pe.cu",
+             "nbody_tpu/ops/pe_pallas.py:40")):
+        r = dict(record[kname])
+        bound_ms, bound_by = r.pop("bound")
+        # No single PyTorch call computes any of these functions.
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[kname],
-                        **record[kname]})
+                        "max_abs_err": r.pop("max_abs_err"),
+                        "ms": r.pop("ms"), "plain_ms": r.pop("plain_ms"),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, **r})
     kernels[1]["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:328"
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,6 +6,12 @@ the throughput of the median-time trial, with the spread beside it.
 GInteractions/s counts N^2 interactions per step for every impl, the
 pair-symmetric one included.
 
+Routing is ``Simulation``'s: with ``resident`` (None = auto, True forces
+and raises out of scope) a trial of ``steps`` steps is one launch of the
+resident kernel K3, and the ``"resident"`` key reports what ran.
+``energy`` works at any N: ``energy_f64`` takes kernel K8 above 262,144
+bodies.
+
 Differences: trials are timed with CUDA events on a card; ``compile_s`` is
 the time spent building the CUDA kernels in this call (0.0 when they were
 already built); ``vs_baseline`` is null, because the JAX package's
@@ -22,10 +28,11 @@ import numpy as np
 import torch
 
 from .config import SimConfig
-from .models.energy import energy_f64
+from .models.energy import MAX_HOST_ENERGY_N, energy_f64
 from .models.init import init_state
 from .ops import _build
 from .ops.forces import resolve_impl
+from .ops.resident import run_steps_resident, should_use_resident
 from .ops.step import run_steps
 from .utils.device import nvidia_smi_line, require_device
 from .utils.timing import sync
@@ -39,11 +46,14 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
                   energy: bool = False, warmup_steps: Optional[int] = None,
                   seed: int = 0, trials: int = 3,
                   block_u: Optional[int] = None,
+                  resident: Optional[bool] = None,
                   device: str = "cuda") -> dict:
     dev = require_device(device)
     cfg = SimConfig(n_bodies=n, impl=impl, block_i=block_i, block_j=block_j,
-                    chunk=chunk, seed=seed, block_u=block_u, device=device)
+                    chunk=chunk, seed=seed, block_u=block_u,
+                    resident=resident, device=device)
     impl_resolved = resolve_impl(cfg)
+    used_resident = should_use_resident(cfg, impl_resolved)
     on_cuda = dev.type == "cuda"
     if steps is None:
         # Size a trial to ~0.5 s of device work at a rough rate for the
@@ -54,11 +64,23 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
         steps = int(min(1000 if on_cuda else 100,
                         max(3 if on_cuda else 5, target * rate // (n * n))))
 
+    if used_resident:
+        libs = ("resident",)
+
+        def advance(s, k):
+            return run_steps_resident(s, cfg, k)
+    else:
+        libs = _KERNEL_LIBS.get(impl_resolved, ())
+
+        def advance(s, k):
+            return run_steps(s, cfg, k, impl=impl_resolved)
+    if energy and n > MAX_HOST_ENERGY_N:
+        libs += ("pe",)
     compile_s = 0.0
     if on_cuda:
-        for name in _KERNEL_LIBS.get(impl_resolved, ()):
-            _build.load(name)
-            compile_s += _build.BUILD_SECONDS[name]
+        t0 = time.perf_counter()
+        _build.build_all(libs)
+        compile_s = time.perf_counter() - t0
 
     state = init_state(cfg)
     e0 = energy_f64(state, cfg.eps2) if energy else None
@@ -66,7 +88,7 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
     if warmup_steps is None:
         warmup_steps = 1
     t0 = time.perf_counter()
-    state = run_steps(state, cfg, max(1, warmup_steps), impl=impl_resolved)
+    state = advance(state, max(1, warmup_steps))
     sync(dev)
     warm_s = time.perf_counter() - t0
 
@@ -76,13 +98,13 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            state = run_steps(state, cfg, steps, impl=impl_resolved)
+            state = advance(state, steps)
             end.record()
             end.synchronize()
             per_trial.append(start.elapsed_time(end) / 1000.0)
         else:
             t0 = time.perf_counter()
-            state = run_steps(state, cfg, steps, impl=impl_resolved)
+            state = advance(state, steps)
             per_trial.append(time.perf_counter() - t0)
     elapsed = float(np.sort(per_trial)[(len(per_trial) - 1) // 2])
     per_trial_g = sorted(n * n * steps / s / 1e9 for s in per_trial)
@@ -113,7 +135,7 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
         "devices": 1,
         "shards": 1,
         "flat": False,
-        "resident": False,
+        "resident": used_resident,
     }
     if energy and e0 is not None:
         result["energy_drift"] = abs(e1 - e0) / (abs(e0) or 1.0)

@@ -1,17 +1,20 @@
-"""Command-line interface: ``python -m nbody_tpu_torch validate|bench|info``.
+"""Command-line interface:
+``python -m nbody_tpu_torch run|validate|bench|info``.
 
 The flags and defaults are those of ``nbody_tpu/cli.py``, so one command
 line drives both packages, plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch versions).  Choices that name parts not ported yet
 (other impls, ``--shards``, ``--init`` presets, ``--analytic``, the native
-oracle) are refused with the ROADMAP item that will bring them.  ``run``
-arrives with ``Simulation``.
+oracle; for ``run`` the ``--viz*`` sinks and ``--sort-every``) are refused
+with the ROADMAP item that will bring them.  ``run --profile DIR`` writes
+a ``torch.profiler`` trace (``DIR/trace.json``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Optional
 
@@ -20,13 +23,26 @@ import numpy as np
 
 class _TrackedStore(argparse.Action):
     """``store`` that also records which options were passed explicitly
-    (``namespace._explicit``)."""
+    (``namespace._explicit``), so ``--resume`` merges only those onto the
+    checkpoint's config."""
 
     def __call__(self, parser, namespace, values, option_string=None):
         setattr(namespace, self.dest, values)
         if not hasattr(namespace, "_explicit"):
             namespace._explicit = set()
         namespace._explicit.add(self.dest)
+
+
+# CLI sim flags -> SimConfig fields (used for resume merging).
+_ARG_TO_CFG = {
+    "n": "n_bodies", "steps": "steps", "dt": "dt", "eps2": "eps2",
+    "impl": "impl", "integrator": "integrator", "seed": "seed",
+    "max_pos": "max_pos", "min_mass": "min_mass", "max_mass": "max_mass",
+    "block_i": "block_i", "block_j": "block_j", "block_u": "block_u",
+    "chunk": "chunk", "dtype": "dtype", "prog_cap": "prog_cap",
+    "flat_state": "flat_state", "panel_nb": "panel_nb",
+    "resident": "resident",
+}
 
 
 def _parse_flat_state(s: str):
@@ -81,8 +97,10 @@ def _add_sim_args(p: argparse.ArgumentParser):
     p.add_argument("--resident", default=None, action=_TrackedStore,
                    type=_parse_flat_state,
                    choices=[None, True, False], metavar="{auto,on,off}",
-                   help="resident multi-step kernel (not ported: on is "
-                        "refused, auto and off run per step)")
+                   help="resident multi-step kernels K3/K4 (whole chunks "
+                        "in one cooperative launch); auto engages for "
+                        "pallas_sym2 inside the window measured on the "
+                        "card (ops/resident.py)")
     p.add_argument("--shards", type=int, default=0,
                    help="shard bodies over this many devices (0 = single; "
                         "multi-GPU is not ported)")
@@ -109,6 +127,17 @@ def _refuse_unported(args) -> Optional[str]:
     if args.init != "uniform":
         return (f"--init {args.init}: only the uniform box is ported "
                 f"(presets come later, ROADMAP Queue 1 item 2)")
+    if args.shards and args.shards > 1:
+        return (f"--shards {args.shards}: multi-GPU is not ported yet "
+                f"(ROADMAP Queue 1 item 14)")
+    for flag in ("viz", "viz_avi", "viz_serve"):
+        value = getattr(args, flag, None)
+        if value is not None and value is not False:   # --viz-serve 0
+            return (f"--{flag.replace('_', '-')}: the viz sinks are not "
+                    f"ported yet (ROADMAP Queue 1 item 12)")
+    if getattr(args, "sort_every", 0) > 0:
+        return ("--sort-every: the Morton sort is not ported yet (ROADMAP "
+                "Queue 1 item 10)")
     if getattr(args, "analytic", False):
         return ("--analytic: the Kepler gates are not ported yet "
                 "(ROADMAP Queue 1 item 9)")
@@ -116,6 +145,82 @@ def _refuse_unported(args) -> Optional[str]:
         return ("--oracle native: the C++/OpenMP oracle is not ported; "
                 "use the numpy oracle")
     return None
+
+
+def _make_sim(args, cfg, logger):
+    from .models.simulation import Simulation
+    if args.resume:
+        explicit = getattr(args, "_explicit", set())
+        overrides = {field: getattr(args, arg)
+                     for arg, field in _ARG_TO_CFG.items() if arg in explicit}
+        return Simulation.resume(args.resume, logger=logger,
+                                 overrides=overrides, device=args.device)
+    return Simulation(cfg, logger=logger)
+
+
+def _save_trajectory(args, sim) -> int:
+    """``--save-trajectory``: snapshots every ``--snap-every`` steps,
+    stepped per step with the run's impl (as the JAX package does), then
+    one NPZ."""
+    from .io.checkpoint import save_trajectory
+    from .ops.step import run_trajectory
+    snap_every = max(1, args.snap_every)
+    out = run_trajectory(sim.state, sim.cfg, args.steps,
+                         snap_every=snap_every, impl=sim.impl,
+                         with_vel=args.traj_vel)
+    save_trajectory(args.save_trajectory, out[1], snap_every, sim.cfg,
+                    mass=out[0].mass,
+                    vel_snapshots=out[2] if args.traj_vel else None)
+    return out[1].shape[0]
+
+
+def cmd_run(args) -> int:
+    """Simulate: the reference's main flow, headless."""
+    from .io.logger import RunLogger
+    msg = _refuse_unported(args)
+    if msg:
+        print(msg, file=sys.stderr)
+        return 2
+    logger = RunLogger(jsonl_path=args.log_jsonl, csv_path=args.log_csv,
+                       quiet=args.quiet)
+    try:
+        sim = _make_sim(args, None if args.resume else _make_cfg(args),
+                        logger)
+        if args.save_trajectory:
+            n_snaps = _save_trajectory(args, sim)
+            if not args.quiet:
+                print(f"saved {n_snaps} snapshots -> {args.save_trajectory}")
+            return 0
+        prof = None
+        if args.profile:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if sim.state.pos.is_cuda:
+                acts.append(ProfilerActivity.CUDA)
+            prof = profile(activities=acts)
+            prof.__enter__()
+        try:
+            result = sim.run(
+                n_steps=args.steps, log_every=args.log_every,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every,
+                track_energy=args.energy)
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                os.makedirs(args.profile, exist_ok=True)
+                prof.export_chrome_trace(
+                    os.path.join(args.profile, "trace.json"))
+    finally:
+        logger.close()
+    if not args.quiet:
+        g = result.ginter_per_s
+        print(f"Simulation complete: {result.steps_run} steps, "
+              f"{result.ms_per_step:.3f} ms/step, "
+              f"{g:{'.1f' if g >= 10 else '.3g'}} GInter/s"
+              + (f", energy drift {result.energy_drift:.3e}"
+                 if result.energy_drift is not None else ""))
+    return 0
 
 
 def cmd_validate(args) -> int:
@@ -224,7 +329,7 @@ def cmd_bench(args) -> int:
         impl=args.impl, block_i=args.block_i, block_j=args.block_j,
         chunk=args.chunk, block_u=args.block_u, energy=args.energy,
         warmup_steps=args.warmup, trials=args.trials, seed=args.seed,
-        device=args.device)
+        resident=args.resident, device=args.device)
     print(json.dumps(result))
     return 0
 
@@ -240,6 +345,41 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m nbody_tpu_torch",
         description="All-pairs N-body simulation on PyTorch + CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    runp = sub.add_parser("run", help="run a simulation")
+    _add_sim_args(runp)
+    runp.add_argument("--viz", action="store_true",
+                      help="stream PNG frames (not ported yet)")
+    runp.add_argument("--viz-dir", default="frames")
+    runp.add_argument("--viz-every", type=int, default=1)
+    runp.add_argument("--viz-avi", "--viz-video", default=None,
+                      metavar="VIDEO", help="video sink (not ported yet)")
+    runp.add_argument("--viz-fps", type=int, default=25)
+    runp.add_argument("--viz-serve", type=int, default=None, metavar="PORT",
+                      help="live HTTP view (not ported yet)")
+    runp.add_argument("--log-every", type=int, default=None,
+                      help="progress-log cadence in steps (0 = none); "
+                           "default: chunks of ~0.5 s of card work")
+    runp.add_argument("--log-jsonl", default=None)
+    runp.add_argument("--log-csv", default=None)
+    runp.add_argument("--checkpoint", default=None)
+    runp.add_argument("--checkpoint-every", type=int, default=0)
+    runp.add_argument("--resume", default=None,
+                      help="resume from a checkpoint file (either package's)")
+    runp.add_argument("--energy", action="store_true",
+                      help="report total-energy drift (float64; K8 above "
+                           "262,144 bodies)")
+    runp.add_argument("--profile", default=None, metavar="DIR",
+                      help="write a torch.profiler trace to DIR/trace.json")
+    runp.add_argument("--sort-every", type=int, default=0,
+                      help="Morton-resort every K steps (not ported yet)")
+    runp.add_argument("--save-trajectory", default=None, metavar="NPZ",
+                      help="capture position snapshots and save")
+    runp.add_argument("--snap-every", type=int, default=1)
+    runp.add_argument("--traj-vel", action="store_true",
+                      help="also capture velocities in --save-trajectory")
+    runp.add_argument("--quiet", action="store_true")
+    runp.set_defaults(fn=cmd_run)
 
     vp = sub.add_parser("validate",
                         help="lock-step differential test vs CPU oracle")

@@ -6,7 +6,10 @@ port adds ``device`` (default ``"cuda"``) and ``torch_dtype``.
 
 Impls whose kernels are not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item, and so do the TPU execution modes the port does not
-have (``resident=True``, ``flat_state=True``, ``prog_cap``, ``shards``).
+have (``flat_state=True``, ``prog_cap``, ``shards``).  ``resident=True``
+is accepted: it forces the resident kernels K3/K4, and routing
+(``ops/resident.py::should_use_resident``) raises with the reason when the
+run is out of their scope.
 ``block_i`` / ``block_j`` / ``block_u`` / ``panel_nb`` are the Pallas tile
 knobs: they are kept for the shared command line, and the CUDA kernels use
 the tiles fixed in their sources.
@@ -93,10 +96,6 @@ class SimConfig:
             raise ValueError("n_bodies must be positive")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {self.dtype!r}")
-        if self.resident:
-            raise NotImplementedError(
-                "resident=True: the resident multi-step kernel is not ported "
-                "yet (ROADMAP Queue 2 K3); None and False run per step")
         if self.flat_state:
             raise NotImplementedError(
                 "flat_state=True is a TPU layout workaround, not ported "

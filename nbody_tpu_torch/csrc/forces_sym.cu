@@ -57,21 +57,13 @@
 // tensor cores, TMA-fed tiles, and a persistent schedule that keeps the
 // i-side in registers across offsets.
 //
+// The pair tile, the slot sum and the diagonal tile are in sym_common.cuh,
+// shared with the resident kernels (resident.cu).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
 
-#include <cuda_runtime.h>
-
-#define SYM_TILE 256
-#define SYM_WARPS (SYM_TILE / 32)
-
-__device__ __forceinline__ float4 load_body(const float* __restrict__ pos,
-                                            const float* __restrict__ mass,
-                                            long long b, long long n) {
-    return (b < n) ? make_float4(pos[3 * b], pos[3 * b + 1], pos[3 * b + 2],
-                                 mass[b])
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-}
+#include "sym_common.cuh"
 
 // One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1.
 __global__ void __launch_bounds__(SYM_TILE)
@@ -79,69 +71,13 @@ sym_pairs_kernel(const float* __restrict__ pos,
                  const float* __restrict__ mass, long long n, long long nb,
                  long long d_lo, float eps2, float* __restrict__ si,
                  float* __restrict__ sj) {
-    __shared__ float4 tile[SYM_TILE];
-    __shared__ float part[SYM_WARPS][SYM_TILE * 3];
+    __shared__ SymPairSmem sm;
     const long long bid = blockIdx.x;
     const long long dk = bid / nb;
     const long long I = bid - dk * nb;
     const long long d = d_lo + dk;
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
-    const long long J = (I + d) % nb;
-    const int t = threadIdx.x;
-    const int w = t >> 5;
-    const int l = t & 31;
-    const long long i = I * SYM_TILE + t;
-    const long long j = J * SYM_TILE + t;
-
-    const float4 bi = load_body(pos, mass, i, n);
-    tile[t] = load_body(pos, mass, j, n);
-    __syncthreads();
-
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int c = 0; c < SYM_TILE / 32; ++c) {
-        float bx = 0.f, by = 0.f, bz = 0.f;
-#pragma unroll
-        for (int k = 0; k < 32; ++k) {
-            const float4 q = tile[c * 32 + ((l + k) & 31)];
-            const float dx = q.x - bi.x;
-            const float dy = q.y - bi.y;
-            const float dz = q.z - bi.z;
-            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
-            const float px = f * dx;
-            const float py = f * dy;
-            const float pz = f * dz;
-            ax += px;
-            ay += py;
-            az += pz;
-            bx += px;
-            by += py;
-            bz += pz;
-            const int src = (l + 1) & 31;
-            bx = __shfl_sync(0xffffffffu, bx, src);
-            by = __shfl_sync(0xffffffffu, by, src);
-            bz = __shfl_sync(0xffffffffu, bz, src);
-        }
-        const int col = c * 32 + l;
-        part[w][3 * col] = bx;
-        part[w][3 * col + 1] = by;
-        part[w][3 * col + 2] = bz;
-    }
-    __syncthreads();
-    float sx = 0.f, sy = 0.f, sz = 0.f;
-#pragma unroll
-    for (int v = 0; v < SYM_WARPS; ++v) {
-        sx += part[v][3 * t];
-        sy += part[v][3 * t + 1];
-        sz += part[v][3 * t + 2];
-    }
-    const long long slot = dk * nb * SYM_TILE * 3;
-    si[slot + 3 * i] = ax;
-    si[slot + 3 * i + 1] = ay;
-    si[slot + 3 * i + 2] = az;
-    sj[slot + 3 * j] = -sx;
-    sj[slot + 3 * j + 1] = -sy;
-    sj[slot + 3 * j + 2] = -sz;
+    sym_pair_tile(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
 }
 
 // One CTA per tile: folds the chunk's slots into the running sum, and on the
@@ -154,76 +90,24 @@ sym_reduce_kernel(const float* __restrict__ pos,
                   int first, int last, float eps2, float* __restrict__ out) {
     __shared__ float4 tile[SYM_TILE];
     const long long I = blockIdx.x;
-    const int t = threadIdx.x;
-    const long long b = I * SYM_TILE + t;
-    const long long n_pad = nb * SYM_TILE;
+    const long long b = I * SYM_TILE + threadIdx.x;
 
-    float sx = 0.f, sy = 0.f, sz = 0.f;
-    if (!first) {
-        sx = raw[3 * b];
-        sy = raw[3 * b + 1];
-        sz = raw[3 * b + 2];
-    }
-    for (long long dk = 0; dk < dc; ++dk) {
-        const bool half = 2 * (d_lo + dk) == nb;
-        const long long o = (dk * n_pad + b) * 3;
-        if (!half || 2 * I < nb) {
-            sx += si[o];
-            sy += si[o + 1];
-            sz += si[o + 2];
-        }
-        if (!half || 2 * I >= nb) {
-            sx += sj[o];
-            sy += sj[o + 1];
-            sz += sj[o + 2];
-        }
-    }
+    float3 s = first ? make_float3(0.f, 0.f, 0.f)
+                     : make_float3(raw[3 * b], raw[3 * b + 1], raw[3 * b + 2]);
+    s = sym_slot_sum(s, nb, I, b, d_lo, dc, si, sj);
     if (!last) {
-        raw[3 * b] = sx;
-        raw[3 * b + 1] = sy;
-        raw[3 * b + 2] = sz;
+        raw[3 * b] = s.x;
+        raw[3 * b + 1] = s.y;
+        raw[3 * b + 2] = s.z;
         return;
     }
-
-    tile[t] = load_body(pos, mass, b, n);
-    __syncthreads();
-    if (b >= n) return;
-    const float4 bi = tile[t];
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    if (bi.w != 0.f) {
-#pragma unroll 8
-        for (int k = 0; k < SYM_TILE; ++k) {
-            const float4 q = tile[k];
-            const float dx = q.x - bi.x;
-            const float dy = q.y - bi.y;
-            const float dz = q.z - bi.z;
-            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float f = q.w * rsqrtf(d2 * d2 * d2);
-            ax += f * dx;
-            ay += f * dy;
-            az += f * dz;
-        }
-        const float inv_m = 1.0f / bi.w;
-        ax += sx * inv_m;
-        ay += sy * inv_m;
-        az += sz * inv_m;
-    } else {
-        // A real massless body: its raw sums are all 0, so sweep its row
-        // one-sided over every body instead.
-        for (long long jj = 0; jj < n; ++jj) {
-            const float dx = pos[3 * jj] - bi.x;
-            const float dy = pos[3 * jj + 1] - bi.y;
-            const float dz = pos[3 * jj + 2] - bi.z;
-            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float f = mass[jj] * rsqrtf(d2 * d2 * d2);
-            ax += f * dx;
-            ay += f * dy;
-            az += f * dz;
-        }
+    const float3 d = sym_diag(pos, mass, n, b, eps2, tile);
+    if (b < n) {
+        const float3 a = sym_descale(d, s, mass[b]);
+        out[3 * b] = a.x;
+        out[3 * b + 1] = a.y;
+        out[3 * b + 2] = a.z;
     }
-    out[3 * b] = ax;
-    out[3 * b + 1] = ay;
-    out[3 * b + 2] = az;
 }
 
 extern "C" int nbt_sym_pairs(const float* pos, const float* mass,

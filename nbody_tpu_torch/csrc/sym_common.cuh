@@ -1,0 +1,177 @@
+// Device code shared by K2 (forces_sym.cu) and the resident kernels K3/K4
+// (resident.cu): the pair-symmetric tile of one (row tile, offset) work
+// item, the fixed-order slot sum, and the one-sided diagonal tile with the
+// 1/m descale.  forces_sym.cu's header states the enumeration, the slot
+// layout and the determinism contract.  Both files compile these functions
+// from the same source, so a resident step computes bit for bit the force
+// evaluation that K2 computes.
+//
+// Positions and slots are read through plain (not __restrict__) pointers:
+// inside one resident launch other blocks write them between grid syncs,
+// and the read-only data path that a const __restrict__ pointer allows is
+// not coherent with those writes.  Masses are never written.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define SYM_TILE 256
+#define SYM_WARPS (SYM_TILE / 32)
+
+__device__ __forceinline__ float4 load_body(const float* pos,
+                                            const float* __restrict__ mass,
+                                            long long b, long long n) {
+    return (b < n) ? make_float4(pos[3 * b], pos[3 * b + 1], pos[3 * b + 2],
+                                 mass[b])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Shared memory of one pair tile (28 KB).
+struct SymPairSmem {
+    float4 tile[SYM_TILE];
+    float part[SYM_WARPS][SYM_TILE * 3];
+};
+
+// Row tile I against column tile J = (I + d) mod nb; every thread of the
+// block calls it.  The row sums go to slot si[dk][I], the negated column
+// sums to slot sj[dk][J].  Shared memory may be reused once it returns.
+__device__ __forceinline__ void sym_pair_tile(
+        const float* pos, const float* __restrict__ mass,
+        long long n, long long nb, long long I, long long d, long long dk,
+        float eps2, float* __restrict__ si, float* __restrict__ sj,
+        SymPairSmem& sm) {
+    const long long J = (I + d) % nb;
+    const int t = threadIdx.x;
+    const int w = t >> 5;
+    const int l = t & 31;
+    const long long i = I * SYM_TILE + t;
+    const long long j = J * SYM_TILE + t;
+
+    const float4 bi = load_body(pos, mass, i, n);
+    sm.tile[t] = load_body(pos, mass, j, n);
+    __syncthreads();
+
+    float ax = 0.f, ay = 0.f, az = 0.f;
+    for (int c = 0; c < SYM_TILE / 32; ++c) {
+        float bx = 0.f, by = 0.f, bz = 0.f;
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+            const float4 q = sm.tile[c * 32 + ((l + k) & 31)];
+            const float dx = q.x - bi.x;
+            const float dy = q.y - bi.y;
+            const float dz = q.z - bi.z;
+            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+            const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
+            const float px = f * dx;
+            const float py = f * dy;
+            const float pz = f * dz;
+            ax += px;
+            ay += py;
+            az += pz;
+            bx += px;
+            by += py;
+            bz += pz;
+            const int src = (l + 1) & 31;
+            bx = __shfl_sync(0xffffffffu, bx, src);
+            by = __shfl_sync(0xffffffffu, by, src);
+            bz = __shfl_sync(0xffffffffu, bz, src);
+        }
+        const int col = c * 32 + l;
+        sm.part[w][3 * col] = bx;
+        sm.part[w][3 * col + 1] = by;
+        sm.part[w][3 * col + 2] = bz;
+    }
+    __syncthreads();
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+    for (int v = 0; v < SYM_WARPS; ++v) {
+        sx += sm.part[v][3 * t];
+        sy += sm.part[v][3 * t + 1];
+        sz += sm.part[v][3 * t + 2];
+    }
+    const long long slot = dk * nb * SYM_TILE * 3;
+    si[slot + 3 * i] = ax;
+    si[slot + 3 * i + 1] = ay;
+    si[slot + 3 * i + 2] = az;
+    sj[slot + 3 * j] = -sx;
+    sj[slot + 3 * j + 1] = -sy;
+    sj[slot + 3 * j + 2] = -sz;
+}
+
+// Adds body b's slots of the offsets d_lo .. d_lo+dc-1 (row tile I) to s,
+// offset by offset, i-side before j-side.
+__device__ __forceinline__ float3 sym_slot_sum(
+        float3 s, long long nb, long long I, long long b, long long d_lo,
+        long long dc, const float* si, const float* sj) {
+    const long long n_pad = nb * SYM_TILE;
+    for (long long dk = 0; dk < dc; ++dk) {
+        const bool half = 2 * (d_lo + dk) == nb;
+        const long long o = (dk * n_pad + b) * 3;
+        if (!half || 2 * I < nb) {
+            s.x += si[o];
+            s.y += si[o + 1];
+            s.z += si[o + 2];
+        }
+        if (!half || 2 * I >= nb) {
+            s.x += sj[o];
+            s.y += sj[o + 1];
+            s.z += sj[o + 2];
+        }
+    }
+    return s;
+}
+
+// Body b's one-sided diagonal-tile sum (m_j weights), or, for a real body
+// of mass 0 (whose mass-scaled slot sums are all 0), its whole row swept
+// one-sided over every body.  Every thread of the block calls it (it
+// stages the block's tile in `tile`); the result is meaningful for b < n
+// only.  The caller syncs before reusing `tile`.
+__device__ __forceinline__ float3 sym_diag(
+        const float* pos, const float* __restrict__ mass,
+        long long n, long long b, float eps2, float4* tile) {
+    const int t = threadIdx.x;
+    tile[t] = load_body(pos, mass, b, n);
+    __syncthreads();
+    float ax = 0.f, ay = 0.f, az = 0.f;
+    if (b >= n) return make_float3(ax, ay, az);
+    const float4 bi = tile[t];
+    if (bi.w != 0.f) {
+#pragma unroll 8
+        for (int k = 0; k < SYM_TILE; ++k) {
+            const float4 q = tile[k];
+            const float dx = q.x - bi.x;
+            const float dy = q.y - bi.y;
+            const float dz = q.z - bi.z;
+            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+            const float f = q.w * rsqrtf(d2 * d2 * d2);
+            ax += f * dx;
+            ay += f * dy;
+            az += f * dz;
+        }
+    } else {
+        for (long long jj = 0; jj < n; ++jj) {
+            const float dx = pos[3 * jj] - bi.x;
+            const float dy = pos[3 * jj + 1] - bi.y;
+            const float dz = pos[3 * jj + 2] - bi.z;
+            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+            const float f = mass[jj] * rsqrtf(d2 * d2 * d2);
+            ax += f * dx;
+            ay += f * dy;
+            az += f * dz;
+        }
+    }
+    return make_float3(ax, ay, az);
+}
+
+// The acceleration of a body of mass m from its diagonal sum `diag` and
+// its summed slots s: diag + s / m, or diag alone (its whole row) at m = 0.
+__device__ __forceinline__ float3 sym_descale(float3 diag, float3 s,
+                                              float m) {
+    if (m == 0.f) return diag;
+    const float inv_m = 1.0f / m;
+    float ax = diag.x, ay = diag.y, az = diag.z;
+    ax += s.x * inv_m;
+    ay += s.y * inv_m;
+    az += s.z * inv_m;
+    return make_float3(ax, ay, az);
+}

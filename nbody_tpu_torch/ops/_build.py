@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` file has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds rather than minutes).  Libraries go to
 ``build/nbody_tpu_torch/<source-hash>/`` beside the package, keyed by the
-source bytes and the flags, and are built at first use, never at import.
+source bytes, the shared headers (``csrc/*.cuh``) and the flags, and are
+built at first use, never at import; ``build_all`` starts one ``nvcc`` per
+missing library at once.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -27,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: "dict[str, ctypes.CDLL]" = {}
-# Seconds each library took to build in this process (0.0 when an existing
-# build was reused) and nvcc's report (ptxas registers / spills).
+# Seconds each library took to build in this process (wall time from the
+# start of its batch; 0.0 when an existing build was reused) and nvcc's
+# report (ptxas registers / spills).
 BUILD_SECONDS: "dict[str, float]" = {}
 BUILD_LOG: "dict[str, str]" = {}
 
@@ -45,10 +48,41 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / digest / f"lib{name}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
+
+
+def build_all(names) -> None:
+    """Build every missing library of ``names`` with one ``nvcc`` each,
+    all started together; raises if any build fails."""
+    t0 = time.perf_counter()
+    jobs = {}
+    for name in names:
+        so = library_path(name)
+        if name in _LIBS or so.exists():
+            continue
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = pathlib.Path(tempfile.mkdtemp(dir=so.parent))
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp / so.name),
+               str(CSRC / f"{name}.cu")]
+        jobs[name] = (so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (so, tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[name] = out
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode == 0:
+            os.replace(tmp / so.name, so)
+        else:
+            failed.append(f"nvcc failed for {name}.cu (exit "
+                          f"{proc.returncode}):\n{out}")
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -56,23 +90,11 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    so = library_path(name)
-    t0 = time.perf_counter()
-    if not so.exists():
-        so.parent.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
-            tmp_so = pathlib.Path(tmp) / so.name
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp_so),
-                   str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}")
-            BUILD_LOG[name] = proc.stdout + proc.stderr
-            os.replace(tmp_so, so)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
+    if not library_path(name).exists():
+        build_all([name])
+    else:
+        BUILD_SECONDS.setdefault(name, 0.0)
+    lib = ctypes.CDLL(str(library_path(name)))
     _LIBS[name] = lib
     return lib
 

@@ -1,0 +1,272 @@
+"""K3 and K4: the resident multi-step kernels, hand-written in CUDA.
+
+The counterpart of ``nbody_tpu/ops/resident.py``: ``n_steps`` whole steps
+in one launch, with no host round trip between them.  K3
+(``_make_resident_kernel``) runs the reference scheme, K4
+(``_make_resident_kernel_kdk``) the KDK-composed schemes (``kdk``,
+``yoshida4``; like ``run_steps`` they consume ``state.acc`` as the seeded
+a(x_0), see ``prime_kdk``).  The kernels are in ``csrc/resident.cu``: one
+cooperative launch whose grid the card holds at once, the state in device
+memory, and the two phases of a step separated by grid syncs: K2's pair
+tiles and diagonal tiles, then per body K2's fixed-order slot sum, the
+descale and the integrator.  The pair, slot and
+diagonal code is K2's own (``csrc/sym_common.cuh``), and the integrator
+rounds as PyTorch's separate multiply and add kernels do, so K3 over k
+steps is bit-equal to k steps of ``run_steps(..., impl="pallas_sym2")``.
+
+Not ported, because they exist only for the TPU: the VMEM layout search
+(``resident_layout``, ``_layout_vmem_bytes``, ``_layout_cost``) and the
+(3, U)-per-superblock transposed state.  The scope bound that replaces
+the layout search is the slot memory: every offset's slots are held at
+once, so N is in scope while they fit ``forces_sym.SLOT_BUDGET_BYTES``
+(``RESIDENT_MAX_N``); the grid is the card's co-resident limit, which
+bounds no N because every phase is grid-stride.
+
+The wrappers take the plain PyTorch version (``run_steps_resident_plain``:
+``forces_sym_plain`` plus the plain integrator, step by step) only for CPU
+tensors.  For a CUDA tensor they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.integrators import (KDK_WEIGHTS, kdk_drift, kdk_kick,
+                                  reference_update)
+from ..models.state import SimState
+from . import _build
+from .forces_sym import SLOT_BUDGET_BYTES, SYM_TILE, forces_sym_plain
+
+# Implementations the resident kernels stand in for (they compute K2's
+# math).
+RESIDENT_IMPLS = ("pallas_sym2",)
+
+
+def _slot_bytes(n: int) -> int:
+    """Bytes of the i- and j-side slots of every offset at once."""
+    nb = -(-n // SYM_TILE)
+    return 2 * (nb // 2) * nb * SYM_TILE * 3 * 4
+
+
+# Largest N whose slots fit the budget: 214,016 bodies for 2 GiB.
+RESIDENT_MAX_N = max(n for n in range(SYM_TILE, 1 << 19, SYM_TILE)
+                     if _slot_bytes(n) <= SLOT_BUDGET_BYTES)
+
+# Auto window on the card, from chip_smoke.py's resident crossover on an
+# H100 80GB HBM3 at 700 W (median ms/step of 5 rounds of 1000-step chunks,
+# K3 against per-step K2 through run_steps; PERF.md, "Resident
+# crossover"): K3 ahead 5.11x at N=1536, 4.88x at 4096, 1.24x at 8192 and
+# 1.08x at 12288, behind 0.94x at 16384 and 0.89x at 32768; yoshida4 (K4,
+# 200-step chunks) 4.52x, 4.30x, 1.48x, 1.12x, then 0.95x and 0.89x.  The
+# window starts where auto hands the force evaluation to K2
+# (SYM_CROSSOVER_N); below it auto runs K1 per step.
+RESIDENT_AUTO_MIN_N = 1536
+RESIDENT_AUTO_MAX_N = 12288
+
+_c_ll, _c_ptr, _c_int, _c_f = (ctypes.c_longlong, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_float)
+
+
+def _lib():
+    lib = _build.load("resident")
+    if lib.nbt_resident.argtypes is None:
+        lib.nbt_resident.argtypes = [
+            _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_f, _c_f, _c_f, _c_int,
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        lib.nbt_resident.restype = _c_int
+        lib.nbt_resident_kdk.argtypes = [
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_f,
+            ctypes.POINTER(_c_f), ctypes.POINTER(_c_f), _c_int, _c_int,
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        lib.nbt_resident_kdk.restype = _c_int
+        lib.nbt_resident_max_blocks.argtypes = [_c_int]
+        lib.nbt_resident_max_blocks.restype = _c_int
+        lib.nbt_resident_tile.argtypes = []
+        lib.nbt_resident_tile.restype = _c_int
+        if lib.nbt_resident_tile() != SYM_TILE:
+            raise RuntimeError("SYM_TILE differs between forces_sym.py and "
+                               "csrc/sym_common.cuh")
+    return lib
+
+
+def max_blocks(kdk: bool = False) -> int:
+    """The co-resident grid the card holds for K3 (K4 with ``kdk``)."""
+    return _lib().nbt_resident_max_blocks(int(kdk))
+
+
+def should_use_resident(cfg, impl: str) -> bool:
+    """Decide resident routing for this run, as the JAX package does.
+
+    ``cfg.resident`` wins: False disables; True forces and raises naming
+    every reason the run is out of scope (integrator, dtype, impl, N past
+    ``RESIDENT_MAX_N``).  None is auto: in scope and N inside the window
+    measured on the card."""
+    if cfg.resident is False:
+        return False
+    reasons = []
+    if cfg.integrator != "reference" and cfg.integrator not in KDK_WEIGHTS:
+        reasons.append(f"integrator={cfg.integrator!r} (needs 'reference' "
+                       "or a KDK-composed scheme)")
+    if cfg.dtype != "float32":
+        reasons.append(f"dtype={cfg.dtype!r} (the kernel is float32-only)")
+    if impl not in RESIDENT_IMPLS:
+        reasons.append(f"impl={impl!r} (the exact pair-symmetric tier "
+                       "pallas_sym2 only)")
+    if cfg.n_bodies > RESIDENT_MAX_N:
+        reasons.append(
+            f"N={cfg.n_bodies} > {RESIDENT_MAX_N}: the slots of every "
+            f"offset would take {_slot_bytes(cfg.n_bodies)} bytes, more than "
+            f"the {SLOT_BUDGET_BYTES}-byte budget")
+    if reasons:
+        if cfg.resident is True:
+            raise ValueError("resident=True but the resident kernels are out "
+                             "of scope: " + "; ".join(reasons))
+        return False
+    if cfg.resident is True:
+        return True
+    return RESIDENT_AUTO_MIN_N <= cfg.n_bodies <= RESIDENT_AUTO_MAX_N
+
+
+def _check_state(pos, vel, mass, *extra):
+    _build.check_bodies("resident", pos, mass)
+    for t in (vel, *extra):
+        if (t.dtype != torch.float32 or t.shape != pos.shape
+                or t.device != pos.device or not t.is_contiguous()):
+            raise ValueError("resident: vel and acc must be contiguous "
+                             f"float32 {tuple(pos.shape)} tensors on "
+                             f"{pos.device}")
+    if pos.shape[0] > RESIDENT_MAX_N:
+        raise ValueError(f"resident: N={pos.shape[0]} > RESIDENT_MAX_N="
+                         f"{RESIDENT_MAX_N} (slot memory)")
+
+
+def resident_steps_plain(pos, vel, mass, eps2: float, dt: float,
+                         n_steps: int):
+    """Plain twin of K3: K2's plain version and the reference update,
+    step by step.  Returns (pos, vel, acc)."""
+    acc = torch.zeros_like(pos)
+    for _ in range(n_steps):
+        acc = forces_sym_plain(pos, mass, eps2)
+        pos, vel = reference_update(pos, vel, acc, dt)
+    return pos, vel, acc
+
+
+def resident_steps_kdk_plain(pos, vel, acc, mass, eps2: float, dt: float,
+                             weights, n_steps: int):
+    """Plain twin of K4: the KDK sub-steps of ``ops/step.py::step`` on
+    K2's plain version.  Returns (pos, vel, acc)."""
+    for _ in range(n_steps):
+        for w in weights:
+            wdt = w * dt
+            vel_half = kdk_kick(vel, acc, wdt)
+            pos = kdk_drift(pos, vel_half, wdt)
+            acc = forces_sym_plain(pos, mass, eps2)
+            vel = kdk_kick(vel_half, acc, wdt)
+    return pos, vel, acc
+
+
+def _scratch(pos):
+    """nb and the kernels' scratch: per-body diagonal sums, i- and j-side
+    slots of every offset."""
+    n = pos.shape[0]
+    nb = -(-n // SYM_TILE)
+    slot_len = max(1, (nb // 2) * nb * SYM_TILE * 3)
+    return (nb, pos.new_empty(n, 3), pos.new_empty(slot_len),
+            pos.new_empty(slot_len))
+
+
+def resident_steps(pos, vel, mass, eps2: float, dt: float, n_steps: int):
+    """``n_steps`` reference-scheme steps through K3 in one launch.
+    Returns new (pos, vel, acc); the inputs are not written."""
+    _check_state(pos, vel, mass)
+    if pos.device.type == "cpu":
+        return resident_steps_plain(pos, vel, mass, eps2, dt, n_steps)
+    lib = _lib()
+    nb, diag, si, sj = _scratch(pos)
+    pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
+    acc_out = torch.empty_like(pos)
+    with torch.cuda.device(pos.device):
+        resident_steps.launches += 1
+        _build.check_launch("resident (K3)", lib.nbt_resident(
+            pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), pos.shape[0],
+            nb, float(eps2), 0.5 * dt, dt, n_steps, pos_out.data_ptr(),
+            vel_out.data_ptr(), acc_out.data_ptr(), diag.data_ptr(),
+            si.data_ptr(), sj.data_ptr(), _build.stream_handle(pos)))
+    return pos_out, vel_out, acc_out
+
+
+def resident_steps_kdk(pos, vel, acc, mass, eps2: float, dt: float,
+                       weights, n_steps: int):
+    """``n_steps`` KDK-composed steps of sub-step ``weights`` through K4 in
+    one launch.  Returns new (pos, vel, acc); the inputs are not written."""
+    _check_state(pos, vel, mass, acc)
+    if pos.device.type == "cpu":
+        return resident_steps_kdk_plain(pos, vel, acc, mass, eps2, dt,
+                                        weights, n_steps)
+    if not 1 <= len(weights) <= 3:
+        raise ValueError(f"resident (K4): 1 to 3 sub-step weights, got "
+                         f"{len(weights)}")
+    lib = _lib()
+    nb, diag, si, sj = _scratch(pos)
+    # Rounded to float32 from double, as PyTorch rounds a Python scalar.
+    h = (_c_f * 3)(*[0.5 * (w * dt) for w in weights])
+    wdt = (_c_f * 3)(*[w * dt for w in weights])
+    pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
+    acc_out = torch.empty_like(acc)
+    with torch.cuda.device(pos.device):
+        resident_steps_kdk.launches += 1
+        _build.check_launch("resident (K4)", lib.nbt_resident_kdk(
+            pos.data_ptr(), vel.data_ptr(), acc.data_ptr(), mass.data_ptr(),
+            pos.shape[0], nb, float(eps2), h, wdt, len(weights), n_steps,
+            pos_out.data_ptr(), vel_out.data_ptr(), acc_out.data_ptr(),
+            diag.data_ptr(), si.data_ptr(), sj.data_ptr(),
+            _build.stream_handle(pos)))
+    return pos_out, vel_out, acc_out
+
+
+# K3 / K4 launches made through the wrappers.
+resident_steps.launches = 0
+resident_steps_kdk.launches = 0
+
+
+def _weights(cfg):
+    if cfg.integrator == "reference":
+        return None
+    weights = KDK_WEIGHTS.get(cfg.integrator)
+    if weights is None:
+        raise ValueError(
+            "resident mode implements the reference integrator and the "
+            f"KDK-composed schemes; got {cfg.integrator!r}")
+    return weights
+
+
+def run_steps_resident_plain(state: SimState, cfg, n_steps: int) -> SimState:
+    """The plain version of ``run_steps_resident``, on any device."""
+    weights = _weights(cfg)
+    if n_steps < 1:
+        return state
+    if weights is None:
+        out = resident_steps_plain(state.pos, state.vel, state.mass,
+                                   cfg.eps2, cfg.dt, n_steps)
+    else:
+        out = resident_steps_kdk_plain(state.pos, state.vel, state.acc,
+                                       state.mass, cfg.eps2, cfg.dt, weights,
+                                       n_steps)
+    return SimState(*out, mass=state.mass)
+
+
+def run_steps_resident(state: SimState, cfg, n_steps: int) -> SimState:
+    """Advance ``n_steps`` steps in one launch of K3 (reference scheme) or
+    K4 (``kdk``, ``yoshida4``).  Raises ValueError out of scope."""
+    weights = _weights(cfg)
+    if n_steps < 1:
+        return state
+    if weights is None:
+        out = resident_steps(state.pos, state.vel, state.mass, cfg.eps2,
+                             cfg.dt, n_steps)
+    else:
+        out = resident_steps_kdk(state.pos, state.vel, state.acc, state.mass,
+                                 cfg.eps2, cfg.dt, weights, n_steps)
+    return SimState(*out, mass=state.mass)

@@ -1,13 +1,18 @@
 """Simulation step and the multi-step driver, as in ``nbody_tpu/ops/step.py``.
 
-PyTorch runs eagerly, so ``run_steps`` is a Python loop over ``step``
-(the JAX package compiles the loop into one ``fori_loop`` program); the
-kernels queue on the current stream and nothing waits for the card until
-a caller synchronises.  The bounded multi-program, flat-state and
-trajectory drivers come later.
+PyTorch runs eagerly, so ``run_steps`` and ``run_trajectory`` are Python
+loops over ``step`` (the JAX package compiles them into ``fori_loop`` /
+``scan`` programs); the kernels queue on the current stream and nothing
+waits for the card until a caller synchronises.  The bounded
+multi-program and flat-state step loops are TPU workarounds and are not
+ported (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
+
+import torch
 
 from ..config import SimConfig
 from ..models.integrators import (KDK_WEIGHTS, kdk_drift, kdk_kick,
@@ -54,3 +59,27 @@ def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
     for _ in range(n_steps):
         state = step(state, cfg, impl=impl)
     return state
+
+
+def run_trajectory(state: SimState, cfg: SimConfig, n_steps: int,
+                   snap_every: int = 1, impl: "str | None" = None,
+                   with_vel: bool = False) -> Tuple[SimState, ...]:
+    """Run ``n_steps``, capturing positions every ``snap_every`` steps.
+
+    Returns ``(final_state, snapshots (n_steps // snap_every, N, 3))``,
+    plus velocity snapshots when ``with_vel``.  Steps left over after the
+    last snapshot still run."""
+    impl = impl or resolve_impl(cfg)
+    n_snaps = n_steps // snap_every
+    snaps, vsnaps = [], []
+    for _ in range(n_snaps):
+        state = run_steps(state, cfg, snap_every, impl=impl)
+        snaps.append(state.pos)
+        if with_vel:
+            vsnaps.append(state.vel)
+    state = run_steps(state, cfg, n_steps - n_snaps * snap_every, impl=impl)
+    empty = state.pos.new_zeros((0,) + tuple(state.pos.shape))
+    out = (state, torch.stack(snaps) if snaps else empty)
+    if with_vel:
+        out += (torch.stack(vsnaps) if vsnaps else empty,)
+    return out

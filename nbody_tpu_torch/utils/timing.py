@@ -1,12 +1,16 @@
-"""Timing: completion barriers and CUDA-event timing.
+"""Timing: completion barriers, CUDA-event timing and the run loop's
+``StepTimer`` (``nbody_tpu/utils/timing.py``).
 
 PyTorch returns before the card finishes, so a host clock measures only
-the enqueue unless the work ends in ``torch.cuda.synchronize()``.
+the enqueue unless the work ends in ``torch.cuda.synchronize()``: callers
+of ``StepTimer.stop`` call ``sync`` first.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass, field
+from typing import List
 
 import torch
 
@@ -35,3 +39,42 @@ def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1000.0 / iters
+
+
+@dataclass
+class StepTimer:
+    """Accumulates per-chunk wall times for steps/s and GInter/s (N^2
+    interactions a step).  The caller syncs the device before ``stop``."""
+    n_bodies: int
+    times_s: List[float] = field(default_factory=list)
+    steps_per_chunk: List[int] = field(default_factory=list)
+    _t0: float = 0.0
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, n_steps: int):
+        self.times_s.append(time.perf_counter() - self._t0)
+        self.steps_per_chunk.append(n_steps)
+
+    @property
+    def total_steps(self) -> int:
+        return sum(self.steps_per_chunk)
+
+    @property
+    def total_time_s(self) -> float:
+        return sum(self.times_s)
+
+    @property
+    def ms_per_step(self) -> float:
+        return 1000.0 * self.total_time_s / max(1, self.total_steps)
+
+    @property
+    def steps_per_s(self) -> float:
+        return self.total_steps / self.total_time_s if self.total_time_s \
+            else 0.0
+
+    @property
+    def ginter_per_s(self) -> float:
+        inter = float(self.n_bodies) ** 2 * self.total_steps
+        return inter / self.total_time_s / 1e9 if self.total_time_s else 0.0

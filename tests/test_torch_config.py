@@ -30,17 +30,28 @@ def test_unported_impls_raise_with_roadmap_item(impl):
         SimConfig(impl=impl)
 
 
+# Explicit ids keep each case's name stable.
 @pytest.mark.parametrize("kw,match", [
-    ({"resident": True}, "K3"),
-    ({"flat_state": True}, "item 13"),
-    ({"prog_cap": 1e9}, "item 13"),
-    ({"shards": 2}, "item 14"),
+    pytest.param({"flat_state": True}, "item 13", id="kw1-item 13"),
+    pytest.param({"prog_cap": 1e9}, "item 13", id="kw2-item 13"),
+    pytest.param({"shards": 2}, "item 14", id="kw3-item 14"),
 ])
 def test_unported_modes_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         SimConfig(**kw)
     # None / False keep the per-step path.
     SimConfig(resident=False, flat_state=False)
+
+
+@pytest.mark.parametrize("resident", [True, False, None])
+def test_resident_is_accepted_and_left_to_routing(resident):
+    """``resident=True`` forces the resident kernels K3/K4; whether the run
+    is in their scope is decided (and refused) by ``should_use_resident``,
+    as in the JAX package."""
+    cfg = SimConfig(resident=resident)
+    assert cfg.resident is resident
+    jax_cfg = JaxSimConfig(resident=resident)
+    assert cfg.resident == jax_cfg.resident
 
 
 def test_invalid_values_raise_value_error():

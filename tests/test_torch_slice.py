@@ -164,6 +164,9 @@ def test_package_imports_without_jax():
         "import nbody_tpu_torch, nbody_tpu_torch.cli, "
         "nbody_tpu_torch.bench_lib, nbody_tpu_torch.analysis\n"
         "from nbody_tpu_torch.ops import _build, forces_sym, forces_tiled\n"
+        "from nbody_tpu_torch.ops import resident, pe\n"
+        "from nbody_tpu_torch.models import simulation, energy\n"
+        "from nbody_tpu_torch.io import checkpoint, logger\n"
         "assert not any(m == 'nbody_tpu' or m.startswith('nbody_tpu.') "
         "for m in sys.modules)\n"
         "assert not _build._LIBS\n"
