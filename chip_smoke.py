@@ -7,14 +7,17 @@ Builds the port's CUDA kernels from ``nbody_tpu_torch/csrc`` into a clean
 build directory (one ``nvcc`` per source, all at once), holds each kernel
 against its plain PyTorch version on the card (K1, K2; the resident
 kernels K3 and K4 also bit for bit against the per-step K2 path; K8 also
-against a float64 direct sum at N = 1,048,576), checks K2 at N = 1,048,576
-against the direct-form ``rect_forces``, then drives the port's main
-paths through the CLI with the kernels' launch counters reset just before
-and read just after: ``validate`` at N = 8192, and the ``run`` verb
-(resident K3 with a checkpoint, K4 with yoshida4, auto routing, N = 1M
-with ``--energy``, and a resume that must equal one uninterrupted run).
-Then 200 steps under the momentum and angular-momentum gates, the
-K1/K2 and resident crossovers that set ``auto``, and the bench lines.
+against a float64 direct sum at N = 1,048,576; the tensor-core tiers K9,
+K10, K5 and K6 also against their tier gates on a float64 direct sum, K5
+at N = 1,048,576 too), checks K2 at N = 1,048,576 against the direct-form
+``rect_forces``, then drives the port's main paths through the CLI with
+the kernels' launch counters reset just before and read just after:
+``validate`` at N = 8192 (exact, and each tensor-core tier), and the
+``run`` verb (resident K3 with a checkpoint, K4 with yoshida4, auto
+routing, N = 1M with ``--energy``, N = 1M with ``pallas_sym_turbo``, and a
+resume that must equal one uninterrupted run).  Then 200 steps under the
+momentum and angular-momentum gates, the K1/K2 and resident crossovers
+that set ``auto``, and the bench lines.
 Any failed check raises and the script exits nonzero; without a CUDA
 card it exits 1 before doing anything.
 
@@ -38,9 +41,33 @@ import time
 REL_TOL = 1e-4
 ABS_FLOOR = 1e-6
 
+# The tensor-core tiers against their plain twins: per component, relative
+# 1e-3 with an absolute floor of 1e-4 of the largest |a|.  Both round the
+# same float32 weights to bf16 (the kernels' geometry is rounded step by
+# step as the twins round it); what differs is the order of the float32
+# sums inside the per-tile correction sum w x_j - x_i sum w, whose terms
+# are ~|x| sum w against a net of ~|r| sum w.  The same tolerance as the
+# CPU tests hold between the twins and the JAX package.
+TC_REL_TOL = 1e-3
+TC_ABS_FLOOR = 1e-4
+# Tier gates against a float64 direct sum (the JAX package's own tests):
+# kernel -> (p99 of the relative error or None, largest fraction of
+# components outside the 1% gate with a 1e-4 absolute floor).
+TIER_GATES = {"forces_tiled_turbo": (5e-2, 0.1),
+              "forces_tiled_mxu": (None, 1e-3),
+              "forces_sym_turbo": (5e-2, 0.1),
+              "forces_sym_mxu": (5e-3, 5e-3)}
+# The tiers' impls and the validate allowances no looser than the gates.
+TIER_IMPLS = {"forces_tiled_turbo": "pallas_turbo",
+              "forces_tiled_mxu": "pallas_mxu",
+              "forces_sym_turbo": "pallas_sym_turbo",
+              "forces_sym_mxu": "pallas_sym_mxu"}
+
 # Published H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit):
-# float32 outside the tensor cores, and HBM3 bandwidth.
+# float32 outside the tensor cores, bf16 on the tensor cores (dense), and
+# HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # Flops a kernel needs per interaction, counting an FMA as two: one-sided
 # force (3 sub, 6 for d2 + eps2, 2 for the cube, 1 rsqrt, 1 mass, 6 for
@@ -48,6 +75,16 @@ PEAK_HBM_BYTES = 3.35e12
 # more multiply for m_i m_j, 3 for F r, 6 adds into both sums), and the
 # pair potential (3 sub, 6 for d2 + eps2, 1 rsqrt, 2 for the accumulate).
 FLOPS_ONE_SIDED, FLOPS_PAIR, FLOPS_PE = 19, 23, 12
+# The tensor-core tiers, (float32 flops, tensor-core flops) per one-sided
+# interaction (K9, K10) or per pair (K5, K6).  Float32: 3 sub, 3 mul and 3
+# add for d2 + eps2, 2 for the cube, 1 rsqrt, then 1 multiply by m_j (K9),
+# that and the hi/lo split's subtract (K10), the two weight multiplies (K5)
+# or the split (K6).  Tensor cores: one m16n8k16 product is 4096 flops for
+# 256 pairs, 16 a pair and product: K9 1 product, K10 2, K5 2 (i-side and
+# j-side), K6 4.  K5/K6 add the exact diagonal tiles at FLOPS_ONE_SIDED an
+# interaction.
+FLOPS_TC = {"forces_tiled_turbo": (13, 16), "forces_tiled_mxu": (14, 32),
+            "forces_sym_turbo": (14, 32), "forces_sym_mxu": (13, 64)}
 # Integrator flops per body and (sub-)step: reference kick + drift, KDK
 # two kicks + drift.
 FLOPS_REF_UPDATE, FLOPS_KDK_UPDATE = 12, 18
@@ -60,30 +97,46 @@ def check(cond, what):
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
 
 
-def compare(name, got, want, rel_tol=REL_TOL):
+def compare(name, got, want, rel_tol=REL_TOL, abs_floor=ABS_FLOOR):
     """Gate ``got`` against ``want``; returns (max abs err, max rel err)."""
     import numpy as np
     from nbody_tpu_torch.oracle.numpy_oracle import relative_mismatch
     g = got.detach().cpu().double().numpy()
     w = want.detach().cpu().double().numpy()
     scale = float(np.abs(w).max())
-    bad = int(relative_mismatch(g, w, rel_tol, ABS_FLOOR * scale).sum())
+    bad = int(relative_mismatch(g, w, rel_tol, abs_floor * scale).sum())
     max_abs = float(np.abs(g - w).max())
     max_rel = max_abs / scale
     check(np.isfinite(g).all(), f"{name}: non-finite output")
     print(f"[check] {name}: max rel err {max_rel:.3e} (max abs "
           f"{max_abs:.3e}), {bad} of {g.size} components outside "
-          f"rel {rel_tol:g} + {ABS_FLOOR:g}*max")
+          f"rel {rel_tol:g} + {abs_floor:g}*max")
     check(bad == 0, f"{name}: {bad} components outside tolerance")
     return max_abs, max_rel
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of the flops over the float32
-    peak and the bytes over the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops, nbytes, tc_flops=0.0):
+    """(bound_ms, bound_by): the largest of the float32 flops over the
+    float32 peak, the tensor-core flops over the bf16 tensor-core peak
+    (the two run on different units) and the bytes over the HBM rate."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, tc_flops / PEAK_BF16_TC_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tc_bound(kname, n):
+    """The bound of tensor-core tier ``kname`` for one evaluation of N
+    bodies: one-sided N(N-1) interactions, or pair-symmetric pairs off the
+    256-wide diagonal tiles plus the exact diagonal tiles."""
+    fp32, tc = FLOPS_TC[kname]
+    if kname.startswith("forces_tiled"):
+        work, diag = n * (n - 1), 0
+    else:
+        full, rem = divmod(n, 256)
+        diag = full * 256 * 256 + rem * rem
+        work = (n * n - diag) // 2
+    return bound(fp32 * work + FLOPS_ONE_SIDED * diag, 28 * n, tc * work)
 
 
 def bodies(n, seed, device):
@@ -147,6 +200,91 @@ def check_forces(dev, eps2, record):
     compare("K2 with three real zero-mass bodies vs direct form",
             k2.forces_sym(pos, mass, eps2), rect_forces(pos, pos, mass, eps2))
     print("[check] K2 bit-reproducible run to run and across offset chunks")
+
+
+def tier_gate(kname, got, ref):
+    """Hold tier ``kname``'s accelerations to its gate against a float64
+    direct sum ``ref``."""
+    import numpy as np
+    from nbody_tpu_torch.oracle.numpy_oracle import relative_mismatch
+    g = got.detach().cpu().double().numpy()
+    r = ref.detach().cpu().numpy()
+    check(np.isfinite(g).all(), f"{kname}: non-finite output")
+    p99 = float(np.percentile(np.abs(g - r) / (np.abs(r) + 1e-30), 99))
+    frac = float(relative_mismatch(g, r, 0.01, 1e-4).mean())
+    p99_gate, frac_gate = TIER_GATES[kname]
+    print(f"[gate] {kname} vs float64, {g.shape[0]} rows: p99 rel err "
+          f"{p99:.3e} (gate {p99_gate}), bad fraction at 1% {frac:.3e} "
+          f"(gate {frac_gate})")
+    check(p99_gate is None or p99 < p99_gate, f"{kname}: p99 {p99:.3e}")
+    check(frac <= frac_gate, f"{kname}: bad fraction {frac:.3e}")
+
+
+def check_tc(dev, eps2, record, smi):
+    """K9, K10, K5 and K6 against their plain twins at N = 1000 and 8192,
+    bit-reproducible (K5/K6 also chunk-invariant), at their tier gates
+    against a float64 direct sum (K5 also on 4096 sampled rows at N = 1M),
+    and their times at 8192 and 1M."""
+    import torch
+    from nbody_tpu_torch.ops import forces_sym_tc, forces_tiled_tc
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
+    t0 = time.perf_counter()
+    tiers = {}
+    for variant in ("turbo", "mxu"):
+        tiers[f"forces_tiled_{variant}"] = (
+            getattr(forces_tiled_tc, f"forces_tiled_{variant}"),
+            lambda p, m, v=variant: forces_tiled_tc.rect_forces_tiled_tc_plain(
+                p, p, m, eps2, v, True))
+        tiers[f"forces_sym_{variant}"] = (
+            getattr(forces_sym_tc, f"forces_sym_{variant}"),
+            lambda p, m, v=variant: forces_sym_tc.forces_sym_tc_plain(
+                p, m, eps2, v))
+    for n in (1000, 8192):
+        pos, mass = bodies(n, n + 5, dev)
+        ref = rect_forces(pos.double(), pos.double(), mass.double(), eps2)
+        for kname, (kernel, plain) in tiers.items():
+            got = kernel(pos, mass, eps2)
+            want = plain(pos, mass)
+            torch.cuda.synchronize()
+            err = compare(f"{kname} vs plain, N={n}", got, want,
+                          rel_tol=TC_REL_TOL, abs_floor=TC_ABS_FLOOR)
+            check(torch.equal(got, kernel(pos, mass, eps2)),
+                  f"{kname} N={n}: not bit-reproducible")
+            if kname.startswith("forces_sym"):
+                chunked = kernel(pos, mass, eps2,
+                                 slot_budget=24 * (-(-n // 256) * 256))
+                check(torch.equal(got, chunked), f"{kname} N={n}: one "
+                      f"offset per chunk differs from one chunk")
+            tier_gate(kname, got, ref)
+            if n == 8192:
+                record[kname] = {
+                    "shape": "N=8192, one force evaluation",
+                    "max_abs_err": err[0],
+                    "ms": time_ms(lambda: kernel(pos, mass, eps2), dev),
+                    "plain_ms": time_ms(lambda: plain(pos, mass), dev,
+                                        iters=3),
+                    "bound": tc_bound(kname, n)}
+    print("[check] K9/K10/K5/K6 bit-reproducible run to run, K5/K6 across "
+          "offset chunks")
+
+    # K5 at the bench rider's shape: 4096 sampled rows of one evaluation
+    # against a float64 direct sum on the card, rows in chunks of 64.
+    n = 1 << 20
+    pos, mass = bodies(n, 2, dev)
+    acc = forces_sym_tc.forces_sym_turbo(pos, mass, eps2)
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(2))[
+        :4096].to(dev)
+    ref = rect_forces(pos[rows].double(), pos.double(), mass.double(), eps2,
+                      chunk=64)
+    tier_gate("forces_sym_turbo", acc[rows], ref)
+    for kname, (kernel, _) in tiers.items():
+        record[kname]["ms_1m"] = time_ms(lambda: kernel(pos, mass, eps2),
+                                         dev, iters=2, warmup=1)
+        record[kname]["bound_ms_1m"] = tc_bound(kname, n)[0]
+        print(f"[1M] {kname}: {record[kname]['ms_1m']:.3f} ms per "
+              f"evaluation ({smi})")
+    print(f"[time] tensor-core tier checks: {time.perf_counter() - t0:.1f} s")
 
 
 def check_resident(dev, record):
@@ -352,9 +490,31 @@ def crossovers(dev, smi):
                   f"({ts / tr:.3f}x)")
 
 
+def share_oracle_runs():
+    """validate's numpy oracle is a pure function of its inputs and takes
+    ~50 s a run at N = 8192 on the card's host; the validate phases at
+    seed 5 (K2, K1 and each tensor-core tier) start from one state, so
+    each distinct oracle run is computed once and handed to every phase
+    that asks for it."""
+    import hashlib
+    from nbody_tpu_torch.oracle import numpy_oracle
+    run, runs = numpy_oracle.oracle_run, {}
+
+    def shared(pos, vel, mass, *args, **kw):
+        h = hashlib.sha256()
+        for a in (pos, vel, mass):
+            h.update(a.tobytes())
+        key = (h.hexdigest(), args, tuple(sorted(kw.items())))
+        if key not in runs:
+            runs[key] = run(pos, vel, mass, *args, **kw)
+        return runs[key]
+    numpy_oracle.oracle_run = shared
+
+
 def main_path(counts, reset):
     """The CLI's main paths with the launch counters: validate at N = 8192
-    (K1 and K2), and the run verb (K3, K4, auto, K8 at 1M, resume).
+    (K1, K2, and the tensor-core tiers K9, K10, K5, K6), and the run verb
+    (K3, K4, auto, K8 at 1M, K5 at 1M, resume).
     Returns the launches of every kernel over all of them."""
     import numpy as np
     from nbody_tpu_torch.cli import main as cli_main
@@ -369,6 +529,7 @@ def main_path(counts, reset):
             check(v(delta[k]), f"{what}: {k} launched {delta[k]} times")
         return delta
 
+    share_oracle_runs()
     reset()
     # The float64 gates run at seed 5: at seeds 0, 1, 2 and 4 the uniform
     # box holds close encounters whose 10-step outcome differs between
@@ -385,6 +546,21 @@ def main_path(counts, reset):
                "0", "--impl", impl, *extra],
               {k: (lambda v: v == 10) if k == kernel else (lambda v: v == 0)
                for k in counts()})
+
+    # The tensor-core tiers, each held to its gate: allowances no looser
+    # than the tier's bad fraction, for pos, vel and acc.
+    for kernel, impl in TIER_IMPLS.items():
+        t0 = time.perf_counter()
+        frac = str(TIER_GATES[kernel][1])
+        phase(f"validate --impl {impl} --seed 5 --max-bad-frac {frac} "
+              f"--max-bad-frac-acc {frac}",
+              ["validate", "--n", "8192", "--steps", "10", "--long-steps",
+               "0", "--impl", impl, "--seed", "5", "--max-bad-frac", frac,
+               "--max-bad-frac-acc", frac],
+              {k: (lambda v: v == 10) if k == kernel else (lambda v: v == 0)
+               for k in counts()})
+        print(f"[time] validate --impl {impl}: "
+              f"{time.perf_counter() - t0:.1f} s")
 
     os.makedirs(WORK, exist_ok=True)
     a, b, c = (os.path.join(WORK, f"{x}.npz") for x in "abc")
@@ -417,6 +593,14 @@ def main_path(counts, reset):
     phase("run --n 1048576 --steps 2 --energy",
           ["run", "--n", "1048576", "--steps", "2", "--energy"],
           {"forces_sym": lambda v: v == 2, "pe": lambda v: v == 2})
+    t0 = time.perf_counter()
+    phase("run --impl pallas_sym_turbo --n 1048576 --steps 2",
+          ["run", "--impl", "pallas_sym_turbo", "--n", "1048576", "--steps",
+           "2"],
+          {k: (lambda v: v == 2) if k == "forces_sym_turbo"
+           else (lambda v: v == 0) for k in counts()})
+    print(f"[time] run --impl pallas_sym_turbo at 1M: "
+          f"{time.perf_counter() - t0:.1f} s")
     launches = counts()
     print(f"[main path] launch counts: {launches}")
     check(all(v > 0 for v in launches.values()),
@@ -448,7 +632,8 @@ def main():
     print(f"device: {name}; nvidia-smi name, power.limit: {smi}")
 
     # 2. Build every kernel from a clean build directory, in parallel.
-    libs = ("forces_tiled", "forces_sym", "resident", "pe")
+    libs = ("forces_tiled", "forces_sym", "resident", "pe",
+            "forces_tiled_tc", "forces_sym_tc")
     shutil.rmtree(_build.BUILD_ROOT, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
@@ -465,11 +650,14 @@ def main():
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops import forces_sym_tc as k56
+    from nbody_tpu_torch.ops import forces_tiled_tc as k910
     from nbody_tpu_torch.ops import pe, resident
 
     # 3. Every kernel against its plain twin on the card.
     record = {}
     check_forces(dev, 0.002, record)
+    check_tc(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
     for kname, r in record.items():
@@ -484,7 +672,11 @@ def main():
     wrappers = {"forces_tiled": k1.forces_tiled, "forces_sym": k2.forces_sym,
                 "resident": resident.resident_steps,
                 "resident_kdk": resident.resident_steps_kdk,
-                "pe": pe.pe_rows}
+                "pe": pe.pe_rows,
+                "forces_tiled_turbo": k910.forces_tiled_turbo,
+                "forces_tiled_mxu": k910.forces_tiled_mxu,
+                "forces_sym_turbo": k56.forces_sym_turbo,
+                "forces_sym_mxu": k56.forces_sym_mxu}
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -515,10 +707,14 @@ def main():
     from nbody_tpu_torch.bench_lib import run_benchmark
     for kw in ({"n": 8192}, {"n": 8192, "resident": False},
                {"n": 8192, "resident": True}, {"n": 8192, "impl": "pallas"},
-               {"n": 8192, "impl": "xla"}, {"n": 1 << 20, "energy": True}):
+               {"n": 8192, "impl": "xla"}, {"n": 1 << 20, "energy": True},
+               *({"n": 8192, "impl": impl} for impl in TIER_IMPLS.values()),
+               {"n": 1 << 20, "impl": "pallas_sym_turbo"}):
+        t0 = time.perf_counter()
         res = run_benchmark(**kw)
         check(res["finite"], f"bench {kw}: non-finite")
         print("[bench] " + json.dumps(res))
+        print(f"[time] bench {kw}: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for kname, src, repl in (
@@ -531,7 +727,15 @@ def main():
             ("resident_kdk", "nbody_tpu_torch/csrc/resident.cu",
              "nbody_tpu/ops/resident.py:362"),
             ("pe", "nbody_tpu_torch/csrc/pe.cu",
-             "nbody_tpu/ops/pe_pallas.py:40")):
+             "nbody_tpu/ops/pe_pallas.py:40"),
+            ("forces_tiled_turbo", "nbody_tpu_torch/csrc/forces_tiled_tc.cu",
+             "nbody_tpu/ops/forces_pallas.py:209"),
+            ("forces_tiled_mxu", "nbody_tpu_torch/csrc/forces_tiled_tc.cu",
+             "nbody_tpu/ops/forces_pallas.py:258"),
+            ("forces_sym_turbo", "nbody_tpu_torch/csrc/forces_sym_tc.cu",
+             "nbody_tpu/ops/forces_pallas_sym.py:353"),
+            ("forces_sym_mxu", "nbody_tpu_torch/csrc/forces_sym_tc.cu",
+             "nbody_tpu/ops/forces_pallas_sym.py:353")):
         r = dict(record[kname])
         bound_ms, bound_by = r.pop("bound")
         # No single PyTorch call computes any of these functions.
@@ -541,7 +745,10 @@ def main():
                         "ms": r.pop("ms"), "plain_ms": r.pop("plain_ms"),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None, **r})
-    kernels[1]["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:328"
+    # K2, K5 and K6 also replace the exact diagonal pass.
+    for k in kernels:
+        if k["name"] in ("forces_sym", "forces_sym_turbo", "forces_sym_mxu"):
+            k["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:328"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

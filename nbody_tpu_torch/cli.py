@@ -66,7 +66,9 @@ def _add_sim_args(p: argparse.ArgumentParser):
                             "pallas_sym_turbo", "pallas_sym_turbo2",
                             "pallas_sym_mxu"],
                    help="force backend; ported: auto, xla, xla_nxn, "
-                        "pallas (K1), pallas_sym2 (K2)")
+                        "pallas (K1), pallas_sym2 (K2), pallas_turbo (K9), "
+                        "pallas_mxu (K10), pallas_sym_turbo (K5), "
+                        "pallas_sym_mxu (K6)")
     p.add_argument("--integrator", default="reference", action=_TrackedStore,
                    choices=["reference", "kdk", "yoshida4"])
     p.add_argument("--seed", type=int, default=0, action=_TrackedStore)

@@ -38,9 +38,8 @@ _VALID_INTEGRATORS = ("reference", "kdk", "yoshida4")
 
 # Impls whose kernels are still to be ported -> their ROADMAP Queue 2 item.
 UNPORTED_IMPLS = {
-    "pallas_kahan": "K11", "pallas_mxu": "K10", "pallas_fast": "K12",
-    "pallas_turbo": "K9", "pallas_sym": "K7", "pallas_sym_turbo": "K5",
-    "pallas_sym_turbo2": "K14", "pallas_sym_mxu": "K6",
+    "pallas_kahan": "K11", "pallas_fast": "K12", "pallas_sym": "K7",
+    "pallas_sym_turbo2": "K14",
 }
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,

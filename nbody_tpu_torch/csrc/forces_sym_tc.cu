@@ -1,0 +1,263 @@
+// K5 / K6: Newton's-third-law all-pairs forces on Hopper's tensor cores
+// (sm_90a), the pair-symmetric speed tier (turbo) and near-exact tier (mxu).
+//
+// Replaces nbody_tpu/ops/forces_pallas_sym.py:_make_sym_kernel, variants
+// "turbo" (_accum_i_turbo, _accum_j_turbo) and "mxu" (_accum_both_mxu),
+// with the exact diagonal pass _diag_kernel_vpu, as _forces_sym_padded
+// composes them (no 1/m descale: neither variant is mass-scaled).
+//
+// Schedule, slots and determinism are K2's (forces_sym.cu, sym_common.cuh):
+// 256-wide tiles, row tile I against column tile J = (I + d) mod nb for
+// the circular offsets d, one CTA per (I, d) writing its own row slot
+// si[d][I] and column slot sj[d][J], offsets in chunks, and a reduce pass
+// that adds the slots in a fixed order.  Bit-reproducible, no atomics.
+//
+// The pair tile.  inv = rsqrt((|r|^2 + eps2)^3) is computed once a pair.
+//   turbo: i-side  bf16(m_j inv)  @ pos pack of J      (force on i)
+//          j-side  bf16(m_i inv)^T @ pos pack of I     (force on j)
+//   mxu:   i-side  (inv_hi + inv_lo)  @ mass-folded pack of J
+//          j-side  (inv_hi + inv_lo)^T @ mass-folded pack of I
+// and each side's tile result is  sum w x - x * sum w  per component
+// (tc_common.cuh), i.e. accelerations: the slots need no descale.  The
+// correction is applied once per 256 x 256 tile on both sides; the plain
+// version (ops/forces_sym_tc.py) does the same, and the JAX package is
+// compared at block_u = 256.
+//
+// The diagonal tiles are exact float32, one-sided with m_j weights
+// (sym_diag_tile), added to the slot sums in the reduce pass.  A real body
+// of mass 0 needs nothing more: its weights carry its partners' masses.
+// Ghost slots past N load as zero-mass bodies at the origin: weight m = 0
+// on their partners' sides (turbo), a zero pack (mxu); their own slots are
+// written but never read into a real body.
+//
+// Warps.  Eight warps; warp w owns rows 32w .. 32w+31 of I (two 16-row
+// blocks) and sweeps the 16 column blocks of J.  For each 16 x 16 block a
+// lane computes the 8 pairs of its mma A fragment in registers, so the
+// i-side weights are the A operand directly (B: J's pack, in shared
+// memory).  The j-side needs the transposed weights: movmatrix.trans
+// transposes each 8 x 8 quarter in registers, so the geometry is computed
+// once.  The i-side accumulators stay in registers across the J sweep; the
+// j-side partial sums of each warp (hi + lo per component, and the weight
+// column) meet in shared memory and are added warp by warp in a fixed
+// order.
+//
+// What bounds it on the card: float32 throughput, as K2.  A pair costs 14
+// float32 operations for two interactions (3 sub, 6 for d2 + eps2, 2 for
+// the cube, 1 rsqrt on the MUFU, 2 weight multiplies) for turbo, 13 for mxu
+// (the hi/lo split's subtract in place of the multiplies), plus the bf16
+// roundings and 4 movmatrix a 16 x 16 block (8 for mxu), against 32
+// tensor-core flops a pair (64 for mxu).  Left for later: wgmma, TMA-fed
+// tiles, FMA-contracted geometry, a persistent schedule.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC   (no --use_fast_math).
+
+#include "sym_common.cuh"
+#include "tc_common.cuh"
+
+#define SYM_LD (SYM_TILE + TC_PAD)
+
+struct SymTcSmem {
+    float4 tile[SYM_TILE];                 // column tile J: x, y, z, m
+    __nv_bfloat16 pack_j[8 * SYM_LD];      // J's pack, transposed
+    __nv_bfloat16 pack_i[8 * SYM_LD];      // I's pack, transposed
+    float part[SYM_WARPS][SYM_TILE][4];    // per-warp j-side sums
+};
+
+template <bool MXU>
+__device__ __forceinline__ void pack_body(__nv_bfloat16* packT, int k,
+                                          float4 b) {
+    if (MXU)
+        pack_mass_folded(packT, SYM_LD, k, b);
+    else
+        pack_position(packT, SYM_LD, k, b);
+}
+
+// One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1.
+template <bool MXU>
+__global__ void __launch_bounds__(SYM_TILE)
+sym_tc_pairs_kernel(const float* __restrict__ pos,
+                    const float* __restrict__ mass, long long n,
+                    long long nb, long long d_lo, float eps2,
+                    float* __restrict__ si, float* __restrict__ sj) {
+    __shared__ __align__(16) SymTcSmem sm;
+    const long long bid = blockIdx.x;
+    const long long dk = bid / nb;
+    const long long I = bid - dk * nb;
+    const long long d = d_lo + dk;
+    if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
+    const long long J = (I + d) % nb;
+    const int tid = threadIdx.x;
+    const int w = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+
+    const float4 own_j = load_body(pos, mass, J * SYM_TILE + tid, n);
+    sm.tile[tid] = own_j;
+    pack_body<MXU>(sm.pack_j, tid, own_j);
+    pack_body<MXU>(sm.pack_i, tid,
+                   load_body(pos, mass, I * SYM_TILE + tid, n));
+    // Rows g and g + 8 of this warp's two 16-row blocks.
+    float4 xr[2][2];
+    const long long r0 = I * SYM_TILE + 32 * w + g;
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb) {
+        xr[rb][0] = load_body(pos, mass, r0 + 16 * rb, n);
+        xr[rb][1] = load_body(pos, mass, r0 + 16 * rb + 8, n);
+    }
+    __syncthreads();
+    uint32_t bi[2][2];
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb)
+        load_b(sm.pack_i, SYM_LD, 32 * w + 16 * rb, g, t, bi[rb][0],
+               bi[rb][1]);
+
+    float di[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
+        const int c = k0 + 2 * t;
+        const float4 q[4] = {sm.tile[c], sm.tile[c + 1], sm.tile[c + 8],
+                             sm.tile[c + 9]};
+        uint32_t bj0, bj1;
+        load_b(sm.pack_j, SYM_LD, k0, g, t, bj0, bj1);
+        float dj[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int rb = 0; rb < 2; ++rb) {
+            // Fragment register r holds the pairs (row, q[qa]), (row, q[qa+1])
+            // with row = g (r even) or g + 8 (r odd), qa = 0 (r < 2) or 2.
+            float inv[8];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const float4 x = xr[rb][r & 1];
+                const int qa = (r >> 1) * 2;
+                inv[2 * r] = pair_inv(x, q[qa], eps2);
+                inv[2 * r + 1] = pair_inv(x, q[qa + 1], eps2);
+            }
+            uint32_t a[4], at[4];
+            if (MXU) {
+                uint32_t lo[4], lot[4];
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                    split_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);
+                mma_bf16(di[rb], a, bj0, bj1);
+                mma_bf16(di[rb], lo, bj0, bj1);
+                transpose_a(a, at);
+                transpose_a(lo, lot);
+                mma_bf16(dj, at, bi[rb][0], bi[rb][1]);
+                mma_bf16(dj, lot, bi[rb][0], bi[rb][1]);
+            } else {
+                uint32_t aj[4];
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const float mi = xr[rb][r & 1].w;
+                    const int qa = (r >> 1) * 2;
+                    a[r] = pack_rn(__fmul_rn(q[qa].w, inv[2 * r]),
+                                   __fmul_rn(q[qa + 1].w, inv[2 * r + 1]));
+                    aj[r] = pack_rn(__fmul_rn(mi, inv[2 * r]),
+                                    __fmul_rn(mi, inv[2 * r + 1]));
+                }
+                mma_bf16(di[rb], a, bj0, bj1);
+                transpose_a(aj, at);
+                mma_bf16(dj, at, bi[rb][0], bi[rb][1]);
+            }
+        }
+        // dj rows are columns k0 + g and k0 + g + 8 of J.
+        sm.part[w][k0 + g][t] = __fadd_rn(dj[0], dj[1]);
+        sm.part[w][k0 + g + 8][t] = __fadd_rn(dj[2], dj[3]);
+    }
+
+    const long long slot = dk * nb * SYM_TILE * 3;
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb) {
+        const float ca = tile_correction(di[rb][0], di[rb][1],
+                                         component(xr[rb][0], t));
+        const float cb = tile_correction(di[rb][2], di[rb][3],
+                                         component(xr[rb][1], t));
+        if (t < 3) {
+            si[slot + 3 * (r0 + 16 * rb) + t] = ca;
+            si[slot + 3 * (r0 + 16 * rb + 8) + t] = cb;
+        }
+    }
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int v = 0; v < SYM_WARPS; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[e] = __fadd_rn(s[e], sm.part[v][tid][e]);
+    const long long j = J * SYM_TILE + tid;
+    sj[slot + 3 * j] = __fsub_rn(s[0], __fmul_rn(own_j.x, s[3]));
+    sj[slot + 3 * j + 1] = __fsub_rn(s[1], __fmul_rn(own_j.y, s[3]));
+    sj[slot + 3 * j + 2] = __fsub_rn(s[2], __fmul_rn(own_j.z, s[3]));
+}
+
+// One CTA per tile: folds the chunk's slots into the running sum, and on the
+// last chunk adds the exact diagonal tile.
+__global__ void __launch_bounds__(SYM_TILE)
+sym_tc_reduce_kernel(const float* __restrict__ pos,
+                     const float* __restrict__ mass, long long n,
+                     long long nb, long long d_lo, long long dc,
+                     const float* __restrict__ si,
+                     const float* __restrict__ sj, float* __restrict__ raw,
+                     int first, int last, float eps2,
+                     float* __restrict__ out) {
+    __shared__ float4 tile[SYM_TILE];
+    const long long I = blockIdx.x;
+    const long long b = I * SYM_TILE + threadIdx.x;
+
+    float3 s = first ? make_float3(0.f, 0.f, 0.f)
+                     : make_float3(raw[3 * b], raw[3 * b + 1], raw[3 * b + 2]);
+    s = sym_slot_sum(s, nb, I, b, d_lo, dc, si, sj);
+    if (!last) {
+        raw[3 * b] = s.x;
+        raw[3 * b + 1] = s.y;
+        raw[3 * b + 2] = s.z;
+        return;
+    }
+    const float3 d = sym_diag_tile(pos, mass, n, b, eps2, tile);
+    if (b < n) {
+        out[3 * b] = __fadd_rn(d.x, s.x);
+        out[3 * b + 1] = __fadd_rn(d.y, s.y);
+        out[3 * b + 2] = __fadd_rn(d.z, s.z);
+    }
+}
+
+template <bool MXU>
+static int launch_pairs(const float* pos, const float* mass, long long n,
+                        long long nb, long long d_lo, long long dc,
+                        float eps2, float* si, float* sj, void* stream) {
+    if (dc <= 0) return 0;
+    sym_tc_pairs_kernel<MXU><<<(unsigned)(nb * dc), SYM_TILE, 0,
+                               (cudaStream_t)stream>>>(pos, mass, n, nb, d_lo,
+                                                       eps2, si, sj);
+    return (int)cudaGetLastError();
+}
+
+// The pair pass of K5 and of K6, each with K2's nbt_sym_pairs signature.
+extern "C" int nbt_sym_turbo_pairs(const float* pos, const float* mass,
+                                   long long n, long long nb, long long d_lo,
+                                   long long dc, float eps2, float* si,
+                                   float* sj, void* stream) {
+    return launch_pairs<false>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
+                               stream);
+}
+
+extern "C" int nbt_sym_mxu_pairs(const float* pos, const float* mass,
+                                 long long n, long long nb, long long d_lo,
+                                 long long dc, float eps2, float* si,
+                                 float* sj, void* stream) {
+    return launch_pairs<true>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
+                              stream);
+}
+
+extern "C" int nbt_sym_tc_reduce(const float* pos, const float* mass,
+                                 long long n, long long nb, long long d_lo,
+                                 long long dc, const float* si,
+                                 const float* sj, float* raw, int first,
+                                 int last, float eps2, float* out,
+                                 void* stream) {
+    sym_tc_reduce_kernel<<<(unsigned)nb, SYM_TILE, 0, (cudaStream_t)stream>>>(
+        pos, mass, n, nb, d_lo, dc, si, sj, raw, first, last, eps2, out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int nbt_sym_tc_tile(void) { return SYM_TILE; }

@@ -163,6 +163,35 @@ __device__ __forceinline__ float3 sym_diag(
     return make_float3(ax, ay, az);
 }
 
+// Body b's one-sided diagonal-tile sum (m_j weights) for every body, mass 0
+// included: the diagonal of the tensor-core tiers K5/K6 (forces_sym_tc.cu),
+// whose slot sums carry m_j, not m_i, and so are complete for a massless
+// body without a one-sided recompute.  Every thread of the block calls it;
+// the result is meaningful for b < n only.  The caller syncs before
+// reusing `tile`.
+__device__ __forceinline__ float3 sym_diag_tile(
+        const float* pos, const float* __restrict__ mass,
+        long long n, long long b, float eps2, float4* tile) {
+    const int t = threadIdx.x;
+    tile[t] = load_body(pos, mass, b, n);
+    __syncthreads();
+    const float4 bi = tile[t];
+    float ax = 0.f, ay = 0.f, az = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < SYM_TILE; ++k) {
+        const float4 q = tile[k];
+        const float dx = q.x - bi.x;
+        const float dy = q.y - bi.y;
+        const float dz = q.z - bi.z;
+        const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+        const float f = q.w * rsqrtf(d2 * d2 * d2);
+        ax += f * dx;
+        ay += f * dy;
+        az += f * dz;
+    }
+    return make_float3(ax, ay, az);
+}
+
 // The acceleration of a body of mass m from its diagonal sum `diag` and
 // its summed slots s: diag + s / m, or diag alone (its whole row) at m = 0.
 __device__ __forceinline__ float3 sym_descale(float3 diag, float3 s,

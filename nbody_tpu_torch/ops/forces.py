@@ -4,6 +4,9 @@
 Off CUDA, ``auto`` resolves as the JAX package does off the TPU.  On CUDA
 it picks the one-sided kernel K1 (``pallas``) below ``SYM_CROSSOVER_N``
 bodies and the pair-symmetric kernel K2 (``pallas_sym2``) from there up.
+The tensor-core tiers (``pallas_turbo`` K9, ``pallas_mxu`` K10,
+``pallas_sym_turbo`` K5, ``pallas_sym_mxu`` K6) run only when named: the
+JAX package's ``auto`` never picks them either.
 """
 
 from __future__ import annotations
@@ -12,8 +15,20 @@ import torch
 
 from ..config import SimConfig
 from .forces_sym import forces_sym
+from .forces_sym_tc import forces_sym_mxu, forces_sym_turbo
 from .forces_tiled import forces_tiled
+from .forces_tiled_tc import forces_tiled_mxu, forces_tiled_turbo
 from .forces_torch import forces_chunked, forces_nxn
+
+# impl -> the wrapper of its kernel.
+_KERNELS = {
+    "pallas": forces_tiled,                    # K1, exact
+    "pallas_sym2": forces_sym,                 # K2, exact, pair-symmetric
+    "pallas_turbo": forces_tiled_turbo,        # K9
+    "pallas_mxu": forces_tiled_mxu,            # K10
+    "pallas_sym_turbo": forces_sym_turbo,      # K5
+    "pallas_sym_mxu": forces_sym_mxu,          # K6
+}
 
 _NXN_MAX_N = 16384
 
@@ -50,8 +65,7 @@ def compute_forces(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
         return forces_nxn(pos, mass, cfg.eps2)
     if impl == "xla":
         return forces_chunked(pos, mass, cfg.eps2, chunk=cfg.chunk)
-    if impl == "pallas":
-        return forces_tiled(pos, mass, cfg.eps2)
-    if impl == "pallas_sym2":
-        return forces_sym(pos, mass, cfg.eps2)
+    kernel = _KERNELS.get(impl)
+    if kernel is not None:
+        return kernel(pos, mass, cfg.eps2)
     raise ValueError(f"unknown force impl {impl!r}")

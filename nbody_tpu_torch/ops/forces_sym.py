@@ -31,7 +31,10 @@ covers every N that fits in device memory.
 
 The wrapper takes the plain PyTorch version (``forces_sym_plain``, the
 same tiles, enumeration, slot layout and reduction order) only for CPU
-tensors.  For a CUDA tensor it launches the kernels or raises.
+tensors.  For a CUDA tensor it launches the kernels or raises.  The sweep
+over offset chunks and slots (``sweep`` on the card, ``sweep_plain`` in
+the twin) is shared with the tensor-core tiers K5/K6
+(``ops/forces_sym_tc.py``).
 """
 
 from __future__ import annotations
@@ -99,10 +102,14 @@ def offset_chunks(nb: int, n_pad: int,
             for lo in range(1, n_off + 1, step)]
 
 
-def forces_sym_plain(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
-                     slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
-    """Plain PyTorch twin of the kernels, with their tiles, enumeration,
-    slot layout and reduction order (summation within a tile differs)."""
+def sweep_plain(pos: torch.Tensor, mass: torch.Tensor, slot_budget: int,
+                pair_tiles):
+    """The plain twins' sweep, shared by K2 and K5/K6: the bodies padded
+    to whole tiles, every off-diagonal tile pair visited by offset with
+    ``pair_tiles(x_rows, m_rows, x_cols, m_cols) -> (row sums, column
+    sums)``, each (k, T, 3), written to the slots and the slots summed in
+    the kernels' order.  Returns the padded tiles (nb, T, 3), (nb, T) and
+    the slot sums (n_pad, 3)."""
     tile = SYM_TILE
     n = pos.shape[0]
     nb = -(-n // tile)
@@ -117,27 +124,73 @@ def forces_sym_plain(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
         for dk in range(dc):
             rows = torch.arange(offset_rows(nb, d_lo + dk), device=pos.device)
             cols = (rows + d_lo + dk) % nb
-            r = pt[cols][:, None, :, :] - pt[rows][:, :, None, :]
-            d2 = (r * r).sum(-1) + eps2
-            f = ((mt[rows][:, :, None] * mt[cols][:, None, :])
-                 * torch.rsqrt(d2 * d2 * d2))
-            p = f[..., None] * r                       # (k, Ti, Tj, 3)
-            si[dk, rows] = p.sum(2)
-            sj[dk, cols] = -p.sum(1)
+            si[dk, rows], sj[dk, cols] = pair_tiles(pt[rows], mt[rows],
+                                                    pt[cols], mt[cols])
         for dk in range(dc):
             raw = raw + si[dk].view(n_pad, 3)
             raw = raw + sj[dk].view(n_pad, 3)
-    # Diagonal tiles, one-sided with m_j weights, then the 1/m descale.
+    return pt, mt, raw
+
+
+def diag_plain(pt: torch.Tensor, mt: torch.Tensor,
+               eps2: float) -> torch.Tensor:
+    """The diagonal tiles, one-sided with m_j weights: (nb, T, 3), (nb, T)
+    -> (nb * T, 3)."""
     r = pt[:, None, :, :] - pt[:, :, None, :]
     d2 = (r * r).sum(-1) + eps2
     f = mt[:, None, :] * torch.rsqrt(d2 * d2 * d2)
-    diag = (f[..., None] * r).sum(2).view(n_pad, 3)
+    return (f[..., None] * r).sum(2).view(-1, 3)
+
+
+def forces_sym_plain(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                     slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """Plain PyTorch twin of the kernels, with their tiles, enumeration,
+    slot layout and reduction order (summation within a tile differs)."""
+    def pair_tiles(xi, mi, xj, mj):
+        r = xj[:, None, :, :] - xi[:, :, None, :]
+        d2 = (r * r).sum(-1) + eps2
+        f = (mi[:, :, None] * mj[:, None, :]) * torch.rsqrt(d2 * d2 * d2)
+        p = f[..., None] * r                           # (k, Ti, Tj, 3)
+        return p.sum(2), -p.sum(1)
+
+    pt, mt, raw = sweep_plain(pos, mass, slot_budget, pair_tiles)
+    # The diagonal tiles, then the 1/m descale.
+    mass_p = mt.flatten()
     inv_m = torch.where(mass_p != 0, 1.0 / mass_p, torch.zeros_like(mass_p))
-    acc = (diag + raw * inv_m[:, None])[:n]
+    acc = (diag_plain(pt, mt, eps2) + raw * inv_m[:, None])[:pos.shape[0]]
     zero = torch.nonzero(mass == 0).flatten()
     if zero.numel():
         acc[zero] = rect_forces(pos[zero], pos, mass, eps2)
     return acc
+
+
+def sweep(what: str, pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+          slot_budget: int, pairs, reduce) -> torch.Tensor:
+    """Launch a pair-symmetric sweep on the card, shared by K2 and K5/K6:
+    per offset chunk, ``pairs(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
+    stream)`` and ``reduce(pos, mass, n, nb, d_lo, dc, si, sj, raw, first,
+    last, eps2, out, stream)`` (the C entries, pointers as ints)."""
+    n = pos.shape[0]
+    nb = -(-n // SYM_TILE)
+    n_pad = nb * SYM_TILE
+    chunks = offset_chunks(nb, n_pad, slot_budget) or [(1, 0)]
+    out = torch.empty_like(pos)
+    slot_len = max(dc for _, dc in chunks) * n_pad * 3
+    si = pos.new_empty(slot_len)
+    sj = pos.new_empty(slot_len)
+    raw = pos.new_empty(n_pad * 3) if len(chunks) > 1 else None
+    raw_ptr = raw.data_ptr() if raw is not None else None
+    stream = _build.stream_handle(pos)
+    eps2 = float(eps2)
+    for k, (d_lo, dc) in enumerate(chunks):
+        _build.check_launch(f"{what} pairs", pairs(
+            pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, eps2,
+            si.data_ptr(), sj.data_ptr(), stream))
+        _build.check_launch(f"{what} reduce", reduce(
+            pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc,
+            si.data_ptr(), sj.data_ptr(), raw_ptr, int(k == 0),
+            int(k == len(chunks) - 1), eps2, out.data_ptr(), stream))
+    return out
 
 
 def forces_sym(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
@@ -147,29 +200,10 @@ def forces_sym(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
     _build.check_bodies("forces_sym", pos, mass)
     if pos.device.type == "cpu":
         return forces_sym_plain(pos, mass, eps2, slot_budget)
-    n = pos.shape[0]
-    nb = -(-n // SYM_TILE)
-    n_pad = nb * SYM_TILE
-    chunks = offset_chunks(nb, n_pad, slot_budget) or [(1, 0)]
     lib = _lib()
-    out = torch.empty_like(pos)
-    slot_len = max(dc for _, dc in chunks) * n_pad * 3
-    si = pos.new_empty(slot_len)
-    sj = pos.new_empty(slot_len)
-    raw = pos.new_empty(n_pad * 3) if len(chunks) > 1 else None
-    raw_ptr = raw.data_ptr() if raw is not None else None
-    stream = _build.stream_handle(pos)
-    eps2 = float(eps2)
     forces_sym.launches += 1
-    for k, (d_lo, dc) in enumerate(chunks):
-        _build.check_launch("forces_sym pairs", lib.nbt_sym_pairs(
-            pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, eps2,
-            si.data_ptr(), sj.data_ptr(), stream))
-        _build.check_launch("forces_sym reduce", lib.nbt_sym_reduce(
-            pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc,
-            si.data_ptr(), sj.data_ptr(), raw_ptr, int(k == 0),
-            int(k == len(chunks) - 1), eps2, out.data_ptr(), stream))
-    return out
+    return sweep("forces_sym", pos, mass, eps2, slot_budget,
+                 lib.nbt_sym_pairs, lib.nbt_sym_reduce)
 
 
 # Force evaluations that launched the kernels.

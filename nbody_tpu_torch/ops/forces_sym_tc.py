@@ -1,0 +1,132 @@
+"""K5 / K6: the pair-symmetric tensor-core tiers ``turbo`` and ``mxu``,
+hand-written in CUDA for Hopper.
+
+The counterparts of ``nbody_tpu/ops/forces_pallas_sym.py`` variants
+``turbo`` (``_accum_i_turbo`` / ``_accum_j_turbo``) and ``mxu``
+(``_accum_both_mxu``) of ``_make_sym_kernel``, with the exact diagonal
+pass ``_diag_kernel_vpu``, as ``_forces_sym_padded`` composes them.  Each
+off-diagonal pair's ``inv = rsqrt((|r|^2 + eps2)^3)`` is computed once and
+feeds both bodies through bf16 products on the tensor cores:
+
+- turbo: ``bf16(m_j inv)`` against J's position pack ``[x_hi|x_lo|1|0]``
+  for the force on i, ``bf16(m_i inv)`` transposed against I's pack for
+  the force on j;
+- mxu: the hi/lo limbs of ``inv`` against the mass-folded packs
+  ``[P_hi|P_lo|m_hi|m_lo]`` (P = m x) of J and of I, four products a tile.
+
+Each side's tile result is ``sum w x - x sum w`` (the correction of the
+Pallas kernels) once per 256 x 256 tile, an acceleration: neither tier is
+mass-scaled, so there is no 1/m descale, and a real body of mass 0 is
+right from its slots without K2's one-sided recompute.
+
+The schedule is K2's (``ops/forces_sym.py``): 256-wide tiles, the circular
+offsets of ``tile_pairs``, one writer per slot, the fixed-order reduce
+pass, offsets in chunks of ``offset_chunks``.  The JAX package partitions
+the pairs the same way at ``block_u=256`` (its diagonal superblocks are
+the exact pass), so that is where the two are compared.
+
+The wrappers take the plain PyTorch versions (``forces_sym_tc_plain``: the
+same tiles, enumeration, slot layout and reduction order) only for CPU
+tensors.  For a CUDA tensor they launch the kernels or raise.  Each kernel
+counts its launches on its own wrapper: ``forces_sym_turbo.launches`` (K5)
+and ``forces_sym_mxu.launches`` (K6).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .forces_sym import (SLOT_BUDGET_BYTES, SYM_TILE, diag_plain, sweep,
+                         sweep_plain)
+from .forces_tiled_tc import (VARIANTS, bf16_split, mass_folded_pack,
+                              pair_inv, position_pack, tile_result)
+
+_c_ll, _c_ptr, _c_int = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = _build.load("forces_sym_tc")
+    if lib.nbt_sym_tc_reduce.argtypes is None:
+        for fn in (lib.nbt_sym_turbo_pairs, lib.nbt_sym_mxu_pairs):
+            fn.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll, _c_ll,
+                           ctypes.c_float, _c_ptr, _c_ptr, _c_ptr]
+            fn.restype = _c_int
+        lib.nbt_sym_tc_reduce.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll,
+                                          _c_ll, _c_ll, _c_ptr, _c_ptr,
+                                          _c_ptr, _c_int, _c_int,
+                                          ctypes.c_float, _c_ptr, _c_ptr]
+        lib.nbt_sym_tc_reduce.restype = _c_int
+        lib.nbt_sym_tc_tile.argtypes = []
+        lib.nbt_sym_tc_tile.restype = _c_int
+        if lib.nbt_sym_tc_tile() != SYM_TILE:
+            raise RuntimeError("SYM_TILE differs between forces_sym.py and "
+                               "csrc/forces_sym_tc.cu")
+    return lib
+
+
+def _pair_tiles(xi, mi, xj, mj, eps2, variant):
+    """Row sums (force on i) and column sums (force on j) of the pair tiles
+    (k, T, 3) x (k, T, 3) -> (k, T, 3), (k, T, 3), accelerations."""
+    inv = pair_inv(xi, xj, eps2)                       # (k, Ti, Tj)
+    if variant == "turbo":
+        wi = (mj[:, None, :] * inv).to(torch.bfloat16).float()
+        wj = (mi[:, :, None] * inv).to(torch.bfloat16).float()
+        out_i = wi @ position_pack(xj)
+        out_j = wj.transpose(1, 2) @ position_pack(xi)
+    else:
+        hi, lo = bf16_split(inv)
+        pj, pi = mass_folded_pack(xj, mj), mass_folded_pack(xi, mi)
+        out_i = hi @ pj + lo @ pj
+        out_j = hi.transpose(1, 2) @ pi + lo.transpose(1, 2) @ pi
+    return tile_result(out_i, xi), tile_result(out_j, xj)
+
+
+def forces_sym_tc_plain(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                        variant: str,
+                        slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """Plain PyTorch twin of the kernels, with their tiles, enumeration,
+    slot layout and reduction order (summation within a tile differs): the
+    slot sums plus the exact diagonal tiles, no descale."""
+    pt, mt, raw = sweep_plain(
+        pos, mass, slot_budget,
+        lambda xi, mi, xj, mj: _pair_tiles(xi, mi, xj, mj, eps2, variant))
+    return (diag_plain(pt, mt, eps2) + raw)[:pos.shape[0]]
+
+
+def forces_sym_tc(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                  variant: str,
+                  slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """Softened all-pairs accelerations (N,3),(N,) -> (N,3) through K5
+    (``variant="turbo"``) or K6 (``"mxu"``), each pair computed once."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    _build.check_bodies(f"forces_sym_{variant}", pos, mass)
+    if pos.device.type == "cpu":
+        return forces_sym_tc_plain(pos, mass, eps2, variant, slot_budget)
+    lib = _lib()
+    _COUNTERS[variant].launches += 1
+    return sweep(f"forces_sym_{variant}", pos, mass, eps2, slot_budget,
+                 getattr(lib, f"nbt_sym_{variant}_pairs"),
+                 lib.nbt_sym_tc_reduce)
+
+
+def forces_sym_turbo(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                     slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """K5 (``impl="pallas_sym_turbo"``)."""
+    return forces_sym_tc(pos, mass, eps2, "turbo", slot_budget)
+
+
+def forces_sym_mxu(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                   slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """K6 (``impl="pallas_sym_mxu"``)."""
+    return forces_sym_tc(pos, mass, eps2, "mxu", slot_budget)
+
+
+# Force evaluations that launched K5 and K6, through any entry point.
+forces_sym_turbo.launches = 0
+forces_sym_mxu.launches = 0
+_COUNTERS = {"turbo": forces_sym_turbo, "mxu": forces_sym_mxu}

@@ -130,8 +130,8 @@ def test_cli_validate_long_horizon_and_refusals(capsys):
                      "--device", "cpu"]) == 2
     assert cli.main(["validate", "--n", "256", "--oracle", "native",
                      "--device", "cpu"]) == 2
-    with pytest.raises(NotImplementedError, match="K9"):
-        cli.main(["validate", "--n", "256", "--impl", "pallas_turbo",
+    with pytest.raises(NotImplementedError, match="K11"):
+        cli.main(["validate", "--n", "256", "--impl", "pallas_kahan",
                   "--device", "cpu"])
 
 
@@ -165,6 +165,7 @@ def test_package_imports_without_jax():
         "nbody_tpu_torch.bench_lib, nbody_tpu_torch.analysis\n"
         "from nbody_tpu_torch.ops import _build, forces_sym, forces_tiled\n"
         "from nbody_tpu_torch.ops import resident, pe\n"
+        "from nbody_tpu_torch.ops import forces_sym_tc, forces_tiled_tc\n"
         "from nbody_tpu_torch.models import simulation, energy\n"
         "from nbody_tpu_torch.io import checkpoint, logger\n"
         "assert not any(m == 'nbody_tpu' or m.startswith('nbody_tpu.') "
