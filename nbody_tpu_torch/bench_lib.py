@@ -38,6 +38,9 @@ from .utils.device import nvidia_smi_line, require_device
 from .utils.timing import sync
 
 _KERNEL_LIBS = {"pallas": ("forces_tiled",), "pallas_sym2": ("forces_sym",),
+                "pallas_sym": ("forces_sym",),
+                "pallas_kahan": ("forces_tiled",),
+                "pallas_fast": ("forces_fast",),
                 "pallas_turbo": ("forces_tiled_tc",),
                 "pallas_mxu": ("forces_tiled_tc",),
                 "pallas_sym_turbo": ("forces_sym_tc",),

@@ -4,8 +4,8 @@
 The flags and defaults are those of ``nbody_tpu/cli.py``, so one command
 line drives both packages, plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch versions).  Choices that name parts not ported yet
-(other impls, ``--shards``, ``--init`` presets, ``--analytic``, the native
-oracle; for ``run`` the ``--viz*`` sinks and ``--sort-every``) are refused
+(``pallas_sym_turbo2``, ``--shards``, ``--init`` presets, ``--analytic``,
+the native oracle; for ``run`` the ``--viz*`` sinks) are refused
 with the ROADMAP item that will bring them.  ``run --profile DIR`` writes
 a ``torch.profiler`` trace (``DIR/trace.json``).
 """
@@ -66,9 +66,10 @@ def _add_sim_args(p: argparse.ArgumentParser):
                             "pallas_sym_turbo", "pallas_sym_turbo2",
                             "pallas_sym_mxu"],
                    help="force backend; ported: auto, xla, xla_nxn, "
-                        "pallas (K1), pallas_sym2 (K2), pallas_turbo (K9), "
-                        "pallas_mxu (K10), pallas_sym_turbo (K5), "
-                        "pallas_sym_mxu (K6)")
+                        "pallas (K1), pallas_sym2 (K2), pallas_sym (K7), "
+                        "pallas_kahan (K11), pallas_fast (K12; with "
+                        "--sort-every), pallas_turbo (K9), pallas_mxu "
+                        "(K10), pallas_sym_turbo (K5), pallas_sym_mxu (K6)")
     p.add_argument("--integrator", default="reference", action=_TrackedStore,
                    choices=["reference", "kdk", "yoshida4"])
     p.add_argument("--seed", type=int, default=0, action=_TrackedStore)
@@ -101,8 +102,8 @@ def _add_sim_args(p: argparse.ArgumentParser):
                    choices=[None, True, False], metavar="{auto,on,off}",
                    help="resident multi-step kernels K3/K4 (whole chunks "
                         "in one cooperative launch); auto engages for "
-                        "pallas_sym2 inside the window measured on the "
-                        "card (ops/resident.py)")
+                        "pallas_sym2 and pallas_sym inside the window "
+                        "measured on the card (ops/resident.py)")
     p.add_argument("--shards", type=int, default=0,
                    help="shard bodies over this many devices (0 = single; "
                         "multi-GPU is not ported)")
@@ -137,9 +138,6 @@ def _refuse_unported(args) -> Optional[str]:
         if value is not None and value is not False:   # --viz-serve 0
             return (f"--{flag.replace('_', '-')}: the viz sinks are not "
                     f"ported yet (ROADMAP Queue 1 item 12)")
-    if getattr(args, "sort_every", 0) > 0:
-        return ("--sort-every: the Morton sort is not ported yet (ROADMAP "
-                "Queue 1 item 10)")
     if getattr(args, "analytic", False):
         return ("--analytic: the Kepler gates are not ported yet "
                 "(ROADMAP Queue 1 item 9)")
@@ -206,7 +204,7 @@ def cmd_run(args) -> int:
                 n_steps=args.steps, log_every=args.log_every,
                 checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every,
-                track_energy=args.energy)
+                track_energy=args.energy, sort_every=args.sort_every)
         finally:
             if prof is not None:
                 prof.__exit__(None, None, None)
@@ -374,7 +372,8 @@ def build_parser() -> argparse.ArgumentParser:
     runp.add_argument("--profile", default=None, metavar="DIR",
                       help="write a torch.profiler trace to DIR/trace.json")
     runp.add_argument("--sort-every", type=int, default=0,
-                      help="Morton-resort every K steps (not ported yet)")
+                      help="Morton-sort the bodies first and every K steps "
+                           "(0 = never); pallas_fast wants sorted bodies")
     runp.add_argument("--save-trajectory", default=None, metavar="NPZ",
                       help="capture position snapshots and save")
     runp.add_argument("--snap-every", type=int, default=1)

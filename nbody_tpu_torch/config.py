@@ -37,10 +37,7 @@ _VALID_IMPLS = ("auto", "xla", "xla_nxn", "pallas", "pallas_kahan",
 _VALID_INTEGRATORS = ("reference", "kdk", "yoshida4")
 
 # Impls whose kernels are still to be ported -> their ROADMAP Queue 2 item.
-UNPORTED_IMPLS = {
-    "pallas_kahan": "K11", "pallas_fast": "K12", "pallas_sym": "K7",
-    "pallas_sym_turbo2": "K14",
-}
+UNPORTED_IMPLS = {"pallas_sym_turbo2": "K14"}
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}

@@ -1,7 +1,8 @@
-// K1: one-sided exact all-pairs force tile for Hopper (sm_90a).
+// K1 and K11: one-sided exact all-pairs force tiles for Hopper (sm_90a).
 //
-// Replaces nbody_tpu/ops/forces_pallas.py:_force_kernel_vpu (driven there by
-// _forces_pallas_padded, forces_pallas and rect_forces_pallas).
+// Replaces nbody_tpu/ops/forces_pallas.py:_force_kernel_vpu (K1) and
+// :_force_kernel_vpu_kahan (K11), driven there by _forces_pallas_padded,
+// forces_pallas and rect_forces_pallas.
 //
 // Computes, for every body i of the i-set,
 //     acc_i = sum_j m_j * r_ij * rsqrt((|r_ij|^2 + eps2)^3),  r_ij = x_j - x_i
@@ -21,6 +22,14 @@
 // issues at a quarter of the FP32 rate.  Device memory is not a bound: each
 // staged tile is reused K1_THREADS times from shared memory.
 //
+// K11 sums each j-tile's contribution plainly over the K1_THREADS staged
+// bodies, then adds it to the running sum through a Kahan two-sum with a
+// carried compensation (y = t - c; s' = s + y; c = (s' - s) - y), the
+// Pallas kernel's tile-level compensation.  The two-sum is written with
+// __fadd_rn / __fsub_rn, and the build passes no --use_fast_math, so nvcc
+// neither contracts nor reassociates it (reassociated, c folds to 0).
+// It costs 4 adds a tile, nothing a pair.
+//
 // Left for later: one thread per body leaves the card under-occupied at
 // small N (N/128 blocks for 132 SMs); splitting j across threads, TMA-fed
 // multi-stage tiles and a wgmma-based accumulation are later work.
@@ -33,6 +42,15 @@
 
 #define K1_THREADS 128
 
+// s += t with the carried compensation c (a Kahan two-sum).
+__device__ __forceinline__ void kahan_add(float& s, float& c, float t) {
+    const float y = __fsub_rn(t, c);
+    const float u = __fadd_rn(s, y);
+    c = __fsub_rn(__fsub_rn(u, s), y);
+    s = u;
+}
+
+template <bool KAHAN>
 __global__ void __launch_bounds__(K1_THREADS)
 forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
                     const float* __restrict__ pos_j,
@@ -47,6 +65,7 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
         zi = pos_i[3 * i + 2];
     }
     float ax = 0.f, ay = 0.f, az = 0.f;
+    float cx = 0.f, cy = 0.f, cz = 0.f;       // K11's compensation
     for (long long j0 = 0; j0 < nj; j0 += K1_THREADS) {
         const long long j = j0 + threadIdx.x;
         tile[threadIdx.x] = (j < nj)
@@ -54,6 +73,11 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
                           mass_j[j])
             : make_float4(0.f, 0.f, 0.f, 0.f);
         __syncthreads();
+        // K1 sums straight into the running sum, K11 into the tile's own.
+        float tx = 0.f, ty = 0.f, tz = 0.f;
+        float& sx = KAHAN ? tx : ax;
+        float& sy = KAHAN ? ty : ay;
+        float& sz = KAHAN ? tz : az;
 #pragma unroll 8
         for (int k = 0; k < K1_THREADS; ++k) {
             const float4 b = tile[k];
@@ -62,9 +86,14 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
             const float dz = b.z - zi;
             const float d2 = dx * dx + dy * dy + dz * dz + eps2;
             const float f = b.w * rsqrtf(d2 * d2 * d2);
-            ax += f * dx;
-            ay += f * dy;
-            az += f * dz;
+            sx += f * dx;
+            sy += f * dy;
+            sz += f * dz;
+        }
+        if (KAHAN) {
+            kahan_add(ax, cx, tx);
+            kahan_add(ay, cy, ty);
+            kahan_add(az, cz, tz);
         }
         __syncthreads();
     }
@@ -75,14 +104,28 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
     }
 }
 
+template <bool KAHAN>
+static int launch(const float* pos_i, long long ni, const float* pos_j,
+                  const float* mass_j, long long nj, float eps2, float* acc,
+                  void* stream) {
+    if (ni <= 0) return 0;
+    const long long blocks = (ni + K1_THREADS - 1) / K1_THREADS;
+    forces_tiled_kernel<KAHAN><<<(unsigned)blocks, K1_THREADS, 0,
+                                 (cudaStream_t)stream>>>(
+        pos_i, ni, pos_j, mass_j, nj, eps2, acc);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int nbt_forces_tiled(const float* pos_i, long long ni,
                                 const float* pos_j, const float* mass_j,
                                 long long nj, float eps2, float* acc,
                                 void* stream) {
-    if (ni <= 0) return 0;
-    const long long blocks = (ni + K1_THREADS - 1) / K1_THREADS;
-    forces_tiled_kernel<<<(unsigned)blocks, K1_THREADS, 0,
-                          (cudaStream_t)stream>>>(pos_i, ni, pos_j, mass_j,
-                                                  nj, eps2, acc);
-    return (int)cudaGetLastError();
+    return launch<false>(pos_i, ni, pos_j, mass_j, nj, eps2, acc, stream);
+}
+
+extern "C" int nbt_forces_tiled_kahan(const float* pos_i, long long ni,
+                                      const float* pos_j,
+                                      const float* mass_j, long long nj,
+                                      float eps2, float* acc, void* stream) {
+    return launch<true>(pos_i, ni, pos_j, mass_j, nj, eps2, acc, stream);
 }

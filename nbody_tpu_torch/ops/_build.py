@@ -121,6 +121,26 @@ def check_bodies(what: str, pos, mass) -> None:
         raise ValueError(f"{what}: pos and mass must be contiguous")
 
 
+def check_rect(what: str, pos_i, pos_j, mass_j,
+               self_tile: bool = False) -> None:
+    """The rect entry points' contract: ``check_bodies`` on the j-set, a
+    contiguous float32 (Ni,3) i-set on the same device, and with
+    ``self_tile`` an i-set no longer than the j-set (it must be a prefix,
+    so that index equality means the same body)."""
+    import torch
+    check_bodies(what, pos_j, mass_j)
+    if (pos_i.dtype != torch.float32 or pos_i.dim() != 2
+            or pos_i.shape[1] != 3 or not pos_i.is_contiguous()
+            or pos_i.device != pos_j.device):
+        raise ValueError(f"{what}: pos_i must be a contiguous float32 "
+                         f"(Ni, 3) tensor on {pos_j.device}")
+    if self_tile and pos_j.shape[0] < pos_i.shape[0]:
+        raise ValueError(
+            "self_tile=True requires the j set to contain the i set as a "
+            f"prefix (got Ni={pos_i.shape[0]} > Nj={pos_j.shape[0]}): index "
+            "equality must mean 'same body'")
+
+
 def stream_handle(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
     import torch

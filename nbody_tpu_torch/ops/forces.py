@@ -4,7 +4,10 @@
 Off CUDA, ``auto`` resolves as the JAX package does off the TPU.  On CUDA
 it picks the one-sided kernel K1 (``pallas``) below ``SYM_CROSSOVER_N``
 bodies and the pair-symmetric kernel K2 (``pallas_sym2``) from there up.
-The tensor-core tiers (``pallas_turbo`` K9, ``pallas_mxu`` K10,
+With ``resident=True`` it resolves to ``pallas_sym2`` at any N and on any
+device, as the JAX package does, so the forced resident path engages.
+The other tiers (``pallas_sym`` K7, ``pallas_kahan`` K11, ``pallas_fast``
+K12, and the tensor-core tiers ``pallas_turbo`` K9, ``pallas_mxu`` K10,
 ``pallas_sym_turbo`` K5, ``pallas_sym_mxu`` K6) run only when named: the
 JAX package's ``auto`` never picks them either.
 """
@@ -14,9 +17,10 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig
-from .forces_sym import forces_sym
+from .forces_fast import forces_fast
+from .forces_sym import forces_sym, forces_sym_vpu
 from .forces_sym_tc import forces_sym_mxu, forces_sym_turbo
-from .forces_tiled import forces_tiled
+from .forces_tiled import forces_tiled, forces_tiled_kahan
 from .forces_tiled_tc import forces_tiled_mxu, forces_tiled_turbo
 from .forces_torch import forces_chunked, forces_nxn
 
@@ -24,6 +28,9 @@ from .forces_torch import forces_chunked, forces_nxn
 _KERNELS = {
     "pallas": forces_tiled,                    # K1, exact
     "pallas_sym2": forces_sym,                 # K2, exact, pair-symmetric
+    "pallas_sym": forces_sym_vpu,              # K7, exact, pair-symmetric
+    "pallas_kahan": forces_tiled_kahan,        # K11, exact, compensated
+    "pallas_fast": forces_fast,                # K12, centred distances
     "pallas_turbo": forces_tiled_turbo,        # K9
     "pallas_mxu": forces_tiled_mxu,            # K10
     "pallas_sym_turbo": forces_sym_turbo,      # K5
@@ -48,6 +55,11 @@ def resolve_impl(cfg: SimConfig) -> str:
     if cfg.dtype != "float32":
         # The kernels are float32-only; the plain paths follow the dtype.
         return "xla_nxn" if cfg.n_bodies <= 4096 else "xla"
+    if cfg.resident is True:
+        # Forced resident: an impl the resident kernels serve at any N and
+        # on any device; should_use_resident raises if the run is out of
+        # their scope.
+        return "pallas_sym2"
     if torch.device(cfg.device).type != "cuda":
         return "xla_nxn" if cfg.n_bodies <= 4096 else "xla"
     return "pallas_sym2" if cfg.n_bodies >= SYM_CROSSOVER_N else "pallas"

@@ -136,18 +136,8 @@ def _launch(pos_i, pos_j, mass_j, eps2, variant, self_tile):
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
-    _build.check_bodies(f"forces_tiled_{variant}", pos_j, mass_j)
-    if (pos_i.dtype != torch.float32 or pos_i.dim() != 2
-            or pos_i.shape[1] != 3 or not pos_i.is_contiguous()
-            or pos_i.device != pos_j.device):
-        raise ValueError(f"forces_tiled_{variant}: pos_i must be a "
-                         f"contiguous float32 (Ni, 3) tensor on "
-                         f"{pos_j.device}")
-    if self_tile and pos_j.shape[0] < pos_i.shape[0]:
-        raise ValueError(
-            "self_tile=True requires the j set to contain the i set as a "
-            f"prefix (got Ni={pos_i.shape[0]} > Nj={pos_j.shape[0]}): index "
-            "equality must mean 'same body'")
+    _build.check_rect(f"forces_tiled_{variant}", pos_i, pos_j, mass_j,
+                      self_tile)
     if pos_i.device.type == "cpu":
         return rect_forces_tiled_tc_plain(pos_i, pos_j, mass_j, eps2,
                                           variant, self_tile)

@@ -39,9 +39,10 @@ from ..models.state import SimState
 from . import _build
 from .forces_sym import SLOT_BUDGET_BYTES, SYM_TILE, forces_sym_plain
 
-# Implementations the resident kernels stand in for (they compute K2's
-# math).
-RESIDENT_IMPLS = ("pallas_sym2",)
+# Implementations the resident kernels stand in for, as in the JAX
+# package: they compute K2's math, and every exact pair-symmetric request
+# (K2's pallas_sym2, K7's pallas_sym) routes there alike.
+RESIDENT_IMPLS = ("pallas_sym2", "pallas_sym")
 
 
 def _slot_bytes(n: int) -> int:
@@ -112,8 +113,8 @@ def should_use_resident(cfg, impl: str) -> bool:
     if cfg.dtype != "float32":
         reasons.append(f"dtype={cfg.dtype!r} (the kernel is float32-only)")
     if impl not in RESIDENT_IMPLS:
-        reasons.append(f"impl={impl!r} (the exact pair-symmetric tier "
-                       "pallas_sym2 only)")
+        reasons.append(f"impl={impl!r} (the exact pair-symmetric tiers "
+                       f"{', '.join(RESIDENT_IMPLS)} only)")
     if cfg.n_bodies > RESIDENT_MAX_N:
         reasons.append(
             f"N={cfg.n_bodies} > {RESIDENT_MAX_N}: the slots of every "

@@ -12,6 +12,7 @@ from nbody_tpu.config import _VALID_IMPLS as JAX_IMPLS
 from nbody_tpu.ops.forces import resolve_impl as jax_resolve_impl
 from nbody_tpu_torch.config import UNPORTED_IMPLS, _VALID_IMPLS, SimConfig
 from nbody_tpu_torch.ops.forces import SYM_CROSSOVER_N, resolve_impl
+from nbody_tpu_torch.ops.resident import should_use_resident
 
 
 def test_fields_and_defaults_equal_jax():
@@ -61,11 +62,28 @@ def test_invalid_values_raise_value_error():
             SimConfig(**kw)
 
 
-@pytest.mark.parametrize("n", [256, 2048, 4096, 4097, 8192, 65536])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_resolve_impl_off_cuda_matches_jax_off_tpu(n, dtype):
-    port = resolve_impl(SimConfig(n_bodies=n, dtype=dtype, device="cpu"))
-    assert port == jax_resolve_impl(JaxSimConfig(n_bodies=n, dtype=dtype))
+# ``resident=True`` cases at the N of the forced-resident fault: ``auto``
+# once resolved to ``xla_nxn`` / ``xla`` off the card (``pallas`` below the
+# crossover on it) and the resident path then raised.
+@pytest.mark.parametrize("dtype,n,resident", [
+    *(pytest.param(d, n, None, id=f"{d}-{n}")
+      for d in ("float32", "float64")
+      for n in (256, 2048, 4096, 4097, 8192, 65536)),
+    *(pytest.param(d, n, True, id=f"{d}-{n}-resident")
+      for d in ("float32", "float64") for n in (512, 1024, 8192))])
+def test_resolve_impl_off_cuda_matches_jax_off_tpu(dtype, n, resident):
+    port = resolve_impl(SimConfig(n_bodies=n, dtype=dtype, resident=resident,
+                                  device="cpu"))
+    want = jax_resolve_impl(JaxSimConfig(n_bodies=n, dtype=dtype,
+                                         resident=resident))
+    assert port == want
+    if resident and dtype == "float32":
+        # At any N and on either device, so the resident path engages;
+        # float64 keeps the plain paths.
+        assert want == "pallas_sym2"
+        cfg = SimConfig(n_bodies=n, resident=True, device="cuda")
+        assert resolve_impl(cfg) == want
+        assert should_use_resident(cfg, want)
 
 
 def test_resolve_impl_on_cuda_uses_the_crossover():

@@ -130,8 +130,8 @@ def test_cli_validate_long_horizon_and_refusals(capsys):
                      "--device", "cpu"]) == 2
     assert cli.main(["validate", "--n", "256", "--oracle", "native",
                      "--device", "cpu"]) == 2
-    with pytest.raises(NotImplementedError, match="K11"):
-        cli.main(["validate", "--n", "256", "--impl", "pallas_kahan",
+    with pytest.raises(NotImplementedError, match="K14"):
+        cli.main(["validate", "--n", "256", "--impl", "pallas_sym_turbo2",
                   "--device", "cpu"])
 
 
@@ -166,6 +166,8 @@ def test_package_imports_without_jax():
         "from nbody_tpu_torch.ops import _build, forces_sym, forces_tiled\n"
         "from nbody_tpu_torch.ops import resident, pe\n"
         "from nbody_tpu_torch.ops import forces_sym_tc, forces_tiled_tc\n"
+        "from nbody_tpu_torch.ops import forces_fast\n"
+        "from nbody_tpu_torch.models import ordering\n"
         "from nbody_tpu_torch.models import simulation, energy\n"
         "from nbody_tpu_torch.io import checkpoint, logger\n"
         "assert not any(m == 'nbody_tpu' or m.startswith('nbody_tpu.') "
