@@ -12,14 +12,20 @@ K10, K5 and K6 also against their tier gates on a float64 direct sum, K5
 at N = 1,048,576 too; the exact tiers K7 and K11 and the centred tier K12,
 on Morton-sorted bodies, at their float64 gates; K12 also on unsorted
 bodies, with planted close pairs, and on 4096 sorted rows at N = 1M;
-K11 also against K1), checks K2 at
+K11 also against K1; the K14 variants turbo2 and turbof at turbo's
+float64 gate at 8192 and on sampled rows at 1M, turbof with massless
+bodies, turbop bit for bit against K5, and the fold schedule at the exact
+gate and against classic K2/K7 at 8192 and 1M), checks K2 at
 N = 1,048,576 against the direct-form ``rect_forces``, then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
-K2, K7 and K11, and each tensor-core tier), and the ``run`` verb (resident
-K3 with a checkpoint, K4 with yoshida4, auto routing, N = 1M with
-``--energy``, N = 1M with ``pallas_sym_turbo``, K12 with ``--sort-every``
-at N = 8192 and 1M, and a resume that must equal one uninterrupted run).
+K2, K7 and K11, and each tensor-core tier, ``pallas_sym_turbo2`` among
+them), the variant / schedule entry point ``forces_pallas_sym`` for turbof,
+turbop and the fold schedule, and the ``run`` verb (resident K3 with a
+checkpoint, K4 with yoshida4, auto routing, N = 1M with ``--energy``,
+N = 1M with ``pallas_sym_turbo`` and with ``pallas_sym_turbo2``, K12 with
+``--sort-every`` at N = 8192 and 1M, and a resume that must equal one
+uninterrupted run).
 Then 200 steps under the momentum and angular-momentum gates, the K1/K2
 and resident crossovers that set ``auto``, and the bench lines.
 Any failed check raises and the script exits nonzero; without a CUDA
@@ -61,10 +67,14 @@ TIER_GATES = {"forces_tiled_turbo": (5e-2, 0.1),
               "forces_tiled_mxu": (None, 1e-3),
               "forces_sym_turbo": (5e-2, 0.1),
               "forces_sym_mxu": (5e-3, 5e-3),
+              "forces_sym_turbo2": (5e-2, 0.1),
+              "forces_sym_turbof": (5e-2, 0.1),
               # The exact tiers at validate's acc allowance; K12 at its JAX
               # test's gate, on Morton-sorted bodies.
               "forces_sym_vpu": (None, 5e-4),
               "forces_tiled_kahan": (None, 5e-4),
+              "forces_sym_fold": (None, 5e-4),
+              "forces_sym_vpu_fold": (None, 5e-4),
               "forces_fast": (None, 1e-3)}
 # K12 against its plain twin, sorted or not: per component, relative 1e-3
 # with an absolute floor of 1e-4 of the largest |a|, the tensor-core
@@ -88,7 +98,8 @@ FAST_ROW_REL_TOL = 1e-2
 TIER_IMPLS = {"forces_tiled_turbo": "pallas_turbo",
               "forces_tiled_mxu": "pallas_mxu",
               "forces_sym_turbo": "pallas_sym_turbo",
-              "forces_sym_mxu": "pallas_sym_mxu"}
+              "forces_sym_mxu": "pallas_sym_mxu",
+              "forces_sym_turbo2": "pallas_sym_turbo2"}
 
 # Published H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit):
 # float32 outside the tensor cores, bf16 on the tensor cores (dense), and
@@ -117,7 +128,13 @@ FLOPS_TC = {"forces_tiled_turbo": (13, 16), "forces_tiled_mxu": (14, 32),
             # by m_j, 1 for the split; tensor cores 36 for the K=18 cross
             # product (2 x 18 a pair; the padding to K=32 is not work) and 32
             # for the hi/lo accumulate products.
-            "forces_fast": (12, 68)}
+            "forces_fast": (12, 68),
+            # K14a turbo2: K6's geometry with no weight multiply (12), one
+            # bf16 limb on each side (32).  K14b turbof: 12 and m_i m_j
+            # times inv (14), one shared weight on both sides (32).  K14c
+            # turbop: K5's work (14, 32).
+            "forces_sym_turbo2": (12, 32), "forces_sym_turbof": (14, 32),
+            "forces_sym_turbop": (14, 32)}
 # K7 for both bodies of a pair: K2's 23 with inv computed once and the two
 # one-sided weights m_j inv, m_i inv (JAX's count for variant vpu: 26).
 # K11 an interaction: K1's 19 (its two-sum is 4 adds a j-tile).
@@ -127,6 +144,8 @@ ONE_SIDED = ("forces_tiled_turbo", "forces_tiled_mxu", "forces_fast")
 # Integrator flops per body and (sub-)step: reference kick + drift, KDK
 # two kicks + drift.
 FLOPS_REF_UPDATE, FLOPS_KDK_UPDATE = 12, 18
+# Rounds of classic, K14, K14, classic at N = 1M for each K14 kernel.
+K14_ROUNDS = 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -171,18 +190,24 @@ def bound(flops, nbytes, tc_flops=0.0):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def sym_bound(fp32, tc, n, width=256):
+    """The bound of one pair-symmetric evaluation of N bodies at ``fp32``
+    float32 and ``tc`` tensor-core flops a pair off the diagonal tiles (or
+    superblocks) of ``width`` bodies, plus the exact one-sided diagonal."""
+    full, rem = divmod(n, width)
+    diag = full * width * width + rem * rem
+    work = (n * n - diag) // 2
+    return bound(fp32 * work + FLOPS_ONE_SIDED * diag, 28 * n, tc * work)
+
+
 def tc_bound(kname, n):
     """The bound of tensor-core tier ``kname`` for one evaluation of N
     bodies: one-sided N(N-1) interactions, or pair-symmetric pairs off the
     256-wide diagonal tiles plus the exact diagonal tiles."""
     fp32, tc = FLOPS_TC[kname]
     if kname in ONE_SIDED:
-        work, diag = n * (n - 1), 0
-    else:
-        full, rem = divmod(n, 256)
-        diag = full * 256 * 256 + rem * rem
-        work = (n * n - diag) // 2
-    return bound(fp32 * work + FLOPS_ONE_SIDED * diag, 28 * n, tc * work)
+        return bound(fp32 * n * (n - 1), 28 * n, tc * n * (n - 1))
+    return sym_bound(fp32, tc, n)
 
 
 def bodies(n, seed, device):
@@ -518,6 +543,147 @@ def check_slice4(dev, eps2, record, smi):
     print(f"[time] K7/K11/K12 checks: {time.perf_counter() - t0:.1f} s")
 
 
+def k14_bound(kname, n):
+    """The bound of one evaluation of a K14 kernel for N bodies: the
+    tensor-core variants on 256-wide diagonal tiles, the fold schedule
+    (K2's or K7's flops a pair) on diagonal superblocks of FOLD_BLOCK_U."""
+    from nbody_tpu_torch.ops.forces_sym import FOLD_BLOCK_U
+    if kname in FLOPS_TC:
+        return tc_bound(kname, n)
+    fp32 = FLOPS_PAIR if kname == "forces_sym_fold" else FLOPS_PAIR_VPU
+    return sym_bound(fp32, 0, n, FOLD_BLOCK_U)
+
+
+def check_k14(dev, eps2, record, smi):
+    """K14a-c (turbo2, turbof, turbop) and K14d (the fold schedule with K2's
+    and K7's math) against their plain twins at a ragged N = 2500 and at
+    the main path's 8192 on unsorted bodies, bit-reproducible and chunk-
+    invariant; turbo2 and turbof at turbo's float64 gate at 8192 and on
+    4096 sampled rows at 1M, turbof with three real massless bodies; turbop
+    bit-equal to K5 at 8192 and 1M; the fold kernels at the exact tiers'
+    float64 gate at 8192 and within the exact tolerance of classic K2/K7 at
+    8192 and 1M; their times at 8192 and, in K14_ROUNDS rounds with the
+    classic kernel, at 1M."""
+    import torch
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_sym_tc as ktc
+    from nbody_tpu_torch.ops.forces_sym_variants import forces_pallas_sym
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
+    t0 = time.perf_counter()
+    u = k2.FOLD_BLOCK_U
+    tc = {"rel_tol": TC_REL_TOL, "abs_floor": TC_ABS_FLOOR}
+    # name -> (variant, schedule, twin, tolerance, tile or superblock).
+    kernels = {
+        f"forces_sym_{v}": (
+            v, None, lambda p, m, v=v: ktc.forces_sym_tc_plain(p, m, eps2, v),
+            tc, 256)
+        for v in ("turbo2", "turbof", "turbop")}
+    kernels["forces_sym_fold"] = (
+        "vpu2", "fold",
+        lambda p, m: k2.forces_sym_plain(p, m, eps2, block_u=u), {}, u)
+    kernels["forces_sym_vpu_fold"] = (
+        "vpu", "fold",
+        lambda p, m: k2.forces_sym_vpu_plain(p, m, eps2, block_u=u), {}, u)
+
+    def run(kname, p, m, **kw):
+        """K14 kernel ``kname`` through the entry point a user calls."""
+        variant, schedule = kernels[kname][:2]
+        return forces_pallas_sym(p, m, eps2, variant=variant,
+                                 schedule=schedule, **kw)
+
+    for n in (2500, 8192):
+        pos, mass = bodies(n, n + 13, dev)
+        for kname, (_, _, plain, tol, width) in kernels.items():
+            got = run(kname, pos, mass)
+            err = compare(f"{kname} vs plain, N={n}", got, plain(pos, mass),
+                          **tol)
+            check(torch.equal(got, run(kname, pos, mass)),
+                  f"{kname} N={n}: not bit-reproducible")
+            one = run(kname, pos, mass,
+                      slot_budget=24 * (-(-n // width) * width))
+            check(torch.equal(got, one), f"{kname} N={n}: one offset per "
+                  f"chunk differs from one chunk")
+            if n == 8192:
+                record[kname] = {
+                    "shape": "N=8192, one force evaluation",
+                    "max_abs_err": err[0],
+                    "plain_ms": time_ms(lambda: plain(pos, mass), dev,
+                                        iters=3)}
+    print("[check] K14a-d bit-reproducible run to run and across offset "
+          "chunks")
+    pos, mass = bodies(1000, 17, dev)
+    mass[[3, 400, 999]] = 0.0
+    ref = rect_forces(pos.double(), pos.double(), mass.double(), eps2)
+    acc = ktc.forces_sym_turbof(pos, mass, eps2)
+    compare("forces_sym_turbof, the three massless rows vs float64 direct "
+            "form", acc[[3, 400, 999]], ref[[3, 400, 999]])
+    tier_gate("forces_sym_turbof", acc, ref)
+
+    # N = 8192 (the bodies of the last twin round, made again): the gates,
+    # turbop against K5, fold against classic, and the times.
+    n = 8192
+    pos, mass = bodies(n, n + 13, dev)
+    ref = rect_forces(pos.double(), pos.double(), mass.double(), eps2)
+    k5 = ktc.forces_sym_turbo(pos, mass, eps2)
+    classic = {"forces_sym_fold": k2.forces_sym(pos, mass, eps2),
+               "forces_sym_vpu_fold": k2.forces_sym_vpu(pos, mass, eps2)}
+    for kname in kernels:
+        got = run(kname, pos, mass)
+        torch.cuda.synchronize()
+        if kname == "forces_sym_turbop":
+            check(torch.equal(got, k5), "turbop N=8192: differs from K5")
+            print("[check] forces_sym_turbop, N=8192: bit-equal to K5")
+        else:
+            tier_gate(kname, got, ref)
+        if kname in classic:
+            compare(f"{kname} vs classic, N={n}", got, classic[kname])
+        record[kname]["ms"] = time_ms(lambda: run(kname, pos, mass), dev)
+        record[kname]["bound"] = k14_bound(kname, n)
+
+    # N = 1M: turbo2 and turbof on 4096 sampled rows against float64,
+    # turbop against K5 and fold against classic over every row; times.
+    n = 1 << 20
+    pos, mass = bodies(n, 6, dev)
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(6))[
+        :4096].to(dev)
+    ref = rect_forces(pos[rows].double(), pos.double(), mass.double(), eps2,
+                      chunk=64)
+    against = {"forces_sym_turbop": ktc.forces_sym_turbo,
+               "forces_sym_fold": k2.forces_sym,
+               "forces_sym_vpu_fold": k2.forces_sym_vpu}
+    for kname in kernels:
+        got = run(kname, pos, mass)
+        if kname == "forces_sym_turbop":
+            check(torch.equal(got, against[kname](pos, mass, eps2)),
+                  "turbop N=1M: differs from K5")
+            print("[check] forces_sym_turbop, N=1M: bit-equal to K5")
+        elif kname in against:
+            compare(f"{kname} vs classic, N=1M", got,
+                    against[kname](pos, mass, eps2))
+        else:
+            tier_gate(kname, got[rows], ref)
+        del got
+        # In rounds with the classic kernel it varies (K5 for the
+        # tensor-core variants): classic, K14, K14, classic; the ratio of
+        # classic's time to K14's in each round, and their spread.
+        base = against.get(kname, ktc.forces_sym_turbo)
+        k14_ms, ratios = [], []
+        for _ in range(K14_ROUNDS):
+            turns = [time_ms(f, dev, iters=1, warmup=0) for f in (
+                lambda: base(pos, mass, eps2), lambda: run(kname, pos, mass),
+                lambda: run(kname, pos, mass), lambda: base(pos, mass, eps2))]
+            k14_ms += turns[1:3]
+            ratios.append((turns[0] + turns[3]) / (turns[1] + turns[2]))
+        record[kname]["ms_1m"] = sum(k14_ms) / len(k14_ms)
+        record[kname]["bound_ms_1m"] = k14_bound(kname, n)[0]
+        print(f"[1M] {kname}: {record[kname]['ms_1m']:.3f} ms per "
+              f"evaluation; {base.__name__} / {kname} in {K14_ROUNDS} "
+              f"rounds: {', '.join(f'{r:.4f}' for r in ratios)} (spread "
+              f"{max(ratios) - min(ratios):.4f}) ({smi})")
+    print(f"[time] K14 checks: {time.perf_counter() - t0:.1f} s")
+
+
 def check_resident(dev, record):
     """K3 and K4 against their plain twins and, bit for bit, against the
     per-step K2 path; chunk invariance; real zero-mass bodies."""
@@ -744,10 +910,11 @@ def share_oracle_runs():
 
 def main_path(counts, reset):
     """The CLI's main paths with the launch counters: validate at N = 8192
-    (K1, K2, K7, K11, and the tensor-core tiers K9, K10, K5, K6), and the
-    run verb (K3, K4, auto, K8 at 1M, K5 at 1M, K12 with --sort-every at
-    8192 and 1M, resume).  Returns the launches of every kernel over all
-    of them."""
+    (K1, K2, K7, K11, and the tensor-core tiers K9, K10, K5, K6, K14a), the
+    entry point ``forces_pallas_sym`` at N = 8192 (K14b, K14c, K14d), and
+    the run verb (K3, K4, auto, K8 at 1M, K5 and K14a at 1M, K12 with
+    --sort-every at 8192 and 1M, resume).  Returns the launches of every
+    kernel over all of them."""
     import numpy as np
     from nbody_tpu_torch.cli import main as cli_main
 
@@ -796,6 +963,29 @@ def main_path(counts, reset):
         print(f"[time] validate --impl {impl}: "
               f"{time.perf_counter() - t0:.1f} s")
 
+    # The variants without an impl, through the entry point a caller
+    # names them by: each launches its own kernel once and nothing else.
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.ops.forces_sym_variants import forces_pallas_sym
+    cfg = nt.SimConfig(n_bodies=8192, seed=5)
+    state = nt.init_state(cfg)
+    for kernel, kw in (("forces_sym_turbof", {"variant": "turbof"}),
+                       ("forces_sym_turbop", {"variant": "turbop"}),
+                       ("forces_sym_fold", {"variant": "vpu2",
+                                            "schedule": "fold"}),
+                       ("forces_sym_vpu_fold", {"variant": "vpu",
+                                                "schedule": "fold"})):
+        before = counts()
+        acc = forces_pallas_sym(state.pos, state.mass, cfg.eps2, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(acc).all()),
+              f"forces_pallas_sym {kw}: non-finite")
+        delta = {k: v - before[k] for k, v in counts().items()}
+        print(f"[main path] forces_pallas_sym N=8192 {kw}: launches {delta}")
+        check(all(v == (1 if k == kernel else 0) for k, v in delta.items()),
+              f"forces_pallas_sym {kw}: launches {delta}")
+
     os.makedirs(WORK, exist_ok=True)
     a, b, c = (os.path.join(WORK, f"{x}.npz") for x in "abc")
     never = (lambda v: v == 0)
@@ -834,6 +1024,18 @@ def main_path(counts, reset):
           {k: (lambda v: v == 2) if k == "forces_sym_turbo"
            else (lambda v: v == 0) for k in counts()})
     print(f"[time] run --impl pallas_sym_turbo at 1M: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    end = os.path.join(WORK, "turbo2_1m.npz")
+    phase("run --impl pallas_sym_turbo2 --n 1048576 --steps 2",
+          ["run", "--impl", "pallas_sym_turbo2", "--n", "1048576", "--steps",
+           "2", "--checkpoint", end],
+          {k: (lambda v: v == 2) if k == "forces_sym_turbo2"
+           else (lambda v: v == 0) for k in counts()})
+    with np.load(end) as z:
+        check(np.isfinite(z["pos"]).all() and np.isfinite(z["vel"]).all(),
+              "run --impl pallas_sym_turbo2 at 1M: non-finite end state")
+    print(f"[time] run --impl pallas_sym_turbo2 at 1M: "
           f"{time.perf_counter() - t0:.1f} s")
     # K12, the documented way: Morton-sorted first and every K steps; every
     # body of the end state finite (the watchdog reads body 0 only).
@@ -912,6 +1114,7 @@ def main():
     check_forces(dev, 0.002, record)
     check_tc(dev, 0.002, record, smi)
     check_slice4(dev, 0.002, record, smi)
+    check_k14(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
     for kname, r in record.items():
@@ -933,7 +1136,12 @@ def main():
                 "forces_sym_mxu": k56.forces_sym_mxu,
                 "forces_sym_vpu": k2.forces_sym_vpu,
                 "forces_tiled_kahan": k1.forces_tiled_kahan,
-                "forces_fast": k12.forces_fast}
+                "forces_fast": k12.forces_fast,
+                "forces_sym_turbo2": k56.forces_sym_turbo2,
+                "forces_sym_turbof": k56.forces_sym_turbof,
+                "forces_sym_turbop": k56.forces_sym_turbop,
+                "forces_sym_fold": k2.forces_sym_fold,
+                "forces_sym_vpu_fold": k2.forces_sym_vpu_fold}
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -970,7 +1178,8 @@ def main():
                # K7 per step (auto would hand pallas_sym to K3 at 8192).
                {"n": 8192, "impl": "pallas_sym", "resident": False},
                {"n": 8192, "impl": "pallas_kahan"},
-               {"n": 8192, "impl": "pallas_fast"}):
+               {"n": 8192, "impl": "pallas_fast"},
+               {"n": 1 << 20, "impl": "pallas_sym_turbo2"}):
         t0 = time.perf_counter()
         res = run_benchmark(**kw)
         check(res["finite"], f"bench {kw}: non-finite")
@@ -1002,7 +1211,17 @@ def main():
             ("forces_tiled_kahan", "nbody_tpu_torch/csrc/forces_tiled.cu",
              "nbody_tpu/ops/forces_pallas.py:170"),
             ("forces_fast", "nbody_tpu_torch/csrc/forces_fast.cu",
-             "nbody_tpu/ops/forces_pallas.py:308")):
+             "nbody_tpu/ops/forces_pallas.py:308"),
+            ("forces_sym_turbo2", "nbody_tpu_torch/csrc/forces_sym_tc.cu",
+             "nbody_tpu/ops/forces_pallas_sym.py:353"),
+            ("forces_sym_turbof", "nbody_tpu_torch/csrc/forces_sym_tc.cu",
+             "nbody_tpu/ops/forces_pallas_sym.py:353"),
+            ("forces_sym_turbop", "nbody_tpu_torch/csrc/forces_sym_tc.cu",
+             "nbody_tpu/ops/forces_pallas_sym.py:453"),
+            ("forces_sym_fold", "nbody_tpu_torch/csrc/forces_sym.cu",
+             "nbody_tpu/ops/forces_pallas_sym.py:580"),
+            ("forces_sym_vpu_fold", "nbody_tpu_torch/csrc/forces_sym.cu",
+             "nbody_tpu/ops/forces_pallas_sym.py:580")):
         r = dict(record[kname])
         bound_ms, bound_by = r.pop("bound")
         # No single PyTorch call computes any of these functions.
@@ -1012,10 +1231,9 @@ def main():
                         "ms": r.pop("ms"), "plain_ms": r.pop("plain_ms"),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None, **r})
-    # K2, K5, K6 and K7 also replace the exact diagonal pass.
+    # The pair-symmetric kernels also replace the exact diagonal pass.
     for k in kernels:
-        if k["name"] in ("forces_sym", "forces_sym_turbo", "forces_sym_mxu",
-                         "forces_sym_vpu"):
+        if k["name"].startswith("forces_sym"):
             k["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:328"
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -44,7 +44,8 @@ _KERNEL_LIBS = {"pallas": ("forces_tiled",), "pallas_sym2": ("forces_sym",),
                 "pallas_turbo": ("forces_tiled_tc",),
                 "pallas_mxu": ("forces_tiled_tc",),
                 "pallas_sym_turbo": ("forces_sym_tc",),
-                "pallas_sym_mxu": ("forces_sym_tc",)}
+                "pallas_sym_mxu": ("forces_sym_tc",),
+                "pallas_sym_turbo2": ("forces_sym_tc",)}
 
 
 def run_benchmark(n: int = 65536, steps: Optional[int] = None,

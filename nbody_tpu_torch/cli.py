@@ -3,9 +3,10 @@
 
 The flags and defaults are those of ``nbody_tpu/cli.py``, so one command
 line drives both packages, plus ``--device`` (default ``cuda``; ``cpu``
-runs the plain PyTorch versions).  Choices that name parts not ported yet
-(``pallas_sym_turbo2``, ``--shards``, ``--init`` presets, ``--analytic``,
-the native oracle; for ``run`` the ``--viz*`` sinks) are refused
+runs the plain PyTorch versions).  Every ``--impl`` runs on the port's
+kernels.  Choices that name parts not ported yet (``--shards``, ``--init``
+presets, ``--analytic``, the native oracle; for ``run`` the ``--viz*``
+sinks) are refused
 with the ROADMAP item that will bring them.  ``run --profile DIR`` writes
 a ``torch.profiler`` trace (``DIR/trace.json``).
 """
@@ -65,11 +66,12 @@ def _add_sim_args(p: argparse.ArgumentParser):
                             "pallas_turbo", "pallas_sym", "pallas_sym2",
                             "pallas_sym_turbo", "pallas_sym_turbo2",
                             "pallas_sym_mxu"],
-                   help="force backend; ported: auto, xla, xla_nxn, "
+                   help="force backend: auto, xla, xla_nxn, "
                         "pallas (K1), pallas_sym2 (K2), pallas_sym (K7), "
                         "pallas_kahan (K11), pallas_fast (K12; with "
                         "--sort-every), pallas_turbo (K9), pallas_mxu "
-                        "(K10), pallas_sym_turbo (K5), pallas_sym_mxu (K6)")
+                        "(K10), pallas_sym_turbo (K5), pallas_sym_mxu (K6), "
+                        "pallas_sym_turbo2 (K14a)")
     p.add_argument("--integrator", default="reference", action=_TrackedStore,
                    choices=["reference", "kdk", "yoshida4"])
     p.add_argument("--seed", type=int, default=0, action=_TrackedStore)
@@ -322,7 +324,7 @@ def cmd_bench(args) -> int:
     if msg:
         print(msg, file=sys.stderr)
         return 2
-    _make_cfg(args)   # refuses unported impls and execution modes
+    _make_cfg(args)   # refuses the unported execution modes
     explicit = getattr(args, "_explicit", set())
     result = run_benchmark(
         n=args.n, steps=args.steps if "steps" in explicit else None,

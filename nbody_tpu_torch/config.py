@@ -4,9 +4,9 @@ The fields, defaults and the impl / integrator vocabulary are those of
 ``nbody_tpu/config.py``, so one command line drives both packages.  The
 port adds ``device`` (default ``"cuda"``) and ``torch_dtype``.
 
-Impls whose kernels are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item, and so do the TPU execution modes the port does not
-have (``flat_state=True``, ``prog_cap``, ``shards``).  ``resident=True``
+Every impl of the vocabulary runs on a kernel of the port.  The TPU
+execution modes the port does not have (``flat_state=True``, ``prog_cap``,
+``shards``) raise ``NotImplementedError`` naming their ROADMAP item.  ``resident=True``
 is accepted: it forces the resident kernels K3/K4, and routing
 (``ops/resident.py::should_use_resident``) raises with the reason when the
 run is out of their scope.
@@ -35,9 +35,6 @@ _VALID_IMPLS = ("auto", "xla", "xla_nxn", "pallas", "pallas_kahan",
                 "pallas_sym2", "pallas_sym_turbo", "pallas_sym_turbo2",
                 "pallas_sym_mxu")
 _VALID_INTEGRATORS = ("reference", "kdk", "yoshida4")
-
-# Impls whose kernels are still to be ported -> their ROADMAP Queue 2 item.
-UNPORTED_IMPLS = {"pallas_sym_turbo2": "K14"}
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -80,10 +77,6 @@ class SimConfig:
         if self.impl not in _VALID_IMPLS:
             raise ValueError(
                 f"impl must be one of {_VALID_IMPLS}, got {self.impl!r}")
-        if self.impl in UNPORTED_IMPLS:
-            raise NotImplementedError(
-                f"impl={self.impl!r} is not ported yet (ROADMAP Queue 2 "
-                f"{UNPORTED_IMPLS[self.impl]})")
         if self.integrator not in _VALID_INTEGRATORS:
             raise ValueError(
                 f"integrator must be one of {_VALID_INTEGRATORS}, "

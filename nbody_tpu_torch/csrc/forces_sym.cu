@@ -1,4 +1,5 @@
-// K2 and K7: Newton's-third-law exact all-pairs forces for Hopper (sm_90a).
+// K2, K7 and K14d: Newton's-third-law exact all-pairs forces for Hopper
+// (sm_90a).
 //
 // Replaces nbody_tpu/ops/forces_pallas_sym.py variant "vpu2":
 //   _make_sym_kernel (the off-diagonal tile pairs, _pair_products_sym) and
@@ -70,30 +71,30 @@
 // 23).  K2's device code in sym_common.cuh is untouched: K3/K4 stay
 // bit-equal to per-step K2.
 //
+// K14d (the fold schedule of _make_sym_kernel_fold) runs K2's and K7's
+// tiles on superblocks of several tiles and folds the j-side sums of a
+// superblock's row tiles on chip; its kernels and their contract are at
+// the end of this file.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
 
 #include "sym_common.cuh"
 
-// K7's pair tile: sym_pair_tile (K2) with the two one-sided weights
-// fi = m_j inv and fj = m_i inv in place of the shared F = m_i m_j inv.
-__device__ __forceinline__ void sym_vpu_pair_tile(
-        const float* __restrict__ pos, const float* __restrict__ mass,
-        long long n, long long nb, long long I, long long d, long long dk,
-        float eps2, float* __restrict__ si, float* __restrict__ sj,
-        SymPairSmem& sm) {
-    const long long J = (I + d) % nb;
+// The pair work of one 256 x 256 tile for the row body bi of this thread,
+// against the column tile staged (and synced) in sm.tile: K2's math
+// (sym_pair_tile's, F = m_i m_j inv shared by both sides) or K7's (fi =
+// m_j inv, fj = m_i inv).  Adds the row sums to (ax, ay, az) and returns
+// the column sum of column threadIdx.x over the tile's rows, a positive
+// magnitude (the caller negates).  Every thread of the block calls it;
+// the caller syncs before restaging sm.
+template <bool K7>
+__device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
+                                                float& ax, float& ay,
+                                                float& az, SymPairSmem& sm) {
     const int t = threadIdx.x;
     const int w = t >> 5;
     const int l = t & 31;
-    const long long i = I * SYM_TILE + t;
-    const long long j = J * SYM_TILE + t;
-
-    const float4 bi = load_body(pos, mass, i, n);
-    sm.tile[t] = load_body(pos, mass, j, n);
-    __syncthreads();
-
-    float ax = 0.f, ay = 0.f, az = 0.f;
     for (int c = 0; c < SYM_TILE / 32; ++c) {
         float bx = 0.f, by = 0.f, bz = 0.f;
 #pragma unroll
@@ -103,15 +104,28 @@ __device__ __forceinline__ void sym_vpu_pair_tile(
             const float dy = q.y - bi.y;
             const float dz = q.z - bi.z;
             const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float inv = rsqrtf(d2 * d2 * d2);
-            const float fi = q.w * inv;
-            const float fj = bi.w * inv;
-            ax += fi * dx;
-            ay += fi * dy;
-            az += fi * dz;
-            bx += fj * dx;
-            by += fj * dy;
-            bz += fj * dz;
+            if (K7) {
+                const float inv = rsqrtf(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                const float fj = bi.w * inv;
+                ax += fi * dx;
+                ay += fi * dy;
+                az += fi * dz;
+                bx += fj * dx;
+                by += fj * dy;
+                bz += fj * dz;
+            } else {
+                const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
+                const float px = f * dx;
+                const float py = f * dy;
+                const float pz = f * dz;
+                ax += px;
+                ay += py;
+                az += pz;
+                bx += px;
+                by += py;
+                bz += pz;
+            }
             const int src = (l + 1) & 31;
             bx = __shfl_sync(0xffffffffu, bx, src);
             by = __shfl_sync(0xffffffffu, by, src);
@@ -130,13 +144,34 @@ __device__ __forceinline__ void sym_vpu_pair_tile(
         sy += sm.part[v][3 * t + 1];
         sz += sm.part[v][3 * t + 2];
     }
+    return make_float3(sx, sy, sz);
+}
+
+// K7's pair tile: sym_pair_tile (K2) with the two one-sided weights
+// fi = m_j inv and fj = m_i inv in place of the shared F = m_i m_j inv.
+__device__ __forceinline__ void sym_vpu_pair_tile(
+        const float* __restrict__ pos, const float* __restrict__ mass,
+        long long n, long long nb, long long I, long long d, long long dk,
+        float eps2, float* __restrict__ si, float* __restrict__ sj,
+        SymPairSmem& sm) {
+    const long long J = (I + d) % nb;
+    const int t = threadIdx.x;
+    const long long i = I * SYM_TILE + t;
+    const long long j = J * SYM_TILE + t;
+
+    const float4 bi = load_body(pos, mass, i, n);
+    sm.tile[t] = load_body(pos, mass, j, n);
+    __syncthreads();
+
+    float ax = 0.f, ay = 0.f, az = 0.f;
+    const float3 s = sym_tile_core<true>(bi, eps2, ax, ay, az, sm);
     const long long slot = dk * nb * SYM_TILE * 3;
     si[slot + 3 * i] = ax;
     si[slot + 3 * i + 1] = ay;
     si[slot + 3 * i + 2] = az;
-    sj[slot + 3 * j] = -sx;
-    sj[slot + 3 * j + 1] = -sy;
-    sj[slot + 3 * j + 2] = -sz;
+    sj[slot + 3 * j] = -s.x;
+    sj[slot + 3 * j + 1] = -s.y;
+    sj[slot + 3 * j + 2] = -s.z;
 }
 
 // One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1;
@@ -259,5 +294,232 @@ extern "C" int nbt_sym_vpu_reduce(const float* pos, const float* mass,
     return launch_reduce<true>(pos, mass, n, nb, d_lo, dc, si, sj, raw,
                                first, last, eps2, out, stream);
 }
+
+// ---------------------------------------------------------------------
+// K14d: the fold schedule (nbody_tpu/ops/forces_pallas_sym.py:
+// _make_sym_kernel_fold, variants "vpu2" and "vpu"), K2's and K7's math on
+// superblocks of u = sub * SYM_TILE bodies.  nb counts superblocks here.
+// One CTA per (superblock I, circular superblock offset d): it sweeps the
+// sub row tiles of I against the sub column tiles of J = (I + d) mod nb.
+// Each row tile's sums run over all u columns in registers and take one
+// i-side slot per (row tile, offset).  The column sums of each column tile
+// fold on chip across the row tiles, in row-tile order (each thread owns
+// column t of every column tile), and take ONE j-side slot write per
+// (I, d), not sub.  Offsets are superblock offsets, so there are sub times
+// fewer of them, and fewer slots, than in the classic sweep.  The diagonal
+// superblocks are one-sided exact over u bodies in the reduce pass, as
+// _diag_call does at block_u = u.  Halving, chunks and the fixed-order
+// reduce are K2's, with superblocks for tiles.
+
+#define FOLD_SUB_MAX 8
+
+template <bool K7>
+__global__ void __launch_bounds__(SYM_TILE)
+sym_fold_pairs_kernel(const float* __restrict__ pos,
+                      const float* __restrict__ mass, long long n,
+                      long long nb, long long d_lo, float eps2, int sub,
+                      float* __restrict__ si, float* __restrict__ sj) {
+    __shared__ SymPairSmem sm;
+    const long long bid = blockIdx.x;
+    const long long dk = bid / nb;
+    const long long I = bid - dk * nb;
+    const long long d = d_lo + dk;
+    if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
+    const long long J = (I + d) % nb;
+    const long long u = (long long)sub * SYM_TILE;
+    const long long slot = dk * nb * u * 3;
+    const int t = threadIdx.x;
+    float3 fold[FOLD_SUB_MAX];                // column t of each column tile
+    for (int c = 0; c < sub; ++c) fold[c] = make_float3(0.f, 0.f, 0.f);
+    for (int r = 0; r < sub; ++r) {
+        const long long i = I * u + r * SYM_TILE + t;
+        const float4 bi = load_body(pos, mass, i, n);
+        float ax = 0.f, ay = 0.f, az = 0.f;
+        for (int c = 0; c < sub; ++c) {
+            __syncthreads();                  // the last tile's readers
+            sm.tile[t] = load_body(pos, mass, J * u + c * SYM_TILE + t, n);
+            __syncthreads();
+            const float3 s = sym_tile_core<K7>(bi, eps2, ax, ay, az, sm);
+            fold[c].x += s.x;
+            fold[c].y += s.y;
+            fold[c].z += s.z;
+        }
+        si[slot + 3 * i] = ax;
+        si[slot + 3 * i + 1] = ay;
+        si[slot + 3 * i + 2] = az;
+    }
+    for (int c = 0; c < sub; ++c) {
+        const long long j = J * u + c * SYM_TILE + t;
+        sj[slot + 3 * j] = -fold[c].x;
+        sj[slot + 3 * j + 1] = -fold[c].y;
+        sj[slot + 3 * j + 2] = -fold[c].z;
+    }
+}
+
+// Body b's one-sided sum over the u bodies of its own superblock (m_j
+// weights), staged SYM_TILE at a time; with `row_if_massless` (K2's
+// mass-scaled slots) a real body of mass 0 sums its whole row instead.
+// Every thread of the block calls it; meaningful for b < n only.
+__device__ __forceinline__ float3 fold_diag(
+        const float* __restrict__ pos, const float* __restrict__ mass,
+        long long n, long long b, long long u, float eps2, float4* tile,
+        bool row_if_massless) {
+    const int t = threadIdx.x;
+    const long long base = (b / u) * u;
+    const float4 bi = load_body(pos, mass, b, n);
+    const bool row = row_if_massless && b < n && bi.w == 0.f;
+    float ax = 0.f, ay = 0.f, az = 0.f;
+    for (long long c0 = 0; c0 < u; c0 += SYM_TILE) {
+        __syncthreads();
+        tile[t] = load_body(pos, mass, base + c0 + t, n);
+        __syncthreads();
+        if (row) continue;
+#pragma unroll 8
+        for (int k = 0; k < SYM_TILE; ++k) {
+            const float4 q = tile[k];
+            const float dx = q.x - bi.x;
+            const float dy = q.y - bi.y;
+            const float dz = q.z - bi.z;
+            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+            const float f = q.w * rsqrtf(d2 * d2 * d2);
+            ax += f * dx;
+            ay += f * dy;
+            az += f * dz;
+        }
+    }
+    if (row) {
+        for (long long jj = 0; jj < n; ++jj) {
+            const float dx = pos[3 * jj] - bi.x;
+            const float dy = pos[3 * jj + 1] - bi.y;
+            const float dz = pos[3 * jj + 2] - bi.z;
+            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+            const float f = mass[jj] * rsqrtf(d2 * d2 * d2);
+            ax += f * dx;
+            ay += f * dy;
+            az += f * dz;
+        }
+    }
+    return make_float3(ax, ay, az);
+}
+
+// One CTA per 256-row tile (nb * sub of them): the chunk's slots of body b
+// (superblock I = b / u) added offset by offset, i-side before j-side, into
+// the running sum; on the last chunk the diagonal superblock and, for K2,
+// the 1/m descale.
+template <bool K7>
+__global__ void __launch_bounds__(SYM_TILE)
+sym_fold_reduce_kernel(const float* __restrict__ pos,
+                       const float* __restrict__ mass, long long n,
+                       long long nb, long long d_lo, long long dc,
+                       const float* __restrict__ si,
+                       const float* __restrict__ sj, float* __restrict__ raw,
+                       int first, int last, float eps2, int sub,
+                       float* __restrict__ out) {
+    __shared__ float4 tile[SYM_TILE];
+    const long long u = (long long)sub * SYM_TILE;
+    const long long n_pad = nb * u;
+    const long long b = (long long)blockIdx.x * SYM_TILE + threadIdx.x;
+    const long long I = b / u;
+
+    float3 s = first ? make_float3(0.f, 0.f, 0.f)
+                     : make_float3(raw[3 * b], raw[3 * b + 1], raw[3 * b + 2]);
+    for (long long dk = 0; dk < dc; ++dk) {
+        const bool half = 2 * (d_lo + dk) == nb;
+        const long long o = (dk * n_pad + b) * 3;
+        if (!half || 2 * I < nb) {
+            s.x += si[o];
+            s.y += si[o + 1];
+            s.z += si[o + 2];
+        }
+        if (!half || 2 * I >= nb) {
+            s.x += sj[o];
+            s.y += sj[o + 1];
+            s.z += sj[o + 2];
+        }
+    }
+    if (!last) {
+        raw[3 * b] = s.x;
+        raw[3 * b + 1] = s.y;
+        raw[3 * b + 2] = s.z;
+        return;
+    }
+    const float3 d = fold_diag(pos, mass, n, b, u, eps2, tile, !K7);
+    if (b >= n) return;
+    const float3 a = K7 ? make_float3(d.x + s.x, d.y + s.y, d.z + s.z)
+                        : sym_descale(d, s, mass[b]);
+    out[3 * b] = a.x;
+    out[3 * b + 1] = a.y;
+    out[3 * b + 2] = a.z;
+}
+
+template <bool K7>
+static int launch_fold_pairs(const float* pos, const float* mass,
+                             long long n, long long nb, long long d_lo,
+                             long long dc, float eps2, float* si, float* sj,
+                             int sub, void* stream) {
+    if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
+    if (dc <= 0) return 0;
+    sym_fold_pairs_kernel<K7><<<(unsigned)(nb * dc), SYM_TILE, 0,
+                                (cudaStream_t)stream>>>(
+        pos, mass, n, nb, d_lo, eps2, sub, si, sj);
+    return (int)cudaGetLastError();
+}
+
+template <bool K7>
+static int launch_fold_reduce(const float* pos, const float* mass,
+                              long long n, long long nb, long long d_lo,
+                              long long dc, const float* si, const float* sj,
+                              float* raw, int first, int last, float eps2,
+                              float* out, int sub, void* stream) {
+    if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
+    sym_fold_reduce_kernel<K7><<<(unsigned)(nb * sub), SYM_TILE, 0,
+                                 (cudaStream_t)stream>>>(
+        pos, mass, n, nb, d_lo, dc, si, sj, raw, first, last, eps2, sub,
+        out);
+    return (int)cudaGetLastError();
+}
+
+// The fold schedule's pair and reduce passes for K2's math (nbt_sym_fold_*)
+// and K7's (nbt_sym_vpu_fold_*): K2's signatures, nb in superblocks, plus
+// the superblock's row-tile count sub.
+extern "C" int nbt_sym_fold_pairs(const float* pos, const float* mass,
+                                  long long n, long long nb, long long d_lo,
+                                  long long dc, float eps2, float* si,
+                                  float* sj, int sub, void* stream) {
+    return launch_fold_pairs<false>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
+                                    sub, stream);
+}
+
+extern "C" int nbt_sym_fold_reduce(const float* pos, const float* mass,
+                                   long long n, long long nb, long long d_lo,
+                                   long long dc, const float* si,
+                                   const float* sj, float* raw, int first,
+                                   int last, float eps2, float* out, int sub,
+                                   void* stream) {
+    return launch_fold_reduce<false>(pos, mass, n, nb, d_lo, dc, si, sj, raw,
+                                     first, last, eps2, out, sub, stream);
+}
+
+extern "C" int nbt_sym_vpu_fold_pairs(const float* pos, const float* mass,
+                                      long long n, long long nb,
+                                      long long d_lo, long long dc,
+                                      float eps2, float* si, float* sj,
+                                      int sub, void* stream) {
+    return launch_fold_pairs<true>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
+                                   sub, stream);
+}
+
+extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
+                                       long long n, long long nb,
+                                       long long d_lo, long long dc,
+                                       const float* si, const float* sj,
+                                       float* raw, int first, int last,
+                                       float eps2, float* out, int sub,
+                                       void* stream) {
+    return launch_fold_reduce<true>(pos, mass, n, nb, d_lo, dc, si, sj, raw,
+                                    first, last, eps2, out, sub, stream);
+}
+
+extern "C" int nbt_sym_fold_sub_max(void) { return FOLD_SUB_MAX; }
 
 extern "C" int nbt_sym_tile(void) { return SYM_TILE; }

@@ -1,10 +1,14 @@
-// K5 / K6: Newton's-third-law all-pairs forces on Hopper's tensor cores
-// (sm_90a), the pair-symmetric speed tier (turbo) and near-exact tier (mxu).
+// K5 / K6 / K14a-c: Newton's-third-law all-pairs forces on Hopper's tensor
+// cores (sm_90a): the pair-symmetric speed tiers (turbo, turbo2, turbof,
+// turbop) and the near-exact tier (mxu).
 //
 // Replaces nbody_tpu/ops/forces_pallas_sym.py:_make_sym_kernel, variants
-// "turbo" (_accum_i_turbo, _accum_j_turbo) and "mxu" (_accum_both_mxu),
-// with the exact diagonal pass _diag_kernel_vpu, as _forces_sym_padded
-// composes them (no 1/m descale: neither variant is mass-scaled).
+// "turbo" (_accum_i_turbo, _accum_j_turbo), "mxu" (_accum_both_mxu),
+// "turbo2" (_accum_i_turbo2, _accum_j_turbo2, _mass_folded_pack) and
+// "turbof" (_accum_both_turbof, with the 1/m descale of _inv_mass_scale),
+// and _make_sym_kernel_turbop (turbo with the j-side chain deferred), with
+// the exact diagonal pass _diag_kernel_vpu, as _forces_sym_padded composes
+// them.
 //
 // Schedule, slots and determinism are K2's (forces_sym.cu, sym_common.cuh):
 // 256-wide tiles, row tile I against column tile J = (I + d) mod nb for
@@ -13,22 +17,38 @@
 // that adds the slots in a fixed order.  Bit-reproducible, no atomics.
 //
 // The pair tile.  inv = rsqrt((|r|^2 + eps2)^3) is computed once a pair.
-//   turbo: i-side  bf16(m_j inv)  @ pos pack of J      (force on i)
-//          j-side  bf16(m_i inv)^T @ pos pack of I     (force on j)
-//   mxu:   i-side  (inv_hi + inv_lo)  @ mass-folded pack of J
-//          j-side  (inv_hi + inv_lo)^T @ mass-folded pack of I
+//   turbo:  i-side  bf16(m_j inv)  @ pos pack of J      (force on i)
+//           j-side  bf16(m_i inv)^T @ pos pack of I     (force on j)
+//   mxu:    i-side  (inv_hi + inv_lo)  @ mass-folded pack of J
+//           j-side  (inv_hi + inv_lo)^T @ mass-folded pack of I
+//   turbo2: i-side  bf16(inv)  @ mass-folded pack of J  (mxu's lo limb
+//           j-side  bf16(inv)^T @ mass-folded pack of I  dropped)
+//   turbof: i-side  bf16(m_i m_j inv)  @ pos pack of J  (one weight
+//           j-side  bf16(m_i m_j inv)^T @ pos pack of I  matrix, shared)
 // and each side's tile result is  sum w x - x * sum w  per component
-// (tc_common.cuh), i.e. accelerations: the slots need no descale.  The
-// correction is applied once per 256 x 256 tile on both sides; the plain
-// version (ops/forces_sym_tc.py) does the same, and the JAX package is
-// compared at block_u = 256.
+// (tc_common.cuh).  turbo, mxu and turbo2 give accelerations, so their
+// slots need no descale; turbof's slots carry the receiving body's mass
+// and its reduce pass descales them by 1/m as K2's does, recomputing the
+// row of a real body of mass 0 one-sided (JAX's turbof maps 1/0 to 0 and
+// leaves such a body with its diagonal terms only).  The correction is
+// applied once per 256 x 256 tile on both sides; the plain versions
+// (ops/forces_sym_tc.py) do the same, and the JAX package is compared at
+// block_u = 256.
+//
+// turbop is turbo with the j-side mma of each 16 x 16 block issued after
+// the geometry and i-side mma of the next block, from the previous
+// block's bf16 weights held in registers: the tensor-core chain of the
+// j-side has no dependency on the float32 geometry issued before it.  The
+// values and the per-slot add order are turbo's, so turbop is bit-equal
+// to K5.
 //
 // The diagonal tiles are exact float32, one-sided with m_j weights
-// (sym_diag_tile), added to the slot sums in the reduce pass.  A real body
-// of mass 0 needs nothing more: its weights carry its partners' masses.
+// (sym_diag_tile; turbof: K2's sym_diag with sym_descale), added to the
+// slot sums in the reduce pass.  For turbo, mxu and turbo2 a real body of
+// mass 0 needs nothing more: its weights carry its partners' masses.
 // Ghost slots past N load as zero-mass bodies at the origin: weight m = 0
-// on their partners' sides (turbo), a zero pack (mxu); their own slots are
-// written but never read into a real body.
+// on their partners' sides (turbo, turbof), a zero pack (mxu, turbo2);
+// their own slots are written but never read into a real body.
 //
 // Warps.  Eight warps; warp w owns rows 32w .. 32w+31 of I (two 16-row
 // blocks) and sweeps the 16 column blocks of J.  For each 16 x 16 block a
@@ -43,11 +63,14 @@
 //
 // What bounds it on the card: float32 throughput, as K2.  A pair costs 14
 // float32 operations for two interactions (3 sub, 6 for d2 + eps2, 2 for
-// the cube, 1 rsqrt on the MUFU, 2 weight multiplies) for turbo, 13 for mxu
-// (the hi/lo split's subtract in place of the multiplies), plus the bf16
-// roundings and 4 movmatrix a 16 x 16 block (8 for mxu), against 32
-// tensor-core flops a pair (64 for mxu).  Left for later: wgmma, TMA-fed
-// tiles, FMA-contracted geometry, a persistent schedule.
+// the cube, 1 rsqrt on the MUFU, 2 weight multiplies) for turbo, turbop
+// and turbof (m_i m_j, then times inv), 13 for mxu (the hi/lo split's
+// subtract in place of the multiplies), 12 for turbo2 (no per-pair mass
+// multiply: the masses ride in the packs), plus the bf16 roundings (two a
+// pair for turbo and mxu, one for turbo2 and turbof) and 4 movmatrix a
+// 16 x 16 block (8 for mxu), against 32 tensor-core flops a pair (64 for
+// mxu).  Left for later: wgmma, TMA-fed tiles, FMA-contracted geometry,
+// a persistent schedule.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
@@ -57,6 +80,10 @@
 
 #define SYM_LD (SYM_TILE + TC_PAD)
 
+// The pair tiles of this file.  TURBOP is TURBO's math on a deferred
+// j-side schedule.
+enum SymTcVariant { TURBO, MXU, TURBO2, TURBOF, TURBOP };
+
 struct SymTcSmem {
     float4 tile[SYM_TILE];                 // column tile J: x, y, z, m
     __nv_bfloat16 pack_j[8 * SYM_LD];      // J's pack, transposed
@@ -64,17 +91,25 @@ struct SymTcSmem {
     float part[SYM_WARPS][SYM_TILE][4];    // per-warp j-side sums
 };
 
-template <bool MXU>
+template <int V>
 __device__ __forceinline__ void pack_body(__nv_bfloat16* packT, int k,
                                           float4 b) {
-    if (MXU)
+    if (V == MXU || V == TURBO2)
         pack_mass_folded(packT, SYM_LD, k, b);
     else
         pack_position(packT, SYM_LD, k, b);
 }
 
+// A warp's j-side sums of column block k0 (rows k0 + g and k0 + g + 8 of
+// the accumulator) into its shared-memory partials.
+__device__ __forceinline__ void store_part(SymTcSmem& sm, int w, int k0,
+                                           int g, int t, const float dj[4]) {
+    sm.part[w][k0 + g][t] = __fadd_rn(dj[0], dj[1]);
+    sm.part[w][k0 + g + 8][t] = __fadd_rn(dj[2], dj[3]);
+}
+
 // One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1.
-template <bool MXU>
+template <int V>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_tc_pairs_kernel(const float* __restrict__ pos,
                     const float* __restrict__ mass, long long n,
@@ -95,9 +130,9 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
 
     const float4 own_j = load_body(pos, mass, J * SYM_TILE + tid, n);
     sm.tile[tid] = own_j;
-    pack_body<MXU>(sm.pack_j, tid, own_j);
-    pack_body<MXU>(sm.pack_i, tid,
-                   load_body(pos, mass, I * SYM_TILE + tid, n));
+    pack_body<V>(sm.pack_j, tid, own_j);
+    pack_body<V>(sm.pack_i, tid,
+                 load_body(pos, mass, I * SYM_TILE + tid, n));
     // Rows g and g + 8 of this warp's two 16-row blocks.
     float4 xr[2][2];
     const long long r0 = I * SYM_TILE + 32 * w + g;
@@ -114,13 +149,18 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
                bi[rb][1]);
 
     float di[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float dj[4] = {0.f, 0.f, 0.f, 0.f};
+    uint32_t aj_prev[4] = {0u, 0u, 0u, 0u};   // TURBOP: the deferred block
     for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
         const int c = k0 + 2 * t;
         const float4 q[4] = {sm.tile[c], sm.tile[c + 1], sm.tile[c + 8],
                              sm.tile[c + 9]};
         uint32_t bj0, bj1;
         load_b(sm.pack_j, SYM_LD, k0, g, t, bj0, bj1);
-        float dj[4] = {0.f, 0.f, 0.f, 0.f};
+        if (V != TURBOP) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dj[e] = 0.f;
+        }
 #pragma unroll
         for (int rb = 0; rb < 2; ++rb) {
             // Fragment register r holds the pairs (row, q[qa]), (row, q[qa+1])
@@ -134,7 +174,7 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
                 inv[2 * r + 1] = pair_inv(x, q[qa + 1], eps2);
             }
             uint32_t a[4], at[4];
-            if (MXU) {
+            if (V == MXU) {
                 uint32_t lo[4], lot[4];
 #pragma unroll
                 for (int r = 0; r < 4; ++r)
@@ -145,6 +185,24 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
                 transpose_a(lo, lot);
                 mma_bf16(dj, at, bi[rb][0], bi[rb][1]);
                 mma_bf16(dj, lot, bi[rb][0], bi[rb][1]);
+            } else if (V == TURBO2 || V == TURBOF) {
+                // One weight matrix for both sides.
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    if (V == TURBO2) {
+                        a[r] = pack_rn(inv[2 * r], inv[2 * r + 1]);
+                    } else {
+                        const float mi = xr[rb][r & 1].w;
+                        const int qa = (r >> 1) * 2;
+                        a[r] = pack_rn(
+                            __fmul_rn(__fmul_rn(mi, q[qa].w), inv[2 * r]),
+                            __fmul_rn(__fmul_rn(mi, q[qa + 1].w),
+                                      inv[2 * r + 1]));
+                    }
+                }
+                mma_bf16(di[rb], a, bj0, bj1);
+                transpose_a(a, at);
+                mma_bf16(dj, at, bi[rb][0], bi[rb][1]);
             } else {
                 uint32_t aj[4];
 #pragma unroll
@@ -157,13 +215,35 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
                                     __fmul_rn(mi, inv[2 * r + 1]));
                 }
                 mma_bf16(di[rb], a, bj0, bj1);
-                transpose_a(aj, at);
-                mma_bf16(dj, at, bi[rb][0], bi[rb][1]);
+                if (V == TURBO) {
+                    transpose_a(aj, at);
+                    mma_bf16(dj, at, bi[rb][0], bi[rb][1]);
+                } else {
+                    // TURBOP: the previous block's j-side now, this
+                    // block's at the next one.  The previous block is
+                    // (k0, row block 0) when rb = 1, else (k0 - 16, row
+                    // block 1), whose column block is then complete.
+                    if (rb == 1 || k0 > 0) {
+                        transpose_a(aj_prev, at);
+                        mma_bf16(dj, at, bi[1 - rb][0], bi[1 - rb][1]);
+                    }
+                    if (rb == 0) {
+                        if (k0 > 0) store_part(sm, w, k0 - 16, g, t, dj);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) dj[e] = 0.f;
+                    }
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) aj_prev[e] = aj[e];
+                }
             }
         }
-        // dj rows are columns k0 + g and k0 + g + 8 of J.
-        sm.part[w][k0 + g][t] = __fadd_rn(dj[0], dj[1]);
-        sm.part[w][k0 + g + 8][t] = __fadd_rn(dj[2], dj[3]);
+        if (V != TURBOP) store_part(sm, w, k0, g, t, dj);
+    }
+    if (V == TURBOP) {
+        uint32_t at[4];
+        transpose_a(aj_prev, at);
+        mma_bf16(dj, at, bi[1][0], bi[1][1]);
+        store_part(sm, w, SYM_TILE - 16, g, t, dj);
     }
 
     const long long slot = dk * nb * SYM_TILE * 3;
@@ -191,7 +271,9 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
 }
 
 // One CTA per tile: folds the chunk's slots into the running sum, and on the
-// last chunk adds the exact diagonal tile.
+// last chunk adds the exact diagonal tile (DESCALE, turbof: K2's diagonal,
+// 1/m descale and one-sided recompute of massless rows).
+template <bool DESCALE>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_tc_reduce_kernel(const float* __restrict__ pos,
                      const float* __restrict__ mass, long long n,
@@ -213,6 +295,16 @@ sym_tc_reduce_kernel(const float* __restrict__ pos,
         raw[3 * b + 2] = s.z;
         return;
     }
+    if (DESCALE) {
+        const float3 d = sym_diag(pos, mass, n, b, eps2, tile);
+        if (b < n) {
+            const float3 a = sym_descale(d, s, mass[b]);
+            out[3 * b] = a.x;
+            out[3 * b + 1] = a.y;
+            out[3 * b + 2] = a.z;
+        }
+        return;
+    }
     const float3 d = sym_diag_tile(pos, mass, n, b, eps2, tile);
     if (b < n) {
         out[3 * b] = __fadd_rn(d.x, s.x);
@@ -221,43 +313,65 @@ sym_tc_reduce_kernel(const float* __restrict__ pos,
     }
 }
 
-template <bool MXU>
+template <int V>
 static int launch_pairs(const float* pos, const float* mass, long long n,
                         long long nb, long long d_lo, long long dc,
                         float eps2, float* si, float* sj, void* stream) {
     if (dc <= 0) return 0;
-    sym_tc_pairs_kernel<MXU><<<(unsigned)(nb * dc), SYM_TILE, 0,
-                               (cudaStream_t)stream>>>(pos, mass, n, nb, d_lo,
-                                                       eps2, si, sj);
+    sym_tc_pairs_kernel<V><<<(unsigned)(nb * dc), SYM_TILE, 0,
+                             (cudaStream_t)stream>>>(pos, mass, n, nb, d_lo,
+                                                     eps2, si, sj);
     return (int)cudaGetLastError();
 }
 
-// The pair pass of K5 and of K6, each with K2's nbt_sym_pairs signature.
-extern "C" int nbt_sym_turbo_pairs(const float* pos, const float* mass,
-                                   long long n, long long nb, long long d_lo,
-                                   long long dc, float eps2, float* si,
-                                   float* sj, void* stream) {
-    return launch_pairs<false>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
-                               stream);
+template <bool DESCALE>
+static int launch_reduce(const float* pos, const float* mass, long long n,
+                         long long nb, long long d_lo, long long dc,
+                         const float* si, const float* sj, float* raw,
+                         int first, int last, float eps2, float* out,
+                         void* stream) {
+    sym_tc_reduce_kernel<DESCALE><<<(unsigned)nb, SYM_TILE, 0,
+                                    (cudaStream_t)stream>>>(
+        pos, mass, n, nb, d_lo, dc, si, sj, raw, first, last, eps2, out);
+    return (int)cudaGetLastError();
 }
 
-extern "C" int nbt_sym_mxu_pairs(const float* pos, const float* mass,
-                                 long long n, long long nb, long long d_lo,
-                                 long long dc, float eps2, float* si,
-                                 float* sj, void* stream) {
-    return launch_pairs<true>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
-                              stream);
-}
+// The pair passes of K5, K6, turbo2, turbof and turbop, each with K2's
+// nbt_sym_pairs signature.
+#define SYM_TC_PAIRS(NAME, V)                                                \
+    extern "C" int NAME(const float* pos, const float* mass, long long n,    \
+                        long long nb, long long d_lo, long long dc,          \
+                        float eps2, float* si, float* sj, void* stream) {    \
+        return launch_pairs<V>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,     \
+                               stream);                                      \
+    }
+SYM_TC_PAIRS(nbt_sym_turbo_pairs, TURBO)
+SYM_TC_PAIRS(nbt_sym_mxu_pairs, MXU)
+SYM_TC_PAIRS(nbt_sym_turbo2_pairs, TURBO2)
+SYM_TC_PAIRS(nbt_sym_turbof_pairs, TURBOF)
+SYM_TC_PAIRS(nbt_sym_turbop_pairs, TURBOP)
 
+// The reduce pass of the tiers whose slots are accelerations, and of
+// turbof, whose slots are mass-scaled.
 extern "C" int nbt_sym_tc_reduce(const float* pos, const float* mass,
                                  long long n, long long nb, long long d_lo,
                                  long long dc, const float* si,
                                  const float* sj, float* raw, int first,
                                  int last, float eps2, float* out,
                                  void* stream) {
-    sym_tc_reduce_kernel<<<(unsigned)nb, SYM_TILE, 0, (cudaStream_t)stream>>>(
-        pos, mass, n, nb, d_lo, dc, si, sj, raw, first, last, eps2, out);
-    return (int)cudaGetLastError();
+    return launch_reduce<false>(pos, mass, n, nb, d_lo, dc, si, sj, raw,
+                                first, last, eps2, out, stream);
+}
+
+extern "C" int nbt_sym_tc_descale_reduce(const float* pos,
+                                         const float* mass, long long n,
+                                         long long nb, long long d_lo,
+                                         long long dc, const float* si,
+                                         const float* sj, float* raw,
+                                         int first, int last, float eps2,
+                                         float* out, void* stream) {
+    return launch_reduce<true>(pos, mass, n, nb, d_lo, dc, si, sj, raw,
+                               first, last, eps2, out, stream);
 }
 
 extern "C" int nbt_sym_tc_tile(void) { return SYM_TILE; }

@@ -8,8 +8,9 @@ With ``resident=True`` it resolves to ``pallas_sym2`` at any N and on any
 device, as the JAX package does, so the forced resident path engages.
 The other tiers (``pallas_sym`` K7, ``pallas_kahan`` K11, ``pallas_fast``
 K12, and the tensor-core tiers ``pallas_turbo`` K9, ``pallas_mxu`` K10,
-``pallas_sym_turbo`` K5, ``pallas_sym_mxu`` K6) run only when named: the
-JAX package's ``auto`` never picks them either.
+``pallas_sym_turbo`` K5, ``pallas_sym_mxu`` K6, ``pallas_sym_turbo2``
+K14a) run only when named: the JAX package's ``auto`` never picks them
+either.
 """
 
 from __future__ import annotations
@@ -18,23 +19,20 @@ import torch
 
 from ..config import SimConfig
 from .forces_fast import forces_fast
-from .forces_sym import forces_sym, forces_sym_vpu
-from .forces_sym_tc import forces_sym_mxu, forces_sym_turbo
+from .forces_sym_variants import CLASSIC, SYM_IMPL_VARIANTS
 from .forces_tiled import forces_tiled, forces_tiled_kahan
 from .forces_tiled_tc import forces_tiled_mxu, forces_tiled_turbo
 from .forces_torch import forces_chunked, forces_nxn
 
-# impl -> the wrapper of its kernel.
+# impl -> the wrapper of its kernel; the pair-symmetric impls (K2, K7,
+# K5, K6, K14a) through their variants.
 _KERNELS = {
     "pallas": forces_tiled,                    # K1, exact
-    "pallas_sym2": forces_sym,                 # K2, exact, pair-symmetric
-    "pallas_sym": forces_sym_vpu,              # K7, exact, pair-symmetric
     "pallas_kahan": forces_tiled_kahan,        # K11, exact, compensated
     "pallas_fast": forces_fast,                # K12, centred distances
     "pallas_turbo": forces_tiled_turbo,        # K9
     "pallas_mxu": forces_tiled_mxu,            # K10
-    "pallas_sym_turbo": forces_sym_turbo,      # K5
-    "pallas_sym_mxu": forces_sym_mxu,          # K6
+    **{impl: CLASSIC[v] for impl, v in SYM_IMPL_VARIANTS.items()},
 }
 
 _NXN_MAX_N = 16384

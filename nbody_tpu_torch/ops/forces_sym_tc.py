@@ -1,23 +1,36 @@
-"""K5 / K6: the pair-symmetric tensor-core tiers ``turbo`` and ``mxu``,
-hand-written in CUDA for Hopper.
+"""K5 / K6 / K14a-c: the pair-symmetric tensor-core tiers ``turbo``,
+``mxu``, ``turbo2``, ``turbof`` and ``turbop``, hand-written in CUDA for
+Hopper.
 
 The counterparts of ``nbody_tpu/ops/forces_pallas_sym.py`` variants
-``turbo`` (``_accum_i_turbo`` / ``_accum_j_turbo``) and ``mxu``
-(``_accum_both_mxu``) of ``_make_sym_kernel``, with the exact diagonal
-pass ``_diag_kernel_vpu``, as ``_forces_sym_padded`` composes them.  Each
-off-diagonal pair's ``inv = rsqrt((|r|^2 + eps2)^3)`` is computed once and
-feeds both bodies through bf16 products on the tensor cores:
+``turbo`` (``_accum_i_turbo`` / ``_accum_j_turbo``), ``mxu``
+(``_accum_both_mxu``), ``turbo2`` (``_accum_i_turbo2`` /
+``_accum_j_turbo2``) and ``turbof`` (``_accum_both_turbof``) of
+``_make_sym_kernel``, and of ``_make_sym_kernel_turbop``, with the exact
+diagonal pass ``_diag_kernel_vpu``, as ``_forces_sym_padded`` composes
+them.  Each off-diagonal pair's ``inv = rsqrt((|r|^2 + eps2)^3)`` is
+computed once and feeds both bodies through bf16 products on the tensor
+cores:
 
 - turbo: ``bf16(m_j inv)`` against J's position pack ``[x_hi|x_lo|1|0]``
   for the force on i, ``bf16(m_i inv)`` transposed against I's pack for
   the force on j;
 - mxu: the hi/lo limbs of ``inv`` against the mass-folded packs
-  ``[P_hi|P_lo|m_hi|m_lo]`` (P = m x) of J and of I, four products a tile.
+  ``[P_hi|P_lo|m_hi|m_lo]`` (P = m x) of J and of I, four products a tile;
+- turbo2 (``impl="pallas_sym_turbo2"``): mxu with the lo limb dropped,
+  one ``bf16(inv)`` against both mass-folded packs, two products a tile;
+- turbof: one symmetric ``bf16(m_i m_j inv)`` against both position
+  packs; its sums are mass-scaled, so its reduce divides by m, as K2's
+  does, and recomputes the row of a real massless body one-sided (JAX
+  maps 1/0 to 0 there and leaves such a body with its diagonal terms);
+- turbop: turbo with each block's j-side product issued after the next
+  block's geometry; the same values in the same order, so bit-equal to
+  turbo, and its twin is turbo's.
 
 Each side's tile result is ``sum w x - x sum w`` (the correction of the
-Pallas kernels) once per 256 x 256 tile, an acceleration: neither tier is
-mass-scaled, so there is no 1/m descale, and a real body of mass 0 is
-right from its slots without K2's one-sided recompute.
+Pallas kernels) once per 256 x 256 tile.  turbo, mxu, turbo2 and turbop
+give accelerations: no 1/m descale, and a real body of mass 0 is right
+from its slots without K2's one-sided recompute.
 
 The schedule is K2's (``ops/forces_sym.py``): 256-wide tiles, the circular
 offsets of ``tile_pairs``, one writer per slot, the fixed-order reduce
@@ -28,8 +41,10 @@ the exact pass), so that is where the two are compared.
 The wrappers take the plain PyTorch versions (``forces_sym_tc_plain``: the
 same tiles, enumeration, slot layout and reduction order) only for CPU
 tensors.  For a CUDA tensor they launch the kernels or raise.  Each kernel
-counts its launches on its own wrapper: ``forces_sym_turbo.launches`` (K5)
-and ``forces_sym_mxu.launches`` (K6).
+counts its launches on its own wrapper: ``forces_sym_turbo.launches``
+(K5), ``forces_sym_mxu.launches`` (K6), ``forces_sym_turbo2.launches``,
+``forces_sym_turbof.launches`` and ``forces_sym_turbop.launches`` (K14a,
+K14b, K14c).
 """
 
 from __future__ import annotations
@@ -39,10 +54,14 @@ import ctypes
 import torch
 
 from . import _build
-from .forces_sym import (SLOT_BUDGET_BYTES, SYM_TILE, diag_plain, sweep,
-                         sweep_plain)
-from .forces_tiled_tc import (VARIANTS, bf16_split, mass_folded_pack,
-                              pair_inv, position_pack, tile_result)
+from .forces_sym import (SLOT_BUDGET_BYTES, SYM_TILE, descale_plain,
+                         diag_plain, sweep, sweep_plain)
+from .forces_tiled_tc import (bf16_split, mass_folded_pack, pair_inv,
+                              position_pack, tile_result)
+
+VARIANTS = ("turbo", "mxu", "turbo2", "turbof", "turbop")
+# Variants whose slot sums carry the receiving body's mass.
+_MASS_SCALED = ("turbof",)
 
 _c_ll, _c_ptr, _c_int = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 
@@ -50,15 +69,16 @@ _c_ll, _c_ptr, _c_int = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = _build.load("forces_sym_tc")
     if lib.nbt_sym_tc_reduce.argtypes is None:
-        for fn in (lib.nbt_sym_turbo_pairs, lib.nbt_sym_mxu_pairs):
+        for variant in VARIANTS:
+            fn = getattr(lib, f"nbt_sym_{variant}_pairs")
             fn.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll, _c_ll,
                            ctypes.c_float, _c_ptr, _c_ptr, _c_ptr]
             fn.restype = _c_int
-        lib.nbt_sym_tc_reduce.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll,
-                                          _c_ll, _c_ll, _c_ptr, _c_ptr,
-                                          _c_ptr, _c_int, _c_int,
-                                          ctypes.c_float, _c_ptr, _c_ptr]
-        lib.nbt_sym_tc_reduce.restype = _c_int
+        for fn in (lib.nbt_sym_tc_reduce, lib.nbt_sym_tc_descale_reduce):
+            fn.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll, _c_ll,
+                           _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
+                           ctypes.c_float, _c_ptr, _c_ptr]
+            fn.restype = _c_int
         lib.nbt_sym_tc_tile.argtypes = []
         lib.nbt_sym_tc_tile.restype = _c_int
         if lib.nbt_sym_tc_tile() != SYM_TILE:
@@ -71,11 +91,22 @@ def _pair_tiles(xi, mi, xj, mj, eps2, variant):
     """Row sums (force on i) and column sums (force on j) of the pair tiles
     (k, T, 3) x (k, T, 3) -> (k, T, 3), (k, T, 3), accelerations."""
     inv = pair_inv(xi, xj, eps2)                       # (k, Ti, Tj)
-    if variant == "turbo":
+    if variant in ("turbo", "turbop"):
         wi = (mj[:, None, :] * inv).to(torch.bfloat16).float()
         wj = (mi[:, :, None] * inv).to(torch.bfloat16).float()
         out_i = wi @ position_pack(xj)
         out_j = wj.transpose(1, 2) @ position_pack(xi)
+    elif variant in ("turbo2", "turbof"):
+        # One weight matrix for both sides.
+        if variant == "turbo2":
+            w = inv.to(torch.bfloat16).float()
+            pj, pi = mass_folded_pack(xj, mj), mass_folded_pack(xi, mi)
+        else:
+            w = ((mi[:, :, None] * mj[:, None, :]) * inv).to(
+                torch.bfloat16).float()
+            pj, pi = position_pack(xj), position_pack(xi)
+        out_i = w @ pj
+        out_j = w.transpose(1, 2) @ pi
     else:
         hi, lo = bf16_split(inv)
         pj, pi = mass_folded_pack(xj, mj), mass_folded_pack(xi, mi)
@@ -89,10 +120,12 @@ def forces_sym_tc_plain(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
                         slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
     """Plain PyTorch twin of the kernels, with their tiles, enumeration,
     slot layout and reduction order (summation within a tile differs): the
-    slot sums plus the exact diagonal tiles, no descale."""
+    slot sums plus the exact diagonal tiles, descaled by 1/m for turbof."""
     pt, mt, raw = sweep_plain(
         pos, mass, slot_budget,
         lambda xi, mi, xj, mj: _pair_tiles(xi, mi, xj, mj, eps2, variant))
+    if variant in _MASS_SCALED:
+        return descale_plain(pt, mt, raw, pos, mass, eps2)
     return (diag_plain(pt, mt, eps2) + raw)[:pos.shape[0]]
 
 
@@ -100,7 +133,8 @@ def forces_sym_tc(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
                   variant: str,
                   slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
     """Softened all-pairs accelerations (N,3),(N,) -> (N,3) through K5
-    (``variant="turbo"``) or K6 (``"mxu"``), each pair computed once."""
+    (``variant="turbo"``), K6 (``"mxu"``) or K14a-c (``"turbo2"``,
+    ``"turbof"``, ``"turbop"``), each pair computed once."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
@@ -111,7 +145,8 @@ def forces_sym_tc(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
     _COUNTERS[variant].launches += 1
     return sweep(f"forces_sym_{variant}", pos, mass, eps2, slot_budget,
                  getattr(lib, f"nbt_sym_{variant}_pairs"),
-                 lib.nbt_sym_tc_reduce)
+                 lib.nbt_sym_tc_descale_reduce if variant in _MASS_SCALED
+                 else lib.nbt_sym_tc_reduce)
 
 
 def forces_sym_turbo(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
@@ -126,7 +161,31 @@ def forces_sym_mxu(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
     return forces_sym_tc(pos, mass, eps2, "mxu", slot_budget)
 
 
-# Force evaluations that launched K5 and K6, through any entry point.
+def forces_sym_turbo2(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                      slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """K14a (``impl="pallas_sym_turbo2"``)."""
+    return forces_sym_tc(pos, mass, eps2, "turbo2", slot_budget)
+
+
+def forces_sym_turbof(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                      slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """K14b (``variant="turbof"``)."""
+    return forces_sym_tc(pos, mass, eps2, "turbof", slot_budget)
+
+
+def forces_sym_turbop(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                      slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """K14c (``variant="turbop"``)."""
+    return forces_sym_tc(pos, mass, eps2, "turbop", slot_budget)
+
+
+# Force evaluations that launched K5, K6 and K14a-c, through any entry
+# point.
 forces_sym_turbo.launches = 0
 forces_sym_mxu.launches = 0
-_COUNTERS = {"turbo": forces_sym_turbo, "mxu": forces_sym_mxu}
+forces_sym_turbo2.launches = 0
+forces_sym_turbof.launches = 0
+forces_sym_turbop.launches = 0
+_COUNTERS = {"turbo": forces_sym_turbo, "mxu": forces_sym_mxu,
+             "turbo2": forces_sym_turbo2, "turbof": forces_sym_turbof,
+             "turbop": forces_sym_turbop}

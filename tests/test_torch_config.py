@@ -1,5 +1,5 @@
 """The port's SimConfig against the JAX package's: same fields, defaults
-and vocabulary; unported impls and modes refused; ``resolve_impl`` off
+and vocabulary; unported modes refused; ``resolve_impl`` off
 CUDA as the JAX package resolves off the TPU."""
 
 import dataclasses
@@ -10,7 +10,7 @@ import torch
 from nbody_tpu.config import SimConfig as JaxSimConfig
 from nbody_tpu.config import _VALID_IMPLS as JAX_IMPLS
 from nbody_tpu.ops.forces import resolve_impl as jax_resolve_impl
-from nbody_tpu_torch.config import UNPORTED_IMPLS, _VALID_IMPLS, SimConfig
+from nbody_tpu_torch.config import _VALID_IMPLS, SimConfig
 from nbody_tpu_torch.ops.forces import SYM_CROSSOVER_N, resolve_impl
 from nbody_tpu_torch.ops.resident import should_use_resident
 
@@ -23,12 +23,6 @@ def test_fields_and_defaults_equal_jax():
     assert _VALID_IMPLS == JAX_IMPLS
     assert SimConfig(dtype="float64").torch_dtype == torch.float64
     assert SimConfig(n_bodies=100).interactions_per_step == 10000
-
-
-@pytest.mark.parametrize("impl", sorted(UNPORTED_IMPLS))
-def test_unported_impls_raise_with_roadmap_item(impl):
-    with pytest.raises(NotImplementedError, match=UNPORTED_IMPLS[impl]):
-        SimConfig(impl=impl)
 
 
 # Explicit ids keep each case's name stable.

@@ -138,7 +138,7 @@ def test_k5_k6_wrapper_contract(variant):
     with pytest.raises(ValueError, match="no kernel"):
         wrapper(p.to("meta"), m.to("meta"), EPS2)
     with pytest.raises(ValueError, match="variant"):
-        forces_sym_tc(p, m, EPS2, "turbo2")
+        forces_sym_tc(p, m, EPS2, "turbo3")
 
 
 @pytest.mark.parametrize("variant", ["turbo", "mxu"])
