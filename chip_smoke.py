@@ -15,19 +15,30 @@ bodies, with planted close pairs, and on 4096 sorted rows at N = 1M;
 K11 also against K1; the K14 variants turbo2 and turbof at turbo's
 float64 gate at 8192 and on sampled rows at 1M, turbof with massless
 bodies, turbop bit for bit against K5, and the fold schedule at the exact
-gate and against classic K2/K7 at 8192 and 1M), checks K2 at
+gate and against classic K2/K7 at 8192 and 1M; K2-rect, every variant
+and both schedules, at the shard shapes 2048 x 2048 and 2144 x 1536, at
+its float64 gates and with massless bodies on both sides, and at the 1M
+ring's 262,144 x 262,144 shard pair on sampled rows against float64),
+checks K2 at
 N = 1,048,576 against the direct-form ``rect_forces``, then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
 K2, K7 and K11, and each tensor-core tier, ``pallas_sym_turbo2`` among
-them), the variant / schedule entry point ``forces_pallas_sym`` for turbof,
-turbop and the fold schedule, and the ``run`` verb (resident K3 with a
+them), ``validate --shards P`` through the mesh on this card (the N3L
+ring with K2-rect on its cross rotations for pallas_sym2, pallas_sym,
+pallas_sym_turbo, pallas_sym_mxu and pallas_sym_turbo2; the all-gather),
+the variant / schedule entry points ``forces_pallas_sym`` and
+``rect_forces_sym`` for turbof, turbop and the fold schedule, and the
+``run`` verb (resident K3 with a
 checkpoint, K4 with yoshida4, auto routing, N = 1M with ``--energy``,
 N = 1M with ``pallas_sym_turbo`` and with ``pallas_sym_turbo2``, K12 with
 ``--sort-every`` at N = 8192 and 1M, and a resume that must equal one
 uninterrupted run).
 Then 200 steps under the momentum and angular-momentum gates, the K1/K2
-and resident crossovers that set ``auto``, and the bench lines.
+and resident crossovers that set ``auto``, one 4-shard N3L-ring step at
+N = 1M against the single-device K2 step (on the rows where the two
+differ, each of the ring's kernels against float64), and the bench
+lines.
 Any failed check raises and the script exits nonzero; without a CUDA
 card it exits 1 before doing anything.
 
@@ -146,6 +157,34 @@ ONE_SIDED = ("forces_tiled_turbo", "forces_tiled_mxu", "forces_fast")
 FLOPS_REF_UPDATE, FLOPS_KDK_UPDATE = 12, 18
 # Rounds of classic, K14, K14, classic at N = 1M for each K14 kernel.
 K14_ROUNDS = 3
+# K2-rect: kernel -> (variant, schedule, float32 flops a pair, tensor-core
+# flops a pair), the square tiers' counts over the A x B pairs (no
+# diagonal).
+RECT_KERNELS = {
+    "rect_forces_sym_vpu2": ("vpu2", None, FLOPS_PAIR, 0),
+    "rect_forces_sym_vpu": ("vpu", None, FLOPS_PAIR_VPU, 0),
+    "rect_forces_sym_fold": ("vpu2", "fold", FLOPS_PAIR, 0),
+    "rect_forces_sym_vpu_fold": ("vpu", "fold", FLOPS_PAIR_VPU, 0),
+    **{f"rect_forces_sym_{v}": (v, None, *FLOPS_TC[f"forces_sym_{v}"])
+       for v in ("turbo", "mxu", "turbo2", "turbof", "turbop")}}
+# The rect shapes: a shard pair of validate --shards 4 at N = 8192, a
+# ragged pair, and a shard pair of the 4-shard ring at N = 1M.
+RECT_SHAPES = ((2048, 2048), (2048 + 96, 1536))
+RECT_1M = 1 << 18
+RECT_1M_ROWS = 2048
+# The 1M ring's parts on the rows where the ring and K2 differ past
+# REL_TOL, each against a float64 sum of its pairs, as a share of the
+# row's |a|: K2 and both K2-rect sides at a tenth of the exact tolerance;
+# K1's one-sided antipodal sweep, one float32 running sum of 262,144
+# terms a row, and with it the ring, at validate's 1% (1.193e-3 at most on
+# an H100, PERF.md); K11 on the same sweep, where a compensated sum
+# removes that error, at the exact tolerance (1.022e-6 at most).
+RING_PART_GATES = {"self K2": REL_TOL / 10, "rect a side": REL_TOL / 10,
+                   "rect b side": REL_TOL / 10, "antipodal K1": 1e-2,
+                   "antipodal K11": REL_TOL, "ring": 1e-2}
+# Rounds of single-device K2, 4-shard ring, ring, K2 at N = 1M.
+RING_N = 1 << 20
+RING_ROUNDS = 2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -684,6 +723,145 @@ def check_k14(dev, eps2, record, smi):
     print(f"[time] K14 checks: {time.perf_counter() - t0:.1f} s")
 
 
+def rect_bound(kname, na, nb):
+    """The bound of one K2-rect sweep of na x nb pairs."""
+    _, _, fp32, tc = RECT_KERNELS[kname]
+    return bound(fp32 * na * nb, 28 * (na + nb), tc * na * nb)
+
+
+def check_rect(dev, eps2, record, smi):
+    """K2-rect, every variant and both schedules, against its plain twin
+    at the shard shapes (2048 x 2048 and a ragged 2144 x 1536; fold on
+    superblocks of FOLD_BLOCK_U), bit-reproducible and chunk-invariant;
+    turbop bit-equal to turbo; each against a float64 direct sum of the
+    cross pairs (the exact variants at the exact tolerance, the
+    tensor-core ones at their tiers' gates on 2048 x 2048); real massless
+    bodies on both sides; times at 2048 x 2048 and at the 1M ring's shard
+    pair, 262,144 x 262,144."""
+    import torch
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_sym_tc as ktc
+    from nbody_tpu_torch.ops.forces_sym_variants import rect_forces_sym
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
+    t0 = time.perf_counter()
+    u = k2.FOLD_BLOCK_U
+
+    def run(kname, pa, ma, pb, mb, **kw):
+        variant, schedule = RECT_KERNELS[kname][:2]
+        return rect_forces_sym(pa, ma, pb, mb, eps2, variant=variant,
+                               schedule=schedule, **kw)
+
+    def plain(kname, pa, ma, pb, mb):
+        variant, schedule = RECT_KERNELS[kname][:2]
+        if variant in ("vpu", "vpu2"):
+            fold = schedule == "fold" and pa.shape[0] % u == 0
+            return k2.rect_forces_sym_plain(pa, ma, pb, mb, eps2,
+                                            variant == "vpu",
+                                            u if fold else 256)
+        return ktc.rect_forces_sym_tc_plain(pa, ma, pb, mb, eps2, variant)
+
+    for na, nb in RECT_SHAPES:
+        pa, ma = bodies(na, na + 21, dev)
+        pb, mb = bodies(nb, nb + 22, dev)
+        ref = (rect_forces(pa.double(), pb.double(), mb.double(), eps2),
+               rect_forces(pb.double(), pa.double(), ma.double(), eps2))
+        for kname, (variant, _, _, _) in RECT_KERNELS.items():
+            exact = variant in ("vpu", "vpu2")
+            tol = {} if exact else {"rel_tol": TC_REL_TOL,
+                                    "abs_floor": TC_ABS_FLOOR}
+            got = run(kname, pa, ma, pb, mb)
+            want = plain(kname, pa, ma, pb, mb)
+            torch.cuda.synchronize()
+            err = max(compare(f"{kname} acc_{side} vs plain, {na}x{nb}", g,
+                              w, **tol)[0]
+                      for side, g, w in zip("ab", got, want))
+            again = run(kname, pa, ma, pb, mb)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{kname} {na}x{nb}: not bit-reproducible")
+            width = u if RECT_KERNELS[kname][1] else 256
+            one = run(kname, pa, ma, pb, mb,
+                      slot_budget=24 * (-(-na // width) * width))
+            check(all(torch.equal(x, y) for x, y in zip(got, one)),
+                  f"{kname} {na}x{nb}: one column superblock per chunk "
+                  f"differs from one chunk")
+            for side, g, r in zip("ab", got, ref):
+                if exact:
+                    compare(f"{kname} acc_{side} vs float64, {na}x{nb}", g,
+                            r)
+                elif na == nb and variant != "turbop":
+                    tier_gate(f"forces_sym_{variant}", g, r)
+            if (na, nb) == RECT_SHAPES[0]:
+                record[kname] = {
+                    "shape": f"{na} x {nb} pairs (a shard pair of "
+                             f"validate --shards 4 at N=8192)",
+                    "max_abs_err": err,
+                    "ms": time_ms(lambda: run(kname, pa, ma, pb, mb), dev),
+                    "plain_ms": time_ms(lambda: plain(kname, pa, ma, pb,
+                                                      mb), dev, iters=3),
+                    "bound": rect_bound(kname, na, nb)}
+        turbo = run("rect_forces_sym_turbo", pa, ma, pb, mb)
+        check(all(torch.equal(x, y) for x, y in zip(
+            turbo, run("rect_forces_sym_turbop", pa, ma, pb, mb))),
+            f"rect turbop {na}x{nb}: differs from turbo")
+        print(f"[check] rect_forces_sym_turbop, {na}x{nb}: bit-equal to "
+              f"rect turbo")
+    print("[check] K2-rect bit-reproducible run to run and across column "
+          "chunks")
+
+    # Real massless bodies on both sides: the mass-scaled variants
+    # recompute their rows one-sided over the other set.
+    pa, ma = bodies(2048 + 96, 31, dev)
+    pb, mb = bodies(1536, 32, dev)
+    ma[[3, 2100]] = 0.0
+    mb[[5, 1535]] = 0.0
+    ref = (rect_forces(pa.double(), pb.double(), mb.double(), eps2),
+           rect_forces(pb.double(), pa.double(), ma.double(), eps2))
+    for kname in ("rect_forces_sym_vpu2", "rect_forces_sym_turbof",
+                  "rect_forces_sym_vpu"):
+        got = run(kname, pa, ma, pb, mb)
+        compare(f"{kname}, massless rows of A vs float64", got[0][[3, 2100]],
+                ref[0][[3, 2100]])
+        compare(f"{kname}, massless rows of B vs float64", got[1][[5, 1535]],
+                ref[1][[5, 1535]])
+
+    # The 1M ring's shard pair, where B's column superblocks take three
+    # slot chunks: every variant's acc_a and acc_b on RECT_1M_ROWS sampled
+    # rows of each side against a float64 direct sum of the cross pairs
+    # (the exact variants at the exact tolerance, the tensor-core ones at
+    # their tiers' gates; turbop bit-equal to turbo), then its time.
+    n = RECT_1M
+    pa, ma = bodies(n, 41, dev)
+    pb, mb = bodies(n, 42, dev)
+    gen = torch.Generator().manual_seed(41)
+    rows = [torch.randperm(n, generator=gen)[:RECT_1M_ROWS].to(dev)
+            for _ in "ab"]
+    ref = (rect_forces(pa[rows[0]].double(), pb.double(), mb.double(), eps2,
+                       chunk=64),
+           rect_forces(pb[rows[1]].double(), pa.double(), ma.double(), eps2,
+                       chunk=64))
+    outs = {}
+    for kname, (variant, _, _, _) in RECT_KERNELS.items():
+        got = outs[variant] = run(kname, pa, ma, pb, mb)
+        torch.cuda.synchronize()
+        if variant == "turbop":
+            check(all(torch.equal(x, y) for x, y in zip(got, outs["turbo"])),
+                  f"rect turbop {n}x{n}: differs from turbo")
+            print(f"[check] {kname}, {n}x{n}: bit-equal to rect turbo")
+        for side, g, r, idx in zip("ab", got, ref, rows):
+            if variant in ("vpu", "vpu2"):
+                compare(f"{kname} acc_{side} vs float64, {n}x{n}, "
+                        f"{RECT_1M_ROWS} sampled rows", g[idx], r)
+            elif variant != "turbop":
+                tier_gate(f"forces_sym_{variant}", g[idx], r)
+        record[kname]["ms_1m"] = time_ms(lambda: run(kname, pa, ma, pb, mb),
+                                         dev, iters=2, warmup=1)
+        record[kname]["bound_ms_1m"] = rect_bound(kname, n, n)[0]
+        print(f"[1M ring pair] {kname}: {record[kname]['ms_1m']:.3f} ms per "
+              f"{n} x {n} sweep ({smi})")
+    print(f"[time] K2-rect checks: {time.perf_counter() - t0:.1f} s")
+
+
 def check_resident(dev, record):
     """K3 and K4 against their plain twins and, bit for bit, against the
     per-step K2 path; chunk invariance; real zero-mass bodies."""
@@ -986,6 +1164,58 @@ def main_path(counts, reset):
         check(all(v == (1 if k == kernel else 0) for k, v in delta.items()),
               f"forces_pallas_sym {kw}: launches {delta}")
 
+    # The sharded path: validate through the mesh at N = 8192 (P = 4:
+    # the self shards, one cross rotation through K2-rect, the antipodal
+    # rotation through K1; P = 3: the self shards and one cross rotation;
+    # P = 2 with the all-gather: K1 only), 10 steps of P shards each.
+    # Launches per run: P x 10 of each kernel of the schedule.
+    for shards, impl, extra, expect in (
+            (4, "pallas_sym2", [], {"forces_sym": 40,
+                                    "rect_forces_sym_vpu2": 40,
+                                    "forces_tiled": 40}),
+            (3, "pallas_sym_turbo2", "forces_sym_turbo2",
+             {"forces_sym_turbo2": 30, "rect_forces_sym_turbo2": 30}),
+            (3, "pallas_sym", [], {"forces_sym_vpu": 30,
+                                   "rect_forces_sym_vpu": 30}),
+            (3, "pallas_sym_turbo", "forces_sym_turbo",
+             {"forces_sym_turbo": 30, "rect_forces_sym_turbo": 30}),
+            (3, "pallas_sym_mxu", "forces_sym_mxu",
+             {"forces_sym_mxu": 30, "rect_forces_sym_mxu": 30}),
+            (2, "pallas", ["--comm", "allgather"], {"forces_tiled": 20})):
+        if isinstance(extra, str):
+            frac = str(TIER_GATES[extra][1])
+            extra = ["--max-bad-frac", frac, "--max-bad-frac-acc", frac]
+        t0 = time.perf_counter()
+        phase(f"validate --shards {shards} --impl {impl} --seed 5 "
+              + " ".join(extra),
+              ["validate", "--n", "8192", "--steps", "10", "--long-steps",
+               "0", "--shards", str(shards), "--impl", impl, "--seed", "5",
+               *extra],
+              {k: (lambda v, e=expect.get(k, 0): v == e) for k in counts()})
+        print(f"[time] validate --shards {shards} --impl {impl}: "
+              f"{time.perf_counter() - t0:.1f} s")
+    # K2-rect's variants without an impl, through the entry point a
+    # caller names them by, at a shard pair of the 4-shard ring at 8192.
+    from nbody_tpu_torch.ops.forces_sym_variants import rect_forces_sym
+    pa, pb = state.pos[:2048], state.pos[2048:4096]
+    ma, mb = state.mass[:2048], state.mass[2048:4096]
+    for kernel, kw in (("rect_forces_sym_turbof", {"variant": "turbof"}),
+                       ("rect_forces_sym_turbop", {"variant": "turbop"}),
+                       ("rect_forces_sym_fold", {"variant": "vpu2",
+                                                 "schedule": "fold"}),
+                       ("rect_forces_sym_vpu_fold", {"variant": "vpu",
+                                                     "schedule": "fold"})):
+        before = counts()
+        out = rect_forces_sym(pa, ma, pb, mb, cfg.eps2, **kw)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in out),
+              f"rect_forces_sym {kw}: non-finite")
+        delta = {k: v - before[k] for k, v in counts().items()}
+        print(f"[main path] rect_forces_sym 2048x2048 {kw}: launches "
+              f"{delta}")
+        check(all(v == (1 if k == kernel else 0) for k, v in delta.items()),
+              f"rect_forces_sym {kw}: launches {delta}")
+
     os.makedirs(WORK, exist_ok=True)
     a, b, c = (os.path.join(WORK, f"{x}.npz") for x in "abc")
     never = (lambda v: v == 0)
@@ -1062,6 +1292,156 @@ def main_path(counts, reset):
     return launches
 
 
+def ring_1m(dev, smi):
+    """One N3L-ring step at N = RING_N on 4 shards of this card against the
+    single-device K2 step, in rounds of K2, ring, ring, K2 (one card moves
+    no bytes between shards: the ring's extra time is its schedule), and
+    the ring's parts at the shard shape: K2 on one 262,144-body shard and
+    K1 on one antipodal 262,144 x 262,144 sweep."""
+    import numpy as np
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.oracle.numpy_oracle import relative_mismatch
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    from nbody_tpu_torch.parallel.ring import run_steps_sharded
+    from nbody_tpu_torch.utils.timing import time_ms
+    n, p = RING_N, 4
+    cfg = nt.SimConfig(n_bodies=n, impl="pallas_sym2", seed=3,
+                       device=str(dev))
+    state = nt.init_state(cfg)
+    mesh = make_mesh(p, dev)
+    print(f"[ring 1M] {mesh.describe()}")
+
+    def one():
+        return nt.run_steps(state, cfg, 1)
+
+    def ring_step():
+        return run_steps_sharded(state, cfg, mesh, 1, impl="pallas_sym2")
+
+    # The ring sums each row in another order than K2 (shard tiles, the
+    # rect slots, K1's one-sided antipodal sweep).  Against K2: no
+    # component outside validate's 1% gate.  The components outside the
+    # exact tolerance, and 4096 sampled rows, against a float64 direct
+    # sum: the ring and K2 each at the exact tiers' gate (at most 5e-4 of
+    # the components outside 1%), with both errors printed.  Then
+    # ring_parts pins the rows where the two differ on the part that
+    # carries the difference (K1's antipodal sweep) and holds the others,
+    # K2-rect among them, at a tenth of the exact tolerance.
+    ring_acc, one_acc = ring_step().acc, one().acc
+    torch.cuda.synchronize()
+    compare("4-shard N3L ring step vs single-device K2 step, N=1M, acc, "
+            "at 1%", ring_acc, one_acc, rel_tol=0.01)
+    diff = relative_mismatch(ring_acc.double().cpu().numpy(),
+                             one_acc.double().cpu().numpy(), REL_TOL,
+                             ABS_FLOOR * float(one_acc.abs().max()))
+    diff_rows = sorted({int(i) for i in np.nonzero(diff)[0]})
+    sampled = torch.randperm(n, generator=torch.Generator().manual_seed(3))
+    rows = sorted(set(diff_rows[:512]) | set(sampled[:4096].tolist()))
+    at = {r: k for k, r in enumerate(rows)}
+    dsel = [at[r] for r in diff_rows[:512]]
+    rows = torch.tensor(rows, device=dev)
+    ref = rect_forces(state.pos[rows].double(), state.pos.double(),
+                      state.mass.double(), cfg.eps2, chunk=64)
+    for what, acc in (("4-shard ring", ring_acc), ("K2", one_acc)):
+        got = acc[rows]
+        p99, frac = gate_numbers(got, ref)
+        d99, dfrac = (gate_numbers(got[dsel], ref[dsel]) if dsel
+                      else (0.0, 0.0))
+        print(f"[ring 1M] {what} vs float64 on {len(rows)} rows (the "
+              f"{len(diff_rows)} rows where ring and K2 differ past rel "
+              f"{REL_TOL:g}, and 4096 sampled): p99 rel err {p99:.3e}, bad "
+              f"fraction at 1% {frac:.3e} (gate 5e-4); on the differing "
+              f"rows p99 {d99:.3e}, bad fraction {dfrac:.3e}")
+        check(frac <= 5e-4, f"ring 1M: {what} vs float64 bad fraction "
+              f"{frac:.3e}")
+    ring_parts(state, cfg, p, ring_acc, diff_rows[:512], dev)
+    single, ring = [], []
+    for _ in range(RING_ROUNDS):
+        turns = [time_ms(f, dev, iters=1, warmup=0)
+                 for f in (one, ring_step, ring_step, one)]
+        single += [turns[0], turns[3]]
+        ring += turns[1:3]
+    c = n // p
+    part_k2 = time_ms(lambda: k2.forces_sym(state.pos[:c], state.mass[:c],
+                                            cfg.eps2), dev, iters=2)
+    part_k1 = time_ms(lambda: k1.rect_forces_tiled(
+        state.pos[:c], state.pos[2 * c:3 * c], state.mass[2 * c:3 * c],
+        cfg.eps2), dev, iters=2)
+    print(f"[ring 1M] ms/step, rounds of K2, ring, ring, K2: single K2 "
+          f"{', '.join(f'{t:.3f}' for t in single)}; 4-shard ring "
+          f"{', '.join(f'{t:.3f}' for t in ring)}; median single "
+          f"{statistics.median(single):.3f}, ring "
+          f"{statistics.median(ring):.3f} "
+          f"({statistics.median(ring) / statistics.median(single):.4f}x); "
+          f"parts: K2 on a {c}-body shard {part_k2:.3f} ms, K1 on a "
+          f"{c} x {c} antipodal sweep {part_k1:.3f} ms ({smi})")
+
+
+def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
+    """Pin the ring's error on the rows where it differs from K2: the
+    ring's four parts for those rows (K2 on the row's own shard, the a
+    side of K2-rect with the shard before, the b side of K2-rect with the
+    shard after, K1's one-sided antipodal sweep), each against a float64
+    direct sum of the same pairs, as a share of the row's |a|.  Added in
+    the ring's order the parts must give the ring's rows bit for bit.  K11
+    on the same antipodal sweep is measured beside K1."""
+    import torch
+    from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops.forces_sym_variants import (forces_pallas_sym,
+                                                         rect_forces_sym)
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    if not diff_rows:
+        return
+    eps2, c = cfg.eps2, state.n // p
+    sh = [(state.pos[i * c:(i + 1) * c], state.mass[i * c:(i + 1) * c])
+          for i in range(p)]
+    names = ("self K2", "rect a side", "rect b side", "antipodal K1",
+             "antipodal K11", "ring")
+    errs = {k: [] for k in names}
+    for s in sorted({r // c for r in diff_rows}):
+        local = torch.tensor([r - s * c for r in diff_rows if r // c == s],
+                             device=dev)
+        (x, m), (xp, mp) = sh[s], sh[(s - 1) % p]
+        (xn, mn), (xo, mo) = sh[(s + 1) % p], sh[(s + 2) % p]
+        parts = {
+            "self K2": forces_pallas_sym(x, m, eps2, variant="vpu2"),
+            "rect a side": rect_forces_sym(x, m, xp, mp, eps2,
+                                           variant="vpu2")[0],
+            "rect b side": rect_forces_sym(xn, mn, x, m, eps2,
+                                           variant="vpu2")[1],
+            "antipodal K1": k1.rect_forces_tiled(x, xo, mo, eps2),
+            "antipodal K11": k1.rect_forces_tiled_kahan(x, xo, mo, eps2)}
+        parts = {k: v[local] for k, v in parts.items()}
+        parts["ring"] = ring_acc[local + s * c]
+        summed = ((parts["self K2"] + parts["rect a side"])
+                  + parts["antipodal K1"]) + parts["rect b side"]
+        check(torch.equal(summed, parts["ring"]),
+              "ring 1M: the parts do not add up to the ring's rows")
+        parts = {k: v.double() for k, v in parts.items()}
+        xr = x[local].double()
+        refs = {k: rect_forces(xr, xj.double(), mj.double(), eps2, chunk=64)
+                for k, (xj, mj) in (("self K2", (x, m)),
+                                    ("rect a side", (xp, mp)),
+                                    ("rect b side", (xn, mn)),
+                                    ("antipodal K1", (xo, mo)))}
+        refs["antipodal K11"] = refs["antipodal K1"]
+        refs["ring"] = sum(refs[k] for k in ("self K2", "rect a side",
+                                             "rect b side", "antipodal K1"))
+        norm = refs["ring"].norm(dim=1)
+        for k in names:
+            errs[k] += ((parts[k] - refs[k]).norm(dim=1) / norm).tolist()
+    for k in names:
+        e = sorted(errs[k])
+        gate = RING_PART_GATES[k]
+        print(f"[ring 1M parts] {k}: |err| / |a| against float64 on the "
+              f"{len(e)} rows where ring and K2 differ: max {e[-1]:.3e}, "
+              f"median {e[len(e) // 2]:.3e} (gate {gate:g})")
+        check(e[-1] <= gate, f"ring 1M: {k} off by {e[-1]:.3e} of |a|")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1115,6 +1495,7 @@ def main():
     check_tc(dev, 0.002, record, smi)
     check_slice4(dev, 0.002, record, smi)
     check_k14(dev, 0.002, record, smi)
+    check_rect(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
     for kname, r in record.items():
@@ -1141,7 +1522,16 @@ def main():
                 "forces_sym_turbof": k56.forces_sym_turbof,
                 "forces_sym_turbop": k56.forces_sym_turbop,
                 "forces_sym_fold": k2.forces_sym_fold,
-                "forces_sym_vpu_fold": k2.forces_sym_vpu_fold}
+                "forces_sym_vpu_fold": k2.forces_sym_vpu_fold,
+                "rect_forces_sym_vpu2": k2.rect_forces_sym_vpu2,
+                "rect_forces_sym_vpu": k2.rect_forces_sym_vpu,
+                "rect_forces_sym_fold": k2.rect_forces_sym_fold,
+                "rect_forces_sym_vpu_fold": k2.rect_forces_sym_vpu_fold,
+                "rect_forces_sym_turbo": k56.rect_forces_sym_turbo,
+                "rect_forces_sym_mxu": k56.rect_forces_sym_mxu,
+                "rect_forces_sym_turbo2": k56.rect_forces_sym_turbo2,
+                "rect_forces_sym_turbof": k56.rect_forces_sym_turbof,
+                "rect_forces_sym_turbop": k56.rect_forces_sym_turbop}
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -1165,8 +1555,9 @@ def main():
           f"|P|/scale {p_drift:.3e}, |L|/scale {l_drift:.3e} (gate 1e-3)")
     check(p_drift <= 1e-3 and l_drift <= 1e-3, "invariant gate")
 
-    # 7. Crossovers.
+    # 7. Crossovers, and the 4-shard ring step at 1M against K2's.
     crossovers(dev, smi)
+    ring_1m(dev, smi)
 
     # 8. Bench lines.
     from nbody_tpu_torch.bench_lib import run_benchmark
@@ -1179,7 +1570,12 @@ def main():
                {"n": 8192, "impl": "pallas_sym", "resident": False},
                {"n": 8192, "impl": "pallas_kahan"},
                {"n": 8192, "impl": "pallas_fast"},
-               {"n": 1 << 20, "impl": "pallas_sym_turbo2"}):
+               {"n": 1 << 20, "impl": "pallas_sym_turbo2"},
+               # The mesh on this card: the N3L ring, the all-gather.
+               {"n": 8192, "impl": "pallas_sym2", "shards": 4},
+               {"n": 8192, "impl": "pallas_sym2", "shards": 4,
+                "comm": "allgather"},
+               {"n": 1 << 20, "impl": "pallas_sym2", "shards": 4}):
         t0 = time.perf_counter()
         res = run_benchmark(**kw)
         check(res["finite"], f"bench {kw}: non-finite")
@@ -1221,7 +1617,16 @@ def main():
             ("forces_sym_fold", "nbody_tpu_torch/csrc/forces_sym.cu",
              "nbody_tpu/ops/forces_pallas_sym.py:580"),
             ("forces_sym_vpu_fold", "nbody_tpu_torch/csrc/forces_sym.cu",
-             "nbody_tpu/ops/forces_pallas_sym.py:580")):
+             "nbody_tpu/ops/forces_pallas_sym.py:580"),
+            *((k, "nbody_tpu_torch/csrc/forces_sym.cu",
+               "nbody_tpu/ops/forces_pallas_sym.py:"
+               + ("636" if k.endswith("fold") else "686"))
+              for k in ("rect_forces_sym_vpu2", "rect_forces_sym_vpu",
+                        "rect_forces_sym_fold", "rect_forces_sym_vpu_fold")),
+            *((f"rect_forces_sym_{v}", "nbody_tpu_torch/csrc/forces_sym_tc.cu",
+               "nbody_tpu/ops/forces_pallas_sym.py:"
+               + ("518" if v == "turbop" else "686"))
+              for v in ("turbo", "mxu", "turbo2", "turbof", "turbop"))):
         r = dict(record[kname])
         bound_ms, bound_by = r.pop("bound")
         # No single PyTorch call computes any of these functions.
@@ -1231,10 +1636,13 @@ def main():
                         "ms": r.pop("ms"), "plain_ms": r.pop("plain_ms"),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None, **r})
-    # The pair-symmetric kernels also replace the exact diagonal pass.
+    # The pair-symmetric kernels also replace the exact diagonal pass, and
+    # K2-rect the rect call that launches it.
     for k in kernels:
         if k["name"].startswith("forces_sym"):
             k["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:328"
+        elif k["name"].startswith("rect_forces_sym"):
+            k["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:919"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ pair-symmetric one included.
 
 Routing is ``Simulation``'s: with ``resident`` (None = auto, True forces
 and raises out of scope) a trial of ``steps`` steps is one launch of the
-resident kernel K3, and the ``"resident"`` key reports what ran.
+resident kernel K3, and the ``"resident"`` key reports what ran.  With
+``shards`` > 1 a trial runs through ``run_steps_sharded`` on a mesh of
+that many shards (one card's shards share it) with the ``comm`` tier, and
+never the resident kernels; forcing them with shards raises, as in the
+JAX package.
 ``energy`` works at any N: ``energy_f64`` takes kernel K8 above 262,144
 bodies.
 
@@ -34,6 +38,8 @@ from .ops import _build
 from .ops.forces import resolve_impl
 from .ops.resident import run_steps_resident, should_use_resident
 from .ops.step import run_steps
+from .parallel.mesh import make_mesh
+from .parallel.ring import _resolve_local_impl, run_steps_sharded
 from .utils.device import nvidia_smi_line, require_device
 from .utils.timing import sync
 
@@ -55,13 +61,16 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
                   seed: int = 0, trials: int = 3,
                   block_u: Optional[int] = None,
                   resident: Optional[bool] = None,
-                  device: str = "cuda") -> dict:
+                  device: str = "cuda", shards: Optional[int] = None,
+                  comm: str = "ring") -> dict:
     dev = require_device(device)
+    sharded = bool(shards and shards > 1)
     cfg = SimConfig(n_bodies=n, impl=impl, block_i=block_i, block_j=block_j,
                     chunk=chunk, seed=seed, block_u=block_u,
-                    resident=resident, device=device)
-    impl_resolved = resolve_impl(cfg)
-    used_resident = should_use_resident(cfg, impl_resolved)
+                    resident=resident, device=device,
+                    shards=shards if sharded else None)
+    impl_resolved = resolve_impl(cfg, sharded=sharded)
+    used_resident = should_use_resident(cfg, impl_resolved, sharded=sharded)
     on_cuda = dev.type == "cuda"
     if steps is None:
         # Size a trial to ~0.5 s of device work at a rough rate for the
@@ -72,7 +81,18 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
         steps = int(min(1000 if on_cuda else 100,
                         max(3 if on_cuda else 5, target * rate // (n * n))))
 
-    if used_resident:
+    if sharded:
+        mesh = make_mesh(shards, device)
+        local_impl = _resolve_local_impl(impl_resolved, mesh)
+        # The one-sided rect forms (the antipodal rotation, allgather) too.
+        libs = _KERNEL_LIBS.get(local_impl, ()) + (
+            ("forces_tiled", "forces_tiled_tc")
+            if local_impl.startswith("pallas") else ())
+
+        def advance(s, k):
+            return run_steps_sharded(s, cfg, mesh, k, impl=local_impl,
+                                     comm=comm)
+    elif used_resident:
         libs = ("resident",)
 
         def advance(s, k):
@@ -140,11 +160,13 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
         "device_name": (torch.cuda.get_device_name(dev) if on_cuda
                         else "cpu"),
         "nvidia_smi": nvidia_smi_line() if on_cuda else "not available",
-        "devices": 1,
-        "shards": 1,
+        "devices": len(set(mesh.devices)) if sharded else 1,
+        "shards": shards if sharded else 1,
         "flat": False,
         "resident": used_resident,
     }
+    if sharded:
+        result["comm"] = comm
     if energy and e0 is not None:
         result["energy_drift"] = abs(e1 - e0) / (abs(e0) or 1.0)
     result["finite"] = bool(torch.isfinite(state.pos[:64]).all())

@@ -4,11 +4,15 @@
 The flags and defaults are those of ``nbody_tpu/cli.py``, so one command
 line drives both packages, plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch versions).  Every ``--impl`` runs on the port's
-kernels.  Choices that name parts not ported yet (``--shards``, ``--init``
-presets, ``--analytic``, the native oracle; for ``run`` the ``--viz*``
-sinks) are refused
-with the ROADMAP item that will bring them.  ``run --profile DIR`` writes
-a ``torch.profiler`` trace (``DIR/trace.json``).
+kernels.  ``--shards P`` (``run``, ``validate``, ``bench``) shards the
+bodies over a mesh of P shards, shard i on card ``i % device_count``
+(one card's shards share it; ``--device cpu`` puts them on the CPU), and
+sweeps them with ``--comm ring`` (the Newton's-third-law ring for the
+``pallas_sym*`` impls) or ``allgather``.  Choices that name parts not
+ported yet (``--comm rdma|rdma_overlap``, ``--init`` presets,
+``--analytic``, the native oracle; for ``run`` the ``--viz*`` sinks) are
+refused with the ROADMAP item that will bring them.  ``run --profile
+DIR`` writes a ``torch.profiler`` trace (``DIR/trace.json``).
 """
 
 from __future__ import annotations
@@ -107,10 +111,13 @@ def _add_sim_args(p: argparse.ArgumentParser):
                         "pallas_sym2 and pallas_sym inside the window "
                         "measured on the card (ops/resident.py)")
     p.add_argument("--shards", type=int, default=0,
-                   help="shard bodies over this many devices (0 = single; "
-                        "multi-GPU is not ported)")
+                   help="shard bodies over this many shards, shard i on "
+                        "card i %% device_count (0 = single device)")
     p.add_argument("--comm", default="ring",
-                   choices=["ring", "allgather", "rdma", "rdma_overlap"])
+                   choices=["ring", "allgather", "rdma", "rdma_overlap"],
+                   help="sharded sweep: the ring (N3L for pallas_sym* "
+                        "impls) or the all-gather; the RDMA ring (K13) is "
+                        "not ported")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels) or cpu (the "
                         "plain PyTorch versions)")
@@ -129,12 +136,16 @@ def _make_cfg(args):
 
 
 def _refuse_unported(args) -> Optional[str]:
+    if args.shards and getattr(args, "analytic", False):
+        return ("--analytic gates are two-body closed-form checks and run "
+                "single-device; drop --shards")
     if args.init != "uniform":
         return (f"--init {args.init}: only the uniform box is ported "
                 f"(presets come later, ROADMAP Queue 1 item 2)")
-    if args.shards and args.shards > 1:
-        return (f"--shards {args.shards}: multi-GPU is not ported yet "
-                f"(ROADMAP Queue 1 item 14)")
+    if args.shards and args.comm.startswith("rdma"):
+        return (f"--comm {args.comm}: the in-kernel RDMA ring (K13) is not "
+                f"ported yet (ROADMAP Queue 2; multi-GPU, Queue 1 item 14); "
+                f"use --comm ring or allgather")
     for flag in ("viz", "viz_avi", "viz_serve"):
         value = getattr(args, flag, None)
         if value is not None and value is not False:   # --viz-serve 0
@@ -149,24 +160,50 @@ def _refuse_unported(args) -> Optional[str]:
     return None
 
 
+def _make_mesh(args):
+    """The mesh of ``--shards`` on ``--device``, or None."""
+    if not args.shards:
+        return None
+    from .parallel.mesh import make_mesh
+    return make_mesh(args.shards, args.device)
+
+
 def _make_sim(args, cfg, logger):
     from .models.simulation import Simulation
+    mesh = _make_mesh(args)
     if args.resume:
         explicit = getattr(args, "_explicit", set())
         overrides = {field: getattr(args, arg)
                      for arg, field in _ARG_TO_CFG.items() if arg in explicit}
         return Simulation.resume(args.resume, logger=logger,
-                                 overrides=overrides, device=args.device)
-    return Simulation(cfg, logger=logger)
+                                 overrides=overrides, device=args.device,
+                                 mesh=mesh, comm=args.comm)
+    return Simulation(cfg, logger=logger, mesh=mesh, comm=args.comm)
 
 
 def _save_trajectory(args, sim) -> int:
-    """``--save-trajectory``: snapshots every ``--snap-every`` steps,
-    stepped per step with the run's impl (as the JAX package does), then
-    one NPZ."""
-    from .io.checkpoint import save_trajectory
+    """``--save-trajectory``: snapshots every ``--snap-every`` steps, in
+    the file layout the JAX package's ``run`` writes on the same route.
+    One device: stepped per step with the run's impl (``run_trajectory``,
+    never the resident kernels, as in JAX), then one ``snapshots`` array.
+    A mesh: stepped through ``Simulation``'s sharded chunks, the snapshots
+    streamed to ``snap_*`` entries one at a time (``TrajectoryWriter``).
+    Both packages' loaders read both layouts; the fork keeps each file in
+    the layout JAX writes for the same command line."""
+    from .io.checkpoint import TrajectoryWriter, save_trajectory
     from .ops.step import run_trajectory
     snap_every = max(1, args.snap_every)
+    if sim.mesh is not None:
+        with TrajectoryWriter(args.save_trajectory, snap_every, sim.cfg,
+                              mass=sim.state.mass) as tw:
+            for _ in range(args.steps // snap_every):
+                sim._run_chunk(snap_every)
+                tw.append(sim.state.pos,
+                          vel=sim.state.vel if args.traj_vel else None)
+            rem = args.steps % snap_every
+            if rem:
+                sim._run_chunk(rem)
+            return tw.n_snaps
     out = run_trajectory(sim.state, sim.cfg, args.steps,
                          snap_every=snap_every, impl=sim.impl,
                          with_vel=args.traj_vel)
@@ -243,15 +280,38 @@ def cmd_validate(args) -> int:
         print(msg, file=sys.stderr)
         return 2
     cfg = _make_cfg(args)
-    impl = resolve_impl(cfg)
+    mesh = _make_mesh(args)
+    impl = resolve_impl(cfg, sharded=mesh is not None)
+    if mesh is not None:
+        # Every device-side phase through the sharded path a --shards run
+        # takes.
+        from .parallel.ring import (_resolve_local_impl, prime_kdk_sharded,
+                                    run_steps_sharded)
+        impl = _resolve_local_impl(None if args.impl == "auto" else impl,
+                                   mesh)
+        print(f"[INFO] {mesh.describe()}, comm={args.comm}")
+
+        def dev_run(st, ns):
+            return run_steps_sharded(st, cfg, mesh, ns, impl=impl,
+                                     comm=args.comm)
+
+        def prime(st):
+            return prime_kdk_sharded(st, cfg, mesh, impl=impl,
+                                     comm=args.comm)
+    else:
+        def dev_run(st, ns):
+            return run_steps(st, cfg, ns, impl=impl)
+
+        def prime(st):
+            return prime_kdk(st, cfg, impl=impl)
     print(f"[INFO] impl={impl} device={cfg.device} n={cfg.n_bodies}")
     state = init_state(cfg)
     if cfg.integrator != "reference":
-        state = prime_kdk(state, cfg, impl=impl)
+        state = prime(state)
     host0 = state_to_numpy(state)
     pos0, vel0, mass = host0["pos"], host0["vel"], host0["mass"]
 
-    dev = state_to_numpy(run_steps(state, cfg, args.steps, impl=impl))
+    dev = state_to_numpy(dev_run(state, args.steps))
     dtype = np.float32 if args.oracle_f32 else np.float64
     opos, ovel, oacc = oracle_run(pos0, vel0, mass, cfg.eps2, cfg.dt,
                                   args.steps, dtype=dtype,
@@ -275,7 +335,7 @@ def cmd_validate(args) -> int:
     print(f"[INFO] angular momentum drift: |L|_max/scale = {l_drift:.3e}")
     if args.long_steps > 0:
         ls = args.long_steps
-        dev_l = run_steps(state, cfg, ls, impl=impl)
+        dev_l = dev_run(state, ls)
         lpos, lvel, lacc = oracle_run(pos0, vel0, mass, cfg.eps2, cfg.dt, ls,
                                       dtype=np.float64,
                                       integrator=cfg.integrator)
@@ -331,7 +391,8 @@ def cmd_bench(args) -> int:
         impl=args.impl, block_i=args.block_i, block_j=args.block_j,
         chunk=args.chunk, block_u=args.block_u, energy=args.energy,
         warmup_steps=args.warmup, trials=args.trials, seed=args.seed,
-        resident=args.resident, device=args.device)
+        resident=args.resident, device=args.device,
+        shards=args.shards or None, comm=args.comm)
     print(json.dumps(result))
     return 0
 

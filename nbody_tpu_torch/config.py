@@ -4,9 +4,12 @@ The fields, defaults and the impl / integrator vocabulary are those of
 ``nbody_tpu/config.py``, so one command line drives both packages.  The
 port adds ``device`` (default ``"cuda"``) and ``torch_dtype``.
 
-Every impl of the vocabulary runs on a kernel of the port.  The TPU
-execution modes the port does not have (``flat_state=True``, ``prog_cap``,
-``shards``) raise ``NotImplementedError`` naming their ROADMAP item.  ``resident=True``
+Every impl of the vocabulary runs on a kernel of the port.  ``shards`` is
+accepted as in the JAX package, where it records the mesh size; the mesh
+itself is passed to ``Simulation`` (``parallel/mesh.py``).  The TPU
+execution modes the port does not have (``flat_state=True``,
+``prog_cap``) raise ``NotImplementedError`` naming their ROADMAP item.
+``resident=True``
 is accepted: it forces the resident kernels K3/K4, and routing
 (``ops/resident.py::should_use_resident``) raises with the reason when the
 run is out of their scope.
@@ -93,10 +96,6 @@ class SimConfig:
             raise NotImplementedError(
                 "prog_cap: bounded multi-program dispatch is not ported "
                 "(ROADMAP Queue 1 item 13)")
-        if self.shards and self.shards > 1:
-            raise NotImplementedError(
-                "shards > 1: multi-GPU is not ported yet (ROADMAP Queue 1 "
-                "item 14)")
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -73,13 +73,16 @@
 //
 // K14d (the fold schedule of _make_sym_kernel_fold) runs K2's and K7's
 // tiles on superblocks of several tiles and folds the j-side sums of a
-// superblock's row tiles on chip; its kernels and their contract are at
-// the end of this file.
+// superblock's row tiles on chip; its kernels and their contract follow
+// K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
+// _make_rect_kernel_fold between two disjoint body sets) reuses
+// sym_tile_core over a rectangular enumeration; it comes last.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
 
 #include "sym_common.cuh"
+#include "rect_common.cuh"
 
 // The pair work of one 256 x 256 tile for the row body bi of this thread,
 // against the column tile staged (and synced) in sm.tile: K2's math
@@ -518,6 +521,121 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
                                        void* stream) {
     return launch_fold_reduce<true>(pos, mass, n, nb, d_lo, dc, si, sj, raw,
                                     first, last, eps2, out, sub, stream);
+}
+
+// ---------------------------------------------------------------------
+// K2-rect with K2's and K7's math (nbody_tpu/ops/forces_pallas_sym.py:
+// _make_rect_kernel variants "vpu2" and "vpu", and _make_rect_kernel_fold),
+// launched once per column chunk by _rect_call's counterpart in
+// ops/forces_sym.py.  One CTA per (row superblock IA of A, column
+// superblock JB of B), superblocks of u = sub * SYM_TILE bodies: sub = 1 is
+// the classic rect sweep, sub > 1 the fold schedule (JAX's rect fold:
+// the A superblock's row tiles sweep the sub column tiles of JB, the
+// column sums fold on chip across the row tiles, in row-tile order, into
+// one j-side slot write per (IA, JB)).  The tile is sym_tile_core, K2's or
+// K7's pair math.  Slots, chunks and the reduce pass are in
+// rect_common.cuh.  The work is the square sweep's without the diagonal:
+// FP32 FMA and MUFU issue bound, 23 (K2) or 26 (K7) flops a pair.
+
+template <bool K7>
+__global__ void __launch_bounds__(SYM_TILE)
+rect_pairs_kernel(const float* __restrict__ pos_a,
+                  const float* __restrict__ mass_a, long long na,
+                  const float* __restrict__ pos_b,
+                  const float* __restrict__ mass_b, long long nb,
+                  long long na_s, long long j_lo, long long jc, float eps2,
+                  int sub, float* __restrict__ si, float* __restrict__ sj) {
+    __shared__ SymPairSmem sm;
+    const long long bid = blockIdx.x;
+    const long long jk = bid / na_s;
+    const long long IA = bid - jk * na_s;
+    const long long JB = j_lo + jk;
+    const long long u = (long long)sub * SYM_TILE;
+    const long long na_pad = na_s * u;
+    const int t = threadIdx.x;
+    float3 fold[FOLD_SUB_MAX];                // column t of each column tile
+    for (int c = 0; c < sub; ++c) fold[c] = make_float3(0.f, 0.f, 0.f);
+    for (int r = 0; r < sub; ++r) {
+        const long long i = IA * u + r * SYM_TILE + t;
+        const float4 bi = load_body(pos_a, mass_a, i, na);
+        float ax = 0.f, ay = 0.f, az = 0.f;
+        for (int c = 0; c < sub; ++c) {
+            __syncthreads();                  // the last tile's readers
+            sm.tile[t] = load_body(pos_b, mass_b, JB * u + c * SYM_TILE + t,
+                                   nb);
+            __syncthreads();
+            const float3 s = sym_tile_core<K7>(bi, eps2, ax, ay, az, sm);
+            fold[c].x += s.x;
+            fold[c].y += s.y;
+            fold[c].z += s.z;
+        }
+        const long long o = (jk * na_pad + i) * 3;
+        si[o] = ax;
+        si[o + 1] = ay;
+        si[o + 2] = az;
+    }
+    for (int c = 0; c < sub; ++c) {
+        const long long o = ((IA * jc + jk) * u + c * SYM_TILE + t) * 3;
+        sj[o] = -fold[c].x;
+        sj[o + 1] = -fold[c].y;
+        sj[o + 2] = -fold[c].z;
+    }
+}
+
+template <bool K7>
+static int launch_rect_pairs(const float* pos_a, const float* mass_a,
+                             long long na, const float* pos_b,
+                             const float* mass_b, long long nb,
+                             long long na_s, long long j_lo, long long jc,
+                             float eps2, int sub, float* si, float* sj,
+                             void* stream) {
+    if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
+    if (jc <= 0 || na_s <= 0) return 0;
+    rect_pairs_kernel<K7><<<(unsigned)(na_s * jc), SYM_TILE, 0,
+                            (cudaStream_t)stream>>>(
+        pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, sub, si,
+        sj);
+    return (int)cudaGetLastError();
+}
+
+// The rect pair passes with K2's math (nbt_rect_sym_pairs) and K7's
+// (nbt_rect_sym_vpu_pairs); sub = 1 classic, sub > 1 fold.
+extern "C" int nbt_rect_sym_pairs(const float* pos_a, const float* mass_a,
+                                  long long na, const float* pos_b,
+                                  const float* mass_b, long long nb,
+                                  long long na_s, long long j_lo,
+                                  long long jc, float eps2, int sub,
+                                  float* si, float* sj, void* stream) {
+    return launch_rect_pairs<false>(pos_a, mass_a, na, pos_b, mass_b, nb,
+                                    na_s, j_lo, jc, eps2, sub, si, sj,
+                                    stream);
+}
+
+extern "C" int nbt_rect_sym_vpu_pairs(const float* pos_a,
+                                      const float* mass_a, long long na,
+                                      const float* pos_b,
+                                      const float* mass_b, long long nb,
+                                      long long na_s, long long j_lo,
+                                      long long jc, float eps2, int sub,
+                                      float* si, float* sj, void* stream) {
+    return launch_rect_pairs<true>(pos_a, mass_a, na, pos_b, mass_b, nb,
+                                   na_s, j_lo, jc, eps2, sub, si, sj,
+                                   stream);
+}
+
+// The rect reduce pass (rect_common.cuh); descale for K2's mass-scaled
+// sums.
+extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
+                               long long na, const float* pos_b,
+                               const float* mass_b, long long nb,
+                               long long na_s, long long u, long long j_lo,
+                               long long jc, const float* si,
+                               const float* sj, float* raw_a, int first,
+                               int last, int descale, float eps2,
+                               float* acc_a, float* acc_b, void* stream) {
+    return launch_rect_reduce(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, u,
+                              j_lo, jc, si, sj, raw_a, first, last, descale,
+                              eps2, acc_a, acc_b, stream);
 }
 
 extern "C" int nbt_sym_fold_sub_max(void) { return FOLD_SUB_MAX; }

@@ -72,9 +72,17 @@
 // mxu).  Left for later: wgmma, TMA-fed tiles, FMA-contracted geometry,
 // a persistent schedule.
 //
+// K2-rect (the rect sweep of _make_rect_kernel, variants turbo, mxu,
+// turbo2 and turbof, and of _make_rect_kernel_turbop, between two disjoint
+// body sets) runs the same tile, sym_tc_tile, over the rectangular
+// enumeration and slots of rect_common.cuh: one CTA per (row tile of A,
+// column tile of B), no diagonal.  turbop stays bit-equal to turbo there
+// too.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
 
+#include "rect_common.cuh"
 #include "sym_common.cuh"
 #include "tc_common.cuh"
 
@@ -108,38 +116,39 @@ __device__ __forceinline__ void store_part(SymTcSmem& sm, int w, int k0,
     sm.part[w][k0 + g + 8][t] = __fadd_rn(dj[2], dj[3]);
 }
 
-// One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1.
+// The pair tile of row tile I of body set i (n_i bodies) against column
+// tile J of body set j (n_j bodies): the row sums of I go to si_tile[3 * r]
+// for its rows r = 0 .. SYM_TILE-1, the column sums of J to
+// sj_tile[3 * c] for its columns c.  The square sweep calls it with one
+// body set on both sides, the rect sweep (K2-rect) with the two sets.
+// Every thread of the block calls it.
 template <int V>
-__global__ void __launch_bounds__(SYM_TILE)
-sym_tc_pairs_kernel(const float* __restrict__ pos,
-                    const float* __restrict__ mass, long long n,
-                    long long nb, long long d_lo, float eps2,
-                    float* __restrict__ si, float* __restrict__ sj) {
-    __shared__ __align__(16) SymTcSmem sm;
-    const long long bid = blockIdx.x;
-    const long long dk = bid / nb;
-    const long long I = bid - dk * nb;
-    const long long d = d_lo + dk;
-    if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
-    const long long J = (I + d) % nb;
+__device__ __forceinline__ void sym_tc_tile(
+        const float* __restrict__ pos_i, const float* __restrict__ mass_i,
+        long long n_i, long long I, const float* __restrict__ pos_j,
+        const float* __restrict__ mass_j, long long n_j, long long J,
+        float eps2, float* __restrict__ si_tile,
+        float* __restrict__ sj_tile, SymTcSmem& sm) {
     const int tid = threadIdx.x;
     const int w = tid >> 5;
     const int lane = tid & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
 
-    const float4 own_j = load_body(pos, mass, J * SYM_TILE + tid, n);
+    const float4 own_j = load_body(pos_j, mass_j, J * SYM_TILE + tid, n_j);
     sm.tile[tid] = own_j;
     pack_body<V>(sm.pack_j, tid, own_j);
     pack_body<V>(sm.pack_i, tid,
-                 load_body(pos, mass, I * SYM_TILE + tid, n));
+                 load_body(pos_i, mass_i, I * SYM_TILE + tid, n_i));
     // Rows g and g + 8 of this warp's two 16-row blocks.
     float4 xr[2][2];
-    const long long r0 = I * SYM_TILE + 32 * w + g;
+    const int r0 = 32 * w + g;
 #pragma unroll
     for (int rb = 0; rb < 2; ++rb) {
-        xr[rb][0] = load_body(pos, mass, r0 + 16 * rb, n);
-        xr[rb][1] = load_body(pos, mass, r0 + 16 * rb + 8, n);
+        xr[rb][0] = load_body(pos_i, mass_i, I * SYM_TILE + r0 + 16 * rb,
+                              n_i);
+        xr[rb][1] = load_body(pos_i, mass_i, I * SYM_TILE + r0 + 16 * rb + 8,
+                              n_i);
     }
     __syncthreads();
     uint32_t bi[2][2];
@@ -246,7 +255,6 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
         store_part(sm, w, SYM_TILE - 16, g, t, dj);
     }
 
-    const long long slot = dk * nb * SYM_TILE * 3;
 #pragma unroll
     for (int rb = 0; rb < 2; ++rb) {
         const float ca = tile_correction(di[rb][0], di[rb][1],
@@ -254,8 +262,8 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
         const float cb = tile_correction(di[rb][2], di[rb][3],
                                          component(xr[rb][1], t));
         if (t < 3) {
-            si[slot + 3 * (r0 + 16 * rb) + t] = ca;
-            si[slot + 3 * (r0 + 16 * rb + 8) + t] = cb;
+            si_tile[3 * (r0 + 16 * rb) + t] = ca;
+            si_tile[3 * (r0 + 16 * rb + 8) + t] = cb;
         }
     }
     __syncthreads();
@@ -264,10 +272,49 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
     for (int v = 0; v < SYM_WARPS; ++v)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[e] = __fadd_rn(s[e], sm.part[v][tid][e]);
-    const long long j = J * SYM_TILE + tid;
-    sj[slot + 3 * j] = __fsub_rn(s[0], __fmul_rn(own_j.x, s[3]));
-    sj[slot + 3 * j + 1] = __fsub_rn(s[1], __fmul_rn(own_j.y, s[3]));
-    sj[slot + 3 * j + 2] = __fsub_rn(s[2], __fmul_rn(own_j.z, s[3]));
+    sj_tile[3 * tid] = __fsub_rn(s[0], __fmul_rn(own_j.x, s[3]));
+    sj_tile[3 * tid + 1] = __fsub_rn(s[1], __fmul_rn(own_j.y, s[3]));
+    sj_tile[3 * tid + 2] = __fsub_rn(s[2], __fmul_rn(own_j.z, s[3]));
+}
+
+// One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1.
+template <int V>
+__global__ void __launch_bounds__(SYM_TILE)
+sym_tc_pairs_kernel(const float* __restrict__ pos,
+                    const float* __restrict__ mass, long long n,
+                    long long nb, long long d_lo, float eps2,
+                    float* __restrict__ si, float* __restrict__ sj) {
+    __shared__ __align__(16) SymTcSmem sm;
+    const long long bid = blockIdx.x;
+    const long long dk = bid / nb;
+    const long long I = bid - dk * nb;
+    const long long d = d_lo + dk;
+    if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
+    const long long J = (I + d) % nb;
+    const long long slot = dk * nb * SYM_TILE * 3;
+    sym_tc_tile<V>(pos, mass, n, I, pos, mass, n, J, eps2,
+                   si + slot + 3 * I * SYM_TILE, sj + slot + 3 * J * SYM_TILE,
+                   sm);
+}
+
+// K2-rect on the tensor cores: one CTA per (row tile IA of A, column tile
+// JB = j_lo + jk of B), the slots of rect_common.cuh.
+template <int V>
+__global__ void __launch_bounds__(SYM_TILE)
+rect_tc_pairs_kernel(const float* __restrict__ pos_a,
+                     const float* __restrict__ mass_a, long long na,
+                     const float* __restrict__ pos_b,
+                     const float* __restrict__ mass_b, long long nb,
+                     long long na_s, long long j_lo, long long jc,
+                     float eps2, float* __restrict__ si,
+                     float* __restrict__ sj) {
+    __shared__ __align__(16) SymTcSmem sm;
+    const long long bid = blockIdx.x;
+    const long long jk = bid / na_s;
+    const long long IA = bid - jk * na_s;
+    sym_tc_tile<V>(pos_a, mass_a, na, IA, pos_b, mass_b, nb, j_lo + jk, eps2,
+                   si + (jk * na_s + IA) * SYM_TILE * 3,
+                   sj + (IA * jc + jk) * SYM_TILE * 3, sm);
 }
 
 // One CTA per tile: folds the chunk's slots into the running sum, and on the
@@ -372,6 +419,49 @@ extern "C" int nbt_sym_tc_descale_reduce(const float* pos,
                                          float* out, void* stream) {
     return launch_reduce<true>(pos, mass, n, nb, d_lo, dc, si, sj, raw,
                                first, last, eps2, out, stream);
+}
+
+template <int V>
+static int launch_rect_pairs(const float* pos_a, const float* mass_a,
+                             long long na, const float* pos_b,
+                             const float* mass_b, long long nb,
+                             long long na_s, long long j_lo, long long jc,
+                             float eps2, float* si, float* sj, void* stream) {
+    if (jc <= 0 || na_s <= 0) return 0;
+    rect_tc_pairs_kernel<V><<<(unsigned)(na_s * jc), SYM_TILE, 0,
+                              (cudaStream_t)stream>>>(
+        pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si, sj);
+    return (int)cudaGetLastError();
+}
+
+// K2-rect's pair passes for turbo, mxu, turbo2, turbof and turbop, and its
+// reduce pass (rect_common.cuh; descale for turbof).
+#define RECT_TC_PAIRS(NAME, V)                                               \
+    extern "C" int NAME(const float* pos_a, const float* mass_a,             \
+                        long long na, const float* pos_b,                    \
+                        const float* mass_b, long long nb, long long na_s,   \
+                        long long j_lo, long long jc, float eps2, float* si, \
+                        float* sj, void* stream) {                           \
+        return launch_rect_pairs<V>(pos_a, mass_a, na, pos_b, mass_b, nb,    \
+                                    na_s, j_lo, jc, eps2, si, sj, stream);   \
+    }
+RECT_TC_PAIRS(nbt_rect_turbo_pairs, TURBO)
+RECT_TC_PAIRS(nbt_rect_mxu_pairs, MXU)
+RECT_TC_PAIRS(nbt_rect_turbo2_pairs, TURBO2)
+RECT_TC_PAIRS(nbt_rect_turbof_pairs, TURBOF)
+RECT_TC_PAIRS(nbt_rect_turbop_pairs, TURBOP)
+
+extern "C" int nbt_rect_tc_reduce(const float* pos_a, const float* mass_a,
+                                  long long na, const float* pos_b,
+                                  const float* mass_b, long long nb,
+                                  long long na_s, long long u, long long j_lo,
+                                  long long jc, const float* si,
+                                  const float* sj, float* raw_a, int first,
+                                  int last, int descale, float eps2,
+                                  float* acc_a, float* acc_b, void* stream) {
+    return launch_rect_reduce(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, u,
+                              j_lo, jc, si, sj, raw_a, first, last, descale,
+                              eps2, acc_a, acc_b, stream);
 }
 
 extern "C" int nbt_sym_tc_tile(void) { return SYM_TILE; }

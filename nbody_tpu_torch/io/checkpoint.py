@@ -7,9 +7,16 @@ The keys are the JAX package's (``pos``, ``vel``, ``acc``, ``mass``,
 file written by either package loads in the other.  The port's
 ``config_json`` adds ``device``, which the JAX loader ignores as an unknown
 field.  A config written by the JAX package may carry TPU execution modes
-the port does not have (``flat_state=True``, ``prog_cap``, ``shards``):
-they describe how that run was laid out, not what the physics is, so they
-are cleared with a warning.
+the port does not have (``flat_state=True``, ``prog_cap``): they describe
+how that run was laid out, not what the physics is, so they are cleared
+with a warning.
+
+bfloat16 arrays are stored as the JAX package stores them: NumPy has no
+bfloat16, so ``np.asarray`` of a JAX bf16 array gives 2-byte records that
+``np.savez`` writes as ``|V2``.  The port writes the same bytes under the
+same dtype, and reads ``|V2`` arrays back as bfloat16, so a bf16 run
+resumes from either package's file.  (The JAX loader cannot read them:
+``jnp.asarray`` refuses ``|V2``.)
 
 Not ported: the ``flat=True`` load into a ``FlatState`` (a TPU layout
 workaround) and the Orbax adapter, which belongs to the JAX ecosystem
@@ -34,20 +41,35 @@ from ..models.state import SimState
 # TPU execution modes of a JAX config -> whether a stored value asks for
 # the mode (the port then runs with the field at None).
 _TPU_ONLY_FIELDS = {"flat_state": bool,
-                    "prog_cap": lambda v: v is not None,
-                    "shards": lambda v: bool(v) and v > 1}
+                    "prog_cap": lambda v: v is not None}
+
+# NumPy's record dtype for a bfloat16 array, as np.savez writes JAX's.
+_BF16_RECORD = np.dtype("V2")
+
+
+def _host(arr) -> np.ndarray:
+    """Tensor or array -> host array; a bfloat16 tensor becomes its 2-byte
+    records (``|V2``), the bytes the JAX package writes."""
+    if not hasattr(arr, "detach"):
+        return np.asarray(arr)
+    t = arr.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_RECORD)
+    return t.numpy()
 
 
 def _host_n3(arr) -> np.ndarray:
     """Tensor or array -> host (N, 3); flat (3N,) arrays reshape."""
-    a = arr.detach().cpu().numpy() if hasattr(arr, "detach") \
-        else np.asarray(arr)
+    a = _host(arr)
     return a.reshape(-1, 3) if a.ndim == 1 else a
 
 
-def _host(arr) -> np.ndarray:
-    return arr.detach().cpu().numpy() if hasattr(arr, "detach") \
-        else np.asarray(arr)
+def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A stored array -> tensor; ``|V2`` records are bfloat16."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        return t.to(device=device, dtype=dtype or torch.bfloat16)
+    return torch.tensor(a, dtype=dtype, device=device)
 
 
 def _config_bytes(cfg: SimConfig) -> np.ndarray:
@@ -104,7 +126,7 @@ def load_checkpoint(path: str, dtype: Optional[torch.dtype] = None,
     """Load (state, step, config-or-None) from an NPZ checkpoint onto
     ``device``.  ``dtype=None`` keeps the stored precision."""
     with np.load(path) as z:
-        state = SimState(*(torch.tensor(z[k], dtype=dtype, device=device)
+        state = SimState(*(_tensor(z[k], dtype, device)
                            for k in ("pos", "vel", "acc", "mass")))
         step = int(z["step"])
         cfg = (config_from_json(z["config_json"])

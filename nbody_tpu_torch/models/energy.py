@@ -22,13 +22,14 @@ import numpy as np
 import torch
 
 from ..ops.pe import pe_rows
+from .state import host_array
 
 MAX_HOST_ENERGY_N = 262144
 
 
 def _host(x) -> np.ndarray:
     if hasattr(x, "detach"):
-        x = x.detach().cpu().numpy()
+        x = host_array(x)
     return np.asarray(x, dtype=np.float64)
 
 

@@ -54,9 +54,17 @@ def unpad_state(state: SimState, n_real: int) -> SimState:
                     acc=state.acc[:n_real], mass=state.mass[:n_real])
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host copy for numpy arithmetic: bfloat16, which numpy lacks,
+    upcast to float32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def state_to_numpy(state: SimState) -> "dict[str, np.ndarray]":
-    """Host copies under the JAX package's keys (pos/vel/acc/mass)."""
-    return {k: getattr(state, k).detach().cpu().numpy()
+    """Host copies under the JAX package's keys (pos/vel/acc/mass); a
+    bfloat16 state comes back as float32."""
+    return {k: host_array(getattr(state, k))
             for k in ("pos", "vel", "acc", "mass")}
 
 

@@ -46,8 +46,14 @@ _NXN_MAX_N = 16384
 SYM_CROSSOVER_N = 1536
 
 
-def resolve_impl(cfg: SimConfig) -> str:
-    """Resolve impl='auto' to a concrete backend for ``cfg.device``."""
+def resolve_impl(cfg: SimConfig, sharded: bool = False) -> str:
+    """Resolve impl='auto' to a concrete backend for ``cfg.device``.
+
+    ``sharded``: the caller runs the config on a mesh, as in the JAX
+    package.  There it keeps mesh runs out of the resident window; here
+    the resident kernels are routed by ``should_use_resident``, which mesh
+    runs never consult, so the resolution is the same."""
+    del sharded
     if cfg.impl != "auto":
         return cfg.impl
     if cfg.dtype != "float32":

@@ -45,6 +45,13 @@ counts its launches on its own wrapper: ``forces_sym_turbo.launches``
 (K5), ``forces_sym_mxu.launches`` (K6), ``forces_sym_turbo2.launches``,
 ``forces_sym_turbof.launches`` and ``forces_sym_turbop.launches`` (K14a,
 K14b, K14c).
+
+K2-rect on the tensor cores (``rect_forces_sym_tc``; ``_make_rect_kernel``
+variants turbo, mxu, turbo2, turbof and ``_make_rect_kernel_turbop``)
+runs the same tile between two disjoint body sets over the rect sweep of
+``ops/forces_sym.py`` (``rect_sweep``), one wrapper and launch counter a
+variant (``rect_forces_sym_turbo.launches`` ...); turbof's sums are
+descaled as in the square sweep, and turbop stays bit-equal to turbo.
 """
 
 from __future__ import annotations
@@ -54,8 +61,10 @@ import ctypes
 import torch
 
 from . import _build
-from .forces_sym import (SLOT_BUDGET_BYTES, SYM_TILE, descale_plain,
-                         diag_plain, sweep, sweep_plain)
+from .forces_sym import (RECT_PAIRS_ARGTYPES, RECT_REDUCE_ARGTYPES,
+                         SLOT_BUDGET_BYTES, SYM_TILE, check_rect_sets,
+                         descale_plain, diag_plain, rect_descale_plain,
+                         rect_sweep, rect_sweep_plain, sweep, sweep_plain)
 from .forces_tiled_tc import (bf16_split, mass_folded_pack, pair_inv,
                               position_pack, tile_result)
 
@@ -79,6 +88,12 @@ def _lib():
                            _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
                            ctypes.c_float, _c_ptr, _c_ptr]
             fn.restype = _c_int
+        for variant in VARIANTS:
+            fn = getattr(lib, f"nbt_rect_{variant}_pairs")
+            fn.argtypes = RECT_PAIRS_ARGTYPES
+            fn.restype = _c_int
+        lib.nbt_rect_tc_reduce.argtypes = RECT_REDUCE_ARGTYPES
+        lib.nbt_rect_tc_reduce.restype = _c_int
         lib.nbt_sym_tc_tile.argtypes = []
         lib.nbt_sym_tc_tile.restype = _c_int
         if lib.nbt_sym_tc_tile() != SYM_TILE:
@@ -189,3 +204,66 @@ forces_sym_turbop.launches = 0
 _COUNTERS = {"turbo": forces_sym_turbo, "mxu": forces_sym_mxu,
              "turbo2": forces_sym_turbo2, "turbof": forces_sym_turbof,
              "turbop": forces_sym_turbop}
+
+
+# -- K2-rect on the tensor cores
+
+def rect_forces_sym_tc_plain(pos_a, mass_a, pos_b, mass_b, eps2: float,
+                             variant: str,
+                             slot_budget: int = SLOT_BUDGET_BYTES):
+    """Plain PyTorch twin of K2-rect for ``variant``: the square twin's
+    pair tiles over the rect sweep's 256-wide tiles, enumeration, slots
+    and reduction order, descaled by 1/m for turbof.  Returns (acc_a,
+    acc_b)."""
+    raw_a, raw_b = rect_sweep_plain(
+        pos_a, mass_a, pos_b, mass_b, slot_budget,
+        lambda xi, mi, xj, mj: _pair_tiles(xi, mi, xj, mj, eps2, variant))
+    if variant not in _MASS_SCALED:
+        return raw_a, raw_b
+    return (rect_descale_plain(raw_a, pos_a, mass_a, pos_b, mass_b, eps2),
+            rect_descale_plain(raw_b, pos_b, mass_b, pos_a, mass_a, eps2))
+
+
+def rect_forces_sym_tc(pos_a, mass_a, pos_b, mass_b, eps2: float,
+                       variant: str, slot_budget: int = SLOT_BUDGET_BYTES):
+    """Cross accelerations of two disjoint body sets through K2-rect on
+    the tensor cores (``variant`` turbo, mxu, turbo2, turbof or turbop):
+    (na,3),(na,),(nb,3),(nb,) -> (acc_a, acc_b), each A x B pair computed
+    once."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    counter = _RECT_COUNTERS[variant]
+    check_rect_sets(counter.__name__, pos_a, mass_a, pos_b, mass_b)
+    if pos_a.device.type == "cpu":
+        return rect_forces_sym_tc_plain(pos_a, mass_a, pos_b, mass_b, eps2,
+                                        variant, slot_budget)
+    lib = _lib()
+    counter.launches += 1
+    return rect_sweep(counter.__name__, pos_a, mass_a, pos_b, mass_b, eps2,
+                      slot_budget, getattr(lib, f"nbt_rect_{variant}_pairs"),
+                      lib.nbt_rect_tc_reduce, variant in _MASS_SCALED)
+
+
+def _rect_wrapper(variant):
+    def wrapper(pos_a, mass_a, pos_b, mass_b, eps2: float,
+                slot_budget: int = SLOT_BUDGET_BYTES):
+        return rect_forces_sym_tc(pos_a, mass_a, pos_b, mass_b, eps2,
+                                  variant, slot_budget)
+    wrapper.__name__ = wrapper.__qualname__ = f"rect_forces_sym_{variant}"
+    wrapper.__doc__ = f"K2-rect, variant {variant}."
+    wrapper.launches = 0
+    return wrapper
+
+
+# Rect sweeps that launched K2-rect, by variant.
+rect_forces_sym_turbo = _rect_wrapper("turbo")
+rect_forces_sym_mxu = _rect_wrapper("mxu")
+rect_forces_sym_turbo2 = _rect_wrapper("turbo2")
+rect_forces_sym_turbof = _rect_wrapper("turbof")
+rect_forces_sym_turbop = _rect_wrapper("turbop")
+_RECT_COUNTERS = {"turbo": rect_forces_sym_turbo,
+                  "mxu": rect_forces_sym_mxu,
+                  "turbo2": rect_forces_sym_turbo2,
+                  "turbof": rect_forces_sym_turbof,
+                  "turbop": rect_forces_sym_turbop}

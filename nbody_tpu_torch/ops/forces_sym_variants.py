@@ -16,6 +16,12 @@ turbof    K14b        refused
 turbop    K14c        refused
 ========  ==========  ==============================================
 
+``rect_forces_sym`` is the same table for two disjoint body sets (K2-rect,
+``nbody_tpu/ops/forces_pallas_sym.py:1240``): every variant on the
+classic schedule, vpu and vpu2 also on the fold schedule, each A x B pair
+once, the acceleration of A from B and of B from A.  It is the cross
+rotation of the Newton's-third-law ring (``parallel/ring.py``).
+
 The classic schedule's tiles are fixed at 256 bodies (``SYM_TILE``); the
 fold schedule's superblock is ``block_u`` bodies (default
 ``FOLD_BLOCK_U``), JAX's ``block_u`` at the port's 256-body ``block_i``.
@@ -32,10 +38,14 @@ import torch
 
 from .forces_sym import (FOLD_BLOCK_U, SLOT_BUDGET_BYTES, SYM_TILE,
                          forces_sym, forces_sym_fold, forces_sym_vpu,
-                         forces_sym_vpu_fold)
+                         forces_sym_vpu_fold, rect_forces_sym_fold,
+                         rect_forces_sym_vpu, rect_forces_sym_vpu2,
+                         rect_forces_sym_vpu_fold)
 from .forces_sym_tc import (forces_sym_mxu, forces_sym_turbo,
                             forces_sym_turbo2, forces_sym_turbof,
-                            forces_sym_turbop)
+                            forces_sym_turbop, rect_forces_sym_mxu,
+                            rect_forces_sym_turbo, rect_forces_sym_turbo2,
+                            rect_forces_sym_turbof, rect_forces_sym_turbop)
 
 SYM_VARIANTS = ("vpu", "vpu2", "turbo", "turbof", "turbo2", "mxu",
                 "turbop")
@@ -51,6 +61,12 @@ SYM_IMPL_VARIANTS = {"pallas_sym2": "vpu2", "pallas_sym": "vpu",
                      "pallas_sym_turbo": "turbo", "pallas_sym_mxu": "mxu",
                      "pallas_sym_turbo2": "turbo2"}
 _FOLD = {"vpu2": forces_sym_fold, "vpu": forces_sym_vpu_fold}
+RECT_CLASSIC = {"vpu2": rect_forces_sym_vpu2, "vpu": rect_forces_sym_vpu,
+                "turbo": rect_forces_sym_turbo, "mxu": rect_forces_sym_mxu,
+                "turbo2": rect_forces_sym_turbo2,
+                "turbof": rect_forces_sym_turbof,
+                "turbop": rect_forces_sym_turbop}
+_RECT_FOLD = {"vpu2": rect_forces_sym_fold, "vpu": rect_forces_sym_vpu_fold}
 
 
 def resolve_schedule(schedule: Optional[str], variant: str) -> str:
@@ -69,15 +85,19 @@ def resolve_schedule(schedule: Optional[str], variant: str) -> str:
     return schedule
 
 
+def _check_variant(variant: str) -> None:
+    if variant not in SYM_VARIANTS:
+        raise ValueError(
+            f"variant must be one of {SYM_VARIANTS}, got {variant!r}")
+
+
 def forces_pallas_sym(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
                       variant: str = "vpu", schedule: Optional[str] = None,
                       block_u: Optional[int] = None,
                       slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
     """Softened all-pairs accelerations (N,3),(N,) -> (N,3), each pair
     computed once, through the kernel of ``variant`` on ``schedule``."""
-    if variant not in SYM_VARIANTS:
-        raise ValueError(
-            f"variant must be one of {SYM_VARIANTS}, got {variant!r}")
+    _check_variant(variant)
     if resolve_schedule(schedule, variant) == "fold":
         return _FOLD[variant](pos, mass, eps2, block_u or FOLD_BLOCK_U,
                               slot_budget)
@@ -85,3 +105,39 @@ def forces_pallas_sym(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
         raise ValueError(f"the classic schedule's tiles are {SYM_TILE} "
                          f"bodies wide, got block_u={block_u}")
     return CLASSIC[variant](pos, mass, eps2, slot_budget)
+
+
+def rect_forces_sym(pos_a: torch.Tensor, mass_a: torch.Tensor,
+                    pos_b: torch.Tensor, mass_b: torch.Tensor, eps2: float,
+                    block_i: Optional[int] = None,
+                    block_u: Optional[int] = None,
+                    panel_nb: Optional[int] = None, variant: str = "vpu",
+                    schedule: Optional[str] = None,
+                    slot_budget: int = SLOT_BUDGET_BYTES):
+    """Two-sided rect sweep between two disjoint body sets (K2-rect):
+    every (a, b) pair computed once; returns ``(acc_a, acc_b)``, the
+    accelerations of the a-bodies from the b-bodies and of the b-bodies
+    from the a-bodies, (na,3) and (nb,3).
+
+    The kernels mask the ragged tails of both sets at load time, so
+    nothing is padded.  ``block_i`` and ``panel_nb`` are the JAX
+    signature's VMEM knobs and are ignored: ``panel_nb`` cuts B into panels
+    whose resident scatter buffer fits a core's VMEM, where the card's
+    slots live in device memory, chunked to ``slot_budget`` bytes.
+    ``block_u`` is the fold schedule's superblock (default
+    ``FOLD_BLOCK_U``); the classic schedule's tiles are 256 bodies.  As in
+    the JAX package, the fold schedule needs A in whole superblocks and
+    takes the classic sweep otherwise (the same accelerations up to
+    summation order)."""
+    del block_i, panel_nb
+    _check_variant(variant)
+    if resolve_schedule(schedule, variant) == "fold":
+        block_u = block_u or FOLD_BLOCK_U
+        if pos_a.shape[0] % block_u == 0:
+            return _RECT_FOLD[variant](pos_a, mass_a, pos_b, mass_b, eps2,
+                                       block_u, slot_budget)
+    elif block_u not in (None, SYM_TILE):
+        raise ValueError(f"the classic schedule's tiles are {SYM_TILE} "
+                         f"bodies wide, got block_u={block_u}")
+    return RECT_CLASSIC[variant](pos_a, mass_a, pos_b, mass_b, eps2,
+                                 slot_budget)

@@ -97,14 +97,24 @@ def max_blocks(kdk: bool = False) -> int:
     return _lib().nbt_resident_max_blocks(int(kdk))
 
 
-def should_use_resident(cfg, impl: str) -> bool:
+def should_use_resident(cfg, impl: str, sharded: bool = False) -> bool:
     """Decide resident routing for this run, as the JAX package does.
 
     ``cfg.resident`` wins: False disables; True forces and raises naming
     every reason the run is out of scope (integrator, dtype, impl, N past
     ``RESIDENT_MAX_N``).  None is auto: in scope and N inside the window
-    measured on the card."""
+    measured on the card.  A ``sharded`` run (on a mesh) never takes the
+    resident kernels, which hold one device's whole state in one launch:
+    forcing them there raises, after the reasons above."""
     if cfg.resident is False:
+        return False
+    if sharded:
+        if cfg.resident is True:
+            should_use_resident(cfg, impl)
+            raise ValueError(
+                "resident=True but mesh routing (shards) preempts the "
+                "resident kernels (they run one device's whole state in one "
+                "launch); drop --resident on or --shards")
         return False
     reasons = []
     if cfg.integrator != "reference" and cfg.integrator not in KDK_WEIGHTS:

@@ -181,3 +181,25 @@ def test_should_use_resident_contracts():
     card = nt.SimConfig(n_bodies=8192)
     assert should_use_resident(card, nt.resolve_impl(card)) == (
         RESIDENT_AUTO_MIN_N <= 8192 <= RESIDENT_AUTO_MAX_N)
+
+
+def test_should_use_resident_on_a_mesh():
+    """A sharded run never takes the resident kernels: auto declines even
+    inside the window, and forcing them raises, out-of-scope reasons
+    first (the one refusal ``Simulation`` and ``run_benchmark`` share)."""
+    def cfg(**kw):
+        return nt.SimConfig(**{"n_bodies": 8192, "device": "cpu", **kw})
+
+    assert should_use_resident(cfg(), "pallas_sym2")
+    assert not should_use_resident(cfg(), "pallas_sym2", sharded=True)
+    assert not should_use_resident(cfg(resident=False), "pallas_sym2",
+                                   sharded=True)
+    with pytest.raises(ValueError, match="mesh routing"):
+        should_use_resident(cfg(resident=True), "pallas_sym2", sharded=True)
+    with pytest.raises(ValueError, match="dtype"):
+        should_use_resident(cfg(resident=True, dtype="float64"), "xla",
+                            sharded=True)
+    from nbody_tpu_torch.bench_lib import run_benchmark
+    with pytest.raises(ValueError, match="mesh routing"):
+        run_benchmark(n=512, steps=1, impl="pallas_sym2", resident=True,
+                      device="cpu", shards=2)

@@ -189,7 +189,7 @@ def test_cli_run_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--viz"], "item 12"), (["--viz-avi", "v.avi"], "item 12"),
     (["--viz-serve", "0"], "item 12"), (["--init", "plummer"], "item 2"),
-    (["--shards", "2"], "item 14")])
+    (["--shards", "2", "--comm", "rdma"], "item 14")])
 def test_cli_run_refuses_unported_flags(flags, item, capsys):
     assert cli.main(["run", "--n", "64", "--steps", "1", "--device", "cpu",
                      *flags]) == 2

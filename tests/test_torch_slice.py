@@ -130,8 +130,10 @@ def test_cli_validate_long_horizon_and_refusals(capsys):
                      "--device", "cpu"]) == 2
     assert cli.main(["validate", "--n", "256", "--oracle", "native",
                      "--device", "cpu"]) == 2
+    assert cli.main(["validate", "--n", "256", "--shards", "2", "--comm",
+                     "rdma", "--device", "cpu"]) == 2
     assert cli.main(["validate", "--n", "256", "--shards", "2",
-                     "--device", "cpu"]) == 2
+                     "--long-steps", "0", "--device", "cpu"]) == 0
 
 
 def test_cli_bench_on_cpu_has_jax_keys(capsys):
