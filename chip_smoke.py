@@ -18,8 +18,13 @@ bodies, turbop bit for bit against K5, and the fold schedule at the exact
 gate and against classic K2/K7 at 8192 and 1M; K2-rect, every variant
 and both schedules, at the shard shapes 2048 x 2048 and 2144 x 1536, at
 its float64 gates and with massless bodies on both sides, and at the 1M
-ring's 262,144 x 262,144 shard pair on sampled rows against float64),
-checks K2 at
+ring's 262,144 x 262,144 shard pair on sampled rows against float64;
+K15, the seven bench-only ablations in both sweeps, after
+``ablation_sym.enable()``, at N = 8192 and 2048 x 6144, vpu_rc and
+tmm_full also at their float64 gates and bit for bit against K7 / K5,
+then timed at N = 1M in interleaved rounds with K7, K5 and turbop, also
+held at their control's CTAs per SM, and checked and timed at the
+262,144 x 262,144 shard pair), checks K2 at
 N = 1,048,576 against the direct-form ``rect_forces``, then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
@@ -28,7 +33,8 @@ them), ``validate --shards P`` through the mesh on this card (the N3L
 ring with K2-rect on its cross rotations for pallas_sym2, pallas_sym,
 pallas_sym_turbo, pallas_sym_mxu and pallas_sym_turbo2; the all-gather),
 the variant / schedule entry points ``forces_pallas_sym`` and
-``rect_forces_sym`` for turbof, turbop and the fold schedule, and the
+``rect_forces_sym`` for turbof, turbop and the fold schedule and, after
+``ablation_sym.enable()``, for each K15 ablation, and the
 ``run`` verb (resident K3 with a
 checkpoint, K4 with yoshida4, auto routing, N = 1M with ``--energy``,
 N = 1M with ``pallas_sym_turbo`` and with ``pallas_sym_turbo2``, K12 with
@@ -47,6 +53,7 @@ The last three lines of standard output are the kernels' JSON record, the
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import importlib.metadata
 import importlib.util
 import json
@@ -185,6 +192,28 @@ RING_PART_GATES = {"self K2": REL_TOL / 10, "rect a side": REL_TOL / 10,
 # Rounds of single-device K2, 4-shard ring, ring, K2 at N = 1M.
 RING_N = 1 << 20
 RING_ROUNDS = 2
+# K15, the bench-only ablations: name -> (control, float32 flops a pair,
+# tensor-core flops a pair) off the diagonal tiles, where the diagonal stays
+# the exact one-sided pass.  vpu_noj: K7's geometry and the row side only
+# (3 sub, 6 for d2 + eps2, 2 for the cube, 1 rsqrt, 1 weight, 6 for the
+# row sums: 19); vpu_fix0 K7's 26; vpu_rc K7's and 3 subtractions (29);
+# tmm_full and tmm_noscat K5's (14, 32); tmm_noj K5's geometry with one
+# weight and one product (13, 16); tmm_nomm K5's geometry and both weights
+# (14) and the two row-sum adds, no product (16, 0).
+ABLATIONS = {"vpu_noj": ("forces_sym_vpu", 19, 0),
+             "vpu_fix0": ("forces_sym_vpu", 26, 0),
+             "vpu_rc": ("forces_sym_vpu", 29, 0),
+             "tmm_full": ("forces_sym_turbo", 14, 32),
+             "tmm_noscat": ("forces_sym_turbo", 14, 32),
+             "tmm_noj": ("forces_sym_turbo", 13, 16),
+             "tmm_nomm": ("forces_sym_turbo", 16, 0)}
+# The twin shapes: the triangular forms at N = 8192, the rect forms at
+# 2048 x 6144 (B spans 24 superblocks, so B's superblock 0 differs from the
+# others for vpu_fix0 and tmm_noscat); the 1M sweep in rounds, each round
+# every form once, the order reversed every other round.
+ABLATION_N = 8192
+ABLATION_RECT = (2048, 6144)
+ABLATION_ROUNDS = 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -255,6 +284,13 @@ def bodies(n, seed, device):
     pos = torch.empty(n, 3, device=device).uniform_(-1e5, 1e5, generator=g)
     mass = torch.empty(n, device=device).uniform_(1e5, 1e9, generator=g)
     return pos, mass
+
+
+def ablation_rect_sets(device):
+    """The K15 rect forms' A and B (ABLATION_RECT), the same in
+    check_ablations and on the main path."""
+    na, nb = ABLATION_RECT
+    return (*bodies(na, na + 51, device), *bodies(nb, nb + 52, device))
 
 
 def states_equal(a, b):
@@ -862,6 +898,239 @@ def check_rect(dev, eps2, record, smi):
     print(f"[time] K2-rect checks: {time.perf_counter() - t0:.1f} s")
 
 
+def ablation_bound(name, n, rect_n=None):
+    """The bound of one K15 evaluation: the triangular sweep of N bodies
+    (the ablated tile off the 256-wide diagonal tiles, the exact one-sided
+    diagonal), or the rect sweep of n x rect_n pairs."""
+    _, fp32, tc = ABLATIONS[name]
+    if rect_n is None:
+        return sym_bound(fp32, tc, n)
+    return bound(fp32 * n * rect_n, 28 * (n + rect_n), tc * n * rect_n)
+
+
+def check_ablations(dev, eps2, record, smi):
+    """K15 (``ablation_sym.enable()``, then ``forces_pallas_sym`` and
+    ``rect_forces_sym`` with an ablation variant): each of the seven forms
+    of both sweeps against its plain twin (triangular at N = 8192 seed 0,
+    rect at 2048 x 6144), bit-reproducible and the same with one offset /
+    column superblock a slot chunk, and (triangular) the same at the
+    control's CTAs per SM; vpu_rc and tmm_full also against a float64
+    direct sum at the exact and the turbo gate, and bit-equal to K7 and
+    K5; the none forms give B nothing.  Then the sweep at N = 1M (K7 and
+    the vpu_* forms, K5, turbop and the tmm_* forms, and each ablation at
+    its control's CTAs per SM) in ABLATION_ROUNDS interleaved rounds, the
+    outputs of vpu_rc and tmm_full bit-equal to K7 and K5 and each pinned
+    form's to its own; and each rect form at the 1M ring's 262,144 x
+    262,144 shard pair beside K2-rect vpu and turbo, checked there on
+    sampled rows and timed once."""
+    import torch
+    from nbody_tpu_torch.ops import ablation_sym as ab
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_sym_tc as ktc
+    from nbody_tpu_torch.ops.forces_sym_variants import (forces_pallas_sym,
+                                                         rect_forces_sym)
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
+    t0 = time.perf_counter()
+    ab.enable()
+    tc = {"rel_tol": TC_REL_TOL, "abs_floor": TC_ABS_FLOOR}
+
+    def tol(name):
+        return {} if name.startswith("vpu_") else tc
+
+    n = ABLATION_N
+    pos, mass = bodies(n, 0, dev)
+    n_pad = -(-n // 256) * 256
+    na, nb = ABLATION_RECT
+    pa, ma, pb, mb = ablation_rect_sets(dev)
+    for name in ab.ABLATION_NAMES:
+        got = forces_pallas_sym(pos, mass, eps2, variant=name)
+        plain = ab.forces_sym_ablation_plain(pos, mass, eps2, name)
+        err = compare(f"forces_sym_{name} vs plain, N={n}", got, plain,
+                      **tol(name))[0]
+        check(torch.equal(got, forces_pallas_sym(pos, mass, eps2,
+                                                 variant=name)),
+              f"forces_sym_{name}: not bit-reproducible")
+        check(torch.equal(got, forces_pallas_sym(
+            pos, mass, eps2, variant=name, slot_budget=24 * n_pad)),
+            f"forces_sym_{name}: one offset per chunk differs from one "
+            f"chunk")
+        with ab.control_occupancy():
+            check(torch.equal(got, forces_pallas_sym(pos, mass, eps2,
+                                                     variant=name)),
+                  f"forces_sym_{name}: differs at its control's occupancy")
+        record[f"forces_sym_{name}"] = {
+            "shape": f"N={n}, one force evaluation",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: forces_pallas_sym(pos, mass, eps2,
+                                                    variant=name), dev),
+            "plain_ms": time_ms(lambda: ab.forces_sym_ablation_plain(
+                pos, mass, eps2, name), dev, iters=3),
+            "bound": ablation_bound(name, n)}
+        got = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name)
+        plain = ab.rect_forces_sym_ablation_plain(pa, ma, pb, mb, eps2,
+                                                  name)
+        torch.cuda.synchronize()
+        err = compare(f"rect_forces_sym_{name} acc_a vs plain, {na}x{nb}",
+                      got[0], plain[0], **tol(name))[0]
+        if ab.J_MODE[name] == "none":
+            check(not bool(got[1].any()), f"rect {name}: B got a force")
+        else:
+            err = max(err, compare(f"rect_forces_sym_{name} acc_b vs plain, "
+                                   f"{na}x{nb}", got[1], plain[1],
+                                   **tol(name))[0])
+        again = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name)
+        one = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name,
+                              slot_budget=24 * na)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"rect_forces_sym_{name}: not bit-reproducible")
+        check(all(torch.equal(x, y) for x, y in zip(got, one)),
+              f"rect_forces_sym_{name}: one column superblock per chunk "
+              f"differs from one chunk")
+        record[f"rect_forces_sym_{name}"] = {
+            "shape": f"{na} x {nb} pairs",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: rect_forces_sym(pa, ma, pb, mb, eps2,
+                                                  variant=name), dev),
+            "plain_ms": time_ms(lambda: ab.rect_forces_sym_ablation_plain(
+                pa, ma, pb, mb, eps2, name), dev, iters=3),
+            "bound": ablation_bound(name, na, nb)}
+    print("[check] K15 bit-reproducible run to run, across slot chunks "
+          "and (triangular) at the control's occupancy")
+    print(f"[occupancy] CTAs per SM of the triangular pair kernels: "
+          f"{ab.ctas_per_sm()}; at the control's: ", end="")
+    with ab.control_occupancy():
+        print(ab.ctas_per_sm())
+
+    # The two exact-physics forms: float64 gates, and against the controls.
+    ref = rect_forces(pos.double(), pos.double(), mass.double(), eps2)
+    rc = forces_pallas_sym(pos, mass, eps2, variant="vpu_rc")
+    full = forces_pallas_sym(pos, mass, eps2, variant="tmm_full")
+    tier_gate("forces_sym_vpu", rc, ref)
+    tier_gate("forces_sym_turbo", full, ref)
+    k7 = k2.forces_sym_vpu(pos, mass, eps2)
+    check(torch.equal(rc, k7), f"vpu_rc, N={n}: differs from K7")
+    check(torch.equal(full, ktc.forces_sym_turbo(pos, mass, eps2)),
+          f"tmm_full, N={n}: differs from K5")
+    print(f"[check] N={n}: forces_sym_vpu_rc bit-equal to K7, "
+          f"forces_sym_tmm_full to K5")
+    ra = rect_forces(pa.double(), pb.double(), mb.double(), eps2)
+    rb = rect_forces(pb.double(), pa.double(), ma.double(), eps2)
+    for name, kname in (("vpu_rc", "forces_sym_vpu"),
+                        ("tmm_full", "forces_sym_turbo")):
+        got = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name)
+        for g, r in zip(got, (ra, rb)):
+            tier_gate(kname, g, r)
+    del ref, ra, rb
+
+    # N = 1M: one evaluation of each form a round, in turns; each
+    # ablation also at its control's CTAs per SM ("pinned").
+    n = RING_N
+    pos, mass = bodies(n, 6, dev)
+
+    def form(v, pinned=False):
+        def f(p, m, e):
+            with (ab.control_occupancy() if pinned
+                  else contextlib.nullcontext()):
+                return forces_pallas_sym(p, m, e, variant=v)
+        return f
+    forms = {"forces_sym_vpu": k2.forces_sym_vpu,
+             **{f"forces_sym_{v}": form(v) for v in ab.ABLATION_NAMES[:3]},
+             "forces_sym_turbo": ktc.forces_sym_turbo,
+             "forces_sym_turbop": ktc.forces_sym_turbop,
+             **{f"forces_sym_{v}": form(v) for v in ab.ABLATION_NAMES[3:]},
+             **{f"forces_sym_{v} pinned": form(v, True)
+                for v in ab.ABLATION_NAMES}}
+    out = {}
+    for kname, f in forms.items():
+        out[kname] = f(pos, mass, eps2)
+        check(bool(torch.isfinite(out[kname]).all()),
+              f"{kname} N=1M: non-finite")
+    check(torch.equal(out["forces_sym_vpu_rc"], out["forces_sym_vpu"]),
+          "vpu_rc N=1M: differs from K7")
+    check(torch.equal(out["forces_sym_tmm_full"], out["forces_sym_turbo"]),
+          "tmm_full N=1M: differs from K5")
+    for v in ab.ABLATION_NAMES:
+        check(torch.equal(out[f"forces_sym_{v} pinned"],
+                          out[f"forces_sym_{v}"]),
+              f"{v} N=1M: differs at its control's occupancy")
+    print("[check] N=1M: forces_sym_vpu_rc bit-equal to K7, "
+          "forces_sym_tmm_full to K5, each ablation to itself pinned")
+    del out
+    times = {k: [] for k in forms}
+    for r in range(ABLATION_ROUNDS):
+        for kname in (list(forms) if r % 2 == 0 else list(forms)[::-1]):
+            times[kname].append(time_ms(lambda: forms[kname](pos, mass,
+                                                             eps2),
+                                        dev, iters=1, warmup=0))
+    for kname, ts in times.items():
+        control = ("forces_sym_vpu" if kname.startswith("forces_sym_vpu")
+                   else "forces_sym_turbo")
+        ratios = [c / x for c, x in zip(times[control], ts)]
+        med = statistics.median(ts)
+        name = kname[len("forces_sym_"):]
+        if name in ABLATIONS:
+            record[kname]["ms_1m"] = med
+            record[kname]["bound_ms_1m"] = ablation_bound(name, n)[0]
+        print(f"[1M ablation] {kname}: median {med:.3f} ms per evaluation "
+              f"(rounds {', '.join(f'{x:.3f}' for x in ts)}); "
+              f"{control} / {kname} median {statistics.median(ratios):.4f} "
+              f"(rounds {', '.join(f'{x:.4f}' for x in ratios)}) ({smi})")
+    del pos, mass
+
+    # The 1M ring's shard pair (B in three slot chunks), beside K2-rect:
+    # each rect form's output checked, then its time.  acc_a on sampled
+    # rows against the twin over those rows and all of B (a row's sum
+    # reads no other row of A); acc_b of vpu_rc and tmm_full on sampled
+    # rows against float64; fix0's superblock 0 against the sum of its
+    # control's column superblocks, the rest of B 0; the none forms give B
+    # nothing.
+    n = RECT_1M
+    pa, ma = bodies(n, 41, dev)
+    pb, mb = bodies(n, 42, dev)
+    gen = torch.Generator().manual_seed(43)
+    ra, rb = (torch.randperm(n, generator=gen)[:RECT_1M_ROWS].to(dev)
+              for _ in "ab")
+    ref_b = rect_forces(pb[rb].double(), pa.double(), ma.double(), eps2,
+                        chunk=64)
+    outs = {}
+    for variant in ("vpu", "turbo", *ab.ABLATION_NAMES):
+        kname = f"rect_forces_sym_{variant}"
+        got = outs[variant] = rect_forces_sym(pa, ma, pb, mb, eps2,
+                                              variant=variant)
+        if variant in ab.ABLATION_NAMES:
+            what = f"{kname}, {n}x{n}"
+            twin = ab.rect_forces_sym_ablation_plain(
+                pa[ra], ma[ra], pb, mb, eps2, variant)[0]
+            compare(f"{what} acc_a vs plain, {RECT_1M_ROWS} sampled rows",
+                    got[0][ra], twin, **tol(variant))
+            mode = ab.J_MODE[variant]
+            control = "vpu" if variant.startswith("vpu") else "turbo"
+            if mode == "none":
+                check(not bool(got[1].any()), f"{what}: B got a force")
+            elif mode == "fix0":
+                cols = outs[control][1].double().view(-1, 256, 3).sum(0)
+                compare(f"{what} acc_b of B's superblock 0 vs the sum of "
+                        f"rect {control}'s column superblocks", got[1][:256],
+                        cols, **tol(variant))
+                check(not bool(got[1][256:].any()),
+                      f"{what}: B beyond superblock 0 got a force")
+            elif variant == "vpu_rc":
+                compare(f"{what} acc_b vs float64, {RECT_1M_ROWS} sampled "
+                        f"rows", got[1][rb], ref_b)
+            else:
+                tier_gate("forces_sym_turbo", got[1][rb], ref_b)
+        ms = time_ms(lambda: rect_forces_sym(pa, ma, pb, mb, eps2,
+                                             variant=variant), dev,
+                     iters=1, warmup=0)
+        if variant in ab.ABLATION_NAMES:
+            record[kname]["ms_1m"] = ms
+            record[kname]["bound_ms_1m"] = ablation_bound(variant, n, n)[0]
+        print(f"[1M ring pair ablation] {kname}: {ms:.3f} ms per {n} x {n} "
+              f"sweep ({smi})")
+    print(f"[time] K15 checks: {time.perf_counter() - t0:.1f} s")
+
+
 def check_resident(dev, record):
     """K3 and K4 against their plain twins and, bit for bit, against the
     per-step K2 path; chunk invariance; real zero-mass bodies."""
@@ -1215,6 +1484,30 @@ def main_path(counts, reset):
               f"{delta}")
         check(all(v == (1 if k == kernel else 0) for k, v in delta.items()),
               f"rect_forces_sym {kw}: launches {delta}")
+    # K15, the bench-only ablations, the way a sweep reaches them:
+    # enable(), then both entry points by variant name, at N = 8192 and on
+    # check_ablations' rect sets.  Each form launches its own kernel once.
+    from nbody_tpu_torch.ops import ablation_sym
+    ablation_sym.enable()
+    pa, ma, pb, mb = ablation_rect_sets("cuda")
+    for variant in ablation_sym.ABLATION_NAMES:
+        for kernel, call in (
+                (f"forces_sym_{variant}", lambda: [forces_pallas_sym(
+                    state.pos, state.mass, cfg.eps2, variant=variant)]),
+                (f"rect_forces_sym_{variant}", lambda: rect_forces_sym(
+                    pa, ma, pb, mb, cfg.eps2, variant=variant))):
+            before = counts()
+            out = call()
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(x).all()) for x in out),
+                  f"{kernel}: non-finite")
+            delta = {k: v - before[k] for k, v in counts().items()}
+            check(all(v == (1 if k == kernel else 0)
+                      for k, v in delta.items()),
+                  f"{kernel} through its entry point: launches {delta}")
+        print(f"[main path] forces_pallas_sym N=8192 / rect_forces_sym "
+              f"{ABLATION_RECT[0]}x{ABLATION_RECT[1]} variant={variant}: "
+              f"one launch each")
 
     os.makedirs(WORK, exist_ok=True)
     a, b, c = (os.path.join(WORK, f"{x}.npz") for x in "abc")
@@ -1496,6 +1789,7 @@ def main():
     check_slice4(dev, 0.002, record, smi)
     check_k14(dev, 0.002, record, smi)
     check_rect(dev, 0.002, record, smi)
+    check_ablations(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
     for kname, r in record.items():
@@ -1507,6 +1801,7 @@ def main():
     check_k2_1m(dev)
 
     # 5. The main paths, through the CLI, with the launch counters.
+    from nbody_tpu_torch.ops import ablation_sym
     wrappers = {"forces_tiled": k1.forces_tiled, "forces_sym": k2.forces_sym,
                 "resident": resident.resident_steps,
                 "resident_kdk": resident.resident_steps_kdk,
@@ -1531,7 +1826,11 @@ def main():
                 "rect_forces_sym_mxu": k56.rect_forces_sym_mxu,
                 "rect_forces_sym_turbo2": k56.rect_forces_sym_turbo2,
                 "rect_forces_sym_turbof": k56.rect_forces_sym_turbof,
-                "rect_forces_sym_turbop": k56.rect_forces_sym_turbop}
+                "rect_forces_sym_turbop": k56.rect_forces_sym_turbop,
+                **{f"forces_sym_{v}": w
+                   for v, w in ablation_sym.SYM_WRAPPERS.items()},
+                **{f"rect_forces_sym_{v}": w
+                   for v, w in ablation_sym.RECT_WRAPPERS.items()}}
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -1626,7 +1925,15 @@ def main():
             *((f"rect_forces_sym_{v}", "nbody_tpu_torch/csrc/forces_sym_tc.cu",
                "nbody_tpu/ops/forces_pallas_sym.py:"
                + ("518" if v == "turbop" else "686"))
-              for v in ("turbo", "mxu", "turbo2", "turbof", "turbop"))):
+              for v in ("turbo", "mxu", "turbo2", "turbof", "turbop")),
+            # K15: the triangular sweep (_make_tri) and the panel pair
+            # (_make_rect) of each ablation.
+            *((f"{kind}_{v}", "nbody_tpu_torch/csrc/forces_sym"
+               + ("_tc" if v.startswith("tmm_") else "") + ".cu",
+               f"nbody_tpu/ops/ablation_sym.py:{line}")
+              for kind, line in (("forces_sym", 131),
+                                 ("rect_forces_sym", 155))
+              for v in ABLATIONS)):
         r = dict(record[kname])
         bound_ms, bound_by = r.pop("bound")
         # No single PyTorch call computes any of these functions.

@@ -76,7 +76,9 @@
 // superblock's row tiles on chip; its kernels and their contract follow
 // K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
 // _make_rect_kernel_fold between two disjoint body sets) reuses
-// sym_tile_core over a rectangular enumeration; it comes last.
+// sym_tile_core over a rectangular enumeration.  K15's vpu_* ablations
+// (nbody_tpu/ops/ablation_sym.py) are SymMath values of K7's tile, with
+// the reduce passes that every K15 form shares; they come last.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
@@ -84,14 +86,25 @@
 #include "sym_common.cuh"
 #include "rect_common.cuh"
 
+// The pair math of the exact tiles: K2's shared weight, K7's one-sided
+// weights, and K15's ablations of K7's tile (nbody_tpu/ops/ablation_sym.py):
+//   VPU_NOJ   K7's row sums only: no column sums, shuffles, partials or
+//             j-side slot (the j half of every pair is dropped);
+//   VPU_FIX0  K7's tile, its column sums stored in the writer's own row
+//             slot (the reduce adds them all into tile 0's bodies);
+//   VPU_RC    K7's tile with the differences recomputed per component in
+//             the accumulate (JAX's liveness ablation, _accum_both_vpu_rc).
+enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3, VPU_RC = 4 };
+
 // The pair work of one 256 x 256 tile for the row body bi of this thread,
 // against the column tile staged (and synced) in sm.tile: K2's math
-// (sym_pair_tile's, F = m_i m_j inv shared by both sides) or K7's (fi =
-// m_j inv, fj = m_i inv).  Adds the row sums to (ax, ay, az) and returns
-// the column sum of column threadIdx.x over the tile's rows, a positive
-// magnitude (the caller negates).  Every thread of the block calls it;
-// the caller syncs before restaging sm.
-template <bool K7>
+// (sym_pair_tile's, F = m_i m_j inv shared by both sides), K7's (fi =
+// m_j inv, fj = m_i inv) or an ablation of K7's (SymMath).  Adds the row
+// sums to (ax, ay, az) and returns the column sum of column threadIdx.x
+// over the tile's rows, a positive magnitude (the caller negates; zero for
+// VPU_NOJ).  Every thread of the block calls it; the caller syncs before
+// restaging sm.
+template <int M>
 __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
                                                 float& ax, float& ay,
                                                 float& az, SymPairSmem& sm) {
@@ -107,17 +120,7 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
             const float dy = q.y - bi.y;
             const float dz = q.z - bi.z;
             const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            if (K7) {
-                const float inv = rsqrtf(d2 * d2 * d2);
-                const float fi = q.w * inv;
-                const float fj = bi.w * inv;
-                ax += fi * dx;
-                ay += fi * dy;
-                az += fi * dz;
-                bx += fj * dx;
-                by += fj * dy;
-                bz += fj * dz;
-            } else {
+            if (M == SYM_K2) {
                 const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
                 const float px = f * dx;
                 const float py = f * dy;
@@ -128,17 +131,47 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
                 bx += px;
                 by += py;
                 bz += pz;
+            } else if (M == VPU_RC) {
+                const float inv = rsqrtf(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                const float fj = bi.w * inv;
+                const float rx = __fsub_rn(q.x, bi.x);
+                ax += fi * rx;
+                bx += fj * rx;
+                const float ry = __fsub_rn(q.y, bi.y);
+                ay += fi * ry;
+                by += fj * ry;
+                const float rz = __fsub_rn(q.z, bi.z);
+                az += fi * rz;
+                bz += fj * rz;
+            } else {
+                const float inv = rsqrtf(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                ax += fi * dx;
+                ay += fi * dy;
+                az += fi * dz;
+                if (M != VPU_NOJ) {
+                    const float fj = bi.w * inv;
+                    bx += fj * dx;
+                    by += fj * dy;
+                    bz += fj * dz;
+                }
             }
-            const int src = (l + 1) & 31;
-            bx = __shfl_sync(0xffffffffu, bx, src);
-            by = __shfl_sync(0xffffffffu, by, src);
-            bz = __shfl_sync(0xffffffffu, bz, src);
+            if (M != VPU_NOJ) {
+                const int src = (l + 1) & 31;
+                bx = __shfl_sync(0xffffffffu, bx, src);
+                by = __shfl_sync(0xffffffffu, by, src);
+                bz = __shfl_sync(0xffffffffu, bz, src);
+            }
         }
-        const int col = c * 32 + l;
-        sm.part[w][3 * col] = bx;
-        sm.part[w][3 * col + 1] = by;
-        sm.part[w][3 * col + 2] = bz;
+        if (M != VPU_NOJ) {
+            const int col = c * 32 + l;
+            sm.part[w][3 * col] = bx;
+            sm.part[w][3 * col + 1] = by;
+            sm.part[w][3 * col + 2] = bz;
+        }
     }
+    if (M == VPU_NOJ) return make_float3(0.f, 0.f, 0.f);
     __syncthreads();
     float sx = 0.f, sy = 0.f, sz = 0.f;
 #pragma unroll
@@ -150,8 +183,12 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
     return make_float3(sx, sy, sz);
 }
 
-// K7's pair tile: sym_pair_tile (K2) with the two one-sided weights
-// fi = m_j inv and fj = m_i inv in place of the shared F = m_i m_j inv.
+// K7's pair tile (and its ablations): sym_pair_tile (K2) with the two
+// one-sided weights fi = m_j inv and fj = m_i inv in place of the shared
+// F = m_i m_j inv.  VPU_FIX0 stores the column sums in slot sj[dk][I], the
+// writer's own (J -> I is a bijection for one offset, so every slot keeps
+// one writer); VPU_NOJ stores none.
+template <int M>
 __device__ __forceinline__ void sym_vpu_pair_tile(
         const float* __restrict__ pos, const float* __restrict__ mass,
         long long n, long long nb, long long I, long long d, long long dk,
@@ -167,19 +204,21 @@ __device__ __forceinline__ void sym_vpu_pair_tile(
     __syncthreads();
 
     float ax = 0.f, ay = 0.f, az = 0.f;
-    const float3 s = sym_tile_core<true>(bi, eps2, ax, ay, az, sm);
+    const float3 s = sym_tile_core<M>(bi, eps2, ax, ay, az, sm);
     const long long slot = dk * nb * SYM_TILE * 3;
     si[slot + 3 * i] = ax;
     si[slot + 3 * i + 1] = ay;
     si[slot + 3 * i + 2] = az;
-    sj[slot + 3 * j] = -s.x;
-    sj[slot + 3 * j + 1] = -s.y;
-    sj[slot + 3 * j + 2] = -s.z;
+    if (M == VPU_NOJ) return;
+    const long long jt = (M == VPU_FIX0) ? i : j;
+    sj[slot + 3 * jt] = -s.x;
+    sj[slot + 3 * jt + 1] = -s.y;
+    sj[slot + 3 * jt + 2] = -s.z;
 }
 
 // One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1;
-// K2's tile, or K7's.
-template <bool K7>
+// K2's tile, K7's, or an ablation of K7's.
+template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_pairs_kernel(const float* __restrict__ pos,
                  const float* __restrict__ mass, long long n, long long nb,
@@ -191,10 +230,10 @@ sym_pairs_kernel(const float* __restrict__ pos,
     const long long I = bid - dk * nb;
     const long long d = d_lo + dk;
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
-    if (K7)
-        sym_vpu_pair_tile(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
-    else
+    if (M == SYM_K2)
         sym_pair_tile(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
+    else
+        sym_vpu_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
 }
 
 // One CTA per tile: folds the chunk's slots into the running sum, and on the
@@ -238,12 +277,17 @@ sym_reduce_kernel(const float* __restrict__ pos,
     }
 }
 
-template <bool K7>
+// The dynamic shared memory K15's vpu_* pair launches reserve: 0, but
+// while nbt_sym_abl_pin holds them at K7's CTAs per SM.  No kernel reads it.
+static int abl_dyn_smem = 0;
+
+template <int M>
 static int launch_pairs(const float* pos, const float* mass, long long n,
                         long long nb, long long d_lo, long long dc,
                         float eps2, float* si, float* sj, void* stream) {
     if (dc <= 0) return 0;
-    sym_pairs_kernel<K7><<<(unsigned)(nb * dc), SYM_TILE, 0,
+    sym_pairs_kernel<M><<<(unsigned)(nb * dc), SYM_TILE,
+                           M >= VPU_NOJ ? abl_dyn_smem : 0,
                            (cudaStream_t)stream>>>(pos, mass, n, nb, d_lo,
                                                    eps2, si, sj);
     return (int)cudaGetLastError();
@@ -267,8 +311,8 @@ extern "C" int nbt_sym_pairs(const float* pos, const float* mass,
                              long long n, long long nb, long long d_lo,
                              long long dc, float eps2, float* si, float* sj,
                              void* stream) {
-    return launch_pairs<false>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
-                               stream);
+    return launch_pairs<SYM_K2>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
+                                stream);
 }
 
 extern "C" int nbt_sym_reduce(const float* pos, const float* mass,
@@ -284,8 +328,8 @@ extern "C" int nbt_sym_vpu_pairs(const float* pos, const float* mass,
                                  long long n, long long nb, long long d_lo,
                                  long long dc, float eps2, float* si,
                                  float* sj, void* stream) {
-    return launch_pairs<true>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
-                              stream);
+    return launch_pairs<SYM_K7>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
+                                stream);
 }
 
 extern "C" int nbt_sym_vpu_reduce(const float* pos, const float* mass,
@@ -535,9 +579,12 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
 // one j-side slot write per (IA, JB)).  The tile is sym_tile_core, K2's or
 // K7's pair math.  Slots, chunks and the reduce pass are in
 // rect_common.cuh.  The work is the square sweep's without the diagonal:
-// FP32 FMA and MUFU issue bound, 23 (K2) or 26 (K7) flops a pair.
+// FP32 FMA and MUFU issue bound, 23 (K2) or 26 (K7) flops a pair.  K15's
+// ablations of K7's tile run the classic rect sweep (sub = 1); VPU_FIX0's
+// column slot is the writer's own (IA, JB) here already, and its reduce
+// adds every column slot into B's superblock 0.
 
-template <bool K7>
+template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
 rect_pairs_kernel(const float* __restrict__ pos_a,
                   const float* __restrict__ mass_a, long long na,
@@ -564,7 +611,7 @@ rect_pairs_kernel(const float* __restrict__ pos_a,
             sm.tile[t] = load_body(pos_b, mass_b, JB * u + c * SYM_TILE + t,
                                    nb);
             __syncthreads();
-            const float3 s = sym_tile_core<K7>(bi, eps2, ax, ay, az, sm);
+            const float3 s = sym_tile_core<M>(bi, eps2, ax, ay, az, sm);
             fold[c].x += s.x;
             fold[c].y += s.y;
             fold[c].z += s.z;
@@ -574,6 +621,7 @@ rect_pairs_kernel(const float* __restrict__ pos_a,
         si[o + 1] = ay;
         si[o + 2] = az;
     }
+    if (M == VPU_NOJ) return;
     for (int c = 0; c < sub; ++c) {
         const long long o = ((IA * jc + jk) * u + c * SYM_TILE + t) * 3;
         sj[o] = -fold[c].x;
@@ -582,7 +630,7 @@ rect_pairs_kernel(const float* __restrict__ pos_a,
     }
 }
 
-template <bool K7>
+template <int M>
 static int launch_rect_pairs(const float* pos_a, const float* mass_a,
                              long long na, const float* pos_b,
                              const float* mass_b, long long nb,
@@ -591,7 +639,7 @@ static int launch_rect_pairs(const float* pos_a, const float* mass_a,
                              void* stream) {
     if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
     if (jc <= 0 || na_s <= 0) return 0;
-    rect_pairs_kernel<K7><<<(unsigned)(na_s * jc), SYM_TILE, 0,
+    rect_pairs_kernel<M><<<(unsigned)(na_s * jc), SYM_TILE, 0,
                             (cudaStream_t)stream>>>(
         pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, sub, si,
         sj);
@@ -606,7 +654,7 @@ extern "C" int nbt_rect_sym_pairs(const float* pos_a, const float* mass_a,
                                   long long na_s, long long j_lo,
                                   long long jc, float eps2, int sub,
                                   float* si, float* sj, void* stream) {
-    return launch_rect_pairs<false>(pos_a, mass_a, na, pos_b, mass_b, nb,
+    return launch_rect_pairs<SYM_K2>(pos_a, mass_a, na, pos_b, mass_b, nb,
                                     na_s, j_lo, jc, eps2, sub, si, sj,
                                     stream);
 }
@@ -618,7 +666,7 @@ extern "C" int nbt_rect_sym_vpu_pairs(const float* pos_a,
                                       long long na_s, long long j_lo,
                                       long long jc, float eps2, int sub,
                                       float* si, float* sj, void* stream) {
-    return launch_rect_pairs<true>(pos_a, mass_a, na, pos_b, mass_b, nb,
+    return launch_rect_pairs<SYM_K7>(pos_a, mass_a, na, pos_b, mass_b, nb,
                                    na_s, j_lo, jc, eps2, sub, si, sj,
                                    stream);
 }
@@ -637,6 +685,336 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
                               j_lo, jc, si, sj, raw_a, first, last, descale,
                               eps2, acc_a, acc_b, stream);
 }
+
+// ---------------------------------------------------------------------
+// K15: the bench-only ablations (nbody_tpu/ops/ablation_sym.py: _make_tri
+// and _make_rect, launched through _sym_call and _rect_call once
+// ablation_sym.enable() has registered them).  Each prices one mechanism
+// of the production tiles; four of the seven compute wrong physics on
+// purpose, and none is reachable from run, validate or bench.  The pair
+// passes are K7's (vpu_*, above) and K5's (tmm_*, forces_sym_tc.cu) on
+// the classic schedule; the diagonal tiles stay exact and one-sided, as
+// JAX's _diag_call.  How each one's j-side sums reach the bodies:
+//   slots  K7's and K5's own slot sum (vpu_rc, tmm_full);
+//   none   no j-side sums: the reduce reads the row slots only (vpu_noj,
+//          tmm_noj, tmm_nomm; in the rect sweep B gets 0);
+//   fix0   every column sum lands on tile 0's (B's superblock 0's) bodies,
+//          lane by lane, as JAX's acc_jT[0] += ... does (vpu_fix0,
+//          tmm_noscat).  JAX adds into slot 0 one grid step at a time; the
+//          card has no sequential grid, so each CTA keeps one writer per
+//          slot (its own row slot sj[d][I] in the square sweep, its own
+//          (IA, JB) slot in the rect sweep), and the reduce adds the slots
+//          in a fixed order: per offset (per column superblock), the sum
+//          over row tiles first, so results are bit-reproducible and the
+//          same for any chunking.
+
+// The exact ablations' pair passes, K7's signatures.
+#define ABL_SYM_PAIRS(NAME, M)                                               \
+    extern "C" int NAME(const float* pos, const float* mass, long long n,    \
+                        long long nb, long long d_lo, long long dc,          \
+                        float eps2, float* si, float* sj, void* stream) {    \
+        return launch_pairs<M>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,     \
+                               stream);                                      \
+    }
+ABL_SYM_PAIRS(nbt_sym_vpu_noj_pairs, VPU_NOJ)
+ABL_SYM_PAIRS(nbt_sym_vpu_fix0_pairs, VPU_FIX0)
+ABL_SYM_PAIRS(nbt_sym_vpu_rc_pairs, VPU_RC)
+
+#define ABL_RECT_PAIRS(NAME, M)                                              \
+    extern "C" int NAME(const float* pos_a, const float* mass_a,             \
+                        long long na, const float* pos_b,                    \
+                        const float* mass_b, long long nb, long long na_s,   \
+                        long long j_lo, long long jc, float eps2, float* si, \
+                        float* sj, void* stream) {                           \
+        return launch_rect_pairs<M>(pos_a, mass_a, na, pos_b, mass_b, nb,    \
+                                    na_s, j_lo, jc, eps2, 1, si, sj,         \
+                                    stream);                                 \
+    }
+ABL_RECT_PAIRS(nbt_rect_vpu_noj_pairs, VPU_NOJ)
+ABL_RECT_PAIRS(nbt_rect_vpu_fix0_pairs, VPU_FIX0)
+ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, VPU_RC)
+
+// The occupancy pin, a knob for timing the split only.  An ablation that
+// takes fewer registers than K7 fits more CTAs on an SM, and a time taken
+// that way prices the residency with the mechanism the ablation removes.
+// nbt_sym_abl_pin(1) finds the least dynamic shared memory, in 256-byte
+// steps, at which every vpu_* pair kernel runs exactly K7's CTAs per SM,
+// holds it for their launches and returns it (-1, unpinned, if there is
+// none); nbt_sym_abl_pin(0) unpins.  nbt_sym_pairs_ctas(m) is the CTAs per
+// SM of the pair kernel of SymMath m as it launches now.
+// An ablation's launch at more than 48 KB of shared memory in all needs
+// the opt-in, which pairs_ctas sets to the bytes it asks about.
+template <int M>
+static int pairs_ctas(int dyn) {
+    int ctas = -1;
+    if (M >= VPU_NOJ &&
+        cudaFuncSetAttribute(sym_pairs_kernel<M>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dyn) != cudaSuccess)
+        return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &ctas, sym_pairs_kernel<M>, SYM_TILE, (size_t)dyn) != cudaSuccess)
+        return -1;
+    return ctas;
+}
+
+extern "C" int nbt_sym_pairs_ctas(int m) {
+    const int dyn = m >= VPU_NOJ ? abl_dyn_smem : 0;
+    switch (m) {
+        case SYM_K7: return pairs_ctas<SYM_K7>(dyn);
+        case VPU_NOJ: return pairs_ctas<VPU_NOJ>(dyn);
+        case VPU_FIX0: return pairs_ctas<VPU_FIX0>(dyn);
+        case VPU_RC: return pairs_ctas<VPU_RC>(dyn);
+    }
+    return -1;
+}
+
+extern "C" int nbt_sym_abl_pin(int on) {
+    abl_dyn_smem = 0;
+    if (!on) return 0;
+    const int want = pairs_ctas<SYM_K7>(0);
+    for (int dyn = 0; dyn <= 96 * 1024; dyn += 256) {
+        const int a = pairs_ctas<VPU_NOJ>(dyn);
+        const int b = pairs_ctas<VPU_FIX0>(dyn);
+        const int c = pairs_ctas<VPU_RC>(dyn);
+        if (a > want || b > want || c > want) continue;
+        if (want < 1 || a != want || b != want || c != want) return -1;
+        abl_dyn_smem = dyn;
+        return dyn;
+    }
+    return -1;
+}
+
+enum AblJ { ABL_NONE = 0, ABL_FIX0 = 1 };
+
+// fix0, square sweep: for each offset dk of the chunk, the column slots of
+// all its writers (row tiles I; the rows I < nb/2 at an even nb's half
+// offset) summed per component into the slot of writer 0, in place.  A
+// block takes 32 of the 768 (lane, component) columns of one offset; warp
+// w sums the writers I = w, w + 8, ..., and the eight warp sums are added
+// in warp order.
+__global__ void __launch_bounds__(SYM_TILE)
+abl_fix0_colsum_kernel(long long nb, long long d_lo, float* sj) {
+    __shared__ float part[SYM_WARPS][32];
+    const long long dk = blockIdx.x / (3 * SYM_TILE / 32);
+    const int c = (int)(blockIdx.x % (3 * SYM_TILE / 32)) * 32
+                  + (threadIdx.x & 31);
+    const int w = threadIdx.x >> 5;
+    const long long writers = (2 * (d_lo + dk) == nb) ? nb / 2 : nb;
+    float* slot = sj + dk * nb * SYM_TILE * 3;
+    float s = 0.f;
+    for (long long I = w; I < writers; I += SYM_WARPS)
+        s += slot[I * SYM_TILE * 3 + c];
+    part[w][threadIdx.x & 31] = s;
+    __syncthreads();
+    if (w) return;
+    float total = 0.f;
+#pragma unroll
+    for (int v = 0; v < SYM_WARPS; ++v) total += part[v][threadIdx.x];
+    slot[c] = total;
+}
+
+// The square sweep's reduce for the none / fix0 ablations: as K7's, with
+// the row slots only, and for tile 0's bodies (fix0) each offset's summed
+// column slots after its row slot.  Non-mass-scaled sums: the diagonal is
+// the exact one-sided tile (sym_diag_tile).
+template <int J>
+__global__ void __launch_bounds__(SYM_TILE)
+abl_reduce_kernel(const float* __restrict__ pos,
+                  const float* __restrict__ mass, long long n, long long nb,
+                  long long d_lo, long long dc, const float* __restrict__ si,
+                  const float* __restrict__ sj, float* __restrict__ raw,
+                  int first, int last, float eps2, float* __restrict__ out) {
+    __shared__ float4 tile[SYM_TILE];
+    const long long I = blockIdx.x;
+    const long long b = I * SYM_TILE + threadIdx.x;
+    const long long n_pad = nb * SYM_TILE;
+
+    float3 s = first ? make_float3(0.f, 0.f, 0.f)
+                     : make_float3(raw[3 * b], raw[3 * b + 1], raw[3 * b + 2]);
+    for (long long dk = 0; dk < dc; ++dk) {
+        const bool half = 2 * (d_lo + dk) == nb;
+        const long long o = (dk * n_pad + b) * 3;
+        if (!half || 2 * I < nb) {
+            s.x += si[o];
+            s.y += si[o + 1];
+            s.z += si[o + 2];
+        }
+        if (J == ABL_FIX0 && I == 0) {
+            s.x += sj[o];
+            s.y += sj[o + 1];
+            s.z += sj[o + 2];
+        }
+    }
+    if (!last) {
+        raw[3 * b] = s.x;
+        raw[3 * b + 1] = s.y;
+        raw[3 * b + 2] = s.z;
+        return;
+    }
+    const float3 d = sym_diag_tile(pos, mass, n, b, eps2, tile);
+    if (b < n) {
+        out[3 * b] = d.x + s.x;
+        out[3 * b + 1] = d.y + s.y;
+        out[3 * b + 2] = d.z + s.z;
+    }
+}
+
+template <int J>
+static int launch_abl_reduce(const float* pos, const float* mass, long long n,
+                             long long nb, long long d_lo, long long dc,
+                             const float* si, const float* sj, float* raw,
+                             int first, int last, float eps2, float* out,
+                             void* stream) {
+    if (J == ABL_FIX0 && dc > 0) {
+        abl_fix0_colsum_kernel<<<(unsigned)(dc * (3 * SYM_TILE / 32)),
+                                 SYM_TILE, 0, (cudaStream_t)stream>>>(
+            nb, d_lo, const_cast<float*>(sj));
+        const int err = (int)cudaGetLastError();
+        if (err) return err;
+    }
+    abl_reduce_kernel<J><<<(unsigned)nb, SYM_TILE, 0,
+                           (cudaStream_t)stream>>>(
+        pos, mass, n, nb, d_lo, dc, si, sj, raw, first, last, eps2, out);
+    return (int)cudaGetLastError();
+}
+
+// The square reduce passes of the none and fix0 ablations (vpu_* and
+// tmm_* alike), K7's reduce signature.
+extern "C" int nbt_sym_noj_reduce(const float* pos, const float* mass,
+                                  long long n, long long nb, long long d_lo,
+                                  long long dc, const float* si,
+                                  const float* sj, float* raw, int first,
+                                  int last, float eps2, float* out,
+                                  void* stream) {
+    return launch_abl_reduce<ABL_NONE>(pos, mass, n, nb, d_lo, dc, si, sj,
+                                       raw, first, last, eps2, out, stream);
+}
+
+extern "C" int nbt_sym_fix0_reduce(const float* pos, const float* mass,
+                                   long long n, long long nb, long long d_lo,
+                                   long long dc, const float* si,
+                                   const float* sj, float* raw, int first,
+                                   int last, float eps2, float* out,
+                                   void* stream) {
+    return launch_abl_reduce<ABL_FIX0>(pos, mass, n, nb, d_lo, dc, si, sj,
+                                       raw, first, last, eps2, out, stream);
+}
+
+// The rect sweep's reduce for the none / fix0 ablations (classic, u =
+// SYM_TILE, sums not mass-scaled).  A's side is rect_reduce_kernel's.
+// B's side: none writes 0 for every B body; fix0 sums each column slot
+// over the row superblocks, as rect_reduce_kernel does, but stores the sum
+// in place in row superblock 0's slot and writes 0 for the bodies outside
+// B's superblock 0; abl_rect_fix0_kernel then adds the chunk's column sums
+// in column order into superblock 0's bodies, carried in acc_b from chunk
+// to chunk.
+template <int J>
+__global__ void __launch_bounds__(SYM_TILE)
+abl_rect_reduce_kernel(long long na, long long nb, long long na_s,
+                       long long j_lo, long long jc,
+                       const float* __restrict__ si, float* sj,
+                       float* __restrict__ raw_a, int first, int last,
+                       float* __restrict__ acc_a,
+                       float* __restrict__ acc_b) {
+    const long long u = SYM_TILE;
+    const long long na_pad = na_s * u;
+    const long long blk = blockIdx.x;
+    if (blk < na_s) {
+        const long long i = blk * SYM_TILE + threadIdx.x;
+        float3 s = first ? make_float3(0.f, 0.f, 0.f)
+                         : make_float3(raw_a[3 * i], raw_a[3 * i + 1],
+                                       raw_a[3 * i + 2]);
+        for (long long jk = 0; jk < jc; ++jk) {
+            const long long o = (jk * na_pad + i) * 3;
+            s.x += si[o];
+            s.y += si[o + 1];
+            s.z += si[o + 2];
+        }
+        float* dst = last ? acc_a : raw_a;
+        if (last && i >= na) return;
+        dst[3 * i] = s.x;
+        dst[3 * i + 1] = s.y;
+        dst[3 * i + 2] = s.z;
+        return;
+    }
+    const long long local = (blk - na_s) * SYM_TILE + threadIdx.x;
+    const long long j = j_lo * u + local;
+    if (J == ABL_FIX0) {
+        float3 s = make_float3(0.f, 0.f, 0.f);
+        for (long long IA = 0; IA < na_s; ++IA) {
+            const long long o = (IA * jc * u + local) * 3;
+            s.x += sj[o];
+            s.y += sj[o + 1];
+            s.z += sj[o + 2];
+        }
+        sj[3 * local] = s.x;
+        sj[3 * local + 1] = s.y;
+        sj[3 * local + 2] = s.z;
+    }
+    if (j >= nb || (J == ABL_FIX0 && j < u)) return;
+    acc_b[3 * j] = 0.f;
+    acc_b[3 * j + 1] = 0.f;
+    acc_b[3 * j + 2] = 0.f;
+}
+
+// fix0, rect sweep: B's superblock 0 body t (t < nb) adds the column sums
+// of the chunk's superblocks, in column order, to its running sum.
+__global__ void __launch_bounds__(SYM_TILE)
+abl_rect_fix0_kernel(long long nb, long long jc, const float* sj, int first,
+                     float* __restrict__ acc_b) {
+    const long long t = threadIdx.x;
+    if (t >= nb) return;
+    float3 s = first ? make_float3(0.f, 0.f, 0.f)
+                     : make_float3(acc_b[3 * t], acc_b[3 * t + 1],
+                                   acc_b[3 * t + 2]);
+    for (long long jk = 0; jk < jc; ++jk) {
+        const long long o = (jk * SYM_TILE + t) * 3;
+        s.x += sj[o];
+        s.y += sj[o + 1];
+        s.z += sj[o + 2];
+    }
+    acc_b[3 * t] = s.x;
+    acc_b[3 * t + 1] = s.y;
+    acc_b[3 * t + 2] = s.z;
+}
+
+template <int J>
+static int launch_abl_rect_reduce(long long na, long long nb, long long na_s,
+                                  long long u, long long j_lo, long long jc,
+                                  const float* si, const float* sj,
+                                  float* raw_a, int first, int last,
+                                  int descale, float* acc_a, float* acc_b,
+                                  void* stream) {
+    if (u != SYM_TILE || descale) return (int)cudaErrorInvalidValue;
+    abl_rect_reduce_kernel<J><<<(unsigned)(na_s + jc), SYM_TILE, 0,
+                                (cudaStream_t)stream>>>(
+        na, nb, na_s, j_lo, jc, si, const_cast<float*>(sj), raw_a, first,
+        last, acc_a, acc_b);
+    int err = (int)cudaGetLastError();
+    if (err || J != ABL_FIX0) return err;
+    abl_rect_fix0_kernel<<<1, SYM_TILE, 0, (cudaStream_t)stream>>>(
+        nb, jc, sj, first, acc_b);
+    return (int)cudaGetLastError();
+}
+
+// The rect reduce passes of the none and fix0 ablations (vpu_* and tmm_*
+// alike), K2-rect's reduce signature (u = SYM_TILE, descale 0).
+#define ABL_RECT_REDUCE(NAME, J)                                             \
+    extern "C" int NAME(const float* pos_a, const float* mass_a,             \
+                        long long na, const float* pos_b,                    \
+                        const float* mass_b, long long nb, long long na_s,   \
+                        long long u, long long j_lo, long long jc,           \
+                        const float* si, const float* sj, float* raw_a,      \
+                        int first, int last, int descale, float eps2,        \
+                        float* acc_a, float* acc_b, void* stream) {          \
+        (void)pos_a; (void)mass_a; (void)pos_b; (void)mass_b; (void)eps2;    \
+        return launch_abl_rect_reduce<J>(na, nb, na_s, u, j_lo, jc, si, sj,  \
+                                         raw_a, first, last, descale, acc_a, \
+                                         acc_b, stream);                     \
+    }
+ABL_RECT_REDUCE(nbt_rect_noj_reduce, ABL_NONE)
+ABL_RECT_REDUCE(nbt_rect_fix0_reduce, ABL_FIX0)
 
 extern "C" int nbt_sym_fold_sub_max(void) { return FOLD_SUB_MAX; }
 

@@ -72,6 +72,10 @@
 // mxu).  Left for later: wgmma, TMA-fed tiles, FMA-contracted geometry,
 // a persistent schedule.
 //
+// K15's tmm_* ablations (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm)
+// are four more values of the tile's variant, SymTcVariant; their none /
+// fix0 reduce passes are in forces_sym.cu.
+//
 // K2-rect (the rect sweep of _make_rect_kernel, variants turbo, mxu,
 // turbo2 and turbof, and of _make_rect_kernel_turbop, between two disjoint
 // body sets) runs the same tile, sym_tc_tile, over the rectangular
@@ -89,8 +93,27 @@
 #define SYM_LD (SYM_TILE + TC_PAD)
 
 // The pair tiles of this file.  TURBOP is TURBO's math on a deferred
-// j-side schedule.
-enum SymTcVariant { TURBO, MXU, TURBO2, TURBOF, TURBOP };
+// j-side schedule.  The last four are K15's ablations of TURBO's tile
+// (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm):
+//   TMM_FULL    TURBO itself: JAX rebuilt the (U,3) j positions from the
+//               transposed tile, which here are both packed from one
+//               float4 tile already (the control);
+//   TMM_NOSCAT  TURBO's tile, its column sums stored in the writer's own
+//               row slot, all added into tile 0's bodies by the reduce;
+//   TMM_NOJ     the i-side product only: no transposed i pack, j-side
+//               weights, movmatrix, second mma chain or partials;
+//   TMM_NOMM    the pair terms and both bf16 roundings, no mma: each row
+//               sums bf16(m_j inv) + bf16(m_i inv) over the tile (the row
+//               reduce that keeps the roundings live), the same sum for
+//               each of its three components.
+enum SymTcVariant { TURBO, MXU, TURBO2, TURBOF, TURBOP, TMM_FULL, TMM_NOSCAT,
+                    TMM_NOJ, TMM_NOMM };
+
+// The tile a variant's pairs kernel runs: TMM_FULL and TMM_NOSCAT run
+// TURBO's (they differ from it in their slot and reduce only).
+__host__ __device__ constexpr int tc_tile_of(int v) {
+    return (v == TMM_FULL || v == TMM_NOSCAT) ? (int)TURBO : v;
+}
 
 struct SymTcSmem {
     float4 tile[SYM_TILE];                 // column tile J: x, y, z, m
@@ -137,9 +160,10 @@ __device__ __forceinline__ void sym_tc_tile(
 
     const float4 own_j = load_body(pos_j, mass_j, J * SYM_TILE + tid, n_j);
     sm.tile[tid] = own_j;
-    pack_body<V>(sm.pack_j, tid, own_j);
-    pack_body<V>(sm.pack_i, tid,
-                 load_body(pos_i, mass_i, I * SYM_TILE + tid, n_i));
+    if (V != TMM_NOMM) pack_body<V>(sm.pack_j, tid, own_j);
+    if (V != TMM_NOJ && V != TMM_NOMM)
+        pack_body<V>(sm.pack_i, tid,
+                     load_body(pos_i, mass_i, I * SYM_TILE + tid, n_i));
     // Rows g and g + 8 of this warp's two 16-row blocks.
     float4 xr[2][2];
     const int r0 = 32 * w + g;
@@ -152,20 +176,26 @@ __device__ __forceinline__ void sym_tc_tile(
     }
     __syncthreads();
     uint32_t bi[2][2];
+    if (V != TMM_NOJ && V != TMM_NOMM) {
 #pragma unroll
-    for (int rb = 0; rb < 2; ++rb)
-        load_b(sm.pack_i, SYM_LD, 32 * w + 16 * rb, g, t, bi[rb][0],
-               bi[rb][1]);
+        for (int rb = 0; rb < 2; ++rb)
+            load_b(sm.pack_i, SYM_LD, 32 * w + 16 * rb, g, t, bi[rb][0],
+                   bi[rb][1]);
+    }
 
     float di[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     float dj[4] = {0.f, 0.f, 0.f, 0.f};
     uint32_t aj_prev[4] = {0u, 0u, 0u, 0u};   // TURBOP: the deferred block
+    // TMM_NOMM: rows g, g + 8 of each row block, sums of bf16(m_j inv) and
+    // of bf16(m_i inv) over this lane's columns.
+    float wi_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float wj_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
     for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
         const int c = k0 + 2 * t;
         const float4 q[4] = {sm.tile[c], sm.tile[c + 1], sm.tile[c + 8],
                              sm.tile[c + 9]};
-        uint32_t bj0, bj1;
-        load_b(sm.pack_j, SYM_LD, k0, g, t, bj0, bj1);
+        uint32_t bj0 = 0u, bj1 = 0u;
+        if (V != TMM_NOMM) load_b(sm.pack_j, SYM_LD, k0, g, t, bj0, bj1);
         if (V != TURBOP) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) dj[e] = 0.f;
@@ -183,7 +213,21 @@ __device__ __forceinline__ void sym_tc_tile(
                 inv[2 * r + 1] = pair_inv(x, q[qa + 1], eps2);
             }
             uint32_t a[4], at[4];
-            if (V == MXU) {
+            if (V == TMM_NOMM) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const float mi = xr[rb][r & 1].w;
+                    const int qa = (r >> 1) * 2;
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float f = inv[2 * r + e];
+                        wi_sum[rb][r & 1] += __bfloat162float(
+                            __float2bfloat16_rn(__fmul_rn(q[qa + e].w, f)));
+                        wj_sum[rb][r & 1] += __bfloat162float(
+                            __float2bfloat16_rn(__fmul_rn(mi, f)));
+                    }
+                }
+            } else if (V == MXU) {
                 uint32_t lo[4], lot[4];
 #pragma unroll
                 for (int r = 0; r < 4; ++r)
@@ -220,11 +264,14 @@ __device__ __forceinline__ void sym_tc_tile(
                     const int qa = (r >> 1) * 2;
                     a[r] = pack_rn(__fmul_rn(q[qa].w, inv[2 * r]),
                                    __fmul_rn(q[qa + 1].w, inv[2 * r + 1]));
-                    aj[r] = pack_rn(__fmul_rn(mi, inv[2 * r]),
-                                    __fmul_rn(mi, inv[2 * r + 1]));
+                    if (V != TMM_NOJ)
+                        aj[r] = pack_rn(__fmul_rn(mi, inv[2 * r]),
+                                        __fmul_rn(mi, inv[2 * r + 1]));
                 }
                 mma_bf16(di[rb], a, bj0, bj1);
-                if (V == TURBO) {
+                if (V == TMM_NOJ) {
+                    // The i side only.
+                } else if (V == TURBO) {
                     transpose_a(aj, at);
                     mma_bf16(dj, at, bi[rb][0], bi[rb][1]);
                 } else {
@@ -246,7 +293,8 @@ __device__ __forceinline__ void sym_tc_tile(
                 }
             }
         }
-        if (V != TURBOP) store_part(sm, w, k0, g, t, dj);
+        if (V != TURBOP && V != TMM_NOJ && V != TMM_NOMM)
+            store_part(sm, w, k0, g, t, dj);
     }
     if (V == TURBOP) {
         uint32_t at[4];
@@ -255,6 +303,21 @@ __device__ __forceinline__ void sym_tc_tile(
         store_part(sm, w, SYM_TILE - 16, g, t, dj);
     }
 
+    if (V == TMM_NOMM) {
+        // Rows g and g + 8 are spread over the quad's four lanes.
+#pragma unroll
+        for (int rb = 0; rb < 2; ++rb)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float si_ = wi_sum[rb][h], sj_ = wj_sum[rb][h];
+                si_ += __shfl_xor_sync(0xffffffffu, si_, 1);
+                si_ += __shfl_xor_sync(0xffffffffu, si_, 2);
+                sj_ += __shfl_xor_sync(0xffffffffu, sj_, 1);
+                sj_ += __shfl_xor_sync(0xffffffffu, sj_, 2);
+                if (t < 3) si_tile[3 * (r0 + 16 * rb + 8 * h) + t] = si_ + sj_;
+            }
+        return;
+    }
 #pragma unroll
     for (int rb = 0; rb < 2; ++rb) {
         const float ca = tile_correction(di[rb][0], di[rb][1],
@@ -266,6 +329,7 @@ __device__ __forceinline__ void sym_tc_tile(
             si_tile[3 * (r0 + 16 * rb + 8) + t] = cb;
         }
     }
+    if (V == TMM_NOJ) return;
     __syncthreads();
     float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -278,6 +342,7 @@ __device__ __forceinline__ void sym_tc_tile(
 }
 
 // One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1.
+// TMM_NOSCAT stores its column sums in slot sj[d][I], the writer's own.
 template <int V>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_tc_pairs_kernel(const float* __restrict__ pos,
@@ -292,9 +357,10 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
     const long long J = (I + d) % nb;
     const long long slot = dk * nb * SYM_TILE * 3;
-    sym_tc_tile<V>(pos, mass, n, I, pos, mass, n, J, eps2,
-                   si + slot + 3 * I * SYM_TILE, sj + slot + 3 * J * SYM_TILE,
-                   sm);
+    const long long jt = (V == TMM_NOSCAT) ? I : J;
+    sym_tc_tile<tc_tile_of(V)>(pos, mass, n, I, pos, mass, n, J, eps2,
+                               si + slot + 3 * I * SYM_TILE,
+                               sj + slot + 3 * jt * SYM_TILE, sm);
 }
 
 // K2-rect on the tensor cores: one CTA per (row tile IA of A, column tile
@@ -312,9 +378,10 @@ rect_tc_pairs_kernel(const float* __restrict__ pos_a,
     const long long bid = blockIdx.x;
     const long long jk = bid / na_s;
     const long long IA = bid - jk * na_s;
-    sym_tc_tile<V>(pos_a, mass_a, na, IA, pos_b, mass_b, nb, j_lo + jk, eps2,
-                   si + (jk * na_s + IA) * SYM_TILE * 3,
-                   sj + (IA * jc + jk) * SYM_TILE * 3, sm);
+    sym_tc_tile<tc_tile_of(V)>(pos_a, mass_a, na, IA, pos_b, mass_b, nb,
+                               j_lo + jk, eps2,
+                               si + (jk * na_s + IA) * SYM_TILE * 3,
+                               sj + (IA * jc + jk) * SYM_TILE * 3, sm);
 }
 
 // One CTA per tile: folds the chunk's slots into the running sum, and on the
@@ -360,12 +427,18 @@ sym_tc_reduce_kernel(const float* __restrict__ pos,
     }
 }
 
+// The dynamic shared memory K15's tmm_* pair launches reserve: 0, but
+// while nbt_sym_tc_abl_pin holds them at K5's CTAs per SM.  No kernel reads
+// it.
+static int abl_dyn_smem = 0;
+
 template <int V>
 static int launch_pairs(const float* pos, const float* mass, long long n,
                         long long nb, long long d_lo, long long dc,
                         float eps2, float* si, float* sj, void* stream) {
     if (dc <= 0) return 0;
-    sym_tc_pairs_kernel<V><<<(unsigned)(nb * dc), SYM_TILE, 0,
+    sym_tc_pairs_kernel<V><<<(unsigned)(nb * dc), SYM_TILE,
+                             V >= TMM_FULL ? abl_dyn_smem : 0,
                              (cudaStream_t)stream>>>(pos, mass, n, nb, d_lo,
                                                      eps2, si, sj);
     return (int)cudaGetLastError();
@@ -397,6 +470,64 @@ SYM_TC_PAIRS(nbt_sym_mxu_pairs, MXU)
 SYM_TC_PAIRS(nbt_sym_turbo2_pairs, TURBO2)
 SYM_TC_PAIRS(nbt_sym_turbof_pairs, TURBOF)
 SYM_TC_PAIRS(nbt_sym_turbop_pairs, TURBOP)
+// K15's tensor-core ablations; their reduce passes are K5's
+// (nbt_sym_tc_reduce: tmm_full) and forces_sym.cu's (nbt_sym_fix0_reduce:
+// tmm_noscat; nbt_sym_noj_reduce: tmm_noj, tmm_nomm).
+SYM_TC_PAIRS(nbt_sym_tmm_full_pairs, TMM_FULL)
+SYM_TC_PAIRS(nbt_sym_tmm_noscat_pairs, TMM_NOSCAT)
+SYM_TC_PAIRS(nbt_sym_tmm_noj_pairs, TMM_NOJ)
+SYM_TC_PAIRS(nbt_sym_tmm_nomm_pairs, TMM_NOMM)
+
+// The occupancy pin of the tmm_* pair kernels at K5's CTAs per SM, as
+// nbt_sym_abl_pin (forces_sym.cu) does for vpu_* at K7's.
+template <int V>
+static int pairs_ctas(int dyn) {
+    int ctas = -1;
+    if (V >= TMM_FULL &&
+        cudaFuncSetAttribute(sym_tc_pairs_kernel<V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dyn) != cudaSuccess)
+        return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &ctas, sym_tc_pairs_kernel<V>, SYM_TILE, (size_t)dyn) !=
+        cudaSuccess)
+        return -1;
+    return ctas;
+}
+
+extern "C" int nbt_sym_tc_pairs_ctas(int v) {
+    const int dyn = v >= TMM_FULL ? abl_dyn_smem : 0;
+    switch (v) {
+        case TURBO: return pairs_ctas<TURBO>(dyn);
+        case TMM_FULL: return pairs_ctas<TMM_FULL>(dyn);
+        case TMM_NOSCAT: return pairs_ctas<TMM_NOSCAT>(dyn);
+        case TMM_NOJ: return pairs_ctas<TMM_NOJ>(dyn);
+        case TMM_NOMM: return pairs_ctas<TMM_NOMM>(dyn);
+    }
+    return -1;
+}
+
+extern "C" int nbt_sym_tc_abl_pin(int on) {
+    abl_dyn_smem = 0;
+    if (!on) return 0;
+    const int want = pairs_ctas<TURBO>(0);
+    for (int dyn = 0; dyn <= 96 * 1024; dyn += 256) {
+        const int c[4] = {pairs_ctas<TMM_FULL>(dyn),
+                          pairs_ctas<TMM_NOSCAT>(dyn),
+                          pairs_ctas<TMM_NOJ>(dyn),
+                          pairs_ctas<TMM_NOMM>(dyn)};
+        bool above = false, off = want < 1;
+        for (int k = 0; k < 4; ++k) {
+            above |= c[k] > want;
+            off |= c[k] != want;
+        }
+        if (above) continue;
+        if (off) return -1;
+        abl_dyn_smem = dyn;
+        return dyn;
+    }
+    return -1;
+}
 
 // The reduce pass of the tiers whose slots are accelerations, and of
 // turbof, whose slots are mass-scaled.
@@ -450,6 +581,13 @@ RECT_TC_PAIRS(nbt_rect_mxu_pairs, MXU)
 RECT_TC_PAIRS(nbt_rect_turbo2_pairs, TURBO2)
 RECT_TC_PAIRS(nbt_rect_turbof_pairs, TURBOF)
 RECT_TC_PAIRS(nbt_rect_turbop_pairs, TURBOP)
+// K15's rect forms: the column slot is the writer's own (IA, JB) already,
+// so tmm_noscat's pair pass is turbo's and its reduce (forces_sym.cu's
+// nbt_rect_fix0_reduce) adds every column slot into B's superblock 0.
+RECT_TC_PAIRS(nbt_rect_tmm_full_pairs, TMM_FULL)
+RECT_TC_PAIRS(nbt_rect_tmm_noscat_pairs, TMM_NOSCAT)
+RECT_TC_PAIRS(nbt_rect_tmm_noj_pairs, TMM_NOJ)
+RECT_TC_PAIRS(nbt_rect_tmm_nomm_pairs, TMM_NOMM)
 
 extern "C" int nbt_rect_tc_reduce(const float* pos_a, const float* mass_a,
                                   long long na, const float* pos_b,

@@ -22,6 +22,14 @@ classic schedule, vpu and vpu2 also on the fold schedule, each A x B pair
 once, the acceleration of A from B and of B from A.  It is the cross
 rotation of the Newton's-third-law ring (``parallel/ring.py``).
 
+K15, the bench-only ablations of K7's and K5's tiles
+(``ops/ablation_sym.py``), are not in these tables: ``ablation_sym.enable()``
+registers them in ``ABLATION_SYM_KERNELS`` and ``ABLATION_RECT_KERNELS``
+and adds their names to ``SYM_VARIANTS``, and both entry points check the
+registries before ``CLASSIC`` and ``RECT_CLASSIC``.  They run on the
+classic schedule only; no impl, ``auto``, ``SimConfig`` or CLI verb
+reaches them, as in the JAX package.
+
 The classic schedule's tiles are fixed at 256 bodies (``SYM_TILE``); the
 fold schedule's superblock is ``block_u`` bodies (default
 ``FOLD_BLOCK_U``), JAX's ``block_u`` at the port's 256-body ``block_i``.
@@ -67,6 +75,9 @@ RECT_CLASSIC = {"vpu2": rect_forces_sym_vpu2, "vpu": rect_forces_sym_vpu,
                 "turbof": rect_forces_sym_turbof,
                 "turbop": rect_forces_sym_turbop}
 _RECT_FOLD = {"vpu2": rect_forces_sym_fold, "vpu": rect_forces_sym_vpu_fold}
+# K15's wrappers by name, filled by ops/ablation_sym.py's enable().
+ABLATION_SYM_KERNELS: "dict[str, object]" = {}
+ABLATION_RECT_KERNELS: "dict[str, object]" = {}
 
 
 def resolve_schedule(schedule: Optional[str], variant: str) -> str:
@@ -88,7 +99,9 @@ def resolve_schedule(schedule: Optional[str], variant: str) -> str:
 def _check_variant(variant: str) -> None:
     if variant not in SYM_VARIANTS:
         raise ValueError(
-            f"variant must be one of {SYM_VARIANTS}, got {variant!r}")
+            f"variant must be one of {SYM_VARIANTS}, got {variant!r}; the "
+            f"bench-only ablations register through "
+            f"nbody_tpu_torch.ops.ablation_sym.enable()")
 
 
 def forces_pallas_sym(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
@@ -104,7 +117,8 @@ def forces_pallas_sym(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
     if block_u not in (None, SYM_TILE):
         raise ValueError(f"the classic schedule's tiles are {SYM_TILE} "
                          f"bodies wide, got block_u={block_u}")
-    return CLASSIC[variant](pos, mass, eps2, slot_budget)
+    kernel = ABLATION_SYM_KERNELS.get(variant) or CLASSIC[variant]
+    return kernel(pos, mass, eps2, slot_budget)
 
 
 def rect_forces_sym(pos_a: torch.Tensor, mass_a: torch.Tensor,
@@ -139,5 +153,5 @@ def rect_forces_sym(pos_a: torch.Tensor, mass_a: torch.Tensor,
     elif block_u not in (None, SYM_TILE):
         raise ValueError(f"the classic schedule's tiles are {SYM_TILE} "
                          f"bodies wide, got block_u={block_u}")
-    return RECT_CLASSIC[variant](pos_a, mass_a, pos_b, mass_b, eps2,
-                                 slot_budget)
+    kernel = ABLATION_RECT_KERNELS.get(variant) or RECT_CLASSIC[variant]
+    return kernel(pos_a, mass_a, pos_b, mass_b, eps2, slot_budget)
