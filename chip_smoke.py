@@ -24,14 +24,19 @@ K15, the seven bench-only ablations in both sweeps, after
 tmm_full also at their float64 gates and bit for bit against K7 / K5,
 then timed at N = 1M in interleaved rounds with K7, K5 and turbop, also
 held at their control's CTAs per SM, and checked and timed at the
-262,144 x 262,144 shard pair), checks K2 at
+262,144 x 262,144 shard pair; K13, the fused ring, every variant on 1, 2,
+3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
+chunk-invariant, at its tiers' float64 gates and with real massless
+bodies), checks K2 at
 N = 1,048,576 against the direct-form ``rect_forces``, then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
 K2, K7 and K11, and each tensor-core tier, ``pallas_sym_turbo2`` among
 them), ``validate --shards P`` through the mesh on this card (the N3L
 ring with K2-rect on its cross rotations for pallas_sym2, pallas_sym,
-pallas_sym_turbo, pallas_sym_mxu and pallas_sym_turbo2; the all-gather),
+pallas_sym_turbo, pallas_sym_mxu and pallas_sym_turbo2; the all-gather;
+the fused ring K13 with ``--comm rdma`` and ``rdma_overlap``, one launch a
+force evaluation, also with ``--oracle native`` and through ``run``),
 the variant / schedule entry points ``forces_pallas_sym`` and
 ``rect_forces_sym`` for turbof, turbop and the fold schedule and, after
 ``ablation_sym.enable()``, for each K15 ablation, and the
@@ -41,10 +46,10 @@ N = 1M with ``pallas_sym_turbo`` and with ``pallas_sym_turbo2``, K12 with
 ``--sort-every`` at N = 8192 and 1M, and a resume that must equal one
 uninterrupted run).
 Then 200 steps under the momentum and angular-momentum gates, the K1/K2
-and resident crossovers that set ``auto``, one 4-shard N3L-ring step at
-N = 1M against the single-device K2 step (on the rows where the two
-differ, each of the ring's kernels against float64), and the bench
-lines.
+and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
+one 4-shard K13 step at N = 1M against the single-device K2 step (on the
+rows where the ring and K2 differ, each of the ring's kernels and K13
+against float64; K13's phases by partial launches), and the bench lines.
 Any failed check raises and the script exits nonzero; without a CUDA
 card it exits 1 before doing anything.
 
@@ -214,6 +219,43 @@ ABLATIONS = {"vpu_noj": ("forces_sym_vpu", 19, 0),
 ABLATION_N = 8192
 ABLATION_RECT = (2048, 6144)
 ABLATION_ROUNDS = 4
+# K13, the fused ring: (variant, one_sided) cases at N = RDMA_N on each
+# of RDMA_SHARDS shards (8192 / P real bodies a shard padded to whole
+# 256-body tiles with zero-mass ghosts), both protocols.
+RDMA_N = 8192
+RDMA_SHARDS = (1, 2, 3, 4, 5, 8)
+RDMA_CASES = (("vpu2", False), ("vpu", False), ("turbo", False),
+              ("mxu", False), ("turbo2", False), ("vpu", True),
+              ("turbo", True))
+# Flops of K13's tiles: a two-sided pair (K2-rect's counts) and a
+# one-sided interaction (vpu2 K2's geometry and m_i m_j times inv, then
+# the row side: 20; vpu K1's 19; turbo K9's, mxu K10's; turbo2 K10's
+# geometry with no weight multiply, one product), (float32, tensor-core).
+RDMA_TWO = {v: RECT_KERNELS[f"rect_forces_sym_{v}"][2:]
+            for v in ("vpu2", "vpu", "turbo", "mxu", "turbo2")}
+RDMA_ONE = {"vpu2": (20, 0), "vpu": (FLOPS_ONE_SIDED, 0),
+            "turbo": FLOPS_TC["forces_tiled_turbo"],
+            "mxu": FLOPS_TC["forces_tiled_mxu"], "turbo2": (12, 16)}
+# K13's tensor-core variants against their twin: TC_REL_TOL + TC_ABS_FLOOR
+# a component, with at most RDMA_TC_MAX_BAD of the components outside it,
+# and every row within FAST_ROW_REL_TOL of its |a| (plus the floor).  The
+# per-tile correction sum w x_j - x_i sum w subtracts a term that a close
+# pair's large weight makes ~1e6 at N = 8192, and the kernel's tensor-core
+# float32 accumulation and the twin's matmul each round it by a unit or
+# two, which can put a component that is small beside its row outside
+# the per-component tolerance (mxu at P = 3 on an H100: kernel 172.199,
+# twin 172.949, the variant's sums in float64 171.121, on a row of |a|
+# 4364 with a correction term of 1.05e6).  Each
+# such component is held to the variant's own sums in float64
+# (twin_outliers): the kernel must be at least as close as the twin.
+RDMA_TC_MAX_BAD = 1e-4
+# K13's tier gates against float64: the sym variants at their square
+# tiers' gates, the one-sided turbo at K9's; the exact ones at the exact
+# tolerance.
+RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
+              ("mxu", False): "forces_sym_mxu",
+              ("turbo2", False): "forces_sym_turbo2",
+              ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -1131,6 +1173,212 @@ def check_ablations(dev, eps2, record, smi):
     print(f"[time] K15 checks: {time.perf_counter() - t0:.1f} s")
 
 
+def rdma_bound(variant, one_sided, n):
+    """The bound of one K13 evaluation of N bodies, from the function: on
+    the sym ladder N(N-1)/2 pairs at the two-sided tile's flops (RDMA_TWO;
+    K2's count at the same N for vpu2), for the one-sided family N(N-1)
+    interactions at the one-sided tile's (RDMA_ONE)."""
+    f, t = (RDMA_ONE if one_sided else RDMA_TWO)[variant]
+    work = n * (n - 1) // (1 if one_sided else 2)
+    return bound(f * work, 28 * n, t * work)
+
+
+def rdma_schedule_bound(variant, one_sided, p, c):
+    """The bound of the work K13's schedule does on P shards of C bodies,
+    beside ``rdma_bound``: the self phase one-sided over C x C a shard, the
+    two-sided phases over C x C pairs, the other cross phases one-sided
+    (the self and the even-P antipodal phase count each pair twice)."""
+    from nbody_tpu_torch.parallel.rdma_ring import ring_phases
+    half, d_final = ring_phases(p, one_sided)
+    block = p * c * c
+    one = (1 + d_final - half) * block
+    two = half * block
+    (f1, t1), (f2, t2) = RDMA_ONE[variant], RDMA_TWO[variant]
+    return bound(f1 * one + f2 * two, 28 * p * c, t1 * one + t2 * two)
+
+
+def row_gate(name, got, want):
+    """Every row of ``got`` within FAST_ROW_REL_TOL of the row's |a| in
+    ``want``, plus TC_ABS_FLOOR of the largest |a|."""
+    d = (got - want).double().norm(dim=1)
+    w = want.double().norm(dim=1)
+    worst = float((d / (w + TC_ABS_FLOOR * float(w.max()))).max())
+    print(f"[check] {name}: rows within {worst:.3e} of their |a| (gate "
+          f"{FAST_ROW_REL_TOL:g})")
+    check(worst <= FAST_ROW_REL_TOL, f"{name}: a row off by {worst:.3e}")
+
+
+def tc_rows_float64(variant, pos, mass, rows, eps2):
+    """A tensor-core variant's own sums for ``rows`` against every body,
+    exact after the variant's bf16 rounding: each pair's bf16 weight limbs
+    and packs as the kernel and its twin form them (turbo bf16(m_j inv),
+    turbo2 bf16(inv), mxu its hi/lo split, on the position or mass-folded
+    pack), the self pair dropped, the products and the per-tile correction
+    summed in float64.  Returns the sums and the correction term
+    |x_i sum w| they cancel."""
+    import torch
+    from nbody_tpu_torch.ops.forces_tiled_tc import (
+        bf16_split, mass_folded_pack, pair_inv, position_pack)
+    xi = pos[rows]
+    inv = pair_inv(xi, pos, eps2)
+    inv[range(len(rows)), rows] = 0.0
+    if variant == "turbo":
+        limbs = [(mass[None, :] * inv).to(torch.bfloat16).float()]
+        pack = position_pack(pos)
+    else:
+        limbs = ([inv.to(torch.bfloat16).float()] if variant == "turbo2"
+                 else list(bf16_split(inv)))
+        pack = mass_folded_pack(pos, mass)
+    out = sum(w.double() @ pack.double() for w in limbs)
+    s = out[:, 0::2] + out[:, 1::2]
+    corr = xi.double() * s[:, 3:4]
+    return s[:, :3] - corr, corr.abs()
+
+
+def twin_outliers(name, variant, got, want, pos, mass, eps2, rows):
+    """The components of ``rows`` where a tensor-core K13 output ``got``
+    and its twin ``want`` differ past the twin tolerance, each beside the
+    variant's own sums in float64 (``tc_rows_float64``), of which both are
+    float32 roundings, and beside a float64 direct sum: the kernel must be
+    at least as close to the variant's float64 sums as the twin, or within
+    the twin tolerance of them."""
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    if not rows:
+        return
+    v, corr = tc_rows_float64(variant, pos, mass, rows, eps2)
+    f = rect_forces(pos[rows].double(), pos.double(), mass.double(), eps2)
+    g, w = got[rows].double(), want[rows].double()
+    floor = TC_ABS_FLOOR * float(want.abs().max())
+    out = (g - w).abs() > TC_REL_TOL * w.abs() + floor
+    for r, k in out.nonzero().tolist():
+        ek, et = float(abs(g[r, k] - v[r, k])), float(abs(w[r, k] - v[r, k]))
+        tol = TC_REL_TOL * abs(float(v[r, k])) + floor
+        print(f"[check] {name}: component ({rows[r]},{k}) kernel "
+              f"{float(g[r, k]):.6f}, twin {float(w[r, k]):.6f}, the "
+              f"variant's sums in float64 {float(v[r, k]):.6f}: kernel off "
+              f"by {ek:.3e}, twin by {et:.3e} (twin tolerance {tol:.3e}; "
+              f"correction term {float(corr[r, k]):.4e}); float64 direct sum {float(f[r, k]):.6f} (row |a| "
+              f"{float(f[r].norm()):.3f})")
+        check(ek <= et or ek <= tol,
+              f"{name}: component ({rows[r]},{k}) is further from the "
+              f"variant's float64 sums than the twin, and outside the "
+              f"tolerance")
+
+
+def rdma_shards(n, p, seed, dev):
+    """N uniform bodies padded with zero-mass ghosts to P shards of whole
+    256-body tiles, as the mesh pads them: (pos, mass) packed."""
+    import torch
+    c = -(-n // (p * 256)) * 256
+    pos, mass = bodies(n, seed, dev)
+    pad = p * c - n
+    return (torch.cat([pos, pos.new_zeros(pad, 3)]),
+            torch.cat([mass, mass.new_zeros(pad)]))
+
+
+def check_rdma(dev, eps2, record, smi):
+    """K13 against its plain twin at N = RDMA_N on each of RDMA_SHARDS
+    shards, every variant of the sym ladder and the one-sided family, both
+    protocols, bit-reproducible; overlap within the twin tolerance of the
+    sequential protocol; each variant against float64 at its tier's gate;
+    a run in several in-launch column chunks bit-equal to one chunk; real
+    massless bodies under vpu2 at the exact float64 gate (JAX's K13 gives
+    them 0); one launch an evaluation."""
+    import torch
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.parallel import rdma_ring as k13
+    from nbody_tpu_torch.utils.timing import time_ms
+    t0 = time.perf_counter()
+    for variant in ("vpu2", "vpu", "turbo", "mxu", "turbo2"):
+        print(f"[k13] {variant}: {k13.max_blocks(variant)} co-resident CTAs "
+              f"(the cooperative grid)")
+    for p in RDMA_SHARDS:
+        pos, mass = rdma_shards(RDMA_N, p, 60 + p, dev)
+        c = pos.shape[0] // p
+        ref = rect_forces(pos[:RDMA_N].double(), pos.double(), mass.double(),
+                          eps2)
+        for variant, one_sided in RDMA_CASES:
+            tc = variant not in ("vpu", "vpu2")
+            tol = ({"rel_tol": TC_REL_TOL, "abs_floor": TC_ABS_FLOOR,
+                    "max_bad": int(RDMA_TC_MAX_BAD * pos.numel())} if tc
+                   else {})
+            what = (f"K13 {variant}{' one-sided' if one_sided else ''} "
+                    f"P={p}")
+            outs = {}
+            for overlap in (False, True):
+                before = k13.rdma_ring.launches
+                got = k13.rdma_ring(pos, mass, p, eps2, variant, one_sided,
+                                    overlap)
+                check(k13.rdma_ring.launches == before + 1,
+                      f"{what}: not one launch an evaluation")
+                want = k13.rdma_ring_plain(pos, mass, p, eps2, variant,
+                                           one_sided, overlap)
+                torch.cuda.synchronize()
+                proto = "overlap" if overlap else "sequential"
+                err, _, bad = compare(f"{what} {proto} vs plain", got, want,
+                                      **tol)
+                if tc:
+                    row_gate(f"{what} {proto} vs plain", got, want)
+                    twin_outliers(f"{what} {proto}", variant, got, want,
+                                  pos, mass, eps2, bad)
+                check(torch.equal(got, k13.rdma_ring(
+                    pos, mass, p, eps2, variant, one_sided, overlap)),
+                    f"{what} {proto}: not bit-reproducible")
+                few = k13.rdma_ring(pos, mass, p, eps2, variant, one_sided,
+                                    overlap, slot_budget=3 * 2 * p * c * 12)
+                check(torch.equal(few, got),
+                      f"{what} {proto}: three column tiles a chunk differ "
+                      f"from one chunk")
+                outs[overlap] = got
+            compare(f"{what} overlap vs sequential", outs[True], outs[False],
+                    **tol)
+            if tc:
+                tier_gate(RDMA_TIERS[variant, one_sided],
+                          outs[False][:RDMA_N], ref)
+            else:
+                compare(f"{what} vs float64", outs[False][:RDMA_N], ref)
+            if p == 4 and (variant, one_sided) == ("vpu2", False):
+                record["rdma_ring"] = {
+                    "shape": f"N={RDMA_N} on {p} shards, pallas_sym2 "
+                             f"(the auto path of --comm rdma)",
+                    "max_abs_err": err,
+                    "ms": time_ms(lambda: k13.rdma_ring(
+                        pos, mass, p, eps2, variant), dev),
+                    "plain_ms": time_ms(lambda: k13.rdma_ring_plain(
+                        pos, mass, p, eps2, variant), dev, iters=3),
+                    "bound": rdma_bound(variant, False, RDMA_N),
+                    "schedule_bound_ms": rdma_schedule_bound(
+                        variant, False, p, c)[0]}
+                # The overlap protocol's kernel time beside it: its
+                # copy items ride the compute phases' work lists.
+                turns = [time_ms(lambda o=o: k13.rdma_ring(
+                    pos, mass, p, eps2, variant, overlap=o), dev)
+                    for o in (False, True, True, False)]
+                record["rdma_ring"]["ms_overlap"] = statistics.median(
+                    turns[1:3])
+                print(f"[time] K13 vpu2 P={p} N={RDMA_N}, rounds of "
+                      f"sequential, overlap, overlap, sequential: "
+                      f"{', '.join(f'{t:.4f}' for t in turns)} ms "
+                      f"({smi})")
+    print("[check] K13 bit-reproducible, chunk-invariant (3 column tiles a "
+          "chunk, both protocols)")
+
+    # Real massless bodies under vpu2, sequential and overlap.
+    p = 4
+    pos, mass = rdma_shards(RDMA_N, p, 70, dev)
+    zero = [3, 2048, 5000, 8191]
+    mass[zero] = 0.0
+    ref = rect_forces(pos[zero].double(), pos.double(), mass.double(), eps2)
+    for overlap in (False, True):
+        got = k13.rdma_ring(pos, mass, p, eps2, "vpu2", overlap=overlap)
+        compare(f"K13 vpu2 P=4 {'overlap' if overlap else 'sequential'}, "
+                f"massless rows vs float64", got[zero], ref)
+        print(f"[check] K13 massless rows {zero}: |a| "
+              f"{[f'{v:.4e}' for v in got[zero].norm(dim=1).tolist()]}; "
+              f"JAX's K13 gives 0 there (_inv_mass_scale)")
+    print(f"[time] K13 checks: {time.perf_counter() - t0:.1f} s")
+
+
 def check_resident(dev, record):
     """K3 and K4 against their plain twins and, bit for bit, against the
     per-step K2 path; chunk invariance; real zero-mass bodies."""
@@ -1463,6 +1711,41 @@ def main_path(counts, reset):
               {k: (lambda v, e=expect.get(k, 0): v == e) for k in counts()})
         print(f"[time] validate --shards {shards} --impl {impl}: "
               f"{time.perf_counter() - t0:.1f} s")
+    # The fused ring K13 through the CLI: one launch a force evaluation
+    # (10 a validate of 10 reference steps; a KDK prime and 10 kdk steps
+    # 11; 10 + 100 with the long phase), no other kernel.
+    k13 = "rdma_ring"
+    for what, argv, evals in (
+            ("validate --shards 4 --comm rdma (auto)",
+             ["--shards", "4", "--comm", "rdma"], 10),
+            ("validate --shards 3 --comm rdma --impl pallas_sym_turbo2",
+             ["--shards", "3", "--comm", "rdma", "--impl",
+              "pallas_sym_turbo2", "forces_sym_turbo2"], 10),
+            ("validate --shards 3 --comm rdma --impl pallas_sym_mxu",
+             ["--shards", "3", "--comm", "rdma", "--impl", "pallas_sym_mxu",
+              "forces_sym_mxu"], 10),
+            ("validate --shards 5 --comm rdma_overlap --impl pallas_sym",
+             ["--shards", "5", "--comm", "rdma_overlap", "--impl",
+              "pallas_sym"], 10),
+            ("validate --shards 2 --comm rdma --impl pallas",
+             ["--shards", "2", "--comm", "rdma", "--impl", "pallas"], 10),
+            ("validate --shards 4 --comm rdma --long-steps 100 --oracle "
+             "native", ["--shards", "4", "--comm", "rdma", "--long-steps",
+                        "100", "--oracle", "native"], 110)):
+        if argv[-1] in TIER_GATES:
+            frac = str(TIER_GATES[argv.pop()][1])
+            argv += ["--max-bad-frac", frac, "--max-bad-frac-acc", frac]
+        t0 = time.perf_counter()
+        phase(what, ["validate", "--n", "8192", "--steps", "10",
+                     "--long-steps", "0", "--seed", "5", *argv],
+              {k: (lambda v, e=(evals if k == k13 else 0): v == e)
+               for k in counts()})
+        print(f"[time] {what}: {time.perf_counter() - t0:.1f} s")
+    phase("run --n 8192 --shards 4 --comm rdma --integrator kdk --steps 10",
+          ["run", "--n", "8192", "--shards", "4", "--comm", "rdma",
+           "--integrator", "kdk", "--steps", "10"],
+          {k: (lambda v, e=(11 if k == k13 else 0): v == e)
+           for k in counts()})
     # K2-rect's variants without an impl, through the entry point a
     # caller names them by, at a shard pair of the 4-shard ring at 8192.
     from nbody_tpu_torch.ops.forces_sym_variants import rect_forces_sym
@@ -1585,12 +1868,13 @@ def main_path(counts, reset):
     return launches
 
 
-def ring_1m(dev, smi):
-    """One N3L-ring step at N = RING_N on 4 shards of this card against the
-    single-device K2 step, in rounds of K2, ring, ring, K2 (one card moves
-    no bytes between shards: the ring's extra time is its schedule), and
-    the ring's parts at the shard shape: K2 on one 262,144-body shard and
-    K1 on one antipodal 262,144 x 262,144 sweep."""
+def ring_1m(dev, smi, record):
+    """One N3L-ring step at N = RING_N on 4 shards of this card and one
+    K13 step (``--comm rdma``) against the single-device K2 step, in rounds
+    of K2, ring, K13, K13, ring, K2 (one card moves no bytes between
+    shards: the rings' extra time is their schedules), and the ring's parts
+    at the shard shape: K2 on one 262,144-body shard and K1 on one
+    antipodal 262,144 x 262,144 sweep; K13's phases by partial launches."""
     import numpy as np
     import torch
     import nbody_tpu_torch as nt
@@ -1598,6 +1882,8 @@ def ring_1m(dev, smi):
     from nbody_tpu_torch.ops import forces_tiled as k1
     from nbody_tpu_torch.ops.forces_torch import rect_forces
     from nbody_tpu_torch.oracle.numpy_oracle import relative_mismatch
+    from nbody_tpu_torch.ops.forces_sym import SLOT_BUDGET_BYTES
+    from nbody_tpu_torch.parallel import rdma_ring as k13
     from nbody_tpu_torch.parallel.mesh import make_mesh
     from nbody_tpu_torch.parallel.ring import run_steps_sharded
     from nbody_tpu_torch.utils.timing import time_ms
@@ -1614,6 +1900,10 @@ def ring_1m(dev, smi):
     def ring_step():
         return run_steps_sharded(state, cfg, mesh, 1, impl="pallas_sym2")
 
+    def rdma_step():
+        return run_steps_sharded(state, cfg, mesh, 1, impl="pallas_sym2",
+                                 comm="rdma")
+
     # The ring sums each row in another order than K2 (shard tiles, the
     # rect slots, K1's one-sided antipodal sweep).  Against K2: no
     # component outside validate's 1% gate.  The components outside the
@@ -1624,7 +1914,14 @@ def ring_1m(dev, smi):
     # carries the difference (K1's antipodal sweep) and holds the others,
     # K2-rect among them, at a tenth of the exact tolerance.
     ring_acc, one_acc = ring_step().acc, one().acc
+    before = k13.rdma_ring.launches
+    rdma_acc = rdma_step().acc
     torch.cuda.synchronize()
+    print(f"[ring 1M] K13 launches a step: "
+          f"{k13.rdma_ring.launches - before}")
+    check(k13.rdma_ring.launches - before == 1, "ring 1M: K13 launches")
+    compare("4-shard K13 step vs single-device K2 step, N=1M, acc, at 1%",
+            rdma_acc, one_acc, rel_tol=0.01)
     compare("4-shard N3L ring step vs single-device K2 step, N=1M, acc, "
             "at 1%", ring_acc, one_acc, rel_tol=0.01)
     diff = relative_mismatch(ring_acc.double().cpu().numpy(),
@@ -1638,7 +1935,8 @@ def ring_1m(dev, smi):
     rows = torch.tensor(rows, device=dev)
     ref = rect_forces(state.pos[rows].double(), state.pos.double(),
                       state.mass.double(), cfg.eps2, chunk=64)
-    for what, acc in (("4-shard ring", ring_acc), ("K2", one_acc)):
+    for what, acc in (("4-shard ring", ring_acc), ("K2", one_acc),
+                      ("4-shard K13", rdma_acc)):
         got = acc[rows]
         p99, frac = gate_numbers(got, ref)
         d99, dfrac = (gate_numbers(got[dsel], ref[dsel]) if dsel
@@ -1650,13 +1948,56 @@ def ring_1m(dev, smi):
               f"rows p99 {d99:.3e}, bad fraction {dfrac:.3e}")
         check(frac <= 5e-4, f"ring 1M: {what} vs float64 bad fraction "
               f"{frac:.3e}")
+        if dsel:
+            e = ((got[dsel].double() - ref[dsel]).norm(dim=1)
+                 / ref[dsel].norm(dim=1))
+            print(f"[ring 1M] {what}: |err| / |a| against float64 on the "
+                  f"{len(dsel)} rows where ring and K2 differ: max "
+                  f"{float(e.max()):.3e}, median {float(e.median()):.3e}")
+            check(float(e.max()) <= RING_PART_GATES["ring"],
+                  f"ring 1M: {what} off by {float(e.max()):.3e} of |a|")
     ring_parts(state, cfg, p, ring_acc, diff_rows[:512], dev)
-    single, ring = [], []
+    single, ring, rdma = [], [], []
     for _ in range(RING_ROUNDS):
         turns = [time_ms(f, dev, iters=1, warmup=0)
-                 for f in (one, ring_step, ring_step, one)]
-        single += [turns[0], turns[3]]
-        ring += turns[1:3]
+                 for f in (one, ring_step, rdma_step, rdma_step, ring_step,
+                           one)]
+        single += [turns[0], turns[5]]
+        ring += [turns[1], turns[4]]
+        rdma += turns[2:4]
+    # K13's phases by partial launches: the self sweep alone, then with
+    # the two-sided phase, then the whole evaluation (the antipodal phase
+    # and the finish).
+    parts = [time_ms(lambda k=k: k13._launch(
+        state.pos, state.mass, p, cfg.eps2, "vpu2", False, False,
+        SLOT_BUDGET_BYTES, phases=k), dev, iters=1, warmup=1)
+        for k in (1, 2, 3)]
+    # The overlap protocol over 13 in-launch column chunks a phase,
+    # against the sequential protocol at the exact twin tolerance, before
+    # it is timed.
+    compare("4-shard K13 vpu2 N=1M, overlap vs sequential",
+            k13.rdma_ring(state.pos, state.mass, p, cfg.eps2, "vpu2",
+                          overlap=True),
+            k13.rdma_ring(state.pos, state.mass, p, cfg.eps2, "vpu2"))
+    overlap = time_ms(lambda: k13.rdma_ring(state.pos, state.mass, p,
+                                            cfg.eps2, "vpu2", overlap=True),
+                      dev, iters=1, warmup=1)
+    record["rdma_ring"]["ms_1m"] = statistics.median(rdma)
+    record["rdma_ring"]["bound_ms_1m"] = rdma_bound("vpu2", False, n)[0]
+    record["rdma_ring"]["schedule_bound_ms_1m"] = rdma_schedule_bound(
+        "vpu2", False, p, n // p)[0]
+    print(f"[ring 1M] K13 (4-shard --comm rdma) ms/step "
+          f"{', '.join(f'{t:.3f}' for t in rdma)}; median "
+          f"{statistics.median(rdma):.3f}, against the ppermute ring "
+          f"{statistics.median(rdma) / statistics.median(ring):.4f}x and "
+          f"K2 {statistics.median(rdma) / statistics.median(single):.4f}x; "
+          f"partial launches: phase 0 (self, one-sided) {parts[0]:.3f} ms, "
+          f"+ phase 1 (two-sided) {parts[1]:.3f} ms, + phase 2 (antipodal, "
+          f"one-sided) and finish {parts[2]:.3f} ms; one rdma_overlap "
+          f"evaluation {overlap:.3f} ms; bound "
+          f"{record['rdma_ring']['bound_ms_1m']:.3f} ms (the schedule's "
+          f"work {record['rdma_ring']['schedule_bound_ms_1m']:.3f} ms) "
+          f"({smi})")
     c = n // p
     part_k2 = time_ms(lambda: k2.forces_sym(state.pos[:c], state.mass[:c],
                                             cfg.eps2), dev, iters=2)
@@ -1760,7 +2101,7 @@ def main():
 
     # 2. Build every kernel from a clean build directory, in parallel.
     libs = ("forces_tiled", "forces_sym", "resident", "pe",
-            "forces_tiled_tc", "forces_sym_tc", "forces_fast")
+            "forces_tiled_tc", "forces_sym_tc", "forces_fast", "rdma_ring")
     shutil.rmtree(_build.BUILD_ROOT, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1790,6 +2131,7 @@ def main():
     check_k14(dev, 0.002, record, smi)
     check_rect(dev, 0.002, record, smi)
     check_ablations(dev, 0.002, record, smi)
+    check_rdma(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
     for kname, r in record.items():
@@ -1802,6 +2144,7 @@ def main():
 
     # 5. The main paths, through the CLI, with the launch counters.
     from nbody_tpu_torch.ops import ablation_sym
+    from nbody_tpu_torch.parallel import rdma_ring as k13
     wrappers = {"forces_tiled": k1.forces_tiled, "forces_sym": k2.forces_sym,
                 "resident": resident.resident_steps,
                 "resident_kdk": resident.resident_steps_kdk,
@@ -1827,6 +2170,7 @@ def main():
                 "rect_forces_sym_turbo2": k56.rect_forces_sym_turbo2,
                 "rect_forces_sym_turbof": k56.rect_forces_sym_turbof,
                 "rect_forces_sym_turbop": k56.rect_forces_sym_turbop,
+                "rdma_ring": k13.rdma_ring,
                 **{f"forces_sym_{v}": w
                    for v, w in ablation_sym.SYM_WRAPPERS.items()},
                 **{f"rect_forces_sym_{v}": w
@@ -1856,7 +2200,7 @@ def main():
 
     # 7. Crossovers, and the 4-shard ring step at 1M against K2's.
     crossovers(dev, smi)
-    ring_1m(dev, smi)
+    ring_1m(dev, smi, record)
 
     # 8. Bench lines.
     from nbody_tpu_torch.bench_lib import run_benchmark
@@ -1874,7 +2218,11 @@ def main():
                {"n": 8192, "impl": "pallas_sym2", "shards": 4},
                {"n": 8192, "impl": "pallas_sym2", "shards": 4,
                 "comm": "allgather"},
-               {"n": 1 << 20, "impl": "pallas_sym2", "shards": 4}):
+               {"n": 1 << 20, "impl": "pallas_sym2", "shards": 4},
+               # The fused ring K13 on the same meshes.
+               {"n": 8192, "shards": 4, "comm": "rdma"},
+               {"n": 8192, "shards": 4, "comm": "rdma_overlap"},
+               {"n": 1 << 20, "shards": 4, "comm": "rdma"}):
         t0 = time.perf_counter()
         res = run_benchmark(**kw)
         check(res["finite"], f"bench {kw}: non-finite")
@@ -1926,6 +2274,8 @@ def main():
                "nbody_tpu/ops/forces_pallas_sym.py:"
                + ("518" if v == "turbop" else "686"))
               for v in ("turbo", "mxu", "turbo2", "turbof", "turbop")),
+            ("rdma_ring", "nbody_tpu_torch/csrc/rdma_ring.cu",
+             "nbody_tpu/parallel/rdma_ring.py:277"),
             # K15: the triangular sweep (_make_tri) and the panel pair
             # (_make_rect) of each ablation.
             *((f"{kind}_{v}", "nbody_tpu_torch/csrc/forces_sym"
@@ -1950,6 +2300,8 @@ def main():
             k["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:328"
         elif k["name"].startswith("rect_forces_sym"):
             k["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:919"
+        elif k["name"] == "rdma_ring":
+            k["also_replaces"] = "nbody_tpu/parallel/rdma_ring.py:587"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

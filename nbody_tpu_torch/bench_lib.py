@@ -10,9 +10,9 @@ Routing is ``Simulation``'s: with ``resident`` (None = auto, True forces
 and raises out of scope) a trial of ``steps`` steps is one launch of the
 resident kernel K3, and the ``"resident"`` key reports what ran.  With
 ``shards`` > 1 a trial runs through ``run_steps_sharded`` on a mesh of
-that many shards (one card's shards share it) with the ``comm`` tier, and
-never the resident kernels; forcing them with shards raises, as in the
-JAX package.
+that many shards (one card's shards share it) with the ``comm`` tier (the
+rdma comms: one K13 launch a force evaluation), and never the resident
+kernels; forcing them with shards raises, as in the JAX package.
 ``energy`` works at any N: ``energy_f64`` takes kernel K8 above 262,144
 bodies.
 
@@ -70,6 +70,10 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
                     resident=resident, device=device,
                     shards=shards if sharded else None)
     impl_resolved = resolve_impl(cfg, sharded=sharded)
+    if sharded:
+        mesh = make_mesh(shards, device)
+        impl_resolved = _resolve_local_impl(impl, mesh, comm,
+                                            default=impl_resolved)
     used_resident = should_use_resident(cfg, impl_resolved, sharded=sharded)
     on_cuda = dev.type == "cuda"
     if steps is None:
@@ -82,15 +86,15 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
                         max(3 if on_cuda else 5, target * rate // (n * n))))
 
     if sharded:
-        mesh = make_mesh(shards, device)
-        local_impl = _resolve_local_impl(impl_resolved, mesh)
-        # The one-sided rect forms (the antipodal rotation, allgather) too.
-        libs = _KERNEL_LIBS.get(local_impl, ()) + (
-            ("forces_tiled", "forces_tiled_tc")
-            if local_impl.startswith("pallas") else ())
+        # The one-sided rect forms (the antipodal rotation, allgather) too;
+        # the rdma comms run K13 alone.
+        libs = (("rdma_ring",) if comm.startswith("rdma")
+                else _KERNEL_LIBS.get(impl_resolved, ()) + (
+                    ("forces_tiled", "forces_tiled_tc")
+                    if impl_resolved.startswith("pallas") else ()))
 
         def advance(s, k):
-            return run_steps_sharded(s, cfg, mesh, k, impl=local_impl,
+            return run_steps_sharded(s, cfg, mesh, k, impl=impl_resolved,
                                      comm=comm)
     elif used_resident:
         libs = ("resident",)

@@ -8,10 +8,13 @@ kernels.  ``--shards P`` (``run``, ``validate``, ``bench``) shards the
 bodies over a mesh of P shards, shard i on card ``i % device_count``
 (one card's shards share it; ``--device cpu`` puts them on the CPU), and
 sweeps them with ``--comm ring`` (the Newton's-third-law ring for the
-``pallas_sym*`` impls) or ``allgather``.  Choices that name parts not
-ported yet (``--comm rdma|rdma_overlap``, ``--init`` presets,
-``--analytic``, the native oracle; for ``run`` the ``--viz*`` sinks) are
-refused with the ROADMAP item that will bring them.  ``run --profile
+``pallas_sym*`` impls), ``allgather``, or ``rdma`` / ``rdma_overlap`` (the
+fused ring K13, one launch a force evaluation over every shard of one
+card).  ``validate --oracle native`` runs the C++/OpenMP oracle
+(``oracle/native.py``), and the long-horizon phase prefers it unless
+``--oracle numpy`` is given.  Choices that name parts not ported yet
+(``--init`` presets, ``--analytic``; for ``run`` the ``--viz*`` sinks)
+are refused with the ROADMAP item that will bring them.  ``run --profile
 DIR`` writes a ``torch.profiler`` trace (``DIR/trace.json``).
 """
 
@@ -116,8 +119,9 @@ def _add_sim_args(p: argparse.ArgumentParser):
     p.add_argument("--comm", default="ring",
                    choices=["ring", "allgather", "rdma", "rdma_overlap"],
                    help="sharded sweep: the ring (N3L for pallas_sym* "
-                        "impls) or the all-gather; the RDMA ring (K13) is "
-                        "not ported")
+                        "impls), the all-gather, or the fused ring K13 "
+                        "(rdma, rdma_overlap: the pallas_sym* ladder and "
+                        "pallas / pallas_turbo; auto is pallas_sym2)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels) or cpu (the "
                         "plain PyTorch versions)")
@@ -142,10 +146,6 @@ def _refuse_unported(args) -> Optional[str]:
     if args.init != "uniform":
         return (f"--init {args.init}: only the uniform box is ported "
                 f"(presets come later, ROADMAP Queue 1 item 2)")
-    if args.shards and args.comm.startswith("rdma"):
-        return (f"--comm {args.comm}: the in-kernel RDMA ring (K13) is not "
-                f"ported yet (ROADMAP Queue 2; multi-GPU, Queue 1 item 14); "
-                f"use --comm ring or allgather")
     for flag in ("viz", "viz_avi", "viz_serve"):
         value = getattr(args, flag, None)
         if value is not None and value is not False:   # --viz-serve 0
@@ -154,9 +154,6 @@ def _refuse_unported(args) -> Optional[str]:
     if getattr(args, "analytic", False):
         return ("--analytic: the Kepler gates are not ported yet "
                 "(ROADMAP Queue 1 item 9)")
-    if getattr(args, "oracle", "numpy") == "native":
-        return ("--oracle native: the C++/OpenMP oracle is not ported; "
-                "use the numpy oracle")
     return None
 
 
@@ -262,19 +259,33 @@ def cmd_run(args) -> int:
     return 0
 
 
+def _oracle_run(which: str):
+    """The oracle run function of ``which`` (numpy or native)."""
+    if which == "native":
+        from .oracle.native import native_run
+        return native_run
+    from .oracle.numpy_oracle import oracle_run
+    return oracle_run
+
+
 def cmd_validate(args) -> int:
-    """Lock-step differential test against the float64 numpy oracle, the
-    gates of ``nbody validate``: a strict short horizon (0 bad pos/vel
-    components, a 5e-4 allowance for acc), then, with ``--long-steps``,
-    energy vs the oracle where the oracle conserves it and the
-    exactly-conserved momentum and angular momentum of the device run."""
+    """Lock-step differential test against a float64 oracle (numpy, or the
+    C++/OpenMP one with ``--oracle native``), the gates of ``nbody
+    validate``: a strict short horizon (0 bad pos/vel components, a 5e-4
+    allowance for acc), then, with ``--long-steps``, energy vs the oracle
+    where the oracle conserves it and the exactly-conserved momentum and
+    angular momentum of the device run.  The native oracle twins the
+    reference and kdk schemes only: yoshida4, or a library that cannot be
+    built, takes numpy with a message; the long phase prefers native
+    unless ``--oracle numpy`` was given explicitly."""
     from .analysis import invariant_drifts
     from .models.energy import energy_f64
     from .models.init import init_state
     from .models.state import SimState, state_to_numpy
     from .ops.forces import resolve_impl
     from .ops.step import prime_kdk, run_steps
-    from .oracle.numpy_oracle import oracle_run, relative_mismatch
+    from .oracle import native
+    from .oracle.numpy_oracle import relative_mismatch
     msg = _refuse_unported(args)
     if msg:
         print(msg, file=sys.stderr)
@@ -288,7 +299,7 @@ def cmd_validate(args) -> int:
         from .parallel.ring import (_resolve_local_impl, prime_kdk_sharded,
                                     run_steps_sharded)
         impl = _resolve_local_impl(None if args.impl == "auto" else impl,
-                                   mesh)
+                                   mesh, args.comm)
         print(f"[INFO] {mesh.describe()}, comm={args.comm}")
 
         def dev_run(st, ns):
@@ -313,9 +324,19 @@ def cmd_validate(args) -> int:
 
     dev = state_to_numpy(dev_run(state, args.steps))
     dtype = np.float32 if args.oracle_f32 else np.float64
-    opos, ovel, oacc = oracle_run(pos0, vel0, mass, cfg.eps2, cfg.dt,
-                                  args.steps, dtype=dtype,
-                                  integrator=cfg.integrator)
+    oracle = args.oracle
+    if oracle == "native" and cfg.integrator == "yoshida4":
+        print("native oracle has no yoshida4 twin; falling back to numpy")
+        oracle = "numpy"
+    if oracle == "native" and not native.available():
+        print("native oracle unavailable (build native/ with make); "
+              "falling back to numpy")
+        oracle = "numpy"
+    opos, ovel, oacc = _oracle_run(oracle)(
+        pos0, vel0, mass, cfg.eps2, cfg.dt, args.steps, dtype=dtype,
+        integrator=cfg.integrator)
+    print(f"[INFO] {args.steps}-step lock-step phase vs {oracle} "
+          f"{np.dtype(dtype).name} oracle")
     ok = True
     for name, d, o, abs_tol, bad_frac in (
             ("pos", dev["pos"], opos, args.abs_tol_pos, args.max_bad_frac),
@@ -336,9 +357,13 @@ def cmd_validate(args) -> int:
     if args.long_steps > 0:
         ls = args.long_steps
         dev_l = dev_run(state, ls)
-        lpos, lvel, lacc = oracle_run(pos0, vel0, mass, cfg.eps2, cfg.dt, ls,
-                                      dtype=np.float64,
-                                      integrator=cfg.integrator)
+        explicit_numpy = (args.oracle == "numpy"
+                          and "oracle" in getattr(args, "_explicit", set()))
+        lsrc = ("native" if cfg.integrator != "yoshida4"
+                and not explicit_numpy and native.available() else "numpy")
+        lpos, lvel, lacc = _oracle_run(lsrc)(
+            pos0, vel0, mass, cfg.eps2, cfg.dt, ls, dtype=np.float64,
+            integrator=cfg.integrator)
         e0 = energy_f64(state, cfg.eps2)
         e_dev = energy_f64(dev_l, cfg.eps2)
         e_ora = energy_f64(
@@ -346,7 +371,7 @@ def cmd_validate(args) -> int:
         chaos = abs(e_ora - e0) / (abs(e0) or 1.0)
         drift = abs(e_dev - e_ora) / (abs(e_ora) or 1.0)
         well_posed = chaos <= args.energy_gate
-        print(f"[long] {ls}-step horizon vs numpy f64 oracle: oracle "
+        print(f"[long] {ls}-step horizon vs {lsrc} f64 oracle: oracle "
               f"self-conservation |dE|/|E0| = {chaos:.3e} -> "
               + ("well-posed" if well_posed else "chaos-dominated"))
         if well_posed:
@@ -371,7 +396,7 @@ def cmd_validate(args) -> int:
                   f"{value:.3e} after {ls} steps (exactly conserved; gate "
                   f"{args.invariant_gate:.1e})")
     print("Verification " + ("PASSED" if ok else "FAILED")
-          + f" after {args.steps} lock-step steps vs {args.oracle} "
+          + f" after {args.steps} lock-step steps vs {oracle} "
           f"{'float32' if args.oracle_f32 else 'float64'} oracle"
           + (f" + {args.long_steps}-step long-horizon gates"
              if args.long_steps > 0 else ""))
@@ -457,7 +482,10 @@ def build_parser() -> argparse.ArgumentParser:
     vp.add_argument("--max-bad-frac-acc", type=float, default=5e-4)
     vp.add_argument("--oracle", default="numpy", action=_TrackedStore,
                     choices=["numpy", "native"],
-                    help="numpy float64 oracle (native is not ported)")
+                    help="numpy (vectorized) or native (C++/OpenMP, "
+                         "built from native/ at first use); the long-"
+                         "horizon phase prefers native unless numpy is "
+                         "given explicitly")
     vp.add_argument("--oracle-f32", action="store_true")
     vp.add_argument("--analytic", action="store_true",
                     help="closed-form Kepler gates (not ported yet)")

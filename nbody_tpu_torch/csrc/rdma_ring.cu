@@ -1,0 +1,563 @@
+// K13: the fused ring for Hopper (sm_90a), one cooperative launch per force
+// evaluation over every shard of a mesh on one card.
+//
+// Replaces nbody_tpu/parallel/rdma_ring.py:277 _make_ring_kernel (launched
+// by rdma_forces_local :587, its pallas_call at :637), with its tiles
+// _tile_both :186 and _tile_i :217 and the transposed pack twins :117-166.
+//
+// The JAX kernel runs the whole P-phase ring of one device: the self sweep,
+// then D data hops, each forwarding an (8, C) payload [posT; mass; travel
+// acc] to the right neighbour by remote DMA and computing against it, then
+// a return hop that ships each travel partial home.  D = floor((P-1)/2)
+// for odd P and P/2 for even P on the pair-symmetric ("sym") ladder, P - 1
+// for the one-sided family (pallas -> vpu, pallas_turbo -> turbo).  Here
+// every shard lives on this card, and one launch runs the ring of all P
+// shards at once: the payloads really move from shard to shard in device
+// memory, and the travel accumulator goes back to its home shard.
+//
+// Layout.  The wrapper packs the shards into pos (P*C, 3), mass (P*C),
+// shard s at rows s*C, C a multiple of SYM_TILE.  Each shard owns a double-
+// buffered payload: data slots dpos/dmass (2, P*C, 3)/(2, P*C) and travel
+// slots trav (2, P*C, 3), body-major as load_body reads them (JAX's
+// transposed (8, C) rows are a Mosaic layout workaround, rdma_ring.py:
+// 364-371, 623-634).  Phase d's payload lies in slot d % 2.
+//
+// Schedule (grid phases separated by cooperative_groups grid syncs):
+//   phase 0, self sweep, one-sided: every (shard s, row tile I, column tile
+//     J) of s against its own bodies, the variant's one-sided tile (JAX's
+//     _tile_i); the self pair masked by index for turbo, turbo2 and mxu
+//     (rdma_ring.py:352, 386-392), unmasked for vpu and vpu2 (r = 0).  In
+//     the same grid phase the payload of phase 0 or 1 is seeded;
+//   phase d = 1 .. D: forward (each shard's slot (d-1)%2 into its right
+//     neighbour's slot d%2, data and travel; grid sync), then compute
+//     against slot d%2: two-sided for d <= floor((P-1)/2) on the sym
+//     ladder (the i side into the shard's accumulator, the j side into the
+//     slot's travel rows, on K2-rect's tiles sym_tile_core / sym_tc_tile),
+//     one-sided (the variant's _tile_i) for the even-P antipodal phase and
+//     every phase of the one-sided family;
+//   finish: shard s's travel (slot D%2) is added into shard (s - D) mod P's
+//     accumulator (the return hop), then for vpu2 the sum is divided by the
+//     body's mass, and a body of mass 0 gets its row recomputed one-sided
+//     over all P*C bodies with m_j weights (JAX's _inv_mass_scale maps 1/0
+//     to 0 and leaves a real massless body with an acceleration of exactly
+//     0 under --comm rdma, rdma_ring.py:667).
+//
+// overlap (comm="rdma_overlap", rdma_ring.py:487-529): no forward grid
+// phase.  The data of phase d+1 is copied in the grid phase that computes
+// phase d (the copy work items ride the same work list, as the JAX kernel
+// forwards the data rows on receipt), and the travel rows trail one phase:
+// the travel of phase d arrives in phase d's compute grid phase, the j
+// side of phase d sums from zero (JAX's private jacc, here the reduce's
+// register sum), and the reduce folds it in as travel + jacc (:509-523).
+// Results differ from the sequential protocol at rounding only, and repeat
+// bit for bit.
+//
+// What does not survive: the acks, the barrier semaphore, collective_id
+// and the two DMA semaphore pairs.  They exist so that a neighbour's RDMA
+// never overwrites a slot that is still in flight; a grid sync between the
+// grid phase that writes a slot and the one that reads it gives the same
+// ordering on one card.  Across cards the hop needs peer access or one
+// process per card: the wrapper raises if the shards lie on more than one
+// device.
+//
+// Reductions are deterministic, with no atomics: one-writer slots and a
+// fixed-order reduce, the design of rect_common.cuh, in JAX's association
+// order at the port's 256-wide tiles.  Work item (s, I, J) writes its row
+// sums to slot si[s][J - j_lo][I's rows] and its column sums to slot
+// sj[s][I][J - j_lo]; the reduce then adds, per body and phase, the row
+// slots over J in order (JAX's tile + ai over the j tiles, :406-409) into
+// a running sum, and the phase sum into the accumulator in phase order
+// (:412-417); and per visiting body the column slots over I in order into
+// the travel rows ((t + aj_0) + aj_1 ..., JAX's t += ajT per i-block,
+// :393-402).  The column tiles run in chunks of jcw whose slots fit the
+// wrapper's budget, with a grid sync after each chunk's compute and after
+// its reduce; the sums do not depend on the chunking.  At N = 1M on 4
+// shards unchunked slots would take 2 * 1024 * 262,144 * 12 B = 6.4 GB a
+// shard.
+//
+// Positions, slots and sums are read through plain (not __restrict__)
+// pointers: other blocks write them between grid syncs, and the read-only
+// data path is not coherent with those writes (sym_common.cuh).
+//
+// What bounds it on the card: the tiles' FP32 and MUFU issue (the
+// tensor-core variants add their bf16 mma), as K2-rect and the square
+// tiers; the copies move 28 B a body a hop and the slots ~48 B a body a
+// column chunk, small beside the pair work.  The ring does one-sided work
+// twice where the separate kernels run the pair-symmetric diagonal: the
+// self sweep is one-sided over C x C, as JAX's.  The grid is the card's
+// co-resident CTA count for the variant.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC   (no --use_fast_math).
+
+#include <cooperative_groups.h>
+
+#include "rect_common.cuh"
+#include "sym_common.cuh"
+#include "sym_tc_tile.cuh"
+#include "sym_tile.cuh"
+
+namespace cg = cooperative_groups;
+
+// The ring's tile variants, JAX's names: the sym ladder vpu2, vpu, turbo,
+// mxu, turbo2; RING_VPU and RING_TURBO also serve the one-sided family.
+enum RingVariant { RING_VPU2 = 0, RING_VPU = 1, RING_TURBO = 2, RING_MXU = 3,
+                   RING_TURBO2 = 4 };
+
+__host__ __device__ constexpr bool ring_is_tc(int v) {
+    return v >= RING_TURBO;
+}
+
+__host__ __device__ constexpr int ring_tc_variant(int v) {
+    return v == RING_TURBO ? (int)TURBO : (v == RING_MXU ? (int)MXU
+                                                         : (int)TURBO2);
+}
+
+template <int V> struct RingSmem { typedef SymPairSmem type; };
+template <> struct RingSmem<RING_TURBO> { typedef SymTcSmem type; };
+template <> struct RingSmem<RING_MXU> { typedef SymTcSmem type; };
+template <> struct RingSmem<RING_TURBO2> { typedef SymTcSmem type; };
+
+struct RingArgs {
+    const float* pos;    // (P*C, 3) every shard's own bodies
+    const float* mass;   // (P*C)
+    float* dpos;         // data slots (2, P*C, 3)
+    float* dmass;        // (2, P*C)
+    float* trav;         // travel slots (2, P*C, 3)
+    float* si;           // row slots (P, jcw, C, 3)
+    float* sj;           // column slots (P, nt, jcw * SYM_TILE, 3)
+    float* raw;          // a phase's running row sum across chunks (P*C, 3)
+    float* acc;          // the row sum over phases (P*C, 3)
+    float* out;          // accelerations (P*C, 3)
+    long long p, c, nt, jcw;
+    int half;            // two-sided phases, floor((P-1)/2) or 0
+    int d_final;         // D
+    int phases;          // ring phases run: D + 1 (fewer only to time parts)
+    int overlap, descale;
+    float eps2;
+};
+
+// A payload copy of one grid phase: for each shard s, its bodies at
+// (pos, mass) go to shard (s + shift) % P of (to_pos, to_mass), and its
+// travel rows at trav (zeros if null) to to_trav.  Null destinations are
+// skipped.
+struct RingCopy {
+    const float* pos;
+    const float* mass;
+    float* to_pos;
+    float* to_mass;
+    const float* trav;
+    float* to_trav;
+    int shift;
+};
+
+// Copy work item k = s * nt + T: body T * SYM_TILE + threadIdx.x of shard s.
+__device__ __forceinline__ void ring_copy(const RingArgs& a,
+                                          const RingCopy& cp, long long k) {
+    const long long s = k / a.nt;
+    const long long b = (k - s * a.nt) * SYM_TILE + threadIdx.x;
+    const long long from = s * a.c + b;
+    const long long to = ((s + cp.shift) % a.p) * a.c + b;
+    if (cp.to_pos != nullptr) {
+        for (int e = 0; e < 3; ++e)
+            cp.to_pos[3 * to + e] = cp.pos[3 * from + e];
+        cp.to_mass[to] = cp.mass[from];
+    }
+    if (cp.to_trav != nullptr)
+        for (int e = 0; e < 3; ++e)
+            cp.to_trav[3 * to + e] = cp.trav ? cp.trav[3 * from + e] : 0.f;
+}
+
+// The one-sided tensor-core tile (JAX's _tile_i for turbo, turbo2, mxu):
+// the i side of sym_tc_tile's pair work alone, row tile I of (pos_i,
+// mass_i) against column tile J of (pos_j, mass_j), the self pair's weight
+// zeroed when `mask_self` and I == J (the bf16-weight tiers cancel r = 0
+// only in exact arithmetic, rdma_ring.py:224-230).  Row sums go to
+// si_tile[3 * r].  Every thread of the block calls it.
+template <int TV>
+__device__ __forceinline__ void ring_tc_tile_i(
+        const float* pos_i, const float* mass_i, long long I,
+        const float* pos_j, const float* mass_j, long long J, long long n,
+        float eps2, bool mask_self, float* si_tile, SymTcSmem& sm) {
+    const int tid = threadIdx.x;
+    const int w = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const float4 own_j = load_body(pos_j, mass_j, J * SYM_TILE + tid, n);
+    sm.tile[tid] = own_j;
+    pack_body<TV>(sm.pack_j, tid, own_j);
+    float4 xr[2][2];
+    const int r0 = 32 * w + g;
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb) {
+        xr[rb][0] = load_body(pos_i, mass_i, I * SYM_TILE + r0 + 16 * rb, n);
+        xr[rb][1] = load_body(pos_i, mass_i, I * SYM_TILE + r0 + 16 * rb + 8,
+                              n);
+    }
+    __syncthreads();
+    const bool mask = mask_self && I == J;
+    float di[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
+        const int c = k0 + 2 * t;
+        const float4 q[4] = {sm.tile[c], sm.tile[c + 1], sm.tile[c + 8],
+                             sm.tile[c + 9]};
+        uint32_t bj0, bj1;
+        load_b(sm.pack_j, SYM_LD, k0, g, t, bj0, bj1);
+#pragma unroll
+        for (int rb = 0; rb < 2; ++rb) {
+            // Fragment register r: row r0 + 16 rb (+ 8 for odd r) against
+            // columns c + 4 qa and c + 4 qa + 1, qa = 0 (r < 2) or 2.
+            float inv[8];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const float4 x = xr[rb][r & 1];
+                const int qa = (r >> 1) * 2;
+                inv[2 * r] = pair_inv(x, q[qa], eps2);
+                inv[2 * r + 1] = pair_inv(x, q[qa + 1], eps2);
+                if (mask) {
+                    const int row = r0 + 16 * rb + 8 * (r & 1);
+                    const int col = c + 4 * qa;
+                    if (row == col) inv[2 * r] = 0.f;
+                    if (row == col + 1) inv[2 * r + 1] = 0.f;
+                }
+            }
+            uint32_t a[4];
+            if (TV == MXU) {
+                uint32_t lo[4];
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                    split_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);
+                mma_bf16(di[rb], a, bj0, bj1);
+                mma_bf16(di[rb], lo, bj0, bj1);
+            } else {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const int qa = (r >> 1) * 2;
+                    a[r] = TV == TURBO2
+                        ? pack_rn(inv[2 * r], inv[2 * r + 1])
+                        : pack_rn(__fmul_rn(q[qa].w, inv[2 * r]),
+                                  __fmul_rn(q[qa + 1].w, inv[2 * r + 1]));
+                }
+                mma_bf16(di[rb], a, bj0, bj1);
+            }
+        }
+    }
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb) {
+        const float ca = tile_correction(di[rb][0], di[rb][1],
+                                         component(xr[rb][0], t));
+        const float cb = tile_correction(di[rb][2], di[rb][3],
+                                         component(xr[rb][1], t));
+        if (t < 3) {
+            si_tile[3 * (r0 + 16 * rb) + t] = ca;
+            si_tile[3 * (r0 + 16 * rb + 8) + t] = cb;
+        }
+    }
+}
+
+// Work item (row tile I, column tile J) of a phase for one shard: rows
+// are the shard's own bodies (pos_i, mass_i), columns its payload of the
+// phase (cpos, cmass), c bodies each.  Two-sided: row sums to si_tile,
+// column sums (the force on the visiting bodies) to sj_tile; one-sided:
+// row sums only.
+template <int V>
+__device__ __forceinline__ void ring_tile(const float* pos_i,
+                                          const float* mass_i,
+                                          const float* cpos,
+                                          const float* cmass, long long c,
+                                          long long I, long long J,
+                                          float eps2, bool two, bool self,
+                                          float* si_tile, float* sj_tile,
+                                          typename RingSmem<V>::type& sm) {
+    if constexpr (ring_is_tc(V)) {
+        constexpr int TV = ring_tc_variant(V);
+        if (two)
+            sym_tc_tile<TV>(pos_i, mass_i, c, I, cpos, cmass, c, J, eps2,
+                            si_tile, sj_tile, sm);
+        else
+            ring_tc_tile_i<TV>(pos_i, mass_i, I, cpos, cmass, J, c, eps2,
+                               self, si_tile, sm);
+    } else {
+        const int t = threadIdx.x;
+        const float4 bi = load_body(pos_i, mass_i, I * SYM_TILE + t, c);
+        sm.tile[t] = load_body(cpos, cmass, J * SYM_TILE + t, c);
+        __syncthreads();
+        float ax = 0.f, ay = 0.f, az = 0.f;
+        if (two) {
+            const float3 col = sym_tile_core<V == RING_VPU2 ? SYM_K2 : SYM_K7>(
+                bi, eps2, ax, ay, az, sm);
+            sj_tile[3 * t] = -col.x;
+            sj_tile[3 * t + 1] = -col.y;
+            sj_tile[3 * t + 2] = -col.z;
+        } else {
+            sym_tile_core<V == RING_VPU2 ? K2_NOJ : VPU_NOJ>(bi, eps2, ax, ay,
+                                                             az, sm);
+        }
+        si_tile[3 * t] = ax;
+        si_tile[3 * t + 1] = ay;
+        si_tile[3 * t + 2] = az;
+    }
+    __syncthreads();   // sm is restaged by the next item
+}
+
+// The reduce of one column chunk j_lo .. j_lo+jc-1 of phase d: each body's
+// row slots over the chunk's column tiles in order into the running sum,
+// finished into the accumulator on the last chunk; with `tslot` (two-sided
+// phases) each visiting body of the chunk's columns, its column slots over
+// the row tiles in order, into its travel rows.
+__device__ __forceinline__ void ring_reduce(const RingArgs& a, int d,
+                                            bool first, bool last,
+                                            long long j_lo, long long jc,
+                                            float* tslot) {
+    const long long rows = a.p * a.c;
+    const long long cols = tslot ? a.p * jc * SYM_TILE : 0;
+    const long long stride = (long long)gridDim.x * SYM_TILE;
+    for (long long x = (long long)blockIdx.x * SYM_TILE + threadIdx.x;
+         x < rows + cols; x += stride) {
+        if (x < rows) {
+            const long long s = x / a.c;
+            const long long i = x - s * a.c;
+            float3 v = first ? make_float3(0.f, 0.f, 0.f)
+                             : make_float3(a.raw[3 * x], a.raw[3 * x + 1],
+                                           a.raw[3 * x + 2]);
+            for (long long jk = 0; jk < jc; ++jk) {
+                const long long o = ((s * a.jcw + jk) * a.c + i) * 3;
+                v.x += a.si[o];
+                v.y += a.si[o + 1];
+                v.z += a.si[o + 2];
+            }
+            float* dst = last ? a.acc : a.raw;
+            if (last && d > 0) {
+                v.x = a.acc[3 * x] + v.x;
+                v.y = a.acc[3 * x + 1] + v.y;
+                v.z = a.acc[3 * x + 2] + v.z;
+            }
+            dst[3 * x] = v.x;
+            dst[3 * x + 1] = v.y;
+            dst[3 * x + 2] = v.z;
+            continue;
+        }
+        const long long y = x - rows;
+        const long long s = y / (jc * SYM_TILE);
+        const long long l = y - s * jc * SYM_TILE;
+        const long long jk = l / SYM_TILE;
+        const long long col = l - jk * SYM_TILE;
+        const long long b = (s * a.c + (j_lo + jk) * SYM_TILE + col) * 3;
+        const float3 t = make_float3(tslot[b], tslot[b + 1], tslot[b + 2]);
+        float3 v = a.overlap ? make_float3(0.f, 0.f, 0.f) : t;
+        for (long long I = 0; I < a.nt; ++I) {
+            const long long o = (((s * a.nt + I) * a.jcw + jk) * SYM_TILE
+                                 + col) * 3;
+            v.x += a.sj[o];
+            v.y += a.sj[o + 1];
+            v.z += a.sj[o + 2];
+        }
+        if (a.overlap) {   // travel + jacc
+            v.x = t.x + v.x;
+            v.y = t.y + v.y;
+            v.z = t.z + v.z;
+        }
+        tslot[b] = v.x;
+        tslot[b + 1] = v.y;
+        tslot[b + 2] = v.z;
+    }
+}
+
+// One phase: its column chunks, each a compute grid phase (the work items,
+// and on the first chunk the copy items of `cp`) and a reduce grid phase.
+template <int V>
+__device__ __forceinline__ void ring_phase(const RingArgs& a, int d,
+                                           const float* cpos,
+                                           const float* cmass, float* tslot,
+                                           const RingCopy* cp,
+                                           cg::grid_group& grid,
+                                           typename RingSmem<V>::type& sm) {
+    for (long long j_lo = 0; j_lo < a.nt; j_lo += a.jcw) {
+        const long long jc = a.nt - j_lo < a.jcw ? a.nt - j_lo : a.jcw;
+        const long long tiles = a.p * a.nt * jc;
+        const long long copies = (j_lo == 0 && cp) ? a.p * a.nt : 0;
+        for (long long w = blockIdx.x; w < tiles + copies; w += gridDim.x) {
+            if (w >= tiles) {
+                ring_copy(a, *cp, w - tiles);
+                continue;
+            }
+            const long long s = w / (a.nt * jc);
+            const long long r = w - s * a.nt * jc;
+            const long long I = r / jc;
+            const long long jk = r - I * jc;
+            ring_tile<V>(a.pos + s * a.c * 3, a.mass + s * a.c,
+                         cpos + s * a.c * 3, cmass + s * a.c, a.c, I,
+                         j_lo + jk, a.eps2, tslot != nullptr, d == 0,
+                         a.si + ((s * a.jcw + jk) * a.c + I * SYM_TILE) * 3,
+                         a.sj + ((s * a.nt + I) * a.jcw + jk) * SYM_TILE * 3,
+                         sm);
+        }
+        grid.sync();
+        ring_reduce(a, d, j_lo == 0, j_lo + jc == a.nt, j_lo, jc, tslot);
+        grid.sync();
+    }
+}
+
+// The return hop and the finish: body b of shard s gets shard
+// (s + D) % P's travel rows of slot D % 2, then the vpu2 descale.
+__device__ __forceinline__ void ring_finish(const RingArgs& a) {
+    const long long n = a.p * a.c;
+    const long long stride = (long long)gridDim.x * SYM_TILE;
+    const float* tr = a.trav + (a.d_final % 2) * n * 3;
+    for (long long x = (long long)blockIdx.x * SYM_TILE + threadIdx.x; x < n;
+         x += stride) {
+        float3 v = make_float3(a.acc[3 * x], a.acc[3 * x + 1],
+                               a.acc[3 * x + 2]);
+        if (a.half > 0) {
+            const long long s = x / a.c;
+            const long long h = ((s + a.d_final) % a.p) * a.c + (x - s * a.c);
+            v.x += tr[3 * h];
+            v.y += tr[3 * h + 1];
+            v.z += tr[3 * h + 2];
+        }
+        if (a.descale)
+            v = rect_finish(v, a.mass[x], load_body(a.pos, a.mass, x, n),
+                            a.pos, a.mass, n, 1, a.eps2);
+        a.out[3 * x] = v.x;
+        a.out[3 * x + 1] = v.y;
+        a.out[3 * x + 2] = v.z;
+    }
+}
+
+// Two CTAs an SM (128 registers, no spills).  One kernel holds every
+// path of the ring, and capped at the standalone tiles' 80 registers
+// (three CTAs, K7 80, K5 77) its tile loops spill.
+template <int V>
+__global__ void __launch_bounds__(SYM_TILE, 2)
+rdma_ring_kernel(RingArgs a) {
+    __shared__ __align__(16) typename RingSmem<V>::type sm;
+    cg::grid_group grid = cg::this_grid();
+    const long long n3 = a.p * a.c * 3;
+    const bool any_trav = a.half > 0;
+    // Phase 0: the self sweep against each shard's own bodies, seeding the
+    // payload: slot 0 (sequential) or the right neighbour's slot 1
+    // (overlap: the data of phase 1 rides under the self sweep, with the
+    // zero travel rows of phase 1).
+    const int seed_slot = a.overlap ? 1 : 0;
+    const RingCopy seed = {a.pos, a.mass, a.dpos + seed_slot * n3,
+                           a.dmass + seed_slot * a.p * a.c, nullptr,
+                           any_trav ? a.trav + seed_slot * n3 : nullptr,
+                           seed_slot};
+    ring_phase<V>(a, 0, a.pos, a.mass, nullptr,
+                  a.d_final > 0 ? &seed : nullptr, grid, sm);
+    for (int d = 1; d < a.phases; ++d) {
+        const int src = (d - 1) % 2, dst = d % 2;
+        float* dpos = a.dpos + dst * n3;
+        float* dmass = a.dmass + dst * a.p * a.c;
+        float* trav = a.trav + dst * n3;
+        RingCopy cp = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       1};
+        if (!a.overlap) {
+            // Forward first: slot (d-1)%2 into the right neighbour's slot
+            // d%2, data and travel.
+            cp = {a.dpos + src * n3, a.dmass + src * a.p * a.c, dpos, dmass,
+                  a.trav + src * n3, any_trav ? trav : nullptr, 1};
+            for (long long k = blockIdx.x; k < a.p * a.nt; k += gridDim.x)
+                ring_copy(a, cp, k);
+            grid.sync();
+        } else {
+            // The data of phase d+1 and the travel of phase d (which
+            // trails the data by one phase) ride under this phase.
+            if (d < a.d_final) {
+                cp.pos = dpos;
+                cp.mass = dmass;
+                cp.to_pos = a.dpos + src * n3;
+                cp.to_mass = a.dmass + src * a.p * a.c;
+            }
+            if (any_trav && d >= 2) {
+                cp.trav = a.trav + src * n3;
+                cp.to_trav = trav;
+            }
+        }
+        const bool two = d <= a.half;
+        const bool ride = a.overlap && (cp.to_pos || cp.to_trav);
+        ring_phase<V>(a, d, dpos, dmass, two ? trav : nullptr,
+                      ride ? &cp : nullptr, grid, sm);
+    }
+    ring_finish(a);
+}
+
+// Blocks of SYM_TILE threads the card holds at once for the variant's
+// kernel: the largest grid a cooperative launch accepts.
+static int coresident_blocks(const void* kernel) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+        != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      SYM_TILE, 0)
+        != cudaSuccess) return -1;
+    return per_sm * sms;
+}
+
+static const void* ring_kernel(int variant) {
+    switch (variant) {
+        case RING_VPU2: return (const void*)rdma_ring_kernel<RING_VPU2>;
+        case RING_VPU: return (const void*)rdma_ring_kernel<RING_VPU>;
+        case RING_TURBO: return (const void*)rdma_ring_kernel<RING_TURBO>;
+        case RING_MXU: return (const void*)rdma_ring_kernel<RING_MXU>;
+        case RING_TURBO2: return (const void*)rdma_ring_kernel<RING_TURBO2>;
+    }
+    return nullptr;
+}
+
+// The co-resident CTAs of the variant's kernel (its cooperative grid).
+extern "C" int nbt_rdma_ring_max_blocks(int variant) {
+    const void* k = ring_kernel(variant);
+    return k ? coresident_blocks(k) : -1;
+}
+
+// One force evaluation of the ring over p shards of c bodies (c a multiple
+// of SYM_TILE), column tiles in chunks of jcw, the slots and outputs
+// allocated by the wrapper (sizes in RingArgs).  `phases` < D + 1 runs
+// the first phases only (a timing knob; the output is then not the
+// acceleration).
+extern "C" int nbt_rdma_ring(int variant, const float* pos, const float* mass,
+                             long long p, long long c, long long jcw,
+                             int one_sided, int overlap, int phases,
+                             float eps2, float* dpos, float* dmass,
+                             float* trav, float* si, float* sj, float* raw,
+                             float* acc, float* out, void* stream) {
+    const void* kernel = ring_kernel(variant);
+    if (kernel == nullptr || p < 1 || c < SYM_TILE || c % SYM_TILE || jcw < 1
+        || (one_sided && variant != RING_VPU && variant != RING_TURBO))
+        return (int)cudaErrorInvalidValue;
+    RingArgs a;
+    a.pos = pos;
+    a.mass = mass;
+    a.dpos = dpos;
+    a.dmass = dmass;
+    a.trav = trav;
+    a.si = si;
+    a.sj = sj;
+    a.raw = raw;
+    a.acc = acc;
+    a.out = out;
+    a.p = p;
+    a.c = c;
+    a.nt = c / SYM_TILE;
+    a.jcw = jcw < a.nt ? jcw : a.nt;
+    a.half = one_sided ? 0 : (int)((p - 1) / 2);
+    a.d_final = one_sided ? (int)(p - 1) : (int)(p % 2 ? (p - 1) / 2 : p / 2);
+    a.phases = (phases < 1 || phases > a.d_final + 1) ? a.d_final + 1
+                                                      : phases;
+    a.overlap = overlap;
+    a.descale = variant == RING_VPU2;
+    a.eps2 = eps2;
+    const int cap = coresident_blocks(kernel);
+    if (cap <= 0) return (int)cudaErrorInvalidConfiguration;
+    const long long work = p * a.nt * (a.jcw + 1);
+    const unsigned grid = (unsigned)(work < cap ? work : cap);
+    void* args[] = {&a};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        kernel, dim3(grid), dim3(SYM_TILE), args, 0, (cudaStream_t)stream);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+extern "C" int nbt_rdma_ring_tile(void) { return SYM_TILE; }

@@ -1,0 +1,116 @@
+// The exact pair tile of K2, K7, K14d, K2-rect, K15's vpu_* ablations
+// (forces_sym.cu) and K13 (rdma_ring.cu): the pair math of one 256 x 256
+// tile, a SymMath value folded at compile time.  Moved here verbatim from
+// forces_sym.cu so that rdma_ring.cu compiles the same tile; K2_NOJ, K2's
+// row sums alone, is K13's one-sided vpu2 tile.
+
+#pragma once
+
+#include "sym_common.cuh"
+
+// The pair math of the exact tiles: K2's shared weight, K7's one-sided
+// weights, and K15's ablations of K7's tile (nbody_tpu/ops/ablation_sym.py):
+//   VPU_NOJ   K7's row sums only: no column sums, shuffles, partials or
+//             j-side slot (the j half of every pair is dropped);
+//   VPU_FIX0  K7's tile, its column sums stored in the writer's own row
+//             slot (the reduce adds them all into tile 0's bodies);
+//   VPU_RC    K7's tile with the differences recomputed per component in
+//             the accumulate (JAX's liveness ablation, _accum_both_vpu_rc).
+// and K13's one-sided vpu2 tile (rdma_ring.cu), JAX's _tile_i "vpu2":
+//   K2_NOJ    K2's row sums only, F = m_i m_j inv (mass-scaled).
+enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3, VPU_RC = 4,
+               K2_NOJ = 5 };
+
+// Whether tile M sums columns (the j side) at all.
+__host__ __device__ constexpr bool sym_has_j(int m) {
+    return m != VPU_NOJ && m != K2_NOJ;
+}
+
+// The pair work of one 256 x 256 tile for the row body bi of this thread,
+// against the column tile staged (and synced) in sm.tile: K2's math
+// (sym_pair_tile's, F = m_i m_j inv shared by both sides), K7's (fi =
+// m_j inv, fj = m_i inv) or an ablation of K7's (SymMath).  Adds the row
+// sums to (ax, ay, az) and returns the column sum of column threadIdx.x
+// over the tile's rows, a positive magnitude (the caller negates; zero for
+// VPU_NOJ and K2_NOJ).  Every thread of the block calls it; the caller
+// syncs before restaging sm.
+template <int M>
+__device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
+                                                float& ax, float& ay,
+                                                float& az, SymPairSmem& sm) {
+    const int t = threadIdx.x;
+    const int w = t >> 5;
+    const int l = t & 31;
+    for (int c = 0; c < SYM_TILE / 32; ++c) {
+        float bx = 0.f, by = 0.f, bz = 0.f;
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+            const float4 q = sm.tile[c * 32 + ((l + k) & 31)];
+            const float dx = q.x - bi.x;
+            const float dy = q.y - bi.y;
+            const float dz = q.z - bi.z;
+            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
+            if (M == SYM_K2 || M == K2_NOJ) {
+                const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
+                const float px = f * dx;
+                const float py = f * dy;
+                const float pz = f * dz;
+                ax += px;
+                ay += py;
+                az += pz;
+                if (M == SYM_K2) {
+                    bx += px;
+                    by += py;
+                    bz += pz;
+                }
+            } else if (M == VPU_RC) {
+                const float inv = rsqrtf(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                const float fj = bi.w * inv;
+                const float rx = __fsub_rn(q.x, bi.x);
+                ax += fi * rx;
+                bx += fj * rx;
+                const float ry = __fsub_rn(q.y, bi.y);
+                ay += fi * ry;
+                by += fj * ry;
+                const float rz = __fsub_rn(q.z, bi.z);
+                az += fi * rz;
+                bz += fj * rz;
+            } else {
+                const float inv = rsqrtf(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                ax += fi * dx;
+                ay += fi * dy;
+                az += fi * dz;
+                if (M != VPU_NOJ) {
+                    const float fj = bi.w * inv;
+                    bx += fj * dx;
+                    by += fj * dy;
+                    bz += fj * dz;
+                }
+            }
+            if (sym_has_j(M)) {
+                const int src = (l + 1) & 31;
+                bx = __shfl_sync(0xffffffffu, bx, src);
+                by = __shfl_sync(0xffffffffu, by, src);
+                bz = __shfl_sync(0xffffffffu, bz, src);
+            }
+        }
+        if (sym_has_j(M)) {
+            const int col = c * 32 + l;
+            sm.part[w][3 * col] = bx;
+            sm.part[w][3 * col + 1] = by;
+            sm.part[w][3 * col + 2] = bz;
+        }
+    }
+    if (!sym_has_j(M)) return make_float3(0.f, 0.f, 0.f);
+    __syncthreads();
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+    for (int v = 0; v < SYM_WARPS; ++v) {
+        sx += sm.part[v][3 * t];
+        sy += sm.part[v][3 * t + 1];
+        sz += sm.part[v][3 * t + 2];
+    }
+    return make_float3(sx, sy, sz);
+}

@@ -40,7 +40,8 @@ from ..io.logger import RunLogger
 from ..ops.forces import resolve_impl
 from ..ops.resident import run_steps_resident, should_use_resident
 from ..ops.step import prime_kdk, run_steps
-from ..parallel.ring import prime_kdk_sharded, run_steps_sharded
+from ..parallel.ring import (_resolve_local_impl, prime_kdk_sharded,
+                             run_steps_sharded)
 from ..utils.timing import StepTimer, sync
 from .energy import energy_f64
 from .init import init_state
@@ -115,6 +116,9 @@ class Simulation:
         self.mesh = mesh
         self.comm = comm
         self.impl = resolve_impl(cfg, sharded=mesh is not None)
+        if mesh is not None:
+            self.impl = _resolve_local_impl(cfg.impl, mesh, comm,
+                                            default=self.impl)
         # Raises naming the reasons when resident=True is out of scope.
         self._resident = should_use_resident(cfg, self.impl,
                                              sharded=mesh is not None)

@@ -13,7 +13,7 @@ paths), vectorized over i but algorithmically identical.
 This file is a copy of ``nbody_tpu/oracle/numpy_oracle.py``: the port must
 run where JAX is not installed, and importing anything under ``nbody_tpu``
 imports JAX.  ``tests/test_torch_slice.py`` holds the copy equal to the
-original.  The native C++/OpenMP oracle is not ported.
+original.  The native C++/OpenMP oracle is ``oracle/native.py``.
 """
 
 from __future__ import annotations

@@ -285,15 +285,21 @@ def test_cli_sharded_verbs(comm, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("comm", ["rdma", "rdma_overlap"])
-def test_cli_refuses_rdma_and_analytic_with_shards(comm, capsys):
-    for verb in (["run", "--steps", "1"], ["validate"], ["bench"]):
+def test_cli_runs_rdma_and_refuses_analytic_with_shards(comm, capsys):
+    """Every verb runs the fused ring K13 (its twin on the CPU) under
+    both rdma comms, auto resolving to pallas_sym2; ``--analytic`` with
+    shards stays refused."""
+    for verb in (["run", "--steps", "1"], ["validate", "--steps", "2",
+                                           "--long-steps", "2"],
+                 ["bench", "--steps", "1", "--trials", "1"]):
         assert cli.main([*verb, "--n", "64", "--shards", "2", "--comm", comm,
-                         "--device", "cpu"]) == 2
-        assert "K13" in capsys.readouterr().err
+                         "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "pallas_sym2" in out, out
     assert cli.main(["validate", "--n", "64", "--shards", "2", "--analytic",
                      "--device", "cpu"]) == 2
     assert "single-device" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="K13"):
+    with pytest.raises(ValueError, match="rdma"):
         run_steps_sharded(port_state(arrays(64, seed=0)),
                           port_cfg(64, "xla"), make_mesh(2, "cpu"), 1,
-                          comm=comm)
+                          impl="xla", comm=comm)

@@ -188,12 +188,19 @@ def test_cli_run_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--viz"], "item 12"), (["--viz-avi", "v.avi"], "item 12"),
-    (["--viz-serve", "0"], "item 12"), (["--init", "plummer"], "item 2"),
-    (["--shards", "2", "--comm", "rdma"], "item 14")])
+    (["--viz-serve", "0"], "item 12"), (["--init", "plummer"], "item 2")])
 def test_cli_run_refuses_unported_flags(flags, item, capsys):
     assert cli.main(["run", "--n", "64", "--steps", "1", "--device", "cpu",
                      *flags]) == 2
     assert item in capsys.readouterr().err
+
+
+def test_cli_run_shards_rdma_on_cpu(capsys):
+    """``run --shards 2 --comm rdma`` runs the fused ring K13's twin."""
+    assert cli.main(["run", "--n", "64", "--steps", "2", "--device", "cpu",
+                     "--shards", "2", "--comm", "rdma"]) == 0
+    out = capsys.readouterr().out
+    assert "comm=rdma" in out and "impl=pallas_sym2" in out
 
 
 def test_auto_log_every_prefers_divisors():

@@ -128,10 +128,12 @@ def test_cli_validate_long_horizon_and_refusals(capsys):
     assert "[OK ] momentum" in out and "[OK ] angular momentum" in out
     assert cli.main(["validate", "--n", "256", "--init", "plummer",
                      "--device", "cpu"]) == 2
-    assert cli.main(["validate", "--n", "256", "--oracle", "native",
-                     "--device", "cpu"]) == 2
-    assert cli.main(["validate", "--n", "256", "--shards", "2", "--comm",
-                     "rdma", "--device", "cpu"]) == 2
+    assert cli.main(["validate", "--n", "256", "--steps", "5",
+                     "--long-steps", "10", "--oracle", "native",
+                     "--device", "cpu"]) == 0
+    assert cli.main(["validate", "--n", "256", "--steps", "5",
+                     "--long-steps", "0", "--shards", "2", "--comm", "rdma",
+                     "--device", "cpu"]) == 0
     assert cli.main(["validate", "--n", "256", "--shards", "2",
                      "--long-steps", "0", "--device", "cpu"]) == 0
 
