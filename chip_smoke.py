@@ -28,7 +28,11 @@ held at their control's CTAs per SM, and checked and timed at the
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, then drives the
+N = 1,048,576 against the direct-form ``rect_forces``, times K12, K2 and
+K3 against their designs before the redesign for this card (the sources
+of PARENT_COMMIT, built beside the package's) in alternating rounds at
+N = 8192 and 1,048,576, and holds every other kernel's SASS to theirs
+(``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
 K2, K7 and K11, and each tensor-core tier, ``pallas_sym_turbo2`` among
@@ -58,12 +62,15 @@ The last three lines of standard output are the kernels' JSON record, the
 ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import contextlib
 import importlib.metadata
 import importlib.util
 import json
 import os
+import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -146,12 +153,14 @@ FLOPS_ONE_SIDED, FLOPS_PAIR, FLOPS_PE = 19, 23, 12
 # interaction.
 FLOPS_TC = {"forces_tiled_turbo": (13, 16), "forces_tiled_mxu": (14, 32),
             "forces_sym_turbo": (14, 32), "forces_sym_mxu": (13, 64),
-            # K12: float32 3 for d2 from the cross product, 3 for the
-            # close-pair test, the clamp, 2 for the cube, 1 rsqrt, 1 multiply
-            # by m_j, 1 for the split; tensor cores 36 for the K=18 cross
-            # product (2 x 18 a pair; the padding to K=32 is not work) and 32
-            # for the hi/lo accumulate products.
-            "forces_fast": (12, 68),
+            # K12: float32 3 for d2 from the cross product, 2 for the
+            # close-pair test (the row's and the column's thresholds, each
+            # a power of two times its sum and computed once a row or a
+            # column, added and compared), the clamp, 2 for the cube, 1
+            # rsqrt, 1 multiply by m_j, 1 for the split; tensor cores 36 for
+            # the K=18 cross product (2 x 18 a pair; the padding to K=24 is
+            # not work) and 32 for the hi/lo accumulate products.
+            "forces_fast": (11, 68),
             # K14a turbo2: K6's geometry with no weight multiply (12), one
             # bf16 limb on each side (32).  K14b turbof: 12 and m_i m_j
             # times inv (14), one shared weight on both sides (32).  K14c
@@ -258,6 +267,25 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+# The redesign of K2's pair tile (which K3 and K4 share) and of K12 for
+# this card, timed against the designs before it: the commit that holds
+# them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar
+# -x -C build/parent``) into PARENT_CSRC, where check_redesign builds them
+# beside the package's and times both in rounds (the order reversed every
+# other round; medians).  Without those sources and without git, the
+# rounds and the SASS comparison are skipped and say so.
+PARENT_COMMIT = "92343ee6d74fe1f5fed54ce7286bdee2b5ec4c6f"
+PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
+                           "csrc")
+REDESIGN_ROUNDS = 4
+# tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
+# libraries keeps the parent's SASS, but those the redesign changes (K2's
+# pair pass, the resident kernels around its tile, K12).
+SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
+             "pe", "rdma_ring", "resident", "forces_fast")
+SASS_REDESIGNED = (r"\bsym_pairs_kernel<0>", r"^resident_kernel",
+                   r"^resident_kdk_kernel", r"^forces_fast_kernel",
+                   r"^fast_")
 
 
 def check(cond, what):
@@ -1534,6 +1562,251 @@ def check_k2_1m(dev):
             acc[rows], ref)
 
 
+def parent_csrc():
+    """PARENT_CSRC, unpacked from git where it is not there yet; None
+    where neither is to be had."""
+    if not os.path.isdir(PARENT_CSRC):
+        root = os.path.dirname(os.path.dirname(PARENT_CSRC))
+        try:
+            tar = subprocess.run(
+                ["git", "-C", ROOT, "archive", PARENT_COMMIT,
+                 "nbody_tpu_torch/csrc"], capture_output=True, check=True,
+                timeout=120).stdout
+            os.makedirs(root, exist_ok=True)
+            subprocess.run(["tar", "-x", "-C", root], input=tar, check=True,
+                           timeout=120)
+        except (OSError, subprocess.SubprocessError) as err:
+            print(f"[redesign] no parent sources at {PARENT_CSRC} and none "
+                  f"from git ({type(err).__name__})")
+            return None
+    return PARENT_CSRC if os.path.isdir(PARENT_CSRC) else None
+
+
+def start_sass_compare(csrc):
+    """tools/ptxas_compare.py of SASS_LIBS against the parent's sources,
+    in the background (its builds overlap the card's phases)."""
+    os.makedirs(WORK, exist_ok=True)
+    log = open(os.path.join(WORK, "ptxas_compare.log"), "w")
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "ptxas_compare.py"),
+           csrc, os.path.join(ROOT, "nbody_tpu_torch", "csrc"), *SASS_LIBS,
+           "--ops"]
+    for pattern in SASS_REDESIGNED:
+        cmd += ["--allow", pattern]
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+
+    def stop():
+        # A failed phase ends the script before finish_sass_compare: stop
+        # the comparison and the nvcc it runs.
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    atexit.register(stop)
+    return proc, log
+
+
+def finish_sass_compare(job):
+    """Wait for the comparison and fail unless every kernel outside
+    SASS_REDESIGNED kept the parent's SASS."""
+    proc, log = job
+    rc = proc.wait(timeout=600)
+    log.close()
+    with open(log.name) as f:
+        lines = f.read().splitlines()
+    redesigned = [re.compile(p) for p in SASS_REDESIGNED]
+    for line in lines:
+        name = line.strip().removeprefix("new: ")
+        if ("==" in line or "DIFFERS" in line or "MISSING" in line
+                or "ptxas_compare" in line
+                or any(p.search(name) for p in redesigned)):
+            print(f"[sass] {line.strip()}")
+    kept = sum("identical" in line for line in lines)
+    print(f"[sass] {kept} kernels of {', '.join(SASS_LIBS)} with the "
+          f"parent's SASS; allowed to change: {', '.join(SASS_REDESIGNED)}")
+    check(rc == 0, "tools/ptxas_compare.py: a kernel outside the redesign "
+          "changed its SASS")
+
+
+def build_parent(csrc, names):
+    """ctypes libraries of the parent's ``names`` (csrc/<name>.cu), built
+    with the package's nvcc flags, one nvcc each, all at once."""
+    import ctypes
+    from nbody_tpu_torch.ops import _build
+    out = os.path.join(WORK, "parent")
+    os.makedirs(out, exist_ok=True)
+    jobs = {}
+    for name in names:
+        so = os.path.join(out, f"lib{name}.so")
+        jobs[name] = (so, subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
+             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"parent {name}.cu: nvcc failed\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[redesign] parent {name}.cu: {line.strip()}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def alternate(fns, dev, iters, warmup=1):
+    """{name: [ms of each round]}: every function of ``fns`` timed once a
+    round (CUDA events, ``iters`` calls), the order reversed every other
+    round."""
+    from nbody_tpu_torch.utils.timing import time_ms
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(REDESIGN_ROUNDS):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            times[k].append(time_ms(fns[k], dev, iters=iters, warmup=warmup))
+    return times
+
+
+def report_rounds(what, times, smi):
+    """Print the rounds, the medians and new / parent; returns the
+    medians."""
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rounds = "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
+                       for k, v in times.items())
+    print(f"[redesign] {what}: parent {med['parent']:.4f} ms, new "
+          f"{med['new']:.4f} ms, new/parent "
+          f"{med['new'] / med['parent']:.4f} (medians of "
+          f"{REDESIGN_ROUNDS} rounds: {rounds}) ({smi})")
+    return med
+
+
+def k2_pair_passes_ms(pos, mass, eps2, dev):
+    """K2's pair passes alone over every offset chunk of one evaluation
+    (the sweep without its reduce passes), ms."""
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.utils.timing import time_ms
+    lib = k2._lib()
+    n = pos.shape[0]
+    nb = -(-n // k2.SYM_TILE)
+    chunks = k2.offset_chunks(nb, nb * k2.SYM_TILE, k2.SLOT_BUDGET_BYTES)
+    slots = max(dc for _, dc in chunks) * nb * k2.SYM_TILE * 3
+    si, sj = pos.new_empty(slots), pos.new_empty(slots)
+    stream = _build.stream_handle(pos)
+
+    def pairs():
+        for d_lo, dc in chunks:
+            _build.check_launch("forces_sym pairs", lib.nbt_sym_pairs(
+                pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, eps2,
+                si.data_ptr(), sj.data_ptr(), stream))
+    return time_ms(pairs, dev, iters=2, warmup=1)
+
+
+def check_redesign(dev, eps2, record, smi, csrc):
+    """K12 and K2 against the parent's designs on the same inputs, in
+    alternating rounds at N = 8192 and 1,048,576 (K12 on Morton-sorted
+    bodies, as the main path runs it), and K3's 1000-step launch at 8192:
+    the new K12 and K2 must be faster at 1M, K3 no slower than the
+    parent's slowest round.  The outputs are compared too: K2 at the
+    exact tolerance, K12's largest difference printed."""
+    import ctypes
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.models.ordering import morton_permutation
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops import forces_fast as k12
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import resident
+    t0 = time.perf_counter()
+    libs = build_parent(csrc, ("forces_fast", "forces_sym", "resident"))
+    pf, ps, pr = libs["forces_fast"], libs["forces_sym"], libs["resident"]
+    c_ptr, c_ll, c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    pf.nbt_forces_fast.argtypes = [c_ptr, c_ll, c_ptr, c_ptr, c_ll,
+                                   ctypes.c_float, c_int, c_ptr, c_ptr]
+    pf.nbt_forces_fast.restype = c_int
+    new_k2 = k2._lib()
+    for name in ("nbt_sym_pairs", "nbt_sym_reduce"):
+        getattr(ps, name).argtypes = getattr(new_k2, name).argtypes
+        getattr(ps, name).restype = getattr(new_k2, name).restype
+    pr.nbt_resident.argtypes = resident._lib().nbt_resident.argtypes
+    pr.nbt_resident.restype = c_int
+
+    def parent_k12(p, m):
+        acc = torch.empty_like(p)
+        _build.check_launch("parent forces_fast", pf.nbt_forces_fast(
+            p.data_ptr(), p.shape[0], p.data_ptr(), m.data_ptr(),
+            p.shape[0], eps2, 1, acc.data_ptr(), _build.stream_handle(p)))
+        return acc
+
+    def parent_k2(p, m):
+        return k2.sweep("parent forces_sym", p, m, eps2,
+                        k2.SLOT_BUDGET_BYTES, ps.nbt_sym_pairs,
+                        ps.nbt_sym_reduce)
+
+    def parent_k3(st, cfg, steps):
+        nb, diag, si, sj = resident._scratch(st.pos)
+        out = [torch.empty_like(st.pos) for _ in range(3)]
+        _build.check_launch("parent resident", pr.nbt_resident(
+            st.pos.data_ptr(), st.vel.data_ptr(), st.mass.data_ptr(),
+            st.pos.shape[0], nb, cfg.eps2, 0.5 * cfg.dt, cfg.dt, steps,
+            *(o.data_ptr() for o in out), diag.data_ptr(), si.data_ptr(),
+            sj.data_ptr(), _build.stream_handle(st.pos)))
+        return out
+
+    for n, iters in ((8192, 20), (1 << 20, 1)):
+        tag = "N=8192" if n == 8192 else "N=1,048,576"
+        pos, mass = bodies(n, 4 if n > 8192 else n + 9, dev)
+        perm = morton_permutation(pos, -1e5, 1e5)
+        sp, sm = pos[perm].contiguous(), mass[perm].contiguous()
+        new, old = k12.forces_fast(sp, sm, eps2), parent_k12(sp, sm)
+        torch.cuda.synchronize()
+        diff = (new - old).abs()
+        print(f"[redesign] forces_fast {tag} sorted, new vs parent: largest "
+              f"difference {float(diff.max() / old.abs().max()):.3e} of "
+              f"max |a|, {int((diff > 0).sum())} of {diff.numel()} "
+              f"components differ")
+        med = report_rounds(f"forces_fast {tag}, Morton-sorted", alternate(
+            {"parent": lambda: parent_k12(sp, sm),
+             "new": lambda: k12.forces_fast(sp, sm, eps2)}, dev, iters), smi)
+        key = "" if n == 8192 else "_1m"
+        record["forces_fast"].update({f"parent_ms{key}": med["parent"],
+                                      f"new_ms{key}": med["new"]})
+        if n > 8192:
+            check(med["new"] < med["parent"],
+                  "forces_fast at 1M: the redesign is not faster")
+        new, old = k2.forces_sym(pos, mass, eps2), parent_k2(pos, mass)
+        torch.cuda.synchronize()
+        compare(f"forces_sym {tag}, new vs parent", new, old)
+        med = report_rounds(f"forces_sym {tag}", alternate(
+            {"parent": lambda: parent_k2(pos, mass),
+             "new": lambda: k2.forces_sym(pos, mass, eps2)}, dev, iters), smi)
+        record["forces_sym"].update({f"parent_ms{key}": med["parent"],
+                                     f"new_ms{key}": med["new"]})
+        if n > 8192:
+            record["forces_sym"]["bound_ms_1m"] = bound(
+                FLOPS_PAIR * n * (n - 1) // 2, 28 * n)[0]
+            check(med["new"] < med["parent"],
+                  "forces_sym at 1M: the redesign is not faster")
+            pairs_ms = k2_pair_passes_ms(pos, mass, eps2, dev)
+            print(f"[redesign] forces_sym N=1,048,576 split: the pair passes "
+                  f"{pairs_ms:.3f} ms of {med['new']:.3f}; the reduce passes "
+                  f"(slots, diagonal, descale) {med['new'] - pairs_ms:.3f} "
+                  f"ms ({smi})")
+        del pos, mass, sp, sm, new, old, diff
+    cfg = nt.SimConfig(n_bodies=8192, impl="pallas_sym2")
+    st = nt.init_state(cfg)
+    times = alternate(
+        {"parent": lambda: parent_k3(st, cfg, 1000),
+         "new": lambda: resident.resident_steps(st.pos, st.vel, st.mass,
+                                                cfg.eps2, cfg.dt, 1000)},
+        dev, iters=2)
+    med = report_rounds("resident (K3) N=8192, one launch of 1000 steps",
+                        times, smi)
+    record["resident"].update({"parent_ms": med["parent"],
+                               "new_ms": med["new"]})
+    check(med["new"] <= max(times["parent"]),
+          "resident: the new K3 is slower than the parent's slowest round")
+    print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
+
+
 def crossovers(dev, smi):
     """K1 / K2 per force evaluation, and the resident kernels against the
     per-step K2 path per step, over N."""
@@ -2115,6 +2388,11 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
 
+    # The parent's sources for the redesign rounds, and its SASS against
+    # this build's, compiled in the background meanwhile.
+    csrc = parent_csrc()
+    sass = start_sass_compare(csrc) if csrc else None
+
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.ops import forces_tiled as k1
@@ -2139,8 +2417,13 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline.
+    # 4. K2 at the 1M headline; K12, K2 and K3 against the designs before
+    # their redesign.
     check_k2_1m(dev)
+    if csrc:
+        check_redesign(dev, 0.002, record, smi, csrc)
+    else:
+        print("[redesign] skipped: no parent sources (PARENT_CSRC)")
 
     # 5. The main paths, through the CLI, with the launch counters.
     from nbody_tpu_torch.ops import ablation_sym
@@ -2228,6 +2511,11 @@ def main():
         check(res["finite"], f"bench {kw}: non-finite")
         print("[bench] " + json.dumps(res))
         print(f"[time] bench {kw}: {time.perf_counter() - t0:.1f} s")
+
+    if sass:
+        finish_sass_compare(sass)
+    else:
+        print("[sass] skipped: no parent sources (PARENT_CSRC)")
 
     kernels = []
     for kname, src, repl in (

@@ -44,19 +44,31 @@
 // Index arithmetic (tiles, slots, offsets) is 64-bit, and the grid is
 // flattened onto gridDim.x.
 //
-// What bounds it on the card: FP32 FMA and MUFU issue.  A pair costs about
-// 23 flops for two interactions (3 sub, 3 FMA for d2 + eps2, 2 mul for the
-// cube, 1 rsqrt, 2 mul for F, 3 mul for F*r, 3 + 3 adds into the row and
-// column sums) plus one MUFU rsqrt, three warp shuffles and one shared
-// load.  The column sums rotate around the warp: at step k lane l pairs its
-// row with column (l + k) mod 32 of a 32-column chunk and then takes the
-// column accumulator of lane l + 1, so after 32 steps lane l holds column
-// l's partial sum with no shared-memory traffic.  The slots add about 48
-// bytes of device traffic per body per offset, small beside the pair work.
+// Design of the pair tile (sym_pair_tile, sym_common.cuh).  Warp w takes
+// the tile's columns 32w .. 32w+31 against all 256 rows, and lane l holds
+// rows l + 32r (r < 8) in registers.  At step k lane l pairs its eight rows
+// with column (l + k) mod 32 of the warp's range (one shared load; the
+// warp's columns are staged twice over, so the address is l plus a
+// constant), adds F r to the eight row sums and to one column accumulator
+// with fused multiply-adds, and then takes the column accumulator of lane
+// l + 1 (three shuffles): after 32 steps lane l holds column 32w + l over
+// all rows.  The eight warps' row partials are added once a tile, in warp
+// order, through shared memory.  d2 + eps2 is three FMAs, and the rsqrt
+// takes the MUFU without rsqrtf's subnormal fix-up (d2^3 >= eps2^3 is
+// normal), so a pair is 17 issue slots (3 sub, 3 FMA for d2, 2 mul for the
+// cube, 1 rsqrt, 2 mul for F, 6 FMA into the row and column sums) and the
+// load and shuffles add half a slot.
+//
+// What bounds it on the card: FP32 FMA and MUFU issue.  At N = 1,048,576
+// on an H100 80GB HBM3 at 700 W an evaluation takes 392.5 ms, 17.5 slots
+// a pair at 73% of the issue rate at the 1980 MHz boost clock.  The pair
+// passes take 375.7 ms of it and the 25 reduce passes (slots, diagonal,
+// descale) 16.9 ms, so a persistent schedule that keeps the i side in
+// registers across offsets would win at most those 4%.
 //
 // Left for later: wgmma accumulation of the row and column sums on the
-// tensor cores, TMA-fed tiles, and a persistent schedule that keeps the
-// i-side in registers across offsets.
+// tensor cores, and K2-rect and K13's vpu2 path on this tile (they share
+// sym_tile_core with K7, which keeps the earlier one).
 //
 // The pair tile, the slot sum and the diagonal tile are in sym_common.cuh,
 // shared with the resident kernels (resident.cu); the tile math of K7, the
@@ -70,8 +82,9 @@
 // column sums (of j).  Nothing is mass-scaled, so there is no descale and a
 // real massless body is complete from its slots; its diagonal is the exact
 // sym_diag_tile of K5/K6.  26 flops a pair (3 more multiplies than K2's
-// 23).  K2's device code in sym_common.cuh is untouched: K3/K4 stay
-// bit-equal to per-step K2.
+// 23).  K7's tile is sym_tile_core (sym_tile.cuh); K2's, in
+// sym_common.cuh, is shared with K3/K4 alone, which stay bit-equal to
+// per-step K2.
 //
 // K14d (the fold schedule of _make_sym_kernel_fold) runs K2's and K7's
 // tiles on superblocks of several tiles and folds the j-side sums of a

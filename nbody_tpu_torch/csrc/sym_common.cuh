@@ -2,7 +2,9 @@
 // (resident.cu): the pair-symmetric tile of one (row tile, offset) work
 // item, the fixed-order slot sum, and the one-sided diagonal tile with the
 // 1/m descale.  forces_sym.cu's header states the enumeration, the slot
-// layout and the determinism contract.  Both files compile these functions
+// layout, the determinism contract and the pair tile's design (eight rows
+// a lane in registers, one column accumulator rotating around the warp)
+// with its numbers on the card.  Both files compile these functions
 // from the same source, so a resident step computes bit for bit the force
 // evaluation that K2 computes.
 //
@@ -26,15 +28,52 @@ __device__ __forceinline__ float4 load_body(const float* pos,
                    : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// Shared memory of one pair tile (28 KB).
+// Shared memory of one pair tile (28 KB).  sym_tile_core (sym_tile.cuh)
+// stages the column tile in `tile` and keeps a warp's column partials in
+// `part`; sym_pair_tile uses `part` alone (SymK2Stage over it, then the
+// row partials).
 struct SymPairSmem {
     float4 tile[SYM_TILE];
     float part[SYM_WARPS][SYM_TILE * 3];
 };
 
+// Rows a lane of K2's pair tile holds in registers: every warp holds all
+// SYM_TILE rows of the tile.
+#define SYM_ROWS (SYM_TILE / 32)
+
+// sym_pair_tile's staging inside SymPairSmem::part: the row tile, and each
+// warp's 32 columns written twice over, so that lane l reads column
+// (l + k) mod 32 at an offset that is l plus a constant.
+struct SymK2Stage {
+    float4 rows[SYM_TILE];
+    float4 cols[SYM_WARPS][64];
+};
+static_assert(sizeof(SymK2Stage) <= sizeof(float) * SYM_WARPS * SYM_TILE * 3,
+              "K2's staging must fit in SymPairSmem::part");
+
+// rsqrt(x) on the MUFU without rsqrtf's fix-up for a subnormal x (a
+// compare and two predicated multiplies a call): for x = d2^3 with d2 >=
+// eps2, x is normal for every eps2 above ~1e-12, and the two give the same
+// bits.
+__device__ __forceinline__ float rsqrt_normal(float x) {
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
 // Row tile I against column tile J = (I + d) mod nb; every thread of the
 // block calls it.  The row sums go to slot si[dk][I], the negated column
 // sums to slot sj[dk][J].  Shared memory may be reused once it returns.
+//
+// Warp w takes columns 32w .. 32w+31 against all SYM_TILE rows; lane l
+// holds rows l + 32r (r < SYM_ROWS) in registers.  At step k lane l pairs
+// its SYM_ROWS rows with column (l + k) mod 32 of the warp's range, adds
+// F r to its rows' sums and to one column accumulator, and then takes the
+// column accumulator of lane l + 1: after 32 steps lane l holds the whole
+// column 32w + l.  That is one shared load and three shuffles for every
+// SYM_ROWS pairs, and F r goes into both sums as fused multiply-adds.  The
+// row partials of the eight warps meet once a tile in `part` and are added
+// in warp order: the tile is bit-reproducible.
 __device__ __forceinline__ void sym_pair_tile(
         const float* pos, const float* __restrict__ mass,
         long long n, long long nb, long long I, long long d, long long dk,
@@ -46,40 +85,55 @@ __device__ __forceinline__ void sym_pair_tile(
     const int l = t & 31;
     const long long i = I * SYM_TILE + t;
     const long long j = J * SYM_TILE + t;
+    SymK2Stage& st = *reinterpret_cast<SymK2Stage*>(sm.part);
 
-    const float4 bi = load_body(pos, mass, i, n);
-    sm.tile[t] = load_body(pos, mass, j, n);
+    __syncthreads();                      // the last tile's readers of part
+    st.rows[t] = load_body(pos, mass, i, n);
+    const float4 bj = load_body(pos, mass, j, n);
+    st.cols[w][l] = bj;
+    st.cols[w][l + 32] = bj;
     __syncthreads();
 
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int c = 0; c < SYM_TILE / 32; ++c) {
-        float bx = 0.f, by = 0.f, bz = 0.f;
+    float4 br[SYM_ROWS];
+    float ax[SYM_ROWS], ay[SYM_ROWS], az[SYM_ROWS];
 #pragma unroll
-        for (int k = 0; k < 32; ++k) {
-            const float4 q = sm.tile[c * 32 + ((l + k) & 31)];
-            const float dx = q.x - bi.x;
-            const float dy = q.y - bi.y;
-            const float dz = q.z - bi.z;
-            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
-            const float px = f * dx;
-            const float py = f * dy;
-            const float pz = f * dz;
-            ax += px;
-            ay += py;
-            az += pz;
-            bx += px;
-            by += py;
-            bz += pz;
-            const int src = (l + 1) & 31;
-            bx = __shfl_sync(0xffffffffu, bx, src);
-            by = __shfl_sync(0xffffffffu, by, src);
-            bz = __shfl_sync(0xffffffffu, bz, src);
+    for (int r = 0; r < SYM_ROWS; ++r) {
+        br[r] = st.rows[l + 32 * r];
+        ax[r] = 0.f;
+        ay[r] = 0.f;
+        az[r] = 0.f;
+    }
+    const float4* cw = st.cols[w] + l;
+    const int src = (l + 1) & 31;
+    float bx = 0.f, by = 0.f, bz = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < 32; ++k) {
+        const float4 q = cw[k];
+#pragma unroll
+        for (int r = 0; r < SYM_ROWS; ++r) {
+            const float dx = q.x - br[r].x;
+            const float dy = q.y - br[r].y;
+            const float dz = q.z - br[r].z;
+            const float d2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, eps2)));
+            const float f = (br[r].w * q.w) * rsqrt_normal(d2 * d2 * d2);
+            ax[r] = fmaf(f, dx, ax[r]);
+            ay[r] = fmaf(f, dy, ay[r]);
+            az[r] = fmaf(f, dz, az[r]);
+            bx = fmaf(f, dx, bx);
+            by = fmaf(f, dy, by);
+            bz = fmaf(f, dz, bz);
         }
-        const int col = c * 32 + l;
-        sm.part[w][3 * col] = bx;
-        sm.part[w][3 * col + 1] = by;
-        sm.part[w][3 * col + 2] = bz;
+        bx = __shfl_sync(0xffffffffu, bx, src);
+        by = __shfl_sync(0xffffffffu, by, src);
+        bz = __shfl_sync(0xffffffffu, bz, src);
+    }
+    __syncthreads();                      // every warp is done with st
+#pragma unroll
+    for (int r = 0; r < SYM_ROWS; ++r) {
+        const int row = l + 32 * r;
+        sm.part[w][3 * row] = ax[r];
+        sm.part[w][3 * row + 1] = ay[r];
+        sm.part[w][3 * row + 2] = az[r];
     }
     __syncthreads();
     float sx = 0.f, sy = 0.f, sz = 0.f;
@@ -90,12 +144,12 @@ __device__ __forceinline__ void sym_pair_tile(
         sz += sm.part[v][3 * t + 2];
     }
     const long long slot = dk * nb * SYM_TILE * 3;
-    si[slot + 3 * i] = ax;
-    si[slot + 3 * i + 1] = ay;
-    si[slot + 3 * i + 2] = az;
-    sj[slot + 3 * j] = -sx;
-    sj[slot + 3 * j + 1] = -sy;
-    sj[slot + 3 * j + 2] = -sz;
+    si[slot + 3 * i] = sx;
+    si[slot + 3 * i + 1] = sy;
+    si[slot + 3 * i + 2] = sz;
+    sj[slot + 3 * j] = -bx;
+    sj[slot + 3 * j + 1] = -by;
+    sj[slot + 3 * j + 2] = -bz;
 }
 
 // Adds body b's slots of the offsets d_lo .. d_lo+dc-1 (row tile I) to s,

@@ -31,9 +31,14 @@ one width, and the tests compare with the JAX package at ``block_j =
 FAST_TILE_J``.
 
 The kernel is ``csrc/forces_fast.cu`` (packs, mma and correction from
-``csrc/tc_common.cuh``).  The wrappers take the plain PyTorch version only
-for CPU tensors; for a CUDA tensor they launch the kernel or raise.
-Launches are counted on ``forces_fast.launches``.
+``csrc/tc_common.cuh``): a prologue writes each j-tile's centroid and
+packs once an evaluation, blocks of ``FAST_ROWS`` rows stream them, and
+at small N the j-tiles are cut into ``j_splits`` ranges whose partial
+sums are added in range order.  The twin follows the same tiles and
+ranges, so the two sum alike.  The wrappers take the plain PyTorch
+version only for CPU tensors; for a CUDA tensor they launch the kernel or
+raise.  Launches are counted on ``forces_fast.launches``, one an
+evaluation.
 """
 
 from __future__ import annotations
@@ -48,6 +53,11 @@ from .forces_tiled_tc import bf16_split, position_pack, tile_result
 # j-tile width: one centroid and one correction a tile (FAST_TILE_J in
 # csrc/forces_fast.cu).
 FAST_TILE_J = 128
+# i-rows of one block of the kernel (FAST_ROWS in csrc/forces_fast.cu).
+FAST_ROWS = 256
+# Blocks the kernel aims for when it splits the j range: two blocks of
+# FAST_ROWS rows on each of an H100's 132 SMs.
+FAST_TARGET_BLOCKS = 264
 # A pair whose centred d2 is below this fraction of |u|^2 + eps2 + |v|^2
 # (where the centred value has lost ~10 of its bits) takes the direct
 # d2 = |x_j - x_i|^2 + eps2 (CLOSE_PAIR_SCALE in the kernel).
@@ -61,14 +71,29 @@ def _lib():
     fn = lib.nbt_forces_fast
     if fn.argtypes is None:
         fn.argtypes = [_c_ptr, _c_ll, _c_ptr, _c_ptr, _c_ll, ctypes.c_float,
-                       _c_int, _c_ptr, _c_ptr]
+                       _c_int, _c_ll, _c_ll, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
         fn.restype = _c_int
-        lib.nbt_fast_tile.argtypes = []
-        lib.nbt_fast_tile.restype = _c_int
-        if lib.nbt_fast_tile() != FAST_TILE_J:
-            raise RuntimeError("FAST_TILE_J differs between forces_fast.py "
-                               "and csrc/forces_fast.cu")
+        for name in ("nbt_fast_tile", "nbt_fast_rows", "nbt_fast_tile_bytes"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = _c_int
+        if (lib.nbt_fast_tile(), lib.nbt_fast_rows()) != (FAST_TILE_J,
+                                                          FAST_ROWS):
+            raise RuntimeError("FAST_TILE_J or FAST_ROWS differs between "
+                               "forces_fast.py and csrc/forces_fast.cu")
     return lib
+
+
+def j_splits(ni: int, nj: int) -> "tuple[int, int]":
+    """(ranges, j-tiles a range): how the kernel and its twin cut the
+    j-tiles of an (Ni, Nj) evaluation, from the shapes alone.  One range
+    when the row blocks fill ``FAST_TARGET_BLOCKS``; otherwise enough
+    ranges of whole tiles to come close, each range's partial sums added
+    in range order."""
+    n_tiles = max(1, -(-nj // FAST_TILE_J))
+    row_blocks = max(1, -(-ni // FAST_ROWS))
+    want = min(n_tiles, -(-FAST_TARGET_BLOCKS // row_blocks))
+    per = -(-n_tiles // want)
+    return -(-n_tiles // per), per
 
 
 def bf16_split3(x: torch.Tensor):
@@ -106,7 +131,11 @@ def _j_tiles(pos_j: torch.Tensor, mass_j: torch.Tensor):
 def _tile_d2(pos_i: torch.Tensor, xj: torch.Tensor, eps2: float):
     """(d2, close) of rows ``pos_i`` against one j-tile: the centred d2
     from the K=18 cross product, with the direct |x_j - x_i|^2 + eps2
-    where it falls below the close-pair test (``close``), unclamped."""
+    where it falls below the close-pair test (``close``), unclamped.  The
+    test adds the row's threshold ``CLOSE_PAIR_SCALE (|u|^2 + eps2)`` to
+    the column's ``CLOSE_PAIR_SCALE |v|^2``: a power of two apart from
+    their sum, so it is ``CLOSE_PAIR_SCALE (|u|^2 + eps2 + |v|^2)`` to
+    the bit."""
     c = xj.mean(0)
     u, v = pos_i - c, xj - c
     un2 = u[:, 0] * u[:, 0] + u[:, 1] * u[:, 1] + u[:, 2] * u[:, 2]
@@ -116,7 +145,7 @@ def _tile_d2(pos_i: torch.Tensor, xj: torch.Tensor, eps2: float):
     d2 = un2e - (cross + cross) + vn2[None, :]
     r = xj[None, :, :] - pos_i[:, None, :]
     direct = (r * r).sum(-1) + eps2
-    close = d2 < (un2e + vn2[None, :]) * CLOSE_PAIR_SCALE
+    close = d2 < un2e * CLOSE_PAIR_SCALE + vn2[None, :] * CLOSE_PAIR_SCALE
     return torch.where(close, direct, d2), close
 
 
@@ -126,22 +155,32 @@ def rect_forces_fast_plain(pos_i: torch.Tensor, pos_j: torch.Tensor,
     """Plain PyTorch twin of the kernel: j-tiles of ``FAST_TILE_J`` bodies
     (the last padded with zero-mass bodies at the origin), the centred
     K=18 cross product, the direct d2 for close pairs, d2 clamped at eps2,
-    the self-pair masked by index
-    when ``self_tile``, the hi/lo weights times the tile's position pack
-    and the correction per tile."""
-    rows = torch.arange(pos_i.shape[0], device=pos_i.device)[:, None]
-    acc = torch.zeros_like(pos_i)
+    the self-pair masked by index when ``self_tile`` (on the tiles that
+    overlap the i-set, the only ones that hold one), the hi/lo weights
+    times the tile's position pack and the correction per tile, summed
+    tile by tile within each of the ``j_splits`` ranges and then range by
+    range."""
+    ni = pos_i.shape[0]
+    rows = torch.arange(ni, device=pos_i.device)[:, None]
+    per = j_splits(ni, pos_j.shape[0])[1]
+    acc = part = None
     for s, xj, mj in _j_tiles(pos_j, mass_j):
         d2 = torch.clamp(_tile_d2(pos_i, xj, eps2)[0], min=eps2)
         f = mj[None, :] * torch.rsqrt(d2 * d2 * d2)
-        if self_tile:
+        if self_tile and s < ni:
             cols = torch.arange(s, s + FAST_TILE_J,
                                 device=pos_i.device)[None, :]
             f = torch.where(rows == cols, torch.zeros_like(f), f)
         pack = position_pack(xj)
         hi, lo = bf16_split(f)
-        acc = acc + tile_result(hi @ pack + lo @ pack, pos_i)
-    return acc
+        r = tile_result(hi @ pack + lo @ pack, pos_i)
+        part = r if part is None else part + r
+        if (s // FAST_TILE_J + 1) % per == 0:
+            acc = part if acc is None else acc + part
+            part = None
+    if part is not None:
+        acc = part if acc is None else acc + part
+    return acc if acc is not None else torch.zeros_like(pos_i)
 
 
 def close_pairs(pos_i: torch.Tensor, pos_j: torch.Tensor,
@@ -158,13 +197,20 @@ def _launch(pos_i, pos_j, mass_j, eps2, self_tile):
     _build.check_rect("forces_fast", pos_i, pos_j, mass_j, self_tile)
     if pos_i.device.type == "cpu":
         return rect_forces_fast_plain(pos_i, pos_j, mass_j, eps2, self_tile)
-    fn = _lib().nbt_forces_fast
+    lib = _lib()
+    ni, nj = pos_i.shape[0], pos_j.shape[0]
+    splits, per = j_splits(ni, nj)
+    n_tiles = max(1, -(-nj // FAST_TILE_J))
+    tiles = torch.empty(n_tiles * lib.nbt_fast_tile_bytes(),
+                        dtype=torch.uint8, device=pos_i.device)
+    part = pos_i.new_empty(splits * ni * 3) if splits > 1 else None
     acc = torch.empty_like(pos_i)
     forces_fast.launches += 1
-    _build.check_launch("forces_fast", fn(
-        pos_i.data_ptr(), pos_i.shape[0], pos_j.data_ptr(),
-        mass_j.data_ptr(), pos_j.shape[0], float(eps2), int(self_tile),
-        acc.data_ptr(), _build.stream_handle(acc)))
+    _build.check_launch("forces_fast", lib.nbt_forces_fast(
+        pos_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj,
+        float(eps2), int(self_tile), splits, per, tiles.data_ptr(),
+        part.data_ptr() if part is not None else None, acc.data_ptr(),
+        _build.stream_handle(acc)))
     return acc
 
 

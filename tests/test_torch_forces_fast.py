@@ -44,8 +44,10 @@ from nbody_tpu.oracle.numpy_oracle import (assert_matches_oracle,
                                            oracle_forces, oracle_run,
                                            relative_mismatch)
 from nbody_tpu_torch import cli
-from nbody_tpu_torch.ops.forces_fast import (FAST_TILE_J, close_pairs,
-                                             forces_fast, pack_u18, pack_v18,
+from nbody_tpu_torch.ops import forces_fast as k12
+from nbody_tpu_torch.ops.forces_fast import (CLOSE_PAIR_SCALE, FAST_TILE_J,
+                                             close_pairs, forces_fast,
+                                             j_splits, pack_u18, pack_v18,
                                              rect_forces_fast,
                                              rect_forces_fast_plain)
 
@@ -76,6 +78,80 @@ def test_k12_twin_matches_jax_and_oracle_sorted(n):
     assert_close_fast(acc, ref_jax, f"K12 twin vs JAX fast, N={n}")
     assert_matches_oracle(acc, oracle_forces(pos, mass, EPS2),
                           f"K12 twin vs oracle, N={n}", max_frac_bad=1e-3)
+
+
+@pytest.mark.parametrize("n", [300, 700])
+def test_k12_self_mask_on_diagonal_tiles_matches_jax(n):
+    """The twin masks the self-pair only on the j-tiles that overlap the
+    i-set, as the kernel masks it only on the tile that holds a warp's
+    diagonal; JAX masks by index on every tile.  N is no multiple of 64
+    or 128, so the last row block and the last j-tile are ragged."""
+    pos, _, mass = sorted_system(n, seed=128)
+    acc = forces_fast(torch.from_numpy(pos), torch.from_numpy(mass),
+                      EPS2).numpy()
+    ref_jax = np.asarray(forces_pallas(
+        jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=256,
+        block_j=FAST_TILE_J, variant="fast"))
+    assert_close_fast(acc, ref_jax, f"K12 twin vs JAX fast, N={n}")
+    assert np.isfinite(acc).all()
+
+
+@pytest.mark.parametrize("seed", [129, 130])
+def test_k12_close_pair_thresholds_are_the_scaled_sum(seed):
+    """The row's threshold CLOSE_PAIR_SCALE (|u|^2 + eps2) plus the
+    column's CLOSE_PAIR_SCALE |v|^2 is CLOSE_PAIR_SCALE (|u|^2 + eps2 +
+    |v|^2) to the bit (a power of two commutes with rounding), so the test
+    the kernel makes with one add and one compare is the earlier test;
+    with planted near pairs some of them fall under it."""
+    pos, _, mass = sorted_system(512, seed=seed)
+    pos[1] = pos[0] + np.float32([40.0, -30.0, 10.0])
+    pos[300] = pos[299] + np.float32([200.0, 100.0, -50.0])
+    p = torch.from_numpy(pos)
+    xj = p[256:384]
+    c = xj.mean(0)
+    u, v = p - c, xj - c
+    un2e = (u * u).sum(1)[:, None] + EPS2
+    vn2 = (v * v).sum(1)[None, :]
+    split = un2e * CLOSE_PAIR_SCALE + vn2 * CLOSE_PAIR_SCALE
+    assert torch.equal(split, (un2e + vn2) * CLOSE_PAIR_SCALE)
+    close = close_pairs(p, p, torch.from_numpy(mass), EPS2)
+    assert close[0, 1] and close[1, 0]
+    assert 0 < int(close.sum()) < close.numel() // 100
+
+
+@pytest.mark.parametrize("ni,nj,want", [
+    (8192, 8192, (8, 8)),            # 32 row blocks: 8 ranges of 8 tiles
+    (1 << 20, 1 << 20, (1, 8192)),   # 4096 row blocks fill the card
+    (256, 100, (1, 1)),              # one ragged tile
+    (300, 0, (1, 1)),                # an empty j-set: one ghost tile
+    (1000, 3000, (24, 1)),           # 4 row blocks: a range a tile
+])
+def test_k12_j_splits_cover_every_tile_once(ni, nj, want):
+    splits, per = j_splits(ni, nj)
+    assert (splits, per) == want
+    tiles = max(1, -(-nj // FAST_TILE_J))
+    assert (splits - 1) * per < tiles <= splits * per
+
+
+@pytest.mark.parametrize("target", [1, 8, 264])
+def test_k12_j_split_combine_matches_jax(target, monkeypatch):
+    """The partial sums of each j range, added in range order: one range
+    (target 1), ranges of two tiles (8) and a range a tile (264) at N=700
+    (3 row blocks, 6 j-tiles), each against JAX, and the three within
+    float32 summation order of each other."""
+    pos, _, mass = sorted_system(700, seed=131)
+    p, m = torch.from_numpy(pos), torch.from_numpy(mass)
+    monkeypatch.setattr(k12, "FAST_TARGET_BLOCKS", target)
+    assert j_splits(700, 700) == {1: (1, 6), 8: (3, 2), 264: (6, 1)}[target]
+    acc = forces_fast(p, m, EPS2).numpy()
+    ref_jax = np.asarray(forces_pallas(
+        jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=256,
+        block_j=FAST_TILE_J, variant="fast"))
+    assert_close_fast(acc, ref_jax, f"K12 twin, target {target}, vs JAX")
+    monkeypatch.setattr(k12, "FAST_TARGET_BLOCKS", 1)
+    whole = forces_fast(p, m, EPS2).numpy()
+    np.testing.assert_allclose(acc, whole, rtol=1e-5,
+                               atol=1e-6 * np.abs(whole).max())
 
 
 def test_k12_close_pair_takes_the_direct_distance():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare the compiled kernels of two copies of the port's CUDA sources.
 
-    python3 tools/ptxas_compare.py OLD_CSRC NEW_CSRC [name ...]
+    python3 tools/ptxas_compare.py OLD_CSRC NEW_CSRC [name ...] [--ops]
+        [--allow PATTERN ...]
 
 Builds ``<name>.cu`` (default: forces_sym, forces_sym_tc) from both source
 directories with the port's nvcc flags (``ops/_build.py``), reads ptxas's
@@ -14,7 +15,9 @@ how many of its SASS instructions are of each of the opcodes in ``OPS``
 (a static count of the code, not of what runs).  Kernels are matched by their demangled names, with
 template arguments ``true``/``false`` read as ``1``/``0`` (a template on
 a bool that became one on an int keeps its instantiations' names).
-Exits 1 if a kernel of OLD is missing in NEW or its SASS differs.
+Exits 1 if a kernel of OLD is missing in NEW or its SASS differs, unless
+its name matches one of the ``--allow`` regular expressions: the kernels a
+change means to redesign, whose numbers are printed all the same.
 
 Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt); builds under
 ``build/ptxas_compare/``.  To compare a commit with its parent:
@@ -110,7 +113,14 @@ def main(argv):
         print(__doc__, file=sys.stderr)
         return 2
     ops = "--ops" in argv
-    old_dir, new_dir, *libs = [a for a in argv if a != "--ops"]
+    args, allow = [], []
+    it = iter(a for a in argv if a != "--ops")
+    for a in it:
+        if a == "--allow":
+            allow.append(re.compile(next(it)))
+        else:
+            args.append(a)
+    old_dir, new_dir, *libs = args
     ok = True
     for lib in libs or ("forces_sym", "forces_sym_tc"):
         old_stats, old_sass = build(old_dir, lib, "old")
@@ -120,18 +130,21 @@ def main(argv):
         for k in sorted(old_stats):
             o = old_stats[k]
             n = new_stats.get(k)
+            allowed = any(a.search(k) for a in allow)
             if n is None:
-                print(f"  MISSING in new: {k}")
-                ok = False
+                print(f"  MISSING in new{' (allowed)' if allowed else ''}: "
+                      f"{k}")
+                ok &= allowed
                 continue
             same = old_sass.get(k) == new_sass.get(k)
-            ok &= same
+            ok &= same or allowed
             print(f"  {k}: {o['regs']} -> {n['regs']} regs, "
                   f"{o['spill_st']}/{o['spill_ld']} -> "
                   f"{n['spill_st']}/{n['spill_ld']} spill, {o['smem']} -> "
                   f"{n['smem']} smem, {len(old_sass.get(k, []))} -> "
                   f"{len(new_sass.get(k, []))} instructions, SASS "
-                  f"{'identical' if same else 'DIFFERS'}")
+                  f"{'identical' if same else 'DIFFERS'}"
+                  f"{' (allowed)' if allowed and not same else ''}")
         for k in sorted(set(new_stats) - set(old_stats)):
             n = new_stats[k]
             print(f"  new: {k}: {n['regs']} regs, {n['spill_st']}/"
@@ -141,7 +154,8 @@ def main(argv):
             print(f"== {lib}.cu (new): SASS instructions by opcode")
             for k in sorted(new_sass):
                 print(f"  {k}: {op_counts(new_sass[k])}")
-    print("ptxas_compare: every old kernel's SASS is unchanged" if ok else
+    print("ptxas_compare: every old kernel's SASS is unchanged"
+          + (" but the allowed ones" if allow else "") if ok else
           "ptxas_compare: FAILED: a kernel is missing or its SASS changed")
     return 0 if ok else 1
 
