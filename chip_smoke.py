@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from ``nbody_tpu_torch/csrc`` into a clean
 build directory (one ``nvcc`` per source, all at once), holds each kernel
 against its plain PyTorch version on the card (K1, K2; the resident
-kernels K3 and K4 also bit for bit against the per-step K2 path; K8 also
-against a float64 direct sum at N = 1,048,576; the tensor-core tiers K9,
+kernels K3 and K4 also bit for bit against the per-step K2 path; K8's row
+sums also against a float64 direct sum at N = 1,048,576, its symmetric
+total against its twin, a float64 total at N = 65,536 and the row sums'
+total at 1M; the tensor-core tiers K9,
 K10, K5 and K6 also against their tier gates on a float64 direct sum, K5
 at N = 1,048,576 too; the exact tiers K7 and K11 and the centred tier K12,
 on Morton-sorted bodies, at their float64 gates; K12 also on unsorted
@@ -28,8 +30,8 @@ held at their control's CTAs per SM, and checked and timed at the
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K12, K2 and
-K3 against their designs before the redesign for this card (the sources
+N = 1,048,576 against the direct-form ``rect_forces``, times K8 and K5
+against their designs before the redesign for this card (the sources
 of PARENT_COMMIT, built beside the package's) in alternating rounds at
 N = 8192 and 1,048,576, and holds every other kernel's SASS to theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
@@ -42,7 +44,8 @@ pallas_sym_turbo, pallas_sym_mxu and pallas_sym_turbo2; the all-gather;
 the fused ring K13 with ``--comm rdma`` and ``rdma_overlap``, one launch a
 force evaluation, also with ``--oracle native`` and through ``run``),
 the variant / schedule entry points ``forces_pallas_sym`` and
-``rect_forces_sym`` for turbof, turbop and the fold schedule and, after
+``rect_forces_sym`` for turbof, turbop and the fold schedule, K8's row
+sums ``pe_rows`` and, after
 ``ablation_sym.enable()``, for each K15 ablation, and the
 ``run`` verb (resident K3 with a
 checkpoint, K4 with yoshida4, auto routing, N = 1M with ``--energy``,
@@ -141,7 +144,10 @@ PEAK_HBM_BYTES = 3.35e12
 # force (3 sub, 6 for d2 + eps2, 2 for the cube, 1 rsqrt, 1 mass, 6 for
 # the accumulate), pair-symmetric force for both bodies of a pair (one
 # more multiply for m_i m_j, 3 for F r, 6 adds into both sums), and the
-# pair potential (3 sub, 6 for d2 + eps2, 1 rsqrt, 2 for the accumulate).
+# pair potential (3 sub, 6 for d2 + eps2, 1 rsqrt, 2 for the accumulate):
+# N^2 interactions for the row sums pe_rows, N(N-1)/2 pairs for the
+# symmetric total pe_total (the function's work, as rdma_bound counts
+# K13's, whatever the schedule computes).
 FLOPS_ONE_SIDED, FLOPS_PAIR, FLOPS_PE = 19, 23, 12
 # The tensor-core tiers, (float32 flops, tensor-core flops) per one-sided
 # interaction (K9, K10) or per pair (K5, K6).  Float32: 3 sub, 3 mul and 3
@@ -267,25 +273,27 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K2's pair tile (which K3 and K4 share) and of K12 for
-# this card, timed against the designs before it: the commit that holds
-# them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar
+# The redesign of K8 (the symmetric total pe_total against the parent's
+# row sums) and of K5's geometry for this card, timed against the designs
+# before it: the commit that holds them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar
 # -x -C build/parent``) into PARENT_CSRC, where check_redesign builds them
 # beside the package's and times both in rounds (the order reversed every
 # other round; medians).  Without those sources and without git, the
 # rounds and the SASS comparison are skipped and say so.
-PARENT_COMMIT = "92343ee6d74fe1f5fed54ce7286bdee2b5ec4c6f"
+PARENT_COMMIT = "1d221d8513d8cb4fadcc519b4235513c42f7ebb1"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes (K2's
-# pair pass, the resident kernels around its tile, K12).
+# libraries keeps the parent's SASS, but those the redesign changes: the
+# pair passes that take K5's trimmed geometry (TURBO 0, TURBOP 4 and the
+# TMM_FULL 5 / TMM_NOSCAT 6 controls, square and rect) and K8's new
+# symmetric total (its row-sum kernel pe_rows_kernel stays).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bsym_pairs_kernel<0>", r"^resident_kernel",
-                   r"^resident_kdk_kernel", r"^forces_fast_kernel",
-                   r"^fast_")
+SASS_REDESIGNED = (r"\bsym_tc_pairs_kernel<[0456]>",
+                   r"\brect_tc_pairs_kernel<[0456]>", r"^pe_total_kernel",
+                   r"^pe_sum_kernel")
 
 
 def check(cond, what):
@@ -1484,9 +1492,39 @@ def check_resident(dev, record):
             "bound": bound(flops, (64 if ref else 76) * n)}
 
 
+def pe_total_f64(pos, mass, eps2, chunk=512):
+    """The whole set's pair potential sum_i m_i sum_j m_j (|r|^2 +
+    eps2)^(-1/2), self pairs included, in float64 on the card (torch
+    float64), rows in chunks: the host would take minutes."""
+    import torch
+    p64, m64 = pos.double(), mass.double()
+    total = 0.0
+    for s in range(0, pos.shape[0], chunk):
+        d2 = ((p64[None, :, :] - p64[s:s + chunk, None, :]) ** 2).sum(-1)
+        total += float((m64[s:s + chunk, None] * m64[None, :]
+                        / torch.sqrt(d2 + eps2)).sum())
+    return total
+
+
+def energy_by_rows(state, eps2):
+    """total_energy_bounded as the parent computed it: K8's row sums of
+    every body, summed in float64, the self total subtracted."""
+    import torch
+    from nbody_tpu_torch.models.energy import kinetic_energy
+    from nbody_tpu_torch.ops import pe
+    pos, mass = state.pos.float().contiguous(), state.mass.float().contiguous()
+    ke = float(kinetic_energy(state.vel.double(), mass.double()))
+    pot = float(torch.sum(pe.pe_rows(pos, mass, pos, mass, eps2)))
+    pot -= float(torch.sum(mass.double() ** 2)) / float(eps2) ** 0.5
+    return ke - 0.5 * pot
+
+
 def check_pe(dev, record, smi):
-    """K8 against its plain twin at N = 8192 and against a float64 direct
-    sum on 4096 sampled rows at N = 1,048,576; the energy at 1M."""
+    """K8's row sums against their plain twin at N = 8192 and against a
+    float64 direct sum on 4096 sampled rows at N = 1,048,576; its
+    symmetric total against its twin at 8192 (bit-reproducible), a float64
+    total at 65,536 and the row sums' total at 1M; the energy at 1M by
+    the parent's path (the row sums) and by the new one (the total)."""
     import torch
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.models.energy import total_energy_bounded
@@ -1505,6 +1543,27 @@ def check_pe(dev, record, smi):
         "plain_ms": time_ms(lambda: pe.pe_rows_plain(pos, mass, pos, mass,
                                                      eps2), dev, iters=3),
         "bound": bound(FLOPS_PE * n * n, 16 * n + 16 * n + 8 * n)}
+    got = pe.pe_total(pos, mass, eps2)
+    check(torch.equal(got, pe.pe_total(pos, mass, eps2)),
+          "K8 pe_total: not bit-reproducible from call to call")
+    err = compare(f"K8 pe_total vs plain, N={n}", got.reshape(1),
+                  pe.pe_total_plain(pos, mass, eps2).reshape(1),
+                  rel_tol=1e-6, abs_floor=0.0)
+    print("[check] K8 pe_total bit-reproducible from call to call")
+    record["pe_total"] = {
+        "shape": "N=8192 bodies, the symmetric total (a full energy)",
+        "max_abs_err": err[0],
+        "ms": time_ms(lambda: pe.pe_total(pos, mass, eps2), dev),
+        "plain_ms": time_ms(lambda: pe.pe_total_plain(pos, mass, eps2), dev,
+                            iters=3),
+        "bound": bound(FLOPS_PE * n * (n - 1) // 2, 16 * n + 8)}
+
+    n = 1 << 16
+    pos, mass = bodies(n, 82, dev)
+    compare(f"K8 pe_total at N={n} vs float64 direct total",
+            pe.pe_total(pos, mass, eps2).reshape(1),
+            torch.tensor([pe_total_f64(pos, mass, eps2)]), rel_tol=1e-5,
+            abs_floor=0.0)
 
     n = 1 << 20
     state = nt.init_state(nt.SimConfig(n_bodies=n, seed=1))
@@ -1522,18 +1581,35 @@ def check_pe(dev, record, smi):
         ).sum(1) for r in rows.split(64)])
     compare("K8 at N=1,048,576, 4096 sampled rows vs float64 direct sum",
             got, want, rel_tol=1e-5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    energy = total_energy_bounded(state, eps2)
-    torch.cuda.synchronize()
-    e_s = time.perf_counter() - t0
+    compare("K8 pe_total at N=1,048,576 vs the row sums' total",
+            pe.pe_total(pos, mass, eps2).reshape(1),
+            pe.pe_rows(pos, mass, pos, mass, eps2).sum().reshape(1),
+            rel_tol=2e-6, abs_floor=0.0)
+    energies = {}
+    for path, fn in (("the row sums (parent)", energy_by_rows),
+                     ("pe_total", total_energy_bounded)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        energies[path] = fn(state, eps2)
+        torch.cuda.synchronize()
+        print(f"[1M] total energy {energies[path]:.10e} in "
+              f"{time.perf_counter() - t0:.3f} s by {path}")
+    e_old, e_new = energies.values()
+    print(f"[1M] total energy, new vs parent path: rel "
+          f"{abs(e_new - e_old) / abs(e_old):.3e} (gate 2e-6)")
+    check(abs(e_new - e_old) <= 2e-6 * abs(e_old),
+          "the 1M total energy moved with pe_total")
     k8_ms = time_ms(lambda: pe.pe_rows(pos, mass, pos, mass, eps2), dev,
                     iters=2, warmup=0)
     record["pe"]["ms_1m"] = k8_ms
     record["pe"]["bound_ms_1m"] = bound(FLOPS_PE * n * n, 40 * n)[0]
-    print(f"[1M] total energy {energy:.10e} in {e_s:.3f} s "
-          f"(total_energy_bounded); K8 {k8_ms:.2f} ms per launch over "
-          f"1,048,576 rows ({smi})")
+    total_ms = time_ms(lambda: pe.pe_total(pos, mass, eps2), dev, iters=2,
+                       warmup=0)
+    record["pe_total"]["ms_1m"] = total_ms
+    record["pe_total"]["bound_ms_1m"] = bound(FLOPS_PE * n * (n - 1) // 2,
+                                              16 * n + 8)[0]
+    print(f"[1M] K8 row sums {k8_ms:.2f} ms, symmetric total "
+          f"{total_ms:.2f} ms per launch over 1,048,576 bodies ({smi})")
 
 
 def check_k2_1m(dev):
@@ -1615,7 +1691,7 @@ def finish_sass_compare(job):
         lines = f.read().splitlines()
     redesigned = [re.compile(p) for p in SASS_REDESIGNED]
     for line in lines:
-        name = line.strip().removeprefix("new: ")
+        name = line.strip().removeprefix("new: ").removeprefix("old: ")
         if ("==" in line or "DIFFERS" in line or "MISSING" in line
                 or "ptxas_compare" in line
                 or any(p.search(name) for p in redesigned)):
@@ -1678,13 +1754,13 @@ def report_rounds(what, times, smi):
     return med
 
 
-def k2_pair_passes_ms(pos, mass, eps2, dev):
-    """K2's pair passes alone over every offset chunk of one evaluation
-    (the sweep without its reduce passes), ms."""
+def pair_passes_ms(pos, mass, eps2, dev, pairs):
+    """The pair passes alone of one pair-symmetric sweep (K2's offset
+    chunks and slots; ``pairs`` the C entry, K5's here) over every offset
+    chunk of one evaluation, without the reduce passes, ms."""
     from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.utils.timing import time_ms
-    lib = k2._lib()
     n = pos.shape[0]
     nb = -(-n // k2.SYM_TILE)
     chunks = k2.offset_chunks(nb, nb * k2.SYM_TILE, k2.SLOT_BUDGET_BYTES)
@@ -1692,118 +1768,102 @@ def k2_pair_passes_ms(pos, mass, eps2, dev):
     si, sj = pos.new_empty(slots), pos.new_empty(slots)
     stream = _build.stream_handle(pos)
 
-    def pairs():
+    def run():
         for d_lo, dc in chunks:
-            _build.check_launch("forces_sym pairs", lib.nbt_sym_pairs(
+            _build.check_launch("pair passes", pairs(
                 pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, eps2,
                 si.data_ptr(), sj.data_ptr(), stream))
-    return time_ms(pairs, dev, iters=2, warmup=1)
+    return time_ms(run, dev, iters=2, warmup=1)
 
 
 def check_redesign(dev, eps2, record, smi, csrc):
-    """K12 and K2 against the parent's designs on the same inputs, in
-    alternating rounds at N = 8192 and 1,048,576 (K12 on Morton-sorted
-    bodies, as the main path runs it), and K3's 1000-step launch at 8192:
-    the new K12 and K2 must be faster at 1M, K3 no slower than the
-    parent's slowest round.  The outputs are compared too: K2 at the
-    exact tolerance, K12's largest difference printed."""
+    """K8 and K5 against the parent's designs on the same inputs, in
+    alternating rounds at N = 8192 and 1,048,576: K8's symmetric total
+    (pe_total) against the parent's row sums of every body, summed, as
+    total_energy_bounded took them; K5 against the parent's K5 (its
+    untrimmed geometry).  Each new kernel must be faster than the parent's
+    in every round at 1M; K8's totals must agree within rel 2e-6, and
+    K5's largest difference is printed."""
     import ctypes
     import torch
-    import nbody_tpu_torch as nt
-    from nbody_tpu_torch.models.ordering import morton_permutation
     from nbody_tpu_torch.ops import _build
-    from nbody_tpu_torch.ops import forces_fast as k12
     from nbody_tpu_torch.ops import forces_sym as k2
-    from nbody_tpu_torch.ops import resident
+    from nbody_tpu_torch.ops import forces_sym_tc as k5
+    from nbody_tpu_torch.ops import pe
     t0 = time.perf_counter()
-    libs = build_parent(csrc, ("forces_fast", "forces_sym", "resident"))
-    pf, ps, pr = libs["forces_fast"], libs["forces_sym"], libs["resident"]
-    c_ptr, c_ll, c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    pf.nbt_forces_fast.argtypes = [c_ptr, c_ll, c_ptr, c_ptr, c_ll,
-                                   ctypes.c_float, c_int, c_ptr, c_ptr]
-    pf.nbt_forces_fast.restype = c_int
-    new_k2 = k2._lib()
-    for name in ("nbt_sym_pairs", "nbt_sym_reduce"):
-        getattr(ps, name).argtypes = getattr(new_k2, name).argtypes
-        getattr(ps, name).restype = getattr(new_k2, name).restype
-    pr.nbt_resident.argtypes = resident._lib().nbt_resident.argtypes
-    pr.nbt_resident.restype = c_int
+    libs = build_parent(csrc, ("pe", "forces_sym_tc"))
+    pp, pt = libs["pe"], libs["forces_sym_tc"]
+    pp.nbt_pe_rows.argtypes = pe._lib().nbt_pe_rows.argtypes
+    pp.nbt_pe_rows.restype = ctypes.c_int
+    new_tc = k5._lib()
+    for name in ("nbt_sym_turbo_pairs", "nbt_sym_tc_reduce"):
+        getattr(pt, name).argtypes = getattr(new_tc, name).argtypes
+        getattr(pt, name).restype = getattr(new_tc, name).restype
 
-    def parent_k12(p, m):
-        acc = torch.empty_like(p)
-        _build.check_launch("parent forces_fast", pf.nbt_forces_fast(
-            p.data_ptr(), p.shape[0], p.data_ptr(), m.data_ptr(),
-            p.shape[0], eps2, 1, acc.data_ptr(), _build.stream_handle(p)))
-        return acc
+    def parent_pe(p, m):
+        out = torch.empty(p.shape[0], dtype=torch.float64, device=p.device)
+        _build.check_launch("parent pe_rows", pp.nbt_pe_rows(
+            p.data_ptr(), m.data_ptr(), p.shape[0], p.data_ptr(),
+            m.data_ptr(), p.shape[0], eps2, out.data_ptr(),
+            _build.stream_handle(p)))
+        return out.sum()
 
-    def parent_k2(p, m):
-        return k2.sweep("parent forces_sym", p, m, eps2,
-                        k2.SLOT_BUDGET_BYTES, ps.nbt_sym_pairs,
-                        ps.nbt_sym_reduce)
-
-    def parent_k3(st, cfg, steps):
-        nb, diag, si, sj = resident._scratch(st.pos)
-        out = [torch.empty_like(st.pos) for _ in range(3)]
-        _build.check_launch("parent resident", pr.nbt_resident(
-            st.pos.data_ptr(), st.vel.data_ptr(), st.mass.data_ptr(),
-            st.pos.shape[0], nb, cfg.eps2, 0.5 * cfg.dt, cfg.dt, steps,
-            *(o.data_ptr() for o in out), diag.data_ptr(), si.data_ptr(),
-            sj.data_ptr(), _build.stream_handle(st.pos)))
-        return out
+    def k5_sweep(lib):
+        # K5's sweep through the same host path for both builds (the
+        # wrapper adds its checks on top): at 8192 the call is host-bound.
+        return lambda p, m: k2.sweep("forces_sym_turbo", p, m, eps2,
+                                     k2.SLOT_BUDGET_BYTES,
+                                     lib.nbt_sym_turbo_pairs,
+                                     lib.nbt_sym_tc_reduce)
+    parent_k5, new_k5 = k5_sweep(pt), k5_sweep(new_tc)
 
     for n, iters in ((8192, 20), (1 << 20, 1)):
         tag = "N=8192" if n == 8192 else "N=1,048,576"
-        pos, mass = bodies(n, 4 if n > 8192 else n + 9, dev)
-        perm = morton_permutation(pos, -1e5, 1e5)
-        sp, sm = pos[perm].contiguous(), mass[perm].contiguous()
-        new, old = k12.forces_fast(sp, sm, eps2), parent_k12(sp, sm)
+        key = "" if n == 8192 else "_1m"
+        pos, mass = bodies(n, n + 10, dev)
+        compare(f"pe_total {tag}, new vs the parent's row sums summed",
+                pe.pe_total(pos, mass, eps2).reshape(1),
+                parent_pe(pos, mass).reshape(1), rel_tol=2e-6,
+                abs_floor=0.0)
+        times = alternate({"parent": lambda: parent_pe(pos, mass),
+                           "new": lambda: pe.pe_total(pos, mass, eps2)},
+                          dev, iters)
+        med = report_rounds(f"K8 {tag}: pe_total against the parent's "
+                            f"pe_rows summed", times, smi)
+        record["pe_total"].update({f"parent_ms{key}": med["parent"],
+                                   f"new_ms{key}": med["new"]})
+        if n > 8192:
+            check(max(times["new"]) < min(times["parent"]),
+                  "pe_total at 1M: not faster than the parent in every "
+                  "round")
+        new, old = k5.forces_sym_turbo(pos, mass, eps2), parent_k5(pos, mass)
         torch.cuda.synchronize()
+        check(torch.equal(new, new_k5(pos, mass)),
+              f"forces_sym_turbo {tag}: the wrapper and the timed sweep differ")
         diff = (new - old).abs()
-        print(f"[redesign] forces_fast {tag} sorted, new vs parent: largest "
+        print(f"[redesign] forces_sym_turbo {tag}, new vs parent: largest "
               f"difference {float(diff.max() / old.abs().max()):.3e} of "
               f"max |a|, {int((diff > 0).sum())} of {diff.numel()} "
               f"components differ")
-        med = report_rounds(f"forces_fast {tag}, Morton-sorted", alternate(
-            {"parent": lambda: parent_k12(sp, sm),
-             "new": lambda: k12.forces_fast(sp, sm, eps2)}, dev, iters), smi)
-        key = "" if n == 8192 else "_1m"
-        record["forces_fast"].update({f"parent_ms{key}": med["parent"],
-                                      f"new_ms{key}": med["new"]})
+        times = alternate({"parent": lambda: parent_k5(pos, mass),
+                           "new": lambda: new_k5(pos, mass)}, dev, iters)
+        med = report_rounds(f"K5 {tag}", times, smi)
+        record["forces_sym_turbo"].update({f"parent_ms{key}": med["parent"],
+                                           f"new_ms{key}": med["new"]})
         if n > 8192:
-            check(med["new"] < med["parent"],
-                  "forces_fast at 1M: the redesign is not faster")
-        new, old = k2.forces_sym(pos, mass, eps2), parent_k2(pos, mass)
-        torch.cuda.synchronize()
-        compare(f"forces_sym {tag}, new vs parent", new, old)
-        med = report_rounds(f"forces_sym {tag}", alternate(
-            {"parent": lambda: parent_k2(pos, mass),
-             "new": lambda: k2.forces_sym(pos, mass, eps2)}, dev, iters), smi)
-        record["forces_sym"].update({f"parent_ms{key}": med["parent"],
-                                     f"new_ms{key}": med["new"]})
-        if n > 8192:
-            record["forces_sym"]["bound_ms_1m"] = bound(
-                FLOPS_PAIR * n * (n - 1) // 2, 28 * n)[0]
-            check(med["new"] < med["parent"],
-                  "forces_sym at 1M: the redesign is not faster")
-            pairs_ms = k2_pair_passes_ms(pos, mass, eps2, dev)
-            print(f"[redesign] forces_sym N=1,048,576 split: the pair passes "
-                  f"{pairs_ms:.3f} ms of {med['new']:.3f}; the reduce passes "
-                  f"(slots, diagonal, descale) {med['new'] - pairs_ms:.3f} "
-                  f"ms ({smi})")
-        del pos, mass, sp, sm, new, old, diff
-    cfg = nt.SimConfig(n_bodies=8192, impl="pallas_sym2")
-    st = nt.init_state(cfg)
-    times = alternate(
-        {"parent": lambda: parent_k3(st, cfg, 1000),
-         "new": lambda: resident.resident_steps(st.pos, st.vel, st.mass,
-                                                cfg.eps2, cfg.dt, 1000)},
-        dev, iters=2)
-    med = report_rounds("resident (K3) N=8192, one launch of 1000 steps",
-                        times, smi)
-    record["resident"].update({"parent_ms": med["parent"],
-                               "new_ms": med["new"]})
-    check(med["new"] <= max(times["parent"]),
-          "resident: the new K3 is slower than the parent's slowest round")
+            check(max(times["new"]) < min(times["parent"]),
+                  "forces_sym_turbo at 1M: not faster than the parent in "
+                  "every round")
+            split = {"parent": pair_passes_ms(pos, mass, eps2, dev,
+                                              pt.nbt_sym_turbo_pairs),
+                     "new": pair_passes_ms(pos, mass, eps2, dev,
+                                           new_tc.nbt_sym_turbo_pairs)}
+            print(f"[redesign] forces_sym_turbo N=1,048,576 split: the pair "
+                  f"passes {split['new']:.3f} ms of {med['new']:.3f} "
+                  f"(parent {split['parent']:.3f} of {med['parent']:.3f}); "
+                  f"the reduce passes (slots, diagonal) "
+                  f"{med['new'] - split['new']:.3f} ms ({smi})")
+        del pos, mass, new, old, diff
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1953,6 +2013,19 @@ def main_path(counts, reset):
         print(f"[main path] forces_pallas_sym N=8192 {kw}: launches {delta}")
         check(all(v == (1 if k == kernel else 0) for k, v in delta.items()),
               f"forces_pallas_sym {kw}: launches {delta}")
+    # K8's row sums, the entry point for a subset of rows against every
+    # body (the energy takes the symmetric total).
+    from nbody_tpu_torch.ops import pe
+    before = counts()
+    rows = pe.pe_rows(state.pos[:1024].contiguous(),
+                      state.mass[:1024].contiguous(), state.pos, state.mass,
+                      cfg.eps2)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(rows).all()), "pe_rows: non-finite")
+    delta = {k: v - before[k] for k, v in counts().items()}
+    print(f"[main path] pe_rows 1024 rows of N=8192: launches {delta}")
+    check(all(v == (1 if k == "pe" else 0) for k, v in delta.items()),
+          f"pe_rows: launches {delta}")
 
     # The sharded path: validate through the mesh at N = 8192 (P = 4:
     # the self shards, one cross rotation through K2-rect, the antipodal
@@ -2095,7 +2168,8 @@ def main_path(counts, reset):
           f"{'resident K3' if delta['resident'] else 'per-step K2'}")
     phase("run --n 1048576 --steps 2 --energy",
           ["run", "--n", "1048576", "--steps", "2", "--energy"],
-          {"forces_sym": lambda v: v == 2, "pe": lambda v: v == 2})
+          {k: (lambda v: v == 2) if k in ("forces_sym", "pe_total")
+           else (lambda v: v == 0) for k in counts()})
     t0 = time.perf_counter()
     phase("run --impl pallas_sym_turbo --n 1048576 --steps 2",
           ["run", "--impl", "pallas_sym_turbo", "--n", "1048576", "--steps",
@@ -2417,7 +2491,7 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K12, K2 and K3 against the designs before
+    # 4. K2 at the 1M headline; K8 and K5 against the designs before
     # their redesign.
     check_k2_1m(dev)
     if csrc:
@@ -2431,7 +2505,7 @@ def main():
     wrappers = {"forces_tiled": k1.forces_tiled, "forces_sym": k2.forces_sym,
                 "resident": resident.resident_steps,
                 "resident_kdk": resident.resident_steps_kdk,
-                "pe": pe.pe_rows,
+                "pe": pe.pe_rows, "pe_total": pe.pe_total,
                 "forces_tiled_turbo": k910.forces_tiled_turbo,
                 "forces_tiled_mxu": k910.forces_tiled_mxu,
                 "forces_sym_turbo": k56.forces_sym_turbo,
@@ -2529,6 +2603,8 @@ def main():
              "nbody_tpu/ops/resident.py:362"),
             ("pe", "nbody_tpu_torch/csrc/pe.cu",
              "nbody_tpu/ops/pe_pallas.py:40"),
+            ("pe_total", "nbody_tpu_torch/csrc/pe.cu",
+             "nbody_tpu/ops/pe_pallas.py:40"),
             ("forces_tiled_turbo", "nbody_tpu_torch/csrc/forces_tiled_tc.cu",
              "nbody_tpu/ops/forces_pallas.py:209"),
             ("forces_tiled_mxu", "nbody_tpu_torch/csrc/forces_tiled_tc.cu",
@@ -2590,6 +2666,8 @@ def main():
             k["also_replaces"] = "nbody_tpu/ops/forces_pallas_sym.py:919"
         elif k["name"] == "rdma_ring":
             k["also_replaces"] = "nbody_tpu/parallel/rdma_ring.py:587"
+        elif k["name"] == "pe_total":
+            k["also_replaces"] = "nbody_tpu/ops/pe_pallas.py:92"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,7 @@
 // column) meet in shared memory and are added warp by warp in a fixed
 // order.
 //
-// What bounds it on the card: float32 throughput, as K2.  A pair costs 14
+// What bounds it on the card: float32 issue, as K2.  A pair costs 14
 // float32 operations for two interactions (3 sub, 6 for d2 + eps2, 2 for
 // the cube, 1 rsqrt on the MUFU, 2 weight multiplies) for turbo, turbop
 // and turbof (m_i m_j, then times inv), 13 for mxu (the hi/lo split's
@@ -69,8 +69,24 @@
 // multiply: the masses ride in the packs), plus the bf16 roundings (two a
 // pair for turbo and mxu, one for turbo2 and turbof) and 4 movmatrix a
 // 16 x 16 block (8 for mxu), against 32 tensor-core flops a pair (64 for
-// mxu).  Left for later: wgmma, TMA-fed tiles, FMA-contracted geometry,
-// a persistent schedule.
+// mxu).  The tensor cores are not the limit (K5's 32 flops a pair take
+// about 18 ms of an evaluation at N = 1M).
+//
+// K5's geometry is trimmed (tc_trimmed, pair_inv_fma in tc_common.cuh):
+// d2 as three FMAs with eps2 folded in, and the MUFU rsqrt of d2^3
+// without rsqrtf's subnormal fix-up, which brings its pair from about
+// 19.6 issue slots to about 13.6 (3 sub, 3 FMA, 2 mul for the cube, the
+// rsqrt, 2 weight multiplies, one bf16x2 convert, half a movmatrix, a
+// quarter mma, and 0.9 of loads and partial stores a 16-column step).
+// turbop, TMM_FULL and TMM_NOSCAT, defined as K5's values, take it too,
+// in both sweeps; mxu, turbo2, turbof, the other ablations and K13 keep
+// pair_inv.  The trimmed tile also unrolls its 16-column loop twice.  On
+// an H100 80GB HBM3 at 700 W an evaluation at N = 1M takes 333.5 ms
+// (343.1 with the loop rolled, 433.5 untrimmed; tools/sym_tc_variants.py,
+// chip_smoke.py): the pair passes issue at about 70% of the rate at 13.4
+// slots a pair, and the reduce passes take about 16 ms.  Four CTAs an SM
+// at 64 registers (three at 80) did not pay.  Left for later: wgmma, TMA-fed tiles, a persistent
+// schedule, the trimmed geometry for the other variants.
 //
 // K15's tmm_* ablations (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm)
 // are four more values of the tile's variant, SymTcVariant; their none /
@@ -108,9 +124,9 @@ sym_tc_pairs_kernel(const float* __restrict__ pos,
     const long long J = (I + d) % nb;
     const long long slot = dk * nb * SYM_TILE * 3;
     const long long jt = (V == TMM_NOSCAT) ? I : J;
-    sym_tc_tile<tc_tile_of(V)>(pos, mass, n, I, pos, mass, n, J, eps2,
-                               si + slot + 3 * I * SYM_TILE,
-                               sj + slot + 3 * jt * SYM_TILE, sm);
+    sym_tc_tile<tc_tile_of(V), tc_trimmed(V)>(
+        pos, mass, n, I, pos, mass, n, J, eps2, si + slot + 3 * I * SYM_TILE,
+        sj + slot + 3 * jt * SYM_TILE, sm);
 }
 
 // K2-rect on the tensor cores: one CTA per (row tile IA of A, column tile
@@ -128,10 +144,10 @@ rect_tc_pairs_kernel(const float* __restrict__ pos_a,
     const long long bid = blockIdx.x;
     const long long jk = bid / na_s;
     const long long IA = bid - jk * na_s;
-    sym_tc_tile<tc_tile_of(V)>(pos_a, mass_a, na, IA, pos_b, mass_b, nb,
-                               j_lo + jk, eps2,
-                               si + (jk * na_s + IA) * SYM_TILE * 3,
-                               sj + (IA * jc + jk) * SYM_TILE * 3, sm);
+    sym_tc_tile<tc_tile_of(V), tc_trimmed(V)>(
+        pos_a, mass_a, na, IA, pos_b, mass_b, nb, j_lo + jk, eps2,
+        si + (jk * na_s + IA) * SYM_TILE * 3,
+        sj + (IA * jc + jk) * SYM_TILE * 3, sm);
 }
 
 // One CTA per tile: folds the chunk's slots into the running sum, and on the

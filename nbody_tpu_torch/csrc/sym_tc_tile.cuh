@@ -33,6 +33,14 @@ __host__ __device__ constexpr int tc_tile_of(int v) {
     return (v == TMM_FULL || v == TMM_NOSCAT) ? (int)TURBO : v;
 }
 
+// Whether a pairs kernel of forces_sym_tc.cu runs the trimmed geometry
+// (pair_inv_fma): K5 and the kernels defined as K5's values, turbop and
+// the TMM_FULL / TMM_NOSCAT controls, so that they stay bit-equal to it.
+// The other variants, and K13's tiles (rdma_ring.cu), keep pair_inv.
+__host__ __device__ constexpr bool tc_trimmed(int v) {
+    return v == TURBO || v == TURBOP || v == TMM_FULL || v == TMM_NOSCAT;
+}
+
 struct SymTcSmem {
     float4 tile[SYM_TILE];                 // column tile J: x, y, z, m
     __nv_bfloat16 pack_j[8 * SYM_LD];      // J's pack, transposed
@@ -62,8 +70,10 @@ __device__ __forceinline__ void store_part(SymTcSmem& sm, int w, int k0,
 // for its rows r = 0 .. SYM_TILE-1, the column sums of J to
 // sj_tile[3 * c] for its columns c.  The square sweep calls it with one
 // body set on both sides, the rect sweep (K2-rect) with the two sets.
-// Every thread of the block calls it.
-template <int V>
+// TRIM: each pair's inv from pair_inv_fma, else from pair_inv (the values
+// differ in the last bits of d2, and so in rare bf16 roundings), and the
+// column loop unrolled twice.  Every thread of the block calls it.
+template <int V, bool TRIM = false>
 __device__ __forceinline__ void sym_tc_tile(
         const float* __restrict__ pos_i, const float* __restrict__ mass_i,
         long long n_i, long long I, const float* __restrict__ pos_j,
@@ -108,6 +118,10 @@ __device__ __forceinline__ void sym_tc_tile(
     // of bf16(m_i inv) over this lane's columns.
     float wi_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
     float wj_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    // The trimmed tile unrolls the 16-column loop twice (80 registers
+    // still, three CTAs an SM; tools/sym_tc_variants.py); the others keep
+    // it rolled, their code unchanged.
+#pragma unroll (TRIM ? 2 : 1)
     for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
         const int c = k0 + 2 * t;
         const float4 q[4] = {sm.tile[c], sm.tile[c + 1], sm.tile[c + 8],
@@ -127,8 +141,10 @@ __device__ __forceinline__ void sym_tc_tile(
             for (int r = 0; r < 4; ++r) {
                 const float4 x = xr[rb][r & 1];
                 const int qa = (r >> 1) * 2;
-                inv[2 * r] = pair_inv(x, q[qa], eps2);
-                inv[2 * r + 1] = pair_inv(x, q[qa + 1], eps2);
+                inv[2 * r] = TRIM ? pair_inv_fma(x, q[qa], eps2)
+                                  : pair_inv(x, q[qa], eps2);
+                inv[2 * r + 1] = TRIM ? pair_inv_fma(x, q[qa + 1], eps2)
+                                      : pair_inv(x, q[qa + 1], eps2);
             }
             uint32_t a[4], at[4];
             if (V == TMM_NOMM) {

@@ -20,7 +20,8 @@
 // dx*dx + dy*dy + dz*dz + eps2, so that the float32 weights, and hence
 // their bf16 roundings, are those of the plain versions on the same card;
 // bf16 conversion rounds to nearest even, as .to(torch.bfloat16) and JAX's
-// astype do.
+// astype do.  K5's trimmed geometry (pair_inv_fma) fuses d2 instead, and
+// its twin rounds each fused multiply-add once.
 //
 // Fragment layouts of mma.m16n8k16 (bf16 in, f32 accumulate), for lane
 // l = 4g + t:
@@ -137,6 +138,28 @@ __device__ __forceinline__ float pair_inv(float4 bi, float4 bj, float eps2) {
         __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                   __fmul_rn(dz, dz)), eps2);
     return rsqrtf(__fmul_rn(__fmul_rn(d2, d2), d2));
+}
+
+// pair_inv trimmed for K5's tile (sym_tc_tile.cuh, TRIM): d2 as three
+// fused multiply-adds with eps2 folded in, and the rsqrt of d2^3 on the
+// MUFU without rsqrtf's subnormal fix-up (a compare and two predicated
+// multiplies; sym_common.cuh's rsqrt_normal, written out here because
+// this header stands alone): rsqrtf's bits wherever d2^3 is a normal
+// float, which d2 >= eps2 makes it for every eps2 above ~1e-12.  10 issue
+// slots against pair_inv's 15 (3 sub, 3 FMA, 2 mul for the cube, 1 MUFU,
+// and no fix-up).  The plain twin rounds each FMA once from its exact
+// value (ops/forces_sym_tc.py: pair_inv_fma).
+__device__ __forceinline__ float pair_inv_fma(float4 bi, float4 bj,
+                                              float eps2) {
+    const float dx = __fsub_rn(bj.x, bi.x);
+    const float dy = __fsub_rn(bj.y, bi.y);
+    const float dz = __fsub_rn(bj.z, bi.z);
+    const float d2 =
+        __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmaf_rn(dx, dx, eps2)));
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;"
+        : "=f"(y) : "f"(__fmul_rn(__fmul_rn(d2, d2), d2)));
+    return y;
 }
 
 __device__ __forceinline__ float component(float4 b, int e) {

@@ -5,9 +5,10 @@ The pair potential consistent with the softened force is the Plummer
 potential ``phi_ij = -m_i m_j / sqrt(|r|^2 + eps2)``.  ``energy_f64`` sums
 it in float64 on the host (numpy only) up to ``MAX_HOST_ENERGY_N`` bodies;
 above, it warns once and delegates to ``total_energy_bounded``: the pair
-row sums of kernel K8 (``ops/pe.py``) on a CUDA tensor, or its plain
-version on a CPU tensor, with the closed-form self total ``sum(m^2) /
-sqrt(eps2)`` subtracted and the partials combined in float64.
+total of kernel K8's symmetric sweep (``ops/pe.py::pe_total``, each
+unordered pair once) on a CUDA tensor, or its plain version on a CPU
+tensor, with the closed-form self total ``sum(m^2) / sqrt(eps2)``
+subtracted and the partials combined in float64.
 
 Not ported: the flat-state path (``total_energy_bounded_flat``, the TPU's
 tiled-copy wall) and the row-chunked programs of the bounded path (the
@@ -21,7 +22,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.pe import pe_rows
+from ..ops.pe import pe_total
 from .state import host_array
 
 MAX_HOST_ENERGY_N = 262144
@@ -43,14 +44,15 @@ def kinetic_energy(vel: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
 
 
 def total_energy_bounded(state, eps2: float) -> float:
-    """Total energy with device float32 pair math (K8 on a CUDA tensor)
-    and float64 combination: kinetic energy in float64, the row sums added
-    in float64, the self total subtracted in float64."""
+    """Total energy with device float32 pair math (K8's ``pe_total`` on a
+    CUDA tensor, one launch) and float64 combination: kinetic energy in
+    float64, the row sums added in float64, the self total subtracted in
+    float64."""
     pos, vel, mass = (_tensor(state.pos).float().contiguous(),
                       _tensor(state.vel), _tensor(state.mass).float()
                       .contiguous())
     ke = float(kinetic_energy(vel.double(), mass.double()))
-    pe = float(torch.sum(pe_rows(pos, mass, pos, mass, eps2)))
+    pe = float(pe_total(pos, mass, eps2))
     m64 = mass.double()
     pe -= float(torch.sum(m64 * m64)) / float(eps2) ** 0.5
     return ke - 0.5 * pe

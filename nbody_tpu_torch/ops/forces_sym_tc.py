@@ -27,6 +27,14 @@ cores:
   block's geometry; the same values in the same order, so bit-equal to
   turbo, and its twin is turbo's.
 
+K5's geometry is trimmed (``csrc/tc_common.cuh``: ``pair_inv_fma``): d2
+as three fused multiply-adds with eps2 folded in, and the rsqrt of d2^3
+without rsqrtf's subnormal fix-up.  turbop and K15's tmm_full /
+tmm_noscat controls, defined as K5's values, take it too; the other
+variants and K13 keep the unfused ``pair_inv``.  The twin rounds each
+fused multiply-add once (``pair_inv_fma``), so it gives the kernel's
+float32 weights and bf16 roundings but for rare double-rounding ties.
+
 Each side's tile result is ``sum w x - x sum w`` (the correction of the
 Pallas kernels) once per 256 x 256 tile.  turbo, mxu, turbo2 and turbop
 give accelerations: no 1/m descale, and a real body of mass 0 is right
@@ -69,6 +77,8 @@ from .forces_tiled_tc import (bf16_split, mass_folded_pack, pair_inv,
                               position_pack, tile_result)
 
 VARIANTS = ("turbo", "mxu", "turbo2", "turbof", "turbop")
+# Variants whose kernels take the trimmed geometry (pair_inv_fma).
+_TRIMMED = ("turbo", "turbop")
 # Variants whose slot sums carry the receiving body's mass.
 _MASS_SCALED = ("turbof",)
 
@@ -102,10 +112,30 @@ def _lib():
     return lib
 
 
-def _pair_tiles(xi, mi, xj, mj, eps2, variant):
+def pair_inv_fma(xi: torch.Tensor, xj: torch.Tensor,
+                 eps2: float) -> torch.Tensor:
+    """(..., Ti, 3), (..., Tj, 3) -> (..., Ti, Tj) rsqrt((|x_j - x_i|^2 +
+    eps2)^3) as K5's trimmed geometry rounds it: d2 = fma(dz, dz, fma(dy,
+    dy, fma(dx, dx, eps2))), each fused multiply-add rounded once to
+    float32 from its float64 value (a float32 square is exact in float64;
+    the sum then rounds twice, which differs from one rounding only at
+    rare ties)."""
+    d2 = torch.full((), torch.tensor(eps2, dtype=torch.float32).item(),
+                    dtype=torch.float64, device=xi.device)
+    for e in range(3):
+        de = (xj[..., None, :, e] - xi[..., :, None, e]).double()
+        d2 = (de * de + d2).float().double()
+    d2 = d2.float()
+    return torch.rsqrt(d2 * d2 * d2)
+
+
+def _pair_tiles(xi, mi, xj, mj, eps2, variant, trimmed=True):
     """Row sums (force on i) and column sums (force on j) of the pair tiles
-    (k, T, 3) x (k, T, 3) -> (k, T, 3), (k, T, 3), accelerations."""
-    inv = pair_inv(xi, xj, eps2)                       # (k, Ti, Tj)
+    (k, T, 3) x (k, T, 3) -> (k, T, 3), (k, T, 3), accelerations.
+    ``trimmed``: the trimmed geometry for the variants whose square and
+    rect kernels take it (``_TRIMMED``); K13's tiles keep ``pair_inv``."""
+    inv = (pair_inv_fma if trimmed and variant in _TRIMMED
+           else pair_inv)(xi, xj, eps2)                # (k, Ti, Tj)
     if variant in ("turbo", "turbop"):
         wi = (mj[:, None, :] * inv).to(torch.bfloat16).float()
         wj = (mi[:, :, None] * inv).to(torch.bfloat16).float()

@@ -136,11 +136,12 @@ def _check(pos, mass, p, variant, one_sided):
 def _tile_both(variant: str, eps2: float):
     """The two-sided tile of a cross phase, K2-rect's: (rows, columns) ->
     (row sums, column sums), each (k, T, 3), signed accelerations (vpu2:
-    mass-scaled)."""
+    mass-scaled).  K13's turbo keeps the unfused geometry (``pair_inv``),
+    not K2-rect's trimmed one."""
     if variant in ("vpu2", "vpu"):
         return _k2._pair_tiles(eps2, variant == "vpu", 1)
     return lambda xi, mi, xj, mj: _ktc._pair_tiles(xi, mi, xj, mj, eps2,
-                                                   variant)
+                                                   variant, trimmed=False)
 
 
 def _tile_i(variant: str, eps2: float, xi, mi, xj, mj, self_tile=None):

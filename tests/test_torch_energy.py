@@ -1,6 +1,6 @@
 """K8's plain path and the port's energy diagnostics against the JAX
-package: ``pe_rows_plain`` against ``pe_rows_pallas`` in interpret mode,
-``total_energy_bounded`` against the JAX package's Pallas path and the
+package: ``pe_rows_plain`` and the symmetric ``pe_total_plain`` against
+``pe_rows_pallas`` in interpret mode, ``total_energy_bounded`` against the JAX package's Pallas path and the
 float64 host branch, and ``energy_f64``'s delegation above
 ``max_host_n``.
 
@@ -28,7 +28,8 @@ from nbody_tpu import SimState as JaxSimState
 from nbody_tpu.models import energy as jax_energy
 from nbody_tpu.ops.pe_pallas import pe_rows_pallas
 from nbody_tpu_torch.models import energy
-from nbody_tpu_torch.ops.pe import PE_TILE, pe_rows, pe_rows_plain
+from nbody_tpu_torch.ops.pe import (PE_TILE, pe_rows, pe_rows_plain,
+                                    pe_total, pe_total_plain)
 
 EPS2 = 0.002
 
@@ -72,6 +73,50 @@ def test_pe_rows_plain_tiles_and_f64_host_sum():
     d2 = ((p[None] - p[:, None]) ** 2).sum(-1) + EPS2
     want = m * (m[None, :] / np.sqrt(d2)).sum(1)
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# N = 600: three tiles (odd nb); 3 * 256 + 17 and 4 * 256 + 5: a ragged
+# last tile with an even tile count, whose half offset is taken once.
+@pytest.mark.parametrize("n", [600, 3 * PE_TILE + 17, 4 * PE_TILE + 5])
+def test_pe_total_plain_matches_jax_interpret_and_f64(n):
+    pos, _, mass = _system(n, seed=85)
+    j = jnp.asarray
+    want = float(pe_rows_pallas(j(pos), j(mass), j(pos), j(mass), EPS2,
+                                interpret=True))
+    t = torch.from_numpy
+    got = pe_total_plain(t(pos), t(mass), EPS2)
+    assert got.dtype == torch.float64 and got.dim() == 0
+    assert abs(float(got) - want) / abs(want) < 2e-6
+    p, m = pos.astype(np.float64), mass.astype(np.float64)
+    d2 = ((p[None] - p[:, None]) ** 2).sum(-1) + EPS2
+    exact = float((m[:, None] * m[None, :] / np.sqrt(d2)).sum())
+    assert abs(float(got) - exact) / exact < 1e-6
+    # Each unordered pair once: the one-sided row sums give the same total.
+    rows = pe_rows_plain(t(pos), t(mass), t(pos), t(mass), EPS2)
+    assert abs(float(got) - float(rows.sum())) / exact < 1e-6
+    # The wrapper takes the plain version for CPU tensors, launching
+    # nothing.
+    before = pe_total.launches
+    assert torch.equal(pe_total(t(pos), t(mass), EPS2), got)
+    assert pe_total.launches == before
+
+
+def test_pe_total_plain_massless_bodies_and_eps2_zero():
+    """A real massless body adds exactly 0; the zero-mass ghosts past N
+    add nothing; with eps2 = 0 the self pairs give inf, not a masked
+    value."""
+    n = 2 * PE_TILE + 40
+    pos, _, mass = _system(n, seed=86)
+    t = torch.from_numpy
+    zero = mass.copy()
+    zero[[3, 300, n - 1]] = 0.0
+    keep = np.ones(n, bool)
+    keep[[3, 300, n - 1]] = False
+    got = float(pe_total_plain(t(pos), t(zero), EPS2))
+    want = float(pe_total_plain(t(np.ascontiguousarray(pos[keep])),
+                                t(np.ascontiguousarray(zero[keep])), EPS2))
+    assert abs(got - want) / want < 1e-6
+    assert float(pe_total_plain(t(pos), t(mass), 0.0)) == float("inf")
 
 
 def test_total_energy_bounded_matches_jax_and_host_f64():

@@ -37,10 +37,16 @@ from nbody_tpu.oracle.numpy_oracle import (assert_matches_oracle,
                                            relative_mismatch)
 from nbody_tpu_torch import cli
 from nbody_tpu_torch.ops.forces_sym import SYM_TILE
-from nbody_tpu_torch.ops.forces_sym_tc import (forces_sym_mxu, forces_sym_tc,
+from nbody_tpu_torch.ops.forces_sym_tc import (_pair_tiles, forces_sym_mxu,
+                                               forces_sym_tc,
                                                forces_sym_tc_plain,
-                                               forces_sym_turbo)
+                                               forces_sym_turbo,
+                                               forces_sym_turbop,
+                                               pair_inv_fma,
+                                               rect_forces_sym_tc_plain)
+from nbody_tpu_torch.ops.forces_tiled_tc import pair_inv
 from nbody_tpu_torch.ops.forces_torch import rect_forces
+from nbody_tpu_torch.parallel import rdma_ring
 
 EPS2 = 0.002
 IMPLS = {"turbo": "pallas_sym_turbo", "mxu": "pallas_sym_mxu"}
@@ -195,3 +201,60 @@ def test_cli_validate_run_resume_bench_on_cpu(variant, tmp_path, capsys):
     assert cli.main(["bench", "--n", "700", "--steps", "2", *common]) == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["impl"] == impl and res["finite"] and not res["resident"]
+
+
+def test_trimmed_geometry_rounds_each_fma_once():
+    """K5's d2 is fma(dz, dz, fma(dy, dy, fma(dx, dx, eps2))), each step
+    rounded once to float32: the twin's inv is the float64 value of the
+    exact geometry to float32 rounding, and differs from the unfused
+    pair_inv on some pairs (the bits the trimmed kernel changes)."""
+    pos, _, _ = make_small_system(256, seed=87)
+    x = torch.from_numpy(pos)[None]
+    fused = pair_inv_fma(x, x, EPS2)[0].double().numpy()
+    plain = pair_inv(x, x, EPS2)[0].double().numpy()
+    r = (pos[None, :, :] - pos[:, None, :]).astype(np.float64)
+    d2 = (r * r).sum(-1) + np.float64(np.float32(EPS2))
+    np.testing.assert_allclose(fused, d2 ** -1.5, rtol=1e-6)
+    assert (fused != plain).any()
+    np.testing.assert_allclose(fused, plain, rtol=2e-6)
+
+
+@pytest.mark.parametrize("n", [1029, 1536])
+def test_k5_trimmed_twin_matches_jax_turbo_and_turbop(n):
+    """The K5 twin with its trimmed geometry against JAX's turbo in
+    interpret mode at the tier tolerance, on a ragged set with an even
+    tile count (1029: the half offset) and on whole tiles; the turbop twin
+    is the turbo twin bit for bit."""
+    pos, _, mass = make_small_system(n, seed=88)
+    p, m = torch.from_numpy(pos), torch.from_numpy(mass)
+    acc = forces_sym_turbo(p, m, EPS2).numpy()
+    ref_jax = np.asarray(forces_pallas_sym(
+        jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=128,
+        block_u=SYM_TILE, variant="turbo"))
+    assert_close_tier(acc, ref_jax, f"K5 trimmed twin vs JAX, N={n}")
+    np.testing.assert_array_equal(forces_sym_turbop(p, m, EPS2).numpy(), acc)
+
+
+def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
+    """turbo and turbop take the trimmed geometry in the square and rect
+    twins; mxu keeps pair_inv; K13's turbo tile keeps pair_inv, as its
+    kernel does."""
+    pos, _, mass = make_small_system(512, seed=89)
+    x = torch.from_numpy(pos).view(2, 256, 3)
+    mm = torch.from_numpy(mass).view(2, 256)
+    xi, mi, xj, mj = x[:1], mm[:1], x[1:], mm[1:]
+    fused = _pair_tiles(xi, mi, xj, mj, EPS2, "turbo")
+    unfused = _pair_tiles(xi, mi, xj, mj, EPS2, "turbo", trimmed=False)
+    ring = rdma_ring._tile_both("turbo", EPS2)(xi, mi, xj, mj)
+    for a, b in zip(ring, unfused):
+        assert torch.equal(a, b)
+    for a, b in zip(_pair_tiles(xi, mi, xj, mj, EPS2, "turbop"), fused):
+        assert torch.equal(a, b)
+    for a, b in zip(_pair_tiles(xi, mi, xj, mj, EPS2, "mxu"),
+                    _pair_tiles(xi, mi, xj, mj, EPS2, "mxu", trimmed=False)):
+        assert torch.equal(a, b)
+    pa, ma, pb, mb = (torch.from_numpy(np.ascontiguousarray(v)) for v in
+                      (pos[:256], mass[:256], pos[256:], mass[256:]))
+    acc_a, acc_b = rect_forces_sym_tc_plain(pa, ma, pb, mb, EPS2, "turbo")
+    d_a, d_b = fused
+    assert torch.equal(acc_a, d_a[0]) and torch.equal(acc_b, d_b[0])

@@ -12,7 +12,9 @@ kernel it prints its numbers in OLD and NEW and whether its SASS is the
 same instruction for instruction; kernels only in NEW are listed with
 their numbers.  With ``--ops`` it also prints, for every kernel of NEW,
 how many of its SASS instructions are of each of the opcodes in ``OPS``
-(a static count of the code, not of what runs).  Kernels are matched by their demangled names, with
+(a static count of the code, not of what runs), and the same for every
+kernel of OLD whose SASS differs (``old: `` lines).  Kernels are matched
+by their demangled names, with
 template arguments ``true``/``false`` read as ``1``/``0`` (a template on
 a bool that became one on an int keeps its instantiations' names).
 Exits 1 if a kernel of OLD is missing in NEW or its SASS differs, unless
@@ -39,11 +41,12 @@ from nbody_tpu_torch.ops._build import NVCC_FLAGS, find_nvcc  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "ptxas_compare")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
-# The opcodes of the pair loops: float32 add / fma / mul, the MUFU rsqrt,
-# warp shuffles, shared loads and stores, tensor-core mma, bf16 converts
-# (F2FP), global stores.
-OPS = ("FADD", "FFMA", "FMUL", "MUFU", "SHFL", "LDS", "STS", "HMMA", "F2FP",
-       "STG", "MOVM")
+# The opcodes of the pair loops: float32 add / fma / mul, the MUFU rsqrt
+# and the compare of rsqrtf's subnormal fix-up (FSETP), warp shuffles,
+# shared loads and stores, tensor-core mma, bf16 converts (F2FP), global
+# stores, movmatrix.
+OPS = ("FADD", "FFMA", "FMUL", "MUFU", "FSETP", "SHFL", "LDS", "STS", "HMMA",
+       "F2FP", "STG", "MOVM")
 
 
 def op_counts(insns):
@@ -154,6 +157,9 @@ def main(argv):
             print(f"== {lib}.cu (new): SASS instructions by opcode")
             for k in sorted(new_sass):
                 print(f"  {k}: {op_counts(new_sass[k])}")
+            for k in sorted(k for k in old_sass
+                            if old_sass[k] != new_sass.get(k)):
+                print(f"  old: {k}: {op_counts(old_sass[k])}")
     print("ptxas_compare: every old kernel's SASS is unchanged"
           + (" but the allowed ones" if allow else "") if ok else
           "ptxas_compare: FAILED: a kernel is missing or its SASS changed")
