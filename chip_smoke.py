@@ -30,10 +30,11 @@ held at their control's CTAs per SM, and checked and timed at the
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K8 and K5
-against their designs before the redesign for this card (the sources
-of PARENT_COMMIT, built beside the package's) in alternating rounds at
-N = 8192 and 1,048,576, and holds every other kernel's SASS to theirs
+N = 1,048,576 against the direct-form ``rect_forces``, times K14a (at
+N = 8192 and 1,048,576), K2-rect turbo2 (at 262,144 x 262,144), K3 and
+K4 (at N = 8192) against their designs before the redesign for this card
+(the sources of PARENT_COMMIT, built beside the package's) in
+alternating rounds, and holds every other kernel's SASS to theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
@@ -273,27 +274,26 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K8 (the symmetric total pe_total against the parent's
-# row sums) and of K5's geometry for this card, timed against the designs
-# before it: the commit that holds them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar
-# -x -C build/parent``) into PARENT_CSRC, where check_redesign builds them
+# The redesign of K14a's geometry and of K3's (and K4's) schedule for
+# this card, timed against the designs before it: the commit that holds
+# them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x
+# -C build/parent``) into PARENT_CSRC, where check_redesign builds them
 # beside the package's and times both in rounds (the order reversed every
 # other round; medians).  Without those sources and without git, the
 # rounds and the SASS comparison are skipped and say so.
-PARENT_COMMIT = "1d221d8513d8cb4fadcc519b4235513c42f7ebb1"
+PARENT_COMMIT = "0264a706a6df48881dd010a33f12070d61499e4b"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes: the
-# pair passes that take K5's trimmed geometry (TURBO 0, TURBOP 4 and the
-# TMM_FULL 5 / TMM_NOSCAT 6 controls, square and rect) and K8's new
-# symmetric total (its row-sum kernel pe_rows_kernel stays).
+# libraries keeps the parent's SASS, but those the redesign changes:
+# K14a's pair passes, which take the trimmed geometry (TURBO2 2, square
+# and rect; K13's turbo2 tile in rdma_ring.cu keeps pair_inv), K3's and
+# K4's kernels on the dataflow schedule.
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bsym_tc_pairs_kernel<[0456]>",
-                   r"\brect_tc_pairs_kernel<[0456]>", r"^pe_total_kernel",
-                   r"^pe_sum_kernel")
+SASS_REDESIGNED = (r"\bsym_tc_pairs_kernel<2>", r"\brect_tc_pairs_kernel<2>",
+                   r"\bresident_kernel\(", r"\bresident_kdk_kernel\(")
 
 
 def check(cond, what):
@@ -1424,10 +1424,31 @@ def check_resident(dev, record):
     from nbody_tpu_torch.utils.timing import time_ms
     print(f"[resident] co-resident grid: K3 {resident.max_blocks(False)} "
           f"blocks, K4 {resident.max_blocks(True)} blocks of 256 threads")
-    cases = [("reference", 1000, 10), ("reference", 8192, 10),
-             ("kdk", 8192, 5), ("yoshida4", 8192, 5)]
+    for kdk in (False, True):
+        for nb in (1, 3, 10, 32, 48, 128):
+            check(resident.launch_grid(nb, kdk) == resident.resident_grid(
+                nb, resident.max_blocks(kdk)),
+                  f"resident grid for nb={nb}: the kernel's launch and "
+                  f"ops/resident.py's mirror differ")
+    for nb in (1, 3, 33, 34, 48, 64, 128, 264, 265, 270, 836):
+        for grid in (1, 132, 264, 528):
+            check(resident.kernel_group_warps(nb, grid)
+                  == resident.group_warps(nb, grid),
+                  f"resident group warps for nb={nb}, grid={grid}: the "
+                  f"kernel's and ops/resident.py's mirror differ")
+    # (integrator, N, steps, first chunk of the chained run).  From
+    # N = 8449 (nb = 34) on, 8 nb finish groups outrun one warp a block of
+    # the 264-block grid (12288 and 16384, inside auto's window, take two
+    # warps a block); at N = 69000 (nb = 270) every warp of a block takes
+    # groups and some take two a step.
+    cases = [("reference", 700, 7, 2), ("reference", 1000, 10, 4),
+             ("reference", 2500, 6, 2), ("reference", 8192, 10, 4),
+             ("kdk", 8192, 5, 1), ("yoshida4", 8192, 5, 1),
+             ("yoshida4", 700, 2, 0), ("reference", 12288, 5, 2),
+             ("reference", 16384, 5, 2), ("yoshida4", 16384, 5, 2),
+             ("reference", 69000, 5, 2), ("yoshida4", 69000, 2, 1)]
     errs = {"resident": 0.0, "resident_kdk": 0.0}
-    for integrator, n, steps in cases:
+    for integrator, n, steps, split in cases:
         cfg = nt.SimConfig(n_bodies=n, impl="pallas_sym2",
                            integrator=integrator, seed=n + 11)
         state = nt.init_state(cfg)
@@ -1435,30 +1456,38 @@ def check_resident(dev, record):
             state = nt.ops.step.prime_kdk(state, cfg)
         kname = "resident" if integrator == "reference" else "resident_kdk"
         what = f"{'K3' if kname == 'resident' else 'K4'} {integrator} N={n}"
-        one = resident.run_steps_resident(state, cfg, 1)
-        plain = resident.run_steps_resident_plain(state, cfg, 1)
-        for k in ("pos", "vel", "acc"):
-            err = compare(f"{what}, 1 step, {k} vs plain", getattr(one, k),
-                          getattr(plain, k))
-            if n == 8192:
-                errs[kname] = max(errs[kname], err[0])
+        # Against the plain twin up to 16384; past it bit for bit only.
+        twin = n <= 16384
+        if twin:
+            one = resident.run_steps_resident(state, cfg, 1)
+            plain = resident.run_steps_resident_plain(state, cfg, 1)
+            for k in ("pos", "vel", "acc"):
+                err = compare(f"{what}, 1 step, {k} vs plain",
+                              getattr(one, k), getattr(plain, k))
+                if n == 8192:
+                    errs[kname] = max(errs[kname], err[0])
         got = resident.run_steps_resident(state, cfg, steps)
         per_step = nt.run_steps(state, cfg, steps, impl="pallas_sym2")
         check(states_equal(got, per_step),
               f"{what}: {steps} resident steps differ from {steps} "
               f"per-step K2 steps")
-        split = steps // 2 - 1
         chained = resident.run_steps_resident(
             resident.run_steps_resident(state, cfg, split), cfg,
             steps - split)
         check(states_equal(got, chained),
               f"{what}: {split}+{steps - split} steps differ from {steps}")
-        plain = resident.run_steps_resident_plain(state, cfg, steps)
-        drift = float((got.pos - plain.pos).abs().max()
-                      / plain.pos.abs().max())
-        print(f"[check] {what}: {steps} steps bit-equal to {steps} per-step "
-              f"K2 steps and to {split}+{steps - split}; pos vs plain after "
-              f"{steps} steps max rel {drift:.3e}")
+        drift = ""
+        if twin:
+            plain = resident.run_steps_resident_plain(state, cfg, steps)
+            rel = float((got.pos - plain.pos).abs().max()
+                        / plain.pos.abs().max())
+            drift = f"; pos vs plain after {steps} steps max rel {rel:.3e}"
+        nb = -(-n // 256)
+        grid = resident.launch_grid(nb, kname == "resident_kdk")
+        print(f"[check] {what} (grid {grid}, "
+              f"{resident.group_warps(nb, grid)} finish warps a block): "
+              f"{steps} steps bit-equal to {steps} per-step K2 steps and to "
+              f"{split}+{steps - split}{drift}")
     cfg = nt.SimConfig(n_bodies=1000, impl="pallas_sym2", seed=7)
     state = nt.init_state(cfg)
     mass = state.mass.clone()
@@ -1467,6 +1496,20 @@ def check_resident(dev, record):
     compare("K3 with three real zero-mass bodies vs direct form",
             resident.run_steps_resident(state, cfg, 1).acc,
             rect_forces(state.pos, state.pos, mass, cfg.eps2))
+    # A zero-mass body's diagonal item reads every body: several steps of
+    # it against the per-step path, both kernels.
+    for integrator in ("reference", "yoshida4"):
+        cfg = nt.SimConfig(n_bodies=1000, impl="pallas_sym2",
+                           integrator=integrator, seed=7)
+        st = state
+        if integrator != "reference":
+            st = nt.ops.step.prime_kdk(state, cfg)
+        check(states_equal(resident.run_steps_resident(st, cfg, 6),
+                           nt.run_steps(st, cfg, 6, impl="pallas_sym2")),
+              f"{integrator} with zero-mass bodies: 6 resident steps differ "
+              f"from 6 per-step K2 steps")
+    print("[check] K3 / K4 with three real zero-mass bodies: 6 steps "
+          "bit-equal to the per-step K2 path")
 
     # Times at the run verb's shapes: one launch of 1000 steps (K3) and
     # of 100 yoshida4 steps (K4) at N = 8192.
@@ -1777,93 +1820,155 @@ def pair_passes_ms(pos, mass, eps2, dev, pairs):
 
 
 def check_redesign(dev, eps2, record, smi, csrc):
-    """K8 and K5 against the parent's designs on the same inputs, in
-    alternating rounds at N = 8192 and 1,048,576: K8's symmetric total
-    (pe_total) against the parent's row sums of every body, summed, as
-    total_energy_bounded took them; K5 against the parent's K5 (its
-    untrimmed geometry).  Each new kernel must be faster than the parent's
-    in every round at 1M; K8's totals must agree within rel 2e-6, and
-    K5's largest difference is printed."""
+    """K14a, K2-rect turbo2, K3 and K4 against the parent's designs on the
+    same inputs: K14a's evaluation at N = 8192 and 1,048,576 in
+    alternating rounds (faster than the parent's in every 1M round; its
+    largest difference printed), K2-rect turbo2 at the 1M ring's 262,144²
+    shard pair timed once each; K3's 1000-step launch at 8192 in rounds
+    (faster in every round, bit-equal to the parent's output), and 100
+    Yoshida4 steps of K4 (timed, bit-equal)."""
     import ctypes
     import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.models.integrators import KDK_WEIGHTS
     from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops import forces_sym as k2
-    from nbody_tpu_torch.ops import forces_sym_tc as k5
-    from nbody_tpu_torch.ops import pe
+    from nbody_tpu_torch.ops import forces_sym_tc as ktc
+    from nbody_tpu_torch.ops import resident
+    from nbody_tpu_torch.utils.timing import time_ms
     t0 = time.perf_counter()
-    libs = build_parent(csrc, ("pe", "forces_sym_tc"))
-    pp, pt = libs["pe"], libs["forces_sym_tc"]
-    pp.nbt_pe_rows.argtypes = pe._lib().nbt_pe_rows.argtypes
-    pp.nbt_pe_rows.restype = ctypes.c_int
-    new_tc = k5._lib()
-    for name in ("nbt_sym_turbo_pairs", "nbt_sym_tc_reduce"):
+    libs = build_parent(csrc, ("forces_sym_tc", "resident"))
+    pt, pr = libs["forces_sym_tc"], libs["resident"]
+    new_tc = ktc._lib()
+    for name in ("nbt_sym_turbo2_pairs", "nbt_sym_tc_reduce",
+                 "nbt_rect_turbo2_pairs", "nbt_rect_tc_reduce"):
         getattr(pt, name).argtypes = getattr(new_tc, name).argtypes
         getattr(pt, name).restype = getattr(new_tc, name).restype
+    # The parent's K3 / K4 entries: the new ones without pos_tmp and flags.
+    c_ptr, c_ll, c_int, c_f = (ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_float)
+    pr.nbt_resident.argtypes = [c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_f, c_f,
+                                c_f, c_int] + [c_ptr] * 7
+    pr.nbt_resident.restype = c_int
+    pr.nbt_resident_kdk.argtypes = [
+        c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_f, ctypes.POINTER(c_f),
+        ctypes.POINTER(c_f), c_int, c_int] + [c_ptr] * 7
+    pr.nbt_resident_kdk.restype = c_int
 
-    def parent_pe(p, m):
-        out = torch.empty(p.shape[0], dtype=torch.float64, device=p.device)
-        _build.check_launch("parent pe_rows", pp.nbt_pe_rows(
-            p.data_ptr(), m.data_ptr(), p.shape[0], p.data_ptr(),
-            m.data_ptr(), p.shape[0], eps2, out.data_ptr(),
-            _build.stream_handle(p)))
-        return out.sum()
-
-    def k5_sweep(lib):
-        # K5's sweep through the same host path for both builds (the
-        # wrapper adds its checks on top): at 8192 the call is host-bound.
-        return lambda p, m: k2.sweep("forces_sym_turbo", p, m, eps2,
+    def turbo2_sweep(lib):
+        # K14a's sweep through the same host path for both builds.
+        return lambda p, m: k2.sweep("forces_sym_turbo2", p, m, eps2,
                                      k2.SLOT_BUDGET_BYTES,
-                                     lib.nbt_sym_turbo_pairs,
+                                     lib.nbt_sym_turbo2_pairs,
                                      lib.nbt_sym_tc_reduce)
-    parent_k5, new_k5 = k5_sweep(pt), k5_sweep(new_tc)
+    parent_k14a, new_k14a = turbo2_sweep(pt), turbo2_sweep(new_tc)
 
     for n, iters in ((8192, 20), (1 << 20, 1)):
         tag = "N=8192" if n == 8192 else "N=1,048,576"
         key = "" if n == 8192 else "_1m"
         pos, mass = bodies(n, n + 10, dev)
-        compare(f"pe_total {tag}, new vs the parent's row sums summed",
-                pe.pe_total(pos, mass, eps2).reshape(1),
-                parent_pe(pos, mass).reshape(1), rel_tol=2e-6,
-                abs_floor=0.0)
-        times = alternate({"parent": lambda: parent_pe(pos, mass),
-                           "new": lambda: pe.pe_total(pos, mass, eps2)},
-                          dev, iters)
-        med = report_rounds(f"K8 {tag}: pe_total against the parent's "
-                            f"pe_rows summed", times, smi)
-        record["pe_total"].update({f"parent_ms{key}": med["parent"],
-                                   f"new_ms{key}": med["new"]})
-        if n > 8192:
-            check(max(times["new"]) < min(times["parent"]),
-                  "pe_total at 1M: not faster than the parent in every "
-                  "round")
-        new, old = k5.forces_sym_turbo(pos, mass, eps2), parent_k5(pos, mass)
+        new, old = ktc.forces_sym_turbo2(pos, mass, eps2), parent_k14a(pos,
+                                                                      mass)
         torch.cuda.synchronize()
-        check(torch.equal(new, new_k5(pos, mass)),
-              f"forces_sym_turbo {tag}: the wrapper and the timed sweep differ")
+        check(torch.equal(new, new_k14a(pos, mass)),
+              f"forces_sym_turbo2 {tag}: the wrapper and the timed sweep "
+              f"differ")
         diff = (new - old).abs()
-        print(f"[redesign] forces_sym_turbo {tag}, new vs parent: largest "
+        print(f"[redesign] forces_sym_turbo2 {tag}, new vs parent: largest "
               f"difference {float(diff.max() / old.abs().max()):.3e} of "
               f"max |a|, {int((diff > 0).sum())} of {diff.numel()} "
               f"components differ")
-        times = alternate({"parent": lambda: parent_k5(pos, mass),
-                           "new": lambda: new_k5(pos, mass)}, dev, iters)
-        med = report_rounds(f"K5 {tag}", times, smi)
-        record["forces_sym_turbo"].update({f"parent_ms{key}": med["parent"],
-                                           f"new_ms{key}": med["new"]})
+        times = alternate({"parent": lambda: parent_k14a(pos, mass),
+                           "new": lambda: new_k14a(pos, mass)}, dev, iters)
+        med = report_rounds(f"K14a {tag}", times, smi)
+        record["forces_sym_turbo2"].update({f"parent_ms{key}": med["parent"],
+                                            f"new_ms{key}": med["new"]})
         if n > 8192:
             check(max(times["new"]) < min(times["parent"]),
-                  "forces_sym_turbo at 1M: not faster than the parent in "
+                  "forces_sym_turbo2 at 1M: not faster than the parent in "
                   "every round")
             split = {"parent": pair_passes_ms(pos, mass, eps2, dev,
-                                              pt.nbt_sym_turbo_pairs),
+                                              pt.nbt_sym_turbo2_pairs),
                      "new": pair_passes_ms(pos, mass, eps2, dev,
-                                           new_tc.nbt_sym_turbo_pairs)}
-            print(f"[redesign] forces_sym_turbo N=1,048,576 split: the pair "
-                  f"passes {split['new']:.3f} ms of {med['new']:.3f} "
+                                           new_tc.nbt_sym_turbo2_pairs)}
+            print(f"[redesign] forces_sym_turbo2 N=1,048,576 split: the "
+                  f"pair passes {split['new']:.3f} ms of {med['new']:.3f} "
                   f"(parent {split['parent']:.3f} of {med['parent']:.3f}); "
                   f"the reduce passes (slots, diagonal) "
                   f"{med['new'] - split['new']:.3f} ms ({smi})")
         del pos, mass, new, old, diff
+
+    # K2-rect turbo2 at the 1M ring's shard pair, once each.
+    n = RECT_1M
+    pa, ma = bodies(n, 41, dev)
+    pb, mb = bodies(n, 42, dev)
+
+    def rect_turbo2(lib):
+        return lambda: k2.rect_sweep(
+            "rect_forces_sym_turbo2", pa, ma, pb, mb, eps2,
+            k2.SLOT_BUDGET_BYTES, lib.nbt_rect_turbo2_pairs,
+            lib.nbt_rect_tc_reduce, False)
+    rect_ms = {k: time_ms(rect_turbo2(lib), dev, iters=1, warmup=1)
+               for k, lib in (("parent", pt), ("new", new_tc))}
+    record["rect_forces_sym_turbo2"].update(
+        {"parent_ms_1m": rect_ms["parent"], "new_ms_1m": rect_ms["new"]})
+    print(f"[redesign] K2-rect turbo2 {n} x {n}: parent "
+          f"{rect_ms['parent']:.3f} ms, new {rect_ms['new']:.3f} ms, "
+          f"new/parent {rect_ms['new'] / rect_ms['parent']:.4f} (once "
+          f"each) ({smi})")
+    del pa, ma, pb, mb
+
+    def parent_k3(st, cfg, steps):
+        nb, _, diag, si, sj, _ = resident._scratch(st.pos)
+        out = [torch.empty_like(st.pos) for _ in range(3)]
+        _build.check_launch("parent resident", pr.nbt_resident(
+            st.pos.data_ptr(), st.vel.data_ptr(), st.mass.data_ptr(),
+            st.pos.shape[0], nb, cfg.eps2, 0.5 * cfg.dt, cfg.dt, steps,
+            *(o.data_ptr() for o in out), diag.data_ptr(), si.data_ptr(),
+            sj.data_ptr(), _build.stream_handle(st.pos)))
+        return out
+
+    def parent_k4(st, cfg, steps):
+        nb, _, diag, si, sj, _ = resident._scratch(st.pos)
+        w = KDK_WEIGHTS[cfg.integrator]
+        h = (c_f * 3)(*[0.5 * (x * cfg.dt) for x in w])
+        wdt = (c_f * 3)(*[x * cfg.dt for x in w])
+        out = [torch.empty_like(st.pos) for _ in range(3)]
+        _build.check_launch("parent resident_kdk", pr.nbt_resident_kdk(
+            st.pos.data_ptr(), st.vel.data_ptr(), st.acc.data_ptr(),
+            st.mass.data_ptr(), st.pos.shape[0], nb, cfg.eps2, h, wdt,
+            len(w), steps, *(o.data_ptr() for o in out), diag.data_ptr(),
+            si.data_ptr(), sj.data_ptr(), _build.stream_handle(st.pos)))
+        return out
+
+    for kname, integrator, steps in (("resident", "reference", 1000),
+                                     ("resident_kdk", "yoshida4", 100)):
+        cfg = nt.SimConfig(n_bodies=8192, impl="pallas_sym2",
+                           integrator=integrator)
+        st = nt.init_state(cfg)
+        if integrator == "reference":
+            parent = lambda: parent_k3(st, cfg, steps)   # noqa: E731
+            new = lambda: resident.resident_steps(       # noqa: E731
+                st.pos, st.vel, st.mass, cfg.eps2, cfg.dt, steps)
+        else:
+            st = nt.ops.step.prime_kdk(st, cfg)
+            parent = lambda: parent_k4(st, cfg, steps)   # noqa: E731
+            new = lambda: resident.resident_steps_kdk(   # noqa: E731
+                st.pos, st.vel, st.acc, st.mass, cfg.eps2, cfg.dt,
+                KDK_WEIGHTS[integrator], steps)
+        check(all(torch.equal(a, b) for a, b in zip(new(), parent())),
+              f"{kname} N=8192, {steps} {integrator} steps: differs from "
+              f"the parent's")
+        print(f"[redesign] {kname} N=8192, {steps} {integrator} steps: "
+              f"pos, vel, acc bit-equal to the parent's")
+        times = alternate({"parent": parent, "new": new}, dev, iters=2)
+        med = report_rounds(f"{kname} N=8192, one launch of {steps} "
+                            f"{integrator} steps", times, smi)
+        record[kname].update({"parent_ms": med["parent"],
+                              "new_ms": med["new"]})
+        if kname == "resident":
+            check(max(times["new"]) < min(times["parent"]),
+                  "resident (K3): not faster than the parent in every round")
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1898,7 +2003,8 @@ def crossovers(dev, smi):
           f"{resident.RESIDENT_AUTO_MIN_N}..{resident.RESIDENT_AUTO_MAX_N}")
     for integrator, chunk, rounds in (("reference", 1000, 5),
                                       ("yoshida4", 200, 3)):
-        for n in (1536, 2048, 4096, 8192, 12288, 16384, 32768):
+        for n in (1536, 2048, 4096, 8192, 12288, 16384, 20480, 24576,
+                  32768):
             cfg = nt.SimConfig(n_bodies=n, impl="pallas_sym2",
                                integrator=integrator)
             state = nt.init_state(cfg)
@@ -2491,8 +2597,8 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K8 and K5 against the designs before
-    # their redesign.
+    # 4. K2 at the 1M headline; K14a, K3 and K4 against the designs
+    # before their redesign.
     check_k2_1m(dev)
     if csrc:
         check_redesign(dev, 0.002, record, smi, csrc)

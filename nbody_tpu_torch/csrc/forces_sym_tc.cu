@@ -72,21 +72,23 @@
 // mxu).  The tensor cores are not the limit (K5's 32 flops a pair take
 // about 18 ms of an evaluation at N = 1M).
 //
-// K5's geometry is trimmed (tc_trimmed, pair_inv_fma in tc_common.cuh):
-// d2 as three FMAs with eps2 folded in, and the MUFU rsqrt of d2^3
-// without rsqrtf's subnormal fix-up, which brings its pair from about
-// 19.6 issue slots to about 13.6 (3 sub, 3 FMA, 2 mul for the cube, the
-// rsqrt, 2 weight multiplies, one bf16x2 convert, half a movmatrix, a
-// quarter mma, and 0.9 of loads and partial stores a 16-column step).
-// turbop, TMM_FULL and TMM_NOSCAT, defined as K5's values, take it too,
-// in both sweeps; mxu, turbo2, turbof, the other ablations and K13 keep
-// pair_inv.  The trimmed tile also unrolls its 16-column loop twice.  On
-// an H100 80GB HBM3 at 700 W an evaluation at N = 1M takes 333.5 ms
-// (343.1 with the loop rolled, 433.5 untrimmed; tools/sym_tc_variants.py,
-// chip_smoke.py): the pair passes issue at about 70% of the rate at 13.4
-// slots a pair, and the reduce passes take about 16 ms.  Four CTAs an SM
-// at 64 registers (three at 80) did not pay.  Left for later: wgmma, TMA-fed tiles, a persistent
-// schedule, the trimmed geometry for the other variants.
+// The geometry of K5 and K14a is trimmed (tc_trimmed, pair_inv_fma in
+// tc_common.cuh): d2 as three FMAs with eps2 folded in, and the MUFU
+// rsqrt of d2^3 without rsqrtf's subnormal fix-up, which brings K5's pair
+// from about 19.6 issue slots to about 13.6 (3 sub, 3 FMA, 2 mul for the
+// cube, the rsqrt, 2 weight multiplies, one bf16x2 convert, half a
+// movmatrix, a quarter mma, and 0.9 of loads and partial stores a
+// 16-column step) and turbo2's to about 11.6 (no weight multiply, half a
+// convert).  turbop, TMM_FULL and TMM_NOSCAT, defined as K5's values,
+// take it too, in both sweeps; mxu, turbof, the other ablations and K13
+// keep pair_inv.  The trimmed tile also unrolls its 16-column loop twice.
+// On an H100 80GB HBM3 at 700 W an evaluation at N = 1M takes, for K5,
+// 333.5 ms (343.1 with the loop rolled, 433.5 untrimmed), and for turbo2
+// 288.9 ms (291.6 rolled, 289.2 unrolled four times, 292.6 held to four
+// CTAs an SM, 376.5 untrimmed and rolled; tools/sym_tc_variants.py,
+// chip_smoke.py): turbo2's pair kernel takes 63 registers, so it already
+// runs four CTAs an SM.  Left for later: wgmma, TMA-fed tiles, a
+// persistent schedule, the trimmed geometry for the other variants.
 //
 // K15's tmm_* ablations (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm)
 // are four more values of the tile's variant, SymTcVariant; their none /

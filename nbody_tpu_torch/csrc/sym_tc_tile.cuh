@@ -35,10 +35,12 @@ __host__ __device__ constexpr int tc_tile_of(int v) {
 
 // Whether a pairs kernel of forces_sym_tc.cu runs the trimmed geometry
 // (pair_inv_fma): K5 and the kernels defined as K5's values, turbop and
-// the TMM_FULL / TMM_NOSCAT controls, so that they stay bit-equal to it.
-// The other variants, and K13's tiles (rdma_ring.cu), keep pair_inv.
+// the TMM_FULL / TMM_NOSCAT controls, so that they stay bit-equal to it;
+// and K14a, turbo2.  The other variants, and K13's tiles (rdma_ring.cu),
+// keep pair_inv.
 __host__ __device__ constexpr bool tc_trimmed(int v) {
-    return v == TURBO || v == TURBOP || v == TMM_FULL || v == TMM_NOSCAT;
+    return v == TURBO || v == TURBOP || v == TMM_FULL || v == TMM_NOSCAT ||
+           v == TURBO2;
 }
 
 struct SymTcSmem {
@@ -118,9 +120,10 @@ __device__ __forceinline__ void sym_tc_tile(
     // of bf16(m_i inv) over this lane's columns.
     float wi_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
     float wj_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    // The trimmed tile unrolls the 16-column loop twice (80 registers
-    // still, three CTAs an SM; tools/sym_tc_variants.py); the others keep
-    // it rolled, their code unchanged.
+    // The trimmed tile unrolls the 16-column loop twice (K5: 80
+    // registers still, three CTAs an SM; K14a: 63, four CTAs an SM;
+    // tools/sym_tc_variants.py); the others keep it rolled, their code
+    // unchanged.
 #pragma unroll (TRIM ? 2 : 1)
     for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
         const int c = k0 + 2 * t;

@@ -20,8 +20,8 @@
 // dx*dx + dy*dy + dz*dz + eps2, so that the float32 weights, and hence
 // their bf16 roundings, are those of the plain versions on the same card;
 // bf16 conversion rounds to nearest even, as .to(torch.bfloat16) and JAX's
-// astype do.  K5's trimmed geometry (pair_inv_fma) fuses d2 instead, and
-// its twin rounds each fused multiply-add once.
+// astype do.  The trimmed geometry of K5 and K14a (pair_inv_fma) fuses d2
+// instead, and its twin rounds each fused multiply-add once.
 //
 // Fragment layouts of mma.m16n8k16 (bf16 in, f32 accumulate), for lane
 // l = 4g + t:
@@ -140,11 +140,11 @@ __device__ __forceinline__ float pair_inv(float4 bi, float4 bj, float eps2) {
     return rsqrtf(__fmul_rn(__fmul_rn(d2, d2), d2));
 }
 
-// pair_inv trimmed for K5's tile (sym_tc_tile.cuh, TRIM): d2 as three
-// fused multiply-adds with eps2 folded in, and the rsqrt of d2^3 on the
-// MUFU without rsqrtf's subnormal fix-up (a compare and two predicated
-// multiplies; sym_common.cuh's rsqrt_normal, written out here because
-// this header stands alone): rsqrtf's bits wherever d2^3 is a normal
+// pair_inv trimmed for the tile of K5 and K14a (sym_tc_tile.cuh, TRIM):
+// d2 as three fused multiply-adds with eps2 folded in, and the rsqrt of
+// d2^3 on the MUFU without rsqrtf's subnormal fix-up (a compare and two
+// predicated multiplies; sym_common.cuh's rsqrt_normal, written out here
+// because this header stands alone): rsqrtf's bits wherever d2^3 is a normal
 // float, which d2 >= eps2 makes it for every eps2 above ~1e-12.  10 issue
 // slots against pair_inv's 15 (3 sub, 3 FMA, 2 mul for the cube, 1 MUFU,
 // and no fix-up).  The plain twin rounds each FMA once from its exact

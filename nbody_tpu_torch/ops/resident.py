@@ -7,12 +7,17 @@ in one launch, with no host round trip between them.  K3
 ``yoshida4``; like ``run_steps`` they consume ``state.acc`` as the seeded
 a(x_0), see ``prime_kdk``).  The kernels are in ``csrc/resident.cu``: one
 cooperative launch whose grid the card holds at once, the state in device
-memory, and the two phases of a step separated by grid syncs: K2's pair
-tiles and diagonal tiles, then per body K2's fixed-order slot sum, the
-descale and the integrator.  The pair, slot and
-diagonal code is K2's own (``csrc/sym_common.cuh``), and the integrator
-rounds as PyTorch's separate multiply and add kernels do, so K3 over k
-steps is bit-equal to k steps of ``run_steps(..., impl="pallas_sym2")``.
+memory, and a dataflow schedule with no grid-wide barrier between steps:
+K2's diagonal and pair tiles as work items (``work_items``, each block
+taking every ``grid``-th: ``block_items``), each row tile finished (K2's
+fixed-order slot sum, the descale and the integrator, into the next of
+two position buffers) in groups of 32 bodies, one warp each, spread over
+the grid (``finish_groups``), once its count of contributions holds the
+step's ``nb``, and each item waiting for its tiles' previous step.  The pair, slot and
+diagonal code is K2's own (``csrc/sym_common.cuh``), the slots are added
+in K2's order, and the integrator rounds as PyTorch's separate multiply
+and add kernels do, so K3 over k steps is bit-equal to k steps of
+``run_steps(..., impl="pallas_sym2")``.
 
 Not ported, because they exist only for the TPU: the VMEM layout search
 (``resident_layout``, ``_layout_vmem_bytes``, ``_layout_cost``) and the
@@ -20,7 +25,7 @@ Not ported, because they exist only for the TPU: the VMEM layout search
 the layout search is the slot memory: every offset's slots are held at
 once, so N is in scope while they fit ``forces_sym.SLOT_BUDGET_BYTES``
 (``RESIDENT_MAX_N``); the grid is the card's co-resident limit, which
-bounds no N because every phase is grid-stride.
+bounds no N because every block strides over the items.
 
 The wrappers take the plain PyTorch version (``run_steps_resident_plain``:
 ``forces_sym_plain`` plus the plain integrator, step by step) only for CPU
@@ -30,6 +35,7 @@ tensors.  For a CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,14 +63,16 @@ RESIDENT_MAX_N = max(n for n in range(SYM_TILE, 1 << 19, SYM_TILE)
 
 # Auto window on the card, from chip_smoke.py's resident crossover on an
 # H100 80GB HBM3 at 700 W (median ms/step of 5 rounds of 1000-step chunks,
-# K3 against per-step K2 through run_steps; PERF.md, "Resident
-# crossover"): K3 ahead 5.11x at N=1536, 4.88x at 4096, 1.24x at 8192 and
-# 1.08x at 12288, behind 0.94x at 16384 and 0.89x at 32768; yoshida4 (K4,
-# 200-step chunks) 4.52x, 4.30x, 1.48x, 1.12x, then 0.95x and 0.89x.  The
-# window starts where auto hands the force evaluation to K2
-# (SYM_CROSSOVER_N); below it auto runs K1 per step.
+# K3 against per-step K2 through run_steps; PERF.md §6, "Crossover"),
+# since K3's dataflow schedule: K3 ahead 5.69x at N=1536, 4.40x at
+# 4096, 2.07x at 8192, 1.16x at 12288 and 1.12x at 16384, behind 0.98x at
+# 20480, 24576 and 32768; yoshida4 (K4, 200-step chunks) 7.68x, 5.64x,
+# 2.21x, 1.52x, 1.13x, then 0.98x.  (Before it, the barrier schedule: ahead
+# 1.08x at 12288, behind 0.94x at 16384.)  The window starts where auto
+# hands the force evaluation to K2 (SYM_CROSSOVER_N); below it auto runs
+# K1 per step.
 RESIDENT_AUTO_MIN_N = 1536
-RESIDENT_AUTO_MAX_N = 12288
+RESIDENT_AUTO_MAX_N = 16384
 
 _c_ll, _c_ptr, _c_int, _c_f = (ctypes.c_longlong, ctypes.c_void_p,
                                ctypes.c_int, ctypes.c_float)
@@ -75,15 +83,21 @@ def _lib():
     if lib.nbt_resident.argtypes is None:
         lib.nbt_resident.argtypes = [
             _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_f, _c_f, _c_f, _c_int,
-            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+            _c_ptr]
         lib.nbt_resident.restype = _c_int
         lib.nbt_resident_kdk.argtypes = [
             _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_f,
             ctypes.POINTER(_c_f), ctypes.POINTER(_c_f), _c_int, _c_int,
-            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+            _c_ptr]
         lib.nbt_resident_kdk.restype = _c_int
         lib.nbt_resident_max_blocks.argtypes = [_c_int]
         lib.nbt_resident_max_blocks.restype = _c_int
+        lib.nbt_resident_grid.argtypes = [_c_ll, _c_int]
+        lib.nbt_resident_grid.restype = _c_int
+        lib.nbt_resident_group_warps.argtypes = [_c_ll, _c_ll]
+        lib.nbt_resident_group_warps.restype = _c_int
         lib.nbt_resident_tile.argtypes = []
         lib.nbt_resident_tile.restype = _c_int
         if lib.nbt_resident_tile() != SYM_TILE:
@@ -95,6 +109,68 @@ def _lib():
 def max_blocks(kdk: bool = False) -> int:
     """The co-resident grid the card holds for K3 (K4 with ``kdk``)."""
     return _lib().nbt_resident_max_blocks(int(kdk))
+
+
+def launch_grid(nb: int, kdk: bool = False) -> int:
+    """The grid the card's launch of K3 (K4 with ``kdk``) takes for ``nb``
+    row tiles: ``resident_grid(nb, max_blocks(kdk))``."""
+    return _lib().nbt_resident_grid(nb, int(kdk))
+
+
+# -- the kernels' work assignment, mirrored in Python (csrc/resident.cu)
+
+@functools.lru_cache(maxsize=4)
+def work_items(nb: int) -> tuple:
+    """One step's work items in the kernels' order: ``(I, 0)``, the
+    diagonal item of row tile I, for I < nb; then the pair items ``(I,
+    d)`` of row tile I and column tile (I + d) mod nb, offset by offset
+    for d = 1 .. nb // 2, where an even nb's half offset has its nb // 2
+    items with I < nb // 2 (the others would pair the same tiles again).
+    nb (nb + 1) // 2 items."""
+    items = [(i, 0) for i in range(nb)]
+    for p in range(nb * (nb - 1) // 2):
+        dk, i = divmod(p, nb)
+        items.append((i, 1 + dk))
+    return tuple(items)
+
+
+def resident_grid(nb: int, cap: int) -> int:
+    """Blocks of a launch: a step's items, at most the co-resident
+    ``cap``."""
+    return min(nb * (nb + 1) // 2, cap)
+
+
+def block_items(nb: int, grid: int, block: int) -> tuple:
+    """The items block ``block`` of ``grid`` runs each step: every
+    grid-th from its own index."""
+    return work_items(nb)[block::grid]
+
+
+# A tile's finish is cut into groups of 32 bodies, one warp each.
+GROUPS_PER_TILE = SYM_TILE // 32
+
+
+def group_warps(nb: int, grid: int) -> int:
+    """Warps of a block that take finish groups: the fewest that cover a
+    step's 8 nb groups in one round of the grid, at most all 8."""
+    return min(-(-GROUPS_PER_TILE * nb // grid), GROUPS_PER_TILE)
+
+
+def kernel_group_warps(nb: int, grid: int) -> int:
+    """``group_warps`` as the kernels compute it (csrc/resident.cu)."""
+    return _lib().nbt_resident_group_warps(nb, grid)
+
+
+def finish_groups(nb: int, grid: int) -> dict:
+    """{(block, warp): [group, ...]} of a step's tile finishes: group q
+    (bodies 32 q .. 32 q + 31, of row tile q // 8) runs on block q % grid,
+    warp (q // grid) % group_warps, in round q // (grid * group_warps);
+    lane l of that warp takes body 32 q + l."""
+    wa = group_warps(nb, grid)
+    out = {}
+    for q in range(GROUPS_PER_TILE * nb):
+        out.setdefault((q % grid, (q // grid) % wa), []).append(q)
+    return out
 
 
 def should_use_resident(cfg, impl: str, sharded: bool = False) -> bool:
@@ -179,13 +255,15 @@ def resident_steps_kdk_plain(pos, vel, acc, mass, eps2: float, dt: float,
 
 
 def _scratch(pos):
-    """nb and the kernels' scratch: per-body diagonal sums, i- and j-side
-    slots of every offset."""
+    """nb and the kernels' scratch: the second position buffer, per-body
+    diagonal sums, i- and j-side slots of every offset, and the per-tile
+    counts of contributions and of finished groups (zero)."""
     n = pos.shape[0]
     nb = -(-n // SYM_TILE)
     slot_len = max(1, (nb // 2) * nb * SYM_TILE * 3)
-    return (nb, pos.new_empty(n, 3), pos.new_empty(slot_len),
-            pos.new_empty(slot_len))
+    return (nb, pos.new_empty(n, 3), pos.new_empty(n, 3),
+            pos.new_empty(slot_len), pos.new_empty(slot_len),
+            torch.zeros(2 * nb, dtype=torch.int64, device=pos.device))
 
 
 def resident_steps(pos, vel, mass, eps2: float, dt: float, n_steps: int):
@@ -195,7 +273,7 @@ def resident_steps(pos, vel, mass, eps2: float, dt: float, n_steps: int):
     if pos.device.type == "cpu":
         return resident_steps_plain(pos, vel, mass, eps2, dt, n_steps)
     lib = _lib()
-    nb, diag, si, sj = _scratch(pos)
+    nb, pos_tmp, diag, si, sj, flags = _scratch(pos)
     pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
     acc_out = torch.empty_like(pos)
     with torch.cuda.device(pos.device):
@@ -203,8 +281,9 @@ def resident_steps(pos, vel, mass, eps2: float, dt: float, n_steps: int):
         _build.check_launch("resident (K3)", lib.nbt_resident(
             pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), pos.shape[0],
             nb, float(eps2), 0.5 * dt, dt, n_steps, pos_out.data_ptr(),
-            vel_out.data_ptr(), acc_out.data_ptr(), diag.data_ptr(),
-            si.data_ptr(), sj.data_ptr(), _build.stream_handle(pos)))
+            vel_out.data_ptr(), acc_out.data_ptr(), pos_tmp.data_ptr(),
+            diag.data_ptr(), si.data_ptr(), sj.data_ptr(), flags.data_ptr(),
+            _build.stream_handle(pos)))
     return pos_out, vel_out, acc_out
 
 
@@ -220,7 +299,7 @@ def resident_steps_kdk(pos, vel, acc, mass, eps2: float, dt: float,
         raise ValueError(f"resident (K4): 1 to 3 sub-step weights, got "
                          f"{len(weights)}")
     lib = _lib()
-    nb, diag, si, sj = _scratch(pos)
+    nb, pos_tmp, diag, si, sj, flags = _scratch(pos)
     # Rounded to float32 from double, as PyTorch rounds a Python scalar.
     h = (_c_f * 3)(*[0.5 * (w * dt) for w in weights])
     wdt = (_c_f * 3)(*[w * dt for w in weights])
@@ -232,8 +311,8 @@ def resident_steps_kdk(pos, vel, acc, mass, eps2: float, dt: float,
             pos.data_ptr(), vel.data_ptr(), acc.data_ptr(), mass.data_ptr(),
             pos.shape[0], nb, float(eps2), h, wdt, len(weights), n_steps,
             pos_out.data_ptr(), vel_out.data_ptr(), acc_out.data_ptr(),
-            diag.data_ptr(), si.data_ptr(), sj.data_ptr(),
-            _build.stream_handle(pos)))
+            pos_tmp.data_ptr(), diag.data_ptr(), si.data_ptr(),
+            sj.data_ptr(), flags.data_ptr(), _build.stream_handle(pos)))
     return pos_out, vel_out, acc_out
 
 

@@ -236,9 +236,9 @@ def test_k5_trimmed_twin_matches_jax_turbo_and_turbop(n):
 
 
 def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
-    """turbo and turbop take the trimmed geometry in the square and rect
-    twins; mxu keeps pair_inv; K13's turbo tile keeps pair_inv, as its
-    kernel does."""
+    """turbo, turbop and turbo2 take the trimmed geometry in the square
+    and rect twins; mxu keeps pair_inv; K13's turbo and turbo2 tiles keep
+    pair_inv, as its kernel does."""
     pos, _, mass = make_small_system(512, seed=89)
     x = torch.from_numpy(pos).view(2, 256, 3)
     mm = torch.from_numpy(mass).view(2, 256)
@@ -258,3 +258,31 @@ def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
     acc_a, acc_b = rect_forces_sym_tc_plain(pa, ma, pb, mb, EPS2, "turbo")
     d_a, d_b = fused
     assert torch.equal(acc_a, d_a[0]) and torch.equal(acc_b, d_b[0])
+    # turbo2: the square and rect twins trimmed, K13's tile not.
+    fused2 = _pair_tiles(xi, mi, xj, mj, EPS2, "turbo2")
+    unfused2 = _pair_tiles(xi, mi, xj, mj, EPS2, "turbo2", trimmed=False)
+    assert any(not torch.equal(a, b) for a, b in zip(fused2, unfused2))
+    for a, b in zip(rdma_ring._tile_both("turbo2", EPS2)(xi, mi, xj, mj),
+                    unfused2):
+        assert torch.equal(a, b)
+    acc_a, acc_b = rect_forces_sym_tc_plain(pa, ma, pb, mb, EPS2, "turbo2")
+    assert torch.equal(acc_a, fused2[0][0])
+    assert torch.equal(acc_b, fused2[1][0])
+
+
+@pytest.mark.parametrize("n", [512, 1000])
+def test_k14a_trimmed_twin_matches_jax_turbo2_and_oracle(n):
+    """The K14a twin with its trimmed geometry against JAX's turbo2 in
+    interpret mode at the tier tolerance (rel 1e-3 + 1e-4·max|a|) and
+    against the float64 oracle at turbo's gate (p99 < 5e-2, bad fraction
+    < 0.1 at 1%): 512 is two whole tiles (one offset, the half offset of
+    an even tile count), 1000 four tiles, the last ragged."""
+    pos, _, mass = make_small_system(n, seed=90)
+    acc = forces_sym_tc(torch.from_numpy(pos), torch.from_numpy(mass),
+                        EPS2, "turbo2").numpy()
+    ref_jax = np.asarray(forces_pallas_sym(
+        jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=128,
+        block_u=SYM_TILE, variant="turbo2"))
+    assert_close_tier(acc, ref_jax, f"K14a trimmed twin vs JAX, N={n}")
+    assert_tier_gate(acc, oracle_forces(pos, mass, EPS2), "turbo",
+                     f"K14a trimmed twin vs oracle, N={n}")

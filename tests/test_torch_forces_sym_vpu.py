@@ -125,7 +125,7 @@ def test_pallas_sym_routes_to_resident_as_in_jax(n, resident):
     if resident is not None:
         assert port is resident is jax_use_resident(jax_cfg, "pallas_sym")
     else:
-        assert not port                          # outside 1536..12288
+        assert not port                          # outside the auto window
     assert should_use_resident(cfg.replace(n_bodies=8192, resident=None),
                                "pallas_sym")
 

@@ -15,6 +15,8 @@ the 1% gate of ``nbody validate`` with absolute floors of 1.0 (positions),
 1e-2 (velocities) and 1e-4 (accelerations).  Padding and chaining: exact.
 """
 
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from nbody_tpu.ops.resident import run_steps_resident as jax_resident
 from nbody_tpu.oracle.numpy_oracle import oracle_forces, oracle_run
 from nbody_tpu.oracle.numpy_oracle import relative_mismatch
 from nbody_tpu_torch.models.state import pad_state_to
+from nbody_tpu_torch.ops.forces_sym import SYM_TILE
 from nbody_tpu_torch.ops import resident
 from nbody_tpu_torch.ops.resident import (RESIDENT_AUTO_MAX_N,
                                           RESIDENT_AUTO_MIN_N,
@@ -203,3 +206,67 @@ def test_should_use_resident_on_a_mesh():
     with pytest.raises(ValueError, match="mesh routing"):
         run_benchmark(n=512, steps=1, impl="pallas_sym2", resident=True,
                       device="cpu", shards=2)
+
+
+@pytest.mark.parametrize("nb, grids", [
+    (1, (1, 264)), (2, (1, 2, 3)), (3, (2, 264)), (4, (1, 3, 7, 264)),
+    (5, (4, 15)), (31, (7, 132, 264)), (32, (1, 132, 264, 528, 1000)),
+    (33, (132, 264)), (128, (264, 528)),
+    (RESIDENT_MAX_N // SYM_TILE, (264, 1000))])
+def test_resident_work_assignment_mirror(nb, grids):
+    """The kernels' work assignment, as ``ops/resident.py`` mirrors it:
+    over the grids, every diagonal item and every (row tile, offset) item
+    runs exactly once a step, the skipped half offset never; every pair of
+    distinct row tiles meets in exactly one item; each tile gets the nb
+    contributions at which it is finished."""
+    items = resident.work_items(nb)
+    assert len(items) == nb * (nb + 1) // 2
+    for grid in grids:
+        g = resident.resident_grid(nb, grid)
+        assert 1 <= g <= min(grid, len(items))
+        seen = Counter(it for blk in range(g)
+                       for it in resident.block_items(nb, g, blk))
+        assert set(seen.values()) == {1} and sum(seen.values()) == len(items)
+    assert sorted(i for i, d in items if d == 0) == list(range(nb))
+    pairs = Counter()
+    for i, d in items:
+        if d:
+            assert 1 <= d <= nb // 2
+            assert not (2 * d == nb and 2 * i >= nb), (i, d)
+            pairs[frozenset((i, (i + d) % nb))] += 1
+    assert len(pairs) == nb * (nb - 1) // 2 and set(pairs.values()) <= {1}
+    expected = {(i, d) for d in range(1, nb // 2 + 1) for i in range(nb)
+                if not (2 * d == nb and 2 * i >= nb)}
+    assert {it for it in items if it[1]} == expected
+    # Each tile gets nb contributions, at which the kernels finish it.
+    count = Counter()
+    for i, d in items:
+        count[i] += 1
+        if d:
+            count[(i + d) % nb] += 1
+    assert [count[i] for i in range(nb)] == [nb] * nb
+
+
+@pytest.mark.parametrize("n, grids", [
+    (1, (1, 264)), (255, (1, 264)), (1000, (10, 264)), (8192, (132, 264)),
+    (12288, (264,)), (65536, (264, 1000)), (RESIDENT_MAX_N, (264,))])
+def test_resident_finish_owns_each_body_once(n, grids):
+    """Every body of a tile's finish (phase (b)) is owned by exactly one
+    thread: over the grids, each group of 32 bodies runs on exactly one
+    (block, warp) inside the grid and the warps that take groups, and lane
+    l of it takes body 32 q + l."""
+    nb = -(-n // SYM_TILE)
+    for grid in grids:
+        groups = resident.finish_groups(nb, grid)
+        wa = resident.group_warps(nb, grid)
+        assert 1 <= wa <= resident.GROUPS_PER_TILE
+        assert all(0 <= blk < grid and 0 <= w < wa for blk, w in groups)
+        owners = Counter(q for qs in groups.values() for q in qs)
+        assert set(owners.values()) == {1}
+        assert sorted(owners) == list(range(resident.GROUPS_PER_TILE * nb))
+        bodies = Counter(32 * q + lane for q in owners for lane in range(32))
+        assert set(bodies.values()) == {1}
+        assert all(b in bodies for b in range(n))
+        # One round: no warp holds two groups where the grid has room.
+        if resident.GROUPS_PER_TILE * nb <= grid * resident.GROUPS_PER_TILE:
+            assert max(len(qs) for qs in groups.values()) == 1

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Time source-edited variants of K5's pair pass on the card.
+"""Time source-edited variants of a tensor-core tier's pair pass on the card.
 
-    python3 tools/sym_tc_variants.py [--n N] [--rounds R]
+    python3 tools/sym_tc_variants.py [--variant turbo|turbo2] [--n N]
+        [--rounds R]
 
 Copies ``nbody_tpu_torch/csrc`` once per variant into
 ``build/sym_tc_variants/<name>/``, applies the variant's text edits, builds
 ``forces_sym_tc.cu`` from each copy with the port's nvcc flags (one nvcc
-each, all at once), and times one K5 evaluation (``forces_sym_turbo``'s
-sweep: the pair passes and the reduce passes) at N bodies (default
-1,048,576) for every variant in alternating rounds (the order reversed
-every other round).  Prints each variant's registers and spills for
-K5's pair kernel, whether its output is bit-equal to the unedited
-source's, the rounds and their median.  The variants are the levers the
-redesign of K5's geometry weighed:
+each, all at once), and times one evaluation of the tier (K5 for
+``--variant turbo``, the default; K14a for ``turbo2``: the wrapper's sweep,
+the pair passes and the reduce passes) at N bodies (default 1,048,576)
+for every variant in alternating rounds (the order reversed every other
+round).  Prints each variant's registers and spills for the tier's pair
+kernel, whether its output is bit-equal to the unedited source's, the
+rounds and their median.  The variants are the levers the redesigns
+weighed, K5's:
 
 - ``base``: the sources as they are (the 16-column loop of K5's tile
   unrolled twice, 80 registers, three CTAs an SM);
@@ -21,7 +23,17 @@ redesign of K5's geometry weighed:
   four CTAs an SM, with the loop unrolled twice or rolled;
 - ``trunc_bf16``: a diagnostic, not a candidate: the bf16 weights by
   truncation through one byte permute in place of the rounding convert
-  (F2FP), which prices the convert; its output differs by design.
+  (F2FP), which prices the convert; its output differs by design;
+
+and K14a's (``--variant turbo2``), each edit confined to turbo2's kernels:
+
+- ``base``: the sources as they are (turbo2 trimmed, the loop unrolled
+  twice, as K5's);
+- ``untrimmed``: turbo2 back on pair_inv with the loop rolled, the
+  design before its redesign (its output differs by design);
+- ``unroll1``, ``unroll4``, ``ctas4``, ``ctas4_unroll1``: as K5's, for
+  turbo2 alone;
+- ``trunc_bf16``: the diagnostic above.
 
 Needs a CUDA card and nvcc; takes a few minutes on one H100.
 """
@@ -41,29 +53,52 @@ CSRC = os.path.join(ROOT, "nbody_tpu_torch", "csrc")
 WORK = os.path.join(ROOT, "build", "sym_tc_variants")
 _KERNEL = ("template <int V>\n__global__ void __launch_bounds__(SYM_TILE)\n"
            "sym_tc_pairs_kernel(")
-_CTAS4 = ("forces_sym_tc.cu", _KERNEL,
-          "template <int V>\n__global__ void __launch_bounds__(SYM_TILE, "
-          "tc_trimmed(V) ? 4 : 1)\nsym_tc_pairs_kernel(")
 _UNROLL = "#pragma unroll (TRIM ? 2 : 1)"
 
 
-def _unroll(times):
+def _ctas4(cond):
+    return ("forces_sym_tc.cu", _KERNEL,
+            "template <int V>\n__global__ void __launch_bounds__(SYM_TILE, "
+            f"{cond} ? 4 : 1)\nsym_tc_pairs_kernel(")
+
+
+def _unroll(times, turbo2_only=False):
+    if turbo2_only:
+        times = f"(V == TURBO2 ? {times} : 2)"
     return ("sym_tc_tile.cuh", _UNROLL,
             f"#pragma unroll (TRIM ? {times} : 1)")
 
 
+_TRUNC_BF16 = (
+    "tc_common.cuh",
+    "    return bf16x2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));",
+    "    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), "
+    "0x7632);")
+# turbo2 back on pair_inv: tc_trimmed as it was before K14a's redesign.
+_UNTRIMMED = ("sym_tc_tile.cuh", " ||\n           v == TURBO2;", ";")
+
 VARIANTS = {
-    "base": [],
-    "unroll1": [_unroll(1)],
-    "unroll4": [_unroll(4)],
-    "ctas4": [_CTAS4],
-    "ctas4_unroll1": [_CTAS4, _unroll(1)],
-    "trunc_bf16": [(
-        "tc_common.cuh",
-        "    return bf16x2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));",
-        "    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), "
-        "0x7632);")],
+    "turbo": {
+        "base": [],
+        "unroll1": [_unroll(1)],
+        "unroll4": [_unroll(4)],
+        "ctas4": [_ctas4("tc_trimmed(V)")],
+        "ctas4_unroll1": [_ctas4("tc_trimmed(V)"), _unroll(1)],
+        "trunc_bf16": [_TRUNC_BF16],
+    },
+    "turbo2": {
+        "base": [],
+        "untrimmed": [_UNTRIMMED],
+        "unroll1": [_unroll(1, True)],
+        "unroll4": [_unroll(4, True)],
+        "ctas4": [_ctas4("V == TURBO2")],
+        "ctas4_unroll1": [_ctas4("V == TURBO2"), _unroll(1, True)],
+        "trunc_bf16": [_TRUNC_BF16],
+    },
 }
+# The tier's pair kernel, sym_tc_pairs_kernel<V>, by its mangled name.
+_MANGLED = {"turbo": "_Z19sym_tc_pairs_kernelILi0E",
+            "turbo2": "_Z19sym_tc_pairs_kernelILi2E"}
 
 
 def build(name, edits):
@@ -88,6 +123,7 @@ def build(name, edits):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--variant", choices=sorted(VARIANTS), default="turbo")
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
@@ -101,7 +137,10 @@ def main():
     from nbody_tpu_torch.utils.timing import time_ms
     smi = nvidia_smi_line()
     shutil.rmtree(WORK, ignore_errors=True)
-    jobs = {name: build(name, edits) for name, edits in VARIANTS.items()}
+    tier = args.variant
+    pairs_fn = f"nbt_sym_{tier}_pairs"
+    jobs = {name: build(name, edits)
+            for name, edits in VARIANTS[tier].items()}
     ref = k5._lib()
     libs = {}
     for name, (so, proc) in jobs.items():
@@ -110,13 +149,13 @@ def main():
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry function '_Z19sym_tc_pairs_kernelILi0E" in line:
+            if f"Compiling entry function '{_MANGLED[tier]}" in line:
                 report = [x.strip() for x in lines[i + 1:i + 4]
                           if "registers" in x or "spill" in x]
-                print(f"[variants] {name}: K5 pairs kernel: "
+                print(f"[variants] {name}: {tier} pairs kernel: "
                       + "; ".join(report))
         lib = ctypes.CDLL(so)
-        for fn in ("nbt_sym_turbo_pairs", "nbt_sym_tc_reduce"):
+        for fn in (pairs_fn, "nbt_sym_tc_reduce"):
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -127,7 +166,7 @@ def main():
 
     def run(lib):
         return k2.sweep("sym_tc_variants", pos, mass, 0.002,
-                        k2.SLOT_BUDGET_BYTES, lib.nbt_sym_turbo_pairs,
+                        k2.SLOT_BUDGET_BYTES, getattr(lib, pairs_fn),
                         lib.nbt_sym_tc_reduce)
     base = run(libs["base"])
     for name, lib in libs.items():
@@ -140,7 +179,7 @@ def main():
             times[k].append(time_ms(lambda: run(libs[k]), dev, iters=1,
                                     warmup=1))
     for k, v in times.items():
-        print(f"[variants] N={args.n} {k}: median "
+        print(f"[variants] {tier} N={args.n} {k}: median "
               f"{statistics.median(v):.3f} ms (rounds "
               + ", ".join(f"{t:.3f}" for t in v) + f") ({smi})")
     return 0
