@@ -30,11 +30,13 @@ held at their control's CTAs per SM, and checked and timed at the
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K14a (at
-N = 8192 and 1,048,576), K2-rect turbo2 (at 262,144 x 262,144), K3 and
-K4 (at N = 8192) against their designs before the redesign for this card
-(the sources of PARENT_COMMIT, built beside the package's) in
-alternating rounds, and holds every other kernel's SASS to theirs
+N = 1,048,576 against the direct-form ``rect_forces``, times K1 (at
+N = 8192 and on the 1M ring's 262,144 x 262,144 antipodal sweep) and K13
+(vpu2 on 4 shards at N = 8192 and 1,048,576, and its phases) against
+their designs before the redesign for this card (the sources of
+PARENT_COMMIT, built beside the package's) in alternating rounds, each
+held to its twin and to float64 beside the parent's error, and holds
+every other kernel's SASS to theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
@@ -56,8 +58,9 @@ uninterrupted run).
 Then 200 steps under the momentum and angular-momentum gates, the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
 one 4-shard K13 step at N = 1M against the single-device K2 step (on the
-rows where the ring and K2 differ, each of the ring's kernels and K13
-against float64; K13's phases by partial launches), and the bench lines.
+rows where the ring and K2 differ or the parent's K1 diverges, each of
+the ring's kernels and K13 against float64; K13's phases by partial
+launches), and the bench lines.
 Any failed check raises and the script exits nonzero; without a CUDA
 card it exits 1 before doing anything.
 
@@ -201,14 +204,17 @@ RECT_SHAPES = ((2048, 2048), (2048 + 96, 1536))
 RECT_1M = 1 << 18
 RECT_1M_ROWS = 2048
 # The 1M ring's parts on the rows where the ring and K2 differ past
-# REL_TOL, each against a float64 sum of its pairs, as a share of the
-# row's |a|: K2 and both K2-rect sides at a tenth of the exact tolerance;
-# K1's one-sided antipodal sweep, one float32 running sum of 262,144
-# terms a row, and with it the ring, at validate's 1% (1.193e-3 at most on
-# an H100, PERF.md); K11 on the same sweep, where a compensated sum
-# removes that error, at the exact tolerance (1.022e-6 at most).
+# REL_TOL, and where the parent's K1 differs from the new one past it (the
+# rows where the parent's ring differed from K2), each against a float64
+# sum of its pairs, as a share of the row's |a|: K2 and both K2-rect
+# sides at a tenth of the exact tolerance; K1's one-sided antipodal sweep,
+# tile and slice partials since its redesign, at the parent's worst on
+# the rows where its ring differed from K2 (1.193e-3 on an H100, PERF.md:
+# one float32 running sum of 262,144 terms a row), and the ring at
+# validate's 1%; K11 on the same sweep, where a compensated sum removes
+# that error, at the exact tolerance (1.022e-6 at most).
 RING_PART_GATES = {"self K2": REL_TOL / 10, "rect a side": REL_TOL / 10,
-                   "rect b side": REL_TOL / 10, "antipodal K1": 1e-2,
+                   "rect b side": REL_TOL / 10, "antipodal K1": 1.193e-3,
                    "antipodal K11": REL_TOL, "ring": 1e-2}
 # Rounds of single-device K2, 4-shard ring, ring, K2 at N = 1M.
 RING_N = 1 << 20
@@ -274,26 +280,27 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K14a's geometry and of K3's (and K4's) schedule for
-# this card, timed against the designs before it: the commit that holds
-# them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x
-# -C build/parent``) into PARENT_CSRC, where check_redesign builds them
-# beside the package's and times both in rounds (the order reversed every
-# other round; medians).  Without those sources and without git, the
-# rounds and the SASS comparison are skipped and say so.
-PARENT_COMMIT = "0264a706a6df48881dd010a33f12070d61499e4b"
+# The redesign of K1 (the one-sided exact tile) and of K13's exact tiles
+# for this card, timed against the designs before it: the commit that
+# holds them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc |
+# tar -x -C build/parent``) into PARENT_CSRC, where check_redesign builds
+# them beside the package's and times both in rounds (the order reversed
+# every other round; medians).  Without those sources and without git,
+# the rounds and the SASS comparison are skipped and say so.
+PARENT_COMMIT = "9e3888922c7dbc424132e0944fd3336fa4c93979"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes:
-# K14a's pair passes, which take the trimmed geometry (TURBO2 2, square
-# and rect; K13's turbo2 tile in rdma_ring.cu keeps pair_inv), K3's and
-# K4's kernels on the dataflow schedule.
+# libraries keeps the parent's SASS, but those the redesign changes: K1's
+# kernels (the earlier forces_tiled_kernel<false> is gone; K11's <true>
+# stays), and K13's exact variants vpu2 (0) and vpu (1), which take the
+# one-sided tile and K2's pair tile; K13's tensor-core variants keep
+# theirs.
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bsym_tc_pairs_kernel<2>", r"\brect_tc_pairs_kernel<2>",
-                   r"\bresident_kernel\(", r"\bresident_kdk_kernel\(")
+SASS_REDESIGNED = (r"\bforces_tiled_kernel<(false|0)>", r"\bk1_tile_kernel",
+                   r"\bk1_reduce_kernel", r"\brdma_ring_kernel<[01]>")
 
 
 def check(cond, what):
@@ -1797,178 +1804,133 @@ def report_rounds(what, times, smi):
     return med
 
 
-def pair_passes_ms(pos, mass, eps2, dev, pairs):
-    """The pair passes alone of one pair-symmetric sweep (K2's offset
-    chunks and slots; ``pairs`` the C entry, K5's here) over every offset
-    chunk of one evaluation, without the reduce passes, ms."""
-    from nbody_tpu_torch.ops import _build
-    from nbody_tpu_torch.ops import forces_sym as k2
-    from nbody_tpu_torch.utils.timing import time_ms
-    n = pos.shape[0]
-    nb = -(-n // k2.SYM_TILE)
-    chunks = k2.offset_chunks(nb, nb * k2.SYM_TILE, k2.SLOT_BUDGET_BYTES)
-    slots = max(dc for _, dc in chunks) * nb * k2.SYM_TILE * 3
-    si, sj = pos.new_empty(slots), pos.new_empty(slots)
-    stream = _build.stream_handle(pos)
+# The parent's K1 and K13 builds (check_redesign), for ring_parts.
+PARENT_LIBS = {}
 
-    def run():
-        for d_lo, dc in chunks:
-            _build.check_launch("pair passes", pairs(
-                pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, eps2,
-                si.data_ptr(), sj.data_ptr(), stream))
-    return time_ms(run, dev, iters=2, warmup=1)
+
+def parent_k1(pos_i, pos_j, mass_j, eps2):
+    """One evaluation of the parent's K1 (one thread a row, one running
+    sum; its C entry takes no slices)."""
+    import torch
+    from nbody_tpu_torch.ops import _build
+    acc = torch.empty_like(pos_i)
+    _build.check_launch("parent forces_tiled", PARENT_LIBS[
+        "forces_tiled"].nbt_forces_tiled(
+            pos_i.data_ptr(), pos_i.shape[0], pos_j.data_ptr(),
+            mass_j.data_ptr(), pos_j.shape[0], float(eps2), acc.data_ptr(),
+            _build.stream_handle(acc)))
+    return acc
+
+
+def row_errors(got, ref):
+    """(max, median) over the rows of |got - ref| / |ref|."""
+    e = (got.double() - ref).norm(dim=1) / ref.norm(dim=1)
+    return float(e.max()), float(e.median())
 
 
 def check_redesign(dev, eps2, record, smi, csrc):
-    """K14a, K2-rect turbo2, K3 and K4 against the parent's designs on the
-    same inputs: K14a's evaluation at N = 8192 and 1,048,576 in
-    alternating rounds (faster than the parent's in every 1M round; its
-    largest difference printed), K2-rect turbo2 at the 1M ring's 262,144²
-    shard pair timed once each; K3's 1000-step launch at 8192 in rounds
-    (faster in every round, bit-equal to the parent's output), and 100
-    Yoshida4 steps of K4 (timed, bit-equal)."""
+    """K1 and K13 against the parent's designs on the same inputs, in
+    alternating rounds: K1 at N = 8192 and on the 1M ring's 262,144²
+    antipodal sweep, K13 (vpu2, the auto path of --comm rdma, on 4 shards)
+    at N = 8192 and 1,048,576.  Each new kernel is held to its twin (K1 in
+    the evaluation's slices, on 2048 sampled rows at 262,144²; K13's twin
+    at 8192 in check_rdma) and to float64 at the exact tolerance (all rows
+    at 8192, 2048 sampled rows beyond), with the parent's error beside
+    it, in place of bit-equality (the association changes).  K13's phases
+    by partial launches, new and parent."""
     import ctypes
     import torch
-    import nbody_tpu_torch as nt
-    from nbody_tpu_torch.models.integrators import KDK_WEIGHTS
-    from nbody_tpu_torch.ops import _build
-    from nbody_tpu_torch.ops import forces_sym as k2
-    from nbody_tpu_torch.ops import forces_sym_tc as ktc
-    from nbody_tpu_torch.ops import resident
+    from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops.forces_sym import SLOT_BUDGET_BYTES
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.parallel import rdma_ring as k13
     from nbody_tpu_torch.utils.timing import time_ms
     t0 = time.perf_counter()
-    libs = build_parent(csrc, ("forces_sym_tc", "resident"))
-    pt, pr = libs["forces_sym_tc"], libs["resident"]
-    new_tc = ktc._lib()
-    for name in ("nbt_sym_turbo2_pairs", "nbt_sym_tc_reduce",
-                 "nbt_rect_turbo2_pairs", "nbt_rect_tc_reduce"):
-        getattr(pt, name).argtypes = getattr(new_tc, name).argtypes
-        getattr(pt, name).restype = getattr(new_tc, name).restype
-    # The parent's K3 / K4 entries: the new ones without pos_tmp and flags.
-    c_ptr, c_ll, c_int, c_f = (ctypes.c_void_p, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_float)
-    pr.nbt_resident.argtypes = [c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_f, c_f,
-                                c_f, c_int] + [c_ptr] * 7
-    pr.nbt_resident.restype = c_int
-    pr.nbt_resident_kdk.argtypes = [
-        c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ll, c_f, ctypes.POINTER(c_f),
-        ctypes.POINTER(c_f), c_int, c_int] + [c_ptr] * 7
-    pr.nbt_resident_kdk.restype = c_int
+    libs = build_parent(csrc, ("forces_tiled", "rdma_ring"))
+    c_ptr, c_ll = ctypes.c_void_p, ctypes.c_longlong
+    libs["forces_tiled"].nbt_forces_tiled.argtypes = [
+        c_ptr, c_ll, c_ptr, c_ptr, c_ll, ctypes.c_float, c_ptr, c_ptr]
+    libs["forces_tiled"].nbt_forces_tiled.restype = ctypes.c_int
+    PARENT_LIBS.update(forces_tiled=libs["forces_tiled"],
+                       rdma_ring=k13.bind(libs["rdma_ring"]))
+    sample = torch.Generator().manual_seed(12)
 
-    def turbo2_sweep(lib):
-        # K14a's sweep through the same host path for both builds.
-        return lambda p, m: k2.sweep("forces_sym_turbo2", p, m, eps2,
-                                     k2.SLOT_BUDGET_BYTES,
-                                     lib.nbt_sym_turbo2_pairs,
-                                     lib.nbt_sym_tc_reduce)
-    parent_k14a, new_k14a = turbo2_sweep(pt), turbo2_sweep(new_tc)
+    def rows_of(n):
+        return (torch.arange(n, device=dev) if n <= 8192 else
+                torch.randperm(n, generator=sample)[:2048].sort()[0].to(dev))
 
-    for n, iters in ((8192, 20), (1 << 20, 1)):
-        tag = "N=8192" if n == 8192 else "N=1,048,576"
-        key = "" if n == 8192 else "_1m"
-        pos, mass = bodies(n, n + 10, dev)
-        new, old = ktc.forces_sym_turbo2(pos, mass, eps2), parent_k14a(pos,
-                                                                      mass)
-        torch.cuda.synchronize()
-        check(torch.equal(new, new_k14a(pos, mass)),
-              f"forces_sym_turbo2 {tag}: the wrapper and the timed sweep "
-              f"differ")
-        diff = (new - old).abs()
-        print(f"[redesign] forces_sym_turbo2 {tag}, new vs parent: largest "
-              f"difference {float(diff.max() / old.abs().max()):.3e} of "
-              f"max |a|, {int((diff > 0).sum())} of {diff.numel()} "
-              f"components differ")
-        times = alternate({"parent": lambda: parent_k14a(pos, mass),
-                           "new": lambda: new_k14a(pos, mass)}, dev, iters)
-        med = report_rounds(f"K14a {tag}", times, smi)
-        record["forces_sym_turbo2"].update({f"parent_ms{key}": med["parent"],
-                                            f"new_ms{key}": med["new"]})
-        if n > 8192:
-            check(max(times["new"]) < min(times["parent"]),
-                  "forces_sym_turbo2 at 1M: not faster than the parent in "
-                  "every round")
-            split = {"parent": pair_passes_ms(pos, mass, eps2, dev,
-                                              pt.nbt_sym_turbo2_pairs),
-                     "new": pair_passes_ms(pos, mass, eps2, dev,
-                                           new_tc.nbt_sym_turbo2_pairs)}
-            print(f"[redesign] forces_sym_turbo2 N=1,048,576 split: the "
-                  f"pair passes {split['new']:.3f} ms of {med['new']:.3f} "
-                  f"(parent {split['parent']:.3f} of {med['parent']:.3f}); "
-                  f"the reduce passes (slots, diagonal) "
-                  f"{med['new'] - split['new']:.3f} ms ({smi})")
-        del pos, mass, new, old, diff
+    def against_float64(what, new, old, rows, ref):
+        compare(f"{what}, new vs float64 ({len(rows)} rows)", new[rows], ref)
+        e_new, e_old = row_errors(new[rows], ref), row_errors(old[rows], ref)
+        print(f"[redesign] {what}: |err| / |a| against float64 on "
+              f"{len(rows)} rows, max / median: new {e_new[0]:.3e} / "
+              f"{e_new[1]:.3e}, parent {e_old[0]:.3e} / {e_old[1]:.3e}")
 
-    # K2-rect turbo2 at the 1M ring's shard pair, once each.
-    n = RECT_1M
-    pa, ma = bodies(n, 41, dev)
-    pb, mb = bodies(n, 42, dev)
-
-    def rect_turbo2(lib):
-        return lambda: k2.rect_sweep(
-            "rect_forces_sym_turbo2", pa, ma, pb, mb, eps2,
-            k2.SLOT_BUDGET_BYTES, lib.nbt_rect_turbo2_pairs,
-            lib.nbt_rect_tc_reduce, False)
-    rect_ms = {k: time_ms(rect_turbo2(lib), dev, iters=1, warmup=1)
-               for k, lib in (("parent", pt), ("new", new_tc))}
-    record["rect_forces_sym_turbo2"].update(
-        {"parent_ms_1m": rect_ms["parent"], "new_ms_1m": rect_ms["new"]})
-    print(f"[redesign] K2-rect turbo2 {n} x {n}: parent "
-          f"{rect_ms['parent']:.3f} ms, new {rect_ms['new']:.3f} ms, "
-          f"new/parent {rect_ms['new'] / rect_ms['parent']:.4f} (once "
-          f"each) ({smi})")
+    # K1: one evaluation at 8192, and the ring's antipodal sweep.
+    pa, ma = bodies(1 << 18, 41, dev)
+    pb, mb = bodies(1 << 18, 42, dev)
+    p8, m8 = bodies(8192, 8192, dev)
+    for tag, key, (pi, pj, mj), iters in (
+            ("N=8192", "", (p8, p8, m8), 20),
+            ("262,144 x 262,144", "_1m", (pa, pb, mb), 1)):
+        new = k1.rect_forces_tiled(pi, pj, mj, eps2)
+        old = parent_k1(pi, pj, mj, eps2)
+        rows = rows_of(pi.shape[0])
+        slices = k1.k1_slices(pi.shape[0], pj.shape[0])
+        compare(f"K1 {tag} ({slices[0]} slices of {slices[1]} tiles) vs "
+                f"plain, {len(rows)} rows", new[rows],
+                k1.rect_forces_tiled_plain(pi[rows], pj, mj, eps2,
+                                           slices=slices[0]))
+        check(torch.equal(new, k1.rect_forces_tiled(pi, pj, mj, eps2)),
+              f"K1 {tag}: not bit-reproducible")
+        against_float64(f"K1 {tag}", new, old, rows,
+                        rect_forces(pi[rows].double(), pj.double(),
+                                    mj.double(), eps2, chunk=64))
+        times = alternate(
+            {"parent": lambda: parent_k1(pi, pj, mj, eps2),
+             "new": lambda: k1.rect_forces_tiled(pi, pj, mj, eps2)},
+            dev, iters)
+        med = report_rounds(f"K1 {tag}", times, smi)
+        record["forces_tiled"].update({f"parent_ms{key}": med["parent"],
+                                       f"new_ms{key}": med["new"]})
     del pa, ma, pb, mb
 
-    def parent_k3(st, cfg, steps):
-        nb, _, diag, si, sj, _ = resident._scratch(st.pos)
-        out = [torch.empty_like(st.pos) for _ in range(3)]
-        _build.check_launch("parent resident", pr.nbt_resident(
-            st.pos.data_ptr(), st.vel.data_ptr(), st.mass.data_ptr(),
-            st.pos.shape[0], nb, cfg.eps2, 0.5 * cfg.dt, cfg.dt, steps,
-            *(o.data_ptr() for o in out), diag.data_ptr(), si.data_ptr(),
-            sj.data_ptr(), _build.stream_handle(st.pos)))
-        return out
+    # K13, vpu2 on 4 shards.
+    p = 4
+    for n, key, iters in ((8192, "", 20), (1 << 20, "_1m", 1)):
+        tag = f"K13 vpu2 P={p} N={n}"
+        pos, mass = bodies(n, 13, dev)
 
-    def parent_k4(st, cfg, steps):
-        nb, _, diag, si, sj, _ = resident._scratch(st.pos)
-        w = KDK_WEIGHTS[cfg.integrator]
-        h = (c_f * 3)(*[0.5 * (x * cfg.dt) for x in w])
-        wdt = (c_f * 3)(*[x * cfg.dt for x in w])
-        out = [torch.empty_like(st.pos) for _ in range(3)]
-        _build.check_launch("parent resident_kdk", pr.nbt_resident_kdk(
-            st.pos.data_ptr(), st.vel.data_ptr(), st.acc.data_ptr(),
-            st.mass.data_ptr(), st.pos.shape[0], nb, cfg.eps2, h, wdt,
-            len(w), steps, *(o.data_ptr() for o in out), diag.data_ptr(),
-            si.data_ptr(), sj.data_ptr(), _build.stream_handle(st.pos)))
-        return out
+        def new():
+            return k13.rdma_ring(pos, mass, p, eps2, "vpu2")
 
-    for kname, integrator, steps in (("resident", "reference", 1000),
-                                     ("resident_kdk", "yoshida4", 100)):
-        cfg = nt.SimConfig(n_bodies=8192, impl="pallas_sym2",
-                           integrator=integrator)
-        st = nt.init_state(cfg)
-        if integrator == "reference":
-            parent = lambda: parent_k3(st, cfg, steps)   # noqa: E731
-            new = lambda: resident.resident_steps(       # noqa: E731
-                st.pos, st.vel, st.mass, cfg.eps2, cfg.dt, steps)
-        else:
-            st = nt.ops.step.prime_kdk(st, cfg)
-            parent = lambda: parent_k4(st, cfg, steps)   # noqa: E731
-            new = lambda: resident.resident_steps_kdk(   # noqa: E731
-                st.pos, st.vel, st.acc, st.mass, cfg.eps2, cfg.dt,
-                KDK_WEIGHTS[integrator], steps)
-        check(all(torch.equal(a, b) for a, b in zip(new(), parent())),
-              f"{kname} N=8192, {steps} {integrator} steps: differs from "
-              f"the parent's")
-        print(f"[redesign] {kname} N=8192, {steps} {integrator} steps: "
-              f"pos, vel, acc bit-equal to the parent's")
-        times = alternate({"parent": parent, "new": new}, dev, iters=2)
-        med = report_rounds(f"{kname} N=8192, one launch of {steps} "
-                            f"{integrator} steps", times, smi)
-        record[kname].update({"parent_ms": med["parent"],
-                              "new_ms": med["new"]})
-        if kname == "resident":
-            check(max(times["new"]) < min(times["parent"]),
-                  "resident (K3): not faster than the parent in every round")
+        def old(phases=0):
+            return k13._launch(pos, mass, p, eps2, "vpu2", False, False,
+                               SLOT_BUDGET_BYTES, phases=phases,
+                               lib=PARENT_LIBS["rdma_ring"])
+        got, was = new(), old()
+        check(torch.equal(got, new()), f"{tag}: not bit-reproducible")
+        rows = rows_of(n)
+        against_float64(tag, got, was, rows,
+                        rect_forces(pos[rows].double(), pos.double(),
+                                    mass.double(), eps2, chunk=64))
+        times = alternate({"parent": old, "new": new}, dev, iters)
+        med = report_rounds(tag, times, smi)
+        record["rdma_ring"].update({f"parent_ms{key}": med["parent"],
+                                    f"new_ms{key}": med["new"]})
+        if n > 8192:
+            parts = {k: [time_ms(lambda k=k, ph=ph: k13._launch(
+                pos, mass, p, eps2, "vpu2", False, False, SLOT_BUDGET_BYTES,
+                phases=ph, lib=None if k == "new" else
+                PARENT_LIBS["rdma_ring"]), dev, iters=1, warmup=1)
+                for ph in (1, 2)] for k in ("parent", "new")}
+            for k, (self_ms, two_ms) in parts.items():
+                print(f"[redesign] {tag} {k} by phase (partial launches): "
+                      f"self sweep (one-sided) {self_ms:.3f} ms, two-sided "
+                      f"phase {two_ms - self_ms:.3f} ms, antipodal phase "
+                      f"(one-sided) and finish {med[k] - two_ms:.3f} ms "
+                      f"({smi})")
+        del pos, mass, got, was
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2468,28 +2430,46 @@ def ring_1m(dev, smi, record):
 
 
 def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
-    """Pin the ring's error on the rows where it differs from K2: the
-    ring's four parts for those rows (K2 on the row's own shard, the a
-    side of K2-rect with the shard before, the b side of K2-rect with the
-    shard after, K1's one-sided antipodal sweep), each against a float64
-    direct sum of the same pairs, as a share of the row's |a|.  Added in
-    the ring's order the parts must give the ring's rows bit for bit.  K11
-    on the same antipodal sweep is measured beside K1."""
+    """Pin the ring's error on the rows where it differs from K2, and on
+    the rows where the parent's K1 (check_redesign) differs from the new
+    one on the antipodal sweep: the ring's four parts for those rows (K2
+    on the row's own shard, the a side of K2-rect with the shard before,
+    the b side of K2-rect with the shard after, K1's one-sided antipodal
+    sweep), each against a float64 direct sum of the same pairs, as a
+    share of the row's |a|.  Added in the ring's order the parts must give
+    the ring's rows bit for bit.  K11 and the parent's K1 on the same
+    antipodal sweep are measured beside K1, which may be no less accurate
+    than the parent's."""
     import torch
     from nbody_tpu_torch.ops import forces_tiled as k1
     from nbody_tpu_torch.ops.forces_sym_variants import (forces_pallas_sym,
                                                          rect_forces_sym)
     from nbody_tpu_torch.ops.forces_torch import rect_forces
-    if not diff_rows:
-        return
     eps2, c = cfg.eps2, state.n // p
     sh = [(state.pos[i * c:(i + 1) * c], state.mass[i * c:(i + 1) * c])
           for i in range(p)]
+    rows = set(diff_rows)
+    antipodal = {}
+    if PARENT_LIBS:
+        for s in range(p):
+            (x, _), (xo, mo) = sh[s], sh[(s + 2) % p]
+            new = k1.rect_forces_tiled(x, xo, mo, eps2)
+            old = parent_k1(x, xo, mo, eps2)
+            antipodal[s] = old
+            floor = ABS_FLOOR * float(old.abs().max())
+            off = ((new - old).abs() > REL_TOL * old.abs() + floor).any(1)
+            rows |= {s * c + int(i) for i in off.nonzero()[:, 0][:512]}
+        print(f"[ring 1M parts] rows where the parent's K1 and the new one "
+              f"differ past rel {REL_TOL:g} on the antipodal sweep: "
+              f"{len(rows - set(diff_rows))} more rows")
+    if not rows:
+        return
     names = ("self K2", "rect a side", "rect b side", "antipodal K1",
-             "antipodal K11", "ring")
+             "antipodal K11", "ring") + (("antipodal K1 (parent)",)
+                                         if antipodal else ())
     errs = {k: [] for k in names}
-    for s in sorted({r // c for r in diff_rows}):
-        local = torch.tensor([r - s * c for r in diff_rows if r // c == s],
+    for s in sorted({r // c for r in rows}):
+        local = torch.tensor([r - s * c for r in sorted(rows) if r // c == s],
                              device=dev)
         (x, m), (xp, mp) = sh[s], sh[(s - 1) % p]
         (xn, mn), (xo, mo) = sh[(s + 1) % p], sh[(s + 2) % p]
@@ -2501,6 +2481,8 @@ def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
                                            variant="vpu2")[1],
             "antipodal K1": k1.rect_forces_tiled(x, xo, mo, eps2),
             "antipodal K11": k1.rect_forces_tiled_kahan(x, xo, mo, eps2)}
+        if antipodal:
+            parts["antipodal K1 (parent)"] = antipodal[s]
         parts = {k: v[local] for k, v in parts.items()}
         parts["ring"] = ring_acc[local + s * c]
         summed = ((parts["self K2"] + parts["rect a side"])
@@ -2515,6 +2497,7 @@ def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
                                     ("rect b side", (xn, mn)),
                                     ("antipodal K1", (xo, mo)))}
         refs["antipodal K11"] = refs["antipodal K1"]
+        refs["antipodal K1 (parent)"] = refs["antipodal K1"]
         refs["ring"] = sum(refs[k] for k in ("self K2", "rect a side",
                                              "rect b side", "antipodal K1"))
         norm = refs["ring"].norm(dim=1)
@@ -2522,11 +2505,18 @@ def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
             errs[k] += ((parts[k] - refs[k]).norm(dim=1) / norm).tolist()
     for k in names:
         e = sorted(errs[k])
-        gate = RING_PART_GATES[k]
+        gate = RING_PART_GATES.get(k)
         print(f"[ring 1M parts] {k}: |err| / |a| against float64 on the "
-              f"{len(e)} rows where ring and K2 differ: max {e[-1]:.3e}, "
-              f"median {e[len(e) // 2]:.3e} (gate {gate:g})")
-        check(e[-1] <= gate, f"ring 1M: {k} off by {e[-1]:.3e} of |a|")
+              f"{len(e)} rows where ring and K2 differ or the parent's K1 "
+              f"and the new one differ: max {e[-1]:.3e}, median "
+              f"{e[len(e) // 2]:.3e}"
+              + (f" (gate {gate:g})" if gate is not None else ""))
+        if gate is not None:
+            check(e[-1] <= gate, f"ring 1M: {k} off by {e[-1]:.3e} of |a|")
+    if antipodal:
+        check(max(errs["antipodal K1"]) <= max(errs["antipodal K1 (parent)"]),
+              "ring 1M: K1's antipodal sweep less accurate than the "
+              "parent's")
 
 
 def main():
@@ -2597,8 +2587,8 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K14a, K3 and K4 against the designs
-    # before their redesign.
+    # 4. K2 at the 1M headline; K1 and K13 against the designs before
+    # their redesign.
     check_k2_1m(dev)
     if csrc:
         check_redesign(dev, 0.002, record, smi, csrc)

@@ -67,8 +67,9 @@
 // registers across offsets would win at most those 4%.
 //
 // Left for later: wgmma accumulation of the row and column sums on the
-// tensor cores, and K2-rect and K13's vpu2 path on this tile (they share
-// sym_tile_core with K7, which keeps the earlier one).
+// tensor cores, and K2-rect's vpu2 path on this tile (it shares
+// sym_tile_core with K7, which keeps the earlier one; K13's vpu2 takes
+// this tile's core, sym_pair_core).
 //
 // The pair tile, the slot sum and the diagonal tile are in sym_common.cuh,
 // shared with the resident kernels (resident.cu); the tile math of K7, the

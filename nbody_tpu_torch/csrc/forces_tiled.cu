@@ -7,20 +7,44 @@
 // Computes, for every body i of the i-set,
 //     acc_i = sum_j m_j * r_ij * rsqrt((|r_ij|^2 + eps2)^3),  r_ij = x_j - x_i
 // with no i != j guard: the self-pair vanishes because r = 0, exactly as in
-// the JAX kernel and the reference's tiled kernel.
+// the JAX kernel and the reference's tiled kernel.  The ragged edges are
+// masked at load time: a j slot past Nj is staged as a zero-mass body at
+// the origin (it contributes exactly 0), and rows past Ni store nothing.
+// Indices are 64-bit.
 //
-// Design: one thread per i-body, blocks of K1_THREADS threads.  The j-set is
-// swept in tiles of K1_THREADS bodies staged through shared memory as float4
-// {x, y, z, m}; every thread of the block reads each staged body by
-// broadcast.  The ragged edge is masked at load time: a j slot past Nj is
-// staged as a zero-mass body at the origin (it contributes exactly 0), and
-// threads past Ni load no position and store nothing.  Indices are 64-bit.
+// K1's design.  The grid is (row block, j slice).  A row block is
+// K1_BLOCK_ROWS rows, K1_ROWS a lane in registers (K1_BLOCK_ROWS / K1_ROWS
+// threads); a slice is `tps` consecutive j tiles of K1_TILE bodies, staged
+// through shared memory as float4 {x, y, z, m} and read by broadcast, one
+// shared load for a lane's K1_ROWS pairs.  The pair math is onesided_rows
+// (onesided_tile.cuh), 13 issue slots a pair.  Each tile's contribution is
+// summed from zero and then added to the slice's sum, as JAX's kernel adds
+// each block_j tile's sum to its accumulator.  A (row block, slice) work
+// item writes its rows' sums to its own slot (slice, Ni, 3); a second
+// launch adds the slots in slice order, so there are no atomics and the
+// result is bit-reproducible.  With one slice the item writes the
+// accelerations and there is no second launch.  The wrapper
+// (ops/forces_tiled.py, k1_slices) takes the slice count from Ni and Nj:
+// enough items to fill the card (at N = 8192, 16 row blocks x 64 slices of
+// one tile; 512 x 4 on the 1M ring's 262,144-body sweep), and one slice
+// where the row blocks alone fill it.  The plain
+// twin takes the same tiles, slices and order.
 //
-// What bounds it on the card: FP32 FMA and MUFU issue.  Each interaction is
-// about 20 flops (3 sub, 3 FMA for d2 + eps2, 2 mul for the cube, 1 rsqrt,
-// 1 mul by m_j, 3 FMA into the accumulator) plus one MUFU rsqrt, which
-// issues at a quarter of the FP32 rate.  Device memory is not a bound: each
-// staged tile is reused K1_THREADS times from shared memory.
+// What bounds it on the card: FP32 and MUFU issue, 13 slots a pair (the
+// MUFU's quarter rate is 4 slots' worth, below the other 12); the staging
+// and slot traffic are small beside it.  On an H100 80GB HBM3 at 700.00 W
+// one evaluation at N = 8192 takes 0.0416 ms against the earlier design's
+// 0.2167 (one thread a row, one float32 running sum a row, 64 blocks), and
+// the 1M ring's 262,144 x 262,144 antipodal sweep 34.27 ms against 45.36
+// with 1024 work items (chip_smoke.py check_redesign, medians of four
+// alternating rounds); with 2048, as now, 33.12 ms (its float32 bound
+// 19.49): the loop's 13 slots a pair and a quarter slot of shared load
+// issue at 82% of the rate at the 1980 MHz boost clock.  Four rows a lane
+// beat eight (34.03 against 36.87 ms; 62 registers against 96), and 1024
+// or 512 items lose to 2048 (tools/k1_ring_variants.py).  The tile and
+// slice partials also take the 262,144-term running sum's error out of
+// the ring's antipodal sweep: 1.869e-6 of |a| against float64 where the
+// earlier design reached 1.193e-3.
 //
 // K11 sums each j-tile's contribution plainly over the K1_THREADS staged
 // bodies, then adds it to the running sum through a Kahan two-sum with a
@@ -28,11 +52,8 @@
 // Pallas kernel's tile-level compensation.  The two-sum is written with
 // __fadd_rn / __fsub_rn, and the build passes no --use_fast_math, so nvcc
 // neither contracts nor reassociates it (reassociated, c folds to 0).
-// It costs 4 adds a tile, nothing a pair.
-//
-// Left for later: one thread per body leaves the card under-occupied at
-// small N (N/128 blocks for 132 SMs); splitting j across threads, TMA-fed
-// multi-stage tiles and a wgmma-based accumulation are later work.
+// It costs 4 adds a tile, nothing a pair.  K11 keeps one thread per row
+// and 128-thread blocks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math: it flushes denormals and
@@ -40,7 +61,13 @@
 
 #include <cuda_runtime.h>
 
+#include "onesided_tile.cuh"
+
 #define K1_THREADS 128
+// K1: rows a lane, rows a block, j-tile width.
+#define K1_ROWS 4
+#define K1_BLOCK_ROWS 512
+#define K1_TILE 128
 
 // s += t with the carried compensation c (a Kahan two-sum).
 __device__ __forceinline__ void kahan_add(float& s, float& c, float t) {
@@ -50,6 +77,8 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float t) {
     s = u;
 }
 
+// K11 (only its true instantiation is built; the name is the one its
+// SASS has always had).
 template <bool KAHAN>
 __global__ void __launch_bounds__(K1_THREADS)
 forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
@@ -65,7 +94,7 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
         zi = pos_i[3 * i + 2];
     }
     float ax = 0.f, ay = 0.f, az = 0.f;
-    float cx = 0.f, cy = 0.f, cz = 0.f;       // K11's compensation
+    float cx = 0.f, cy = 0.f, cz = 0.f;       // the compensation
     for (long long j0 = 0; j0 < nj; j0 += K1_THREADS) {
         const long long j = j0 + threadIdx.x;
         tile[threadIdx.x] = (j < nj)
@@ -73,11 +102,7 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
                           mass_j[j])
             : make_float4(0.f, 0.f, 0.f, 0.f);
         __syncthreads();
-        // K1 sums straight into the running sum, K11 into the tile's own.
         float tx = 0.f, ty = 0.f, tz = 0.f;
-        float& sx = KAHAN ? tx : ax;
-        float& sy = KAHAN ? ty : ay;
-        float& sz = KAHAN ? tz : az;
 #pragma unroll 8
         for (int k = 0; k < K1_THREADS; ++k) {
             const float4 b = tile[k];
@@ -86,15 +111,13 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
             const float dz = b.z - zi;
             const float d2 = dx * dx + dy * dy + dz * dz + eps2;
             const float f = b.w * rsqrtf(d2 * d2 * d2);
-            sx += f * dx;
-            sy += f * dy;
-            sz += f * dz;
+            tx += f * dx;
+            ty += f * dy;
+            tz += f * dz;
         }
-        if (KAHAN) {
-            kahan_add(ax, cx, tx);
-            kahan_add(ay, cy, ty);
-            kahan_add(az, cz, tz);
-        }
+        kahan_add(ax, cx, tx);
+        kahan_add(ay, cy, ty);
+        kahan_add(az, cz, tz);
         __syncthreads();
     }
     if (i < ni) {
@@ -104,28 +127,111 @@ forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
     }
 }
 
-template <bool KAHAN>
-static int launch(const float* pos_i, long long ni, const float* pos_j,
-                  const float* mass_j, long long nj, float eps2, float* acc,
-                  void* stream) {
-    if (ni <= 0) return 0;
-    const long long blocks = (ni + K1_THREADS - 1) / K1_THREADS;
-    forces_tiled_kernel<KAHAN><<<(unsigned)blocks, K1_THREADS, 0,
-                                 (cudaStream_t)stream>>>(
-        pos_i, ni, pos_j, mass_j, nj, eps2, acc);
-    return (int)cudaGetLastError();
+// K1's work item (row block blockIdx.x, slice blockIdx.y): the slice's
+// tiles tps * blockIdx.y .. against the block's rows, into slot
+// out[blockIdx.y].
+__global__ void __launch_bounds__(K1_BLOCK_ROWS / K1_ROWS)
+k1_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
+               const float* __restrict__ mass_j, long long nj, long long tps,
+               float eps2, float* __restrict__ out) {
+    constexpr int THREADS = K1_BLOCK_ROWS / K1_ROWS;
+    __shared__ float4 tile[K1_TILE];
+    const int t = threadIdx.x;
+    const long long row0 = (long long)blockIdx.x * K1_BLOCK_ROWS
+                           + (t >> 5) * 32 * K1_ROWS + (t & 31);
+    float4 br[K1_ROWS];
+    float ax[K1_ROWS], ay[K1_ROWS], az[K1_ROWS];
+#pragma unroll
+    for (int r = 0; r < K1_ROWS; ++r) {
+        const long long i = row0 + 32 * r;
+        br[r] = i < ni ? make_float4(pos_i[3 * i], pos_i[3 * i + 1],
+                                     pos_i[3 * i + 2], 0.f)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        ax[r] = 0.f;
+        ay[r] = 0.f;
+        az[r] = 0.f;
+    }
+    const long long tiles = (nj + K1_TILE - 1) / K1_TILE;
+    const long long t_lo = (long long)blockIdx.y * tps;
+    const long long t_hi = t_lo + tps < tiles ? t_lo + tps : tiles;
+    for (long long T = t_lo; T < t_hi; ++T) {
+        for (int k = t; k < K1_TILE; k += THREADS)
+            tile[k] = load_body(pos_j, mass_j, T * K1_TILE + k, nj);
+        __syncthreads();
+        float tx[K1_ROWS], ty[K1_ROWS], tz[K1_ROWS];
+#pragma unroll
+        for (int r = 0; r < K1_ROWS; ++r) {
+            tx[r] = 0.f;
+            ty[r] = 0.f;
+            tz[r] = 0.f;
+        }
+        onesided_rows<W_MJ, K1_ROWS>(tile, K1_TILE, br, eps2, tx, ty, tz);
+#pragma unroll
+        for (int r = 0; r < K1_ROWS; ++r) {
+            ax[r] += tx[r];
+            ay[r] += ty[r];
+            az[r] += tz[r];
+        }
+        __syncthreads();
+    }
+    float* slot = out + (long long)blockIdx.y * ni * 3;
+#pragma unroll
+    for (int r = 0; r < K1_ROWS; ++r) {
+        const long long i = row0 + 32 * r;
+        if (i < ni) {
+            slot[3 * i] = ax[r];
+            slot[3 * i + 1] = ay[r];
+            slot[3 * i + 2] = az[r];
+        }
+    }
 }
 
+// acc = ((slot 0 + slot 1) + slot 2) ..., component by component.
+__global__ void __launch_bounds__(256)
+k1_reduce_kernel(const float* __restrict__ slots, long long n3, int slices,
+                 float* __restrict__ acc) {
+    const long long x = (long long)blockIdx.x * 256 + threadIdx.x;
+    if (x >= n3) return;
+    float v = slots[x];
+    for (int s = 1; s < slices; ++s) v += slots[s * n3 + x];
+    acc[x] = v;
+}
+
+// K1 over `slices` slices of tps j tiles each (tps * slices tiles covering
+// Nj); with more than one slice `slots` holds (slices, Ni, 3) floats.
 extern "C" int nbt_forces_tiled(const float* pos_i, long long ni,
                                 const float* pos_j, const float* mass_j,
-                                long long nj, float eps2, float* acc,
+                                long long nj, long long tps, int slices,
+                                float eps2, float* slots, float* acc,
                                 void* stream) {
-    return launch<false>(pos_i, ni, pos_j, mass_j, nj, eps2, acc, stream);
+    if (ni <= 0) return 0;
+    if (tps < 1 || slices < 1 || (slices > 1 && slots == nullptr))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const dim3 grid((unsigned)((ni + K1_BLOCK_ROWS - 1) / K1_BLOCK_ROWS),
+                    (unsigned)slices);
+    k1_tile_kernel<<<grid, K1_BLOCK_ROWS / K1_ROWS, 0, s>>>(
+        pos_i, ni, pos_j, mass_j, nj, tps, eps2, slices > 1 ? slots : acc);
+    if (slices > 1) {
+        const long long n3 = ni * 3;
+        k1_reduce_kernel<<<(unsigned)((n3 + 255) / 256), 256, 0, s>>>(
+            slots, n3, slices, acc);
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" int nbt_forces_tiled_kahan(const float* pos_i, long long ni,
                                       const float* pos_j,
                                       const float* mass_j, long long nj,
                                       float eps2, float* acc, void* stream) {
-    return launch<true>(pos_i, ni, pos_j, mass_j, nj, eps2, acc, stream);
+    if (ni <= 0) return 0;
+    const long long blocks = (ni + K1_THREADS - 1) / K1_THREADS;
+    forces_tiled_kernel<true><<<(unsigned)blocks, K1_THREADS, 0,
+                                (cudaStream_t)stream>>>(
+        pos_i, ni, pos_j, mass_j, nj, eps2, acc);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int nbt_forces_tiled_geometry(int what) {
+    return what == 0 ? K1_TILE : K1_BLOCK_ROWS;
 }

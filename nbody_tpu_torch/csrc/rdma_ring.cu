@@ -25,14 +25,17 @@
 // Schedule (grid phases separated by cooperative_groups grid syncs):
 //   phase 0, self sweep, one-sided: every (shard s, row tile I, column tile
 //     J) of s against its own bodies, the variant's one-sided tile (JAX's
-//     _tile_i); the self pair masked by index for turbo, turbo2 and mxu
-//     (rdma_ring.py:352, 386-392), unmasked for vpu and vpu2 (r = 0).  In
-//     the same grid phase the payload of phase 0 or 1 is seeded;
+//     _tile_i): for vpu2 and vpu onesided_pair_rows (onesided_tile.cuh,
+//     K1's pair loop, m_i m_j or m_j weights), for the tensor-core variants
+//     ring_tc_tile_i; the self pair masked by index for turbo, turbo2 and
+//     mxu (rdma_ring.py:352, 386-392), unmasked for vpu and vpu2 (r = 0).
+//     In the same grid phase the payload of phase 0 or 1 is seeded;
 //   phase d = 1 .. D: forward (each shard's slot (d-1)%2 into its right
 //     neighbour's slot d%2, data and travel; grid sync), then compute
 //     against slot d%2: two-sided for d <= floor((P-1)/2) on the sym
 //     ladder (the i side into the shard's accumulator, the j side into the
-//     slot's travel rows, on K2-rect's tiles sym_tile_core / sym_tc_tile),
+//     slot's travel rows; vpu2 on K2's pair tile sym_pair_core, vpu on
+//     K7's sym_tile_core, the tensor-core variants on sym_tc_tile),
 //     one-sided (the variant's _tile_i) for the even-P antipodal phase and
 //     every phase of the one-sided family;
 //   finish: shard s's travel (slot D%2) is added into shard (s - D) mod P's
@@ -79,19 +82,32 @@
 // pointers: other blocks write them between grid syncs, and the read-only
 // data path is not coherent with those writes (sym_common.cuh).
 //
+// The exact tiles.  A one-sided item (256 rows against 256 columns) is
+// K2's geometry without the column side: warp w takes columns 32w ..
+// 32w+31 against all 256 rows, eight rows a lane in registers, one shared
+// load a column for eight pairs, 13 issue slots a pair (14 for vpu2's
+// m_i m_j), and the warps' row partials are added in warp order.  The
+// two-sided vpu2 item is K2's pair tile (17.5 slots a pair for both
+// sides); the two-sided vpu item keeps K7's tile, one row a thread.
+//
 // What bounds it on the card: the tiles' FP32 and MUFU issue (the
-// tensor-core variants add their bf16 mma), as K2-rect and the square
-// tiers; the copies move 28 B a body a hop and the slots ~48 B a body a
-// column chunk, small beside the pair work.  The ring does one-sided work
-// twice where the separate kernels run the pair-symmetric diagonal: the
-// self sweep is one-sided over C x C, as JAX's.  The grid is the card's
-// co-resident CTA count for the variant.
+// tensor-core variants add their bf16 mma); the copies move 28 B a body a
+// hop and the slots ~48 B a body a column chunk, small beside the pair
+// work.  The ring does one-sided work twice where the separate kernels run
+// the pair-symmetric diagonal: the self sweep is one-sided over C x C, as
+// JAX's, and a pair-symmetric self sweep would halve its pairs.  On an
+// H100 80GB HBM3 at 700.00 W, vpu2 at N = 1M on 4 shards takes 564.950 ms
+// against the earlier tiles' 744.580, and vpu (one CTA an SM) 681.817
+// against 706.340 (tools/k1_ring_variants.py, medians of three rounds;
+// chip_smoke.py check_redesign times vpu2 and its phases in every run).
+// The grid is the card's co-resident CTA count for the variant.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
 
 #include <cooperative_groups.h>
 
+#include "onesided_tile.cuh"
 #include "rect_common.cuh"
 #include "sym_common.cuh"
 #include "sym_tc_tile.cuh"
@@ -278,25 +294,38 @@ __device__ __forceinline__ void ring_tile(const float* pos_i,
         else
             ring_tc_tile_i<TV>(pos_i, mass_i, I, cpos, cmass, J, c, eps2,
                                self, si_tile, sm);
+    } else if (!two) {
+        const float3 rs = onesided_pair_rows<V == RING_VPU2 ? W_MIMJ : W_MJ>(
+            pos_i, mass_i, I * SYM_TILE + threadIdx.x, c, cpos, cmass,
+            J * SYM_TILE + threadIdx.x, c, eps2, sm);
+        const int t = threadIdx.x;
+        si_tile[3 * t] = rs.x;
+        si_tile[3 * t + 1] = rs.y;
+        si_tile[3 * t + 2] = rs.z;
+    } else if (V == RING_VPU2) {
+        float3 rs, cs;
+        sym_pair_core(pos_i, mass_i, I * SYM_TILE + threadIdx.x, c, cpos,
+                      cmass, J * SYM_TILE + threadIdx.x, c, eps2, sm, rs, cs);
+        const int t = threadIdx.x;
+        si_tile[3 * t] = rs.x;
+        si_tile[3 * t + 1] = rs.y;
+        si_tile[3 * t + 2] = rs.z;
+        sj_tile[3 * t] = -cs.x;
+        sj_tile[3 * t + 1] = -cs.y;
+        sj_tile[3 * t + 2] = -cs.z;
     } else {
         const int t = threadIdx.x;
         const float4 bi = load_body(pos_i, mass_i, I * SYM_TILE + t, c);
         sm.tile[t] = load_body(cpos, cmass, J * SYM_TILE + t, c);
         __syncthreads();
         float ax = 0.f, ay = 0.f, az = 0.f;
-        if (two) {
-            const float3 col = sym_tile_core<V == RING_VPU2 ? SYM_K2 : SYM_K7>(
-                bi, eps2, ax, ay, az, sm);
-            sj_tile[3 * t] = -col.x;
-            sj_tile[3 * t + 1] = -col.y;
-            sj_tile[3 * t + 2] = -col.z;
-        } else {
-            sym_tile_core<V == RING_VPU2 ? K2_NOJ : VPU_NOJ>(bi, eps2, ax, ay,
-                                                             az, sm);
-        }
+        const float3 col = sym_tile_core<SYM_K7>(bi, eps2, ax, ay, az, sm);
         si_tile[3 * t] = ax;
         si_tile[3 * t + 1] = ay;
         si_tile[3 * t + 2] = az;
+        sj_tile[3 * t] = -col.x;
+        sj_tile[3 * t + 1] = -col.y;
+        sj_tile[3 * t + 2] = -col.z;
     }
     __syncthreads();   // sm is restaged by the next item
 }
@@ -425,11 +454,17 @@ __device__ __forceinline__ void ring_finish(const RingArgs& a) {
     }
 }
 
-// Two CTAs an SM (128 registers, no spills).  One kernel holds every
-// path of the ring, and capped at the standalone tiles' 80 registers
-// (three CTAs, K7 80, K5 77) its tile loops spill.
+// CTAs an SM the variant's kernel is built for: two (128 registers, no
+// spills), but one for vpu (253 registers), which spills at two and runs
+// 6% slower at N = 1M on 4 shards than at one (tools/k1_ring_variants.py).
+// One kernel holds every path of the ring, and capped at the standalone
+// tiles' 80 registers (three CTAs, K7 80, K5 77) its tile loops spill.
+__host__ __device__ constexpr int ring_ctas(int v) {
+    return v == RING_VPU ? 1 : 2;
+}
+
 template <int V>
-__global__ void __launch_bounds__(SYM_TILE, 2)
+__global__ void __launch_bounds__(SYM_TILE, ring_ctas(V))
 rdma_ring_kernel(RingArgs a) {
     __shared__ __align__(16) typename RingSmem<V>::type sm;
     cg::grid_group grid = cg::this_grid();

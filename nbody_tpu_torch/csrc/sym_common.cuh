@@ -1,12 +1,13 @@
 // Device code shared by K2 (forces_sym.cu) and the resident kernels K3/K4
 // (resident.cu): the pair-symmetric tile of one (row tile, offset) work
 // item, the fixed-order slot sum, and the one-sided diagonal tile with the
-// 1/m descale.  forces_sym.cu's header states the enumeration, the slot
-// layout, the determinism contract and the pair tile's design (eight rows
-// a lane in registers, one column accumulator rotating around the warp)
-// with its numbers on the card.  Both files compile these functions
-// from the same source, so a resident step computes bit for bit the force
-// evaluation that K2 computes.
+// 1/m descale; K13 (rdma_ring.cu) runs the pair tile's core,
+// sym_pair_core, with slots of its own.  forces_sym.cu's header states the
+// enumeration, the slot layout, the determinism contract and the pair
+// tile's design (eight rows a lane in registers, one column accumulator
+// rotating around the warp) with its numbers on the card.  K2 and K3/K4
+// compile these functions from the same source, so a resident step
+// computes bit for bit the force evaluation that K2 computes.
 //
 // Positions and slots are read through plain (not __restrict__) pointers:
 // inside one resident launch other blocks write them between grid syncs,
@@ -30,7 +31,8 @@ __device__ __forceinline__ float4 load_body(const float* pos,
 
 // Shared memory of one pair tile (28 KB).  sym_tile_core (sym_tile.cuh)
 // stages the column tile in `tile` and keeps a warp's column partials in
-// `part`; sym_pair_tile uses `part` alone (SymK2Stage over it, then the
+// `part`; sym_pair_core and K13's one-sided tile (onesided_pair_rows,
+// onesided_tile.cuh) use `part` alone (their staging over it, then the
 // row partials).
 struct SymPairSmem {
     float4 tile[SYM_TILE];
@@ -41,7 +43,7 @@ struct SymPairSmem {
 // SYM_TILE rows of the tile.
 #define SYM_ROWS (SYM_TILE / 32)
 
-// sym_pair_tile's staging inside SymPairSmem::part: the row tile, and each
+// sym_pair_core's staging inside SymPairSmem::part: the row tile, and each
 // warp's 32 columns written twice over, so that lane l reads column
 // (l + k) mod 32 at an offset that is l plus a constant.
 struct SymK2Stage {
@@ -61,9 +63,11 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
     return y;
 }
 
-// Row tile I against column tile J = (I + d) mod nb; every thread of the
-// block calls it.  The row sums go to slot si[dk][I], the negated column
-// sums to slot sj[dk][J].  Shared memory may be reused once it returns.
+// The pair work of one tile, K2's math (F = m_i m_j inv on both sides):
+// row body i of (pos_r, mass_r) and column body j of (pos_c, mass_c), each
+// thread t staging row t and column t of the tile.  Returns in rs the sum
+// of row t and in cs the (positive) sum of column t.  Every thread of the
+// block calls it; shared memory may be reused once it returns.
 //
 // Warp w takes columns 32w .. 32w+31 against all SYM_TILE rows; lane l
 // holds rows l + 32r (r < SYM_ROWS) in registers.  At step k lane l pairs
@@ -74,22 +78,19 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // SYM_ROWS pairs, and F r goes into both sums as fused multiply-adds.  The
 // row partials of the eight warps meet once a tile in `part` and are added
 // in warp order: the tile is bit-reproducible.
-__device__ __forceinline__ void sym_pair_tile(
-        const float* pos, const float* __restrict__ mass,
-        long long n, long long nb, long long I, long long d, long long dk,
-        float eps2, float* __restrict__ si, float* __restrict__ sj,
-        SymPairSmem& sm) {
-    const long long J = (I + d) % nb;
+__device__ __forceinline__ void sym_pair_core(
+        const float* pos_r, const float* __restrict__ mass_r, long long i,
+        long long n_r, const float* pos_c, const float* __restrict__ mass_c,
+        long long j, long long n_c, float eps2, SymPairSmem& sm, float3& rs,
+        float3& cs) {
     const int t = threadIdx.x;
     const int w = t >> 5;
     const int l = t & 31;
-    const long long i = I * SYM_TILE + t;
-    const long long j = J * SYM_TILE + t;
     SymK2Stage& st = *reinterpret_cast<SymK2Stage*>(sm.part);
 
     __syncthreads();                      // the last tile's readers of part
-    st.rows[t] = load_body(pos, mass, i, n);
-    const float4 bj = load_body(pos, mass, j, n);
+    st.rows[t] = load_body(pos_r, mass_r, i, n_r);
+    const float4 bj = load_body(pos_c, mass_c, j, n_c);
     st.cols[w][l] = bj;
     st.cols[w][l + 32] = bj;
     __syncthreads();
@@ -143,13 +144,32 @@ __device__ __forceinline__ void sym_pair_tile(
         sy += sm.part[v][3 * t + 1];
         sz += sm.part[v][3 * t + 2];
     }
+    rs = make_float3(sx, sy, sz);
+    cs = make_float3(bx, by, bz);
+}
+
+// Row tile I against column tile J = (I + d) mod nb of K2's triangular
+// sweep (sym_pair_core); every thread of the block calls it.  The row sums
+// go to slot si[dk][I], the negated column sums to slot sj[dk][J].
+// Shared memory may be reused once it returns.
+__device__ __forceinline__ void sym_pair_tile(
+        const float* pos, const float* __restrict__ mass,
+        long long n, long long nb, long long I, long long d, long long dk,
+        float eps2, float* __restrict__ si, float* __restrict__ sj,
+        SymPairSmem& sm) {
+    const long long J = (I + d) % nb;
+    const int t = threadIdx.x;
+    const long long i = I * SYM_TILE + t;
+    const long long j = J * SYM_TILE + t;
+    float3 rs, cs;
+    sym_pair_core(pos, mass, i, n, pos, mass, j, n, eps2, sm, rs, cs);
     const long long slot = dk * nb * SYM_TILE * 3;
-    si[slot + 3 * i] = sx;
-    si[slot + 3 * i + 1] = sy;
-    si[slot + 3 * i + 2] = sz;
-    sj[slot + 3 * j] = -bx;
-    sj[slot + 3 * j + 1] = -by;
-    sj[slot + 3 * j + 2] = -bz;
+    si[slot + 3 * i] = rs.x;
+    si[slot + 3 * i + 1] = rs.y;
+    si[slot + 3 * i + 2] = rs.z;
+    sj[slot + 3 * j] = -cs.x;
+    sj[slot + 3 * j + 1] = -cs.y;
+    sj[slot + 3 * j + 2] = -cs.z;
 }
 
 // Adds body b's slots of the offsets d_lo .. d_lo+dc-1 (row tile I) to s,

@@ -1,8 +1,8 @@
-// The exact pair tile of K2, K7, K14d, K2-rect, K15's vpu_* ablations
-// (forces_sym.cu) and K13 (rdma_ring.cu): the pair math of one 256 x 256
-// tile, a SymMath value folded at compile time.  Moved here verbatim from
-// forces_sym.cu so that rdma_ring.cu compiles the same tile; K2_NOJ, K2's
-// row sums alone, is K13's one-sided vpu2 tile.
+// The exact pair tile of K7, K14d, K2-rect, K15's vpu_* ablations
+// (forces_sym.cu) and K13's two-sided vpu phases (rdma_ring.cu): the pair
+// math of one 256 x 256 tile, a SymMath value folded at compile time.
+// Moved here verbatim from forces_sym.cu so that rdma_ring.cu compiles the
+// same tile.
 
 #pragma once
 
@@ -16,23 +16,21 @@
 //             slot (the reduce adds them all into tile 0's bodies);
 //   VPU_RC    K7's tile with the differences recomputed per component in
 //             the accumulate (JAX's liveness ablation, _accum_both_vpu_rc).
-// and K13's one-sided vpu2 tile (rdma_ring.cu), JAX's _tile_i "vpu2":
-//   K2_NOJ    K2's row sums only, F = m_i m_j inv (mass-scaled).
-enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3, VPU_RC = 4,
-               K2_NOJ = 5 };
+enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3,
+               VPU_RC = 4 };
 
 // Whether tile M sums columns (the j side) at all.
 __host__ __device__ constexpr bool sym_has_j(int m) {
-    return m != VPU_NOJ && m != K2_NOJ;
+    return m != VPU_NOJ;
 }
 
 // The pair work of one 256 x 256 tile for the row body bi of this thread,
 // against the column tile staged (and synced) in sm.tile: K2's math
-// (sym_pair_tile's, F = m_i m_j inv shared by both sides), K7's (fi =
+// (sym_pair_core's, F = m_i m_j inv shared by both sides), K7's (fi =
 // m_j inv, fj = m_i inv) or an ablation of K7's (SymMath).  Adds the row
 // sums to (ax, ay, az) and returns the column sum of column threadIdx.x
 // over the tile's rows, a positive magnitude (the caller negates; zero for
-// VPU_NOJ and K2_NOJ).  Every thread of the block calls it; the caller
+// VPU_NOJ).  Every thread of the block calls it; the caller
 // syncs before restaging sm.
 template <int M>
 __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
@@ -50,7 +48,7 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
             const float dy = q.y - bi.y;
             const float dz = q.z - bi.z;
             const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            if (M == SYM_K2 || M == K2_NOJ) {
+            if (M == SYM_K2) {
                 const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
                 const float px = f * dx;
                 const float py = f * dy;
@@ -58,11 +56,9 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
                 ax += px;
                 ay += py;
                 az += pz;
-                if (M == SYM_K2) {
-                    bx += px;
-                    by += py;
-                    bz += pz;
-                }
+                bx += px;
+                by += py;
+                bz += pz;
             } else if (M == VPU_RC) {
                 const float inv = rsqrtf(d2 * d2 * d2);
                 const float fi = q.w * inv;

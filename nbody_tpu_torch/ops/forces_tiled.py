@@ -4,17 +4,21 @@ Hopper.
 K1 is the counterpart of ``nbody_tpu/ops/forces_pallas.py`` variant
 ``vpu`` (``_force_kernel_vpu``): ``acc_i = sum_j m_j r_ij
 rsqrt((|r_ij|^2+eps2)^3)`` with no i != j guard (the self-pair vanishes by
-r = 0).  The kernel is ``csrc/forces_tiled.cu``: one thread per i-body,
-j-tiles of ``K1_TILE`` bodies staged through shared memory, the ragged
-edge masked as zero-mass bodies.  K11 (variant ``vpu_kahan``,
-``_force_kernel_vpu_kahan``, ``impl="pallas_kahan"``) is the same tile
-whose per-j-tile contribution enters the running sum through a Kahan
-two-sum with a carried compensation.
+r = 0).  The kernel is ``csrc/forces_tiled.cu``: row blocks of
+``K1_BLOCK_ROWS`` rows (four a lane) against j slices of whole
+``K1_TILE``-body tiles (``k1_slices``), each tile's contribution summed
+from zero and added to the slice's sum, the slices' sums added in slice
+order by a second launch; the ragged j edge is masked as zero-mass
+bodies.  K11 (variant ``vpu_kahan``, ``_force_kernel_vpu_kahan``,
+``impl="pallas_kahan"``) sweeps the whole j-set in ``K1_TILE``-body
+tiles, one thread a row, each tile's contribution entering the running
+sum through a Kahan two-sum with a carried compensation.
 
 The wrappers take the plain PyTorch version (``rect_forces_tiled_plain``,
-the same j-tile decomposition) only for tensors on the CPU.  For a CUDA
-tensor they launch the kernel or raise.  Each kernel counts its launches
-on its own wrapper: ``forces_tiled.launches`` (K1) and
+the same tiles, slices and order) only for tensors on the CPU.  For a CUDA
+tensor they launch the kernel or raise.  Each kernel counts its force
+evaluations on its own wrapper: ``forces_tiled.launches`` (K1, whose
+slot reduce is a second launch of the same evaluation) and
 ``forces_tiled_kahan.launches`` (K11).
 """
 
@@ -26,63 +30,130 @@ import torch
 
 from . import _build
 
-# Threads per block = j-tile width (K1_THREADS in csrc/forces_tiled.cu).
+# The j-tile width (K1_TILE in csrc/forces_tiled.cu; K11's block width) and
+# K1's rows a block (K1_BLOCK_ROWS).
 K1_TILE = 128
+K1_BLOCK_ROWS = 512
+# K1's work items wanted an evaluation: about two waves of the eight
+# 128-thread blocks an SM that an H100's 132 SMs hold at once (1024 and
+# 512 were slower on the 262,144² sweep, tools/k1_ring_variants.py).
+K1_ITEMS = 2048
+# Bytes K1's slice slots may take.
+K1_SLOT_BUDGET = 1 << 30
 
-_c_ll, _c_ptr = ctypes.c_longlong, ctypes.c_void_p
+_c_ll, _c_ptr, _c_int = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument types on a build of forces_tiled.cu
+    (the package's, or a copy that tools/k1_ring_variants.py edits)."""
+    if lib.nbt_forces_tiled.argtypes is None:
+        lib.nbt_forces_tiled.argtypes = [
+            _c_ptr, _c_ll, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_int,
+            ctypes.c_float, _c_ptr, _c_ptr, _c_ptr]
+        lib.nbt_forces_tiled_kahan.argtypes = [
+            _c_ptr, _c_ll, _c_ptr, _c_ptr, _c_ll, ctypes.c_float, _c_ptr,
+            _c_ptr]
+        lib.nbt_forces_tiled_geometry.argtypes = [_c_int]
+        for fn in (lib.nbt_forces_tiled, lib.nbt_forces_tiled_kahan,
+                   lib.nbt_forces_tiled_geometry):
+            fn.restype = ctypes.c_int
+        if (lib.nbt_forces_tiled_geometry(0),
+                lib.nbt_forces_tiled_geometry(1)) != (K1_TILE,
+                                                      K1_BLOCK_ROWS):
+            raise RuntimeError("K1_TILE / K1_BLOCK_ROWS differ between "
+                               "forces_tiled.py and csrc/forces_tiled.cu")
+    return lib
 
 
 def _lib():
-    lib = _build.load("forces_tiled")
-    if lib.nbt_forces_tiled.argtypes is None:
-        for fn in (lib.nbt_forces_tiled, lib.nbt_forces_tiled_kahan):
-            fn.argtypes = [_c_ptr, _c_ll, _c_ptr, _c_ptr, _c_ll,
-                           ctypes.c_float, _c_ptr, _c_ptr]
-            fn.restype = ctypes.c_int
-    return lib
+    return bind(_build.load("forces_tiled"))
+
+
+def k1_slices(ni: int, nj: int,
+              slices: "int | None" = None) -> "tuple[int, int]":
+    """(slices, tiles a slice) of K1's j-set: ``slices`` if given, else as
+    many as bring the work items (row blocks x slices) to ``K1_ITEMS``,
+    at least one and at most one a tile, within ``K1_SLOT_BUDGET``; the
+    tiles split evenly, the last slice the shortest."""
+    tiles = max(1, -(-nj // K1_TILE))
+    if slices is None:
+        row_blocks = max(1, -(-ni // K1_BLOCK_ROWS))
+        slices = min(-(-K1_ITEMS // row_blocks),
+                     K1_SLOT_BUDGET // max(1, ni * 12))
+    tps = -(-tiles // max(1, min(tiles, slices)))
+    return -(-tiles // tps), tps
 
 
 def rect_forces_tiled_plain(pos_i: torch.Tensor, pos_j: torch.Tensor,
                             mass_j: torch.Tensor, eps2: float,
-                            kahan: bool = False) -> torch.Tensor:
+                            kahan: bool = False,
+                            slices: "int | None" = None) -> torch.Tensor:
     """Plain PyTorch twin of the kernels: the j-set swept in tiles of
     ``K1_TILE`` bodies, the last tile padded with zero-mass bodies at the
-    origin, each tile's contribution added to the running (Ni,3) sum,
-    through a Kahan two-sum with ``kahan`` (K11)."""
+    origin.  K1: each tile's (Ni,3) contribution added to its slice's sum
+    (``k1_slices``; ``slices`` overrides the count), the slices' sums added
+    in slice order.  K11 (``kahan``): each tile's contribution two-summed
+    into one running sum over all tiles."""
     tile = K1_TILE
     nj = pos_j.shape[0]
     nj_pad = -(-nj // tile) * tile
     pos_j = torch.cat([pos_j, pos_j.new_zeros(nj_pad - nj, 3)])
     mass_j = torch.cat([mass_j, mass_j.new_zeros(nj_pad - nj)])
-    acc = torch.zeros_like(pos_i)
-    comp = torch.zeros_like(pos_i)
-    for s in range(0, nj_pad, tile):
+
+    def contrib(s):
         r = pos_j[None, s:s + tile, :] - pos_i[:, None, :]   # (Ni, T, 3)
         d2 = (r * r).sum(-1) + eps2
         f = mass_j[None, s:s + tile] * torch.rsqrt(d2 * d2 * d2)
-        contrib = (f[:, :, None] * r).sum(1)
-        if kahan:
-            y = contrib - comp
+        return (f[:, :, None] * r).sum(1)
+
+    if kahan:
+        acc = torch.zeros_like(pos_i)
+        comp = torch.zeros_like(pos_i)
+        for s in range(0, nj_pad, tile):
+            y = contrib(s) - comp
             t = acc + y
             comp = (t - acc) - y
             acc = t
-        else:
-            acc = acc + contrib
+        return acc
+    n_slices, tps = k1_slices(pos_i.shape[0], nj, slices)
+    acc = None
+    for k in range(n_slices):
+        part = torch.zeros_like(pos_i)
+        for s in range(k * tps * tile, min((k + 1) * tps * tile, nj_pad),
+                       tile):
+            part = part + contrib(s)
+        acc = part if acc is None else acc + part
     return acc
 
 
-def _launch(pos_i, pos_j, mass_j, eps2, kahan):
+def _launch(pos_i, pos_j, mass_j, eps2, kahan, lib=None):
+    """One evaluation of K1 or K11 (``kahan``) on the card, or the twin for
+    CPU tensors; ``lib`` another build of forces_tiled.cu (``bind``) in
+    place of the package's, for the timing tools."""
     what = "forces_tiled_kahan" if kahan else "forces_tiled"
     _build.check_rect(what, pos_i, pos_j, mass_j)
     if pos_i.device.type == "cpu":
         return rect_forces_tiled_plain(pos_i, pos_j, mass_j, eps2, kahan)
-    fn = getattr(_lib(), f"nbt_{what}")
+    lib = lib or _lib()
+    ni, nj = pos_i.shape[0], pos_j.shape[0]
     acc = torch.empty_like(pos_i)
-    (forces_tiled_kahan if kahan else forces_tiled).launches += 1
-    _build.check_launch(what, fn(
-        pos_i.data_ptr(), pos_i.shape[0], pos_j.data_ptr(),
-        mass_j.data_ptr(), pos_j.shape[0], float(eps2), acc.data_ptr(),
-        _build.stream_handle(acc)))
+    stream = _build.stream_handle(acc)
+    if kahan:
+        forces_tiled_kahan.launches += 1
+        err = lib.nbt_forces_tiled_kahan(
+            pos_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj,
+            float(eps2), acc.data_ptr(), stream)
+    else:
+        slices, tps = k1_slices(ni, nj)
+        slots = pos_i.new_empty(slices * ni * 3) if slices > 1 else None
+        forces_tiled.launches += 1
+        err = lib.nbt_forces_tiled(
+            pos_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj,
+            tps, slices, float(eps2),
+            slots.data_ptr() if slots is not None else None, acc.data_ptr(),
+            stream)
+    _build.check_launch(what, err)
     return acc
 
 
@@ -115,7 +186,7 @@ def rect_forces_tiled_kahan(pos_i: torch.Tensor, pos_j: torch.Tensor,
     return _launch(pos_i, pos_j, mass_j, eps2, True)
 
 
-# Kernel launches made through the wrappers (both entry points each): K1,
-# K11.
+# Force evaluations launched through the wrappers (both entry points
+# each): K1, K11.
 forces_tiled.launches = 0
 forces_tiled_kahan.launches = 0

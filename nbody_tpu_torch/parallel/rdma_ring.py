@@ -72,8 +72,10 @@ _MASKED_SELF = ("turbo", "mxu", "turbo2")
 _c_ll, _c_ptr, _c_int = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 
 
-def _lib():
-    lib = _build.load("rdma_ring")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument types on a build of rdma_ring.cu (the
+    package's, an earlier one, or a copy that tools/k1_ring_variants.py
+    edits)."""
     if lib.nbt_rdma_ring.argtypes is None:
         lib.nbt_rdma_ring.argtypes = [
             _c_int, _c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll, _c_int, _c_int,
@@ -87,6 +89,10 @@ def _lib():
             raise RuntimeError("SYM_TILE differs between forces_sym.py and "
                                "csrc/rdma_ring.cu")
     return lib
+
+
+def _lib():
+    return bind(_build.load("rdma_ring"))
 
 
 def ring_phases(p: int, one_sided: bool) -> "tuple[int, int]":
@@ -110,10 +116,10 @@ def ring_chunk(p: int, c: int, budget: int = SLOT_BUDGET_BYTES) -> int:
     return min(c // SYM_TILE, budget // per)
 
 
-def max_blocks(variant: str) -> int:
+def max_blocks(variant: str, lib=None) -> int:
     """The co-resident CTAs of the variant's kernel: its cooperative grid
-    on this card."""
-    return _lib().nbt_rdma_ring_max_blocks(VARIANTS.index(variant))
+    on this card (``lib`` another build, as ``_launch`` takes it)."""
+    return (lib or _lib()).nbt_rdma_ring_max_blocks(VARIANTS.index(variant))
 
 
 def _check(pos, mass, p, variant, one_sided):
@@ -133,24 +139,53 @@ def _check(pos, mass, p, variant, one_sided):
 
 # -- the plain PyTorch twin
 
+def _warp_rows(terms):
+    """Row sums (k, T, 3) of a tile's pair terms (k, T, T, 3) as K13's
+    exact tiles add them: each warp's 32 columns, then the warps' partials
+    in warp order."""
+    k, t = terms.shape[:2]
+    parts = terms.view(k, t, t // 32, 32, 3).sum(3)
+    rows = parts[:, :, 0]
+    for w in range(1, parts.shape[2]):
+        rows = rows + parts[:, :, w]
+    return rows
+
+
+def _exact_terms(eps2, xi, mi, xj, mj, scaled):
+    """The exact pair terms w inv r of a tile, (k, T, T, 3): w = m_i m_j
+    (vpu2, ``scaled``) or m_j (vpu's row side)."""
+    r = xj[:, None, :, :] - xi[:, :, None, :]
+    d2 = (r * r).sum(-1) + eps2
+    w = mi[:, :, None] * mj[:, None, :] if scaled else mj[:, None, :]
+    return (w * torch.rsqrt(d2 * d2 * d2))[..., None] * r
+
+
 def _tile_both(variant: str, eps2: float):
-    """The two-sided tile of a cross phase, K2-rect's: (rows, columns) ->
-    (row sums, column sums), each (k, T, 3), signed accelerations (vpu2:
-    mass-scaled).  K13's turbo and turbo2 keep the unfused geometry
-    (``pair_inv``), not K2-rect's trimmed one."""
-    if variant in ("vpu2", "vpu"):
-        return _k2._pair_tiles(eps2, variant == "vpu", 1)
+    """The two-sided tile of a cross phase: (rows, columns) -> (row sums,
+    column sums), each (k, T, 3), signed accelerations (vpu2: mass-scaled).
+    vpu2 is K2's pair tile (its row sums in warp order), vpu K7's; K13's
+    turbo and turbo2 keep the unfused geometry (``pair_inv``), not
+    K2-rect's trimmed one."""
+    if variant == "vpu2":
+        def tiles(xi, mi, xj, mj):
+            terms = _exact_terms(eps2, xi, mi, xj, mj, True)
+            return _warp_rows(terms), -terms.sum(1)
+        return tiles
+    if variant == "vpu":
+        return _k2._pair_tiles(eps2, True, 1)
     return lambda xi, mi, xj, mj: _ktc._pair_tiles(xi, mi, xj, mj, eps2,
                                                    variant, trimmed=False)
 
 
 def _tile_i(variant: str, eps2: float, xi, mi, xj, mj, self_tile=None):
     """The one-sided tile (JAX's ``_tile_i``): the row sums (k, T, 3) of
-    the two-sided tile's i side, in its scale.  ``self_tile``: the index k
-    whose tile pairs a tile with itself, where the tensor-core variants
-    zero the self pair's weight."""
+    the two-sided tile's i side, in its scale; for vpu2 and vpu the
+    one-sided tile of ``csrc/onesided_tile.cuh`` (row sums in warp order).
+    ``self_tile``: the index k whose tile pairs a tile with itself, where
+    the tensor-core variants zero the self pair's weight."""
     if variant in ("vpu2", "vpu"):
-        return _k2._pair_tiles(eps2, variant == "vpu", 1)(xi, mi, xj, mj)[0]
+        return _warp_rows(_exact_terms(eps2, xi, mi, xj, mj,
+                                       variant == "vpu2"))
     inv = pair_inv(xi, xj, eps2)
     if self_tile is not None:
         inv[self_tile].fill_diagonal_(0.0)
@@ -234,9 +269,11 @@ def rdma_ring_plain(pos: torch.Tensor, mass: torch.Tensor, p: int,
 # -- the kernel
 
 def _launch(pos, mass, p, eps2, variant, one_sided, overlap, slot_budget,
-            phases=0):
-    """One K13 launch; ``phases`` > 0 runs the first phases only (a knob
-    for timing the ring's parts, never taken by the force path)."""
+            phases=0, lib=None):
+    """One K13 launch; ``phases`` > 0 runs the first phases only and
+    ``lib`` is another build of rdma_ring.cu (``bind``) in place of the
+    package's: knobs for timing the ring's parts and its designs, never
+    taken by the force path."""
     n = pos.shape[0]
     c = n // p
     jcw = ring_chunk(p, c, slot_budget)
@@ -247,7 +284,7 @@ def _launch(pos, mass, p, eps2, variant, one_sided, overlap, slot_budget,
     sj = new(p * jcw * c * 3) if half > 0 else None
     raw, acc, out = new(n * 3), new(n * 3), torch.empty_like(pos)
     rdma_ring.launches += 1
-    _build.check_launch("rdma_ring", _lib().nbt_rdma_ring(
+    _build.check_launch("rdma_ring", (lib or _lib()).nbt_rdma_ring(
         VARIANTS.index(variant), pos.data_ptr(), mass.data_ptr(), p, c, jcw,
         int(one_sided), int(overlap), int(phases), float(eps2),
         dpos.data_ptr(), dmass.data_ptr(), trav.data_ptr(), si.data_ptr(),
