@@ -66,15 +66,17 @@
 // descale) 16.9 ms, so a persistent schedule that keeps the i side in
 // registers across offsets would win at most those 4%.
 //
-// Left for later: wgmma accumulation of the row and column sums on the
-// tensor cores, and K2-rect's vpu2 path on this tile (it shares
-// sym_tile_core with K7, which keeps the earlier one; K13's vpu2 takes
-// this tile's core, sym_pair_core).
+// K2-rect's classic vpu2 sweep (rect_k2_pairs_kernel, below) and K13's
+// two-sided vpu2 phases run this tile's core, sym_pair_core, on two body
+// sets: a 262,144 x 262,144 rotation of the 1M ring takes 49.1 ms there
+// (65.7 on sym_tile_core), 73% of the issue rate.  Left for later: wgmma
+// accumulation of the row and column sums on the tensor cores, and the
+// fold schedule on this tile.
 //
 // The pair tile, the slot sum and the diagonal tile are in sym_common.cuh,
 // shared with the resident kernels (resident.cu); the tile math of K7, the
-// fold, K2-rect and K15 (sym_tile_core) is in sym_tile.cuh, shared with
-// K13 (rdma_ring.cu).
+// fold, K2-rect vpu and K15 (sym_tile_core) is in sym_tile.cuh, shared
+// with K13 (rdma_ring.cu).
 //
 // K7 (variant "vpu" of _make_sym_kernel: _pair_terms, _accum_i_vpu,
 // _accum_j_vpu) shares the schedule, slots and reduce pass.  Per pair it
@@ -91,8 +93,9 @@
 // tiles on superblocks of several tiles and folds the j-side sums of a
 // superblock's row tiles on chip; its kernels and their contract follow
 // K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
-// _make_rect_kernel_fold between two disjoint body sets) reuses
-// sym_tile_core over a rectangular enumeration.  K15's vpu_* ablations
+// _make_rect_kernel_fold between two disjoint body sets) runs K2's pair
+// tile (classic vpu2) or sym_tile_core (vpu, the folds) over a
+// rectangular enumeration.  K15's vpu_* ablations
 // (nbody_tpu/ops/ablation_sym.py) are SymMath values of K7's tile, with
 // the reduce passes that every K15 form shares; they come last.
 //
@@ -496,13 +499,24 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
 // the classic rect sweep, sub > 1 the fold schedule (JAX's rect fold:
 // the A superblock's row tiles sweep the sub column tiles of JB, the
 // column sums fold on chip across the row tiles, in row-tile order, into
-// one j-side slot write per (IA, JB)).  The tile is sym_tile_core, K2's or
-// K7's pair math.  Slots, chunks and the reduce pass are in
-// rect_common.cuh.  The work is the square sweep's without the diagonal:
-// FP32 FMA and MUFU issue bound, 23 (K2) or 26 (K7) flops a pair.  K15's
-// ablations of K7's tile run the classic rect sweep (sub = 1); VPU_FIX0's
-// column slot is the writer's own (IA, JB) here already, and its reduce
-// adds every column slot into B's superblock 0.
+// one j-side slot write per (IA, JB)).  The classic sweep with K2's math
+// (vpu2, sub = 1) runs K2's pair tile, sym_pair_core (rect_k2_pairs_kernel:
+// eight rows a lane in registers, one shared load and three shuffles for
+// every eight pairs, d2 as three FMAs, rsqrt_normal; the row partials
+// added in warp order, so the tile is bit-reproducible); the fold, K7's
+// math and K15's rect ablations run sym_tile_core (rect_pairs_kernel).
+// Slots, chunks and the reduce pass are in rect_common.cuh.  The work is
+// the square sweep's without the diagonal: FP32 FMA and MUFU issue bound,
+// 23 (K2) or 26 (K7) flops a pair.  On an H100 80GB HBM3 at 700 W the
+// vpu2 sweep of the 1M ring's 262,144 x 262,144 shard pair takes 49.1 ms
+// (17.5 slots a pair at 73% of the issue rate, as K2; 65.7 ms on
+// sym_tile_core), at 80 registers, no spill, three CTAs an SM, and the
+// 4-shard ring's step 425.6 ms against 491.6 (chip_smoke.py).  At
+// validate --shards 4's 2048 x 2048 (64 CTAs on 132 SMs) the card takes
+// 0.0137 ms a sweep against 0.0151; the host's launch path, ~0.03 ms,
+// is the rest.  K15's ablations of K7's tile run the classic rect sweep
+// (sub = 1); VPU_FIX0's column slot is the writer's own (IA, JB) here
+// already, and its reduce adds every column slot into B's superblock 0.
 
 template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
@@ -550,6 +564,36 @@ rect_pairs_kernel(const float* __restrict__ pos_a,
     }
 }
 
+// K2-rect vpu2's classic sweep (sub = 1) on K2's pair tile: CTA (IA, JB)
+// runs sym_pair_core with row tile IA of A and column tile JB of B, and
+// writes its row sums and its negated column sums to the slots above.
+__global__ void __launch_bounds__(SYM_TILE)
+rect_k2_pairs_kernel(const float* __restrict__ pos_a,
+                     const float* __restrict__ mass_a, long long na,
+                     const float* __restrict__ pos_b,
+                     const float* __restrict__ mass_b, long long nb,
+                     long long na_s, long long j_lo, long long jc,
+                     float eps2, float* __restrict__ si,
+                     float* __restrict__ sj) {
+    __shared__ SymPairSmem sm;
+    const long long bid = blockIdx.x;
+    const long long jk = bid / na_s;
+    const long long IA = bid - jk * na_s;
+    const int t = threadIdx.x;
+    const long long i = IA * SYM_TILE + t;
+    float3 rs, cs;
+    sym_pair_core(pos_a, mass_a, i, na, pos_b, mass_b,
+                  (j_lo + jk) * SYM_TILE + t, nb, eps2, sm, rs, cs);
+    const long long o = (jk * na_s * SYM_TILE + i) * 3;
+    si[o] = rs.x;
+    si[o + 1] = rs.y;
+    si[o + 2] = rs.z;
+    const long long oj = ((IA * jc + jk) * SYM_TILE + t) * 3;
+    sj[oj] = -cs.x;
+    sj[oj + 1] = -cs.y;
+    sj[oj + 2] = -cs.z;
+}
+
 template <int M>
 static int launch_rect_pairs(const float* pos_a, const float* mass_a,
                              long long na, const float* pos_b,
@@ -566,7 +610,8 @@ static int launch_rect_pairs(const float* pos_a, const float* mass_a,
     return (int)cudaGetLastError();
 }
 
-// The rect pair passes with K2's math (nbt_rect_sym_pairs) and K7's
+// The rect pair passes with K2's math (nbt_rect_sym_pairs: K2's pair tile
+// at sub = 1, the fold on sym_tile_core at sub > 1) and K7's
 // (nbt_rect_sym_vpu_pairs); sub = 1 classic, sub > 1 fold.
 extern "C" int nbt_rect_sym_pairs(const float* pos_a, const float* mass_a,
                                   long long na, const float* pos_b,
@@ -574,6 +619,14 @@ extern "C" int nbt_rect_sym_pairs(const float* pos_a, const float* mass_a,
                                   long long na_s, long long j_lo,
                                   long long jc, float eps2, int sub,
                                   float* si, float* sj, void* stream) {
+    if (sub == 1) {
+        if (jc <= 0 || na_s <= 0) return 0;
+        rect_k2_pairs_kernel<<<(unsigned)(na_s * jc), SYM_TILE, 0,
+                               (cudaStream_t)stream>>>(
+            pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si,
+            sj);
+        return (int)cudaGetLastError();
+    }
     return launch_rect_pairs<SYM_K2>(pos_a, mass_a, na, pos_b, mass_b, nb,
                                     na_s, j_lo, jc, eps2, sub, si, sj,
                                     stream);

@@ -34,13 +34,13 @@ __host__ __device__ constexpr int tc_tile_of(int v) {
 }
 
 // Whether a pairs kernel of forces_sym_tc.cu runs the trimmed geometry
-// (pair_inv_fma): K5 and the kernels defined as K5's values, turbop and
-// the TMM_FULL / TMM_NOSCAT controls, so that they stay bit-equal to it;
-// and K14a, turbo2.  The other variants, and K13's tiles (rdma_ring.cu),
-// keep pair_inv.
+// (pair_inv_fma) and the unrolled column loop: K5 and the kernels defined
+// as K5's values, turbop and the TMM_FULL / TMM_NOSCAT controls, so that
+// they stay bit-equal to it; K14a, turbo2; and K6, mxu.  turbof, the
+// other ablations and K13's tiles (rdma_ring.cu) keep pair_inv.
 __host__ __device__ constexpr bool tc_trimmed(int v) {
     return v == TURBO || v == TURBOP || v == TMM_FULL || v == TMM_NOSCAT ||
-           v == TURBO2;
+           v == TURBO2 || v == MXU;
 }
 
 struct SymTcSmem {
@@ -73,8 +73,9 @@ __device__ __forceinline__ void store_part(SymTcSmem& sm, int w, int k0,
 // sj_tile[3 * c] for its columns c.  The square sweep calls it with one
 // body set on both sides, the rect sweep (K2-rect) with the two sets.
 // TRIM: each pair's inv from pair_inv_fma, else from pair_inv (the values
-// differ in the last bits of d2, and so in rare bf16 roundings), and the
-// column loop unrolled twice.  Every thread of the block calls it.
+// differ in the last bits of d2, and so in rare bf16 roundings), the
+// column loop unrolled twice, and (MXU) the hi/lo split by split2_rn.
+// Every thread of the block calls it.
 template <int V, bool TRIM = false>
 __device__ __forceinline__ void sym_tc_tile(
         const float* __restrict__ pos_i, const float* __restrict__ mass_i,
@@ -121,9 +122,9 @@ __device__ __forceinline__ void sym_tc_tile(
     float wi_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
     float wj_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
     // The trimmed tile unrolls the 16-column loop twice (K5: 80
-    // registers still, three CTAs an SM; K14a: 63, four CTAs an SM;
-    // tools/sym_tc_variants.py); the others keep it rolled, their code
-    // unchanged.
+    // registers still, three CTAs an SM; K14a: 63, four CTAs an SM; K6:
+    // 67, three CTAs an SM; tools/sym_tc_variants.py); the others keep it
+    // rolled, their code unchanged.
 #pragma unroll (TRIM ? 2 : 1)
     for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
         const int c = k0 + 2 * t;
@@ -165,10 +166,16 @@ __device__ __forceinline__ void sym_tc_tile(
                     }
                 }
             } else if (V == MXU) {
+                // The trimmed tile splits both weights of a register at
+                // once (split2_rn, split_rn's bits); K13's keeps split_rn.
                 uint32_t lo[4], lot[4];
 #pragma unroll
-                for (int r = 0; r < 4; ++r)
-                    split_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);
+                for (int r = 0; r < 4; ++r) {
+                    if (TRIM)
+                        split2_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);
+                    else
+                        split_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);
+                }
                 mma_bf16(di[rb], a, bj0, bj1);
                 mma_bf16(di[rb], lo, bj0, bj1);
                 transpose_a(a, at);

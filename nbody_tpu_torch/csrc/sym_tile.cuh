@@ -1,8 +1,10 @@
-// The exact pair tile of K7, K14d, K2-rect, K15's vpu_* ablations
-// (forces_sym.cu) and K13's two-sided vpu phases (rdma_ring.cu): the pair
-// math of one 256 x 256 tile, a SymMath value folded at compile time.
-// Moved here verbatim from forces_sym.cu so that rdma_ring.cu compiles the
-// same tile.
+// The exact pair tile of K7, K14d (the fold with K2's and K7's math),
+// K2-rect vpu and both rect folds, K15's vpu_* ablations (forces_sym.cu)
+// and K13's two-sided vpu phases (rdma_ring.cu): the pair math of one
+// 256 x 256 tile, a SymMath value folded at compile time.  K2, K3/K4,
+// K2-rect's classic vpu2 sweep and K13's vpu2 phases run sym_pair_core
+// (sym_common.cuh) instead.  Moved here verbatim from forces_sym.cu so
+// that rdma_ring.cu compiles the same tile.
 
 #pragma once
 

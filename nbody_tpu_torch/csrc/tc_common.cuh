@@ -70,6 +70,18 @@ __device__ __forceinline__ void split_rn(float a, float b, uint32_t& hi,
     lo = bf16x2(al, bl);
 }
 
+// split_rn with both weights rounded at once: hi as one bf16x2 convert
+// (a in the low half, as bf16x2 packs it), hi's halves back to float32 by
+// a shift and a mask (exact), the two subtractions, and lo as one bf16x2
+// convert.  The same bits as split_rn.
+__device__ __forceinline__ void split2_rn(float a, float b, uint32_t& hi,
+                                          uint32_t& lo) {
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(hi) : "f"(b), "f"(a));
+    const float ra = __fsub_rn(a, __uint_as_float(hi << 16));
+    const float rb = __fsub_rn(b, __uint_as_float(hi & 0xffff0000u));
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(lo) : "f"(rb), "f"(ra));
+}
+
 // Writes body k's position pack into column k of packT (8 rows of pitch ld).
 __device__ __forceinline__ void pack_position(__nv_bfloat16* packT, int ld,
                                               int k, float4 b) {

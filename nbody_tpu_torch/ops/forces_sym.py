@@ -56,7 +56,11 @@ sets A and B, the cross rotation of the Newton's-third-law ring: every
 (row superblock of A, column superblock of B) once, no diagonal, the row
 and column sums in one-writer slots reduced in a fixed order
 (``csrc/rect_common.cuh`` states the layout), B's superblocks in chunks
-of ``rect_chunks``.  The mass-scaled vpu2 sums are divided by m on both
+of ``rect_chunks``.  The classic vpu2 sweep (``rect_forces_sym_vpu2``)
+runs K2's own pair tile, ``sym_pair_core`` (``csrc/sym_common.cuh``:
+eight rows a lane in registers, row partials added in warp order); the
+vpu sweep, the folds and K15's rect ablations run ``sym_tile_core``
+(``csrc/sym_tile.cuh``).  The mass-scaled vpu2 sums are divided by m on both
 sides, and a real massless body's cross sum is recomputed one-sided over
 the other set.  Its twins (``rect_forces_sym_plain``) share the square
 twins' tile functions; ``rect_sweep`` / ``rect_sweep_plain`` are shared
@@ -464,7 +468,11 @@ def rect_forces_sym_plain(pos_a, mass_a, pos_b, mass_b, eps2: float,
     """Plain PyTorch twin of K2-rect with K2's math (``k7=False``,
     variant vpu2) or K7's (variant vpu), classic (``block_u = 256``) or
     fold: the kernels' superblocks, enumeration, slot layout, fold and
-    reduction order.  Returns (acc_a, acc_b)."""
+    reduction order.  The classic vpu2 kernel runs K2's pair tile
+    (``sym_pair_core``), whose twin is K2's square twin's tile: the sum
+    within a tile differs (the kernel adds its row partials in warp
+    order), so the two agree at the exact tolerance, not bit for bit.
+    Returns (acc_a, acc_b)."""
     raw_a, raw_b = rect_sweep_plain(
         pos_a, mass_a, pos_b, mass_b, slot_budget,
         _pair_tiles(eps2, k7, block_u // SYM_TILE), block_u)

@@ -27,11 +27,11 @@ cores:
   block's geometry; the same values in the same order, so bit-equal to
   turbo, and its twin is turbo's.
 
-K5's and K14a's geometry is trimmed (``csrc/tc_common.cuh``:
+The geometry of K5, K6 and K14a is trimmed (``csrc/tc_common.cuh``:
 ``pair_inv_fma``): d2 as three fused multiply-adds with eps2 folded in,
 and the rsqrt of d2^3 without rsqrtf's subnormal fix-up.  turbop and
 K15's tmm_full / tmm_noscat controls, defined as K5's values, take it
-too; mxu, turbof and K13 keep the unfused ``pair_inv``.  The twin rounds each
+too; turbof and K13 keep the unfused ``pair_inv``.  The twin rounds each
 fused multiply-add once (``pair_inv_fma``), so it gives the kernel's
 float32 weights and bf16 roundings but for rare double-rounding ties.
 
@@ -78,7 +78,7 @@ from .forces_tiled_tc import (bf16_split, mass_folded_pack, pair_inv,
 
 VARIANTS = ("turbo", "mxu", "turbo2", "turbof", "turbop")
 # Variants whose kernels take the trimmed geometry (pair_inv_fma).
-_TRIMMED = ("turbo", "turbop", "turbo2")
+_TRIMMED = ("turbo", "turbop", "turbo2", "mxu")
 # Variants whose slot sums carry the receiving body's mass.
 _MASS_SCALED = ("turbof",)
 
@@ -115,11 +115,11 @@ def _lib():
 def pair_inv_fma(xi: torch.Tensor, xj: torch.Tensor,
                  eps2: float) -> torch.Tensor:
     """(..., Ti, 3), (..., Tj, 3) -> (..., Ti, Tj) rsqrt((|x_j - x_i|^2 +
-    eps2)^3) as the trimmed geometry of K5 and K14a rounds it: d2 = fma(dz, dz, fma(dy,
-    dy, fma(dx, dx, eps2))), each fused multiply-add rounded once to
-    float32 from its float64 value (a float32 square is exact in float64;
-    the sum then rounds twice, which differs from one rounding only at
-    rare ties)."""
+    eps2)^3) as the trimmed geometry of K5, K6 and K14a rounds it: d2 =
+    fma(dz, dz, fma(dy, dy, fma(dx, dx, eps2))), each fused multiply-add
+    rounded once to float32 from its float64 value (a float32 square is
+    exact in float64; the sum then rounds twice, which differs from one
+    rounding only at rare ties)."""
     d2 = torch.full((), torch.tensor(eps2, dtype=torch.float32).item(),
                     dtype=torch.float64, device=xi.device)
     for e in range(3):

@@ -164,7 +164,7 @@ def _tile_both(variant: str, eps2: float):
     """The two-sided tile of a cross phase: (rows, columns) -> (row sums,
     column sums), each (k, T, 3), signed accelerations (vpu2: mass-scaled).
     vpu2 is K2's pair tile (its row sums in warp order), vpu K7's; K13's
-    turbo and turbo2 keep the unfused geometry (``pair_inv``), not
+    turbo, mxu and turbo2 keep the unfused geometry (``pair_inv``), not
     K2-rect's trimmed one."""
     if variant == "vpu2":
         def tiles(xi, mi, xj, mj):

@@ -44,7 +44,9 @@ from nbody_tpu_torch.ops.forces_sym_tc import (_pair_tiles, forces_sym_mxu,
                                                forces_sym_turbop,
                                                pair_inv_fma,
                                                rect_forces_sym_tc_plain)
-from nbody_tpu_torch.ops.forces_tiled_tc import pair_inv
+from nbody_tpu_torch.ops.forces_tiled_tc import (bf16_split,
+                                                  mass_folded_pack, pair_inv,
+                                                  tile_result)
 from nbody_tpu_torch.ops.forces_torch import rect_forces
 from nbody_tpu_torch.parallel import rdma_ring
 
@@ -236,8 +238,8 @@ def test_k5_trimmed_twin_matches_jax_turbo_and_turbop(n):
 
 
 def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
-    """turbo, turbop and turbo2 take the trimmed geometry in the square
-    and rect twins; mxu keeps pair_inv; K13's turbo and turbo2 tiles keep
+    """turbo, turbop, turbo2 and mxu take the trimmed geometry in the
+    square and rect twins; K13's turbo, turbo2 and mxu tiles keep
     pair_inv, as its kernel does."""
     pos, _, mass = make_small_system(512, seed=89)
     x = torch.from_numpy(pos).view(2, 256, 3)
@@ -250,9 +252,9 @@ def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
         assert torch.equal(a, b)
     for a, b in zip(_pair_tiles(xi, mi, xj, mj, EPS2, "turbop"), fused):
         assert torch.equal(a, b)
-    for a, b in zip(_pair_tiles(xi, mi, xj, mj, EPS2, "mxu"),
-                    _pair_tiles(xi, mi, xj, mj, EPS2, "mxu", trimmed=False)):
-        assert torch.equal(a, b)
+    fused_mxu = _pair_tiles(xi, mi, xj, mj, EPS2, "mxu")
+    assert any(not torch.equal(a, b) for a, b in zip(
+        fused_mxu, _pair_tiles(xi, mi, xj, mj, EPS2, "mxu", trimmed=False)))
     pa, ma, pb, mb = (torch.from_numpy(np.ascontiguousarray(v)) for v in
                       (pos[:256], mass[:256], pos[256:], mass[256:]))
     acc_a, acc_b = rect_forces_sym_tc_plain(pa, ma, pb, mb, EPS2, "turbo")
@@ -268,6 +270,9 @@ def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
     acc_a, acc_b = rect_forces_sym_tc_plain(pa, ma, pb, mb, EPS2, "turbo2")
     assert torch.equal(acc_a, fused2[0][0])
     assert torch.equal(acc_b, fused2[1][0])
+    acc_a, acc_b = rect_forces_sym_tc_plain(pa, ma, pb, mb, EPS2, "mxu")
+    assert torch.equal(acc_a, fused_mxu[0][0])
+    assert torch.equal(acc_b, fused_mxu[1][0])
 
 
 @pytest.mark.parametrize("n", [512, 1000])
@@ -286,3 +291,66 @@ def test_k14a_trimmed_twin_matches_jax_turbo2_and_oracle(n):
     assert_close_tier(acc, ref_jax, f"K14a trimmed twin vs JAX, N={n}")
     assert_tier_gate(acc, oracle_forces(pos, mass, EPS2), "turbo",
                      f"K14a trimmed twin vs oracle, N={n}")
+
+
+@pytest.mark.parametrize("n", [512, 1000])
+def test_k6_trimmed_twin_matches_jax_mxu_and_oracle(n):
+    """The K6 twin with its trimmed geometry against JAX's mxu in
+    interpret mode at the tier tolerance (rel 1e-3 + 1e-4·max|a|) and
+    against the float64 oracle at the sym mxu gate (p99 < 5e-3, bad
+    fraction < 5e-3 at 1%): 512 is two whole tiles (the half offset of an
+    even tile count), 1000 four tiles, the last ragged."""
+    pos, _, mass = make_small_system(n, seed=91)
+    acc = forces_sym_mxu(torch.from_numpy(pos), torch.from_numpy(mass),
+                         EPS2).numpy()
+    ref_jax = np.asarray(forces_pallas_sym(
+        jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=128,
+        block_u=SYM_TILE, variant="mxu"))
+    assert_close_tier(acc, ref_jax, f"K6 trimmed twin vs JAX, N={n}")
+    assert_tier_gate(acc, oracle_forces(pos, mass, EPS2), "mxu",
+                     f"K6 trimmed twin vs oracle, N={n}")
+
+
+def _mxu_tiles(inv, xi, mi, xj, mj):
+    """K6's tile from a given inv: the hi/lo limbs against both
+    mass-folded packs, each side's per-tile correction."""
+    hi, lo = bf16_split(inv)
+    pj, pi = mass_folded_pack(xj, mj), mass_folded_pack(xi, mi)
+    return (tile_result(hi @ pj + lo @ pj, xi),
+            tile_result(hi.transpose(1, 2) @ pi + lo.transpose(1, 2) @ pi,
+                        xj))
+
+
+def _two_tiles(seed):
+    pos, _, mass = make_small_system(512, seed=seed)
+    x = torch.from_numpy(pos).view(2, 256, 3)
+    m = torch.from_numpy(mass).view(2, 256)
+    return x[:1], m[:1], x[1:], m[1:]
+
+
+def test_k6_twin_rounds_with_pair_inv_fma():
+    """The mxu twin's tile is the hi/lo product of pair_inv_fma's inv,
+    bit for bit; pair_inv's inv gives other hi/lo limbs on some pairs,
+    and so another tile."""
+    xi, mi, xj, mj = _two_tiles(92)
+    got = _pair_tiles(xi, mi, xj, mj, EPS2, "mxu")
+    fused = pair_inv_fma(xi, xj, EPS2)
+    unfused = pair_inv(xi, xj, EPS2)
+    for a, b in zip(got, _mxu_tiles(fused, xi, mi, xj, mj)):
+        assert torch.equal(a, b)
+    limbs = [torch.stack(bf16_split(inv)) for inv in (fused, unfused)]
+    assert (limbs[0] != limbs[1]).any()
+    assert any(not torch.equal(a, b) for a, b in
+               zip(got, _mxu_tiles(unfused, xi, mi, xj, mj)))
+
+
+def test_k13_mxu_twin_keeps_pair_inv():
+    """K13's mxu tile (``rdma_ring._tile_both``) keeps the unfused
+    geometry: the hi/lo product of pair_inv's inv, not K6's."""
+    xi, mi, xj, mj = _two_tiles(93)
+    ring = rdma_ring._tile_both("mxu", EPS2)(xi, mi, xj, mj)
+    for a, b in zip(ring, _mxu_tiles(pair_inv(xi, xj, EPS2), xi, mi, xj,
+                                     mj)):
+        assert torch.equal(a, b)
+    assert any(not torch.equal(a, b) for a, b in
+               zip(ring, _pair_tiles(xi, mi, xj, mj, EPS2, "mxu")))

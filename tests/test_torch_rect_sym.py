@@ -148,6 +148,29 @@ def test_rect_chunks_are_bit_invariant(variant, schedule):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("na,nb,massless", [(256, 344, ()),
+                                             (512, 488, (7, 512 + 300))])
+def test_square_k2_twin_is_self_plus_rect_vpu2(na, nb, massless):
+    """The ring's decomposition: K2's square twin on A u B equals, body by
+    body, K2's twin on A (on B) plus the A side (the B side) of
+    ``rect_forces_sym_vpu2``'s twin across them, within the exact
+    tolerance (rel 1e-4 + 1e-6·max|a|; the tiles' sums fall in another
+    order).  A rect sweep that dropped or doubled a tile would be off by
+    a whole tile's pull.  N = 600 (one tile of A, a ragged B) and N =
+    1000 with a real massless body in each set (its self row and its
+    cross row each recomputed one-sided)."""
+    pa, ma, pb, mb = (torch.from_numpy(x) for x in
+                      sets(na, nb, seed=66, massless=massless))
+    whole = forces_sym.forces_sym(torch.cat([pa, pb]), torch.cat([ma, mb]),
+                                  EPS2).numpy()
+    cross_a, cross_b = forces_sym.rect_forces_sym_vpu2(pa, ma, pb, mb, EPS2)
+    parts = torch.cat([forces_sym.forces_sym(pa, ma, EPS2) + cross_a,
+                       forces_sym.forces_sym(pb, mb, EPS2) + cross_b])
+    assert_close(parts.numpy(), whole, f"self + rect vpu2, {na}+{nb}",
+                 1e-4, 1e-6)
+    assert forces_sym.rect_forces_sym_vpu2.launches == 0
+
+
 def test_rect_chunks_plan():
     assert forces_sym.rect_chunks(512, 5, budget=24 * 512 * 2) == [
         (0, 2), (2, 2), (4, 1)]

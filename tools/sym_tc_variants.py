@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
 """Time source-edited variants of a tensor-core tier's pair pass on the card.
 
-    python3 tools/sym_tc_variants.py [--variant turbo|turbo2] [--n N]
+    python3 tools/sym_tc_variants.py [--variant turbo|turbo2|mxu] [--n N]
         [--rounds R]
 
 Copies ``nbody_tpu_torch/csrc`` once per variant into
 ``build/sym_tc_variants/<name>/``, applies the variant's text edits, builds
 ``forces_sym_tc.cu`` from each copy with the port's nvcc flags (one nvcc
 each, all at once), and times one evaluation of the tier (K5 for
-``--variant turbo``, the default; K14a for ``turbo2``: the wrapper's sweep,
-the pair passes and the reduce passes) at N bodies (default 1,048,576)
-for every variant in alternating rounds (the order reversed every other
-round).  Prints each variant's registers and spills for the tier's pair
-kernel, whether its output is bit-equal to the unedited source's, the
-rounds and their median.  The variants are the levers the redesigns
-weighed, K5's:
+``--variant turbo``, the default; K14a for ``turbo2``; K6 for ``mxu``:
+the wrapper's sweep, the pair passes and the reduce passes) at N bodies
+(default 1,048,576) for every variant in alternating rounds (the order
+reversed every other round).  Prints each variant's registers and spills
+for the tier's pair kernel and its CTAs per SM as it launches, whether
+its output is bit-equal to the unedited source's, the rounds and their
+median.  The variants are the levers the redesigns weighed, K5's:
 
 - ``base``: the sources as they are (the 16-column loop of K5's tile
   unrolled twice, 80 registers, three CTAs an SM);
@@ -33,7 +33,27 @@ and K14a's (``--variant turbo2``), each edit confined to turbo2's kernels:
   design before its redesign (its output differs by design);
 - ``unroll1``, ``unroll4``, ``ctas4``, ``ctas4_unroll1``: as K5's, for
   turbo2 alone;
-- ``trunc_bf16``: the diagnostic above.
+- ``trunc_bf16``: the diagnostic above;
+
+and K6's (``--variant mxu``), each edit confined to mxu's tile (the
+split's, the j side's, K13's mxu tile too, which this tool does not
+time):
+
+- ``base``: the sources as they are (mxu trimmed, the loop unrolled
+  twice, the hi/lo split of two weights at once by split2_rn,
+  tc_common.cuh: one bf16x2 convert a limb, hi back to float32 by a
+  shift and a mask);
+- ``untrimmed``: mxu back on pair_inv and split_rn with the loop rolled,
+  the design before its redesign (its output differs by design);
+- ``split1``: the trimmed tile with split_rn (two converts a limb and
+  the packing), which must give split2_rn's bits;
+- ``unroll1``, ``unroll4``: as K5's, for mxu alone;
+- ``ctas3``, ``ctas4``, ``ctas4_unroll1``: mxu's pair kernels held to
+  three or four CTAs an SM (at most 85 or 64 registers), the last with
+  the loop rolled;
+- ``nolot``: a diagnostic, not a candidate: the j side without the lo
+  limb (no lo transposes, one j-side mma a block), which prices the
+  second movmatrix set and its product; its output differs by design.
 
 Needs a CUDA card and nvcc; takes a few minutes on one H100.
 """
@@ -56,15 +76,15 @@ _KERNEL = ("template <int V>\n__global__ void __launch_bounds__(SYM_TILE)\n"
 _UNROLL = "#pragma unroll (TRIM ? 2 : 1)"
 
 
-def _ctas4(cond):
+def _ctas4(cond, ctas=4):
     return ("forces_sym_tc.cu", _KERNEL,
             "template <int V>\n__global__ void __launch_bounds__(SYM_TILE, "
-            f"{cond} ? 4 : 1)\nsym_tc_pairs_kernel(")
+            f"{cond} ? {ctas} : 1)\nsym_tc_pairs_kernel(")
 
 
-def _unroll(times, turbo2_only=False):
-    if turbo2_only:
-        times = f"(V == TURBO2 ? {times} : 2)"
+def _unroll(times, only=None):
+    if only:
+        times = f"(V == {only} ? {times} : 2)"
     return ("sym_tc_tile.cuh", _UNROLL,
             f"#pragma unroll (TRIM ? {times} : 1)")
 
@@ -74,8 +94,19 @@ _TRUNC_BF16 = (
     "    return bf16x2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));",
     "    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), "
     "0x7632);")
-# turbo2 back on pair_inv: tc_trimmed as it was before K14a's redesign.
-_UNTRIMMED = ("sym_tc_tile.cuh", " ||\n           v == TURBO2;", ";")
+# turbo2 or mxu back on pair_inv: tc_trimmed without it.
+_UNTRIMMED = {"turbo2": ("sym_tc_tile.cuh", "v == TURBO2 || v == MXU;",
+                         "v == MXU;"),
+              "mxu": ("sym_tc_tile.cuh", " || v == MXU;", ";")}
+_SPLIT1 = ("sym_tc_tile.cuh",
+           "split2_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);",
+           "split_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);")
+_NOLOT = ("sym_tc_tile.cuh",
+          "                transpose_a(lo, lot);\n"
+          "                mma_bf16(dj, at, bi[rb][0], bi[rb][1]);\n"
+          "                mma_bf16(dj, lot, bi[rb][0], bi[rb][1]);",
+          "                (void)lot;\n"
+          "                mma_bf16(dj, at, bi[rb][0], bi[rb][1]);")
 
 VARIANTS = {
     "turbo": {
@@ -88,17 +119,31 @@ VARIANTS = {
     },
     "turbo2": {
         "base": [],
-        "untrimmed": [_UNTRIMMED],
-        "unroll1": [_unroll(1, True)],
-        "unroll4": [_unroll(4, True)],
+        "untrimmed": [_UNTRIMMED["turbo2"]],
+        "unroll1": [_unroll(1, "TURBO2")],
+        "unroll4": [_unroll(4, "TURBO2")],
         "ctas4": [_ctas4("V == TURBO2")],
-        "ctas4_unroll1": [_ctas4("V == TURBO2"), _unroll(1, True)],
+        "ctas4_unroll1": [_ctas4("V == TURBO2"), _unroll(1, "TURBO2")],
         "trunc_bf16": [_TRUNC_BF16],
+    },
+    "mxu": {
+        "base": [],
+        "untrimmed": [_UNTRIMMED["mxu"]],
+        "split1": [_SPLIT1],
+        "unroll1": [_unroll(1, "MXU")],
+        "unroll4": [_unroll(4, "MXU")],
+        "ctas3": [_ctas4("V == MXU", 3)],
+        "ctas4": [_ctas4("V == MXU")],
+        "ctas4_unroll1": [_ctas4("V == MXU"), _unroll(1, "MXU")],
+        "nolot": [_NOLOT],
     },
 }
 # The tier's pair kernel, sym_tc_pairs_kernel<V>, by its mangled name.
 _MANGLED = {"turbo": "_Z19sym_tc_pairs_kernelILi0E",
+            "mxu": "_Z19sym_tc_pairs_kernelILi1E",
             "turbo2": "_Z19sym_tc_pairs_kernelILi2E"}
+# The tier's id in SymTcVariant (csrc/sym_tc_tile.cuh).
+_VARIANT_ID = {"turbo": 0, "mxu": 1, "turbo2": 2}
 
 
 def build(name, edits):
@@ -158,6 +203,10 @@ def main():
         for fn in (pairs_fn, "nbt_sym_tc_reduce"):
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        lib.nbt_sym_tc_pairs_ctas.argtypes = [ctypes.c_int]
+        lib.nbt_sym_tc_pairs_ctas.restype = ctypes.c_int
+        print(f"[variants] {name}: {tier} pairs kernel: "
+              f"{lib.nbt_sym_tc_pairs_ctas(_VARIANT_ID[tier])} CTAs an SM")
         libs[name] = lib
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.n + 10)
