@@ -21,22 +21,24 @@ gate and against classic K2/K7 at 8192 and 1M; K2-rect, every variant
 and both schedules, at the shard shapes 2048 x 2048 and 2144 x 1536, at
 its float64 gates and with massless bodies on both sides, and at the 1M
 ring's 262,144 x 262,144 shard pair on sampled rows against float64;
-K15, the seven bench-only ablations in both sweeps, after
-``ablation_sym.enable()``, at N = 8192 and 2048 x 6144, vpu_rc and
-tmm_full also at their float64 gates and bit for bit against K7 / K5,
-then timed at N = 1M in interleaved rounds with K7, K5 and turbop, also
-held at their control's CTAs per SM, and checked and timed at the
-262,144 x 262,144 shard pair; K13, the fused ring, every variant on 1, 2,
+K15, the seven bench-only ablations and the vpu_* forms' control
+vpu_tile (K7's math on the tile they ablate) in both sweeps, after
+``ablation_sym.enable()``, at N = 8192 and 2048 x 6144, vpu_tile, vpu_rc
+and tmm_full also at their float64 gates, vpu_rc and tmm_full bit for bit
+against vpu_tile / K5, then timed at N = 1M in interleaved rounds with K7,
+K5 and turbop, also held at their control's CTAs per SM, and checked and
+timed at the 262,144 x 262,144 shard pair; K13, the fused ring, every
+variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K2-rect vpu2
-(at 2048 x 2048 and on the 1M ring's 262,144 x 262,144 shard pair) and K6
-(at N = 8192 and 1,048,576; K2-rect mxu, which runs its tile, at
-262,144² once) against their designs before the redesign for this card
-(the sources of PARENT_COMMIT, built beside the package's) in
-alternating rounds, each held to its twin and to float64 (K6 to its tier
-gate) beside the parent's error, and holds every other kernel's SASS to
+N = 1,048,576 against the direct-form ``rect_forces``, times K11 and K7
+(at N = 8192 and 1,048,576) and K2-rect vpu (at 2048 x 2048 and on the 1M
+ring's 262,144 x 262,144 shard pair) against their designs before the
+redesign for this card (the sources of PARENT_COMMIT, built beside the
+package's) in alternating rounds, each held to its twin and to float64
+beside the parent's error (K11 also to K1's summed error, K15's control
+to the parent's K7 bit for bit), and holds every other kernel's SASS to
 theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
@@ -58,11 +60,10 @@ N = 1M with ``pallas_sym_turbo`` and with ``pallas_sym_turbo2``, K12 with
 uninterrupted run).
 Then 200 steps under the momentum and angular-momentum gates, the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
-one 4-shard K13 step at N = 1M against the single-device K2 step and the
-ring with the parent's K2-rect vpu2 (on the rows where the ring and K2
-differ, where the parent's K2-rect differs, and on sampled rows, each of
-the ring's kernels and K13 against float64; K13's phases by partial
-launches), and the bench lines.
+one 4-shard K13 step at N = 1M against the single-device K2 step (on the
+rows where the ring and K2 differ and on sampled rows, each of the ring's
+kernels, K11 on its antipodal sweep and K13 against float64; K13's
+phases by partial launches), and the bench lines.
 Any failed check raises and the script exits nonzero; without a CUDA
 card it exits 1 before doing anything.
 
@@ -222,17 +223,21 @@ RING_PART_ROWS = 256
 # Rounds of single-device K2, 4-shard ring, ring, K2 at N = 1M.
 RING_N = 1 << 20
 RING_ROUNDS = 2
-# K15, the bench-only ablations: name -> (control, float32 flops a pair,
-# tensor-core flops a pair) off the diagonal tiles, where the diagonal stays
-# the exact one-sided pass.  vpu_noj: K7's geometry and the row side only
-# (3 sub, 6 for d2 + eps2, 2 for the cube, 1 rsqrt, 1 weight, 6 for the
-# row sums: 19); vpu_fix0 K7's 26; vpu_rc K7's and 3 subtractions (29);
-# tmm_full and tmm_noscat K5's (14, 32); tmm_noj K5's geometry with one
-# weight and one product (13, 16); tmm_nomm K5's geometry and both weights
-# (14) and the two row-sum adds, no product (16, 0).
-ABLATIONS = {"vpu_noj": ("forces_sym_vpu", 19, 0),
-             "vpu_fix0": ("forces_sym_vpu", 26, 0),
-             "vpu_rc": ("forces_sym_vpu", 29, 0),
+# K15, the bench-only ablations and the vpu_* forms' control: name ->
+# (control, float32 flops a pair, tensor-core flops a pair) off the
+# diagonal tiles, where the diagonal stays the exact one-sided pass.
+# vpu_tile, the control: K7's math on the tile the vpu_* forms ablate (K7's
+# 26; its own control is K7 on the pair tile).  vpu_noj: K7's geometry and
+# the row side only (3 sub, 6 for d2 + eps2, 2 for the cube, 1 rsqrt, 1
+# weight, 6 for the row sums: 19); vpu_fix0 K7's 26; vpu_rc K7's and 3
+# subtractions (29); tmm_full and tmm_noscat K5's (14, 32); tmm_noj K5's
+# geometry with one weight and one product (13, 16); tmm_nomm K5's
+# geometry and both weights (14) and the two row-sum adds, no product
+# (16, 0).
+ABLATIONS = {"vpu_tile": ("forces_sym_vpu", 26, 0),
+             "vpu_noj": ("forces_sym_vpu_tile", 19, 0),
+             "vpu_fix0": ("forces_sym_vpu_tile", 26, 0),
+             "vpu_rc": ("forces_sym_vpu_tile", 29, 0),
              "tmm_full": ("forces_sym_turbo", 14, 32),
              "tmm_noscat": ("forces_sym_turbo", 14, 32),
              "tmm_noj": ("forces_sym_turbo", 13, 16),
@@ -283,30 +288,34 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K2-rect vpu2 (the classic rect sweep with K2's math, now
-# on K2's pair tile) and of K6 (mxu, now on the trimmed geometry; K2-rect
-# mxu runs its tile) for this card, timed against the designs before it:
-# the commit that holds them, unpacked (``git archive PARENT_COMMIT
-# nbody_tpu_torch/csrc | tar -x -C build/parent``) into PARENT_CSRC, where
-# check_redesign builds them beside the package's and times both in rounds
-# (the order reversed every other round; medians).  Without those sources
-# and without git, the rounds and the SASS comparison are skipped and say
-# so.
-PARENT_COMMIT = "cc7e613c75cea203ad163cd2a83eda8876225327"
+# The redesign of K11 (the compensated one-sided tier, now on K1's work
+# items) and of K7 (now on K2's pair tile, with K2-rect vpu's classic
+# sweep) for this card, timed against the designs before it: the commit
+# that holds them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc
+# | tar -x -C build/parent``) into PARENT_CSRC, where check_redesign builds
+# them beside the package's and times both in rounds (the order reversed
+# every other round; medians).  Without those sources and without git, the
+# rounds and the SASS comparison are skipped and say so.
+PARENT_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes: K2-rect
-# vpu2's new kernel (rect_k2_pairs_kernel, only in the new sources), and
-# K6's and K2-rect mxu's pair kernels (SymTcVariant MXU = 1), which take
-# the trimmed geometry.  rect_pairs_kernel (the folds, K2-rect vpu, K15's
-# rect ablations), K1's kernels and K13's (its mxu tile on pair_inv
-# included) keep theirs.
+# libraries keeps the parent's SASS, but those the redesign changes: K11's
+# (k11_tile_kernel and k11_reduce_kernel, only in the new sources, and the
+# kernel they replace, forces_tiled_kernel<1>, only in the parent's), K7's
+# pair kernel (sym_pairs_kernel<1>, SymMath SYM_K7, now on sym_pair_core)
+# and K2-rect vpu's classic sweep (rect_k7_pairs_kernel, new).  K1's
+# kernels, K2's (rect_k2_pairs_kernel and the resident kernels, which run
+# sym_pair_core with K2's math), the folds, K13's and K15's keep theirs,
+# and SASS_SAME pairs an old kernel with the new name it lives on under:
+# K7's former pair kernel is K15's control sym_pairs_kernel<5> (VPU_TILE).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\brect_k2_pairs_kernel\b", r"\bsym_tc_pairs_kernel<1>",
-                   r"\brect_tc_pairs_kernel<1>")
+SASS_REDESIGNED = (r"\bk11_tile_kernel\b", r"\bk11_reduce_kernel\b",
+                   r"\bforces_tiled_kernel<1>", r"\bsym_pairs_kernel<1>",
+                   r"\brect_k7_pairs_kernel\b")
+SASS_SAME = ((r"\bsym_pairs_kernel<1>", r"\bsym_pairs_kernel<5>"),)
 
 
 def check(cond, what):
@@ -466,8 +475,8 @@ def tier_gate(kname, got, ref):
 def check_tc(dev, eps2, record, smi):
     """K9, K10, K5 and K6 against their plain twins at N = 1000 and 8192,
     bit-reproducible (K5/K6 also chunk-invariant), at their tier gates
-    against a float64 direct sum (K5 also on 4096 sampled rows at N = 1M),
-    and their times at 8192 and 1M."""
+    against a float64 direct sum (K5 and K6 also on 4096 sampled rows at
+    N = 1M, K6 bit-reproducible there), and their times at 8192 and 1M."""
     import torch
     from nbody_tpu_torch.ops import forces_sym_tc, forces_tiled_tc
     from nbody_tpu_torch.ops.forces_torch import rect_forces
@@ -521,6 +530,11 @@ def check_tc(dev, eps2, record, smi):
     ref = rect_forces(pos[rows].double(), pos.double(), mass.double(), eps2,
                       chunk=64)
     tier_gate("forces_sym_turbo", acc[rows], ref)
+    acc = forces_sym_tc.forces_sym_mxu(pos, mass, eps2)
+    check(torch.equal(acc, forces_sym_tc.forces_sym_mxu(pos, mass, eps2)),
+          "forces_sym_mxu N=1M: not bit-reproducible")
+    tier_gate("forces_sym_mxu", acc[rows], ref)
+    del acc
     for kname, (kernel, _) in tiers.items():
         record[kname]["ms_1m"] = time_ms(lambda: kernel(pos, mass, eps2),
                                          dev, iters=2, warmup=1)
@@ -953,10 +967,11 @@ def check_rect(dev, eps2, record, smi):
                 ref[1][[5, 1535]])
 
     # The 1M ring's shard pair, where B's column superblocks take three
-    # slot chunks: every variant's acc_a and acc_b on RECT_1M_ROWS sampled
-    # rows of each side against a float64 direct sum of the cross pairs
-    # (the exact variants at the exact tolerance, the tensor-core ones at
-    # their tiers' gates; turbop bit-equal to turbo), then its time.
+    # slot chunks: every variant bit-reproducible, its acc_a and acc_b on
+    # RECT_1M_ROWS sampled rows of each side against a float64 direct sum
+    # of the cross pairs (the exact variants at the exact tolerance, the
+    # tensor-core ones at their tiers' gates; turbop bit-equal to turbo),
+    # then its time.
     n = RECT_1M
     pa, ma = bodies(n, 41, dev)
     pb, mb = bodies(n, 42, dev)
@@ -970,7 +985,9 @@ def check_rect(dev, eps2, record, smi):
     outs = {}
     for kname, (variant, _, _, _) in RECT_KERNELS.items():
         got = outs[variant] = run(kname, pa, ma, pb, mb)
-        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(
+            got, run(kname, pa, ma, pb, mb))),
+            f"{kname} {n}x{n}: not bit-reproducible")
         if variant == "turbop":
             check(all(torch.equal(x, y) for x, y in zip(got, outs["turbo"])),
                   f"rect turbop {n}x{n}: differs from turbo")
@@ -1001,17 +1018,19 @@ def ablation_bound(name, n, rect_n=None):
 
 def check_ablations(dev, eps2, record, smi):
     """K15 (``ablation_sym.enable()``, then ``forces_pallas_sym`` and
-    ``rect_forces_sym`` with an ablation variant): each of the seven forms
-    of both sweeps against its plain twin (triangular at N = 8192 seed 0,
-    rect at 2048 x 6144), bit-reproducible and the same with one offset /
-    column superblock a slot chunk, and (triangular) the same at the
-    control's CTAs per SM; vpu_rc and tmm_full also against a float64
-    direct sum at the exact and the turbo gate, and bit-equal to K7 and
-    K5; the none forms give B nothing.  Then the sweep at N = 1M (K7 and
-    the vpu_* forms, K5, turbop and the tmm_* forms, and each ablation at
-    its control's CTAs per SM) in ABLATION_ROUNDS interleaved rounds, the
-    outputs of vpu_rc and tmm_full bit-equal to K7 and K5 and each pinned
-    form's to its own; and each rect form at the 1M ring's 262,144 x
+    ``rect_forces_sym`` with an ablation variant or the vpu_* forms'
+    control vpu_tile): each of the eight forms of both sweeps against its
+    plain twin (triangular at N = 8192 seed 0, rect at 2048 x 6144),
+    bit-reproducible and the same with one offset / column superblock a
+    slot chunk, and (triangular) the same at the control's CTAs per SM;
+    vpu_tile, vpu_rc and tmm_full also against a float64 direct sum at the
+    exact and the turbo gate, vpu_rc and tmm_full bit-equal to vpu_tile
+    and K5, vpu_tile within the exact tolerance of K7; the none forms give
+    B nothing.  Then the sweep at N = 1M (K7, vpu_tile and the vpu_*
+    forms, K5, turbop and the tmm_* forms, and each ablation at its
+    control's CTAs per SM) in ABLATION_ROUNDS interleaved rounds, the
+    outputs of vpu_rc and tmm_full bit-equal to vpu_tile and K5 and each
+    pinned form's to its own; and each rect form at the 1M ring's 262,144 x
     262,144 shard pair beside K2-rect vpu and turbo, checked there on
     sampled rows and timed once."""
     import torch
@@ -1034,7 +1053,7 @@ def check_ablations(dev, eps2, record, smi):
     n_pad = -(-n // 256) * 256
     na, nb = ABLATION_RECT
     pa, ma, pb, mb = ablation_rect_sets(dev)
-    for name in ab.ABLATION_NAMES:
+    for name in ab.FORMS:
         got = forces_pallas_sym(pos, mass, eps2, variant=name)
         plain = ab.forces_sym_ablation_plain(pos, mass, eps2, name)
         err = compare(f"forces_sym_{name} vs plain, N={n}", got, plain,
@@ -1093,21 +1112,25 @@ def check_ablations(dev, eps2, record, smi):
     with ab.control_occupancy():
         print(ab.ctas_per_sm())
 
-    # The two exact-physics forms: float64 gates, and against the controls.
+    # The exact-physics forms: float64 gates, and against the controls.
     ref = rect_forces(pos.double(), pos.double(), mass.double(), eps2)
+    ctl = forces_pallas_sym(pos, mass, eps2, variant=ab.CONTROL)
     rc = forces_pallas_sym(pos, mass, eps2, variant="vpu_rc")
     full = forces_pallas_sym(pos, mass, eps2, variant="tmm_full")
+    tier_gate("forces_sym_vpu", ctl, ref)
     tier_gate("forces_sym_vpu", rc, ref)
     tier_gate("forces_sym_turbo", full, ref)
-    k7 = k2.forces_sym_vpu(pos, mass, eps2)
-    check(torch.equal(rc, k7), f"vpu_rc, N={n}: differs from K7")
+    check(torch.equal(rc, ctl), f"vpu_rc, N={n}: differs from vpu_tile")
+    compare(f"forces_sym_vpu_tile vs K7, N={n}", ctl,
+            k2.forces_sym_vpu(pos, mass, eps2))
     check(torch.equal(full, ktc.forces_sym_turbo(pos, mass, eps2)),
           f"tmm_full, N={n}: differs from K5")
-    print(f"[check] N={n}: forces_sym_vpu_rc bit-equal to K7, "
+    print(f"[check] N={n}: forces_sym_vpu_rc bit-equal to vpu_tile, "
           f"forces_sym_tmm_full to K5")
     ra = rect_forces(pa.double(), pb.double(), mb.double(), eps2)
     rb = rect_forces(pb.double(), pa.double(), ma.double(), eps2)
-    for name, kname in (("vpu_rc", "forces_sym_vpu"),
+    for name, kname in ((ab.CONTROL, "forces_sym_vpu"),
+                        ("vpu_rc", "forces_sym_vpu"),
                         ("tmm_full", "forces_sym_turbo")):
         got = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name)
         for g, r in zip(got, (ra, rb)):
@@ -1126,6 +1149,7 @@ def check_ablations(dev, eps2, record, smi):
                 return forces_pallas_sym(p, m, e, variant=v)
         return f
     forms = {"forces_sym_vpu": k2.forces_sym_vpu,
+             "forces_sym_vpu_tile": form(ab.CONTROL),
              **{f"forces_sym_{v}": form(v) for v in ab.ABLATION_NAMES[:3]},
              "forces_sym_turbo": ktc.forces_sym_turbo,
              "forces_sym_turbop": ktc.forces_sym_turbop,
@@ -1137,15 +1161,15 @@ def check_ablations(dev, eps2, record, smi):
         out[kname] = f(pos, mass, eps2)
         check(bool(torch.isfinite(out[kname]).all()),
               f"{kname} N=1M: non-finite")
-    check(torch.equal(out["forces_sym_vpu_rc"], out["forces_sym_vpu"]),
-          "vpu_rc N=1M: differs from K7")
+    check(torch.equal(out["forces_sym_vpu_rc"], out["forces_sym_vpu_tile"]),
+          "vpu_rc N=1M: differs from vpu_tile")
     check(torch.equal(out["forces_sym_tmm_full"], out["forces_sym_turbo"]),
           "tmm_full N=1M: differs from K5")
     for v in ab.ABLATION_NAMES:
         check(torch.equal(out[f"forces_sym_{v} pinned"],
                           out[f"forces_sym_{v}"]),
               f"{v} N=1M: differs at its control's occupancy")
-    print("[check] N=1M: forces_sym_vpu_rc bit-equal to K7, "
+    print("[check] N=1M: forces_sym_vpu_rc bit-equal to vpu_tile, "
           "forces_sym_tmm_full to K5, each ablation to itself pinned")
     del out
     times = {k: [] for k in forms}
@@ -1155,11 +1179,15 @@ def check_ablations(dev, eps2, record, smi):
                                                              eps2),
                                         dev, iters=1, warmup=0))
     for kname, ts in times.items():
-        control = ("forces_sym_vpu" if kname.startswith("forces_sym_vpu")
-                   else "forces_sym_turbo")
+        name = kname[len("forces_sym_"):]
+        # Each form against its control (K7 against vpu_tile, the tile it
+        # left; K5 and turbop against K5).
+        control = (ABLATIONS[name.removesuffix(" pinned")][0]
+                   if name.removesuffix(" pinned") in ABLATIONS else
+                   "forces_sym_vpu_tile" if name == "vpu" else
+                   "forces_sym_turbo")
         ratios = [c / x for c, x in zip(times[control], ts)]
         med = statistics.median(ts)
-        name = kname[len("forces_sym_"):]
         if name in ABLATIONS:
             record[kname]["ms_1m"] = med
             record[kname]["bound_ms_1m"] = ablation_bound(name, n)[0]
@@ -1185,18 +1213,18 @@ def check_ablations(dev, eps2, record, smi):
     ref_b = rect_forces(pb[rb].double(), pa.double(), ma.double(), eps2,
                         chunk=64)
     outs = {}
-    for variant in ("vpu", "turbo", *ab.ABLATION_NAMES):
+    for variant in ("vpu", "turbo", ab.CONTROL, *ab.ABLATION_NAMES):
         kname = f"rect_forces_sym_{variant}"
         got = outs[variant] = rect_forces_sym(pa, ma, pb, mb, eps2,
                                               variant=variant)
-        if variant in ab.ABLATION_NAMES:
+        if variant in ab.FORMS:
             what = f"{kname}, {n}x{n}"
             twin = ab.rect_forces_sym_ablation_plain(
                 pa[ra], ma[ra], pb, mb, eps2, variant)[0]
             compare(f"{what} acc_a vs plain, {RECT_1M_ROWS} sampled rows",
                     got[0][ra], twin, **tol(variant))
             mode = ab.J_MODE[variant]
-            control = "vpu" if variant.startswith("vpu") else "turbo"
+            control = ab.CONTROL if variant.startswith("vpu") else "turbo"
             if mode == "none":
                 check(not bool(got[1].any()), f"{what}: B got a force")
             elif mode == "fix0":
@@ -1206,7 +1234,7 @@ def check_ablations(dev, eps2, record, smi):
                         cols, **tol(variant))
                 check(not bool(got[1][256:].any()),
                       f"{what}: B beyond superblock 0 got a force")
-            elif variant == "vpu_rc":
+            elif variant in ("vpu_rc", ab.CONTROL):
                 compare(f"{what} acc_b vs float64, {RECT_1M_ROWS} sampled "
                         f"rows", got[1][rb], ref_b)
             else:
@@ -1214,7 +1242,7 @@ def check_ablations(dev, eps2, record, smi):
         ms = time_ms(lambda: rect_forces_sym(pa, ma, pb, mb, eps2,
                                              variant=variant), dev,
                      iters=1, warmup=0)
-        if variant in ab.ABLATION_NAMES:
+        if variant in ab.FORMS:
             record[kname]["ms_1m"] = ms
             record[kname]["bound_ms_1m"] = ablation_bound(variant, n, n)[0]
         print(f"[1M ring pair ablation] {kname}: {ms:.3f} ms per {n} x {n} "
@@ -1724,6 +1752,8 @@ def start_sass_compare(csrc):
            "--ops"]
     for pattern in SASS_REDESIGNED:
         cmd += ["--allow", pattern]
+    for old, new in SASS_SAME:
+        cmd += ["--same", old, new]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                             start_new_session=True)
 
@@ -1749,14 +1779,14 @@ def finish_sass_compare(job):
     for line in lines:
         name = line.strip().removeprefix("new: ").removeprefix("old: ")
         if ("==" in line or "DIFFERS" in line or "MISSING" in line
-                or "ptxas_compare" in line
+                or "ptxas_compare" in line or "same:" in line
                 or any(p.search(name) for p in redesigned)):
             print(f"[sass] {line.strip()}")
     kept = sum("identical" in line for line in lines)
     print(f"[sass] {kept} kernels of {', '.join(SASS_LIBS)} with the "
           f"parent's SASS; allowed to change: {', '.join(SASS_REDESIGNED)}")
     check(rc == 0, "tools/ptxas_compare.py: a kernel outside the redesign "
-          "changed its SASS")
+          "changed its SASS, or a SASS_SAME pair differs")
 
 
 def build_parent(csrc, names):
@@ -1830,42 +1860,25 @@ def report_rounds(what, times, smi):
     return med
 
 
-# The parent's builds of forces_sym and forces_sym_tc (check_redesign), for
-# ring_1m and ring_parts; the C entries each one binds.
-PARENT_LIBS = {}
-PARENT_FNS = {"forces_sym": ("nbt_rect_sym_pairs", "nbt_rect_reduce"),
-              "forces_sym_tc": ("nbt_sym_mxu_pairs", "nbt_sym_tc_reduce",
-                                "nbt_rect_mxu_pairs", "nbt_rect_tc_reduce")}
+# The parent's C entries check_redesign binds, by library: K11's took no
+# slots before its redesign (pos_i, ni, pos_j, mass_j, nj, eps2, acc,
+# stream); K7's and K2-rect vpu's keep the package's signatures.
+PARENT_FNS = {"forces_tiled": ("nbt_forces_tiled_kahan",),
+              "forces_sym": ("nbt_sym_vpu_pairs", "nbt_sym_vpu_reduce",
+                             "nbt_rect_sym_vpu_pairs", "nbt_rect_reduce")}
 
 
-def rect_vpu2_of(lib, pa, ma, pb, mb, eps2):
-    """One classic K2-rect vpu2 sweep through ``lib``'s kernels (the
-    package's or the parent's build of forces_sym.cu), on the wrapper's
-    host path without its checks and counter."""
-    from nbody_tpu_torch.ops import forces_sym as k2
-    return k2.rect_sweep("rect_forces_sym_vpu2", pa, ma, pb, mb, eps2,
-                         k2.SLOT_BUDGET_BYTES, lib.nbt_rect_sym_pairs,
-                         lib.nbt_rect_reduce, True, k2.SYM_TILE, (1,))
-
-
-@contextlib.contextmanager
-def parent_k2_rect():
-    """While open, K2-rect vpu2's wrapper (and so the N3L ring's cross
-    rotations) launches the parent's pair and reduce passes; every other
-    entry of the library is the package's."""
-    from nbody_tpu_torch.ops import forces_sym as k2
-    load, parent = k2._lib, PARENT_LIBS["forces_sym"]
-
-    class Shim:
-        def __getattr__(self, name):
-            return getattr(parent if name in PARENT_FNS["forces_sym"]
-                           else load(), name)
-    shim = Shim()
-    k2._lib = lambda: shim
-    try:
-        yield
-    finally:
-        k2._lib = load
+def parent_k11(lib, pos, mass, eps2):
+    """One evaluation of the parent's K11 (one thread a row) through its
+    own C entry, on a host path as lean as the package's ``sweep``."""
+    import torch
+    from nbody_tpu_torch.ops import _build
+    acc = torch.empty_like(pos)
+    n = pos.shape[0]
+    _build.check_launch("parent forces_tiled_kahan", lib.nbt_forces_tiled_kahan(
+        pos.data_ptr(), n, pos.data_ptr(), mass.data_ptr(), n, float(eps2),
+        acc.data_ptr(), _build.stream_handle(acc)))
+    return acc
 
 
 def row_errors(got, ref):
@@ -1875,51 +1888,51 @@ def row_errors(got, ref):
 
 
 def check_redesign(dev, eps2, record, smi, csrc):
-    """K2-rect vpu2 and K6 against the parent's designs on the same inputs,
-    in alternating rounds: K2-rect vpu2 at 2048 x 2048 (a shard pair of
-    validate --shards 4 at N = 8192) and at 262,144 x 262,144 (a shard
-    pair of the 1M ring), K6 at N = 8192 and 1,048,576, and K2-rect mxu
-    (which runs K6's tile) at 262,144² once each.  K2-rect vpu2 is held to
-    its twin at 2048² and to float64 at the exact tolerance (every row at
-    2048², 2048 sampled rows a side at 262,144²), with the parent's error
-    beside it, in place of bit-equality (the association changes); K6 to
-    its twin at 8192 and to the tier gate against float64 (every row at
-    8192, 2048 sampled rows at 1M), K2-rect mxu to the gate on 2048
-    sampled rows a side, each with the parent's p99 and bad fraction
-    beside it.  Both sides of a round take one host path (the wrapper's
-    sweep without its checks and counter, ``lib`` the package's build or
-    the parent's), so that at the small shapes, where the host's launch
-    path takes most of the time, the two differ in their kernels only;
-    the wrapper's result is the package's sweep's bit for bit."""
+    """K11, K7 and K2-rect vpu against the parent's designs on the same
+    inputs, in alternating rounds: K11 and K7 at N = 8192 and 1,048,576,
+    K2-rect vpu at 2048 x 2048 (a shard pair of validate --shards 4 at
+    N = 8192) and at 262,144 x 262,144 (a shard pair of the 1M ring), seeds
+    41 and 42.  Each new kernel is held to its twin at the small shape, is
+    bit-reproducible (the wrapper's result is its sweep's), and is held to
+    float64 (every row at the small shape, 2048 sampled rows at the large
+    one) beside the parent's error: K11 at the exact tier's gate with a
+    summed |error| no larger than K1's, K7 at its gate (5e-4), K2-rect vpu
+    at the exact tolerance.  K15's control (vpu_tile) must be the parent's
+    K7 bit for bit.  Both sides of a round take one host path (the sweep
+    without the wrappers' checks and counters, the package's build or the
+    parent's), so that at the small shapes, where the host's launch path
+    takes most of the time, the two differ in their kernels only; there
+    the card's time alone is taken too."""
     import ctypes
     import torch
+    from nbody_tpu_torch.ops import ablation_sym as ab
     from nbody_tpu_torch.ops import forces_sym as k2
-    from nbody_tpu_torch.ops import forces_sym_tc as ktc
+    from nbody_tpu_torch.ops import forces_tiled as k1
     from nbody_tpu_torch.ops.forces_torch import rect_forces
-    from nbody_tpu_torch.utils.timing import time_ms
     t0 = time.perf_counter()
-    new_libs = {"forces_sym": k2._lib(), "forces_sym_tc": ktc._lib()}
+    new_libs = {"forces_tiled": k1._lib(), "forces_sym": k2._lib()}
     libs = build_parent(csrc, tuple(PARENT_FNS))
-    for name, lib in new_libs.items():
-        for fn in PARENT_FNS[name]:
-            getattr(libs[name], fn).argtypes = getattr(lib, fn).argtypes
+    for fn in PARENT_FNS["forces_sym"]:
+        getattr(libs["forces_sym"], fn).argtypes = getattr(
+            new_libs["forces_sym"], fn).argtypes
+    c_ll, c_p = ctypes.c_longlong, ctypes.c_void_p
+    libs["forces_tiled"].nbt_forces_tiled_kahan.argtypes = [
+        c_p, c_ll, c_p, c_p, c_ll, ctypes.c_float, c_p, c_p]
+    for name, fns in PARENT_FNS.items():
+        for fn in fns:
             getattr(libs[name], fn).restype = ctypes.c_int
-    PARENT_LIBS.update(libs)
     sample = torch.Generator().manual_seed(13)
 
     def rows_of(n):
         return (torch.arange(n, device=dev) if n <= 8192 else
                 torch.randperm(n, generator=sample)[:2048].sort()[0].to(dev))
 
-    def gate_beside(kname, what, new, old, ref):
-        tier_gate(kname, new, ref)
-        p99, frac = gate_numbers(new, ref)
-        p99_old, frac_old = gate_numbers(old, ref)
-        print(f"[redesign] {what} vs float64, {new.shape[0]} rows: p99 "
-              f"{p99:.3e}, bad fraction {frac:.3e}; parent p99 "
-              f"{p99_old:.3e}, bad fraction {frac_old:.3e}; p99 new/parent "
-              f"{p99 / p99_old:.4f}")
-        return p99, p99_old
+    def errors_beside(tag, rows, new, old, ref):
+        e_new, e_old = row_errors(new, ref), row_errors(old, ref)
+        print(f"[redesign] {tag}: |err| / |a| against float64 on {rows} "
+              f"rows, max / median: new {e_new[0]:.3e} / {e_new[1]:.3e}, "
+              f"parent {e_old[0]:.3e} / {e_old[1]:.3e}")
+        return e_new, e_old
 
     def rounds(kname, tag, key, old, new, iters):
         """New against parent in rounds, into record[kname]; at the small
@@ -1936,24 +1949,100 @@ def check_redesign(dev, eps2, record, smi, csrc):
             record[kname].update({"parent_device_ms": med["parent"],
                                   "new_device_ms": med["new"]})
 
-    # K2-rect vpu2 at the two shard pairs.
+    for n, key, iters in ((8192, "", 20), (1 << 20, "_1m", 1)):
+        pos, mass = bodies(n, 41, dev)
+        rows = rows_of(n)
+        ref = rect_forces(pos[rows].double(), pos.double(), mass.double(),
+                          eps2, chunk=64)
+
+        # K11: K1's work items and the merged slots.
+        tag = f"K11 kahan N={n}"
+
+        def new():
+            return k1.sweep(new_libs["forces_tiled"], pos, pos, mass, eps2,
+                            True)
+
+        def old():
+            return parent_k11(libs["forces_tiled"], pos, mass, eps2)
+        got, was = k1.forces_tiled_kahan(pos, mass, eps2), old()
+        check(torch.equal(got, new()), f"{tag}: not bit-reproducible, or "
+              f"the wrapper's result is not its sweep's")
+        if n <= 8192:
+            compare(f"{tag} vs plain", got, k1.rect_forces_tiled_plain(
+                pos, pos, mass, eps2, kahan=True))
+        tier_gate("forces_tiled_kahan", got[rows], ref)
+        plain_k1 = k1.forces_tiled(pos, mass, eps2)[rows]
+        check(not torch.equal(got[rows], plain_k1),
+              f"{tag}: equals K1, the compensation folded away")
+        err = {k: float((v.double() - ref).abs().sum()) for k, v in (
+            ("new", got[rows]), ("parent", was[rows]), ("K1", plain_k1))}
+        print(f"[redesign] {tag}: summed |error| against float64 on "
+              f"{len(rows)} rows: new {err['new']:.6e}, parent "
+              f"{err['parent']:.6e}, K1 {err['K1']:.6e}")
+        check(err["new"] <= err["K1"], f"{tag}: less accurate than K1")
+        errors_beside(tag, len(rows), got[rows], was[rows], ref)
+        rounds("forces_tiled_kahan", tag, key, old, new, iters)
+        del got, was, plain_k1
+
+        # K7: K2's pair tile with K7's weights.
+        tag = f"K7 vpu N={n}"
+
+        def run(lib):
+            return k2.sweep("forces_sym_vpu", pos, mass, eps2,
+                            k2.SLOT_BUDGET_BYTES, lib.nbt_sym_vpu_pairs,
+                            lib.nbt_sym_vpu_reduce)
+
+        def new():
+            return run(new_libs["forces_sym"])
+
+        def old():
+            return run(libs["forces_sym"])
+        got, was = k2.forces_sym_vpu(pos, mass, eps2), old()
+        check(torch.equal(got, new()), f"{tag}: not bit-reproducible, or "
+              f"the wrapper's result is not its sweep's")
+        if n <= 8192:
+            compare(f"{tag} vs plain", got,
+                    k2.forces_sym_vpu_plain(pos, mass, eps2))
+            check(torch.equal(was, ab.forces_sym_ablation(pos, mass, eps2,
+                                                          ab.CONTROL)),
+                  f"{tag}: K15's control vpu_tile is not the parent's K7")
+            print(f"[redesign] {tag}: K15's control vpu_tile bit-equal to "
+                  f"the parent's K7")
+        tier_gate("forces_sym_vpu", got[rows], ref)
+        p99, frac = gate_numbers(got[rows], ref)
+        p99_old, frac_old = gate_numbers(was[rows], ref)
+        print(f"[redesign] {tag} vs float64, {len(rows)} rows: p99 {p99:.3e}, "
+              f"bad fraction {frac:.3e}; parent p99 {p99_old:.3e}, bad "
+              f"fraction {frac_old:.3e}")
+        errors_beside(tag, len(rows), got[rows], was[rows], ref)
+        rounds("forces_sym_vpu", tag, key, old, new, iters)
+        del pos, mass, got, was, ref
+
+    # K2-rect vpu's classic sweep at the two shard pairs.
     for n, key, iters in ((2048, "", 20), (RECT_1M, "_1m", 2)):
-        tag = f"K2-rect vpu2 {n}x{n}"
+        tag = f"K2-rect vpu {n}x{n}"
         pa, ma = bodies(n, 41, dev)
         pb, mb = bodies(n, 42, dev)
 
+        def rect(lib):
+            return k2.rect_sweep("rect_forces_sym_vpu", pa, ma, pb, mb, eps2,
+                                 k2.SLOT_BUDGET_BYTES,
+                                 lib.nbt_rect_sym_vpu_pairs,
+                                 lib.nbt_rect_reduce, False, k2.SYM_TILE,
+                                 (1,))
+
         def new():
-            return rect_vpu2_of(new_libs["forces_sym"], pa, ma, pb, mb, eps2)
+            return rect(new_libs["forces_sym"])
 
         def old():
-            return rect_vpu2_of(libs["forces_sym"], pa, ma, pb, mb, eps2)
-        got, was = k2.rect_forces_sym_vpu2(pa, ma, pb, mb, eps2), old()
+            return rect(libs["forces_sym"])
+        got, was = k2.rect_forces_sym_vpu(pa, ma, pb, mb, eps2), old()
         check(all(torch.equal(x, y) for x, y in zip(got, new())),
               f"{tag}: not bit-reproducible, or the wrapper's result is "
               f"not its sweep's")
         if n <= 8192:
             for side, g, w in zip("ab", got, k2.rect_forces_sym_plain(
-                    pa, ma, pb, mb, eps2)):
+                    pa, ma, pb, mb, eps2, True)):
                 compare(f"{tag} acc_{side} vs plain", g, w)
         for side, g, o, (xi, xj, mj) in zip("ab", got, was,
                                             ((pa, pb, mb), (pb, pa, ma))):
@@ -1962,77 +2051,10 @@ def check_redesign(dev, eps2, record, smi, csrc):
                               eps2, chunk=64)
             compare(f"{tag} acc_{side}, new vs float64 ({len(rows)} rows)",
                     g[rows], ref)
-            e_new, e_old = row_errors(g[rows], ref), row_errors(o[rows], ref)
-            print(f"[redesign] {tag} acc_{side}: |err| / |a| against "
-                  f"float64 on {len(rows)} rows, max / median: new "
-                  f"{e_new[0]:.3e} / {e_new[1]:.3e}, parent {e_old[0]:.3e} "
-                  f"/ {e_old[1]:.3e}")
-        rounds("rect_forces_sym_vpu2", tag, key, old, new, iters)
+            errors_beside(f"{tag} acc_{side}", len(rows), g[rows], o[rows],
+                          ref)
+        rounds("rect_forces_sym_vpu", tag, key, old, new, iters)
         del pa, ma, pb, mb, got, was
-
-    # K6 at N = 8192 and 1M.
-    for n, key, iters in ((8192, "", 20), (1 << 20, "_1m", 1)):
-        tag = f"K6 mxu N={n}"
-        pos, mass = bodies(n, 6, dev)
-
-        def run(lib):
-            return k2.sweep("forces_sym_mxu", pos, mass, eps2,
-                            k2.SLOT_BUDGET_BYTES, lib.nbt_sym_mxu_pairs,
-                            lib.nbt_sym_tc_reduce)
-
-        def new():
-            return run(new_libs["forces_sym_tc"])
-
-        def old():
-            return run(libs["forces_sym_tc"])
-        got, was = ktc.forces_sym_mxu(pos, mass, eps2), old()
-        check(torch.equal(got, new()), f"{tag}: not bit-reproducible, or "
-              f"the wrapper's result is not its sweep's")
-        if n <= 8192:
-            compare(f"{tag} vs plain", got,
-                    ktc.forces_sym_tc_plain(pos, mass, eps2, "mxu"),
-                    rel_tol=TC_REL_TOL, abs_floor=TC_ABS_FLOOR)
-        rows = rows_of(n)
-        p99, p99_old = gate_beside(
-            "forces_sym_mxu", tag, got[rows], was[rows],
-            rect_forces(pos[rows].double(), pos.double(), mass.double(),
-                        eps2, chunk=64))
-        rounds("forces_sym_mxu", tag, key, old, new, iters)
-        record["forces_sym_mxu"].update({f"p99{key}": p99,
-                                         f"parent_p99{key}": p99_old})
-        del pos, mass, got, was
-
-    # K2-rect mxu at the 1M ring's shard pair, once each.
-    n, tag = RECT_1M, f"K2-rect mxu {RECT_1M}x{RECT_1M}"
-    pa, ma = bodies(n, 41, dev)
-    pb, mb = bodies(n, 42, dev)
-
-    def rect(lib):
-        return k2.rect_sweep("rect_forces_sym_mxu", pa, ma, pb, mb, eps2,
-                             k2.SLOT_BUDGET_BYTES, lib.nbt_rect_mxu_pairs,
-                             lib.nbt_rect_tc_reduce, False)
-
-    def new():
-        return rect(new_libs["forces_sym_tc"])
-
-    def old():
-        return rect(libs["forces_sym_tc"])
-    got, was = ktc.rect_forces_sym_mxu(pa, ma, pb, mb, eps2), old()
-    check(all(torch.equal(x, y) for x, y in zip(got, new())),
-          f"{tag}: not bit-reproducible, or the wrapper's result is not "
-          f"its sweep's")
-    for side, g, o, (xi, xj, mj) in zip("ab", got, was,
-                                        ((pa, pb, mb), (pb, pa, ma))):
-        rows = rows_of(n)
-        gate_beside("forces_sym_mxu", f"{tag} acc_{side}", g[rows], o[rows],
-                    rect_forces(xi[rows].double(), xj.double(), mj.double(),
-                                eps2, chunk=64))
-    t_old = time_ms(old, dev, iters=2, warmup=1)
-    t_new = time_ms(new, dev, iters=2, warmup=1)
-    print(f"[redesign] {tag}: parent {t_old:.4f} ms, new {t_new:.4f} ms, "
-          f"new/parent {t_new / t_old:.4f} (once each) ({smi})")
-    record["rect_forces_sym_mxu"].update({"parent_ms_1m": t_old,
-                                          "new_ms_1m": t_new})
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2289,7 +2311,7 @@ def main_path(counts, reset):
     from nbody_tpu_torch.ops import ablation_sym
     ablation_sym.enable()
     pa, ma, pb, mb = ablation_rect_sets("cuda")
-    for variant in ablation_sym.ABLATION_NAMES:
+    for variant in ablation_sym.FORMS:
         for kernel, call in (
                 (f"forces_sym_{variant}", lambda: [forces_pallas_sym(
                     state.pos, state.mass, cfg.eps2, variant=variant)]),
@@ -2388,12 +2410,11 @@ def main_path(counts, reset):
 def ring_1m(dev, smi, record):
     """One N3L-ring step at N = RING_N on 4 shards of this card and one
     K13 step (``--comm rdma``) against the single-device K2 step, in rounds
-    of K2, ring, the ring with the parent's K2-rect vpu2 (where
-    check_redesign built it), K13, K13, the parent's ring, ring, K2 (one
-    card moves no bytes between shards: the rings' extra time is their
-    schedules), and the ring's parts at the shard shape: K2 on one
-    262,144-body shard, K2-rect vpu2 on one 262,144 x 262,144 rotation and
-    K1 on one antipodal sweep; K13's phases by partial launches."""
+    of K2, ring, K13, K13, ring, K2 (one card moves no bytes between
+    shards: the rings' extra time is their schedules), and the ring's parts
+    at the shard shape: K2 on one 262,144-body shard, K2-rect vpu2 on one
+    262,144 x 262,144 rotation and K1 on one antipodal sweep; K13's phases
+    by partial launches."""
     import numpy as np
     import torch
     import nbody_tpu_torch as nt
@@ -2476,18 +2497,7 @@ def ring_1m(dev, smi, record):
             check(float(e.max()) <= RING_PART_GATES["ring"],
                   f"ring 1M: {what} off by {float(e.max()):.3e} of |a|")
     ring_parts(state, cfg, p, ring_acc, diff_rows[:512], dev)
-    # The ring with the parent's K2-rect vpu2 on its cross rotations
-    # (check_redesign's build), in the same rounds.
-    def parent_ring_step():
-        with parent_k2_rect():
-            return ring_step()
-    order = [("single", one), ("ring", ring_step)]
-    if PARENT_LIBS:
-        compare("4-shard ring with the parent's K2-rect vpu2 vs the ring, "
-                "N=1M, acc, at 1%", parent_ring_step().acc, ring_acc,
-                rel_tol=0.01)
-        order.append(("parent ring", parent_ring_step))
-    order.append(("rdma", rdma_step))
+    order = [("single", one), ("ring", ring_step), ("rdma", rdma_step)]
     order += order[::-1]
     turns = {k: [] for k, _ in order}
     for _ in range(RING_ROUNDS):
@@ -2547,27 +2557,17 @@ def ring_1m(dev, smi, record):
           f"{part_k1:.3f} ms ({smi})")
     record["rect_forces_sym_vpu2"].update(
         {"ring_ms_1m": med["ring"], "k2_ms_1m": med["single"]})
-    if "parent ring" in med:
-        record["rect_forces_sym_vpu2"]["parent_ring_ms_1m"] = med[
-            "parent ring"]
-        print(f"[ring 1M] 4-shard ring with the parent's K2-rect vpu2 "
-              f"{', '.join(f'{t:.3f}' for t in turns['parent ring'])}; "
-              f"median {med['parent ring']:.3f} ms/step; ring new/parent "
-              f"{med['ring'] / med['parent ring']:.4f}, parent against K2 "
-              f"{med['parent ring'] / med['single']:.4f}x ({smi})")
 
 
 def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
-    """Pin the ring's error on the rows where it differs from K2, on the
-    rows where the parent's K2-rect vpu2 (check_redesign) differs from the
-    new one, and on RING_PART_ROWS sampled rows: the ring's four parts for
-    those rows (K2 on the row's own shard, the a side of K2-rect with the
-    shard before, the b side of K2-rect with the shard after, K1's
-    one-sided antipodal sweep), each against a float64 direct sum of the
-    same pairs, as a share of the row's |a|.  Added in the ring's order
-    the parts must give the ring's rows bit for bit.  K11 on the same
-    antipodal sweep, and the parent's K2-rect sides, are measured
-    beside."""
+    """Pin the ring's error on the rows where it differs from K2 and on
+    RING_PART_ROWS sampled rows: the ring's four parts for those rows (K2
+    on the row's own shard, the a side of K2-rect with the shard before,
+    the b side of K2-rect with the shard after, K1's one-sided antipodal
+    sweep), each against a float64 direct sum of the same pairs, as a
+    share of the row's |a|.  Added in the ring's order the parts must give
+    the ring's rows bit for bit.  K11 on the same antipodal sweep (four
+    slices of 512 tiles, merged) is measured beside."""
     import torch
     from nbody_tpu_torch.ops import forces_tiled as k1
     from nbody_tpu_torch.ops.forces_sym_variants import (forces_pallas_sym,
@@ -2579,30 +2579,10 @@ def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
     sampled = torch.randperm(state.n, generator=torch.Generator()
                              .manual_seed(5))[:RING_PART_ROWS]
     rows = set(diff_rows) | set(sampled.tolist())
-    # The parent's K2-rect sides of each shard: (a side with the shard
-    # before, b side with the shard after).
-    parent = {}
-    if PARENT_LIBS:
-        for s in range(p):
-            (x, m), (xp, mp), (xn, mn) = sh[s], sh[(s - 1) % p], sh[
-                (s + 1) % p]
-            lib = PARENT_LIBS["forces_sym"]
-            parent[s] = (rect_vpu2_of(lib, x, m, xp, mp, eps2)[0],
-                         rect_vpu2_of(lib, xn, mn, x, m, eps2)[1])
-            for old, new in zip(parent[s], (
-                    rect_forces_sym(x, m, xp, mp, eps2, variant="vpu2")[0],
-                    rect_forces_sym(xn, mn, x, m, eps2, variant="vpu2")[1])):
-                floor = ABS_FLOOR * float(old.abs().max())
-                off = ((new - old).abs() > REL_TOL * old.abs() + floor).any(1)
-                rows |= {s * c + int(i) for i in off.nonzero()[:, 0][:512]}
     print(f"[ring 1M parts] {len(rows)} rows: {len(diff_rows)} where ring "
-          f"and K2 differ past rel {REL_TOL:g}, {RING_PART_ROWS} sampled, "
-          f"and those where the parent's K2-rect vpu2 differs from the new "
-          f"one past it")
+          f"and K2 differ past rel {REL_TOL:g}, {RING_PART_ROWS} sampled")
     names = ("self K2", "rect a side", "rect b side", "antipodal K1",
-             "antipodal K11", "ring") + (
-                 ("rect a side (parent)", "rect b side (parent)")
-                 if parent else ())
+             "antipodal K11", "ring")
     errs = {k: [] for k in names}
     for s in sorted({r // c for r in rows}):
         local = torch.tensor([r - s * c for r in sorted(rows) if r // c == s],
@@ -2617,9 +2597,6 @@ def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
                                            variant="vpu2")[1],
             "antipodal K1": k1.rect_forces_tiled(x, xo, mo, eps2),
             "antipodal K11": k1.rect_forces_tiled_kahan(x, xo, mo, eps2)}
-        if parent:
-            parts["rect a side (parent)"], parts["rect b side (parent)"] = (
-                parent[s])
         parts = {k: v[local] for k, v in parts.items()}
         parts["ring"] = ring_acc[local + s * c]
         summed = ((parts["self K2"] + parts["rect a side"])
@@ -2634,8 +2611,6 @@ def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
                                     ("rect b side", (xn, mn)),
                                     ("antipodal K1", (xo, mo)))}
         refs["antipodal K11"] = refs["antipodal K1"]
-        refs["rect a side (parent)"] = refs["rect a side"]
-        refs["rect b side (parent)"] = refs["rect b side"]
         refs["ring"] = sum(refs[k] for k in ("self K2", "rect a side",
                                              "rect b side", "antipodal K1"))
         norm = refs["ring"].norm(dim=1)
@@ -2719,7 +2694,7 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K2-rect vpu2 and K6 against the designs
+    # 4. K2 at the 1M headline; K11, K7 and K2-rect vpu against the designs
     # before their redesign.
     check_k2_1m(dev)
     if csrc:
@@ -2869,12 +2844,15 @@ def main():
             ("rdma_ring", "nbody_tpu_torch/csrc/rdma_ring.cu",
              "nbody_tpu/parallel/rdma_ring.py:277"),
             # K15: the triangular sweep (_make_tri) and the panel pair
-            # (_make_rect) of each ablation.
+            # (_make_rect) of each ablation; their control vpu_tile
+            # computes what JAX's vpu variant does, on K7's former tile.
             *((f"{kind}_{v}", "nbody_tpu_torch/csrc/forces_sym"
                + ("_tc" if v.startswith("tmm_") else "") + ".cu",
+               f"nbody_tpu/ops/forces_pallas_sym.py:{k7_line}"
+               if v == "vpu_tile" else
                f"nbody_tpu/ops/ablation_sym.py:{line}")
-              for kind, line in (("forces_sym", 131),
-                                 ("rect_forces_sym", 155))
+              for kind, line, k7_line in (("forces_sym", 131, 353),
+                                          ("rect_forces_sym", 155, 686))
               for v in ABLATIONS)):
         r = dict(record[kname])
         bound_ms, bound_by = r.pop("bound")

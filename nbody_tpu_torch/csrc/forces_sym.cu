@@ -1,5 +1,5 @@
-// K2, K7 and K14d: Newton's-third-law exact all-pairs forces for Hopper
-// (sm_90a).
+// K2, K7, K14d, K2-rect and K15 (exact): Newton's-third-law exact
+// all-pairs forces for Hopper (sm_90a).
 //
 // Replaces nbody_tpu/ops/forces_pallas_sym.py variant "vpu2":
 //   _make_sym_kernel (the off-diagonal tile pairs, _pair_products_sym) and
@@ -66,17 +66,18 @@
 // descale) 16.9 ms, so a persistent schedule that keeps the i side in
 // registers across offsets would win at most those 4%.
 //
-// K2-rect's classic vpu2 sweep (rect_k2_pairs_kernel, below) and K13's
-// two-sided vpu2 phases run this tile's core, sym_pair_core, on two body
-// sets: a 262,144 x 262,144 rotation of the 1M ring takes 49.1 ms there
-// (65.7 on sym_tile_core), 73% of the issue rate.  Left for later: wgmma
+// K2-rect's classic vpu2 and vpu sweeps (rect_k2_pairs_kernel and
+// rect_k7_pairs_kernel, below) and K13's two-sided vpu2 phases run this
+// tile's core, sym_pair_core, on two body sets: a 262,144 x 262,144
+// rotation of the 1M ring takes 49.1 ms there with K2's math (65.7 on
+// sym_tile_core), 73% of the issue rate.  Left for later: wgmma
 // accumulation of the row and column sums on the tensor cores, and the
 // fold schedule on this tile.
 //
 // The pair tile, the slot sum and the diagonal tile are in sym_common.cuh,
-// shared with the resident kernels (resident.cu); the tile math of K7, the
-// fold, K2-rect vpu and K15 (sym_tile_core) is in sym_tile.cuh, shared
-// with K13 (rdma_ring.cu).
+// shared with the resident kernels (resident.cu); the one-row-a-thread
+// tile of the folds, K15 and K13's vpu phases (sym_tile_core) is in
+// sym_tile.cuh, shared with K13 (rdma_ring.cu).
 //
 // K7 (variant "vpu" of _make_sym_kernel: _pair_terms, _accum_i_vpu,
 // _accum_j_vpu) shares the schedule, slots and reduce pass.  Per pair it
@@ -85,19 +86,30 @@
 // column sums (of j).  Nothing is mass-scaled, so there is no descale and a
 // real massless body is complete from its slots; its diagonal is the exact
 // sym_diag_tile of K5/K6.  26 flops a pair (3 more multiplies than K2's
-// 23).  K7's tile is sym_tile_core (sym_tile.cuh); K2's, in
-// sym_common.cuh, is shared with K3/K4 alone, which stay bit-equal to
-// per-step K2.
+// 23).  K7 runs K2's pair tile with K7's math (sym_pair_core<SYM_K7>):
+// the same 17 issue slots a pair, the two weight multiplies in place of
+// K2's m_i m_j and F, at 80 registers, no spill, three CTAs an SM.  On an
+// H100 80GB HBM3 at 700 W an evaluation at N = 1,048,576 takes 404.2 ms
+// against 533.0 on sym_tile_core (one row a thread, a column accumulator
+// shuffled once a pair, rsqrtf with its fix-up), 0.0420 ms of the card's
+// time at N = 8192 against 0.0487, and K2-rect vpu's 262,144 x 262,144
+// sweep 50.0 ms against 66.2 (chip_smoke.py check_redesign, medians of
+// four alternating rounds).  Its summation within a tile follows K2's
+// tile (row partials added in warp order, one column accumulator over the
+// tile's 256 rows); K2's instantiation keeps its code, so K3/K4 stay
+// bit-equal to per-step K2.
 //
-// K14d (the fold schedule of _make_sym_kernel_fold) runs K2's and K7's
-// tiles on superblocks of several tiles and folds the j-side sums of a
-// superblock's row tiles on chip; its kernels and their contract follow
-// K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
-// _make_rect_kernel_fold between two disjoint body sets) runs K2's pair
-// tile (classic vpu2) or sym_tile_core (vpu, the folds) over a
+// K14d (the fold schedule of _make_sym_kernel_fold) runs sym_tile_core
+// with K2's and K7's math on superblocks of several tiles and folds the
+// j-side sums of a superblock's row tiles on chip; its kernels and their
+// contract follow K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
+// _make_rect_kernel_fold between two disjoint body sets) runs the pair
+// tile (classic vpu2 and vpu) or sym_tile_core (the folds) over a
 // rectangular enumeration.  K15's vpu_* ablations
-// (nbody_tpu/ops/ablation_sym.py) are SymMath values of K7's tile, with
-// the reduce passes that every K15 form shares; they come last.
+// (nbody_tpu/ops/ablation_sym.py) and their control VPU_TILE (K7's math)
+// are SymMath values of sym_tile_core, the tile K7 ran before its
+// redesign, with the reduce passes that every K15 form shares; they come
+// last.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
@@ -106,11 +118,12 @@
 #include "rect_common.cuh"
 #include "sym_tile.cuh"
 
-// K7's pair tile (and its ablations): sym_pair_tile (K2) with the two
-// one-sided weights fi = m_j inv and fj = m_i inv in place of the shared
-// F = m_i m_j inv.  VPU_FIX0 stores the column sums in slot sj[dk][I], the
-// writer's own (J -> I is a bijection for one offset, so every slot keeps
-// one writer); VPU_NOJ stores none.
+// K15's tiles, the ablations of K7's former tile and their control
+// (VPU_TILE): sym_tile_core with K7's one-sided weights fi = m_j inv and
+// fj = m_i inv (or an ablation of them), written to sym_pair_tile's
+// slots.  VPU_FIX0 stores the column sums in slot sj[dk][I], the writer's
+// own (J -> I is a bijection for one offset, so every slot keeps one
+// writer); VPU_NOJ stores none.
 template <int M>
 __device__ __forceinline__ void sym_vpu_pair_tile(
         const float* __restrict__ pos, const float* __restrict__ mass,
@@ -139,8 +152,8 @@ __device__ __forceinline__ void sym_vpu_pair_tile(
     sj[slot + 3 * jt + 2] = -s.z;
 }
 
-// One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1;
-// K2's tile, K7's, or an ablation of K7's.
+// One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1:
+// the pair tile with K2's or K7's math, or K15's tiles.
 template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_pairs_kernel(const float* __restrict__ pos,
@@ -153,8 +166,8 @@ sym_pairs_kernel(const float* __restrict__ pos,
     const long long I = bid - dk * nb;
     const long long d = d_lo + dk;
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
-    if (M == SYM_K2)
-        sym_pair_tile(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
+    if (M == SYM_K2 || M == SYM_K7)
+        sym_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
     else
         sym_vpu_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
 }
@@ -201,8 +214,14 @@ sym_reduce_kernel(const float* __restrict__ pos,
 }
 
 // The dynamic shared memory K15's vpu_* pair launches reserve: 0, but
-// while nbt_sym_abl_pin holds them at K7's CTAs per SM.  No kernel reads it.
+// while nbt_sym_abl_pin holds them at their control's CTAs per SM.  No
+// kernel reads it.
 static int abl_dyn_smem = 0;
+
+// Whether M is one of the three vpu_* ablations (the pinned launches).
+constexpr bool sym_ablation(int m) {
+    return m == VPU_NOJ || m == VPU_FIX0 || m == VPU_RC;
+}
 
 template <int M>
 static int launch_pairs(const float* pos, const float* mass, long long n,
@@ -210,7 +229,7 @@ static int launch_pairs(const float* pos, const float* mass, long long n,
                         float eps2, float* si, float* sj, void* stream) {
     if (dc <= 0) return 0;
     sym_pairs_kernel<M><<<(unsigned)(nb * dc), SYM_TILE,
-                           M >= VPU_NOJ ? abl_dyn_smem : 0,
+                           sym_ablation(M) ? abl_dyn_smem : 0,
                            (cudaStream_t)stream>>>(pos, mass, n, nb, d_lo,
                                                    eps2, si, sj);
     return (int)cudaGetLastError();
@@ -499,12 +518,13 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
 // the classic rect sweep, sub > 1 the fold schedule (JAX's rect fold:
 // the A superblock's row tiles sweep the sub column tiles of JB, the
 // column sums fold on chip across the row tiles, in row-tile order, into
-// one j-side slot write per (IA, JB)).  The classic sweep with K2's math
-// (vpu2, sub = 1) runs K2's pair tile, sym_pair_core (rect_k2_pairs_kernel:
-// eight rows a lane in registers, one shared load and three shuffles for
-// every eight pairs, d2 as three FMAs, rsqrt_normal; the row partials
-// added in warp order, so the tile is bit-reproducible); the fold, K7's
-// math and K15's rect ablations run sym_tile_core (rect_pairs_kernel).
+// one j-side slot write per (IA, JB)).  The classic sweep runs the pair
+// tile, sym_pair_core, with K2's math (vpu2, rect_k2_pairs_kernel) or K7's
+// (vpu, rect_k7_pairs_kernel): eight rows a lane in registers, one shared
+// load and three shuffles for every eight pairs, d2 as three FMAs,
+// rsqrt_normal; the row partials added in warp order, so the tile is
+// bit-reproducible.  The folds and K15's rect forms run sym_tile_core
+// (rect_pairs_kernel).
 // Slots, chunks and the reduce pass are in rect_common.cuh.  The work is
 // the square sweep's without the diagonal: FP32 FMA and MUFU issue bound,
 // 23 (K2) or 26 (K7) flops a pair.  On an H100 80GB HBM3 at 700 W the
@@ -514,9 +534,12 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
 // 4-shard ring's step 425.6 ms against 491.6 (chip_smoke.py).  At
 // validate --shards 4's 2048 x 2048 (64 CTAs on 132 SMs) the card takes
 // 0.0137 ms a sweep against 0.0151; the host's launch path, ~0.03 ms,
-// is the rest.  K15's ablations of K7's tile run the classic rect sweep
-// (sub = 1); VPU_FIX0's column slot is the writer's own (IA, JB) here
-// already, and its reduce adds every column slot into B's superblock 0.
+// is the rest.  The vpu sweep takes 50.0 ms at 262,144 x 262,144 (66.2 on
+// sym_tile_core) and 0.0141 ms of the card's time at 2048 x 2048 (0.0148).
+// K15's ablations of K7's former tile, and their control (K7's math on it,
+// rect_pairs_kernel<SYM_K7> at sub = 1), run the classic rect sweep;
+// VPU_FIX0's column slot is the writer's own (IA, JB) here already, and its
+// reduce adds every column slot into B's superblock 0.
 
 template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
@@ -564,17 +587,17 @@ rect_pairs_kernel(const float* __restrict__ pos_a,
     }
 }
 
-// K2-rect vpu2's classic sweep (sub = 1) on K2's pair tile: CTA (IA, JB)
-// runs sym_pair_core with row tile IA of A and column tile JB of B, and
-// writes its row sums and its negated column sums to the slots above.
-__global__ void __launch_bounds__(SYM_TILE)
-rect_k2_pairs_kernel(const float* __restrict__ pos_a,
-                     const float* __restrict__ mass_a, long long na,
-                     const float* __restrict__ pos_b,
-                     const float* __restrict__ mass_b, long long nb,
-                     long long na_s, long long j_lo, long long jc,
-                     float eps2, float* __restrict__ si,
-                     float* __restrict__ sj) {
+// K2-rect's classic sweep (sub = 1) on the pair tile, K2's math (vpu2) or
+// K7's (vpu): CTA (IA, JB) runs sym_pair_core with row tile IA of A and
+// column tile JB of B, and writes its row sums and its negated column sums
+// to the slots above.
+template <int M>
+__device__ __forceinline__ void rect_pair_tile(
+        const float* __restrict__ pos_a, const float* __restrict__ mass_a,
+        long long na, const float* __restrict__ pos_b,
+        const float* __restrict__ mass_b, long long nb, long long na_s,
+        long long j_lo, long long jc, float eps2, float* __restrict__ si,
+        float* __restrict__ sj) {
     __shared__ SymPairSmem sm;
     const long long bid = blockIdx.x;
     const long long jk = bid / na_s;
@@ -582,8 +605,8 @@ rect_k2_pairs_kernel(const float* __restrict__ pos_a,
     const int t = threadIdx.x;
     const long long i = IA * SYM_TILE + t;
     float3 rs, cs;
-    sym_pair_core(pos_a, mass_a, i, na, pos_b, mass_b,
-                  (j_lo + jk) * SYM_TILE + t, nb, eps2, sm, rs, cs);
+    sym_pair_core<M>(pos_a, mass_a, i, na, pos_b, mass_b,
+                     (j_lo + jk) * SYM_TILE + t, nb, eps2, sm, rs, cs);
     const long long o = (jk * na_s * SYM_TILE + i) * 3;
     si[o] = rs.x;
     si[o + 1] = rs.y;
@@ -592,6 +615,32 @@ rect_k2_pairs_kernel(const float* __restrict__ pos_a,
     sj[oj] = -cs.x;
     sj[oj + 1] = -cs.y;
     sj[oj + 2] = -cs.z;
+}
+
+// K2-rect vpu2's classic sweep.
+__global__ void __launch_bounds__(SYM_TILE)
+rect_k2_pairs_kernel(const float* __restrict__ pos_a,
+                     const float* __restrict__ mass_a, long long na,
+                     const float* __restrict__ pos_b,
+                     const float* __restrict__ mass_b, long long nb,
+                     long long na_s, long long j_lo, long long jc,
+                     float eps2, float* __restrict__ si,
+                     float* __restrict__ sj) {
+    rect_pair_tile<SYM_K2>(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo,
+                           jc, eps2, si, sj);
+}
+
+// K2-rect vpu's classic sweep.
+__global__ void __launch_bounds__(SYM_TILE)
+rect_k7_pairs_kernel(const float* __restrict__ pos_a,
+                     const float* __restrict__ mass_a, long long na,
+                     const float* __restrict__ pos_b,
+                     const float* __restrict__ mass_b, long long nb,
+                     long long na_s, long long j_lo, long long jc,
+                     float eps2, float* __restrict__ si,
+                     float* __restrict__ sj) {
+    rect_pair_tile<SYM_K7>(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo,
+                           jc, eps2, si, sj);
 }
 
 template <int M>
@@ -610,9 +659,9 @@ static int launch_rect_pairs(const float* pos_a, const float* mass_a,
     return (int)cudaGetLastError();
 }
 
-// The rect pair passes with K2's math (nbt_rect_sym_pairs: K2's pair tile
-// at sub = 1, the fold on sym_tile_core at sub > 1) and K7's
-// (nbt_rect_sym_vpu_pairs); sub = 1 classic, sub > 1 fold.
+// The rect pair passes with K2's math (nbt_rect_sym_pairs) and K7's
+// (nbt_rect_sym_vpu_pairs): the pair tile at sub = 1 (classic), the fold on
+// sym_tile_core at sub > 1.
 extern "C" int nbt_rect_sym_pairs(const float* pos_a, const float* mass_a,
                                   long long na, const float* pos_b,
                                   const float* mass_b, long long nb,
@@ -639,6 +688,14 @@ extern "C" int nbt_rect_sym_vpu_pairs(const float* pos_a,
                                       long long na_s, long long j_lo,
                                       long long jc, float eps2, int sub,
                                       float* si, float* sj, void* stream) {
+    if (sub == 1) {
+        if (jc <= 0 || na_s <= 0) return 0;
+        rect_k7_pairs_kernel<<<(unsigned)(na_s * jc), SYM_TILE, 0,
+                               (cudaStream_t)stream>>>(
+            pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si,
+            sj);
+        return (int)cudaGetLastError();
+    }
     return launch_rect_pairs<SYM_K7>(pos_a, mass_a, na, pos_b, mass_b, nb,
                                    na_s, j_lo, jc, eps2, sub, si, sj,
                                    stream);
@@ -681,7 +738,8 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
 //          over row tiles first, so results are bit-reproducible and the
 //          same for any chunking.
 
-// The exact ablations' pair passes, K7's signatures.
+// The exact ablations' pair passes and their control's (VPU_TILE), K7's
+// signatures.
 #define ABL_SYM_PAIRS(NAME, M)                                               \
     extern "C" int NAME(const float* pos, const float* mass, long long n,    \
                         long long nb, long long d_lo, long long dc,          \
@@ -692,6 +750,7 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
 ABL_SYM_PAIRS(nbt_sym_vpu_noj_pairs, VPU_NOJ)
 ABL_SYM_PAIRS(nbt_sym_vpu_fix0_pairs, VPU_FIX0)
 ABL_SYM_PAIRS(nbt_sym_vpu_rc_pairs, VPU_RC)
+ABL_SYM_PAIRS(nbt_sym_vpu_tile_pairs, VPU_TILE)
 
 #define ABL_RECT_PAIRS(NAME, M)                                              \
     extern "C" int NAME(const float* pos_a, const float* mass_a,             \
@@ -706,12 +765,16 @@ ABL_SYM_PAIRS(nbt_sym_vpu_rc_pairs, VPU_RC)
 ABL_RECT_PAIRS(nbt_rect_vpu_noj_pairs, VPU_NOJ)
 ABL_RECT_PAIRS(nbt_rect_vpu_fix0_pairs, VPU_FIX0)
 ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, VPU_RC)
+// The control's rect sweep: K7's math on sym_tile_core at sub = 1, the
+// kernel of K2-rect vpu before its redesign (the vpu fold's at sub > 1).
+ABL_RECT_PAIRS(nbt_rect_vpu_tile_pairs, SYM_K7)
 
 // The occupancy pin, a knob for timing the split only.  An ablation that
-// takes fewer registers than K7 fits more CTAs on an SM, and a time taken
-// that way prices the residency with the mechanism the ablation removes.
-// nbt_sym_abl_pin(1) finds the least dynamic shared memory, in 256-byte
-// steps, at which every vpu_* pair kernel runs exactly K7's CTAs per SM,
+// takes fewer registers than its control (VPU_TILE) fits more CTAs on an
+// SM, and a time taken that way prices the residency with the mechanism
+// the ablation removes.  nbt_sym_abl_pin(1) finds the least dynamic shared
+// memory, in 256-byte steps, at which every vpu_* pair kernel runs exactly
+// the control's CTAs per SM,
 // holds it for their launches and returns it (-1, unpinned, if there is
 // none); nbt_sym_abl_pin(0) unpins.  nbt_sym_pairs_ctas(m) is the CTAs per
 // SM of the pair kernel of SymMath m as it launches now.
@@ -720,7 +783,7 @@ ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, VPU_RC)
 template <int M>
 static int pairs_ctas(int dyn) {
     int ctas = -1;
-    if (M >= VPU_NOJ &&
+    if (sym_ablation(M) &&
         cudaFuncSetAttribute(sym_pairs_kernel<M>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dyn) != cudaSuccess)
@@ -732,9 +795,10 @@ static int pairs_ctas(int dyn) {
 }
 
 extern "C" int nbt_sym_pairs_ctas(int m) {
-    const int dyn = m >= VPU_NOJ ? abl_dyn_smem : 0;
+    const int dyn = sym_ablation(m) ? abl_dyn_smem : 0;
     switch (m) {
         case SYM_K7: return pairs_ctas<SYM_K7>(dyn);
+        case VPU_TILE: return pairs_ctas<VPU_TILE>(dyn);
         case VPU_NOJ: return pairs_ctas<VPU_NOJ>(dyn);
         case VPU_FIX0: return pairs_ctas<VPU_FIX0>(dyn);
         case VPU_RC: return pairs_ctas<VPU_RC>(dyn);
@@ -745,7 +809,7 @@ extern "C" int nbt_sym_pairs_ctas(int m) {
 extern "C" int nbt_sym_abl_pin(int on) {
     abl_dyn_smem = 0;
     if (!on) return 0;
-    const int want = pairs_ctas<SYM_K7>(0);
+    const int want = pairs_ctas<VPU_TILE>(0);
     for (int dyn = 0; dyn <= 96 * 1024; dyn += 256) {
         const int a = pairs_ctas<VPU_NOJ>(dyn);
         const int b = pairs_ctas<VPU_FIX0>(dyn);

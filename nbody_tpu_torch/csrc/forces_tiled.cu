@@ -46,14 +46,39 @@
 // the ring's antipodal sweep: 1.869e-6 of |a| against float64 where the
 // earlier design reached 1.193e-3.
 //
-// K11 sums each j-tile's contribution plainly over the K1_THREADS staged
-// bodies, then adds it to the running sum through a Kahan two-sum with a
-// carried compensation (y = t - c; s' = s + y; c = (s' - s) - y), the
-// Pallas kernel's tile-level compensation.  The two-sum is written with
-// __fadd_rn / __fsub_rn, and the build passes no --use_fast_math, so nvcc
-// neither contracts nor reassociates it (reassociated, c folds to 0).
-// It costs 4 adds a tile, nothing a pair.  K11 keeps one thread per row
-// and 128-thread blocks.
+// K11 (the compensated tier) takes K1's work items, tiles, slice plan and
+// pair loop whole.  Within an item each tile's sum starts from zero and
+// enters the slice's running sum (s, c) through a Kahan two-sum with a
+// carried compensation (y = t - c; s' = s + y; c = (s' - s) - y), as the
+// Pallas kernel adds each block_j tile's sum to its acc / comp buffers.
+// Across items the compensation is carried too: a slice writes both s and
+// c to its slots (2, slices, Ni, 3), and the second launch merges the
+// slots in slice order.  The value a slot stands for is s - c; the merge
+// adds the sums with Knuth's exact two-sum (six adds, no condition on the
+// operands' sizes) and carries their errors with the slots'
+// compensations, then folds the carried term in once:
+//     S, C = s_0, c_0;  for k >= 1:  S', e = two_sum(S, s_k)  (S + s_k =
+//     S' + e exactly);  C = (C + c_k) - e;  S = S';   result S - C.
+// A Kahan add of s_k into (S, C) would round s_k - C at the size of s_k,
+// the size of the whole sum when there are few slices, and lost 6-8% of
+// the compensation's gain at two slices (the twin, on the CPU).  With
+// one tile a slice (N = 8192 gives 16 row blocks x 64 slices of one tile)
+// every c_k is 0: S alone would be the plain sum of the tiles, K1's
+// result, and the fold of C is what compensates.  With one slice (N = 1M:
+// 2048 row blocks) the item writes s, as the Pallas kernel returns acc
+// and drops the last comp, and there is no second launch.  No atomics:
+// bit-reproducible.  The two-sums are written with __fadd_rn /
+// __fsub_rn, and the build passes no --use_fast_math, so nvcc neither
+// contracts nor reassociates them (reassociated, c and e fold to 0).
+// They cost 4 adds a tile and component, nothing a pair; the slots take
+// twice K1's bytes (12.6 MB at N = 8192).  K11's item runs at 72
+// registers (K1's 62), no spill.  On an H100 80GB HBM3 at 700.00 W an
+// evaluation takes 552.6 ms at N = 1,048,576 (K1's 534 ms of pair work
+// plus 3.5%) and 0.0453 ms of the card's time at N = 8192, against 688.3
+// and 0.2023 before this design, which kept one thread a row in 128-thread
+// blocks (64 blocks at N = 8192) with one running sum over the whole j-set
+// (chip_smoke.py check_redesign, medians of four alternating rounds).  Its
+// error against float64 is the earlier design's to within 1%.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math: it flushes denormals and
@@ -63,8 +88,7 @@
 
 #include "onesided_tile.cuh"
 
-#define K1_THREADS 128
-// K1: rows a lane, rows a block, j-tile width.
+// K1 and K11: rows a lane, rows a block, j-tile width.
 #define K1_ROWS 4
 #define K1_BLOCK_ROWS 512
 #define K1_TILE 128
@@ -77,63 +101,19 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float t) {
     s = u;
 }
 
-// K11 (only its true instantiation is built; the name is the one its
-// SASS has always had).
+// The work item (row block blockIdx.x, slice blockIdx.y) of K1 and, with
+// KAHAN, of K11: the slice's tiles tps * blockIdx.y .. against the block's
+// rows.  Each tile's sum starts from zero; K1 adds it to the slice's sum,
+// K11 two-sums it into the slice's (s, c).  The sums go to slot
+// out[blockIdx.y]; K11's compensations to comp[blockIdx.y] where comp is
+// not null (more than one slice).
 template <bool KAHAN>
-__global__ void __launch_bounds__(K1_THREADS)
-forces_tiled_kernel(const float* __restrict__ pos_i, long long ni,
-                    const float* __restrict__ pos_j,
-                    const float* __restrict__ mass_j, long long nj,
-                    float eps2, float* __restrict__ acc) {
-    __shared__ float4 tile[K1_THREADS];
-    const long long i = (long long)blockIdx.x * K1_THREADS + threadIdx.x;
-    float xi = 0.f, yi = 0.f, zi = 0.f;
-    if (i < ni) {
-        xi = pos_i[3 * i];
-        yi = pos_i[3 * i + 1];
-        zi = pos_i[3 * i + 2];
-    }
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    float cx = 0.f, cy = 0.f, cz = 0.f;       // the compensation
-    for (long long j0 = 0; j0 < nj; j0 += K1_THREADS) {
-        const long long j = j0 + threadIdx.x;
-        tile[threadIdx.x] = (j < nj)
-            ? make_float4(pos_j[3 * j], pos_j[3 * j + 1], pos_j[3 * j + 2],
-                          mass_j[j])
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-        __syncthreads();
-        float tx = 0.f, ty = 0.f, tz = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < K1_THREADS; ++k) {
-            const float4 b = tile[k];
-            const float dx = b.x - xi;
-            const float dy = b.y - yi;
-            const float dz = b.z - zi;
-            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float f = b.w * rsqrtf(d2 * d2 * d2);
-            tx += f * dx;
-            ty += f * dy;
-            tz += f * dz;
-        }
-        kahan_add(ax, cx, tx);
-        kahan_add(ay, cy, ty);
-        kahan_add(az, cz, tz);
-        __syncthreads();
-    }
-    if (i < ni) {
-        acc[3 * i] = ax;
-        acc[3 * i + 1] = ay;
-        acc[3 * i + 2] = az;
-    }
-}
-
-// K1's work item (row block blockIdx.x, slice blockIdx.y): the slice's
-// tiles tps * blockIdx.y .. against the block's rows, into slot
-// out[blockIdx.y].
-__global__ void __launch_bounds__(K1_BLOCK_ROWS / K1_ROWS)
-k1_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
-               const float* __restrict__ mass_j, long long nj, long long tps,
-               float eps2, float* __restrict__ out) {
+__device__ __forceinline__ void k1_item(const float* pos_i, long long ni,
+                                        const float* pos_j,
+                                        const float* __restrict__ mass_j,
+                                        long long nj, long long tps,
+                                        float eps2, float* __restrict__ out,
+                                        float* __restrict__ comp) {
     constexpr int THREADS = K1_BLOCK_ROWS / K1_ROWS;
     __shared__ float4 tile[K1_TILE];
     const int t = threadIdx.x;
@@ -141,6 +121,7 @@ k1_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
                            + (t >> 5) * 32 * K1_ROWS + (t & 31);
     float4 br[K1_ROWS];
     float ax[K1_ROWS], ay[K1_ROWS], az[K1_ROWS];
+    float cx[K1_ROWS], cy[K1_ROWS], cz[K1_ROWS];     // K11's compensation
 #pragma unroll
     for (int r = 0; r < K1_ROWS; ++r) {
         const long long i = row0 + 32 * r;
@@ -150,6 +131,9 @@ k1_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
         ax[r] = 0.f;
         ay[r] = 0.f;
         az[r] = 0.f;
+        cx[r] = 0.f;
+        cy[r] = 0.f;
+        cz[r] = 0.f;
     }
     const long long tiles = (nj + K1_TILE - 1) / K1_TILE;
     const long long t_lo = (long long)blockIdx.y * tps;
@@ -168,9 +152,15 @@ k1_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
         onesided_rows<W_MJ, K1_ROWS>(tile, K1_TILE, br, eps2, tx, ty, tz);
 #pragma unroll
         for (int r = 0; r < K1_ROWS; ++r) {
-            ax[r] += tx[r];
-            ay[r] += ty[r];
-            az[r] += tz[r];
+            if (KAHAN) {
+                kahan_add(ax[r], cx[r], tx[r]);
+                kahan_add(ay[r], cy[r], ty[r]);
+                kahan_add(az[r], cz[r], tz[r]);
+            } else {
+                ax[r] += tx[r];
+                ay[r] += ty[r];
+                az[r] += tz[r];
+            }
         }
         __syncthreads();
     }
@@ -184,6 +174,35 @@ k1_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
             slot[3 * i + 2] = az[r];
         }
     }
+    if (!KAHAN || comp == nullptr) return;
+    float* cslot = comp + (long long)blockIdx.y * ni * 3;
+#pragma unroll
+    for (int r = 0; r < K1_ROWS; ++r) {
+        const long long i = row0 + 32 * r;
+        if (i < ni) {
+            cslot[3 * i] = cx[r];
+            cslot[3 * i + 1] = cy[r];
+            cslot[3 * i + 2] = cz[r];
+        }
+    }
+}
+
+// K1's work item.
+__global__ void __launch_bounds__(K1_BLOCK_ROWS / K1_ROWS)
+k1_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
+               const float* __restrict__ mass_j, long long nj, long long tps,
+               float eps2, float* __restrict__ out) {
+    k1_item<false>(pos_i, ni, pos_j, mass_j, nj, tps, eps2, out, nullptr);
+}
+
+// K11's work item: sums to out, compensations to comp (null: one slice,
+// out is the result).
+__global__ void __launch_bounds__(K1_BLOCK_ROWS / K1_ROWS)
+k11_tile_kernel(const float* pos_i, long long ni, const float* pos_j,
+                const float* __restrict__ mass_j, long long nj, long long tps,
+                float eps2, float* __restrict__ out,
+                float* __restrict__ comp) {
+    k1_item<true>(pos_i, ni, pos_j, mass_j, nj, tps, eps2, out, comp);
 }
 
 // acc = ((slot 0 + slot 1) + slot 2) ..., component by component.
@@ -197,39 +216,85 @@ k1_reduce_kernel(const float* __restrict__ slots, long long n3, int slices,
     acc[x] = v;
 }
 
-// K1 over `slices` slices of tps j tiles each (tps * slices tiles covering
-// Nj); with more than one slice `slots` holds (slices, Ni, 3) floats.
-extern "C" int nbt_forces_tiled(const float* pos_i, long long ni,
-                                const float* pos_j, const float* mass_j,
-                                long long nj, long long tps, int slices,
-                                float eps2, float* slots, float* acc,
-                                void* stream) {
+// a + b = s + e exactly (Knuth's two-sum); returns s, sets e.
+__device__ __forceinline__ float two_sum(float a, float b, float& e) {
+    const float s = __fadd_rn(a, b);
+    const float bb = __fsub_rn(s, a);
+    e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+    return s;
+}
+
+// K11's merge of the slots (sums, then compensations) in slice order: the
+// sums two-summed exactly, their errors and the slots' compensations
+// carried in c, folded in once at the end (the header states the form).
+__global__ void __launch_bounds__(256)
+k11_reduce_kernel(const float* __restrict__ sums,
+                  const float* __restrict__ comps, long long n3, int slices,
+                  float* __restrict__ acc) {
+    const long long x = (long long)blockIdx.x * 256 + threadIdx.x;
+    if (x >= n3) return;
+    float s = sums[x];
+    float c = comps[x];
+    for (int k = 1; k < slices; ++k) {
+        float e;
+        s = two_sum(s, sums[k * n3 + x], e);
+        c = __fsub_rn(__fadd_rn(c, comps[k * n3 + x]), e);
+    }
+    acc[x] = __fsub_rn(s, c);
+}
+
+// K1 (kahan 0) or K11 (kahan 1) over `slices` slices of tps j tiles each
+// (tps * slices tiles covering Nj); with more than one slice `slots` holds
+// (slices, Ni, 3) floats for K1, and for K11 the sums' (slices, Ni, 3)
+// followed by the compensations'.
+static int launch(const float* pos_i, long long ni, const float* pos_j,
+                  const float* mass_j, long long nj, long long tps, int slices,
+                  float eps2, float* slots, float* acc, void* stream,
+                  bool kahan) {
     if (ni <= 0) return 0;
     if (tps < 1 || slices < 1 || (slices > 1 && slots == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const dim3 grid((unsigned)((ni + K1_BLOCK_ROWS - 1) / K1_BLOCK_ROWS),
                     (unsigned)slices);
-    k1_tile_kernel<<<grid, K1_BLOCK_ROWS / K1_ROWS, 0, s>>>(
-        pos_i, ni, pos_j, mass_j, nj, tps, eps2, slices > 1 ? slots : acc);
+    const long long n3 = ni * 3;
+    float* out = slices > 1 ? slots : acc;
+    if (kahan)
+        k11_tile_kernel<<<grid, K1_BLOCK_ROWS / K1_ROWS, 0, s>>>(
+            pos_i, ni, pos_j, mass_j, nj, tps, eps2, out,
+            slices > 1 ? slots + slices * n3 : nullptr);
+    else
+        k1_tile_kernel<<<grid, K1_BLOCK_ROWS / K1_ROWS, 0, s>>>(
+            pos_i, ni, pos_j, mass_j, nj, tps, eps2, out);
     if (slices > 1) {
-        const long long n3 = ni * 3;
-        k1_reduce_kernel<<<(unsigned)((n3 + 255) / 256), 256, 0, s>>>(
-            slots, n3, slices, acc);
+        const unsigned blocks = (unsigned)((n3 + 255) / 256);
+        if (kahan)
+            k11_reduce_kernel<<<blocks, 256, 0, s>>>(
+                slots, slots + slices * n3, n3, slices, acc);
+        else
+            k1_reduce_kernel<<<blocks, 256, 0, s>>>(slots, n3, slices, acc);
     }
     return (int)cudaGetLastError();
 }
 
+extern "C" int nbt_forces_tiled(const float* pos_i, long long ni,
+                                const float* pos_j, const float* mass_j,
+                                long long nj, long long tps, int slices,
+                                float eps2, float* slots, float* acc,
+                                void* stream) {
+    return launch(pos_i, ni, pos_j, mass_j, nj, tps, slices, eps2, slots,
+                  acc, stream, false);
+}
+
+// K11: K1's signature, slots of twice K1's size.
 extern "C" int nbt_forces_tiled_kahan(const float* pos_i, long long ni,
                                       const float* pos_j,
                                       const float* mass_j, long long nj,
-                                      float eps2, float* acc, void* stream) {
-    if (ni <= 0) return 0;
-    const long long blocks = (ni + K1_THREADS - 1) / K1_THREADS;
-    forces_tiled_kernel<true><<<(unsigned)blocks, K1_THREADS, 0,
-                                (cudaStream_t)stream>>>(
-        pos_i, ni, pos_j, mass_j, nj, eps2, acc);
-    return (int)cudaGetLastError();
+                                      long long tps, int slices, float eps2,
+                                      float* slots, float* acc,
+                                      void* stream) {
+    return launch(pos_i, ni, pos_j, mass_j, nj, tps, slices, eps2, slots,
+                  acc, stream, true);
 }
 
 extern "C" int nbt_forces_tiled_geometry(int what) {

@@ -1,8 +1,9 @@
-// Device code shared by K2 (forces_sym.cu) and the resident kernels K3/K4
-// (resident.cu): the pair-symmetric tile of one (row tile, offset) work
-// item, the fixed-order slot sum, and the one-sided diagonal tile with the
-// 1/m descale; K13 (rdma_ring.cu) runs the pair tile's core,
-// sym_pair_core, with slots of its own.  forces_sym.cu's header states the
+// Device code shared by K2 and K7 (forces_sym.cu) and the resident kernels
+// K3/K4 (resident.cu): the pair-symmetric tile of one (row tile, offset)
+// work item with K2's or K7's math, the fixed-order slot sum, and the
+// one-sided diagonal tile with the 1/m descale; K2-rect's classic vpu2 and
+// vpu sweeps and K13 (rdma_ring.cu) run the pair tile's core,
+// sym_pair_core, with slots of their own.  forces_sym.cu's header states the
 // enumeration, the slot layout, the determinism contract and the pair
 // tile's design (eight rows a lane in registers, one column accumulator
 // rotating around the warp) with its numbers on the card.  K2 and K3/K4
@@ -53,6 +54,28 @@ struct SymK2Stage {
 static_assert(sizeof(SymK2Stage) <= sizeof(float) * SYM_WARPS * SYM_TILE * 3,
               "K2's staging must fit in SymPairSmem::part");
 
+// The pair math of the exact tiles: K2's shared weight, K7's one-sided
+// weights, K15's ablations of K7's tile on sym_tile_core
+// (nbody_tpu/ops/ablation_sym.py), and that tile with K7's math, their
+// control:
+//   VPU_NOJ   K7's row sums only: no column sums, shuffles, partials or
+//             j-side slot (the j half of every pair is dropped);
+//   VPU_FIX0  K7's tile, its column sums stored in the writer's own row
+//             slot (the reduce adds them all into tile 0's bodies);
+//   VPU_RC    K7's tile with the differences recomputed per component in
+//             the accumulate (JAX's liveness ablation, _accum_both_vpu_rc);
+//   VPU_TILE  K7's math on sym_tile_core, the tile the three ablate (K7's
+//             own tile before it moved to sym_pair_core): K15's control.
+// sym_pair_core takes SYM_K2 and SYM_K7; sym_tile_core (sym_tile.cuh)
+// every value (the folds take SYM_K2 and SYM_K7 there).
+enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3,
+               VPU_RC = 4, VPU_TILE = 5 };
+
+// Whether tile M sums columns (the j side) at all.
+__host__ __device__ constexpr bool sym_has_j(int m) {
+    return m != VPU_NOJ;
+}
+
 // rsqrt(x) on the MUFU without rsqrtf's fix-up for a subnormal x (a
 // compare and two predicated multiplies a call): for x = d2^3 with d2 >=
 // eps2, x is normal for every eps2 above ~1e-12, and the two give the same
@@ -63,21 +86,27 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
     return y;
 }
 
-// The pair work of one tile, K2's math (F = m_i m_j inv on both sides):
-// row body i of (pos_r, mass_r) and column body j of (pos_c, mass_c), each
-// thread t staging row t and column t of the tile.  Returns in rs the sum
-// of row t and in cs the (positive) sum of column t.  Every thread of the
-// block calls it; shared memory may be reused once it returns.
+// The pair work of one tile, with K2's math (M = SYM_K2: F = m_i m_j inv
+// on both sides) or K7's (M = SYM_K7: fi = m_j inv on the rows, fj = m_i
+// inv on the column): row body i of (pos_r, mass_r) and column body j of
+// (pos_c, mass_c), each thread t staging row t and column t of the tile.
+// Returns in rs the sum of row t and in cs the (positive) sum of column t.
+// Every thread of the block calls it; shared memory may be reused once it
+// returns.
 //
 // Warp w takes columns 32w .. 32w+31 against all SYM_TILE rows; lane l
 // holds rows l + 32r (r < SYM_ROWS) in registers.  At step k lane l pairs
 // its SYM_ROWS rows with column (l + k) mod 32 of the warp's range, adds
-// F r to its rows' sums and to one column accumulator, and then takes the
-// column accumulator of lane l + 1: after 32 steps lane l holds the whole
-// column 32w + l.  That is one shared load and three shuffles for every
-// SYM_ROWS pairs, and F r goes into both sums as fused multiply-adds.  The
-// row partials of the eight warps meet once a tile in `part` and are added
-// in warp order: the tile is bit-reproducible.
+// the row term to its rows' sums and the column term to one column
+// accumulator, and then takes the column accumulator of lane l + 1: after
+// 32 steps lane l holds the whole column 32w + l.  That is one shared load
+// and three shuffles for every SYM_ROWS pairs, and the terms go into both
+// sums as fused multiply-adds.  Both maths take 17 issue slots a pair: K2
+// multiplies m_i m_j and then F = (m_i m_j) inv, K7 the two weights m_j
+// inv and m_i inv.  The row partials of the eight warps meet once a tile
+// in `part` and are added in warp order: the tile is bit-reproducible.
+// K2's instantiation is the code K3/K4 compile (resident.cu).
+template <int M = SYM_K2>
 __device__ __forceinline__ void sym_pair_core(
         const float* pos_r, const float* __restrict__ mass_r, long long i,
         long long n_r, const float* pos_c, const float* __restrict__ mass_c,
@@ -116,13 +145,25 @@ __device__ __forceinline__ void sym_pair_core(
             const float dy = q.y - br[r].y;
             const float dz = q.z - br[r].z;
             const float d2 = fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, eps2)));
-            const float f = (br[r].w * q.w) * rsqrt_normal(d2 * d2 * d2);
-            ax[r] = fmaf(f, dx, ax[r]);
-            ay[r] = fmaf(f, dy, ay[r]);
-            az[r] = fmaf(f, dz, az[r]);
-            bx = fmaf(f, dx, bx);
-            by = fmaf(f, dy, by);
-            bz = fmaf(f, dz, bz);
+            if (M == SYM_K2) {
+                const float f = (br[r].w * q.w) * rsqrt_normal(d2 * d2 * d2);
+                ax[r] = fmaf(f, dx, ax[r]);
+                ay[r] = fmaf(f, dy, ay[r]);
+                az[r] = fmaf(f, dz, az[r]);
+                bx = fmaf(f, dx, bx);
+                by = fmaf(f, dy, by);
+                bz = fmaf(f, dz, bz);
+            } else {
+                const float inv = rsqrt_normal(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                const float fj = br[r].w * inv;
+                ax[r] = fmaf(fi, dx, ax[r]);
+                ay[r] = fmaf(fi, dy, ay[r]);
+                az[r] = fmaf(fi, dz, az[r]);
+                bx = fmaf(fj, dx, bx);
+                by = fmaf(fj, dy, by);
+                bz = fmaf(fj, dz, bz);
+            }
         }
         bx = __shfl_sync(0xffffffffu, bx, src);
         by = __shfl_sync(0xffffffffu, by, src);
@@ -148,10 +189,12 @@ __device__ __forceinline__ void sym_pair_core(
     cs = make_float3(bx, by, bz);
 }
 
-// Row tile I against column tile J = (I + d) mod nb of K2's triangular
-// sweep (sym_pair_core); every thread of the block calls it.  The row sums
+// Row tile I against column tile J = (I + d) mod nb of the triangular
+// sweep (sym_pair_core with K2's or K7's math); every thread of the block
+// calls it.  The row sums
 // go to slot si[dk][I], the negated column sums to slot sj[dk][J].
 // Shared memory may be reused once it returns.
+template <int M = SYM_K2>
 __device__ __forceinline__ void sym_pair_tile(
         const float* pos, const float* __restrict__ mass,
         long long n, long long nb, long long I, long long d, long long dk,
@@ -162,7 +205,7 @@ __device__ __forceinline__ void sym_pair_tile(
     const long long i = I * SYM_TILE + t;
     const long long j = J * SYM_TILE + t;
     float3 rs, cs;
-    sym_pair_core(pos, mass, i, n, pos, mass, j, n, eps2, sm, rs, cs);
+    sym_pair_core<M>(pos, mass, i, n, pos, mass, j, n, eps2, sm, rs, cs);
     const long long slot = dk * nb * SYM_TILE * 3;
     si[slot + 3 * i] = rs.x;
     si[slot + 3 * i + 1] = rs.y;

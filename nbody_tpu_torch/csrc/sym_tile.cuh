@@ -1,35 +1,23 @@
-// The exact pair tile of K7, K14d (the fold with K2's and K7's math),
-// K2-rect vpu and both rect folds, K15's vpu_* ablations (forces_sym.cu)
-// and K13's two-sided vpu phases (rdma_ring.cu): the pair math of one
-// 256 x 256 tile, a SymMath value folded at compile time.  K2, K3/K4,
-// K2-rect's classic vpu2 sweep and K13's vpu2 phases run sym_pair_core
-// (sym_common.cuh) instead.  Moved here verbatim from forces_sym.cu so
-// that rdma_ring.cu compiles the same tile.
+// The exact pair tile of the fold schedule K14d (with K2's and K7's
+// math), the rect folds, K15's vpu_* ablations and their control
+// (forces_sym.cu), and K13's two-sided vpu phases (rdma_ring.cu): the pair
+// math of one 256 x 256 tile, a SymMath value (sym_common.cuh) folded at
+// compile time.  One row a thread, the column tile staged once and read
+// (l + k) mod 32 at a time, a column accumulator shuffled once a pair,
+// rsqrtf with its subnormal fix-up.  K2, K3/K4, K7, and K2-rect's classic
+// vpu2 and vpu sweeps run sym_pair_core (sym_common.cuh) instead, eight
+// rows a lane; K7 and K2-rect vpu moved there in their redesign, and
+// VPU_TILE keeps K7's math on this tile as K15's control.  Moved here
+// verbatim from forces_sym.cu so that rdma_ring.cu compiles the same tile.
 
 #pragma once
 
 #include "sym_common.cuh"
 
-// The pair math of the exact tiles: K2's shared weight, K7's one-sided
-// weights, and K15's ablations of K7's tile (nbody_tpu/ops/ablation_sym.py):
-//   VPU_NOJ   K7's row sums only: no column sums, shuffles, partials or
-//             j-side slot (the j half of every pair is dropped);
-//   VPU_FIX0  K7's tile, its column sums stored in the writer's own row
-//             slot (the reduce adds them all into tile 0's bodies);
-//   VPU_RC    K7's tile with the differences recomputed per component in
-//             the accumulate (JAX's liveness ablation, _accum_both_vpu_rc).
-enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3,
-               VPU_RC = 4 };
-
-// Whether tile M sums columns (the j side) at all.
-__host__ __device__ constexpr bool sym_has_j(int m) {
-    return m != VPU_NOJ;
-}
-
 // The pair work of one 256 x 256 tile for the row body bi of this thread,
 // against the column tile staged (and synced) in sm.tile: K2's math
-// (sym_pair_core's, F = m_i m_j inv shared by both sides), K7's (fi =
-// m_j inv, fj = m_i inv) or an ablation of K7's (SymMath).  Adds the row
+// (F = m_i m_j inv shared by both sides), K7's (fi = m_j inv, fj = m_i
+// inv; SYM_K7 or VPU_TILE) or an ablation of K7's (SymMath).  Adds the row
 // sums to (ax, ay, az) and returns the column sum of column threadIdx.x
 // over the tile's rows, a positive magnitude (the caller negates; zero for
 // VPU_NOJ).  Every thread of the block calls it; the caller

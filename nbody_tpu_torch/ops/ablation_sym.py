@@ -10,9 +10,10 @@ the seven compute wrong physics on purpose:
 ==========  =============================================  ==========
 name        tile (off-diagonal)                            physics
 ==========  =============================================  ==========
-vpu_noj     K7's row sums only                             j half dropped
+vpu_tile    K7's former tile (the control)                 exact
+vpu_noj     K7's former tile, row sums only                j half dropped
 vpu_fix0    K7's, every column sum added into tile 0       wrong
-vpu_rc      K7's, differences recomputed per component     exact (= K7)
+vpu_rc      K7's, differences recomputed per component     exact (= vpu_tile)
 tmm_full    K5's (the control)                             = K5
 tmm_noscat  K5's, every column sum added into tile 0       wrong
 tmm_noj     K5's i-side product only                       j half dropped
@@ -21,9 +22,18 @@ tmm_nomm    K5's pair terms and both bf16 roundings, no    wrong
             sum bf16(m_i inv) in all three components
 ==========  =============================================  ==========
 
+The ``vpu_*`` forms ablate the tile K7 ran before its redesign for Hopper
+(``sym_tile_core``: one row a thread, a column accumulator shuffled once a
+pair).  K7 itself now runs K2's pair tile (``sym_pair_core``), so their
+control is a form of its own, ``vpu_tile``: K7's math on that former tile
+(bit for bit K7 before the redesign; the exact physics, held to K7's
+twin).  It is no ablation and has no JAX counterpart (JAX's control is
+K7's own tile), so it is not in ``ABLATION_NAMES``; ``FORMS`` holds the
+seven and the control.
+
 As in the JAX package, the diagonal tiles stay exact and one-sided for
-all seven, nothing is mass-scaled, and the names are reachable only after
-``enable()``: it registers the wrappers with the variant entry points
+all eight forms, nothing is mass-scaled, and the names are reachable only
+after ``enable()``: it registers the wrappers with the variant entry points
 (``ops/forces_sym_variants.py``: ``forces_pallas_sym(variant=...)`` and
 ``rect_forces_sym(variant=...)``, classic schedule only) and adds the
 names to ``SYM_VARIANTS``.  No impl, ``auto``, ``SimConfig`` or CLI verb
@@ -40,7 +50,9 @@ own slot and the reduce adds all of them, per offset, into tile 0's
 bodies (``csrc/forces_sym.cu`` states the order), so results are
 bit-reproducible and chunk-invariant.  The C entries are in
 ``csrc/forces_sym.cu`` (``vpu_*`` and the none / fix0 reduce passes) and
-``csrc/forces_sym_tc.cu`` (``tmm_*``).
+``csrc/forces_sym_tc.cu`` (``tmm_*``); the control's rect sweep is K7's
+math on ``sym_tile_core`` at one tile a superblock, the kernel K2-rect vpu
+ran before its redesign.
 
 The wrappers take the plain twins (``forces_sym_ablation_plain``,
 ``rect_forces_sym_ablation_plain``: the kernels' tiles, enumeration, slot
@@ -70,19 +82,23 @@ from .forces_tiled_tc import pair_inv, position_pack, tile_result
 
 ABLATION_NAMES = ("vpu_noj", "vpu_fix0", "vpu_rc",
                   "tmm_full", "tmm_noscat", "tmm_noj", "tmm_nomm")
+# The vpu_* forms' control, K7's math on the tile they ablate; and every
+# form reachable after enable().
+CONTROL = "vpu_tile"
+FORMS = ABLATION_NAMES + (CONTROL,)
 # How each one's column sums reach the bodies: through K7's / K5's slot sum
 # ("slots"), not at all ("none"), or all into tile 0 ("fix0").
 J_MODE = {"vpu_noj": "none", "vpu_fix0": "fix0", "vpu_rc": "slots",
           "tmm_full": "slots", "tmm_noscat": "fix0", "tmm_noj": "none",
-          "tmm_nomm": "none"}
+          "tmm_nomm": "none", CONTROL: "slots"}
 
 
 def _pair_tiles(eps2: float, name: str):
     """The plain tile of ablation ``name``: (k, T, 3) x (k, T, 3) -> row
     sums, column sums (k, T, 3), as the kernel's tile computes them."""
     def pair_tiles(xi, mi, xj, mj):
-        if name in ("vpu_fix0", "tmm_full", "tmm_noscat"):
-            if name == "vpu_fix0":
+        if name in ("vpu_fix0", CONTROL, "tmm_full", "tmm_noscat"):
+            if name in ("vpu_fix0", CONTROL):
                 return _k2._pair_tiles(eps2, True, 1)(xi, mi, xj, mj)
             return _ktc._pair_tiles(xi, mi, xj, mj, eps2, "turbo")
         none = xi.new_zeros(xj.shape)
@@ -188,9 +204,8 @@ def _entries(name: str):
 
 
 def _check(name: str) -> None:
-    if name not in ABLATION_NAMES:
-        raise ValueError(f"ablation must be one of {ABLATION_NAMES}, got "
-                         f"{name!r}")
+    if name not in FORMS:
+        raise ValueError(f"ablation must be one of {FORMS}, got {name!r}")
 
 
 def forces_sym_ablation(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
@@ -242,24 +257,25 @@ def _wrapper(name: str, rect: bool):
     return wrapper
 
 
-# One wrapper and launch counter a form, by ablation name: the triangular
-# sweep (``forces_sym_<name>``) and the rect sweep (``rect_forces_sym_<name>``).
-SYM_WRAPPERS = {n: _wrapper(n, False) for n in ABLATION_NAMES}
-RECT_WRAPPERS = {n: _wrapper(n, True) for n in ABLATION_NAMES}
+# One wrapper and launch counter a form, by name: the triangular sweep
+# (``forces_sym_<name>``) and the rect sweep (``rect_forces_sym_<name>``).
+SYM_WRAPPERS = {n: _wrapper(n, False) for n in FORMS}
+RECT_WRAPPERS = {n: _wrapper(n, True) for n in FORMS}
 
 
 # The triangular sweep's pair kernels by their ids in SymMath
-# (csrc/forces_sym.cu) and SymTcVariant (csrc/forces_sym_tc.cu): the
-# controls K7 ("vpu") and K5 ("turbo"), and the seven ablations.
-_PAIRS_ID = {"vpu": 1, "vpu_noj": 2, "vpu_fix0": 3, "vpu_rc": 4,
+# (csrc/sym_common.cuh) and SymTcVariant (csrc/sym_tc_tile.cuh): K7
+# ("vpu"), the controls vpu_tile and K5 ("turbo"), and the seven ablations.
+_PAIRS_ID = {"vpu": 1, CONTROL: 5, "vpu_noj": 2, "vpu_fix0": 3, "vpu_rc": 4,
              "turbo": 0, "tmm_full": 5, "tmm_noscat": 6, "tmm_noj": 7,
              "tmm_nomm": 8}
 
 
 def ctas_per_sm() -> "dict[str, int]":
     """The CTAs per SM of the triangular sweep's pair kernels of K7
-    ("vpu"), K5 ("turbo") and the seven ablations, as they launch now
-    (the occupancy the card's runtime computes; needs the card)."""
+    ("vpu"), the controls (vpu_tile, K5 "turbo") and the seven ablations,
+    as they launch now (the occupancy the card's runtime computes; needs
+    the card)."""
     sym, tc = _k2._lib(), _ktc._lib()
     return {name: (sym.nbt_sym_pairs_ctas(i) if name.startswith("vpu")
                    else tc.nbt_sym_tc_pairs_ctas(i))
@@ -269,7 +285,7 @@ def ctas_per_sm() -> "dict[str, int]":
 @contextlib.contextmanager
 def control_occupancy():
     """While open, the triangular sweep's ablation pair kernels run at
-    their control's CTAs per SM (K7's for vpu_*, K5's for tmm_*): each
+    their control's CTAs per SM (vpu_tile's for vpu_*, K5's for tmm_*): each
     launch reserves the least dynamic shared memory that brings it there,
     and no kernel reads it.  A knob for timing the split only: an
     ablation with fewer registers than its control fits more CTAs on an
@@ -289,10 +305,11 @@ def control_occupancy():
 
 
 def enable() -> None:
-    """Register the ablation kernels with the variant entry points and make
-    the names dispatchable through ``forces_pallas_sym(variant=...)`` and
-    ``rect_forces_sym(variant=...)``; calling it again changes nothing."""
+    """Register the ablation kernels and their control with the variant
+    entry points and make the names dispatchable through
+    ``forces_pallas_sym(variant=...)`` and ``rect_forces_sym(variant=...)``;
+    calling it again changes nothing."""
     _variants.ABLATION_SYM_KERNELS.update(SYM_WRAPPERS)
     _variants.ABLATION_RECT_KERNELS.update(RECT_WRAPPERS)
     _variants.SYM_VARIANTS = _variants.SYM_VARIANTS + tuple(
-        n for n in ABLATION_NAMES if n not in _variants.SYM_VARIANTS)
+        n for n in FORMS if n not in _variants.SYM_VARIANTS)

@@ -37,9 +37,12 @@ side is weighed by the other body's mass, ``fi = m_j inv`` for the row
 sums and ``fj = m_i inv`` for the negated column sums.  Nothing is
 mass-scaled, so there is no descale and no one-sided recompute: a real
 massless body is complete from its slots, and the diagonal is the exact
-one-sided tile of K5/K6.  Its kernels sit beside K2's in
-``csrc/forces_sym.cu``; K2's device code (``csrc/sym_common.cuh``, which
-K3/K4 share) is not touched.
+one-sided tile of K5/K6.  Its pair pass runs K2's pair tile with K7's
+weights (``sym_pair_core<SYM_K7>`` in ``csrc/sym_common.cuh``: eight rows
+a lane, 17 issue slots a pair): 404.2 ms at N = 1,048,576 on an H100
+80GB HBM3 at 700 W, against 533.0 on the one-row-a-thread
+``sym_tile_core`` it ran before.  K2's instantiation of the tile, which
+K3/K4 share, keeps its code.
 
 The wrappers take the plain PyTorch versions (``forces_sym_plain``,
 ``forces_sym_vpu_plain``: the same tiles, enumeration, slot layout and
@@ -56,11 +59,11 @@ sets A and B, the cross rotation of the Newton's-third-law ring: every
 (row superblock of A, column superblock of B) once, no diagonal, the row
 and column sums in one-writer slots reduced in a fixed order
 (``csrc/rect_common.cuh`` states the layout), B's superblocks in chunks
-of ``rect_chunks``.  The classic vpu2 sweep (``rect_forces_sym_vpu2``)
-runs K2's own pair tile, ``sym_pair_core`` (``csrc/sym_common.cuh``:
-eight rows a lane in registers, row partials added in warp order); the
-vpu sweep, the folds and K15's rect ablations run ``sym_tile_core``
-(``csrc/sym_tile.cuh``).  The mass-scaled vpu2 sums are divided by m on both
+of ``rect_chunks``.  The classic vpu2 and vpu sweeps
+(``rect_forces_sym_vpu2``, ``rect_forces_sym_vpu``) run the pair tile,
+``sym_pair_core`` (``csrc/sym_common.cuh``: eight rows a lane in
+registers, row partials added in warp order) with K2's or K7's math; the
+folds and K15's rect forms run ``sym_tile_core`` (``csrc/sym_tile.cuh``).  The mass-scaled vpu2 sums are divided by m on both
 sides, and a real massless body's cross sum is recomputed one-sided over
 the other set.  Its twins (``rect_forces_sym_plain``) share the square
 twins' tile functions; ``rect_sweep`` / ``rect_sweep_plain`` are shared

@@ -129,6 +129,53 @@ def test_exact_ablations_match_their_controls(enabled, name, control, rect):
                      tolerance(name))
 
 
+@pytest.mark.parametrize("rect", [False, True])
+def test_control_is_k7_on_its_former_tile(enabled, rect):
+    """vpu_tile, the vpu_* forms' control (K7's math on the tile they
+    ablate), against JAX's vpu variant at the exact tolerance, and its
+    twin bit for bit K7's (the twins share K7's tile function)."""
+    control = ablation_sym.CONTROL
+    assert control not in NAMES and control in ablation_sym.FORMS
+    pos, _, mass = make_small_system(1280, seed=158)
+    if rect:
+        sets = (pos[:512], mass[:512], pos[512:], mass[512:])
+        want = jax_fps.rect_forces_sym(*(jnp.asarray(x) for x in sets), EPS2,
+                                       block_i=128, block_u=SYM_TILE,
+                                       variant="vpu")
+        got = variants.rect_forces_sym(*(t(x) for x in sets), EPS2,
+                                       variant=control)
+        k7 = variants.rect_forces_sym(*(t(x) for x in sets), EPS2,
+                                      variant="vpu")
+    else:
+        want = [jax_fps.forces_pallas_sym(
+            jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=128,
+            block_u=SYM_TILE, variant="vpu")]
+        got = [variants.forces_pallas_sym(t(pos), t(mass), EPS2,
+                                          variant=control)]
+        k7 = [variants.forces_pallas_sym(t(pos), t(mass), EPS2,
+                                         variant="vpu")]
+    for g, w, k in zip(got, want, k7):
+        assert_close(g.numpy(), np.asarray(w), f"{control} vs JAX vpu",
+                     tolerance(control))
+        np.testing.assert_array_equal(g.numpy(), k.numpy())
+
+
+def test_control_unreachable_before_enable():
+    """The control is bench-only like the ablations: no variant, impl or
+    CLI choice names it before enable()."""
+    control = ablation_sym.CONTROL
+    assert control not in variants.SYM_VARIANTS
+    pos, _, mass = make_small_system(600, seed=159)
+    p, m = t(pos), t(mass)
+    with pytest.raises(ValueError, match="enable"):
+        variants.forces_pallas_sym(p, m, EPS2, variant=control)
+    with pytest.raises(ValueError, match="enable"):
+        variants.rect_forces_sym(p[:256], m[:256], p[256:], m[256:], EPS2,
+                                 variant=control)
+    with pytest.raises(ValueError, match="impl"):
+        SimConfig(impl=control)
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_twins_are_chunk_invariant(name):
     """One offset (one column superblock) a slot chunk gives the same bits

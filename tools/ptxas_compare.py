@@ -2,7 +2,7 @@
 """Compare the compiled kernels of two copies of the port's CUDA sources.
 
     python3 tools/ptxas_compare.py OLD_CSRC NEW_CSRC [name ...] [--ops]
-        [--allow PATTERN ...]
+        [--allow PATTERN ...] [--same OLD_PATTERN NEW_PATTERN ...]
 
 Builds ``<name>.cu`` (default: forces_sym, forces_sym_tc) from both source
 directories with the port's nvcc flags (``ops/_build.py``), reads ptxas's
@@ -19,7 +19,11 @@ template arguments ``true``/``false`` read as ``1``/``0`` (a template on
 a bool that became one on an int keeps its instantiations' names).
 Exits 1 if a kernel of OLD is missing in NEW or its SASS differs, unless
 its name matches one of the ``--allow`` regular expressions: the kernels a
-change means to redesign, whose numbers are printed all the same.
+change means to redesign, whose numbers are printed all the same.  Each
+``--same OLD_PATTERN NEW_PATTERN`` names an old kernel that lives on
+under another name (a new template argument): the one kernel of OLD
+matching the first pattern and the one of NEW matching the second, in
+one library, must have the same SASS, or the exit is 1.
 
 Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt); builds under
 ``build/ptxas_compare/``.  To compare a commit with its parent:
@@ -116,15 +120,18 @@ def main(argv):
         print(__doc__, file=sys.stderr)
         return 2
     ops = "--ops" in argv
-    args, allow = [], []
+    args, allow, same_as = [], [], []
     it = iter(a for a in argv if a != "--ops")
     for a in it:
         if a == "--allow":
             allow.append(re.compile(next(it)))
+        elif a == "--same":
+            same_as.append((re.compile(next(it)), re.compile(next(it))))
         else:
             args.append(a)
     old_dir, new_dir, *libs = args
     ok = True
+    found = set()
     for lib in libs or ("forces_sym", "forces_sym_tc"):
         old_stats, old_sass = build(old_dir, lib, "old")
         new_stats, new_sass = build(new_dir, lib, "new")
@@ -153,6 +160,17 @@ def main(argv):
             print(f"  new: {k}: {n['regs']} regs, {n['spill_st']}/"
                   f"{n['spill_ld']} spill, {n['smem']} smem, "
                   f"{len(new_sass.get(k, []))} instructions")
+        for k, (old_pat, new_pat) in enumerate(same_as):
+            olds = [n for n in old_sass if old_pat.search(n)]
+            news = [n for n in new_sass if new_pat.search(n)]
+            if not olds and not news:
+                continue
+            found.add(k)
+            hit = (len(olds) == 1 and len(news) == 1
+                   and old_sass[olds[0]] == new_sass[news[0]])
+            ok &= hit
+            print(f"  same: {olds} (old) as {news} (new): SASS "
+                  f"{'identical' if hit else 'DIFFERS or not one each'}")
         if ops:
             print(f"== {lib}.cu (new): SASS instructions by opcode")
             for k in sorted(new_sass):
@@ -160,6 +178,11 @@ def main(argv):
             for k in sorted(k for k in old_sass
                             if old_sass[k] != new_sass.get(k)):
                 print(f"  old: {k}: {op_counts(old_sass[k])}")
+    for k, (old_pat, new_pat) in enumerate(same_as):
+        if k not in found:
+            print(f"  same: no kernel matches {old_pat.pattern} / "
+                  f"{new_pat.pattern}")
+            ok = False
     print("ptxas_compare: every old kernel's SASS is unchanged"
           + (" but the allowed ones" if allow else "") if ok else
           "ptxas_compare: FAILED: a kernel is missing or its SASS changed")
