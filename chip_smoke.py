@@ -10,9 +10,11 @@ kernels K3 and K4 also bit for bit against the per-step K2 path; K8's row
 sums also against a float64 direct sum at N = 1,048,576, its symmetric
 total against its twin, a float64 total at N = 65,536 and the row sums'
 total at 1M; the tensor-core tiers K9,
-K10, K5 and K6 also against their tier gates on a float64 direct sum, K5
-at N = 1,048,576 too; the exact tiers K7 and K11 and the centred tier K12,
-on Morton-sorted bodies, at their float64 gates; K12 also on unsorted
+K10, K5 and K6 also against their tier gates on a float64 direct sum, at
+N = 1,048,576 too, and K9's and K10's rect forms at 2048 x 8192 with and
+without self_tile; the exact tiers K7 and K11 and the centred tier K12,
+on Morton-sorted bodies, at their float64 gates, K7 and K11 on sampled
+rows at 1M too; K12 also on unsorted
 bodies, with planted close pairs, and on 4096 sorted rows at N = 1M;
 K11 also against K1; the K14 variants turbo2 and turbof at turbo's
 float64 gate at 8192 and on sampled rows at 1M, turbof with massless
@@ -22,7 +24,8 @@ and both schedules, at the shard shapes 2048 x 2048 and 2144 x 1536, at
 its float64 gates and with massless bodies on both sides, and at the 1M
 ring's 262,144 x 262,144 shard pair on sampled rows against float64;
 K15, the seven bench-only ablations and the vpu_* forms' control
-vpu_tile (K7's math on the tile they ablate) in both sweeps, after
+vpu_tile (K7's math on the tile they ablate, bit for bit K7's former
+tile built from K7_FORMER_COMMIT's sources) in both sweeps, after
 ``ablation_sym.enable()``, at N = 8192 and 2048 x 6144, vpu_tile, vpu_rc
 and tmm_full also at their float64 gates, vpu_rc and tmm_full bit for bit
 against vpu_tile / K5, then timed at N = 1M in interleaved rounds with K7,
@@ -32,13 +35,11 @@ variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K11 and K7
-(at N = 8192 and 1,048,576) and K2-rect vpu (at 2048 x 2048 and on the 1M
-ring's 262,144 x 262,144 shard pair) against their designs before the
-redesign for this card (the sources of PARENT_COMMIT, built beside the
-package's) in alternating rounds, each held to its twin and to float64
-beside the parent's error (K11 also to K1's summed error, K15's control
-to the parent's K7 bit for bit), and holds every other kernel's SASS to
+N = 1,048,576 against the direct-form ``rect_forces``, times K9 and K10
+(at N = 8192 and 1,048,576) against their design before the redesign for
+this card (the sources of PARENT_COMMIT, built beside the package's) in
+alternating rounds, each held to its twin and to float64 beside the
+parent's error, and holds every other kernel's SASS to
 theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
@@ -46,7 +47,8 @@ just before and read just after: ``validate`` at N = 8192 (exact with K1,
 K2, K7 and K11, and each tensor-core tier, ``pallas_sym_turbo2`` among
 them), ``validate --shards P`` through the mesh on this card (the N3L
 ring with K2-rect on its cross rotations for pallas_sym2, pallas_sym,
-pallas_sym_turbo, pallas_sym_mxu and pallas_sym_turbo2; the all-gather;
+pallas_sym_turbo, pallas_sym_mxu and pallas_sym_turbo2; the one-sided
+ring with K10's rect form; the all-gather, with K1 and with K9;
 the fused ring K13 with ``--comm rdma`` and ``rdma_overlap``, one launch a
 force evaluation, also with ``--oracle native`` and through ``run``),
 the variant / schedule entry points ``forces_pallas_sym`` and
@@ -288,34 +290,35 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K11 (the compensated one-sided tier, now on K1's work
-# items) and of K7 (now on K2's pair tile, with K2-rect vpu's classic
-# sweep) for this card, timed against the designs before it: the commit
-# that holds them, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc
-# | tar -x -C build/parent``) into PARENT_CSRC, where check_redesign builds
-# them beside the package's and times both in rounds (the order reversed
-# every other round; medians).  Without those sources and without git, the
-# rounds and the SASS comparison are skipped and say so.
-PARENT_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
+# The redesign of K9 and K10 (the one-sided tensor-core tiers, now on the
+# trimmed geometry and K1's (row block, j slice) work items) for this card,
+# timed against the design before it: the commit that holds it, unpacked
+# (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C
+# build/parent``) into PARENT_CSRC, where check_redesign builds it beside
+# the package's and times both in rounds (the order reversed every other
+# round; medians).  Without those sources and without git, the rounds and
+# the SASS comparison are skipped and say so.
+PARENT_COMMIT = "9a340792f43fd13678329d9e388c9fcee2bc3029"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
+# K7's former pair tile (before K7 moved to K2's pair tile): K15's control
+# vpu_tile must give its results bit for bit (check_ablations).  Unpacked
+# from git as the parent is, into K7_FORMER_CSRC.
+K7_FORMER_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
+K7_FORMER_CSRC = os.path.join(ROOT, "build", "k7_former", "nbody_tpu_torch",
+                              "csrc")
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes: K11's
-# (k11_tile_kernel and k11_reduce_kernel, only in the new sources, and the
-# kernel they replace, forces_tiled_kernel<1>, only in the parent's), K7's
-# pair kernel (sym_pairs_kernel<1>, SymMath SYM_K7, now on sym_pair_core)
-# and K2-rect vpu's classic sweep (rect_k7_pairs_kernel, new).  K1's
-# kernels, K2's (rect_k2_pairs_kernel and the resident kernels, which run
-# sym_pair_core with K2's math), the folds, K13's and K15's keep theirs,
-# and SASS_SAME pairs an old kernel with the new name it lives on under:
-# K7's former pair kernel is K15's control sym_pairs_kernel<5> (VPU_TILE).
+# libraries keeps the parent's SASS, but those the redesign changes: K9's
+# and K10's (forces_tiled_tc_kernel<0|1>, only in the parent's, replaced
+# by tc_item_kernel<0|1> and their slot reduce tc_reduce_kernel, only in
+# the new sources).  Every other kernel keeps its SASS; SASS_SAME pairs an
+# old kernel with a new name it lives on under (none in this redesign).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bk11_tile_kernel\b", r"\bk11_reduce_kernel\b",
-                   r"\bforces_tiled_kernel<1>", r"\bsym_pairs_kernel<1>",
-                   r"\brect_k7_pairs_kernel\b")
-SASS_SAME = ((r"\bsym_pairs_kernel<1>", r"\bsym_pairs_kernel<5>"),)
+SASS_REDESIGNED = (r"\bforces_tiled_tc_kernel<", r"\btc_item_kernel<",
+                   r"\btc_reduce_kernel\b")
+SASS_SAME = ()
 
 
 def check(cond, what):
@@ -475,8 +478,9 @@ def tier_gate(kname, got, ref):
 def check_tc(dev, eps2, record, smi):
     """K9, K10, K5 and K6 against their plain twins at N = 1000 and 8192,
     bit-reproducible (K5/K6 also chunk-invariant), at their tier gates
-    against a float64 direct sum (K5 and K6 also on 4096 sampled rows at
-    N = 1M, K6 bit-reproducible there), and their times at 8192 and 1M."""
+    against a float64 direct sum (also on 4096 sampled rows at N = 1M, K6
+    bit-reproducible there), K9's and K10's rect forms at 2048 x 8192 with
+    and without self_tile, and their times at 8192 and 1M."""
     import torch
     from nbody_tpu_torch.ops import forces_sym_tc, forces_tiled_tc
     from nbody_tpu_torch.ops.forces_torch import rect_forces
@@ -520,8 +524,31 @@ def check_tc(dev, eps2, record, smi):
     print("[check] K9/K10/K5/K6 bit-reproducible run to run, K5/K6 across "
           "offset chunks")
 
+    # K9's and K10's rect forms at a shard shape, 2048 rows against 8192
+    # bodies: the rows a prefix of the bodies (self_tile, the self-pairs
+    # masked) or a set of their own (nothing masked); against the twin,
+    # bit-reproducible, and at the tier gate against float64.
+    pos, mass = bodies(8192, 8192 + 5, dev)
+    for self_tile, pi in ((True, pos[:2048].contiguous()),
+                          (False, bodies(2048, 2048 + 5, dev)[0])):
+        ref = rect_forces(pi.double(), pos.double(), mass.double(), eps2)
+        for variant in ("turbo", "mxu"):
+            what = (f"forces_tiled_{variant} rect 2048x8192, "
+                    f"self_tile={self_tile}")
+            got = forces_tiled_tc.rect_forces_tiled_tc(pi, pos, mass, eps2,
+                                                       variant, self_tile)
+            compare(f"{what} vs plain", got,
+                    forces_tiled_tc.rect_forces_tiled_tc_plain(
+                        pi, pos, mass, eps2, variant, self_tile),
+                    rel_tol=TC_REL_TOL, abs_floor=TC_ABS_FLOOR)
+            check(torch.equal(got, forces_tiled_tc.rect_forces_tiled_tc(
+                pi, pos, mass, eps2, variant, self_tile)),
+                f"{what}: not bit-reproducible")
+            tier_gate(f"forces_tiled_{variant}", got, ref)
+
     # K5 at the bench rider's shape: 4096 sampled rows of one evaluation
-    # against a float64 direct sum on the card, rows in chunks of 64.
+    # against a float64 direct sum on the card, rows in chunks of 64; K6,
+    # K9 and K10 on the same rows.
     n = 1 << 20
     pos, mass = bodies(n, 2, dev)
     acc = forces_sym_tc.forces_sym_turbo(pos, mass, eps2)
@@ -534,6 +561,9 @@ def check_tc(dev, eps2, record, smi):
     check(torch.equal(acc, forces_sym_tc.forces_sym_mxu(pos, mass, eps2)),
           "forces_sym_mxu N=1M: not bit-reproducible")
     tier_gate("forces_sym_mxu", acc[rows], ref)
+    for kname in ("forces_tiled_turbo", "forces_tiled_mxu"):
+        acc = tiers[kname][0](pos, mass, eps2)
+        tier_gate(kname, acc[rows], ref)
     del acc
     for kname, (kernel, _) in tiers.items():
         record[kname]["ms_1m"] = time_ms(lambda: kernel(pos, mass, eps2),
@@ -589,8 +619,10 @@ def check_slice4(dev, eps2, record, smi):
     their float64 gates (K12 on sorted bodies; its error on unsorted
     bodies printed, not gated), K11's compensation carried (it differs
     from K1 and is no less accurate), K7 with real massless bodies, and one
-    evaluation each at N = 1M for the times, where K12's first 4096 sorted
-    rows are also held to the twin and the gate."""
+    evaluation each at N = 1M for the times, where K7 and K11 are also
+    bit-reproducible and held to their gates on 2048 sampled rows (K11
+    also to K1's summed error), and K12's first 4096 sorted rows to the
+    twin and the gate."""
     import torch
     from nbody_tpu_torch.models.ordering import morton_permutation
     from nbody_tpu_torch.ops import forces_fast as k12
@@ -683,6 +715,30 @@ def check_slice4(dev, eps2, record, smi):
         record[kname]["bound_ms_1m"] = slice4_bound(kname, n)[0]
         print(f"[1M] {kname}: {record[kname]['ms_1m']:.3f} ms per "
               f"evaluation ({smi})")
+    # K7 and K11 at 1M: bit-reproducible, at their float64 gates on 2048
+    # sampled rows, and K11 not K1 there with no larger summed error.
+    sample = torch.randperm(n, generator=torch.Generator().manual_seed(13))[
+        :2048].sort()[0].to(dev)
+    ref = rect_forces(pos[sample].double(), pos.double(), mass.double(),
+                      eps2, chunk=64)
+    for kname in ("forces_sym_vpu", "forces_tiled_kahan"):
+        kernel = kernels[kname][0]
+        got = kernel(pos, mass, eps2)
+        check(torch.equal(got, kernel(pos, mass, eps2)),
+              f"{kname} N=1M: not bit-reproducible")
+        tier_gate(kname, got[sample], ref)
+        if kname == "forces_tiled_kahan":
+            plain_sum = k1.forces_tiled(pos, mass, eps2)[sample]
+            check(not torch.equal(got[sample], plain_sum),
+                  "K11 N=1M equals K1: the compensation folded away")
+            err_k = float((got[sample].double() - ref).abs().sum())
+            err_1 = float((plain_sum.double() - ref).abs().sum())
+            print(f"[check] forces_tiled_kahan, N=1M, 2048 sampled rows: "
+                  f"summed |error| against float64 {err_k:.6e}, K1's "
+                  f"{err_1:.6e}")
+            check(err_k <= err_1, "K11 N=1M less accurate than K1")
+        del got
+    del ref
     # K12 at the main path's 1M shape: the first 4096 sorted rows (a prefix
     # of j, so the self-pairs are masked alike) against the twin and,
     # through a float64 direct sum, the tier gate.  Against the twin, at
@@ -1016,7 +1072,7 @@ def ablation_bound(name, n, rect_n=None):
     return bound(fp32 * n * rect_n, 28 * (n + rect_n), tc * n * rect_n)
 
 
-def check_ablations(dev, eps2, record, smi):
+def check_ablations(dev, eps2, record, smi, former=None):
     """K15 (``ablation_sym.enable()``, then ``forces_pallas_sym`` and
     ``rect_forces_sym`` with an ablation variant or the vpu_* forms'
     control vpu_tile): each of the eight forms of both sweeps against its
@@ -1032,7 +1088,9 @@ def check_ablations(dev, eps2, record, smi):
     outputs of vpu_rc and tmm_full bit-equal to vpu_tile and K5 and each
     pinned form's to its own; and each rect form at the 1M ring's 262,144 x
     262,144 shard pair beside K2-rect vpu and turbo, checked there on
-    sampled rows and timed once."""
+    sampled rows and timed once.  With ``former`` (build_parent's function
+    for K7_FORMER_COMMIT's forces_sym.cu), vpu_tile is first held bit for
+    bit to K7's former pair tile, at N = 8192 (seed 41)."""
     import torch
     from nbody_tpu_torch.ops import ablation_sym as ab
     from nbody_tpu_torch.ops import forces_sym as k2
@@ -1044,6 +1102,25 @@ def check_ablations(dev, eps2, record, smi):
     t0 = time.perf_counter()
     ab.enable()
     tc = {"rel_tol": TC_REL_TOL, "abs_floor": TC_ABS_FLOOR}
+
+    if former:
+        import ctypes
+        lib = former()["forces_sym"]
+        for fn in ("nbt_sym_vpu_pairs", "nbt_sym_vpu_reduce"):
+            getattr(lib, fn).argtypes = getattr(k2._lib(), fn).argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        pos, mass = bodies(ABLATION_N, 41, dev)
+        was = k2.sweep("forces_sym_vpu", pos, mass, eps2,
+                       k2.SLOT_BUDGET_BYTES, lib.nbt_sym_vpu_pairs,
+                       lib.nbt_sym_vpu_reduce)
+        check(torch.equal(was, ab.forces_sym_ablation(pos, mass, eps2,
+                                                      ab.CONTROL)),
+              f"K15's control {ab.CONTROL} is not K7's former tile")
+        print(f"[check] forces_sym_{ab.CONTROL}, N={ABLATION_N}: bit-equal "
+              f"to K7's former pair tile ({K7_FORMER_COMMIT[:7]})")
+    else:
+        print("[check] K15's control against K7's former tile skipped: no "
+              "sources of K7_FORMER_COMMIT")
 
     def tol(name):
         return {} if name.startswith("vpu_") else tc
@@ -1722,24 +1799,24 @@ def check_k2_1m(dev):
             acc[rows], ref)
 
 
-def parent_csrc():
-    """PARENT_CSRC, unpacked from git where it is not there yet; None
-    where neither is to be had."""
-    if not os.path.isdir(PARENT_CSRC):
-        root = os.path.dirname(os.path.dirname(PARENT_CSRC))
+def parent_csrc(commit=PARENT_COMMIT, csrc=PARENT_CSRC):
+    """``csrc`` (by default PARENT_CSRC), unpacked from ``commit`` with git
+    where it is not there yet; None where neither is to be had."""
+    if not os.path.isdir(csrc):
+        root = os.path.dirname(os.path.dirname(csrc))
         try:
             tar = subprocess.run(
-                ["git", "-C", ROOT, "archive", PARENT_COMMIT,
+                ["git", "-C", ROOT, "archive", commit,
                  "nbody_tpu_torch/csrc"], capture_output=True, check=True,
                 timeout=120).stdout
             os.makedirs(root, exist_ok=True)
             subprocess.run(["tar", "-x", "-C", root], input=tar, check=True,
                            timeout=120)
         except (OSError, subprocess.SubprocessError) as err:
-            print(f"[redesign] no parent sources at {PARENT_CSRC} and none "
-                  f"from git ({type(err).__name__})")
+            print(f"[redesign] no sources of {commit[:7]} at {csrc} and "
+                  f"none from git ({type(err).__name__})")
             return None
-    return PARENT_CSRC if os.path.isdir(PARENT_CSRC) else None
+    return csrc if os.path.isdir(csrc) else None
 
 
 def start_sass_compare(csrc):
@@ -1789,12 +1866,14 @@ def finish_sass_compare(job):
           "changed its SASS, or a SASS_SAME pair differs")
 
 
-def build_parent(csrc, names):
-    """ctypes libraries of the parent's ``names`` (csrc/<name>.cu), built
-    with the package's nvcc flags, one nvcc each, all at once."""
+def build_parent(csrc, names, tag="parent", report=True):
+    """Start nvcc on an earlier commit's ``names`` (csrc/<name>.cu) with the
+    package's flags into WORK/``tag``, one nvcc each, all at once, in the
+    background; returns a function that waits for them, prints their
+    registers and spills (``report``) and returns the ctypes libraries."""
     import ctypes
     from nbody_tpu_torch.ops import _build
-    out = os.path.join(WORK, "parent")
+    out = os.path.join(WORK, tag)
     os.makedirs(out, exist_ok=True)
     jobs = {}
     for name in names:
@@ -1802,16 +1881,26 @@ def build_parent(csrc, names):
         jobs[name] = (so, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
              os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"parent {name}.cu: nvcc failed\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[redesign] parent {name}.cu: {line.strip()}")
-        libs[name] = ctypes.CDLL(so)
-    return libs
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+
+    def finish():
+        libs = {}
+        for name, (so, proc) in jobs.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"{tag} {name}.cu: nvcc failed\n{log}")
+            for line in log.splitlines() if report else ():
+                if "registers" in line or "spill" in line:
+                    print(f"[redesign] {tag} {name}.cu: {line.strip()}")
+            libs[name] = ctypes.CDLL(so)
+        return libs
+
+    def stop():
+        for _, proc in jobs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    atexit.register(stop)
+    return finish
 
 
 def device_ms(fn, iters, spin=10_000_000):
@@ -1860,24 +1949,26 @@ def report_rounds(what, times, smi):
     return med
 
 
-# The parent's C entries check_redesign binds, by library: K11's took no
-# slots before its redesign (pos_i, ni, pos_j, mass_j, nj, eps2, acc,
-# stream); K7's and K2-rect vpu's keep the package's signatures.
-PARENT_FNS = {"forces_tiled": ("nbt_forces_tiled_kahan",),
-              "forces_sym": ("nbt_sym_vpu_pairs", "nbt_sym_vpu_reduce",
-                             "nbt_rect_sym_vpu_pairs", "nbt_rect_reduce")}
+# The parent's C entry check_redesign binds: K9's and K10's took no slots
+# before their redesign (pos_i, ni, pos_j, mass_j, nj, eps2, mxu,
+# mask_self, acc, stream).
+PARENT_FNS = {"forces_tiled_tc": ("nbt_forces_tiled_tc",)}
 
 
-def parent_k11(lib, pos, mass, eps2):
-    """One evaluation of the parent's K11 (one thread a row) through its
-    own C entry, on a host path as lean as the package's ``sweep``."""
+def parent_tc(lib, pos, mass, eps2, variant):
+    """One evaluation of the parent's K9 / K10 (one launch, the self-pair
+    masked) through its own C entry, on a host path as lean as the
+    package's ``sweep``."""
     import torch
     from nbody_tpu_torch.ops import _build
     acc = torch.empty_like(pos)
     n = pos.shape[0]
-    _build.check_launch("parent forces_tiled_kahan", lib.nbt_forces_tiled_kahan(
-        pos.data_ptr(), n, pos.data_ptr(), mass.data_ptr(), n, float(eps2),
-        acc.data_ptr(), _build.stream_handle(acc)))
+    _build.check_launch(f"parent forces_tiled_{variant}",
+                        lib.nbt_forces_tiled_tc(
+                            pos.data_ptr(), n, pos.data_ptr(),
+                            mass.data_ptr(), n, float(eps2),
+                            int(variant == "mxu"), 1, acc.data_ptr(),
+                            _build.stream_handle(acc)))
     return acc
 
 
@@ -1887,57 +1978,34 @@ def row_errors(got, ref):
     return float(e.max()), float(e.median())
 
 
-def check_redesign(dev, eps2, record, smi, csrc):
-    """K11, K7 and K2-rect vpu against the parent's designs on the same
-    inputs, in alternating rounds: K11 and K7 at N = 8192 and 1,048,576,
-    K2-rect vpu at 2048 x 2048 (a shard pair of validate --shards 4 at
-    N = 8192) and at 262,144 x 262,144 (a shard pair of the 1M ring), seeds
-    41 and 42.  Each new kernel is held to its twin at the small shape, is
-    bit-reproducible (the wrapper's result is its sweep's), and is held to
-    float64 (every row at the small shape, 2048 sampled rows at the large
-    one) beside the parent's error: K11 at the exact tier's gate with a
-    summed |error| no larger than K1's, K7 at its gate (5e-4), K2-rect vpu
-    at the exact tolerance.  K15's control (vpu_tile) must be the parent's
-    K7 bit for bit.  Both sides of a round take one host path (the sweep
+def check_redesign(dev, eps2, record, smi, parent_build):
+    """K9 and K10 against the parent's design on the same inputs, in
+    alternating rounds at N = 8192 and 1,048,576 (seed 41).  Each new
+    kernel is held to its twin at 8192, is bit-reproducible (the wrapper's
+    result is its sweep's), and is held to its tier gate against float64
+    (every row at 8192, 2048 sampled rows at 1M) with the parent's error
+    beside it.  Both sides of a round take one host path (the sweep
     without the wrappers' checks and counters, the package's build or the
-    parent's), so that at the small shapes, where the host's launch path
-    takes most of the time, the two differ in their kernels only; there
-    the card's time alone is taken too."""
+    parent's), so that at 8192, where the host's launch path is a share of
+    a call, the two differ in their kernels only; there the card's time
+    alone is taken too.  ``parent_build``: build_parent's function for the
+    parent's forces_tiled_tc.cu."""
     import ctypes
     import torch
-    from nbody_tpu_torch.ops import ablation_sym as ab
-    from nbody_tpu_torch.ops import forces_sym as k2
-    from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops import forces_tiled_tc as k910
     from nbody_tpu_torch.ops.forces_torch import rect_forces
     t0 = time.perf_counter()
-    new_libs = {"forces_tiled": k1._lib(), "forces_sym": k2._lib()}
-    libs = build_parent(csrc, tuple(PARENT_FNS))
-    for fn in PARENT_FNS["forces_sym"]:
-        getattr(libs["forces_sym"], fn).argtypes = getattr(
-            new_libs["forces_sym"], fn).argtypes
-    c_ll, c_p = ctypes.c_longlong, ctypes.c_void_p
-    libs["forces_tiled"].nbt_forces_tiled_kahan.argtypes = [
-        c_p, c_ll, c_p, c_p, c_ll, ctypes.c_float, c_p, c_p]
-    for name, fns in PARENT_FNS.items():
-        for fn in fns:
-            getattr(libs[name], fn).restype = ctypes.c_int
+    new_lib = k910._lib()
+    parent = parent_build()["forces_tiled_tc"]
+    c_ll, c_p, c_i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    parent.nbt_forces_tiled_tc.argtypes = [c_p, c_ll, c_p, c_p, c_ll,
+                                           ctypes.c_float, c_i, c_i, c_p, c_p]
+    parent.nbt_forces_tiled_tc.restype = c_i
     sample = torch.Generator().manual_seed(13)
 
-    def rows_of(n):
-        return (torch.arange(n, device=dev) if n <= 8192 else
-                torch.randperm(n, generator=sample)[:2048].sort()[0].to(dev))
-
-    def errors_beside(tag, rows, new, old, ref):
-        e_new, e_old = row_errors(new, ref), row_errors(old, ref)
-        print(f"[redesign] {tag}: |err| / |a| against float64 on {rows} "
-              f"rows, max / median: new {e_new[0]:.3e} / {e_new[1]:.3e}, "
-              f"parent {e_old[0]:.3e} / {e_old[1]:.3e}")
-        return e_new, e_old
-
     def rounds(kname, tag, key, old, new, iters):
-        """New against parent in rounds, into record[kname]; at the small
-        shapes (no ``key``), where the host's launch path takes most of a
-        call, also the card's time alone."""
+        """New against parent in rounds, into record[kname]; at 8192 (no
+        ``key``) also the card's time alone."""
         med = report_rounds(tag, alternate({"parent": old, "new": new}, dev,
                                            iters), smi)
         record[kname].update({f"parent_ms{key}": med["parent"],
@@ -1951,110 +2019,42 @@ def check_redesign(dev, eps2, record, smi, csrc):
 
     for n, key, iters in ((8192, "", 20), (1 << 20, "_1m", 1)):
         pos, mass = bodies(n, 41, dev)
-        rows = rows_of(n)
+        rows = (torch.arange(n, device=dev) if n <= 8192 else
+                torch.randperm(n, generator=sample)[:2048].sort()[0].to(dev))
         ref = rect_forces(pos[rows].double(), pos.double(), mass.double(),
                           eps2, chunk=64)
+        for kernel, variant in (("K9", "turbo"), ("K10", "mxu")):
+            kname = f"forces_tiled_{variant}"
+            tag = f"{kernel} {variant} N={n}"
 
-        # K11: K1's work items and the merged slots.
-        tag = f"K11 kahan N={n}"
+            def new(v=variant):
+                return k910.sweep(new_lib, pos, pos, mass, eps2, v, True)
 
-        def new():
-            return k1.sweep(new_libs["forces_tiled"], pos, pos, mass, eps2,
-                            True)
-
-        def old():
-            return parent_k11(libs["forces_tiled"], pos, mass, eps2)
-        got, was = k1.forces_tiled_kahan(pos, mass, eps2), old()
-        check(torch.equal(got, new()), f"{tag}: not bit-reproducible, or "
-              f"the wrapper's result is not its sweep's")
-        if n <= 8192:
-            compare(f"{tag} vs plain", got, k1.rect_forces_tiled_plain(
-                pos, pos, mass, eps2, kahan=True))
-        tier_gate("forces_tiled_kahan", got[rows], ref)
-        plain_k1 = k1.forces_tiled(pos, mass, eps2)[rows]
-        check(not torch.equal(got[rows], plain_k1),
-              f"{tag}: equals K1, the compensation folded away")
-        err = {k: float((v.double() - ref).abs().sum()) for k, v in (
-            ("new", got[rows]), ("parent", was[rows]), ("K1", plain_k1))}
-        print(f"[redesign] {tag}: summed |error| against float64 on "
-              f"{len(rows)} rows: new {err['new']:.6e}, parent "
-              f"{err['parent']:.6e}, K1 {err['K1']:.6e}")
-        check(err["new"] <= err["K1"], f"{tag}: less accurate than K1")
-        errors_beside(tag, len(rows), got[rows], was[rows], ref)
-        rounds("forces_tiled_kahan", tag, key, old, new, iters)
-        del got, was, plain_k1
-
-        # K7: K2's pair tile with K7's weights.
-        tag = f"K7 vpu N={n}"
-
-        def run(lib):
-            return k2.sweep("forces_sym_vpu", pos, mass, eps2,
-                            k2.SLOT_BUDGET_BYTES, lib.nbt_sym_vpu_pairs,
-                            lib.nbt_sym_vpu_reduce)
-
-        def new():
-            return run(new_libs["forces_sym"])
-
-        def old():
-            return run(libs["forces_sym"])
-        got, was = k2.forces_sym_vpu(pos, mass, eps2), old()
-        check(torch.equal(got, new()), f"{tag}: not bit-reproducible, or "
-              f"the wrapper's result is not its sweep's")
-        if n <= 8192:
-            compare(f"{tag} vs plain", got,
-                    k2.forces_sym_vpu_plain(pos, mass, eps2))
-            check(torch.equal(was, ab.forces_sym_ablation(pos, mass, eps2,
-                                                          ab.CONTROL)),
-                  f"{tag}: K15's control vpu_tile is not the parent's K7")
-            print(f"[redesign] {tag}: K15's control vpu_tile bit-equal to "
-                  f"the parent's K7")
-        tier_gate("forces_sym_vpu", got[rows], ref)
-        p99, frac = gate_numbers(got[rows], ref)
-        p99_old, frac_old = gate_numbers(was[rows], ref)
-        print(f"[redesign] {tag} vs float64, {len(rows)} rows: p99 {p99:.3e}, "
-              f"bad fraction {frac:.3e}; parent p99 {p99_old:.3e}, bad "
-              f"fraction {frac_old:.3e}")
-        errors_beside(tag, len(rows), got[rows], was[rows], ref)
-        rounds("forces_sym_vpu", tag, key, old, new, iters)
-        del pos, mass, got, was, ref
-
-    # K2-rect vpu's classic sweep at the two shard pairs.
-    for n, key, iters in ((2048, "", 20), (RECT_1M, "_1m", 2)):
-        tag = f"K2-rect vpu {n}x{n}"
-        pa, ma = bodies(n, 41, dev)
-        pb, mb = bodies(n, 42, dev)
-
-        def rect(lib):
-            return k2.rect_sweep("rect_forces_sym_vpu", pa, ma, pb, mb, eps2,
-                                 k2.SLOT_BUDGET_BYTES,
-                                 lib.nbt_rect_sym_vpu_pairs,
-                                 lib.nbt_rect_reduce, False, k2.SYM_TILE,
-                                 (1,))
-
-        def new():
-            return rect(new_libs["forces_sym"])
-
-        def old():
-            return rect(libs["forces_sym"])
-        got, was = k2.rect_forces_sym_vpu(pa, ma, pb, mb, eps2), old()
-        check(all(torch.equal(x, y) for x, y in zip(got, new())),
-              f"{tag}: not bit-reproducible, or the wrapper's result is "
-              f"not its sweep's")
-        if n <= 8192:
-            for side, g, w in zip("ab", got, k2.rect_forces_sym_plain(
-                    pa, ma, pb, mb, eps2, True)):
-                compare(f"{tag} acc_{side} vs plain", g, w)
-        for side, g, o, (xi, xj, mj) in zip("ab", got, was,
-                                            ((pa, pb, mb), (pb, pa, ma))):
-            rows = rows_of(n)
-            ref = rect_forces(xi[rows].double(), xj.double(), mj.double(),
-                              eps2, chunk=64)
-            compare(f"{tag} acc_{side}, new vs float64 ({len(rows)} rows)",
-                    g[rows], ref)
-            errors_beside(f"{tag} acc_{side}", len(rows), g[rows], o[rows],
-                          ref)
-        rounds("rect_forces_sym_vpu", tag, key, old, new, iters)
-        del pa, ma, pb, mb, got, was
+            def old(v=variant):
+                return parent_tc(parent, pos, mass, eps2, v)
+            got = k910.forces_tiled_tc(pos, mass, eps2, variant)
+            was = old()
+            check(torch.equal(got, new()), f"{tag}: not bit-reproducible, "
+                  f"or the wrapper's result is not its sweep's")
+            if n <= 8192:
+                compare(f"{tag} vs plain", got,
+                        k910.rect_forces_tiled_tc_plain(pos, pos, mass, eps2,
+                                                        variant, True),
+                        rel_tol=TC_REL_TOL, abs_floor=TC_ABS_FLOOR)
+            tier_gate(kname, got[rows], ref)
+            p99, frac = gate_numbers(got[rows], ref)
+            p99_old, frac_old = gate_numbers(was[rows], ref)
+            print(f"[redesign] {tag} vs float64, {len(rows)} rows: p99 "
+                  f"{p99:.3e}, bad fraction {frac:.3e}; parent p99 "
+                  f"{p99_old:.3e}, bad fraction {frac_old:.3e}")
+            e_new, e_old = row_errors(got[rows], ref), row_errors(was[rows],
+                                                                  ref)
+            print(f"[redesign] {tag}: |err| / |a| against float64 on "
+                  f"{len(rows)} rows, max / median: new {e_new[0]:.3e} / "
+                  f"{e_new[1]:.3e}, parent {e_old[0]:.3e} / {e_old[1]:.3e}")
+            rounds(kname, tag, key, old, new, iters)
+            del got, was
+        del pos, mass, ref
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2222,24 +2222,34 @@ def main_path(counts, reset):
     # The sharded path: validate through the mesh at N = 8192 (P = 4:
     # the self shards, one cross rotation through K2-rect, the antipodal
     # rotation through K1; P = 3: the self shards and one cross rotation;
-    # P = 2 with the all-gather: K1 only), 10 steps of P shards each.
-    # Launches per run: P x 10 of each kernel of the schedule.
+    # P = 2 with the all-gather: K1 only; pallas_mxu on 4 shards, the
+    # one-sided ring: K10's rect form on each of the P rotations, masked at
+    # the first (each shard's own) and disjoint after it; pallas_turbo on 2
+    # shards with the all-gather: K9's masked rect form), 10 steps of P
+    # shards each.  Launches per run: P x 10 of each kernel of the schedule,
+    # P x P x 10 for the one-sided ring.  A tier's name after the comm
+    # options gives validate the tier's allowances.
     for shards, impl, extra, expect in (
             (4, "pallas_sym2", [], {"forces_sym": 40,
                                     "rect_forces_sym_vpu2": 40,
                                     "forces_tiled": 40}),
-            (3, "pallas_sym_turbo2", "forces_sym_turbo2",
+            (3, "pallas_sym_turbo2", ["forces_sym_turbo2"],
              {"forces_sym_turbo2": 30, "rect_forces_sym_turbo2": 30}),
             (3, "pallas_sym", [], {"forces_sym_vpu": 30,
                                    "rect_forces_sym_vpu": 30}),
-            (3, "pallas_sym_turbo", "forces_sym_turbo",
+            (3, "pallas_sym_turbo", ["forces_sym_turbo"],
              {"forces_sym_turbo": 30, "rect_forces_sym_turbo": 30}),
-            (3, "pallas_sym_mxu", "forces_sym_mxu",
+            (3, "pallas_sym_mxu", ["forces_sym_mxu"],
              {"forces_sym_mxu": 30, "rect_forces_sym_mxu": 30}),
-            (2, "pallas", ["--comm", "allgather"], {"forces_tiled": 20})):
-        if isinstance(extra, str):
-            frac = str(TIER_GATES[extra][1])
-            extra = ["--max-bad-frac", frac, "--max-bad-frac-acc", frac]
+            (2, "pallas", ["--comm", "allgather"], {"forces_tiled": 20}),
+            (4, "pallas_mxu", ["forces_tiled_mxu"],
+             {"forces_tiled_mxu": 160}),
+            (2, "pallas_turbo", ["--comm", "allgather", "forces_tiled_turbo"],
+             {"forces_tiled_turbo": 20})):
+        if extra and extra[-1] in TIER_GATES:
+            frac = str(TIER_GATES[extra[-1]][1])
+            extra = extra[:-1] + ["--max-bad-frac", frac,
+                                  "--max-bad-frac-acc", frac]
         t0 = time.perf_counter()
         phase(f"validate --shards {shards} --impl {impl} --seed 5 "
               + " ".join(extra),
@@ -2667,8 +2677,13 @@ def main():
 
     # The parent's sources for the redesign rounds, and its SASS against
     # this build's, compiled in the background meanwhile.
+    # The earlier commits' libraries, built meanwhile too.
     csrc = parent_csrc()
     sass = start_sass_compare(csrc) if csrc else None
+    parent_build = build_parent(csrc, tuple(PARENT_FNS)) if csrc else None
+    former = parent_csrc(K7_FORMER_COMMIT, K7_FORMER_CSRC)
+    former_build = (build_parent(former, ("forces_sym",), "k7_former",
+                                 report=False) if former else None)
 
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.ops import forces_sym as k2
@@ -2685,7 +2700,7 @@ def main():
     check_slice4(dev, 0.002, record, smi)
     check_k14(dev, 0.002, record, smi)
     check_rect(dev, 0.002, record, smi)
-    check_ablations(dev, 0.002, record, smi)
+    check_ablations(dev, 0.002, record, smi, former_build)
     check_rdma(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
@@ -2694,11 +2709,11 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K11, K7 and K2-rect vpu against the designs
-    # before their redesign.
+    # 4. K2 at the 1M headline; K9 and K10 against the design before their
+    # redesign.
     check_k2_1m(dev)
     if csrc:
-        check_redesign(dev, 0.002, record, smi, csrc)
+        check_redesign(dev, 0.002, record, smi, parent_build)
     else:
         print("[redesign] skipped: no parent sources (PARENT_CSRC)")
 

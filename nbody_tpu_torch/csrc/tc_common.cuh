@@ -20,8 +20,9 @@
 // dx*dx + dy*dy + dz*dz + eps2, so that the float32 weights, and hence
 // their bf16 roundings, are those of the plain versions on the same card;
 // bf16 conversion rounds to nearest even, as .to(torch.bfloat16) and JAX's
-// astype do.  The trimmed geometry of K5 and K14a (pair_inv_fma) fuses d2
-// instead, and its twin rounds each fused multiply-add once.
+// astype do.  The trimmed geometry of K5, K6, K14a, K9 and K10
+// (pair_inv_fma) fuses d2 instead, and its twin rounds each fused
+// multiply-add once.
 //
 // Fragment layouts of mma.m16n8k16 (bf16 in, f32 accumulate), for lane
 // l = 4g + t:
@@ -68,6 +69,14 @@ __device__ __forceinline__ void split_rn(float a, float b, uint32_t& hi,
     split_bf16(b, bh, bl);
     hi = bf16x2(ah, bh);
     lo = bf16x2(al, bl);
+}
+
+// pack_rn with both weights rounded by one bf16x2 convert (a in the low
+// half): pack_rn's bits.
+__device__ __forceinline__ uint32_t pack2_rn(float a, float b) {
+    uint32_t r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+    return r;
 }
 
 // split_rn with both weights rounded at once: hi as one bf16x2 convert
@@ -152,7 +161,8 @@ __device__ __forceinline__ float pair_inv(float4 bi, float4 bj, float eps2) {
     return rsqrtf(__fmul_rn(__fmul_rn(d2, d2), d2));
 }
 
-// pair_inv trimmed for the tile of K5 and K14a (sym_tc_tile.cuh, TRIM):
+// pair_inv trimmed for the tiles of K5, K6 and K14a (sym_tc_tile.cuh,
+// TRIM) and of K9 and K10 (forces_tiled_tc.cu):
 // d2 as three fused multiply-adds with eps2 folded in, and the rsqrt of
 // d2^3 on the MUFU without rsqrtf's subnormal fix-up (a compare and two
 // predicated multiplies; sym_common.cuh's rsqrt_normal, written out here
@@ -160,7 +170,7 @@ __device__ __forceinline__ float pair_inv(float4 bi, float4 bj, float eps2) {
 // float, which d2 >= eps2 makes it for every eps2 above ~1e-12.  10 issue
 // slots against pair_inv's 15 (3 sub, 3 FMA, 2 mul for the cube, 1 MUFU,
 // and no fix-up).  The plain twin rounds each FMA once from its exact
-// value (ops/forces_sym_tc.py: pair_inv_fma).
+// value (ops/forces_tiled_tc.py: pair_inv_fma).
 __device__ __forceinline__ float pair_inv_fma(float4 bi, float4 bj,
                                               float eps2) {
     const float dx = __fsub_rn(bj.x, bi.x);

@@ -74,7 +74,7 @@ from .forces_sym import (RECT_PAIRS_ARGTYPES, RECT_REDUCE_ARGTYPES,
                          descale_plain, diag_plain, rect_descale_plain,
                          rect_sweep, rect_sweep_plain, sweep, sweep_plain)
 from .forces_tiled_tc import (bf16_split, mass_folded_pack, pair_inv,
-                              position_pack, tile_result)
+                              pair_inv_fma, position_pack, tile_result)
 
 VARIANTS = ("turbo", "mxu", "turbo2", "turbof", "turbop")
 # Variants whose kernels take the trimmed geometry (pair_inv_fma).
@@ -110,23 +110,6 @@ def _lib():
             raise RuntimeError("SYM_TILE differs between forces_sym.py and "
                                "csrc/forces_sym_tc.cu")
     return lib
-
-
-def pair_inv_fma(xi: torch.Tensor, xj: torch.Tensor,
-                 eps2: float) -> torch.Tensor:
-    """(..., Ti, 3), (..., Tj, 3) -> (..., Ti, Tj) rsqrt((|x_j - x_i|^2 +
-    eps2)^3) as the trimmed geometry of K5, K6 and K14a rounds it: d2 =
-    fma(dz, dz, fma(dy, dy, fma(dx, dx, eps2))), each fused multiply-add
-    rounded once to float32 from its float64 value (a float32 square is
-    exact in float64; the sum then rounds twice, which differs from one
-    rounding only at rare ties)."""
-    d2 = torch.full((), torch.tensor(eps2, dtype=torch.float32).item(),
-                    dtype=torch.float64, device=xi.device)
-    for e in range(3):
-        de = (xj[..., None, :, e] - xi[..., :, None, e]).double()
-        d2 = (de * de + d2).float().double()
-    d2 = d2.float()
-    return torch.rsqrt(d2 * d2 * d2)
 
 
 def _pair_tiles(xi, mi, xj, mj, eps2, variant, trimmed=True):

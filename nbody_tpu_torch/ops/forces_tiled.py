@@ -75,20 +75,30 @@ def _lib():
     return bind(_build.load("forces_tiled"))
 
 
-def k1_slices(ni: int, nj: int, slices: "int | None" = None,
-              kahan: bool = False) -> "tuple[int, int]":
-    """(slices, tiles a slice) of K1's (``kahan``: K11's) j-set: ``slices``
-    if given, else as many as bring the work items (row blocks x slices)
-    to ``K1_ITEMS``, at least one and at most one a tile, within
-    ``K1_SLOT_BUDGET`` (K11's slots hold a sum and a compensation); the
+def slice_plan(ni: int, nj: int, tile: int, block_rows: int, items: int,
+               slot_bytes: int, slices: "int | None" = None
+               ) -> "tuple[int, int]":
+    """(slices, tiles a slice) of a one-sided sweep in (row block, j slice)
+    work items, rows in blocks of ``block_rows``, the j-set in tiles of
+    ``tile`` bodies: ``slices`` if given, else as many as bring the items
+    (row blocks x slices) to ``items``, at least one and at most one a
+    tile, within ``K1_SLOT_BUDGET`` at ``slot_bytes`` a row and slice; the
     tiles split evenly, the last slice the shortest."""
-    tiles = max(1, -(-nj // K1_TILE))
+    tiles = max(1, -(-nj // tile))
     if slices is None:
-        row_blocks = max(1, -(-ni // K1_BLOCK_ROWS))
-        slices = min(-(-K1_ITEMS // row_blocks),
-                     K1_SLOT_BUDGET // max(1, ni * (24 if kahan else 12)))
+        row_blocks = max(1, -(-ni // block_rows))
+        slices = min(-(-items // row_blocks),
+                     K1_SLOT_BUDGET // max(1, ni * slot_bytes))
     tps = -(-tiles // max(1, min(tiles, slices)))
     return -(-tiles // tps), tps
+
+
+def k1_slices(ni: int, nj: int, slices: "int | None" = None,
+              kahan: bool = False) -> "tuple[int, int]":
+    """(slices, tiles a slice) of K1's (``kahan``: K11's, whose slots hold
+    a sum and a compensation) j-set (``slice_plan``)."""
+    return slice_plan(ni, nj, K1_TILE, K1_BLOCK_ROWS, K1_ITEMS,
+                      24 if kahan else 12, slices)
 
 
 def kahan_add(s: torch.Tensor, c: torch.Tensor,
