@@ -19,7 +19,8 @@ bodies, with planted close pairs, and on 4096 sorted rows at N = 1M;
 K11 also against K1; the K14 variants turbo2 and turbof at turbo's
 float64 gate at 8192 and on sampled rows at 1M, turbof with massless
 bodies, turbop bit for bit against K5, and the fold schedule at the exact
-gate and against classic K2/K7 at 8192 and 1M; K2-rect, every variant
+gate and against classic K2/K7 at 8192 and 1M, and at clusters of 2, 3
+and 8 CTAs with real massless bodies; K2-rect, every variant
 and both schedules, at the shard shapes 2048 x 2048 and 2144 x 1536, at
 its float64 gates and with massless bodies on both sides, and at the 1M
 ring's 262,144 x 262,144 shard pair on sampled rows against float64;
@@ -35,10 +36,11 @@ variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K9 and K10
-(at N = 8192 and 1,048,576) against their design before the redesign for
-this card (the sources of PARENT_COMMIT, built beside the package's) in
-alternating rounds, each held to its twin and to float64 beside the
+N = 1,048,576 against the direct-form ``rect_forces``, times K14d (at N
+= 8192 and 1,048,576) and the K2-rect folds (at 2048 x 2048 and 262,144 x
+262,144) against their design before the redesign for this card (the
+sources of PARENT_COMMIT, built beside the package's) in alternating
+rounds and by pass, each held to its twin and to float64 beside the
 parent's error, and holds every other kernel's SASS to
 theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
@@ -290,15 +292,16 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K9 and K10 (the one-sided tensor-core tiers, now on the
-# trimmed geometry and K1's (row block, j slice) work items) for this card,
-# timed against the design before it: the commit that holds it, unpacked
-# (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C
-# build/parent``) into PARENT_CSRC, where check_redesign builds it beside
-# the package's and times both in rounds (the order reversed every other
-# round; medians).  Without those sources and without git, the rounds and
-# the SASS comparison are skipped and say so.
-PARENT_COMMIT = "9a340792f43fd13678329d9e388c9fcee2bc3029"
+# The redesign of K14d (the fold schedule, K2's and K7's math) and the
+# K2-rect folds for this card (the pair tile, one work item a cluster of
+# CTAs, the diagonal superblocks on K1's one-sided tile), timed against the
+# design before it: the commit that holds it, unpacked (``git archive
+# PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C build/parent``) into
+# PARENT_CSRC, where check_redesign builds it beside the package's and
+# times both in rounds (the order reversed every other round; medians).
+# Without those sources and without git, the rounds and the SASS
+# comparison are skipped and say so.
+PARENT_COMMIT = "58a051384b6ca9ef7460d4c768822ed3c7f2d9aa"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
@@ -309,15 +312,18 @@ K7_FORMER_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
 K7_FORMER_CSRC = os.path.join(ROOT, "build", "k7_former", "nbody_tpu_torch",
                               "csrc")
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes: K9's
-# and K10's (forces_tiled_tc_kernel<0|1>, only in the parent's, replaced
-# by tc_item_kernel<0|1> and their slot reduce tc_reduce_kernel, only in
-# the new sources).  Every other kernel keeps its SASS; SASS_SAME pairs an
-# old kernel with a new name it lives on under (none in this redesign).
+# libraries keeps the parent's SASS, but those the redesign changes: the
+# fold kernels (sym_fold_pairs_kernel<0|1>, sym_fold_reduce_kernel<0|1>,
+# and the rect fold, rect_pairs_kernel<0> in the parent's and
+# rect_fold_pairs_kernel<0|1> in the new sources, with fold_diag_kernel,
+# the diagonal superblocks).  rect_pairs_kernel<1..4> (K15's rect forms)
+# keep theirs.  SASS_SAME pairs an old kernel with a new name it lives on
+# under (none in this redesign).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bforces_tiled_tc_kernel<", r"\btc_item_kernel<",
-                   r"\btc_reduce_kernel\b")
+SASS_REDESIGNED = (r"\bsym_fold_pairs_kernel<", r"\bsym_fold_reduce_kernel<",
+                   r"\brect_pairs_kernel<0>", r"\brect_fold_pairs_kernel<",
+                   r"\bfold_diag_kernel\b")
 SASS_SAME = ()
 
 
@@ -1949,27 +1955,42 @@ def report_rounds(what, times, smi):
     return med
 
 
-# The parent's C entry check_redesign binds: K9's and K10's took no slots
-# before their redesign (pos_i, ni, pos_j, mass_j, nj, eps2, mxu,
-# mask_self, acc, stream).
-PARENT_FNS = {"forces_tiled_tc": ("nbt_forces_tiled_tc",)}
+# The parent's libraries check_redesign builds and binds: its
+# forces_sym.cu, the same C entries (ops/forces_sym.py bind).
+PARENT_LIBS = ("forces_sym",)
+# The four redesigned kernels: name -> (K7's math, rect).
+FOLD_KERNELS = {"forces_sym_fold": (False, False),
+                "forces_sym_vpu_fold": (True, False),
+                "rect_forces_sym_fold": (False, True),
+                "rect_forces_sym_vpu_fold": (True, True)}
 
 
-def parent_tc(lib, pos, mass, eps2, variant):
-    """One evaluation of the parent's K9 / K10 (one launch, the self-pair
-    masked) through its own C entry, on a host path as lean as the
-    package's ``sweep``."""
-    import torch
-    from nbody_tpu_torch.ops import _build
-    acc = torch.empty_like(pos)
-    n = pos.shape[0]
-    _build.check_launch(f"parent forces_tiled_{variant}",
-                        lib.nbt_forces_tiled_tc(
-                            pos.data_ptr(), n, pos.data_ptr(),
-                            mass.data_ptr(), n, float(eps2),
-                            int(variant == "mxu"), 1, acc.data_ptr(),
-                            _build.stream_handle(acc)))
-    return acc
+def fold_sweep(lib, kname, args, eps2, parts="both"):
+    """One evaluation of fold kernel ``kname`` through ``lib``'s C entries
+    (the package's build or the parent's) on the package's host path
+    (ops/forces_sym.py sweep / rect_sweep, without the wrappers' checks and
+    counters), at FOLD_BLOCK_U.  ``args``: (pos, mass) or (pos_a, mass_a,
+    pos_b, mass_b).  ``parts`` "pairs" or "reduce" launches that pass only
+    (the other's entry is a no-op), to time the two apart."""
+    from nbody_tpu_torch.ops import forces_sym as k2
+    k7, rect = FOLD_KERNELS[kname]
+    u = k2.FOLD_BLOCK_U
+    if rect:
+        pairs = lib.nbt_rect_sym_vpu_pairs if k7 else lib.nbt_rect_sym_pairs
+        reduce = lib.nbt_rect_reduce
+    else:
+        prefix = "nbt_sym_vpu_fold" if k7 else "nbt_sym_fold"
+        pairs = getattr(lib, f"{prefix}_pairs")
+        reduce = getattr(lib, f"{prefix}_reduce")
+    if parts == "pairs":
+        reduce = lambda *a: 0                   # noqa: E731
+    elif parts == "reduce":
+        pairs = lambda *a: 0                    # noqa: E731
+    if rect:
+        return k2.rect_sweep(kname, *args, eps2, k2.SLOT_BUDGET_BYTES, pairs,
+                             reduce, not k7, u, (u // 256,))
+    return k2.sweep(kname, *args, eps2, k2.SLOT_BUDGET_BYTES, pairs, reduce,
+                    u, (u // 256,))
 
 
 def row_errors(got, ref):
@@ -1979,33 +2000,46 @@ def row_errors(got, ref):
 
 
 def check_redesign(dev, eps2, record, smi, parent_build):
-    """K9 and K10 against the parent's design on the same inputs, in
-    alternating rounds at N = 8192 and 1,048,576 (seed 41).  Each new
-    kernel is held to its twin at 8192, is bit-reproducible (the wrapper's
-    result is its sweep's), and is held to its tier gate against float64
-    (every row at 8192, 2048 sampled rows at 1M) with the parent's error
-    beside it.  Both sides of a round take one host path (the sweep
-    without the wrappers' checks and counters, the package's build or the
-    parent's), so that at 8192, where the host's launch path is a share of
-    a call, the two differ in their kernels only; there the card's time
-    alone is taken too.  ``parent_build``: build_parent's function for the
-    parent's forces_tiled_tc.cu."""
-    import ctypes
+    """K14d (the fold schedule with K2's and K7's math) and the K2-rect
+    folds against the parent's design on the same inputs, in alternating
+    rounds: the square folds at N = 8192 and 1,048,576, the rect folds at
+    2048 x 2048 and 262,144 x 262,144 (seed 41).  Each new kernel is held
+    to its twin at 8192 and 2048 x 2048 at the exact tolerance, is
+    bit-reproducible (the wrapper's result is its sweep's), and is held to
+    float64 (every row at 8192 and 2048 x 2048, 2048 sampled rows at 1M and
+    of each side at 262,144 x 262,144; the square folds at the exact tiers'
+    gate, the rect folds at the exact tolerance) with the parent's error
+    beside it.  Both sides of a round take one host path (fold_sweep),
+    so that at 8192, where the host's launch path is a share of a call,
+    the two differ in their kernels only; there the card's time alone is
+    taken too.  Every item on a cluster and one CTA an item must give the
+    automatic spread's bits.  Then the pair pass and the reduce pass of
+    each, new and parent, are timed apart by partial launches.  ``parent_build``:
+    build_parent's function for the parent's forces_sym.cu."""
     import torch
-    from nbody_tpu_torch.ops import forces_tiled_tc as k910
+    from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from nbody_tpu_torch.utils.timing import time_ms
     t0 = time.perf_counter()
-    new_lib = k910._lib()
-    parent = parent_build()["forces_tiled_tc"]
-    c_ll, c_p, c_i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    parent.nbt_forces_tiled_tc.argtypes = [c_p, c_ll, c_p, c_p, c_ll,
-                                           ctypes.c_float, c_i, c_i, c_p, c_p]
-    parent.nbt_forces_tiled_tc.restype = c_i
+    new_lib = k2._lib()
+    parent = parent_build()["forces_sym"]
+    k2.bind(parent)
+    u = k2.FOLD_BLOCK_U
     sample = torch.Generator().manual_seed(13)
+    per_sm = {k: new_lib.nbt_sym_fold_per_sm(int(k7), int(rect))
+              for k, (k7, rect) in FOLD_KERNELS.items()}
+    print(f"[redesign] fold pair kernels, CTAs an SM: {per_sm}; "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
+          f"SMs: a launch of fewer items than SMs x CTAs an SM takes a "
+          f"cluster an item")
+    wrappers = {"forces_sym_fold": k2.forces_sym_fold,
+                "forces_sym_vpu_fold": k2.forces_sym_vpu_fold,
+                "rect_forces_sym_fold": k2.rect_forces_sym_fold,
+                "rect_forces_sym_vpu_fold": k2.rect_forces_sym_vpu_fold}
 
     def rounds(kname, tag, key, old, new, iters):
-        """New against parent in rounds, into record[kname]; at 8192 (no
-        ``key``) also the card's time alone."""
+        """New against parent in rounds, into record[kname]; at the small
+        shape (no ``key``) also the card's time alone."""
         med = report_rounds(tag, alternate({"parent": old, "new": new}, dev,
                                            iters), smi)
         record[kname].update({f"parent_ms{key}": med["parent"],
@@ -2017,45 +2051,208 @@ def check_redesign(dev, eps2, record, smi, parent_build):
             record[kname].update({"parent_device_ms": med["parent"],
                                   "new_device_ms": med["new"]})
 
+    def parts(kname, tag, key, args, iters):
+        """The pair pass and the reduce pass of new and parent timed apart
+        (every chunk's pair launches; every chunk's reduce launches, on
+        stale slots), the card's time alone at the small shape, into
+        record[kname]."""
+        out = {}
+        for side, lib in (("parent", parent), ("new", new_lib)):
+            for what in ("pairs", "reduce"):
+                def fn(lib=lib, what=what):
+                    return fold_sweep(lib, kname, args, eps2, what)
+                out[f"{side}_{what}"] = (
+                    time_ms(fn, dev, iters=iters, warmup=1) if key
+                    else device_ms(fn, iters))
+        print(f"[redesign] {tag} by pass{'' if key else ', the card'}: "
+              f"pairs new {out['new_pairs']:.4f} ms, parent "
+              f"{out['parent_pairs']:.4f}; reduce new "
+              f"{out['new_reduce']:.4f}, parent {out['parent_reduce']:.4f} "
+              f"({smi})")
+        record[kname].update({f"{k}_ms{key}": v for k, v in out.items()})
+
+    def modes(kname, tag, args, got):
+        """Every item on a cluster, and one CTA an item, must give the
+        bits of the automatic spread."""
+        for mode in (k2.FOLD_CLUSTER, k2.FOLD_CTA):
+            check(new_lib.nbt_sym_fold_mode(mode) == mode,
+                  "nbt_sym_fold_mode refused a mode")
+            try:
+                forced = fold_sweep(new_lib, kname, args, eps2)
+            finally:
+                new_lib.nbt_sym_fold_mode(k2.FOLD_AUTO)
+            forced = forced if isinstance(forced, tuple) else (forced,)
+            check(all(torch.equal(x, y) for x, y in zip(
+                forced, got if isinstance(got, tuple) else (got,))),
+                f"{tag}: FoldMode {mode} differs from the automatic spread")
+        print(f"[redesign] {tag}: clusters and one CTA an item give the "
+              f"automatic spread's bits")
+
+    def sampled(n):
+        return (torch.arange(n, device=dev) if n <= 8192 else
+                torch.randperm(n, generator=sample)[:2048].sort()[0].to(dev))
+
     for n, key, iters in ((8192, "", 20), (1 << 20, "_1m", 1)):
         pos, mass = bodies(n, 41, dev)
-        rows = (torch.arange(n, device=dev) if n <= 8192 else
-                torch.randperm(n, generator=sample)[:2048].sort()[0].to(dev))
+        rows = sampled(n)
         ref = rect_forces(pos[rows].double(), pos.double(), mass.double(),
                           eps2, chunk=64)
-        for kernel, variant in (("K9", "turbo"), ("K10", "mxu")):
-            kname = f"forces_tiled_{variant}"
-            tag = f"{kernel} {variant} N={n}"
+        for kname in ("forces_sym_fold", "forces_sym_vpu_fold"):
+            k7 = FOLD_KERNELS[kname][0]
+            tag = f"K14d {'vpu' if k7 else 'vpu2'} N={n}"
 
-            def new(v=variant):
-                return k910.sweep(new_lib, pos, pos, mass, eps2, v, True)
+            def new(k=kname):
+                return fold_sweep(new_lib, k, (pos, mass), eps2)
 
-            def old(v=variant):
-                return parent_tc(parent, pos, mass, eps2, v)
-            got = k910.forces_tiled_tc(pos, mass, eps2, variant)
+            def old(k=kname):
+                return fold_sweep(parent, k, (pos, mass), eps2)
+            got = wrappers[kname](pos, mass, eps2)
             was = old()
             check(torch.equal(got, new()), f"{tag}: not bit-reproducible, "
                   f"or the wrapper's result is not its sweep's")
             if n <= 8192:
-                compare(f"{tag} vs plain", got,
-                        k910.rect_forces_tiled_tc_plain(pos, pos, mass, eps2,
-                                                        variant, True),
-                        rel_tol=TC_REL_TOL, abs_floor=TC_ABS_FLOOR)
+                plain = (k2.forces_sym_vpu_plain if k7 else
+                         k2.forces_sym_plain)
+                compare(f"{tag} vs plain", got, plain(pos, mass, eps2,
+                                                      block_u=u))
             tier_gate(kname, got[rows], ref)
-            p99, frac = gate_numbers(got[rows], ref)
-            p99_old, frac_old = gate_numbers(was[rows], ref)
-            print(f"[redesign] {tag} vs float64, {len(rows)} rows: p99 "
-                  f"{p99:.3e}, bad fraction {frac:.3e}; parent p99 "
-                  f"{p99_old:.3e}, bad fraction {frac_old:.3e}")
             e_new, e_old = row_errors(got[rows], ref), row_errors(was[rows],
                                                                   ref)
             print(f"[redesign] {tag}: |err| / |a| against float64 on "
                   f"{len(rows)} rows, max / median: new {e_new[0]:.3e} / "
                   f"{e_new[1]:.3e}, parent {e_old[0]:.3e} / {e_old[1]:.3e}")
+            modes(kname, tag, (pos, mass), got)
             rounds(kname, tag, key, old, new, iters)
+            parts(kname, tag, key, (pos, mass), iters)
             del got, was
         del pos, mass, ref
+
+    for n, key, iters in ((2048, "", 20), (RECT_1M, "_1m", 1)):
+        pa, ma = bodies(n, 41, dev)
+        pb, mb = bodies(n, 42, dev)
+        rows = (sampled(n), sampled(n))
+        ref = (rect_forces(pa[rows[0]].double(), pb.double(), mb.double(),
+                           eps2, chunk=64),
+               rect_forces(pb[rows[1]].double(), pa.double(), ma.double(),
+                           eps2, chunk=64))
+        for kname in ("rect_forces_sym_fold", "rect_forces_sym_vpu_fold"):
+            k7 = FOLD_KERNELS[kname][0]
+            tag = f"K2-rect fold {'vpu' if k7 else 'vpu2'} {n}x{n}"
+            args = (pa, ma, pb, mb)
+
+            def new(k=kname):
+                return fold_sweep(new_lib, k, args, eps2)
+
+            def old(k=kname):
+                return fold_sweep(parent, k, args, eps2)
+            got = wrappers[kname](*args, eps2)
+            was = old()
+            check(all(torch.equal(x, y) for x, y in zip(got, new())),
+                  f"{tag}: not bit-reproducible, or the wrapper's result is "
+                  f"not its sweep's")
+            if n <= 8192:
+                for side, g, w in zip("ab", got, k2.rect_forces_sym_plain(
+                        *args, eps2, k7, u)):
+                    compare(f"{tag} acc_{side} vs plain", g, w)
+            for side, g, w, r, idx in zip("ab", got, was, ref, rows):
+                compare(f"{tag} acc_{side} vs float64, {len(idx)} rows",
+                        g[idx], r)
+                e_new, e_old = row_errors(g[idx], r), row_errors(w[idx], r)
+                print(f"[redesign] {tag} acc_{side}: |err| / |a| against "
+                      f"float64 on {len(idx)} rows, max / median: new "
+                      f"{e_new[0]:.3e} / {e_new[1]:.3e}, parent "
+                      f"{e_old[0]:.3e} / {e_old[1]:.3e}")
+            modes(kname, tag, args, got)
+            rounds(kname, tag, key, old, new, iters)
+            parts(kname, tag, key, args, iters)
+            del got, was
+        del pa, ma, pb, mb, ref
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
+
+
+def check_fold(dev, eps2):
+    """The cluster folds at other cluster sizes: K14d (both maths) at
+    block_u 512, 768 and 2048 (clusters of 2, 3 and 8 CTAs) at N = 2500
+    and 8192, and the K2-rect folds at block_u 512, 1024 and 2048 at
+    2048 x 2048 and at a ragged 2144 x 1536 (A padded to whole
+    superblocks), each against its twin at the exact tolerance,
+    bit-reproducible and chunk-invariant, K14d also bit-equal with one CTA
+    an item; K2's and K7's folds, square and rect, with three real
+    massless bodies against float64 (K2's math recomputes such a row
+    one-sided)."""
+    import torch
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    t0 = time.perf_counter()
+    lib = k2._lib()
+    square = ((k2.forces_sym_fold, k2.forces_sym_plain),
+              (k2.forces_sym_vpu_fold, k2.forces_sym_vpu_plain))
+    for n in (2500, 8192):
+        pos, mass = bodies(n, n + 14, dev)
+        for u in (512, 768, 2048):
+            for fn, plain in square:
+                tag = f"{fn.__name__} U={u} N={n}"
+                got = fn(pos, mass, eps2, block_u=u)
+                compare(f"{tag} vs plain", got,
+                        plain(pos, mass, eps2, block_u=u))
+                check(torch.equal(got, fn(pos, mass, eps2, block_u=u)),
+                      f"{tag}: not bit-reproducible")
+                lib.nbt_sym_fold_mode(k2.FOLD_CTA)
+                try:
+                    cta = fn(pos, mass, eps2, block_u=u)
+                finally:
+                    lib.nbt_sym_fold_mode(k2.FOLD_AUTO)
+                check(torch.equal(got, cta), f"{tag}: one CTA an item "
+                      f"differs from the automatic spread")
+                one = fn(pos, mass, eps2, block_u=u,
+                         slot_budget=24 * (-(-n // u) * u))
+                check(torch.equal(got, one), f"{tag}: one offset per chunk "
+                      f"differs from one chunk")
+    for na, nb in RECT_SHAPES:
+        pa, ma = bodies(na, na + 23, dev)
+        pb, mb = bodies(nb, nb + 24, dev)
+        for u in (512, 1024, 2048):
+            for k7, fn in ((False, k2.rect_forces_sym_fold),
+                           (True, k2.rect_forces_sym_vpu_fold)):
+                tag = f"{fn.__name__} U={u} {na}x{nb}"
+                got = fn(pa, ma, pb, mb, eps2, block_u=u)
+                for side, g, w in zip("ab", got, k2.rect_forces_sym_plain(
+                        pa, ma, pb, mb, eps2, k7, u)):
+                    compare(f"{tag} acc_{side} vs plain", g, w)
+                check(all(torch.equal(x, y) for x, y in zip(
+                    got, fn(pa, ma, pb, mb, eps2, block_u=u))),
+                    f"{tag}: not bit-reproducible")
+                one = fn(pa, ma, pb, mb, eps2, block_u=u,
+                         slot_budget=24 * (-(-na // u) * u))
+                check(all(torch.equal(x, y) for x, y in zip(got, one)),
+                      f"{tag}: one column superblock per chunk differs "
+                      f"from one chunk")
+    print("[check] K14d and the K2-rect folds at clusters of 2, 3, 4 and 8 "
+          "CTAs: at their twins, bit-reproducible and chunk-invariant")
+    pos, mass = bodies(1000, 7, dev)
+    zero = [3, 400, 999]
+    mass[zero] = 0.0
+    ref = rect_forces(pos.double(), pos.double(), mass.double(), eps2)
+    for fn, _ in square:
+        for u in (512, 1024):
+            got = fn(pos, mass, eps2, block_u=u)
+            compare(f"{fn.__name__} U={u}, three real massless rows vs "
+                    f"float64", got[zero], ref[zero])
+            compare(f"{fn.__name__} U={u} with three massless bodies vs "
+                    f"float64", got, ref)
+    pa, ma = bodies(2048, 33, dev)
+    pb, mb = bodies(1536, 34, dev)
+    ma[[3, 2047]] = 0.0
+    mb[[5, 1535]] = 0.0
+    ref = (rect_forces(pa.double(), pb.double(), mb.double(), eps2),
+           rect_forces(pb.double(), pa.double(), ma.double(), eps2))
+    for fn in (k2.rect_forces_sym_fold, k2.rect_forces_sym_vpu_fold):
+        got = fn(pa, ma, pb, mb, eps2)
+        compare(f"{fn.__name__}, massless rows of A vs float64",
+                got[0][[3, 2047]], ref[0][[3, 2047]])
+        compare(f"{fn.__name__}, massless rows of B vs float64",
+                got[1][[5, 1535]], ref[1][[5, 1535]])
+    print(f"[time] fold checks: {time.perf_counter() - t0:.1f} s")
 
 
 def crossovers(dev, smi):
@@ -2680,7 +2877,7 @@ def main():
     # The earlier commits' libraries, built meanwhile too.
     csrc = parent_csrc()
     sass = start_sass_compare(csrc) if csrc else None
-    parent_build = build_parent(csrc, tuple(PARENT_FNS)) if csrc else None
+    parent_build = build_parent(csrc, PARENT_LIBS) if csrc else None
     former = parent_csrc(K7_FORMER_COMMIT, K7_FORMER_CSRC)
     former_build = (build_parent(former, ("forces_sym",), "k7_former",
                                  report=False) if former else None)
@@ -2700,6 +2897,7 @@ def main():
     check_slice4(dev, 0.002, record, smi)
     check_k14(dev, 0.002, record, smi)
     check_rect(dev, 0.002, record, smi)
+    check_fold(dev, 0.002)
     check_ablations(dev, 0.002, record, smi, former_build)
     check_rdma(dev, 0.002, record, smi)
     check_resident(dev, record)
@@ -2709,8 +2907,8 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K9 and K10 against the design before their
-    # redesign.
+    # 4. K2 at the 1M headline; K14d and the K2-rect folds against the
+    # design before their redesign.
     check_k2_1m(dev)
     if csrc:
         check_redesign(dev, 0.002, record, smi, parent_build)

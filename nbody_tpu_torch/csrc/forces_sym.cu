@@ -70,13 +70,13 @@
 // rect_k7_pairs_kernel, below) and K13's two-sided vpu2 phases run this
 // tile's core, sym_pair_core, on two body sets: a 262,144 x 262,144
 // rotation of the 1M ring takes 49.1 ms there with K2's math (65.7 on
-// sym_tile_core), 73% of the issue rate.  Left for later: wgmma
-// accumulation of the row and column sums on the tensor cores, and the
-// fold schedule on this tile.
+// sym_tile_core), 73% of the issue rate; the folds (K14d and K2-rect's)
+// run it too.  Left for later: wgmma accumulation of the row and column
+// sums on the tensor cores.
 //
 // The pair tile, the slot sum and the diagonal tile are in sym_common.cuh,
 // shared with the resident kernels (resident.cu); the one-row-a-thread
-// tile of the folds, K15 and K13's vpu phases (sym_tile_core) is in
+// tile of K15 and K13's two-sided vpu phase (sym_tile_core) is in
 // sym_tile.cuh, shared with K13 (rdma_ring.cu).
 //
 // K7 (variant "vpu" of _make_sym_kernel: _pair_terms, _accum_i_vpu,
@@ -99,13 +99,14 @@
 // tile's 256 rows); K2's instantiation keeps its code, so K3/K4 stay
 // bit-equal to per-step K2.
 //
-// K14d (the fold schedule of _make_sym_kernel_fold) runs sym_tile_core
-// with K2's and K7's math on superblocks of several tiles and folds the
-// j-side sums of a superblock's row tiles on chip; its kernels and their
-// contract follow K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
+// K14d (the fold schedule of _make_sym_kernel_fold) runs the pair tile
+// with K2's and K7's math on superblocks of several tiles, one superblock
+// pair a thread-block cluster, and folds the j-side sums of a superblock's
+// row tiles across the cluster; its kernels and their contract follow
+// K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
 // _make_rect_kernel_fold between two disjoint body sets) runs the pair
-// tile (classic vpu2 and vpu) or sym_tile_core (the folds) over a
-// rectangular enumeration.  K15's vpu_* ablations
+// tile, classic or folded the same way, over a rectangular enumeration.
+// K15's vpu_* ablations
 // (nbody_tpu/ops/ablation_sym.py) and their control VPU_TILE (K7's math)
 // are SymMath values of sym_tile_core, the tile K7 ran before its
 // redesign, with the reduce passes that every K15 form shares; they come
@@ -114,9 +115,16 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
 
+#include <cooperative_groups.h>
+
+#include <utility>
+
 #include "sym_common.cuh"
 #include "rect_common.cuh"
 #include "sym_tile.cuh"
+#include "onesided_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 // K15's tiles, the ablations of K7's former tile and their control
 // (VPU_TILE): sym_tile_core with K7's one-sided weights fi = m_j inv and
@@ -166,7 +174,7 @@ sym_pairs_kernel(const float* __restrict__ pos,
     const long long I = bid - dk * nb;
     const long long d = d_lo + dk;
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
-    if (M == SYM_K2 || M == SYM_K7)
+    if constexpr (M == SYM_K2 || M == SYM_K7)
         sym_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
     else
         sym_vpu_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
@@ -288,113 +296,270 @@ extern "C" int nbt_sym_vpu_reduce(const float* pos, const float* mass,
 // K14d: the fold schedule (nbody_tpu/ops/forces_pallas_sym.py:
 // _make_sym_kernel_fold, variants "vpu2" and "vpu"), K2's and K7's math on
 // superblocks of u = sub * SYM_TILE bodies.  nb counts superblocks here.
-// One CTA per (superblock I, circular superblock offset d): it sweeps the
-// sub row tiles of I against the sub column tiles of J = (I + d) mod nb.
-// Each row tile's sums run over all u columns in registers and take one
-// i-side slot per (row tile, offset).  The column sums of each column tile
-// fold on chip across the row tiles, in row-tile order (each thread owns
-// column t of every column tile), and take ONE j-side slot write per
-// (I, d), not sub.  Offsets are superblock offsets, so there are sub times
-// fewer of them, and fewer slots, than in the classic sweep.  The diagonal
-// superblocks are one-sided exact over u bodies in the reduce pass, as
-// _diag_call does at block_u = u.  Halving, chunks and the fixed-order
+// A work item is (superblock I, circular superblock offset d): the sub row
+// tiles of I against the sub column tiles of J = (I + d) mod nb.  Offsets
+// are superblock offsets, so there are sub times fewer of them, and fewer
+// slots, than in the classic sweep; halving, chunks and the fixed-order
 // reduce are K2's, with superblocks for tiles.
+//
+// One item runs on a thread-block cluster of sub CTAs (fold_item).  CTA
+// rank r runs the pair tile, sym_pair_core with K2's or K7's math, of row
+// tile r against the column tiles c = 0 .. sub-1 in turn: row tile r's
+// sums are the tiles' row sums added in column-tile order, written once to
+// its i-side slot.  The rank keeps its sub column partials and, after the
+// last tile, puts them in its SymPairSmem::part; after a cluster barrier
+// rank c reads column tile c's partials of ranks 0 .. sub-1 through
+// distributed shared memory, adds them in row-tile order and writes the
+// tile's one j-side slot (negated).  This is the JAX fold's grouping
+// (acc_i_ref[row] += ai a row tile, jsc_ref += aj across si).  A second
+// cluster barrier keeps every CTA until its partials have been read.
+// Where the items alone fill the card's CTA slots (at N = 1,048,576), one
+// CTA takes an item instead and runs its row tiles in turn, folding the
+// column partials in row-tile order: the same bits, without the clusters'
+// cost there (fold_ctas).
+//
+// The diagonal superblocks are one-sided exact over their u bodies (m_j
+// weights), as _diag_call does at block_u = u: fold_diag_kernel runs K1's
+// one-sided tile (onesided_rows, onesided_tile.cuh) with FOLD_DIAG_R rows
+// a lane and the superblock's columns split among the eight warps, the
+// warps' partials added in warp order; the reduce's last chunk adds them.
+// K2's math recomputes a real massless row one-sided over all N bodies
+// there, since its mass-scaled slots cannot be descaled.
+//
+// What bounds it on the card: FP32 FMA and MUFU issue, as K2 (17 issue
+// slots a pair on the pair tile).  At N = 8192 (U = 1024) the clusters
+// launch 112 CTAs where one CTA an item launched 28 on 132 SMs: on an
+// H100 80GB HBM3 at 700 W the card takes 0.0435 ms an evaluation with
+// K2's math (0.0448 with K7's) against 0.2038 (0.1918) before, and 0.1167
+// with one CTA an item.  At N = 1,048,576 one CTA an item takes 375.6 ms
+// (396.2) against 502.7 (502.4), 370.7 of it the pair passes, 1.3% under
+// K2's on the same tile with a quarter of the slot bytes; a cluster an
+// item took 423.2 there (chip_smoke.py check_redesign and
+// tools/fold_variants.py).  The pair kernels take 126 / 123 registers
+// (two CTAs an SM) and a 96-byte stack frame for the column partials.
 
 #define FOLD_SUB_MAX 8
+static_assert(FOLD_SUB_MAX <= SYM_WARPS,
+              "a rank's column partials must fit in SymPairSmem::part");
 
-template <bool K7>
+// One fold item, called by every thread of the item's CTAs: the sub row
+// tiles at i0 of (pos_r, mass_r) against the sub column tiles at j0 of
+// (pos_c, mass_c), on one CTA (ctas = 1) or a cluster of ctas = sub, rank
+// q taking row tile q.  Row tile r's sums go to si_rows[r * SYM_TILE + t],
+// column tile c's negated sums to sj_cols[c * SYM_TILE + t] (three floats
+// a body).  Either way column tile c's sum is 0 + cs(0, c) + cs(1, c) +
+// ... in row-tile order, so the two give the same bits.
+template <int M>
+__device__ __forceinline__ void fold_item(
+        const float* pos_r, const float* __restrict__ mass_r, long long n_r,
+        long long i0, const float* pos_c, const float* __restrict__ mass_c,
+        long long n_c, long long j0, int sub, int ctas, float eps2,
+        float* __restrict__ si_rows, float* __restrict__ sj_cols,
+        SymPairSmem& sm) {
+    const int q = ctas > 1 ? (int)cg::this_cluster().block_rank() : 0;
+    const int t = threadIdx.x;
+    float3 col[FOLD_SUB_MAX];                 // column t of each column tile
+    for (int c = 0; c < sub; ++c) col[c] = make_float3(0.f, 0.f, 0.f);
+    for (int r = q; r < sub; r += ctas) {
+        float3 row = make_float3(0.f, 0.f, 0.f);
+        for (int c = 0; c < sub; ++c) {
+            float3 rs, cs;
+            sym_pair_core<M>(pos_r, mass_r, i0 + r * SYM_TILE + t, n_r,
+                             pos_c, mass_c, j0 + c * SYM_TILE + t, n_c, eps2,
+                             sm, rs, cs);
+            row.x += rs.x;
+            row.y += rs.y;
+            row.z += rs.z;
+            col[c].x += cs.x;
+            col[c].y += cs.y;
+            col[c].z += cs.z;
+        }
+        float* si_t = si_rows + 3 * (r * SYM_TILE + t);
+        si_t[0] = row.x;
+        si_t[1] = row.y;
+        si_t[2] = row.z;
+    }
+    if (ctas == 1) {
+        for (int c = 0; c < sub; ++c) {
+            float* sj_t = sj_cols + 3 * (c * SYM_TILE + t);
+            sj_t[0] = -col[c].x;
+            sj_t[1] = -col[c].y;
+            sj_t[2] = -col[c].z;
+        }
+        return;
+    }
+    // Thread t reads and writes floats 3t .. 3t+2 of part's rows only, as
+    // at the end of sym_pair_core, so no block barrier is needed here.
+    for (int c = 0; c < sub; ++c) {
+        sm.part[c][3 * t] = col[c].x;
+        sm.part[c][3 * t + 1] = col[c].y;
+        sm.part[c][3 * t + 2] = col[c].z;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                           // every rank's partials are in
+    float3 s = make_float3(0.f, 0.f, 0.f);
+    for (int k = 0; k < ctas; ++k) {
+        const float* p = cluster.map_shared_rank(sm.part[q], k) + 3 * t;
+        s.x += p[0];
+        s.y += p[1];
+        s.z += p[2];
+    }
+    float* sj_t = sj_cols + 3 * (q * SYM_TILE + t);
+    sj_t[0] = -s.x;
+    sj_t[1] = -s.y;
+    sj_t[2] = -s.z;
+    cluster.sync();                           // no rank leaves while read
+}
+
+// One item per (superblock I, offset d) of the chunk d = d_lo ..
+// d_lo+dc-1, on ctas CTAs; the slots are K2's with superblocks for tiles.
+template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_fold_pairs_kernel(const float* __restrict__ pos,
                       const float* __restrict__ mass, long long n,
                       long long nb, long long d_lo, float eps2, int sub,
-                      float* __restrict__ si, float* __restrict__ sj) {
+                      int ctas, float* __restrict__ si,
+                      float* __restrict__ sj) {
     __shared__ SymPairSmem sm;
-    const long long bid = blockIdx.x;
-    const long long dk = bid / nb;
-    const long long I = bid - dk * nb;
+    const long long item = blockIdx.x / ctas;
+    const long long dk = item / nb;
+    const long long I = item - dk * nb;
     const long long d = d_lo + dk;
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
     const long long J = (I + d) % nb;
     const long long u = (long long)sub * SYM_TILE;
     const long long slot = dk * nb * u * 3;
-    const int t = threadIdx.x;
-    float3 fold[FOLD_SUB_MAX];                // column t of each column tile
-    for (int c = 0; c < sub; ++c) fold[c] = make_float3(0.f, 0.f, 0.f);
-    for (int r = 0; r < sub; ++r) {
-        const long long i = I * u + r * SYM_TILE + t;
-        const float4 bi = load_body(pos, mass, i, n);
-        float ax = 0.f, ay = 0.f, az = 0.f;
-        for (int c = 0; c < sub; ++c) {
-            __syncthreads();                  // the last tile's readers
-            sm.tile[t] = load_body(pos, mass, J * u + c * SYM_TILE + t, n);
-            __syncthreads();
-            const float3 s = sym_tile_core<K7>(bi, eps2, ax, ay, az, sm);
-            fold[c].x += s.x;
-            fold[c].y += s.y;
-            fold[c].z += s.z;
-        }
-        si[slot + 3 * i] = ax;
-        si[slot + 3 * i + 1] = ay;
-        si[slot + 3 * i + 2] = az;
-    }
-    for (int c = 0; c < sub; ++c) {
-        const long long j = J * u + c * SYM_TILE + t;
-        sj[slot + 3 * j] = -fold[c].x;
-        sj[slot + 3 * j + 1] = -fold[c].y;
-        sj[slot + 3 * j + 2] = -fold[c].z;
-    }
+    fold_item<M>(pos, mass, n, I * u, pos, mass, n, J * u, sub, ctas, eps2,
+                 si + slot + 3 * I * u, sj + slot + 3 * J * u, sm);
 }
 
-// Body b's one-sided sum over the u bodies of its own superblock (m_j
-// weights), staged SYM_TILE at a time; with `row_if_massless` (K2's
-// mass-scaled slots) a real body of mass 0 sums its whole row instead.
-// Every thread of the block calls it; meaningful for b < n only.
-__device__ __forceinline__ float3 fold_diag(
-        const float* __restrict__ pos, const float* __restrict__ mass,
-        long long n, long long b, long long u, float eps2, float4* tile,
-        bool row_if_massless) {
-    const int t = threadIdx.x;
-    const long long base = (b / u) * u;
-    const float4 bi = load_body(pos, mass, b, n);
-    const bool row = row_if_massless && b < n && bi.w == 0.f;
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (long long c0 = 0; c0 < u; c0 += SYM_TILE) {
-        __syncthreads();
-        tile[t] = load_body(pos, mass, base + c0 + t, n);
-        __syncthreads();
-        if (row) continue;
-#pragma unroll 8
-        for (int k = 0; k < SYM_TILE; ++k) {
-            const float4 q = tile[k];
-            const float dx = q.x - bi.x;
-            const float dy = q.y - bi.y;
-            const float dz = q.z - bi.z;
-            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float f = q.w * rsqrtf(d2 * d2 * d2);
-            ax += f * dx;
-            ay += f * dy;
-            az += f * dz;
-        }
-    }
-    if (row) {
-        for (long long jj = 0; jj < n; ++jj) {
-            const float dx = pos[3 * jj] - bi.x;
-            const float dy = pos[3 * jj + 1] - bi.y;
-            const float dz = pos[3 * jj + 2] - bi.z;
-            const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            const float f = mass[jj] * rsqrtf(d2 * d2 * d2);
-            ax += f * dx;
-            ay += f * dy;
-            az += f * dz;
-        }
-    }
-    return make_float3(ax, ay, az);
+// How a fold pass spreads its items (nbt_sym_fold_mode).  FOLD_AUTO takes
+// a cluster of sub CTAs an item where one CTA an item would leave some of
+// the card's CTA slots empty (fewer items than SMs times the kernel's CTAs
+// an SM: 28 items at N = 8192, U = 1024), else one CTA an item (at N =
+// 1,048,576 the clusters took 11-13% longer on an H100: PERF.md §6).
+// The two give the same bits; FOLD_CLUSTER and FOLD_CTA force one, for
+// timing and checks.
+enum FoldMode { FOLD_AUTO = 0, FOLD_CLUSTER = 1, FOLD_CTA = 2 };
+static int fold_mode = FOLD_AUTO;
+
+// CTAs of `kernel` an SM, or minus the error of a failed query.
+template <typename K>
+static int fold_per_sm(K kernel) {
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, SYM_TILE, 0);
+    return err != cudaSuccess ? -(int)err : per_sm;
 }
 
-// One CTA per 256-row tile (nb * sub of them): the chunk's slots of body b
-// (superblock I = b / u) added offset by offset, i-side before j-side, into
-// the running sum; on the last chunk the diagonal superblock and, for K2,
-// the 1/m descale.
+// Launches `kernel` with `args` on `items` fold items of ctas CTAs, each
+// item a cluster where ctas > 1.  A refused launch returns its error;
+// nothing falls back.
+template <typename... Exp, typename... Act>
+static int launch_fold(long long items, int ctas, void* stream,
+                       void (*kernel)(Exp...), Act&&... args) {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = (unsigned)ctas;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(items * ctas));
+    cfg.blockDim = dim3(SYM_TILE);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err =
+        cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
+    const cudaError_t last = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : last);
+}
+
+// The CTAs an item of `kernel` takes under fold_mode: sub or 1, or minus
+// the error of a failed query of the card.
+template <typename K>
+static int fold_ctas(K kernel, long long items, int sub) {
+    if (fold_mode == FOLD_CLUSTER) return sub;
+    if (fold_mode == FOLD_CTA) return 1;
+    const int per_sm = fold_per_sm(kernel);
+    if (per_sm < 0) return per_sm;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return -(int)err;
+    return items < (long long)sms * per_sm ? sub : 1;
+}
+
+// Rows a lane holds in fold_diag_kernel, and rows a CTA takes.
+#define FOLD_DIAG_R 2
+#define FOLD_DIAG_ROWS (32 * FOLD_DIAG_R)
+
+// The diagonal superblocks: CTA k takes rows k * FOLD_DIAG_ROWS .. of
+// superblock I (lane l rows l + 32 r, r < FOLD_DIAG_R, in registers) and
+// warp w the u / SYM_WARPS columns from I * u + w * u / SYM_WARPS, in
+// column order; the warps' partials are added in warp order.  Writes row
+// b's one-sided sum over I's u bodies to diag[b] for b < n.
+__global__ void __launch_bounds__(SYM_TILE)
+fold_diag_kernel(const float* __restrict__ pos,
+                 const float* __restrict__ mass, long long n, int sub,
+                 float eps2, float* __restrict__ diag) {
+    __shared__ float4 cols[FOLD_SUB_MAX * SYM_TILE];
+    __shared__ float4 rows[FOLD_DIAG_ROWS];
+    __shared__ float part[SYM_WARPS][FOLD_DIAG_ROWS * 3];
+    const long long u = (long long)sub * SYM_TILE;
+    const long long b0 = (long long)blockIdx.x * FOLD_DIAG_ROWS;
+    const long long base = b0 / u * u;
+    const int t = threadIdx.x;
+    const int w = t >> 5;
+    const int l = t & 31;
+    for (int k = t; k < u; k += SYM_TILE)
+        cols[k] = load_body(pos, mass, base + k, n);
+    if (t < FOLD_DIAG_ROWS) rows[t] = load_body(pos, mass, b0 + t, n);
+    __syncthreads();
+
+    float4 br[FOLD_DIAG_R];
+    float ax[FOLD_DIAG_R], ay[FOLD_DIAG_R], az[FOLD_DIAG_R];
+#pragma unroll
+    for (int r = 0; r < FOLD_DIAG_R; ++r) {
+        br[r] = rows[l + 32 * r];
+        ax[r] = 0.f;
+        ay[r] = 0.f;
+        az[r] = 0.f;
+    }
+    const int wcols = sub * (SYM_TILE / SYM_WARPS);
+    onesided_rows<W_MJ, FOLD_DIAG_R>(cols + w * wcols, wcols, br, eps2, ax,
+                                     ay, az);
+#pragma unroll
+    for (int r = 0; r < FOLD_DIAG_R; ++r) {
+        const int row = l + 32 * r;
+        part[w][3 * row] = ax[r];
+        part[w][3 * row + 1] = ay[r];
+        part[w][3 * row + 2] = az[r];
+    }
+    __syncthreads();
+    const long long b = b0 + t;
+    if (t >= FOLD_DIAG_ROWS || b >= n) return;
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+    for (int v = 0; v < SYM_WARPS; ++v) {
+        sx += part[v][3 * t];
+        sy += part[v][3 * t + 1];
+        sz += part[v][3 * t + 2];
+    }
+    diag[3 * b] = sx;
+    diag[3 * b + 1] = sy;
+    diag[3 * b + 2] = sz;
+}
+
+// One thread a body (nb * sub CTAs of SYM_TILE): the chunk's slots of body
+// b (superblock I = b / u) added offset by offset, i-side before j-side,
+// into the running sum; on the last chunk, the diagonal superblock's sum
+// that fold_diag_kernel left in out and, for K2, the 1/m descale (a real
+// massless body: its whole row one-sided over all N bodies, rect_finish
+// with every body as the other set).
 template <bool K7>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_fold_reduce_kernel(const float* __restrict__ pos,
@@ -404,7 +569,6 @@ sym_fold_reduce_kernel(const float* __restrict__ pos,
                        const float* __restrict__ sj, float* __restrict__ raw,
                        int first, int last, float eps2, int sub,
                        float* __restrict__ out) {
-    __shared__ float4 tile[SYM_TILE];
     const long long u = (long long)sub * SYM_TILE;
     const long long n_pad = nb * u;
     const long long b = (long long)blockIdx.x * SYM_TILE + threadIdx.x;
@@ -432,26 +596,32 @@ sym_fold_reduce_kernel(const float* __restrict__ pos,
         raw[3 * b + 2] = s.z;
         return;
     }
-    const float3 d = fold_diag(pos, mass, n, b, u, eps2, tile, !K7);
     if (b >= n) return;
-    const float3 a = K7 ? make_float3(d.x + s.x, d.y + s.y, d.z + s.z)
-                        : sym_descale(d, s, mass[b]);
+    const float3 d = make_float3(out[3 * b], out[3 * b + 1], out[3 * b + 2]);
+    float3 a;
+    if (K7)
+        a = make_float3(d.x + s.x, d.y + s.y, d.z + s.z);
+    else if (mass[b] == 0.f)
+        a = rect_finish(s, 0.f, load_body(pos, mass, b, n), pos, mass, n, 1,
+                        eps2);
+    else
+        a = sym_descale(d, s, mass[b]);
     out[3 * b] = a.x;
     out[3 * b + 1] = a.y;
     out[3 * b + 2] = a.z;
 }
 
-template <bool K7>
+template <int M>
 static int launch_fold_pairs(const float* pos, const float* mass,
                              long long n, long long nb, long long d_lo,
                              long long dc, float eps2, float* si, float* sj,
                              int sub, void* stream) {
     if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
     if (dc <= 0) return 0;
-    sym_fold_pairs_kernel<K7><<<(unsigned)(nb * dc), SYM_TILE, 0,
-                                (cudaStream_t)stream>>>(
-        pos, mass, n, nb, d_lo, eps2, sub, si, sj);
-    return (int)cudaGetLastError();
+    const int ctas = fold_ctas(sym_fold_pairs_kernel<M>, nb * dc, sub);
+    if (ctas < 0) return -ctas;
+    return launch_fold(nb * dc, ctas, stream, sym_fold_pairs_kernel<M>, pos,
+                       mass, n, nb, d_lo, eps2, sub, ctas, si, sj);
 }
 
 template <bool K7>
@@ -461,6 +631,14 @@ static int launch_fold_reduce(const float* pos, const float* mass,
                               float* raw, int first, int last, float eps2,
                               float* out, int sub, void* stream) {
     if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
+    if (last) {
+        fold_diag_kernel<<<(unsigned)((n + FOLD_DIAG_ROWS - 1)
+                                      / FOLD_DIAG_ROWS),
+                           SYM_TILE, 0, (cudaStream_t)stream>>>(
+            pos, mass, n, sub, eps2, out);
+        const int err = (int)cudaGetLastError();
+        if (err) return err;
+    }
     sym_fold_reduce_kernel<K7><<<(unsigned)(nb * sub), SYM_TILE, 0,
                                  (cudaStream_t)stream>>>(
         pos, mass, n, nb, d_lo, dc, si, sj, raw, first, last, eps2, sub,
@@ -475,8 +653,8 @@ extern "C" int nbt_sym_fold_pairs(const float* pos, const float* mass,
                                   long long n, long long nb, long long d_lo,
                                   long long dc, float eps2, float* si,
                                   float* sj, int sub, void* stream) {
-    return launch_fold_pairs<false>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
-                                    sub, stream);
+    return launch_fold_pairs<SYM_K2>(pos, mass, n, nb, d_lo, dc, eps2, si,
+                                     sj, sub, stream);
 }
 
 extern "C" int nbt_sym_fold_reduce(const float* pos, const float* mass,
@@ -494,8 +672,8 @@ extern "C" int nbt_sym_vpu_fold_pairs(const float* pos, const float* mass,
                                       long long d_lo, long long dc,
                                       float eps2, float* si, float* sj,
                                       int sub, void* stream) {
-    return launch_fold_pairs<true>(pos, mass, n, nb, d_lo, dc, eps2, si, sj,
-                                   sub, stream);
+    return launch_fold_pairs<SYM_K7>(pos, mass, n, nb, d_lo, dc, eps2, si,
+                                     sj, sub, stream);
 }
 
 extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
@@ -513,33 +691,36 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
 // K2-rect with K2's and K7's math (nbody_tpu/ops/forces_pallas_sym.py:
 // _make_rect_kernel variants "vpu2" and "vpu", and _make_rect_kernel_fold),
 // launched once per column chunk by _rect_call's counterpart in
-// ops/forces_sym.py.  One CTA per (row superblock IA of A, column
+// ops/forces_sym.py.  One work item per (row superblock IA of A, column
 // superblock JB of B), superblocks of u = sub * SYM_TILE bodies: sub = 1 is
-// the classic rect sweep, sub > 1 the fold schedule (JAX's rect fold:
-// the A superblock's row tiles sweep the sub column tiles of JB, the
-// column sums fold on chip across the row tiles, in row-tile order, into
-// one j-side slot write per (IA, JB)).  The classic sweep runs the pair
-// tile, sym_pair_core, with K2's math (vpu2, rect_k2_pairs_kernel) or K7's
-// (vpu, rect_k7_pairs_kernel): eight rows a lane in registers, one shared
-// load and three shuffles for every eight pairs, d2 as three FMAs,
+// the classic rect sweep, sub > 1 the fold schedule (JAX's rect fold: the
+// A superblock's row tiles sweep the sub column tiles of JB, the column
+// sums fold across the row tiles, in row-tile order, into one j-side slot
+// write per (IA, JB)).  The classic sweep runs the pair tile,
+// sym_pair_core, with K2's math (vpu2, rect_k2_pairs_kernel) or K7's (vpu,
+// rect_k7_pairs_kernel): eight rows a lane in registers, one shared load
+// and three shuffles for every eight pairs, d2 as three FMAs,
 // rsqrt_normal; the row partials added in warp order, so the tile is
-// bit-reproducible.  The folds and K15's rect forms run sym_tile_core
-// (rect_pairs_kernel).
-// Slots, chunks and the reduce pass are in rect_common.cuh.  The work is
-// the square sweep's without the diagonal: FP32 FMA and MUFU issue bound,
-// 23 (K2) or 26 (K7) flops a pair.  On an H100 80GB HBM3 at 700 W the
-// vpu2 sweep of the 1M ring's 262,144 x 262,144 shard pair takes 49.1 ms
-// (17.5 slots a pair at 73% of the issue rate, as K2; 65.7 ms on
-// sym_tile_core), at 80 registers, no spill, three CTAs an SM, and the
-// 4-shard ring's step 425.6 ms against 491.6 (chip_smoke.py).  At
-// validate --shards 4's 2048 x 2048 (64 CTAs on 132 SMs) the card takes
-// 0.0137 ms a sweep against 0.0151; the host's launch path, ~0.03 ms,
-// is the rest.  The vpu sweep takes 50.0 ms at 262,144 x 262,144 (66.2 on
-// sym_tile_core) and 0.0141 ms of the card's time at 2048 x 2048 (0.0148).
-// K15's ablations of K7's former tile, and their control (K7's math on it,
-// rect_pairs_kernel<SYM_K7> at sub = 1), run the classic rect sweep;
-// VPU_FIX0's column slot is the writer's own (IA, JB) here already, and its
-// reduce adds every column slot into B's superblock 0.
+// bit-reproducible.  The folds run K14d's fold_item on the same tile, one
+// item a cluster of sub CTAs (rect_fold_pairs_kernel).  Slots, chunks and
+// the reduce pass are in rect_common.cuh.  The work is the square sweep's
+// without the diagonal: FP32 FMA and MUFU issue bound, 23 (K2) or 26 (K7)
+// flops a pair.  On an H100 80GB HBM3 at 700 W the vpu2 sweep of the 1M
+// ring's 262,144 x 262,144 shard pair takes 49.1 ms (17.5 slots a pair at
+// 73% of the issue rate, as K2; 65.7 ms on sym_tile_core), at 80
+// registers, no spill, three CTAs an SM, and the 4-shard ring's step 425.6
+// ms against 491.6 (chip_smoke.py).  At validate --shards 4's 2048 x 2048
+// (64 CTAs on 132 SMs) the card takes 0.0137 ms a sweep against 0.0151;
+// the host's launch path, ~0.03 ms, is the rest.  The vpu sweep takes 50.0
+// ms at 262,144 x 262,144 (66.2 on sym_tile_core) and 0.0141 ms of the
+// card's time at 2048 x 2048 (0.0148).
+//
+// K15's rect forms, the ablations of K7's former tile, and their control
+// (K7's math on it, rect_pairs_kernel<SYM_K7>) run rect_pairs_kernel, on
+// sym_tile_core, at sub = 1 only (its fold loop over sub is the former
+// folds', kept so that the four keep their code); VPU_FIX0's column slot
+// is the writer's own (IA, JB) here already, and its reduce adds every
+// column slot into B's superblock 0.
 
 template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
@@ -643,42 +824,83 @@ rect_k7_pairs_kernel(const float* __restrict__ pos_a,
                            jc, eps2, si, sj);
 }
 
+// K15's rect forms: rect_pairs_kernel at sub = 1.
 template <int M>
 static int launch_rect_pairs(const float* pos_a, const float* mass_a,
                              long long na, const float* pos_b,
                              const float* mass_b, long long nb,
                              long long na_s, long long j_lo, long long jc,
-                             float eps2, int sub, float* si, float* sj,
-                             void* stream) {
-    if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
+                             float eps2, float* si, float* sj, void* stream) {
     if (jc <= 0 || na_s <= 0) return 0;
     rect_pairs_kernel<M><<<(unsigned)(na_s * jc), SYM_TILE, 0,
                             (cudaStream_t)stream>>>(
-        pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, sub, si,
+        pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, 1, si,
         sj);
     return (int)cudaGetLastError();
 }
 
+// The rect folds: one cluster of sub CTAs per (IA, JB) of the chunk (jk =
+// JB - j_lo), K14d's fold_item on rect_common.cuh's slots.
+template <int M>
+__global__ void __launch_bounds__(SYM_TILE)
+rect_fold_pairs_kernel(const float* __restrict__ pos_a,
+                       const float* __restrict__ mass_a, long long na,
+                       const float* __restrict__ pos_b,
+                       const float* __restrict__ mass_b, long long nb,
+                       long long na_s, long long j_lo, long long jc,
+                       float eps2, int sub, int ctas,
+                       float* __restrict__ si, float* __restrict__ sj) {
+    __shared__ SymPairSmem sm;
+    const long long item = blockIdx.x / ctas;
+    const long long jk = item / na_s;
+    const long long IA = item - jk * na_s;
+    const long long u = (long long)sub * SYM_TILE;
+    fold_item<M>(pos_a, mass_a, na, IA * u, pos_b, mass_b, nb,
+                 (j_lo + jk) * u, sub, ctas, eps2,
+                 si + (jk * na_s * u + IA * u) * 3,
+                 sj + (IA * jc + jk) * u * 3, sm);
+}
+
 // The rect pair passes with K2's math (nbt_rect_sym_pairs) and K7's
-// (nbt_rect_sym_vpu_pairs): the pair tile at sub = 1 (classic), the fold on
-// sym_tile_core at sub > 1.
+// (nbt_rect_sym_vpu_pairs): the pair tile at sub = 1 (classic), the
+// cluster fold at sub > 1.
+template <int M>
+static int launch_rect_sym_pairs(const float* pos_a, const float* mass_a,
+                                 long long na, const float* pos_b,
+                                 const float* mass_b, long long nb,
+                                 long long na_s, long long j_lo, long long jc,
+                                 float eps2, int sub, float* si, float* sj,
+                                 void* stream) {
+    if (sub < 1 || sub > FOLD_SUB_MAX) return (int)cudaErrorInvalidValue;
+    if (jc <= 0 || na_s <= 0) return 0;
+    if (sub > 1) {
+        const int ctas = fold_ctas(rect_fold_pairs_kernel<M>, na_s * jc, sub);
+        if (ctas < 0) return -ctas;
+        return launch_fold(na_s * jc, ctas, stream, rect_fold_pairs_kernel<M>,
+                           pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo,
+                           jc, eps2, sub, ctas, si, sj);
+    }
+    const unsigned grid = (unsigned)(na_s * jc);
+    if (M == SYM_K2)
+        rect_k2_pairs_kernel<<<grid, SYM_TILE, 0, (cudaStream_t)stream>>>(
+            pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si,
+            sj);
+    else
+        rect_k7_pairs_kernel<<<grid, SYM_TILE, 0, (cudaStream_t)stream>>>(
+            pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si,
+            sj);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int nbt_rect_sym_pairs(const float* pos_a, const float* mass_a,
                                   long long na, const float* pos_b,
                                   const float* mass_b, long long nb,
                                   long long na_s, long long j_lo,
                                   long long jc, float eps2, int sub,
                                   float* si, float* sj, void* stream) {
-    if (sub == 1) {
-        if (jc <= 0 || na_s <= 0) return 0;
-        rect_k2_pairs_kernel<<<(unsigned)(na_s * jc), SYM_TILE, 0,
-                               (cudaStream_t)stream>>>(
-            pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si,
-            sj);
-        return (int)cudaGetLastError();
-    }
-    return launch_rect_pairs<SYM_K2>(pos_a, mass_a, na, pos_b, mass_b, nb,
-                                    na_s, j_lo, jc, eps2, sub, si, sj,
-                                    stream);
+    return launch_rect_sym_pairs<SYM_K2>(pos_a, mass_a, na, pos_b, mass_b,
+                                         nb, na_s, j_lo, jc, eps2, sub, si,
+                                         sj, stream);
 }
 
 extern "C" int nbt_rect_sym_vpu_pairs(const float* pos_a,
@@ -688,17 +910,9 @@ extern "C" int nbt_rect_sym_vpu_pairs(const float* pos_a,
                                       long long na_s, long long j_lo,
                                       long long jc, float eps2, int sub,
                                       float* si, float* sj, void* stream) {
-    if (sub == 1) {
-        if (jc <= 0 || na_s <= 0) return 0;
-        rect_k7_pairs_kernel<<<(unsigned)(na_s * jc), SYM_TILE, 0,
-                               (cudaStream_t)stream>>>(
-            pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si,
-            sj);
-        return (int)cudaGetLastError();
-    }
-    return launch_rect_pairs<SYM_K7>(pos_a, mass_a, na, pos_b, mass_b, nb,
-                                   na_s, j_lo, jc, eps2, sub, si, sj,
-                                   stream);
+    return launch_rect_sym_pairs<SYM_K7>(pos_a, mass_a, na, pos_b, mass_b,
+                                         nb, na_s, j_lo, jc, eps2, sub, si,
+                                         sj, stream);
 }
 
 // The rect reduce pass (rect_common.cuh); descale for K2's mass-scaled
@@ -759,14 +973,14 @@ ABL_SYM_PAIRS(nbt_sym_vpu_tile_pairs, VPU_TILE)
                         long long j_lo, long long jc, float eps2, float* si, \
                         float* sj, void* stream) {                           \
         return launch_rect_pairs<M>(pos_a, mass_a, na, pos_b, mass_b, nb,    \
-                                    na_s, j_lo, jc, eps2, 1, si, sj,         \
-                                    stream);                                 \
+                                    na_s, j_lo, jc, eps2, si, sj, stream);   \
     }
 ABL_RECT_PAIRS(nbt_rect_vpu_noj_pairs, VPU_NOJ)
 ABL_RECT_PAIRS(nbt_rect_vpu_fix0_pairs, VPU_FIX0)
 ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, VPU_RC)
 // The control's rect sweep: K7's math on sym_tile_core at sub = 1, the
-// kernel of K2-rect vpu before its redesign (the vpu fold's at sub > 1).
+// kernel of K2-rect vpu before its redesign (and of the vpu fold before
+// its own).
 ABL_RECT_PAIRS(nbt_rect_vpu_tile_pairs, SYM_K7)
 
 // The occupancy pin, a knob for timing the split only.  An ablation that
@@ -1052,6 +1266,25 @@ static int launch_abl_rect_reduce(long long na, long long nb, long long na_s,
     }
 ABL_RECT_REDUCE(nbt_rect_noj_reduce, ABL_NONE)
 ABL_RECT_REDUCE(nbt_rect_fix0_reduce, ABL_FIX0)
+
+// The fold passes' spread (FoldMode: 0 auto, 1 clusters, 2 one CTA an
+// item), for every fold launch from here on; returns the mode, or -1 if
+// there is none such.
+extern "C" int nbt_sym_fold_mode(int mode) {
+    if (mode < FOLD_AUTO || mode > FOLD_CTA) return -1;
+    fold_mode = mode;
+    return mode;
+}
+
+// CTAs an SM of the fold pair kernel with K7's math (k7) or K2's, square or
+// rect, or minus the error of a failed query.
+extern "C" int nbt_sym_fold_per_sm(int k7, int rect) {
+    if (rect)
+        return k7 ? fold_per_sm(rect_fold_pairs_kernel<SYM_K7>)
+                  : fold_per_sm(rect_fold_pairs_kernel<SYM_K2>);
+    return k7 ? fold_per_sm(sym_fold_pairs_kernel<SYM_K7>)
+              : fold_per_sm(sym_fold_pairs_kernel<SYM_K2>);
+}
 
 extern "C" int nbt_sym_fold_sub_max(void) { return FOLD_SUB_MAX; }
 

@@ -67,7 +67,7 @@ static_assert(sizeof(SymK2Stage) <= sizeof(float) * SYM_WARPS * SYM_TILE * 3,
 //   VPU_TILE  K7's math on sym_tile_core, the tile the three ablate (K7's
 //             own tile before it moved to sym_pair_core): K15's control.
 // sym_pair_core takes SYM_K2 and SYM_K7; sym_tile_core (sym_tile.cuh)
-// every value (the folds take SYM_K2 and SYM_K7 there).
+// every other value.
 enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3,
                VPU_RC = 4, VPU_TILE = 5 };
 

@@ -1,23 +1,23 @@
-// The exact pair tile of the fold schedule K14d (with K2's and K7's
-// math), the rect folds, K15's vpu_* ablations and their control
-// (forces_sym.cu), and K13's two-sided vpu phases (rdma_ring.cu): the pair
-// math of one 256 x 256 tile, a SymMath value (sym_common.cuh) folded at
-// compile time.  One row a thread, the column tile staged once and read
-// (l + k) mod 32 at a time, a column accumulator shuffled once a pair,
-// rsqrtf with its subnormal fix-up.  K2, K3/K4, K7, and K2-rect's classic
-// vpu2 and vpu sweeps run sym_pair_core (sym_common.cuh) instead, eight
-// rows a lane; K7 and K2-rect vpu moved there in their redesign, and
-// VPU_TILE keeps K7's math on this tile as K15's control.  Moved here
-// verbatim from forces_sym.cu so that rdma_ring.cu compiles the same tile.
+// The one-row-a-thread exact pair tile of K15's vpu_* ablations and their
+// control (forces_sym.cu) and of K13's two-sided vpu phase (rdma_ring.cu):
+// the pair math of one 256 x 256 tile, a SymMath value (sym_common.cuh)
+// folded at compile time.  One row a thread, the column tile staged once
+// and read (l + k) mod 32 at a time, a column accumulator shuffled once a
+// pair, rsqrtf with its subnormal fix-up.  K2, K3/K4, K7, the folds (K14d
+// and K2-rect's) and K2-rect's classic vpu2 and vpu sweeps run
+// sym_pair_core (sym_common.cuh) instead, eight rows a lane; K7, K2-rect
+// vpu and the folds moved there in their redesigns, and VPU_TILE keeps
+// K7's math on this tile as K15's control.  Moved here from forces_sym.cu
+// so that rdma_ring.cu compiles the same tile.
 
 #pragma once
 
 #include "sym_common.cuh"
 
 // The pair work of one 256 x 256 tile for the row body bi of this thread,
-// against the column tile staged (and synced) in sm.tile: K2's math
-// (F = m_i m_j inv shared by both sides), K7's (fi = m_j inv, fj = m_i
-// inv; SYM_K7 or VPU_TILE) or an ablation of K7's (SymMath).  Adds the row
+// against the column tile staged (and synced) in sm.tile: K7's math (fi =
+// m_j inv, fj = m_i inv; SYM_K7 or VPU_TILE) or an ablation of K7's
+// (SymMath).  K2's math runs on sym_pair_core only.  Adds the row
 // sums to (ax, ay, az) and returns the column sum of column threadIdx.x
 // over the tile's rows, a positive magnitude (the caller negates; zero for
 // VPU_NOJ).  Every thread of the block calls it; the caller
@@ -26,6 +26,7 @@ template <int M>
 __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
                                                 float& ax, float& ay,
                                                 float& az, SymPairSmem& sm) {
+    static_assert(M != SYM_K2, "K2's math runs on sym_pair_core");
     const int t = threadIdx.x;
     const int w = t >> 5;
     const int l = t & 31;
@@ -38,18 +39,7 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
             const float dy = q.y - bi.y;
             const float dz = q.z - bi.z;
             const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            if (M == SYM_K2) {
-                const float f = (bi.w * q.w) * rsqrtf(d2 * d2 * d2);
-                const float px = f * dx;
-                const float py = f * dy;
-                const float pz = f * dz;
-                ax += px;
-                ay += py;
-                az += pz;
-                bx += px;
-                by += py;
-                bz += pz;
-            } else if (M == VPU_RC) {
+            if (M == VPU_RC) {
                 const float inv = rsqrtf(d2 * d2 * d2);
                 const float fi = q.w * inv;
                 const float fj = bi.w * inv;

@@ -59,25 +59,32 @@ sets A and B, the cross rotation of the Newton's-third-law ring: every
 (row superblock of A, column superblock of B) once, no diagonal, the row
 and column sums in one-writer slots reduced in a fixed order
 (``csrc/rect_common.cuh`` states the layout), B's superblocks in chunks
-of ``rect_chunks``.  The classic vpu2 and vpu sweeps
-(``rect_forces_sym_vpu2``, ``rect_forces_sym_vpu``) run the pair tile,
-``sym_pair_core`` (``csrc/sym_common.cuh``: eight rows a lane in
-registers, row partials added in warp order) with K2's or K7's math; the
-folds and K15's rect forms run ``sym_tile_core`` (``csrc/sym_tile.cuh``).  The mass-scaled vpu2 sums are divided by m on both
-sides, and a real massless body's cross sum is recomputed one-sided over
-the other set.  Its twins (``rect_forces_sym_plain``) share the square
-twins' tile functions; ``rect_sweep`` / ``rect_sweep_plain`` are shared
-with the tensor-core variants (``ops/forces_sym_tc.py``).
+of ``rect_chunks``.  Every exact sweep, classic or fold, runs the pair
+tile, ``sym_pair_core`` (``csrc/sym_common.cuh``: eight rows a lane in
+registers, row partials added in warp order) with K2's or K7's math;
+K15's rect forms run ``sym_tile_core`` (``csrc/sym_tile.cuh``).  The
+mass-scaled vpu2 sums are divided by m on both sides, and a real
+massless body's cross sum is recomputed one-sided over the other set.
+Its twins (``rect_forces_sym_plain``) share the square twins' tile
+functions; ``rect_sweep`` / ``rect_sweep_plain`` are shared with the
+tensor-core variants (``ops/forces_sym_tc.py``).
 
 K14d, the fold schedule (``forces_sym_fold`` with K2's math,
 ``forces_sym_vpu_fold`` with K7's; ``_make_sym_kernel_fold``), runs the
 same sweep on superblocks of ``block_u`` bodies (``sub = block_u / 256``
-row tiles, default ``FOLD_BLOCK_U``): offsets are superblock offsets, each
-(superblock I, offset d) sums its row tiles over all ``block_u`` columns
-and folds its column sums across the row tiles on chip, in row-tile order,
-into one j-side slot write, and the diagonal superblocks are one-sided
-exact.  Its twins are the classic twins at ``block_u`` (the classic sweep
-is the fold at ``block_u = 256``).
+row tiles, default ``FOLD_BLOCK_U``): offsets are superblock offsets.  Where
+one CTA a (superblock I, offset d) item would leave CTA slots of the card
+empty (N = 8192), an item is a thread-block cluster of ``sub`` CTAs: CTA r
+runs the pair tile of row tile r against each column tile and adds the
+tiles' row sums in column-tile order into one i-side slot write, and the
+column sums of each column tile are added across the cluster's row tiles,
+in row-tile order, into one j-side slot write.  Larger launches (N =
+1,048,576) take one CTA an item, which runs the row tiles in turn with the
+same grouping and so gives the same bits (``FOLD_AUTO``).  The diagonal
+superblocks are one-sided exact on K1's one-sided tile, and K2's math
+recomputes a real massless row one-sided over all N.  The rect folds run
+the same items.  Its twins are the classic twins at ``block_u`` (the
+classic sweep is the fold at ``block_u = 256``), with the same grouping.
 """
 
 from __future__ import annotations
@@ -97,6 +104,12 @@ SLOT_BUDGET_BYTES = 2 << 30
 # 512k bodies; at most FOLD_SUB_MAX row tiles (csrc/forces_sym.cu).
 FOLD_BLOCK_U = 1024
 FOLD_SUB_MAX = 8
+# How the fold passes spread their (superblock, offset) items, set with a
+# library's nbt_sym_fold_mode (FoldMode in csrc/forces_sym.cu): a cluster
+# of sub CTAs an item where one CTA an item would leave CTA slots of the
+# card empty, else one CTA an item (auto); or either, forced.  All three
+# give the same bits.
+FOLD_AUTO, FOLD_CLUSTER, FOLD_CTA = 0, 1, 2
 
 _c_ll, _c_ptr, _c_int = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 # The C entries of K2-rect (csrc/rect_common.cuh): a pair pass (pos_a,
@@ -113,44 +126,58 @@ RECT_REDUCE_ARGTYPES = [_c_ptr, _c_ptr, _c_ll, _c_ptr, _c_ptr, _c_ll, _c_ll,
 def _lib():
     lib = _build.load("forces_sym")
     if lib.nbt_sym_pairs.argtypes is None:
-        lib.nbt_sym_pairs.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,
-                                      _c_ll, ctypes.c_float, _c_ptr, _c_ptr,
-                                      _c_ptr]
-        lib.nbt_sym_pairs.restype = _c_int
-        lib.nbt_sym_reduce.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,
-                                       _c_ll, _c_ptr, _c_ptr, _c_ptr, _c_int,
-                                       _c_int, ctypes.c_float, _c_ptr,
-                                       _c_ptr]
-        lib.nbt_sym_reduce.restype = _c_int
-        lib.nbt_sym_vpu_pairs.argtypes = lib.nbt_sym_pairs.argtypes
-        lib.nbt_sym_vpu_pairs.restype = _c_int
-        lib.nbt_sym_vpu_reduce.argtypes = lib.nbt_sym_reduce.argtypes
-        lib.nbt_sym_vpu_reduce.restype = _c_int
-        for name in ("nbt_sym_fold_pairs", "nbt_sym_vpu_fold_pairs"):
-            fn = getattr(lib, name)
-            fn.argtypes = [*lib.nbt_sym_pairs.argtypes[:-1], _c_int, _c_ptr]
-            fn.restype = _c_int
-        for name in ("nbt_sym_fold_reduce", "nbt_sym_vpu_fold_reduce"):
-            fn = getattr(lib, name)
-            fn.argtypes = [*lib.nbt_sym_reduce.argtypes[:-1], _c_int, _c_ptr]
-            fn.restype = _c_int
-        for name in ("nbt_rect_sym_pairs", "nbt_rect_sym_vpu_pairs"):
-            fn = getattr(lib, name)
-            fn.argtypes = RECT_PAIRS_ARGTYPES[:-3] + [_c_int] \
-                + RECT_PAIRS_ARGTYPES[-3:]
-            fn.restype = _c_int
-        lib.nbt_rect_reduce.argtypes = RECT_REDUCE_ARGTYPES
-        lib.nbt_rect_reduce.restype = _c_int
-        lib.nbt_sym_fold_sub_max.restype = _c_int
-        if lib.nbt_sym_fold_sub_max() != FOLD_SUB_MAX:
-            raise RuntimeError("FOLD_SUB_MAX differs between forces_sym.py "
-                               "and csrc/forces_sym.cu")
-        lib.nbt_sym_tile.argtypes = []
-        lib.nbt_sym_tile.restype = _c_int
-        if lib.nbt_sym_tile() != SYM_TILE:
-            raise RuntimeError("SYM_TILE differs between forces_sym.py and "
-                               "csrc/forces_sym.cu")
+        bind(lib)
     return lib
+
+
+def bind(lib) -> None:
+    """Set the argument and result types of the C entries of a
+    ``forces_sym`` library (the package's, or a build of other sources with
+    the same entries) and check its SYM_TILE and FOLD_SUB_MAX."""
+    lib.nbt_sym_pairs.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,
+                                  _c_ll, ctypes.c_float, _c_ptr, _c_ptr,
+                                  _c_ptr]
+    lib.nbt_sym_pairs.restype = _c_int
+    lib.nbt_sym_reduce.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll, _c_ll,
+                                   _c_ll, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                                   _c_int, ctypes.c_float, _c_ptr,
+                                   _c_ptr]
+    lib.nbt_sym_reduce.restype = _c_int
+    lib.nbt_sym_vpu_pairs.argtypes = lib.nbt_sym_pairs.argtypes
+    lib.nbt_sym_vpu_pairs.restype = _c_int
+    lib.nbt_sym_vpu_reduce.argtypes = lib.nbt_sym_reduce.argtypes
+    lib.nbt_sym_vpu_reduce.restype = _c_int
+    for name in ("nbt_sym_fold_pairs", "nbt_sym_vpu_fold_pairs"):
+        fn = getattr(lib, name)
+        fn.argtypes = [*lib.nbt_sym_pairs.argtypes[:-1], _c_int, _c_ptr]
+        fn.restype = _c_int
+    for name in ("nbt_sym_fold_reduce", "nbt_sym_vpu_fold_reduce"):
+        fn = getattr(lib, name)
+        fn.argtypes = [*lib.nbt_sym_reduce.argtypes[:-1], _c_int, _c_ptr]
+        fn.restype = _c_int
+    for name in ("nbt_rect_sym_pairs", "nbt_rect_sym_vpu_pairs"):
+        fn = getattr(lib, name)
+        fn.argtypes = RECT_PAIRS_ARGTYPES[:-3] + [_c_int] \
+            + RECT_PAIRS_ARGTYPES[-3:]
+        fn.restype = _c_int
+    lib.nbt_rect_reduce.argtypes = RECT_REDUCE_ARGTYPES
+    lib.nbt_rect_reduce.restype = _c_int
+    # The folds' spread knob and their CTAs an SM (FoldMode in
+    # csrc/forces_sym.cu; a build of sources before them lacks both).
+    if hasattr(lib, "nbt_sym_fold_mode"):
+        lib.nbt_sym_fold_mode.argtypes = [_c_int]
+        lib.nbt_sym_fold_mode.restype = _c_int
+        lib.nbt_sym_fold_per_sm.argtypes = [_c_int, _c_int]
+        lib.nbt_sym_fold_per_sm.restype = _c_int
+    lib.nbt_sym_fold_sub_max.restype = _c_int
+    if lib.nbt_sym_fold_sub_max() != FOLD_SUB_MAX:
+        raise RuntimeError("FOLD_SUB_MAX differs between forces_sym.py "
+                           "and csrc/forces_sym.cu")
+    lib.nbt_sym_tile.argtypes = []
+    lib.nbt_sym_tile.restype = _c_int
+    if lib.nbt_sym_tile() != SYM_TILE:
+        raise RuntimeError("SYM_TILE differs between forces_sym.py and "
+                           "csrc/forces_sym.cu")
 
 
 def offset_rows(nb: int, d: int) -> int:
@@ -237,12 +264,19 @@ def descale_plain(pt: torch.Tensor, mt: torch.Tensor, raw: torch.Tensor,
     return acc
 
 
+# Pairs the twins' tile functions compute at once: items beyond it are
+# taken in groups (the sums do not depend on the grouping).
+_TWIN_PAIRS = 1 << 22
+
+
 def _pair_tiles(eps2: float, k7: bool, sub: int):
     """The exact pair tiles of K2 (``k7=False``: F = m_i m_j inv on both
     sides, mass-scaled) or K7 (fi = m_j inv, fj = m_i inv) over tiles of
-    ``sub`` row tiles: row sums over every column, column sums over each
-    256-row tile folded in row-tile order, negated."""
-    def pair_tiles(xi, mi, xj, mj):
+    ``sub`` row and column tiles, grouped as the kernels group them: row
+    sums over each 256-column tile, added across the column tiles in order;
+    column sums over each 256-row tile, added across the row tiles in
+    order, negated."""
+    def one_group(xi, mi, xj, mj):
         r = xj[:, None, :, :] - xi[:, :, None, :]
         d2 = (r * r).sum(-1) + eps2
         inv = torch.rsqrt(d2 * d2 * d2)
@@ -252,11 +286,23 @@ def _pair_tiles(eps2: float, k7: bool, sub: int):
         else:
             pi = pj = ((mi[:, :, None] * mj[:, None, :]) * inv)[..., None] * r
         k, u = pj.shape[:2]
-        parts = pj.view(k, sub, u // sub, u, 3).sum(2)
-        fold = parts[:, 0]
-        for row_tile in range(1, sub):
-            fold = fold + parts[:, row_tile]
-        return pi.sum(2), -fold
+        rows = pi.view(k, u, sub, u // sub, 3).sum(3)
+        cols = pj.view(k, sub, u // sub, u, 3).sum(2)
+        row, fold = rows[:, :, 0], cols[:, 0]
+        for tile in range(1, sub):
+            row = row + rows[:, :, tile]
+            fold = fold + cols[:, tile]
+        return row, -fold
+
+    def pair_tiles(xi, mi, xj, mj):
+        step = max(1, _TWIN_PAIRS // (xi.shape[1] * xj.shape[1]))
+        if xi.shape[0] <= step:
+            return one_group(xi, mi, xj, mj)
+        parts = [one_group(xi[g:g + step], mi[g:g + step], xj[g:g + step],
+                           mj[g:g + step])
+                 for g in range(0, xi.shape[0], step)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
     return pair_tiles
 
 

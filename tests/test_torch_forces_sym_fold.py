@@ -7,7 +7,9 @@ On the CPU the wrappers run the kernels' plain twin: superblocks of
 ``block_u`` bodies, the superblock offsets, each superblock's column sums
 folded across its 256-row tiles in row-tile order, one-sided exact
 diagonal superblocks.  The JAX side runs Pallas in interpret mode at
-``block_i=256, block_u=U``, the port's row tile and superblock.
+``block_i=256, block_u=U``, the port's row tile and superblock: U of 512,
+768, 1024 (the default) and 2048, two to eight row tiles a superblock, the
+kernel's cluster size.
 Tolerances: the exact tier's rel 1e-4 + 1e-6·max|a| against JAX and the
 oracle's 1% gate; against the classic twins ``rtol=1e-4, atol=1e-2``, as
 ``tests/test_pallas_sym.py::test_sym_fold_schedule`` holds JAX's fold to
@@ -55,6 +57,65 @@ def test_fold_twin_matches_jax_fold_oracle_and_classic(variant, n):
                           f"fold {variant} twin vs oracle, N={n}")
     np.testing.assert_allclose(acc, CLASSIC[variant](p, m, EPS2).numpy(),
                                rtol=1e-4, atol=1e-2)
+
+
+# (block_u, N): three and eight row tiles a superblock on an odd and an
+# even superblock count, each ragged (the last superblock holds ghosts).
+SUB_CASES = [(768, 2000), (768, 2900), (2048, 5000), (2048, 7000)]
+
+
+def jax_fold(pos, mass, variant, block_u):
+    return np.asarray(jax_sym(
+        jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=256,
+        block_u=block_u, variant=variant, schedule="fold"))
+
+
+@pytest.mark.parametrize("variant", ["vpu", "vpu2"])
+@pytest.mark.parametrize("block_u,n", SUB_CASES)
+def test_fold_twin_matches_jax_fold_at_three_and_eight_row_tiles(
+        variant, block_u, n):
+    """The twin's grouping (row sums a 256-column tile, added across the
+    column tiles; column sums a row tile, added across the row tiles) at
+    the cluster sizes 3 and 8, against JAX's fold at the same superblock."""
+    pos, _, mass = make_small_system(n, seed=156)
+    acc = FOLD[variant](torch.from_numpy(pos), torch.from_numpy(mass), EPS2,
+                        block_u=block_u).numpy()
+    assert_close_exact(acc, jax_fold(pos, mass, variant, block_u),
+                       f"fold {variant} twin vs JAX, U={block_u}, N={n}")
+
+
+@pytest.mark.parametrize("variant", ["vpu", "vpu2"])
+def test_fold_real_massless_bodies_at_eight_row_tiles(variant):
+    """Massless bodies in the first, a middle and the ragged last
+    superblock at U=2048: every row at the oracle's exact tolerance, and
+    against JAX's fold on every row where JAX is right (all of them for
+    vpu; vpu2's JAX leaves a massless row its diagonal superblock only,
+    where the port recomputes it one-sided)."""
+    n, block_u, zero = 5000, 2048, [1, 2100, 4999]
+    pos, _, mass = make_small_system(n, seed=157)
+    mass[zero] = 0.0
+    acc = FOLD[variant](torch.from_numpy(pos), torch.from_numpy(mass), EPS2,
+                        block_u=block_u).numpy()
+    assert_close_exact(acc, oracle_forces(pos, mass, EPS2),
+                       f"fold {variant} U=2048 with massless bodies vs "
+                       f"oracle")
+    rows = (np.arange(n) if variant == "vpu"
+            else np.setdiff1d(np.arange(n), zero))
+    ref = jax_fold(pos, mass, variant, block_u)
+    assert_close_exact(acc[rows], ref[rows],
+                       f"fold {variant} U=2048 with massless bodies vs JAX")
+
+
+@pytest.mark.parametrize("variant", ["vpu", "vpu2"])
+def test_fold_at_the_default_superblock_matches_jax(variant):
+    """The default U=1024 on an odd superblock count with a ragged tail,
+    against JAX's fold at block_u=1024."""
+    pos, _, mass = make_small_system(2900, seed=158)
+    acc = FOLD[variant](torch.from_numpy(pos), torch.from_numpy(mass),
+                        EPS2).numpy()
+    assert_close_exact(acc, jax_fold(pos, mass, variant,
+                                     forces_sym.FOLD_BLOCK_U),
+                       f"fold {variant} twin vs JAX, default U, N=2900")
 
 
 @pytest.mark.parametrize("variant", ["vpu", "vpu2"])

@@ -6,8 +6,9 @@ On the CPU the rect wrappers run the kernels' plain twins: the square
 sweep's pair tiles over the rect sweep's superblocks, enumeration, slots
 and reduction order.  The JAX side runs Pallas in interpret mode at
 ``block_i=256, block_u=256`` (classic), where its tiles are the port's
-256 x 256 tiles, and at ``block_u=512`` for the fold schedule (the port's
-fold at ``block_u=512``).  Tolerances, per component: the exact variants
+256 x 256 tiles, and at ``block_u`` of 512, 768, 1024 and 2048 for the
+fold schedule (the port's fold at the same ``block_u``: two to eight row
+tiles a superblock, the kernel's cluster size).  Tolerances, per component: the exact variants
 (vpu, vpu2, fold) within rel 1e-4 + 1e-6·max|a| of JAX and of float64;
 the tensor-core variants within rel 1e-3 + 1e-4·max|a| of JAX (the
 tensor-core tiers' tolerance, test_torch_forces_sym_tc.py) and at their
@@ -146,6 +147,60 @@ def test_rect_chunks_are_bit_invariant(variant, schedule):
                    slot_budget=24 * -(-na // width) * width)
     for a, b in zip(one, chunked):
         np.testing.assert_array_equal(a, b)
+
+
+# (block_u, na, nb): A in whole superblocks of three, four (the default)
+# and eight row tiles, one and two of them; B ragged.
+FOLD_CASES = [(768, 1536, 700), (1024, 2048, 1100), (2048, 2048, 1300),
+              (2048, 4096, 300)]
+
+
+def rect_fold(pa, ma, pb, mb, variant, block_u):
+    port_out = rect_forces_sym(torch.from_numpy(pa), torch.from_numpy(ma),
+                               torch.from_numpy(pb), torch.from_numpy(mb),
+                               EPS2, variant=variant, schedule="fold",
+                               block_u=block_u)
+    jax_out = jax_rect(jnp.asarray(pa), jnp.asarray(ma), jnp.asarray(pb),
+                       jnp.asarray(mb), EPS2, block_i=256, block_u=block_u,
+                       variant=variant, schedule="fold")
+    return ([t.numpy() for t in port_out], [np.asarray(t) for t in jax_out])
+
+
+@pytest.mark.parametrize("variant", EXACT)
+@pytest.mark.parametrize("block_u,na,nb", FOLD_CASES)
+def test_rect_fold_twin_at_three_four_and_eight_row_tiles(variant, block_u,
+                                                          na, nb):
+    """The rect fold's twin (the kernels' grouping: row sums a 256-column
+    tile, added across column tiles; column sums a row tile, added across
+    row tiles) at the cluster sizes 3, 4 and 8, against JAX's rect fold at
+    the same superblock and against float64."""
+    pa, ma, pb, mb = sets(na, nb, seed=66)
+    got, want = rect_fold(pa, ma, pb, mb, variant, block_u)
+    ref = cross_f64(pa, ma, pb, mb)
+    for side, g, w, r in zip("ab", got, want, ref):
+        what = f"{variant}/fold U={block_u} acc_{side}, {na}x{nb}"
+        assert_close(g, w, what + " vs JAX", 1e-4, 1e-6)
+        assert_gate(g, r, variant, what + " vs float64")
+
+
+@pytest.mark.parametrize("variant", EXACT)
+def test_rect_fold_real_massless_bodies_at_eight_row_tiles(variant):
+    """Massless bodies on both sides of the rect fold at U=2048: every row
+    against float64, and against JAX's rect fold on every row where JAX is
+    right (all for vpu; vpu2's JAX gives a massless row nothing from the
+    other set, where the port recomputes it one-sided)."""
+    na, nb = 2048, 1300
+    massless = (3, 2047, na + 5, na + 1299)
+    pa, ma, pb, mb = sets(na, nb, seed=67, massless=massless)
+    got, want = rect_fold(pa, ma, pb, mb, variant, 2048)
+    ref = cross_f64(pa, ma, pb, mb)
+    zero = ([3, 2047], [5, 1299])
+    for side, g, w, r, z in zip("ab", got, want, ref, zero):
+        what = f"{variant}/fold U=2048 with massless bodies, acc_{side}"
+        assert_gate(g, r, variant, what + " vs float64")
+        keep = (np.arange(len(g)) if variant == "vpu"
+                else np.setdiff1d(np.arange(len(g)), z))
+        assert_close(g[keep], w[keep], what + " vs JAX", 1e-4, 1e-6)
 
 
 @pytest.mark.parametrize("na,nb,massless", [(256, 344, ()),
