@@ -36,12 +36,14 @@ variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K14d (at N
-= 8192 and 1,048,576) and the K2-rect folds (at 2048 x 2048 and 262,144 x
-262,144) against their design before the redesign for this card (the
-sources of PARENT_COMMIT, built beside the package's) in alternating
-rounds and by pass, each held to its twin and to float64 beside the
-parent's error, and holds every other kernel's SASS to
+N = 1,048,576 against the direct-form ``rect_forces``, times K8's row
+sums ``pe_rows`` (the main path's 1024 rows of N = 8192, 8192 x 8192,
+262,144 x 262,144 and 1M x 1M), K14b (N = 8192 and 1,048,576) and K2-rect
+turbof (2048 x 2048 and 262,144 x 262,144) against their design before
+the redesign for this card (the sources of PARENT_COMMIT, built beside
+the package's) in alternating rounds, each held to its twin, to its own
+bits from call to call and to float64 beside the parent's error, and
+holds every other kernel's SASS to
 theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
@@ -283,6 +285,25 @@ RDMA_ONE = {"vpu2": (20, 0), "vpu": (FLOPS_ONE_SIDED, 0),
 # such component is held to the variant's own sums in float64
 # (twin_outliers): the kernel must be at least as close as the twin.
 RDMA_TC_MAX_BAD = 1e-4
+# K14b and K2-rect turbof against their twin: TC_REL_TOL + TC_ABS_FLOOR a
+# component, with at most TURBOF_TWIN_MAX_BAD components of an output
+# outside it, each held to turbof's own sums in float64 (turbof_twin): the
+# kernel at least as close to them as the twin, or within the twin
+# tolerance plus TURBOF_CORR_UNITS units of float32 (2^-23) of the
+# correction term |x_i sum w| / m_i that the per-tile sums cancel.  As in
+# K13, a large weight makes that term ~1e6 where a component is ~1e2, and
+# the kernel's tensor-core float32 accumulation and the twin's matmul each
+# round it.  tools/turbof_twin_outliers.py --seeds 32 on an H100 80GB HBM3
+# at 700 W, the same values from the kernels of PARENT_COMMIT: K14b, 4 of
+# 843,084 components outside on 35 body sets (N = 8192 on seeds 1-32, 8205
+# and 41, N = 2500 on 2513), at most 1 a set, the kernel the closer every
+# time (seed 6: kernel 166.315, twin 166.887, turbof's float64 sums
+# 166.278); K2-rect turbof, 5 of 428,832 on 35 pairs of sets (2048 x 2048
+# on seeds (s, 32 + s), (2069, 2070) and (41, 42); 2144 x 1536), at most 1
+# a side, the kernel off its float64 sums by up to 3.75e-6 of the
+# correction term (31 units; the twin up to 2.1e-6).
+TURBOF_TWIN_MAX_BAD = 2
+TURBOF_CORR_UNITS = 64
 # K13's tier gates against float64: the sym variants at their square
 # tiers' gates, the one-sided turbo at K9's; the exact ones at the exact
 # tolerance.
@@ -292,16 +313,15 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K14d (the fold schedule, K2's and K7's math) and the
-# K2-rect folds for this card (the pair tile, one work item a cluster of
-# CTAs, the diagonal superblocks on K1's one-sided tile), timed against the
-# design before it: the commit that holds it, unpacked (``git archive
-# PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C build/parent``) into
-# PARENT_CSRC, where check_redesign builds it beside the package's and
-# times both in rounds (the order reversed every other round; medians).
-# Without those sources and without git, the rounds and the SASS
-# comparison are skipped and say so.
-PARENT_COMMIT = "58a051384b6ca9ef7460d4c768822ed3c7f2d9aa"
+# The redesign of K8's pe_rows (K1's work items, pe_total's pair) and of
+# K14b with K2-rect turbof (the trimmed tensor-core geometry) for this card,
+# timed against the design before it: the commit that holds it, unpacked
+# (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C
+# build/parent``) into PARENT_CSRC, where check_redesign builds it beside
+# the package's and times both in rounds (the order reversed every other
+# round; medians).  Without those sources and without git, the rounds and
+# the SASS comparison are skipped and say so.
+PARENT_COMMIT = "b2e85bef4eaedbab3a17de6805e80179e4dc5e93"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
@@ -312,18 +332,15 @@ K7_FORMER_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
 K7_FORMER_CSRC = os.path.join(ROOT, "build", "k7_former", "nbody_tpu_torch",
                               "csrc")
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes: the
-# fold kernels (sym_fold_pairs_kernel<0|1>, sym_fold_reduce_kernel<0|1>,
-# and the rect fold, rect_pairs_kernel<0> in the parent's and
-# rect_fold_pairs_kernel<0|1> in the new sources, with fold_diag_kernel,
-# the diagonal superblocks).  rect_pairs_kernel<1..4> (K15's rect forms)
-# keep theirs.  SASS_SAME pairs an old kernel with a new name it lives on
-# under (none in this redesign).
+# libraries keeps the parent's SASS, but those the redesign changes:
+# pe_rows_kernel (new parameters) with the new pe_rows_reduce_kernel, and
+# K14b's pair kernels, sym_tc_pairs_kernel<3> and rect_tc_pairs_kernel<3>
+# (SymTcVariant TURBOF).  SASS_SAME pairs an old kernel with a new name it
+# lives on under (none in this redesign).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bsym_fold_pairs_kernel<", r"\bsym_fold_reduce_kernel<",
-                   r"\brect_pairs_kernel<0>", r"\brect_fold_pairs_kernel<",
-                   r"\bfold_diag_kernel\b")
+SASS_REDESIGNED = (r"\bpe_rows_kernel\b", r"\bpe_rows_reduce_kernel\b",
+                   r"\bsym_tc_pairs_kernel<3>", r"\brect_tc_pairs_kernel<3>")
 SASS_SAME = ()
 
 
@@ -838,8 +855,11 @@ def check_k14(dev, eps2, record, smi):
         pos, mass = bodies(n, n + 13, dev)
         for kname, (_, _, plain, tol, width) in kernels.items():
             got = run(kname, pos, mass)
-            err = compare(f"{kname} vs plain, N={n}", got, plain(pos, mass),
-                          **tol)
+            name = f"{kname} vs plain, N={n}"
+            err = (turbof_twin(name, got, plain(pos, mass), pos, mass, pos,
+                               mass, eps2, True)
+                   if kname == "forces_sym_turbof" else
+                   compare(name, got, plain(pos, mass), **tol))
             check(torch.equal(got, run(kname, pos, mass)),
                   f"{kname} N={n}: not bit-reproducible")
             one = run(kname, pos, mass,
@@ -976,9 +996,13 @@ def check_rect(dev, eps2, record, smi):
             got = run(kname, pa, ma, pb, mb)
             want = plain(kname, pa, ma, pb, mb)
             torch.cuda.synchronize()
-            err = max(compare(f"{kname} acc_{side} vs plain, {na}x{nb}", g,
-                              w, **tol)[0]
-                      for side, g, w in zip("ab", got, want))
+            sets = ((pa, ma, pb, mb), (pb, mb, pa, ma))
+            err = max((turbof_twin(f"{kname} acc_{side} vs plain, "
+                                   f"{na}x{nb}", g, w, *ab, eps2, False)
+                       if variant == "turbof" else
+                       compare(f"{kname} acc_{side} vs plain, {na}x{nb}", g,
+                               w, **tol))[0]
+                      for side, g, w, ab in zip("ab", got, want, sets))
             again = run(kname, pa, ma, pb, mb)
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
                   f"{kname} {na}x{nb}: not bit-reproducible")
@@ -1395,24 +1419,60 @@ def tc_rows_float64(variant, pos, mass, rows, eps2):
     return s[:, :3] - corr, corr.abs()
 
 
-def twin_outliers(name, variant, got, want, pos, mass, eps2, rows):
-    """The components of ``rows`` where a tensor-core K13 output ``got``
-    and its twin ``want`` differ past the twin tolerance, each beside the
-    variant's own sums in float64 (``tc_rows_float64``), of which both are
-    float32 roundings, and beside a float64 direct sum: the kernel must be
-    at least as close to the variant's float64 sums as the twin, or within
-    the twin tolerance of them."""
+def turbof_rows_float64(xi, mi, pos, mass, eps2, rows=None, inv_fn=None):
+    """turbof's own sums for the rows (xi, mi) against the bodies (pos,
+    mass), exact after its bf16 rounding: each pair's weight bf16((m_i m_j)
+    inv) on the trimmed geometry (pair_inv_fma; ``inv_fn`` another), as the
+    kernels and their twin form it, on the position pack, the products,
+    the per-tile correction and the descale by 1/m_i in float64.  For the
+    square form (``rows``: the rows' indices among the bodies) each row's
+    own 256-body tile is a float64 direct sum, as the diagonal kernel takes
+    that tile exactly.  Returns the sums and the correction term
+    |x_i sum w| / m_i they cancel."""
+    import torch
+    from nbody_tpu_torch.ops.forces_sym import SYM_TILE
+    from nbody_tpu_torch.ops.forces_tiled_tc import (pair_inv_fma,
+                                                     position_pack)
+    w = ((mi[:, None] * mass[None, :]) * (inv_fn or pair_inv_fma)(
+        xi, pos, eps2)).to(torch.bfloat16).double()
+    acc = 0.0
+    if rows is not None:
+        tile = torch.as_tensor(rows, device=pos.device)[:, None] // SYM_TILE
+        own = torch.arange(pos.shape[0], device=pos.device) // SYM_TILE == tile
+        w[own] = 0.0
+        d = pos.double()[None] - xi.double()[:, None]
+        d2 = (d * d).sum(-1) + eps2
+        acc = ((own * mass.double() / d2 ** 1.5)[..., None] * d).sum(1)
+    out = w @ position_pack(pos).double()
+    s = out[:, 0::2] + out[:, 1::2]
+    corr = xi.double() * s[:, 3:4]
+    m = mi.double()[:, None]
+    return acc + (s[:, :3] - corr) / m, corr.abs() / m
+
+
+def twin_outliers(name, got, want, rows, own, pi, pj, mj, eps2,
+                  corr_units=0):
+    """The components of ``rows`` where a tensor-core output ``got`` and
+    its twin ``want`` differ past the twin tolerance, each beside the
+    variant's own sums in float64 (``own(rows)``: tc_rows_float64's or
+    turbof_rows_float64's sums and correction term), of which both are
+    float32 roundings, and beside a float64 direct sum of the rows ``pi``
+    against the bodies (pj, mj): the kernel must be at least as close to
+    the variant's float64 sums as the twin, or within the twin tolerance of
+    them, widened by ``corr_units`` units of float32 of the correction
+    term."""
     from nbody_tpu_torch.ops.forces_torch import rect_forces
     if not rows:
         return
-    v, corr = tc_rows_float64(variant, pos, mass, rows, eps2)
-    f = rect_forces(pos[rows].double(), pos.double(), mass.double(), eps2)
+    v, corr = own(rows)
+    f = rect_forces(pi[rows].double(), pj.double(), mj.double(), eps2)
     g, w = got[rows].double(), want[rows].double()
     floor = TC_ABS_FLOOR * float(want.abs().max())
     out = (g - w).abs() > TC_REL_TOL * w.abs() + floor
     for r, k in out.nonzero().tolist():
         ek, et = float(abs(g[r, k] - v[r, k])), float(abs(w[r, k] - v[r, k]))
-        tol = TC_REL_TOL * abs(float(v[r, k])) + floor
+        tol = (TC_REL_TOL * abs(float(v[r, k])) + floor
+               + corr_units * 2.0 ** -23 * float(corr[r, k]))
         print(f"[check] {name}: component ({rows[r]},{k}) kernel "
               f"{float(g[r, k]):.6f}, twin {float(w[r, k]):.6f}, the "
               f"variant's sums in float64 {float(v[r, k]):.6f}: kernel off "
@@ -1423,6 +1483,23 @@ def twin_outliers(name, variant, got, want, pos, mass, eps2, rows):
               f"{name}: component ({rows[r]},{k}) is further from the "
               f"variant's float64 sums than the twin, and outside the "
               f"tolerance")
+
+
+def turbof_twin(name, got, want, pi, mi, pj, mj, eps2, square):
+    """K14b's (``square``) or K2-rect turbof's output ``got`` for the rows
+    (pi, mi) against the bodies (pj, mj), held to its twin ``want``:
+    TC_REL_TOL + TC_ABS_FLOOR a component, at most TURBOF_TWIN_MAX_BAD of
+    them outside it, each of those no further from turbof's own float64
+    sums than the twin is, or within the twin tolerance and
+    TURBOF_CORR_UNITS of them (twin_outliers).  Returns compare's
+    result."""
+    out = compare(name, got, want, rel_tol=TC_REL_TOL,
+                  abs_floor=TC_ABS_FLOOR, max_bad=TURBOF_TWIN_MAX_BAD)
+    twin_outliers(name, got, want, out[2],
+                  lambda r: turbof_rows_float64(pi[r], mi[r], pj, mj, eps2,
+                                                r if square else None),
+                  pi, pj, mj, eps2, TURBOF_CORR_UNITS)
+    return out
 
 
 def rdma_shards(n, p, seed, dev):
@@ -1479,8 +1556,10 @@ def check_rdma(dev, eps2, record, smi):
                                       **tol)
                 if tc:
                     row_gate(f"{what} {proto} vs plain", got, want)
-                    twin_outliers(f"{what} {proto}", variant, got, want,
-                                  pos, mass, eps2, bad)
+                    twin_outliers(f"{what} {proto}", got, want, bad,
+                                  lambda r: tc_rows_float64(
+                                      variant, pos, mass, r, eps2),
+                                  pos, pos, mass, eps2)
                 check(torch.equal(got, k13.rdma_ring(
                     pos, mass, p, eps2, variant, one_sided, overlap)),
                     f"{what} {proto}: not bit-reproducible")
@@ -1955,10 +2034,63 @@ def report_rounds(what, times, smi):
     return med
 
 
-# The parent's libraries check_redesign builds and binds: its
-# forces_sym.cu, the same C entries (ops/forces_sym.py bind).
-PARENT_LIBS = ("forces_sym",)
-# The four redesigned kernels: name -> (K7's math, rect).
+# The parent's libraries check_redesign builds and binds: its pe.cu
+# (pe_rows one thread a row, its own C entry: pe_rows_parent) and its
+# forces_sym_tc.cu (K14b and K2-rect turbof on pair_inv, the package's C
+# entries).
+PARENT_LIBS = ("pe", "forces_sym_tc")
+# The MUFU's rsqrt rate on one H100 SXM: 16 a clock on each of its 132 SMs
+# at the 1.98 GHz boost clock.  A pair-potential term takes one rsqrt, so
+# pe_rows can take no less than its pairs over this rate (its flops bound,
+# FLOPS_PE a pair over the float32 peak, is lower).
+MUFU_RSQRT_RATE = 16 * 132 * 1.98e9
+# pe_rows's shapes in check_redesign: (rows, bodies, timed calls a round,
+# float64 rows), the main path's launch first; rows are the first bodies.
+PE_REDESIGN_SHAPES = ((1024, 8192, 20, None), (8192, 8192, 20, None),
+                      (1 << 18, 1 << 18, 3, 2048),
+                      (1 << 20, 1 << 20, 1, 4096))
+
+
+def mufu_floor_ms(pairs):
+    """The least time of ``pairs`` pair-potential terms on the MUFU."""
+    return 1e3 * pairs / MUFU_RSQRT_RATE
+
+
+def pe_rows_parent(lib, pos_r, mass_r, pos_a, mass_a, eps2):
+    """pe_rows through the parent's pe.cu (one thread a row): its C entry
+    nbt_pe_rows(pos_r, mass_r, nr, pos_a, mass_a, na, eps2, out, stream)."""
+    import ctypes
+    import torch
+    from nbody_tpu_torch.ops import _build
+    fn = lib.nbt_pe_rows
+    if fn.argtypes is None:
+        c_ll, c_ptr = ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = [c_ptr, c_ptr, c_ll, c_ptr, c_ptr, c_ll,
+                       ctypes.c_float, c_ptr, c_ptr]
+        fn.restype = ctypes.c_int
+    out = torch.empty(pos_r.shape[0], dtype=torch.float64,
+                      device=pos_r.device)
+    _build.check_launch("the parent's pe_rows", fn(
+        pos_r.data_ptr(), mass_r.data_ptr(), pos_r.shape[0],
+        pos_a.data_ptr(), mass_a.data_ptr(), pos_a.shape[0], float(eps2),
+        out.data_ptr(), _build.stream_handle(out)))
+    return out
+
+
+def pe_rows_f64(pos_r, mass_r, pos_a, mass_a, eps2, chunk=64):
+    """Each row's m_i sum_j m_j (|x_j - x_i|^2 + eps2)^(-1/2) in float64
+    on the card (torch float64), rows in chunks."""
+    import torch
+    p64, m64 = pos_a.double(), mass_a.double()
+    return torch.cat([
+        mass_r[s:s + chunk].double() * (m64[None, :] / torch.sqrt(
+            ((p64[None, :, :] - pos_r[s:s + chunk, None, :].double()) ** 2
+             ).sum(-1) + eps2)).sum(1)
+        for s in range(0, pos_r.shape[0], chunk)])
+
+
+# The fold kernels (K14d and the K2-rect folds): name -> (K7's math,
+# rect); tools/fold_variants.py times them.
 FOLD_KERNELS = {"forces_sym_fold": (False, False),
                 "forces_sym_vpu_fold": (True, False),
                 "rect_forces_sym_fold": (False, True),
@@ -2000,173 +2132,187 @@ def row_errors(got, ref):
 
 
 def check_redesign(dev, eps2, record, smi, parent_build):
-    """K14d (the fold schedule with K2's and K7's math) and the K2-rect
-    folds against the parent's design on the same inputs, in alternating
-    rounds: the square folds at N = 8192 and 1,048,576, the rect folds at
-    2048 x 2048 and 262,144 x 262,144 (seed 41).  Each new kernel is held
-    to its twin at 8192 and 2048 x 2048 at the exact tolerance, is
-    bit-reproducible (the wrapper's result is its sweep's), and is held to
-    float64 (every row at 8192 and 2048 x 2048, 2048 sampled rows at 1M and
-    of each side at 262,144 x 262,144; the square folds at the exact tiers'
-    gate, the rect folds at the exact tolerance) with the parent's error
-    beside it.  Both sides of a round take one host path (fold_sweep),
-    so that at 8192, where the host's launch path is a share of a call,
-    the two differ in their kernels only; there the card's time alone is
-    taken too.  Every item on a cluster and one CTA an item must give the
-    automatic spread's bits.  Then the pair pass and the reduce pass of
-    each, new and parent, are timed apart by partial launches.  ``parent_build``:
-    build_parent's function for the parent's forces_sym.cu."""
+    """K8's pe_rows, K14b (turbof) and K2-rect turbof against the parent's
+    design on the same inputs, in alternating rounds: pe_rows at the main
+    path's 1024 rows of N = 8192, 8192 x 8192, 262,144 x 262,144 and 1M x
+    1M (PE_REDESIGN_SHAPES), K14b at N = 8192 and 1M, K2-rect turbof at
+    2048 x 2048 and 262,144 x 262,144 (seed 41).  Each new kernel is held to
+    its twin at the small shapes (pe_rows at the exact tolerance, turbof at
+    the tier tolerance through turbof_twin), is bit-reproducible (the wrapper's result is its
+    sweep's, and a second call gives the same bits), and is held to float64
+    (pe_rows at 1e-5, check_pe's gate, on every row at the small shapes and
+    on sampled rows at the large; turbof at turbo's gate, every row at
+    8192 and 2048 x 2048, 2048 sampled rows at 1M and of each side at
+    262,144 x 262,144) with the parent's error beside it.  Both sides of a
+    round take one host path (rows_sweep against pe_rows_parent, the
+    package's sweep / rect_sweep with either library's C entries), so that
+    at the small shapes the two differ in their kernels only; there the
+    card's time alone is taken too.  ``parent_build``: build_parent's
+    function for the parent's pe.cu and forces_sym_tc.cu."""
     import torch
     from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_sym_tc as ktc
+    from nbody_tpu_torch.ops import pe
     from nbody_tpu_torch.ops.forces_torch import rect_forces
-    from nbody_tpu_torch.utils.timing import time_ms
     t0 = time.perf_counter()
-    new_lib = k2._lib()
-    parent = parent_build()["forces_sym"]
-    k2.bind(parent)
-    u = k2.FOLD_BLOCK_U
+    new_pe, new_tc = pe._lib(), ktc._lib()
+    parent = parent_build()
+    parent_pe, parent_tc = parent["pe"], parent["forces_sym_tc"]
+    for fn in ("nbt_sym_turbof_pairs", "nbt_sym_tc_descale_reduce",
+               "nbt_rect_turbof_pairs", "nbt_rect_tc_reduce"):
+        getattr(parent_tc, fn).argtypes = getattr(new_tc, fn).argtypes
+        getattr(parent_tc, fn).restype = getattr(new_tc, fn).restype
+    # SymTcVariant TURBOF is 3 (csrc/sym_tc_tile.cuh).
+    print(f"[redesign] K14b's pair kernel: {new_tc.nbt_sym_tc_pairs_ctas(3)} "
+          f"CTAs an SM; pe_rows: {new_pe.nbt_pe_geometry(1)} rows a block, "
+          f"{new_pe.nbt_pe_geometry(2)} threads, "
+          f"{new_pe.nbt_pe_geometry(3)} CTAs an SM")
     sample = torch.Generator().manual_seed(13)
-    per_sm = {k: new_lib.nbt_sym_fold_per_sm(int(k7), int(rect))
-              for k, (k7, rect) in FOLD_KERNELS.items()}
-    print(f"[redesign] fold pair kernels, CTAs an SM: {per_sm}; "
-          f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
-          f"SMs: a launch of fewer items than SMs x CTAs an SM takes a "
-          f"cluster an item")
-    wrappers = {"forces_sym_fold": k2.forces_sym_fold,
-                "forces_sym_vpu_fold": k2.forces_sym_vpu_fold,
-                "rect_forces_sym_fold": k2.rect_forces_sym_fold,
-                "rect_forces_sym_vpu_fold": k2.rect_forces_sym_vpu_fold}
 
-    def rounds(kname, tag, key, old, new, iters):
-        """New against parent in rounds, into record[kname]; at the small
-        shape (no ``key``) also the card's time alone."""
+    def rounds(kname, tag, key, old, new, iters, small):
+        """New against parent in rounds, into record[kname]; at a small
+        shape also the card's time alone."""
         med = report_rounds(tag, alternate({"parent": old, "new": new}, dev,
                                            iters), smi)
         record[kname].update({f"parent_ms{key}": med["parent"],
                               f"new_ms{key}": med["new"]})
-        if not key:
+        if small:
             med = report_rounds(f"{tag}, the card's time (device_ms)",
                                 alternate({"parent": old, "new": new}, dev,
                                           iters, device=True), smi)
-            record[kname].update({"parent_device_ms": med["parent"],
-                                  "new_device_ms": med["new"]})
+            record[kname].update({f"parent_device_ms{key}": med["parent"],
+                                  f"new_device_ms{key}": med["new"]})
 
-    def parts(kname, tag, key, args, iters):
-        """The pair pass and the reduce pass of new and parent timed apart
-        (every chunk's pair launches; every chunk's reduce launches, on
-        stale slots), the card's time alone at the small shape, into
-        record[kname]."""
-        out = {}
-        for side, lib in (("parent", parent), ("new", new_lib)):
-            for what in ("pairs", "reduce"):
-                def fn(lib=lib, what=what):
-                    return fold_sweep(lib, kname, args, eps2, what)
-                out[f"{side}_{what}"] = (
-                    time_ms(fn, dev, iters=iters, warmup=1) if key
-                    else device_ms(fn, iters))
-        print(f"[redesign] {tag} by pass{'' if key else ', the card'}: "
-              f"pairs new {out['new_pairs']:.4f} ms, parent "
-              f"{out['parent_pairs']:.4f}; reduce new "
-              f"{out['new_reduce']:.4f}, parent {out['parent_reduce']:.4f} "
-              f"({smi})")
-        record[kname].update({f"{k}_ms{key}": v for k, v in out.items()})
+    def sampled(n, k):
+        return (torch.arange(n, device=dev) if k is None else
+                torch.randperm(n, generator=sample)[:k].sort()[0].to(dev))
 
-    def modes(kname, tag, args, got):
-        """Every item on a cluster, and one CTA an item, must give the
-        bits of the automatic spread."""
-        for mode in (k2.FOLD_CLUSTER, k2.FOLD_CTA):
-            check(new_lib.nbt_sym_fold_mode(mode) == mode,
-                  "nbt_sym_fold_mode refused a mode")
-            try:
-                forced = fold_sweep(new_lib, kname, args, eps2)
-            finally:
-                new_lib.nbt_sym_fold_mode(k2.FOLD_AUTO)
-            forced = forced if isinstance(forced, tuple) else (forced,)
-            check(all(torch.equal(x, y) for x, y in zip(
-                forced, got if isinstance(got, tuple) else (got,))),
-                f"{tag}: FoldMode {mode} differs from the automatic spread")
-        print(f"[redesign] {tag}: clusters and one CTA an item give the "
-              f"automatic spread's bits")
+    def rel_errors(got, ref):
+        """(max, median) of |got - ref| / |ref| over the rows."""
+        e = ((got - ref) / ref).abs()
+        return float(e.max()), float(e.median())
 
-    def sampled(n):
-        return (torch.arange(n, device=dev) if n <= 8192 else
-                torch.randperm(n, generator=sample)[:2048].sort()[0].to(dev))
+    # K8's pe_rows.
+    for nr, n, iters, n_rows in PE_REDESIGN_SHAPES:
+        pa, ma = bodies(n, 41, dev)
+        pr, mr = pa[:nr].contiguous(), ma[:nr].contiguous()
+        key = {1024: "_main", 8192: "", 1 << 18: "_256k"}.get(nr, "_1m")
+        tag = f"K8 pe_rows {nr} x {n}"
+        small = n <= 8192
 
-    for n, key, iters in ((8192, "", 20), (1 << 20, "_1m", 1)):
+        def new(pr=pr, mr=mr, pa=pa, ma=ma):
+            return pe.rows_sweep(new_pe, pr, mr, pa, ma, eps2)
+
+        def old(pr=pr, mr=mr, pa=pa, ma=ma):
+            return pe_rows_parent(parent_pe, pr, mr, pa, ma, eps2)
+        got = pe.pe_rows(pr, mr, pa, ma, eps2)
+        was = old()
+        check(torch.equal(got, new()) and torch.equal(got, new()),
+              f"{tag}: not bit-reproducible, or the wrapper's result is not "
+              f"its sweep's")
+        slices, tps = pe.rows_slices(nr, n)
+        print(f"[redesign] {tag}: {-(-nr // pe.PE_BLOCK_ROWS)} row blocks x "
+              f"{slices} slices of {tps} tiles; bit-reproducible; MUFU "
+              f"floor {mufu_floor_ms(nr * n):.4f} ms")
+        if small:
+            compare(f"{tag} vs plain", got,
+                    pe.pe_rows_plain(pr, mr, pa, ma, eps2))
+        rows = sampled(nr, n_rows)
+        ref = pe_rows_f64(pr[rows], mr[rows], pa, ma, eps2)
+        compare(f"{tag} vs float64, {len(rows)} rows", got[rows], ref,
+                rel_tol=1e-5)
+        e_new, e_old = rel_errors(got[rows], ref), rel_errors(was[rows], ref)
+        print(f"[redesign] {tag}: |err| / |row| against float64 on "
+              f"{len(rows)} rows, max / median: new {e_new[0]:.3e} / "
+              f"{e_new[1]:.3e}, parent {e_old[0]:.3e} / {e_old[1]:.3e}")
+        record["pe"].update({f"f64_err{key}": e_new[0],
+                             f"parent_f64_err{key}": e_old[0],
+                             f"mufu_floor_ms{key}": mufu_floor_ms(nr * n)})
+        rounds("pe", tag, key, old, new, iters, small)
+        del got, was, ref, pa, ma, pr, mr
+
+    # K14b, the square sweep.
+    for n, key, iters, n_rows in ((8192, "", 20, None),
+                                  (1 << 20, "_1m", 1, 2048)):
         pos, mass = bodies(n, 41, dev)
-        rows = sampled(n)
+        tag = f"K14b turbof N={n}"
+
+        def sweep(lib, pos=pos, mass=mass):
+            return k2.sweep("forces_sym_turbof", pos, mass, eps2,
+                            k2.SLOT_BUDGET_BYTES, lib.nbt_sym_turbof_pairs,
+                            lib.nbt_sym_tc_descale_reduce)
+        got = ktc.forces_sym_turbof(pos, mass, eps2)
+        was = sweep(parent_tc)
+        check(torch.equal(got, sweep(new_tc))
+              and torch.equal(got, sweep(new_tc)),
+              f"{tag}: not bit-reproducible, or the wrapper's result is not "
+              f"its sweep's")
+        if n <= 8192:
+            turbof_twin(f"{tag} vs plain", got,
+                        ktc.forces_sym_tc_plain(pos, mass, eps2, "turbof"),
+                        pos, mass, pos, mass, eps2, True)
+        rows = sampled(n, n_rows)
         ref = rect_forces(pos[rows].double(), pos.double(), mass.double(),
                           eps2, chunk=64)
-        for kname in ("forces_sym_fold", "forces_sym_vpu_fold"):
-            k7 = FOLD_KERNELS[kname][0]
-            tag = f"K14d {'vpu' if k7 else 'vpu2'} N={n}"
-
-            def new(k=kname):
-                return fold_sweep(new_lib, k, (pos, mass), eps2)
-
-            def old(k=kname):
-                return fold_sweep(parent, k, (pos, mass), eps2)
-            got = wrappers[kname](pos, mass, eps2)
-            was = old()
-            check(torch.equal(got, new()), f"{tag}: not bit-reproducible, "
-                  f"or the wrapper's result is not its sweep's")
-            if n <= 8192:
-                plain = (k2.forces_sym_vpu_plain if k7 else
-                         k2.forces_sym_plain)
-                compare(f"{tag} vs plain", got, plain(pos, mass, eps2,
-                                                      block_u=u))
-            tier_gate(kname, got[rows], ref)
-            e_new, e_old = row_errors(got[rows], ref), row_errors(was[rows],
+        tier_gate("forces_sym_turbof", got[rows], ref)
+        g_new, g_old = gate_numbers(got[rows], ref), gate_numbers(was[rows],
                                                                   ref)
-            print(f"[redesign] {tag}: |err| / |a| against float64 on "
-                  f"{len(rows)} rows, max / median: new {e_new[0]:.3e} / "
-                  f"{e_new[1]:.3e}, parent {e_old[0]:.3e} / {e_old[1]:.3e}")
-            modes(kname, tag, (pos, mass), got)
-            rounds(kname, tag, key, old, new, iters)
-            parts(kname, tag, key, (pos, mass), iters)
-            del got, was
-        del pos, mass, ref
+        e_new, e_old = row_errors(got[rows], ref), row_errors(was[rows], ref)
+        print(f"[redesign] {tag} against float64 on {len(rows)} rows: p99 / "
+              f"bad fraction at 1% new {g_new[0]:.3e} / {g_new[1]:.3e}, "
+              f"parent {g_old[0]:.3e} / {g_old[1]:.3e}; |err| / |a| max / "
+              f"median new {e_new[0]:.3e} / {e_new[1]:.3e}, parent "
+              f"{e_old[0]:.3e} / {e_old[1]:.3e}")
+        record["forces_sym_turbof"].update({f"p99{key}": g_new[0],
+                                            f"parent_p99{key}": g_old[0]})
+        rounds("forces_sym_turbof", tag, key,
+               lambda s=sweep: s(parent_tc), lambda s=sweep: s(new_tc), iters,
+               n <= 8192)
+        del got, was, ref, pos, mass
 
-    for n, key, iters in ((2048, "", 20), (RECT_1M, "_1m", 1)):
+    # K2-rect turbof.
+    for n, key, iters, n_rows in ((2048, "", 20, None),
+                                  (RECT_1M, "_1m", 1, 2048)):
         pa, ma = bodies(n, 41, dev)
         pb, mb = bodies(n, 42, dev)
-        rows = (sampled(n), sampled(n))
+        args = (pa, ma, pb, mb)
+        tag = f"K2-rect turbof {n}x{n}"
+
+        def sweep(lib, args=args):
+            return k2.rect_sweep("rect_forces_sym_turbof", *args, eps2,
+                                 k2.SLOT_BUDGET_BYTES,
+                                 lib.nbt_rect_turbof_pairs,
+                                 lib.nbt_rect_tc_reduce, True)
+        got = ktc.rect_forces_sym_turbof(*args, eps2)
+        was = sweep(parent_tc)
+        check(all(torch.equal(x, y) for x, y in zip(got, sweep(new_tc)))
+              and all(torch.equal(x, y) for x, y in zip(got, sweep(new_tc))),
+              f"{tag}: not bit-reproducible, or the wrapper's result is not "
+              f"its sweep's")
+        if n <= 8192:
+            for side, g, w, ab in zip("ab", got, ktc.rect_forces_sym_tc_plain(
+                    *args, eps2, "turbof"), (args, (pb, mb, pa, ma))):
+                turbof_twin(f"{tag} acc_{side} vs plain", g, w, *ab, eps2,
+                            False)
+        rows = (sampled(n, n_rows), sampled(n, n_rows))
         ref = (rect_forces(pa[rows[0]].double(), pb.double(), mb.double(),
                            eps2, chunk=64),
                rect_forces(pb[rows[1]].double(), pa.double(), ma.double(),
                            eps2, chunk=64))
-        for kname in ("rect_forces_sym_fold", "rect_forces_sym_vpu_fold"):
-            k7 = FOLD_KERNELS[kname][0]
-            tag = f"K2-rect fold {'vpu' if k7 else 'vpu2'} {n}x{n}"
-            args = (pa, ma, pb, mb)
-
-            def new(k=kname):
-                return fold_sweep(new_lib, k, args, eps2)
-
-            def old(k=kname):
-                return fold_sweep(parent, k, args, eps2)
-            got = wrappers[kname](*args, eps2)
-            was = old()
-            check(all(torch.equal(x, y) for x, y in zip(got, new())),
-                  f"{tag}: not bit-reproducible, or the wrapper's result is "
-                  f"not its sweep's")
-            if n <= 8192:
-                for side, g, w in zip("ab", got, k2.rect_forces_sym_plain(
-                        *args, eps2, k7, u)):
-                    compare(f"{tag} acc_{side} vs plain", g, w)
-            for side, g, w, r, idx in zip("ab", got, was, ref, rows):
-                compare(f"{tag} acc_{side} vs float64, {len(idx)} rows",
-                        g[idx], r)
-                e_new, e_old = row_errors(g[idx], r), row_errors(w[idx], r)
-                print(f"[redesign] {tag} acc_{side}: |err| / |a| against "
-                      f"float64 on {len(idx)} rows, max / median: new "
-                      f"{e_new[0]:.3e} / {e_new[1]:.3e}, parent "
-                      f"{e_old[0]:.3e} / {e_old[1]:.3e}")
-            modes(kname, tag, args, got)
-            rounds(kname, tag, key, old, new, iters)
-            parts(kname, tag, key, args, iters)
-            del got, was
-        del pa, ma, pb, mb, ref
+        for side, g, w, r, idx in zip("ab", got, was, ref, rows):
+            tier_gate("forces_sym_turbof", g[idx], r)
+            g_new, g_old = gate_numbers(g[idx], r), gate_numbers(w[idx], r)
+            e_new, e_old = row_errors(g[idx], r), row_errors(w[idx], r)
+            print(f"[redesign] {tag} acc_{side} against float64 on "
+                  f"{len(idx)} rows: p99 / bad fraction at 1% new "
+                  f"{g_new[0]:.3e} / {g_new[1]:.3e}, parent {g_old[0]:.3e} / "
+                  f"{g_old[1]:.3e}; |err| / |a| max / median new "
+                  f"{e_new[0]:.3e} / {e_new[1]:.3e}, parent {e_old[0]:.3e} / "
+                  f"{e_old[1]:.3e}")
+        rounds("rect_forces_sym_turbof", tag, key,
+               lambda s=sweep: s(parent_tc), lambda s=sweep: s(new_tc), iters,
+               n <= 8192)
+        del got, was, ref, pa, ma, pb, mb
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2907,8 +3053,8 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K14d and the K2-rect folds against the
-    # design before their redesign.
+    # 4. K2 at the 1M headline; pe_rows, K14b and K2-rect turbof against
+    # the design before their redesign.
     check_k2_1m(dev)
     if csrc:
         check_redesign(dev, 0.002, record, smi, parent_build)

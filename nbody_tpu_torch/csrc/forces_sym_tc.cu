@@ -72,33 +72,38 @@
 // mxu).  The tensor cores are not the limit (K5's 32 flops a pair take
 // about 18 ms of an evaluation at N = 1M).
 //
-// The geometry of K5 and K14a is trimmed (tc_trimmed, pair_inv_fma in
-// tc_common.cuh): d2 as three FMAs with eps2 folded in, and the MUFU
+// The geometry of K5, K14a and K14b is trimmed (tc_trimmed, pair_inv_fma
+// in tc_common.cuh): d2 as three FMAs with eps2 folded in, and the MUFU
 // rsqrt of d2^3 without rsqrtf's subnormal fix-up, which brings K5's pair
 // from about 19.6 issue slots to about 13.6 (3 sub, 3 FMA, 2 mul for the
 // cube, the rsqrt, 2 weight multiplies, one bf16x2 convert, half a
 // movmatrix, a quarter mma, and 0.9 of loads and partial stores a
-// 16-column step) and turbo2's to about 11.6 (no weight multiply, half a
-// convert).  turbop, TMM_FULL and TMM_NOSCAT, defined as K5's values,
-// take it too, in both sweeps, and so does K6, mxu; turbof, the other
-// ablations and K13 keep pair_inv.  The trimmed tile also unrolls its
-// 16-column loop twice, and K6's splits the two weights of a register at
-// once (split2_rn: one bf16x2 convert for hi, hi's halves back to float32
-// by a shift and a mask, the two subtractions, one convert for lo), where
-// split_rn converts each weight and limb alone and packs them after; the
-// bits are the same.  On an H100 80GB HBM3 at 700 W an evaluation at N =
-// 1M takes, for K5, 333.5 ms (343.1 with the loop rolled, 433.5
-// untrimmed); for turbo2 288.9 ms (291.6 rolled, 289.2 unrolled four
-// times, 292.6 held to four CTAs an SM, 376.5 untrimmed and rolled):
-// turbo2's pair kernel takes 63 registers, so it already runs four CTAs
-// an SM; and for K6 366.1 ms (438.4 with split_rn, 509.2 untrimmed and
-// rolled, the design before; 367.5 rolled, 369.5 unrolled four times,
-// 375.8 held to four CTAs an SM, 369.5 to three; 348.7 with the j side's
-// lo limb, its movmatrix set and product, left out, a diagnostic) at 67
-// registers, three CTAs an SM (tools/sym_tc_variants.py, chip_smoke.py).
-// K2-rect mxu at the 1M ring's 262,144 x 262,144 shard pair takes 45.2
-// ms against 67.3 before.  Left for later: wgmma, TMA-fed tiles, a
-// persistent schedule, the trimmed geometry for turbof.
+// 16-column step), turbo2's to about 11.6 (no weight multiply, half a
+// convert) and turbof's to about 13.1 (K5's with m_i m_j and its product
+// with inv for the two weight multiplies, and half a convert).  turbop,
+// TMM_FULL and TMM_NOSCAT, defined as K5's values, take it too, in both
+// sweeps, and so does K6, mxu; the other ablations and K13 keep
+// pair_inv.  The trimmed tile also unrolls its 16-column loop twice; K6's
+// splits the two weights of a register at once (split2_rn: one bf16x2
+// convert for hi, hi's halves back to float32 by a shift and a mask, the
+// two subtractions, one convert for lo), where split_rn converts each
+// weight and limb alone and packs them after, and turbof's rounds its two
+// weights with one convert (pack2_rn, pack_rn's bits).  On an H100 80GB HBM3 at 700 W an evaluation at N = 1M takes,
+// for K5, 333.5 ms (343.1 with the loop rolled, 433.5 untrimmed); for
+// turbo2 288.9 ms (291.6 rolled, 289.2 unrolled four times, 292.6 held to
+// four CTAs an SM, 376.5 untrimmed and rolled): turbo2's pair kernel takes
+// 63 registers, so it already runs four CTAs an SM; for turbof 314.2 ms
+// (410.8 untrimmed and rolled, the design before; 312.7 with pack_rn,
+// 316.2 rolled, 315.1 unrolled four times, 316.9 held to four CTAs an SM,
+// 324.0 to three) at 63 registers, four CTAs an SM; and for K6 366.1 ms
+// (438.4 with split_rn, 509.2 untrimmed and rolled, the design before;
+// 367.5 rolled, 369.5 unrolled four times, 375.8 held to four CTAs an SM,
+// 369.5 to three; 348.7 with the j side's lo limb, its movmatrix set and
+// product, left out, a diagnostic) at 67 registers, three CTAs an SM
+// (tools/sym_tc_variants.py, chip_smoke.py).  K2-rect mxu at the 1M
+// ring's 262,144 x 262,144 shard pair takes 45.2 ms against 67.3 before,
+// K2-rect turbof 38.8 against 51.5 (chip_smoke.py check_redesign).
+// Left for later: wgmma, TMA-fed tiles, a persistent schedule.
 //
 // K15's tmm_* ablations (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm)
 // are four more values of the tile's variant, SymTcVariant; their none /
@@ -274,13 +279,14 @@ static int pairs_ctas(int dyn) {
 }
 
 // The CTAs per SM of the pair kernel of SymTcVariant v as it launches now:
-// K5, K6, K14a and the tmm_* forms (-1 for the others).
+// K5, K6, K14a, K14b and the tmm_* forms (-1 for the others).
 extern "C" int nbt_sym_tc_pairs_ctas(int v) {
     const int dyn = v >= TMM_FULL ? abl_dyn_smem : 0;
     switch (v) {
         case TURBO: return pairs_ctas<TURBO>(dyn);
         case MXU: return pairs_ctas<MXU>(dyn);
         case TURBO2: return pairs_ctas<TURBO2>(dyn);
+        case TURBOF: return pairs_ctas<TURBOF>(dyn);
         case TMM_FULL: return pairs_ctas<TMM_FULL>(dyn);
         case TMM_NOSCAT: return pairs_ctas<TMM_NOSCAT>(dyn);
         case TMM_NOJ: return pairs_ctas<TMM_NOJ>(dyn);

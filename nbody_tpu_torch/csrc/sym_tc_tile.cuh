@@ -36,11 +36,11 @@ __host__ __device__ constexpr int tc_tile_of(int v) {
 // Whether a pairs kernel of forces_sym_tc.cu runs the trimmed geometry
 // (pair_inv_fma) and the unrolled column loop: K5 and the kernels defined
 // as K5's values, turbop and the TMM_FULL / TMM_NOSCAT controls, so that
-// they stay bit-equal to it; K14a, turbo2; and K6, mxu.  turbof, the
+// they stay bit-equal to it; K14a, turbo2; K14b, turbof; and K6, mxu.  The
 // other ablations and K13's tiles (rdma_ring.cu) keep pair_inv.
 __host__ __device__ constexpr bool tc_trimmed(int v) {
     return v == TURBO || v == TURBOP || v == TMM_FULL || v == TMM_NOSCAT ||
-           v == TURBO2 || v == MXU;
+           v == TURBO2 || v == TURBOF || v == MXU;
 }
 
 struct SymTcSmem {
@@ -123,8 +123,8 @@ __device__ __forceinline__ void sym_tc_tile(
     float wj_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
     // The trimmed tile unrolls the 16-column loop twice (K5: 80
     // registers still, three CTAs an SM; K14a: 63, four CTAs an SM; K6:
-    // 67, three CTAs an SM; tools/sym_tc_variants.py); the others keep it
-    // rolled, their code unchanged.
+    // 67, three CTAs an SM; K14b: tools/sym_tc_variants.py --variant
+    // turbof); the others keep it rolled, their code unchanged.
 #pragma unroll (TRIM ? 2 : 1)
     for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
         const int c = k0 + 2 * t;
@@ -189,12 +189,16 @@ __device__ __forceinline__ void sym_tc_tile(
                     if (V == TURBO2) {
                         a[r] = pack_rn(inv[2 * r], inv[2 * r + 1]);
                     } else {
+                        // (m_i m_j) first, then times inv, as JAX orders
+                        // them; the register's two weights rounded with
+                        // one convert (pack2_rn, pack_rn's bits).
                         const float mi = xr[rb][r & 1].w;
                         const int qa = (r >> 1) * 2;
-                        a[r] = pack_rn(
-                            __fmul_rn(__fmul_rn(mi, q[qa].w), inv[2 * r]),
-                            __fmul_rn(__fmul_rn(mi, q[qa + 1].w),
-                                      inv[2 * r + 1]));
+                        const float wa =
+                            __fmul_rn(__fmul_rn(mi, q[qa].w), inv[2 * r]);
+                        const float wb = __fmul_rn(__fmul_rn(mi, q[qa + 1].w),
+                                                   inv[2 * r + 1]);
+                        a[r] = pack2_rn(wa, wb);
                     }
                 }
                 mma_bf16(di[rb], a, bj0, bj1);

@@ -27,13 +27,15 @@ cores:
   block's geometry; the same values in the same order, so bit-equal to
   turbo, and its twin is turbo's.
 
-The geometry of K5, K6 and K14a is trimmed (``csrc/tc_common.cuh``:
+The geometry of K5, K6, K14a and K14b is trimmed (``csrc/tc_common.cuh``:
 ``pair_inv_fma``): d2 as three fused multiply-adds with eps2 folded in,
 and the rsqrt of d2^3 without rsqrtf's subnormal fix-up.  turbop and
 K15's tmm_full / tmm_noscat controls, defined as K5's values, take it
-too; turbof and K13 keep the unfused ``pair_inv``.  The twin rounds each
-fused multiply-add once (``pair_inv_fma``), so it gives the kernel's
-float32 weights and bf16 roundings but for rare double-rounding ties.
+too; K13 keeps the unfused ``pair_inv``.  The twin rounds each fused
+multiply-add once (``pair_inv_fma``), so it gives the kernel's float32
+weights and bf16 roundings but for rare double-rounding ties.  turbof's
+weight keeps JAX's order, ``(m_i m_j)`` first, then times ``inv``, then
+one bf16 rounding.
 
 Each side's tile result is ``sum w x - x sum w`` (the correction of the
 Pallas kernels) once per 256 x 256 tile.  turbo, mxu, turbo2 and turbop
@@ -78,7 +80,7 @@ from .forces_tiled_tc import (bf16_split, mass_folded_pack, pair_inv,
 
 VARIANTS = ("turbo", "mxu", "turbo2", "turbof", "turbop")
 # Variants whose kernels take the trimmed geometry (pair_inv_fma).
-_TRIMMED = ("turbo", "turbop", "turbo2", "mxu")
+_TRIMMED = ("turbo", "turbop", "turbo2", "turbof", "mxu")
 # Variants whose slot sums carry the receiving body's mass.
 _MASS_SCALED = ("turbof",)
 

@@ -6,10 +6,14 @@ The counterpart of ``nbody_tpu/ops/pe_pallas.py`` (``_pe_kernel``,
 no mask, so each row's self term ``m_i^2 / sqrt(eps2)`` is included and
 the caller subtracts it in float64.  The kernels are in ``csrc/pe.cu``:
 
-- ``pe_rows`` (a row subset against all bodies): K1's shape (one thread
-  per row, j-tiles of ``PE_TILE`` bodies in shared memory, zero-mass
-  ghosts at the ragged edge), each tile summed in a float32 partial and
-  the partials added in float64;
+- ``pe_rows`` (a row subset against all bodies): K1's (row block, j
+  slice) work items (``ops/forces_tiled.py``: ``slice_plan``) with
+  ``pe_total``'s pair; the j-set in tiles of ``PE_TILE`` bodies
+  (zero-mass ghosts at the ragged edge), each row's tile summed in a
+  float32 partial, the partials added in float64 into the row's slice
+  sum; the slices' sums added in slice order and scaled by m_i in
+  float64 (``rows_slices`` picks the slices; one slice writes the result
+  directly), so the row sums are bit-reproducible;
 - ``pe_total`` (the whole set against itself, summed: the scalar that
   ``pe_rows_pallas(pos, mass, pos, mass, eps2)`` returns and
   ``total_energy_bounded`` takes): each unordered tile pair once, on K2's
@@ -24,9 +28,9 @@ relay's program kill) and the flat-state panel pairs; on the card one
 launch covers every row.
 
 The wrappers take the plain PyTorch versions (``pe_rows_plain``,
-``pe_total_plain``: the same tiles, offsets, weights and float32 / float64
-split) only for CPU tensors.  For a CUDA tensor they launch the kernels or
-raise.  Launches are counted on ``pe_rows.launches`` and
+``pe_total_plain``: the same tiles, slices, offsets, weights and float32 /
+float64 split) only for CPU tensors.  For a CUDA tensor they launch the
+kernels or raise.  Launches are counted on ``pe_rows.launches`` and
 ``pe_total.launches``.
 """
 
@@ -38,10 +42,17 @@ import torch
 
 from . import _build
 from .forces_sym import offset_rows
+from .forces_tiled import slice_plan
 
-# Threads per block = j-tile width (PE_THREADS in csrc/pe.cu), and
-# pe_total's tile (PE_TILE there).
+# The body tile of both kernels (PE_TILE in csrc/pe.cu) and pe_rows's rows
+# a block (PR_BLOCK_ROWS there).
 PE_TILE = 256
+PE_BLOCK_ROWS = 512
+# pe_rows's work items wanted a launch (row blocks x slices): about
+# fourteen waves of the nine 128-thread blocks an SM that an H100's 132 SMs
+# hold at once, so that the last wave's tail is short (8192 lost 1.0% at
+# 1M x 1M and at 262,144 x 262,144, 4096 3.1%; tools/pe_variants.py).
+PE_ITEMS = 16384
 # pe_total's grid: a block takes one row tile and a run of offsets, the
 # runs cut so that the grid has about this many blocks.
 PE_TOTAL_BLOCKS = 65536
@@ -49,36 +60,79 @@ PE_TOTAL_BLOCKS = 65536
 _c_ll, _c_ptr = ctypes.c_longlong, ctypes.c_void_p
 
 
-def _lib():
-    lib = _build.load("pe")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C entries' argument types on a build of pe.cu (the
+    package's, or a copy that tools/pe_variants.py edits)."""
     if lib.nbt_pe_rows.argtypes is None:
         lib.nbt_pe_rows.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ptr, _c_ptr,
-                                    _c_ll, ctypes.c_float, _c_ptr, _c_ptr]
-        lib.nbt_pe_rows.restype = ctypes.c_int
-        lib.nbt_pe_tile.argtypes = []
-        lib.nbt_pe_tile.restype = ctypes.c_int
+                                    _c_ll, _c_ll, ctypes.c_int,
+                                    ctypes.c_float, _c_ptr, _c_ptr, _c_ptr]
         lib.nbt_pe_total.argtypes = [_c_ptr, _c_ptr, _c_ll, _c_ll,
                                      ctypes.c_float, _c_ptr, _c_ptr, _c_ptr]
-        lib.nbt_pe_total.restype = ctypes.c_int
-        lib.nbt_pe_total_tile.argtypes = []
-        lib.nbt_pe_total_tile.restype = ctypes.c_int
-        if lib.nbt_pe_tile() != PE_TILE or lib.nbt_pe_total_tile() != PE_TILE:
+        lib.nbt_pe_geometry.argtypes = [ctypes.c_int]
+        for fn in (lib.nbt_pe_rows, lib.nbt_pe_total, lib.nbt_pe_geometry):
+            fn.restype = ctypes.c_int
+        if lib.nbt_pe_geometry(0) != PE_TILE:
             raise RuntimeError("PE_TILE differs between pe.py and csrc/pe.cu")
     return lib
 
 
+def _lib():
+    lib = bind(_build.load("pe"))
+    if lib.nbt_pe_geometry(1) != PE_BLOCK_ROWS:
+        raise RuntimeError("PE_BLOCK_ROWS differs between pe.py and "
+                           "csrc/pe.cu")
+    return lib
+
+
+def rows_slices(nr: int, n: int) -> "tuple[int, int]":
+    """(slices, tiles a slice) of pe_rows's j-set for ``nr`` rows against
+    ``n`` bodies (``slice_plan`` at ``PE_BLOCK_ROWS`` rows a block,
+    ``PE_ITEMS`` items, 8 slot bytes a row and slice)."""
+    return slice_plan(nr, n, PE_TILE, PE_BLOCK_ROWS, PE_ITEMS, 8)
+
+
 def pe_rows_plain(pos_rows, mass_rows, pos_all, mass_all,
                   eps2: float) -> torch.Tensor:
-    """Plain twin of the kernel: float32 sums over j-tiles of ``PE_TILE``
-    bodies, added in float64 and scaled by m_i.  Returns (nr,) float64."""
-    row = torch.zeros(pos_rows.shape[0], dtype=torch.float64,
-                      device=pos_rows.device)
-    for s in range(0, pos_all.shape[0], PE_TILE):
-        r = pos_all[None, s:s + PE_TILE, :] - pos_rows[:, None, :]
-        d2 = (r * r).sum(-1) + eps2
-        part = (mass_all[None, s:s + PE_TILE] * torch.rsqrt(d2)).sum(1)
-        row = row + part.double()
+    """Plain twin of the kernel: the j-set in tiles of ``PE_TILE`` bodies,
+    in the slices of ``rows_slices``; each row's tile summed in float32
+    and added in float64 into its slice sum, the slice sums added in slice
+    order and scaled by m_i in float64.  A d2 below the smallest normal
+    float32 (only with eps2 = 0) is taken as 0, as the kernels' MUFU rsqrt
+    flushes it.  Returns (nr,) float64."""
+    n = pos_all.shape[0]
+    n_slices, tps = rows_slices(pos_rows.shape[0], n)
+    row = None
+    for k in range(n_slices):
+        s = torch.zeros(pos_rows.shape[0], dtype=torch.float64,
+                        device=pos_rows.device)
+        for j0 in range(k * tps * PE_TILE, min((k + 1) * tps * PE_TILE, n),
+                        PE_TILE):
+            r = pos_all[None, j0:j0 + PE_TILE, :] - pos_rows[:, None, :]
+            d2 = (r * r).sum(-1) + eps2
+            d2 = torch.where(d2 < torch.finfo(torch.float32).tiny, 0.0, d2)
+            part = (mass_all[None, j0:j0 + PE_TILE] * torch.rsqrt(d2)).sum(1)
+            s = s + part.double()
+        row = s if row is None else row + s
     return mass_rows.double() * row
+
+
+def rows_sweep(lib, pos_rows, mass_rows, pos_all, mass_all,
+               eps2: float) -> torch.Tensor:
+    """One launch of pe_rows through ``lib`` (the package's build of pe.cu,
+    or another's: ``bind``) in the slices of ``rows_slices``, without the
+    wrapper's checks and counter; raises if the launch fails."""
+    nr, n = pos_rows.shape[0], pos_all.shape[0]
+    out = torch.empty(nr, dtype=torch.float64, device=pos_rows.device)
+    n_slices, tps = rows_slices(nr, n)
+    slots = (torch.empty(n_slices * nr, dtype=torch.float64,
+                         device=pos_rows.device) if n_slices > 1 else None)
+    _build.check_launch("pe_rows (K8)", lib.nbt_pe_rows(
+        pos_rows.data_ptr(), mass_rows.data_ptr(), nr, pos_all.data_ptr(),
+        mass_all.data_ptr(), n, tps, n_slices, float(eps2),
+        slots.data_ptr() if slots is not None else None, out.data_ptr(),
+        _build.stream_handle(out)))
+    return out
 
 
 def pe_rows(pos_rows, mass_rows, pos_all, mass_all,
@@ -94,14 +148,8 @@ def pe_rows(pos_rows, mass_rows, pos_all, mass_all,
     if pos_rows.device.type == "cpu":
         return pe_rows_plain(pos_rows, mass_rows, pos_all, mass_all, eps2)
     lib = _lib()
-    out = torch.empty(pos_rows.shape[0], dtype=torch.float64,
-                      device=pos_rows.device)
     pe_rows.launches += 1
-    _build.check_launch("pe_rows (K8)", lib.nbt_pe_rows(
-        pos_rows.data_ptr(), mass_rows.data_ptr(), pos_rows.shape[0],
-        pos_all.data_ptr(), mass_all.data_ptr(), pos_all.shape[0],
-        float(eps2), out.data_ptr(), _build.stream_handle(out)))
-    return out
+    return rows_sweep(lib, pos_rows, mass_rows, pos_all, mass_all, eps2)
 
 
 # K8 launches made through the wrapper.

@@ -28,8 +28,11 @@ from nbody_tpu import SimState as JaxSimState
 from nbody_tpu.models import energy as jax_energy
 from nbody_tpu.ops.pe_pallas import pe_rows_pallas
 from nbody_tpu_torch.models import energy
-from nbody_tpu_torch.ops.pe import (PE_TILE, pe_rows, pe_rows_plain,
-                                    pe_total, pe_total_plain)
+from nbody_tpu_torch.ops import pe as pe_ops
+from nbody_tpu_torch.ops.forces_tiled import slice_plan
+from nbody_tpu_torch.ops.pe import (PE_BLOCK_ROWS, PE_ITEMS, PE_TILE,
+                                    pe_rows, pe_rows_plain, pe_total,
+                                    pe_total_plain, rows_slices)
 
 EPS2 = 0.002
 
@@ -73,6 +76,163 @@ def test_pe_rows_plain_tiles_and_f64_host_sum():
     d2 = ((p[None] - p[:, None]) ** 2).sum(-1) + EPS2
     want = m * (m[None, :] / np.sqrt(d2)).sum(1)
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def _rows_f64(pos_r, mass_r, pos, mass, eps2=EPS2):
+    p, m = pos.astype(np.float64), mass.astype(np.float64)
+    r = p[None] - pos_r.astype(np.float64)[:, None]
+    d2 = (r * r).sum(-1) + np.float64(np.float32(eps2))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return mass_r.astype(np.float64) * (m[None, :] / np.sqrt(d2)).sum(1)
+
+
+def _plan(monkeypatch, items, nr, n, slices):
+    """Set pe_rows's PE_ITEMS to ``items`` (the package's where None) and
+    check that the plan it gives ``nr`` rows against ``n`` bodies has
+    ``slices`` slices."""
+    if items is not None:
+        monkeypatch.setattr(pe_ops, "PE_ITEMS", items)
+    assert rows_slices(nr, n)[0] == slices
+
+
+# (bodies, rows, items, slices): one slice (2 row blocks, 2 items); several
+# slices of whole tiles (4 tiles in 2 slices); a ragged last tile in a
+# ragged last slice (5 tiles, the last of 76 bodies, in 3 slices of 2, 2
+# and 1); one tile a slice; the package's PE_ITEMS on a row subset.
+@pytest.mark.parametrize("n,rows,items,slices", [
+    (4 * PE_TILE, slice(0, 4 * PE_TILE), 2, 1),
+    (4 * PE_TILE, slice(0, 4 * PE_TILE), 4, 2),
+    (4 * PE_TILE + 76, slice(0, 4 * PE_TILE + 76), 9, 3),
+    (4 * PE_TILE + 76, slice(17, 700), 10, 5),
+    (4 * PE_TILE + 76, slice(100, 300), None, 5)])
+def test_pe_rows_plain_slices_match_jax_interpret_and_f64(n, rows, items,
+                                                          slices,
+                                                          monkeypatch):
+    """The twin's decomposition (float32 tile partials, float64 slice
+    sums added in slice order, times m_i), in the slices of the plan the
+    kernel gets, against JAX's pe_rows_pallas in interpret mode (the total
+    over the rows, rel 2e-6), against the float64 row sums (rtol 1e-6)
+    and against one slice."""
+    pos, _, mass = _system(n, seed=87)
+    want = float(pe_rows_pallas(jnp.asarray(pos[rows]),
+                                jnp.asarray(mass[rows]), jnp.asarray(pos),
+                                jnp.asarray(mass), EPS2, interpret=True))
+    t = torch.from_numpy
+    _plan(monkeypatch, items, rows.stop - rows.start, n, slices)
+    got = pe_rows_plain(t(pos[rows]), t(mass[rows]), t(pos), t(mass), EPS2)
+    assert abs(float(got.sum()) - want) / abs(want) < 2e-6
+    np.testing.assert_allclose(got.numpy(), _rows_f64(pos[rows], mass[rows],
+                                                      pos, mass), rtol=1e-6)
+    _plan(monkeypatch, 1, rows.stop - rows.start, n, 1)
+    one = pe_rows_plain(t(pos[rows]), t(mass[rows]), t(pos), t(mass), EPS2)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), rtol=1e-14)
+
+
+@pytest.mark.parametrize("slices", [1, 3])
+def test_pe_rows_plain_eps2_zero_gives_inf_at_the_self_pairs(slices,
+                                                              monkeypatch):
+    """With eps2 = 0 a row that is one of the bodies takes its self pair,
+    rsqrt(0) = inf, as the kernel's MUFU rsqrt and JAX's do: its sum is
+    inf (JAX's too, on whole blocks, where no zero-mass ghost at the
+    origin meets another as 0 * inf); rows that are not among the bodies
+    stay finite and exact; a d2 below the smallest normal float32 flushes
+    to 0 and gives inf, as the kernel's rsqrt.approx.ftz does."""
+    n = 8 * PE_TILE
+    pos, _, mass = _system(n + 64, seed=88)
+    body_pos, body_mass = pos[:n], mass[:n]
+    t = torch.from_numpy
+    # One row block of 256 and one of 64 rows: `slices` items each.
+    _plan(monkeypatch, slices, PE_TILE, n, slices)
+    _plan(monkeypatch, slices, 64, n, slices)
+    own = pe_rows_plain(t(body_pos[:PE_TILE]), t(body_mass[:PE_TILE]),
+                        t(body_pos), t(body_mass), 0.0)
+    assert torch.isinf(own).all() and (own > 0).all()
+    jax_own = float(pe_rows_pallas(jnp.asarray(body_pos[:PE_TILE]),
+                                   jnp.asarray(body_mass[:PE_TILE]),
+                                   jnp.asarray(body_pos),
+                                   jnp.asarray(body_mass), 0.0,
+                                   interpret=True))
+    assert jax_own == float("inf")
+    away = pe_rows_plain(t(pos[n:]), t(mass[n:]), t(body_pos), t(body_mass),
+                         0.0)
+    assert torch.isfinite(away).all()
+    np.testing.assert_allclose(
+        away.numpy(), _rows_f64(pos[n:], mass[n:], body_pos, body_mass, 0.0),
+        rtol=1e-6)
+    one = torch.ones(1)
+    origin = torch.zeros(1, 3)
+    flushed = pe_rows_plain(torch.tensor([[1e-20, 0.0, 0.0]]), one, origin,
+                            one, 0.0)
+    normal = pe_rows_plain(torch.tensor([[2e-19, 0.0, 0.0]]), one, origin,
+                           one, 0.0)
+    assert torch.isinf(flushed).all()
+    np.testing.assert_allclose(normal.numpy(), [1 / np.float32(2e-19)],
+                               rtol=1e-6)
+
+
+def test_pe_rows_plain_massless_bodies_add_nothing(monkeypatch):
+    """A real massless body adds exactly 0 to every row, and its own row
+    is 0: the row sums over the set with such bodies equal, to float64
+    rounding of the slice sums, those over the set without them."""
+    n = 4 * PE_TILE + 76
+    pos, _, mass = _system(n, seed=89)
+    zero = [3, 300, n - 1]
+    mass[zero] = 0.0
+    keep = np.ones(n, bool)
+    keep[zero] = False
+    t = torch.from_numpy
+    # Three row blocks, three slices, with the massless bodies and without.
+    _plan(monkeypatch, 9, n, n, 3)
+    _plan(monkeypatch, 9, n - len(zero), n - len(zero), 3)
+    got = pe_rows_plain(t(pos), t(mass), t(pos), t(mass), EPS2)
+    assert (got.numpy()[zero] == 0.0).all()
+    without = pe_rows_plain(t(np.ascontiguousarray(pos[keep])),
+                            t(np.ascontiguousarray(mass[keep])),
+                            t(np.ascontiguousarray(pos[keep])),
+                            t(np.ascontiguousarray(mass[keep])), EPS2)
+    np.testing.assert_allclose(got.numpy()[keep], without.numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), _rows_f64(pos, mass, pos, mass),
+                               rtol=1e-6)
+
+
+class _RecordingLib:
+    """A stand-in for the built pe.cu that records nbt_pe_rows's plan."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nbt_pe_rows(self, pos_r, mass_r, nr, pos_a, mass_a, na, tps, slices,
+                    eps2, slots, out, stream):
+        self.calls.append((nr, na, tps, slices, slots is not None))
+        return 0
+
+
+@pytest.mark.parametrize("nr,n", [(1024, 8192), (8192, 8192),
+                                  (1 << 18, 1 << 18), (1 << 20, 1 << 20),
+                                  (100, 4 * PE_TILE + 76)])
+def test_pe_rows_slice_plan_is_the_wrappers(nr, n, monkeypatch):
+    """The twin's default plan (rows_slices) is the one the wrapper's
+    sweep passes the kernel: K1's slice_plan at PE_BLOCK_ROWS rows a
+    block, PE_ITEMS items and 8 slot bytes a row and slice; every tile in
+    one slice, in order; the slots only for more than one slice; enough
+    items to fill the card, or a tile a slice, or one slice where the row
+    blocks alone fill it."""
+    slices, tps = rows_slices(nr, n)
+    assert (slices, tps) == slice_plan(nr, n, PE_TILE, PE_BLOCK_ROWS,
+                                       PE_ITEMS, 8)
+    tiles = -(-n // PE_TILE)
+    assert 1 <= slices <= tiles
+    assert (slices - 1) * tps < tiles <= slices * tps
+    items = -(-nr // PE_BLOCK_ROWS) * slices
+    assert items >= PE_ITEMS or slices == tiles or slices == 1
+    lib = _RecordingLib()
+    monkeypatch.setattr(pe_ops._build, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(pe_ops.torch, "empty",
+                        lambda *a, **k: torch.zeros(0, dtype=torch.float64))
+    pe_ops.rows_sweep(lib, torch.zeros(nr, 3), torch.zeros(nr),
+                      torch.zeros(n, 3), torch.zeros(n), EPS2)
+    assert lib.calls == [(nr, n, tps, slices, slices > 1)]
 
 
 # N = 600: three tiles (odd nb); 3 * 256 + 17 and 4 * 256 + 5: a ragged

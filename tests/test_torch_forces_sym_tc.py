@@ -32,11 +32,14 @@ from nbody_tpu import SimState as JaxSimState
 from nbody_tpu import run_steps as jax_run_steps
 from nbody_tpu.models.state import state_to_numpy as jax_state_to_numpy
 from nbody_tpu.ops.forces_pallas_sym import forces_pallas_sym
+from nbody_tpu.ops.forces_pallas_sym import \
+    rect_forces_sym as jax_rect_forces_sym
 from nbody_tpu.oracle.numpy_oracle import (assert_matches_oracle,
                                            oracle_forces, oracle_run,
                                            relative_mismatch)
 from nbody_tpu_torch import cli
-from nbody_tpu_torch.ops.forces_sym import SYM_TILE
+from nbody_tpu_torch.ops.forces_sym import (SLOT_BUDGET_BYTES, SYM_TILE,
+                                            descale_plain, sweep_plain)
 from nbody_tpu_torch.ops.forces_sym_tc import (_pair_tiles, forces_sym_mxu,
                                                forces_sym_tc,
                                                forces_sym_tc_plain,
@@ -237,10 +240,20 @@ def test_k5_trimmed_twin_matches_jax_turbo_and_turbop(n):
     np.testing.assert_array_equal(forces_sym_turbop(p, m, EPS2).numpy(), acc)
 
 
+def _turbof_square_twin(pos, mass, trimmed):
+    """turbof's square twin with the tiles of ``_pair_tiles(trimmed=)``:
+    the slot sums descaled by 1/m plus the exact diagonal."""
+    p, m = torch.from_numpy(pos), torch.from_numpy(mass)
+    pt, mt, raw = sweep_plain(p, m, SLOT_BUDGET_BYTES, lambda xi, mi, xj, mj:
+                              _pair_tiles(xi, mi, xj, mj, EPS2, "turbof",
+                                          trimmed=trimmed))
+    return descale_plain(pt, mt, raw, p, m, EPS2)
+
+
 def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
-    """turbo, turbop, turbo2 and mxu take the trimmed geometry in the
-    square and rect twins; K13's turbo, turbo2 and mxu tiles keep
-    pair_inv, as its kernel does."""
+    """turbo, turbop, turbo2, turbof and mxu take the trimmed geometry in
+    the square and rect twins; K13's turbo, turbo2 and mxu tiles keep
+    pair_inv, as its kernel does (K13 refuses turbof)."""
     pos, _, mass = make_small_system(512, seed=89)
     x = torch.from_numpy(pos).view(2, 256, 3)
     mm = torch.from_numpy(mass).view(2, 256)
@@ -273,6 +286,27 @@ def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
     acc_a, acc_b = rect_forces_sym_tc_plain(pa, ma, pb, mb, EPS2, "mxu")
     assert torch.equal(acc_a, fused_mxu[0][0])
     assert torch.equal(acc_b, fused_mxu[1][0])
+    # turbof: the square and rect twins trimmed; its rect sums are
+    # mass-scaled, descaled by 1/m.  Its weight m_i m_j inv changes its
+    # bf16 rounding with a unit of inv far more rarely than turbo2's
+    # bf16(inv) (no pair of the 512 bodies above), so it takes four tile
+    # pairs of 2048 bodies, where a few do.
+    pos, _, mass = make_small_system(2048, seed=94)
+    x = torch.from_numpy(pos).view(8, 256, 3)
+    mm = torch.from_numpy(mass).view(8, 256)
+    fusedf = _pair_tiles(x[:4], mm[:4], x[4:], mm[4:], EPS2, "turbof")
+    unfusedf = _pair_tiles(x[:4], mm[:4], x[4:], mm[4:], EPS2, "turbof",
+                           trimmed=False)
+    assert any(not torch.equal(a, b) for a, b in zip(fusedf, unfusedf))
+    for k in range(4):
+        acc_a, acc_b = rect_forces_sym_tc_plain(x[k], mm[k], x[4 + k],
+                                                mm[4 + k], EPS2, "turbof")
+        assert torch.equal(acc_a, fusedf[0][k] * (1.0 / mm[k])[:, None])
+        assert torch.equal(acc_b, fusedf[1][k] * (1.0 / mm[4 + k])[:, None])
+    square = forces_sym_tc_plain(torch.from_numpy(pos),
+                                 torch.from_numpy(mass), EPS2, "turbof")
+    assert torch.equal(square, _turbof_square_twin(pos, mass, True))
+    assert not torch.equal(square, _turbof_square_twin(pos, mass, False))
 
 
 @pytest.mark.parametrize("n", [512, 1000])
@@ -291,6 +325,45 @@ def test_k14a_trimmed_twin_matches_jax_turbo2_and_oracle(n):
     assert_close_tier(acc, ref_jax, f"K14a trimmed twin vs JAX, N={n}")
     assert_tier_gate(acc, oracle_forces(pos, mass, EPS2), "turbo",
                      f"K14a trimmed twin vs oracle, N={n}")
+
+
+@pytest.mark.parametrize("shape", [(512, None), (1000, None), (256, 256)])
+def test_k14b_trimmed_twin_matches_jax_turbof_and_oracle(shape):
+    """The K14b twin with its trimmed geometry against JAX's turbof in
+    interpret mode at the tier tolerance (rel 1e-3 + 1e-4·max|a|) and
+    against the float64 oracle at turbo's gate (p99 < 5e-2, bad fraction
+    < 0.1 at 1%): 512 is two whole tiles (the half offset of an even tile
+    count), 1000 four tiles, the last ragged; (256, 256) the rect form
+    (K2-rect turbof, one tile pair) against JAX's ``rect_forces_sym``,
+    each side against the float64 cross sums."""
+    na, nb = shape
+    if nb is None:
+        pos, _, mass = make_small_system(na, seed=92)
+        acc = forces_sym_tc(torch.from_numpy(pos), torch.from_numpy(mass),
+                            EPS2, "turbof").numpy()
+        ref_jax = np.asarray(forces_pallas_sym(
+            jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=128,
+            block_u=SYM_TILE, variant="turbof"))
+        assert_close_tier(acc, ref_jax, f"K14b trimmed twin vs JAX, N={na}")
+        assert_tier_gate(acc, oracle_forces(pos, mass, EPS2), "turbo",
+                         f"K14b trimmed twin vs oracle, N={na}")
+        return
+    pos, _, mass = make_small_system(na + nb, seed=93)
+    sets = (pos[:na], mass[:na], pos[na:], mass[na:])
+    got = rect_forces_sym_tc_plain(*(torch.from_numpy(v) for v in sets),
+                                   EPS2, "turbof")
+    want = jax_rect_forces_sym(*(jnp.asarray(v) for v in sets), EPS2,
+                               block_i=256, block_u=SYM_TILE,
+                               variant="turbof")
+    pa, ma, pb, mb = (v.astype(np.float64) for v in sets)
+    for side, g, w, xi, xj, mj in (("a", got[0], want[0], pa, pb, mb),
+                                   ("b", got[1], want[1], pb, pa, ma)):
+        r = xj[None] - xi[:, None]
+        d2 = (r * r).sum(-1) + EPS2
+        ref = ((mj[None] / d2 ** 1.5)[..., None] * r).sum(1)
+        what = f"K2-rect turbof trimmed twin acc_{side}, {na}x{nb}"
+        assert_close_tier(g.numpy(), np.asarray(w), what + " vs JAX")
+        assert_tier_gate(g.numpy(), ref, "turbo", what + " vs float64")
 
 
 @pytest.mark.parametrize("n", [512, 1000])

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Time source-edited variants of a tensor-core tier's pair pass on the card.
 
-    python3 tools/sym_tc_variants.py [--variant turbo|turbo2|mxu] [--n N]
-        [--rounds R]
+    python3 tools/sym_tc_variants.py [--variant turbo|turbo2|turbof|mxu]
+        [--n N] [--rounds R]
 
 Copies ``nbody_tpu_torch/csrc`` once per variant into
 ``build/sym_tc_variants/<name>/``, applies the variant's text edits, builds
 ``forces_sym_tc.cu`` from each copy with the port's nvcc flags (one nvcc
 each, all at once), and times one evaluation of the tier (K5 for
-``--variant turbo``, the default; K14a for ``turbo2``; K6 for ``mxu``:
-the wrapper's sweep, the pair passes and the reduce passes) at N bodies
+``--variant turbo``, the default; K14a for ``turbo2``; K14b for
+``turbof``; K6 for ``mxu``: the wrapper's sweep, the pair passes and the
+reduce passes) at N bodies
 (default 1,048,576) for every variant in alternating rounds (the order
 reversed every other round).  Prints each variant's registers and spills
 for the tier's pair kernel and its CTAs per SM as it launches, whether
@@ -34,6 +35,19 @@ and K14a's (``--variant turbo2``), each edit confined to turbo2's kernels:
 - ``unroll1``, ``unroll4``, ``ctas4``, ``ctas4_unroll1``: as K5's, for
   turbo2 alone;
 - ``trunc_bf16``: the diagnostic above;
+
+and K14b's (``--variant turbof``), each edit confined to turbof's kernels:
+
+- ``base``: the sources as they are (turbof trimmed, the loop unrolled
+  twice, the two weights of a register rounded by one bf16x2 convert,
+  pack2_rn);
+- ``untrimmed``: turbof back on pair_inv with the loop rolled and
+  pack_rn, the design before its redesign (its output differs by
+  design);
+- ``pack1``: the trimmed tile with pack_rn (two converts and the
+  packing), which must give pack2_rn's bits;
+- ``unroll1``, ``unroll4``, ``ctas3``, ``ctas4``, ``ctas4_unroll1``: as
+  K5's and K6's, for turbof alone;
 
 and K6's (``--variant mxu``), each edit confined to mxu's tile (the
 split's, the j side's, K13's mxu tile too, which this tool does not
@@ -94,10 +108,14 @@ _TRUNC_BF16 = (
     "    return bf16x2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));",
     "    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), "
     "0x7632);")
-# turbo2 or mxu back on pair_inv: tc_trimmed without it.
-_UNTRIMMED = {"turbo2": ("sym_tc_tile.cuh", "v == TURBO2 || v == MXU;",
-                         "v == MXU;"),
+# turbo2, turbof or mxu back on pair_inv: tc_trimmed without it.
+_UNTRIMMED = {"turbo2": ("sym_tc_tile.cuh", "v == TURBO2 || v == TURBOF",
+                         "v == TURBOF"),
+              "turbof": ("sym_tc_tile.cuh", " || v == TURBOF || ", " || "),
               "mxu": ("sym_tc_tile.cuh", " || v == MXU;", ";")}
+_PACK1 = ("sym_tc_tile.cuh",
+          "a[r] = pack2_rn(wa, wb);",
+          "a[r] = pack_rn(wa, wb);")
 _SPLIT1 = ("sym_tc_tile.cuh",
            "split2_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);",
            "split_rn(inv[2 * r], inv[2 * r + 1], a[r], lo[r]);")
@@ -126,6 +144,16 @@ VARIANTS = {
         "ctas4_unroll1": [_ctas4("V == TURBO2"), _unroll(1, "TURBO2")],
         "trunc_bf16": [_TRUNC_BF16],
     },
+    "turbof": {
+        "base": [],
+        "untrimmed": [_UNTRIMMED["turbof"], _PACK1],
+        "pack1": [_PACK1],
+        "unroll1": [_unroll(1, "TURBOF")],
+        "unroll4": [_unroll(4, "TURBOF")],
+        "ctas3": [_ctas4("V == TURBOF", 3)],
+        "ctas4": [_ctas4("V == TURBOF")],
+        "ctas4_unroll1": [_ctas4("V == TURBOF"), _unroll(1, "TURBOF")],
+    },
     "mxu": {
         "base": [],
         "untrimmed": [_UNTRIMMED["mxu"]],
@@ -141,9 +169,12 @@ VARIANTS = {
 # The tier's pair kernel, sym_tc_pairs_kernel<V>, by its mangled name.
 _MANGLED = {"turbo": "_Z19sym_tc_pairs_kernelILi0E",
             "mxu": "_Z19sym_tc_pairs_kernelILi1E",
-            "turbo2": "_Z19sym_tc_pairs_kernelILi2E"}
+            "turbo2": "_Z19sym_tc_pairs_kernelILi2E",
+            "turbof": "_Z19sym_tc_pairs_kernelILi3E"}
 # The tier's id in SymTcVariant (csrc/sym_tc_tile.cuh).
-_VARIANT_ID = {"turbo": 0, "mxu": 1, "turbo2": 2}
+_VARIANT_ID = {"turbo": 0, "mxu": 1, "turbo2": 2, "turbof": 3}
+# The reduce pass of the tier: turbof's slots are mass-scaled.
+_REDUCE = {"turbof": "nbt_sym_tc_descale_reduce"}
 
 
 def build(name, edits):
@@ -184,6 +215,7 @@ def main():
     shutil.rmtree(WORK, ignore_errors=True)
     tier = args.variant
     pairs_fn = f"nbt_sym_{tier}_pairs"
+    reduce_fn = _REDUCE.get(tier, "nbt_sym_tc_reduce")
     jobs = {name: build(name, edits)
             for name, edits in VARIANTS[tier].items()}
     ref = k5._lib()
@@ -200,7 +232,7 @@ def main():
                 print(f"[variants] {name}: {tier} pairs kernel: "
                       + "; ".join(report))
         lib = ctypes.CDLL(so)
-        for fn in (pairs_fn, "nbt_sym_tc_reduce"):
+        for fn in (pairs_fn, reduce_fn):
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.nbt_sym_tc_pairs_ctas.argtypes = [ctypes.c_int]
@@ -216,7 +248,7 @@ def main():
     def run(lib):
         return k2.sweep("sym_tc_variants", pos, mass, 0.002,
                         k2.SLOT_BUDGET_BYTES, getattr(lib, pairs_fn),
-                        lib.nbt_sym_tc_reduce)
+                        getattr(lib, reduce_fn))
     base = run(libs["base"])
     for name, lib in libs.items():
         print(f"[variants] {name}: output bit-equal to base: "
