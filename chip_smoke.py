@@ -36,15 +36,13 @@ variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K8's row
-sums ``pe_rows`` (the main path's 1024 rows of N = 8192, 8192 x 8192,
-262,144 x 262,144 and 1M x 1M), K14b (N = 8192 and 1,048,576) and K2-rect
-turbof (2048 x 2048 and 262,144 x 262,144) against their design before
-the redesign for this card (the sources of PARENT_COMMIT, built beside
-the package's) in alternating rounds, each held to its twin, to its own
-bits from call to call and to float64 beside the parent's error, and
-holds every other kernel's SASS to
-theirs
+N = 1,048,576 against the direct-form ``rect_forces``, times K15's
+``tmm_noj`` and ``tmm_nomm`` (N = 8192 and 1,048,576, there also pinned
+at K5's CTAs an SM; 2048 x 6144 and 262,144 x 262,144) against their
+design before the redesign for this card (the sources of PARENT_COMMIT,
+built beside the package's) in alternating rounds with K5, each held to
+its twin and to its own bits from call to call, splits K5's time from
+those rounds, and holds every other kernel's SASS to theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
@@ -57,8 +55,8 @@ the fused ring K13 with ``--comm rdma`` and ``rdma_overlap``, one launch a
 force evaluation, also with ``--oracle native`` and through ``run``),
 the variant / schedule entry points ``forces_pallas_sym`` and
 ``rect_forces_sym`` for turbof, turbop and the fold schedule, K8's row
-sums ``pe_rows`` and, after
-``ablation_sym.enable()``, for each K15 ablation, and the
+sums ``pe_rows`` (also held to its plain version at that shape) and,
+after ``ablation_sym.enable()``, for each K15 ablation, and the
 ``run`` verb (resident K3 with a
 checkpoint, K4 with yoshida4, auto routing, N = 1M with ``--energy``,
 N = 1M with ``pallas_sym_turbo`` and with ``pallas_sym_turbo2``, K12 with
@@ -313,15 +311,14 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K8's pe_rows (K1's work items, pe_total's pair) and of
-# K14b with K2-rect turbof (the trimmed tensor-core geometry) for this card,
-# timed against the design before it: the commit that holds it, unpacked
-# (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C
-# build/parent``) into PARENT_CSRC, where check_redesign builds it beside
-# the package's and times both in rounds (the order reversed every other
-# round; medians).  Without those sources and without git, the rounds and
-# the SASS comparison are skipped and say so.
-PARENT_COMMIT = "b2e85bef4eaedbab3a17de6805e80179e4dc5e93"
+# The redesign of K15's tmm_noj and tmm_nomm on K5's trimmed tensor-core
+# tile for this card, timed against the design before it: the commit that
+# holds it, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc |
+# tar -x -C build/parent``) into PARENT_CSRC, where check_redesign builds
+# it beside the package's and times both in rounds (the order reversed
+# every other round; medians).  Without those sources and without git, the
+# rounds and the SASS comparison are skipped and say so.
+PARENT_COMMIT = "1e4b2485d027898f908731dfbc7be17f95744090"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
@@ -332,15 +329,15 @@ K7_FORMER_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
 K7_FORMER_CSRC = os.path.join(ROOT, "build", "k7_former", "nbody_tpu_torch",
                               "csrc")
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes:
-# pe_rows_kernel (new parameters) with the new pe_rows_reduce_kernel, and
-# K14b's pair kernels, sym_tc_pairs_kernel<3> and rect_tc_pairs_kernel<3>
-# (SymTcVariant TURBOF).  SASS_SAME pairs an old kernel with a new name it
-# lives on under (none in this redesign).
+# libraries keeps the parent's SASS, but those the redesign changes: K15's
+# tmm_noj and tmm_nomm pair kernels, sym_tc_pairs_kernel<7>, <8> and
+# rect_tc_pairs_kernel<7>, <8> (SymTcVariant TMM_NOJ, TMM_NOMM).
+# SASS_SAME pairs an old kernel with a new name it lives on under (none in
+# this redesign).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bpe_rows_kernel\b", r"\bpe_rows_reduce_kernel\b",
-                   r"\bsym_tc_pairs_kernel<3>", r"\brect_tc_pairs_kernel<3>")
+SASS_REDESIGNED = (r"\bsym_tc_pairs_kernel<[78]>",
+                   r"\brect_tc_pairs_kernel<[78]>")
 SASS_SAME = ()
 
 
@@ -1111,9 +1108,10 @@ def check_ablations(dev, eps2, record, smi, former=None):
     slot chunk, and (triangular) the same at the control's CTAs per SM;
     vpu_tile, vpu_rc and tmm_full also against a float64 direct sum at the
     exact and the turbo gate, vpu_rc and tmm_full bit-equal to vpu_tile
-    and K5, vpu_tile within the exact tolerance of K7; the none forms give
-    B nothing.  Then the sweep at N = 1M (K7, vpu_tile and the vpu_*
-    forms, K5, turbop and the tmm_* forms, and each ablation at its
+    and K5, vpu_tile within the exact tolerance of K7, rect tmm_noj's
+    acc_a bit-equal to K2-rect turbo's (here and at 262,144 x 262,144); the
+    none forms give B nothing.  Then the sweep at N = 1M (K7, vpu_tile and
+    the vpu_* forms, K5, turbop and the tmm_* forms, and each ablation at its
     control's CTAs per SM) in ABLATION_ROUNDS interleaved rounds, the
     outputs of vpu_rc and tmm_full bit-equal to vpu_tile and K5 and each
     pinned form's to its own; and each rect form at the 1M ring's 262,144 x
@@ -1242,6 +1240,14 @@ def check_ablations(dev, eps2, record, smi, former=None):
         got = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name)
         for g, r in zip(got, (ra, rb)):
             tier_gate(kname, g, r)
+    # tmm_noj's row sums are K5's tile's, and both reduce passes add A's row
+    # slots in column order: acc_a is K2-rect turbo's bit for bit.
+    check(torch.equal(rect_forces_sym(pa, ma, pb, mb, eps2,
+                                      variant="tmm_noj")[0],
+                      ktc.rect_forces_sym_turbo(pa, ma, pb, mb, eps2)[0]),
+          f"rect tmm_noj {na}x{nb}: acc_a differs from K2-rect turbo's")
+    print(f"[check] {na}x{nb}: rect_forces_sym_tmm_noj's acc_a bit-equal "
+          f"to K2-rect turbo's")
     del ref, ra, rb
 
     # N = 1M: one evaluation of each form a round, in turns; each
@@ -1354,6 +1360,10 @@ def check_ablations(dev, eps2, record, smi, former=None):
             record[kname]["bound_ms_1m"] = ablation_bound(variant, n, n)[0]
         print(f"[1M ring pair ablation] {kname}: {ms:.3f} ms per {n} x {n} "
               f"sweep ({smi})")
+    check(torch.equal(outs["tmm_noj"][0], outs["turbo"][0]),
+          f"rect tmm_noj {n}x{n}: acc_a differs from K2-rect turbo's")
+    print(f"[check] {n}x{n}: rect_forces_sym_tmm_noj's acc_a bit-equal to "
+          f"K2-rect turbo's, every row")
     print(f"[time] K15 checks: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2034,60 +2044,23 @@ def report_rounds(what, times, smi):
     return med
 
 
-# The parent's libraries check_redesign builds and binds: its pe.cu
-# (pe_rows one thread a row, its own C entry: pe_rows_parent) and its
-# forces_sym_tc.cu (K14b and K2-rect turbof on pair_inv, the package's C
-# entries).
-PARENT_LIBS = ("pe", "forces_sym_tc")
-# The MUFU's rsqrt rate on one H100 SXM: 16 a clock on each of its 132 SMs
-# at the 1.98 GHz boost clock.  A pair-potential term takes one rsqrt, so
-# pe_rows can take no less than its pairs over this rate (its flops bound,
-# FLOPS_PE a pair over the float32 peak, is lower).
-MUFU_RSQRT_RATE = 16 * 132 * 1.98e9
-# pe_rows's shapes in check_redesign: (rows, bodies, timed calls a round,
-# float64 rows), the main path's launch first; rows are the first bodies.
-PE_REDESIGN_SHAPES = ((1024, 8192, 20, None), (8192, 8192, 20, None),
-                      (1 << 18, 1 << 18, 3, 2048),
-                      (1 << 20, 1 << 20, 1, 4096))
-
-
-def mufu_floor_ms(pairs):
-    """The least time of ``pairs`` pair-potential terms on the MUFU."""
-    return 1e3 * pairs / MUFU_RSQRT_RATE
-
-
-def pe_rows_parent(lib, pos_r, mass_r, pos_a, mass_a, eps2):
-    """pe_rows through the parent's pe.cu (one thread a row): its C entry
-    nbt_pe_rows(pos_r, mass_r, nr, pos_a, mass_a, na, eps2, out, stream)."""
-    import ctypes
-    import torch
-    from nbody_tpu_torch.ops import _build
-    fn = lib.nbt_pe_rows
-    if fn.argtypes is None:
-        c_ll, c_ptr = ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [c_ptr, c_ptr, c_ll, c_ptr, c_ptr, c_ll,
-                       ctypes.c_float, c_ptr, c_ptr]
-        fn.restype = ctypes.c_int
-    out = torch.empty(pos_r.shape[0], dtype=torch.float64,
-                      device=pos_r.device)
-    _build.check_launch("the parent's pe_rows", fn(
-        pos_r.data_ptr(), mass_r.data_ptr(), pos_r.shape[0],
-        pos_a.data_ptr(), mass_a.data_ptr(), pos_a.shape[0], float(eps2),
-        out.data_ptr(), _build.stream_handle(out)))
-    return out
-
-
-def pe_rows_f64(pos_r, mass_r, pos_a, mass_a, eps2, chunk=64):
-    """Each row's m_i sum_j m_j (|x_j - x_i|^2 + eps2)^(-1/2) in float64
-    on the card (torch float64), rows in chunks."""
-    import torch
-    p64, m64 = pos_a.double(), mass_a.double()
-    return torch.cat([
-        mass_r[s:s + chunk].double() * (m64[None, :] / torch.sqrt(
-            ((p64[None, :, :] - pos_r[s:s + chunk, None, :].double()) ** 2
-             ).sum(-1) + eps2)).sum(1)
-        for s in range(0, pos_r.shape[0], chunk)])
-
+# The parent's library check_redesign builds and binds: its forces_sym_tc.cu
+# (K15's tmm_noj and tmm_nomm on pair_inv, the column loop rolled,
+# tmm_nomm rounding each weight by a convert of its own), through the
+# package's C entry names.
+PARENT_LIBS = ("forces_sym_tc",)
+# The MUFU's rate on one H100 SXM: 16 a clock on each of its 132 SMs at the
+# 1.98 GHz boost clock.  A pair of K5's tile takes one MUFU rsqrt, and K5's
+# and tmm_nomm's one bf16x2 convert (F2FP) a pair too.
+MUFU_RATE = 16 * 132 * 1.98e9
+# tmm_nomm's consumer (nomm_add, csrc/sym_tc_tile.cuh) takes, for each
+# bf16x2 weight register, a mask (a LOP3), a shift and two FADDs: four
+# issue slots a register, one register a pair.  The pair code of K5's tile
+# has no LOP3, so the consumer's slots a pair are four times the loop's
+# LOP3 a pair (tools/sym_tc_variants.py --variant tmm's sink, the consumer
+# cut to one XOR, gives the same count).
+NOMM_SLOTS_A_LOP3 = 4
+TMM_FORMS = ("tmm_noj", "tmm_nomm")
 
 # The fold kernels (K14d and the K2-rect folds): name -> (K7's math,
 # rect); tools/fold_variants.py times them.
@@ -2125,196 +2098,248 @@ def fold_sweep(lib, kname, args, eps2, parts="both"):
                     u, (u // 256,))
 
 
-def row_errors(got, ref):
-    """(max, median) over the rows of |got - ref| / |ref|."""
-    e = (got.double() - ref).norm(dim=1) / ref.norm(dim=1)
-    return float(e.max()), float(e.median())
+def pinned(lib, fn):
+    """``fn`` with ``lib``'s tmm_* pair launches held at its K5's CTAs an
+    SM (nbt_sym_tc_abl_pin, the pin of ablation_sym.control_occupancy)."""
+    def run():
+        check(lib.nbt_sym_tc_abl_pin(1) >= 0, "the tmm_* pin failed")
+        try:
+            return fn()
+        finally:
+            lib.nbt_sym_tc_abl_pin(0)
+    return run
 
 
 def check_redesign(dev, eps2, record, smi, parent_build):
-    """K8's pe_rows, K14b (turbof) and K2-rect turbof against the parent's
-    design on the same inputs, in alternating rounds: pe_rows at the main
-    path's 1024 rows of N = 8192, 8192 x 8192, 262,144 x 262,144 and 1M x
-    1M (PE_REDESIGN_SHAPES), K14b at N = 8192 and 1M, K2-rect turbof at
-    2048 x 2048 and 262,144 x 262,144 (seed 41).  Each new kernel is held to
-    its twin at the small shapes (pe_rows at the exact tolerance, turbof at
-    the tier tolerance through turbof_twin), is bit-reproducible (the wrapper's result is its
-    sweep's, and a second call gives the same bits), and is held to float64
-    (pe_rows at 1e-5, check_pe's gate, on every row at the small shapes and
-    on sampled rows at the large; turbof at turbo's gate, every row at
-    8192 and 2048 x 2048, 2048 sampled rows at 1M and of each side at
-    262,144 x 262,144) with the parent's error beside it.  Both sides of a
-    round take one host path (rows_sweep against pe_rows_parent, the
-    package's sweep / rect_sweep with either library's C entries), so that
-    at the small shapes the two differ in their kernels only; there the
-    card's time alone is taken too.  ``parent_build``: build_parent's
-    function for the parent's pe.cu and forces_sym_tc.cu."""
+    """K15's tmm_noj and tmm_nomm, redesigned on K5's trimmed tile, against
+    the parent's design (pair_inv, the loop rolled, tmm_nomm's per-weight
+    converts) on the same inputs in alternating rounds, through one host
+    path: the package's sweep / rect_sweep with either library's C pair
+    entries and the package's none reduce (csrc/forces_sym.cu).  At N =
+    8192 (seed 41) and 2048 x 6144 (ablation_rect_sets) each new form is
+    held to its twin, is the wrapper's result, bit-reproducible,
+    chunk-invariant and (triangular) equal to itself pinned, and the card's
+    time alone (device_ms) is taken against the parent's.  At N = 1M (seed
+    6) the rounds time K5, tmm_full and each form of the parent and the
+    new build free and pinned at K5's CTAs an SM; each new form must beat
+    the parent's in every round, and pinned tmm_noj must read below K5 in
+    every round.  The rounds then print K5's split: the j-side pass (K5
+    less tmm_noj), the pair terms with both roundings (the no-mma floor:
+    tmm_nomm as measured, and corrected by its column loop's issue slots
+    a pair without and with its consumer, from tools/ptxas_compare.py's
+    loop_slots) and what each floor leaves to the i-side mma, each a share
+    of K5's median.  At the 1M ring's 262,144 x 262,144 shard pair each
+    rect form against the parent's, with K2-rect turbo, in rounds.
+    ``parent_build``: build_parent's function for the parent's
+    forces_sym_tc.cu."""
+    import ctypes
     import torch
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops import ablation_sym as ab
     from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.ops import forces_sym_tc as ktc
-    from nbody_tpu_torch.ops import pe
-    from nbody_tpu_torch.ops.forces_torch import rect_forces
+    from tools.ptxas_compare import loop_slots
     t0 = time.perf_counter()
-    new_pe, new_tc = pe._lib(), ktc._lib()
-    parent = parent_build()
-    parent_pe, parent_tc = parent["pe"], parent["forces_sym_tc"]
-    for fn in ("nbt_sym_turbof_pairs", "nbt_sym_tc_descale_reduce",
-               "nbt_rect_turbof_pairs", "nbt_rect_tc_reduce"):
-        getattr(parent_tc, fn).argtypes = getattr(new_tc, fn).argtypes
-        getattr(parent_tc, fn).restype = getattr(new_tc, fn).restype
-    # SymTcVariant TURBOF is 3 (csrc/sym_tc_tile.cuh).
-    print(f"[redesign] K14b's pair kernel: {new_tc.nbt_sym_tc_pairs_ctas(3)} "
-          f"CTAs an SM; pe_rows: {new_pe.nbt_pe_geometry(1)} rows a block, "
-          f"{new_pe.nbt_pe_geometry(2)} threads, "
-          f"{new_pe.nbt_pe_geometry(3)} CTAs an SM")
-    sample = torch.Generator().manual_seed(13)
+    ab.enable()
+    new = ktc._lib()
+    entries = {v: ab._entries(v) for v in ("tmm_full",) + TMM_FORMS}
+    libs = {"parent": parent_build()["forces_sym_tc"], "new": new}
+    for lib in libs.values():
+        for v in ("turbo", "tmm_full") + TMM_FORMS:
+            for kind in ("sym", "rect"):
+                fn = f"nbt_{kind}_{v}_pairs"
+                getattr(lib, fn).argtypes = getattr(new, fn).argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        for fn in ("nbt_sym_tc_pairs_ctas", "nbt_sym_tc_abl_pin"):
+            getattr(lib, fn).argtypes = [ctypes.c_int]
+            getattr(lib, fn).restype = ctypes.c_int
+    so = {"parent": os.path.join(WORK, "parent", "libforces_sym_tc.so"),
+          "new": str(_build.library_path("forces_sym_tc"))}
+    # SymTcVariant ids (csrc/sym_tc_tile.cuh).
+    ids = {"turbo": 0, "tmm_noj": 7, "tmm_nomm": 8}
+    slots = {}
+    for tag, lib in libs.items():
+        for v in ("turbo",) + TMM_FORMS:
+            slots[tag, v] = s = loop_slots(
+                so[tag], f"_Z19sym_tc_pairs_kernelILi{ids[v]}E")
+            check(s is not None, f"{tag} {v}: no column loop in its SASS")
+            free = lib.nbt_sym_tc_pairs_ctas(ids[v])
+            lib.nbt_sym_tc_abl_pin(1)
+            pin = lib.nbt_sym_tc_pairs_ctas(ids[v])
+            lib.nbt_sym_tc_abl_pin(0)
+            print(f"[redesign] {tag} {v} pair kernel: {free} CTAs an SM, "
+                  f"{pin} pinned; column loop {s[0]:.3f} issue slots a "
+                  f"pair, {s[1]:.3f} of them LOP3")
 
-    def rounds(kname, tag, key, old, new, iters, small):
-        """New against parent in rounds, into record[kname]; at a small
-        shape also the card's time alone."""
-        med = report_rounds(tag, alternate({"parent": old, "new": new}, dev,
-                                           iters), smi)
-        record[kname].update({f"parent_ms{key}": med["parent"],
-                              f"new_ms{key}": med["new"]})
-        if small:
-            med = report_rounds(f"{tag}, the card's time (device_ms)",
-                                alternate({"parent": old, "new": new}, dev,
-                                          iters, device=True), smi)
-            record[kname].update({f"parent_device_ms{key}": med["parent"],
-                                  f"new_device_ms{key}": med["new"]})
+    def sweep(lib, v, pos, mass, budget=k2.SLOT_BUDGET_BYTES):
+        reduce = (new.nbt_sym_tc_reduce if v == "turbo"
+                  else entries[v][1])
+        return lambda: k2.sweep(f"forces_sym_{v}", pos, mass, eps2, budget,
+                                getattr(lib, f"nbt_sym_{v}_pairs"), reduce)
 
-    def sampled(n, k):
-        return (torch.arange(n, device=dev) if k is None else
-                torch.randperm(n, generator=sample)[:k].sort()[0].to(dev))
+    def rect(lib, v, args, budget=k2.SLOT_BUDGET_BYTES):
+        reduce = (new.nbt_rect_tc_reduce if v == "turbo"
+                  else entries[v][3])
+        pairs = getattr(lib, f"nbt_rect_{v}_pairs")
+        return lambda: k2.rect_sweep(f"rect_forces_sym_{v}", *args, eps2,
+                                     budget, pairs, reduce, False)
 
-    def rel_errors(got, ref):
-        """(max, median) of |got - ref| / |ref| over the rows."""
-        e = ((got - ref) / ref).abs()
-        return float(e.max()), float(e.median())
+    def rounds(tag, fns, iters, device=False):
+        """fns' times in REDESIGN_ROUNDS alternating rounds (CUDA events,
+        or with ``device`` the card's time alone); prints them, their
+        medians and each new form's against the parent's; returns (rounds,
+        medians)."""
+        times = alternate(fns, dev, iters, warmup=0 if iters == 1 else 1,
+                          device=device)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(f"[redesign] {tag}: " + "; ".join(
+            f"{k} {med[k]:.4f} ms (" + ", ".join(f"{t:.4f}" for t in v)
+            + ")" for k, v in times.items()) + f" ({smi})")
+        for k in fns:
+            if k.startswith("new"):
+                old = "parent" + k[3:]
+                print(f"[redesign] {tag}: {k} / {old} "
+                      f"{med[k] / med[old]:.4f}")
+        return times, med
 
-    # K8's pe_rows.
-    for nr, n, iters, n_rows in PE_REDESIGN_SHAPES:
-        pa, ma = bodies(n, 41, dev)
-        pr, mr = pa[:nr].contiguous(), ma[:nr].contiguous()
-        key = {1024: "_main", 8192: "", 1 << 18: "_256k"}.get(nr, "_1m")
-        tag = f"K8 pe_rows {nr} x {n}"
-        small = n <= 8192
+    # The small shapes: checks, then the card's time alone.
+    n = ABLATION_N
+    pos, mass = bodies(n, 41, dev)
+    n_pad = -(-n // 256) * 256
+    na, nb = ABLATION_RECT
+    args = ablation_rect_sets(dev)
+    for v in TMM_FORMS:
+        tag = f"K15 {v} N={n}"
+        got = sweep(new, v, pos, mass)()
+        twin = ab.forces_sym_ablation_plain(pos, mass, eps2, v)
+        compare(f"{tag} vs plain", got, twin, rel_tol=TC_REL_TOL,
+                abs_floor=TC_ABS_FLOOR)
+        check(torch.equal(got, ab.forces_sym_ablation(pos, mass, eps2, v))
+              and torch.equal(got, sweep(new, v, pos, mass)())
+              and torch.equal(got, sweep(new, v, pos, mass, 24 * n_pad)())
+              and torch.equal(got, pinned(new, sweep(new, v, pos, mass))()),
+              f"{tag}: not the wrapper's result, not bit-reproducible, not "
+              f"chunk-invariant or not the same pinned")
+        was = sweep(libs["parent"], v, pos, mass)()
+        print(f"[redesign] {tag}: the wrapper's, bit-reproducible, "
+              f"chunk-invariant, the same pinned; max |new - twin| "
+              f"{float((got - twin).abs().max()):.4e}, |parent - twin| "
+              f"{float((was - twin).abs().max()):.4e}")
+        med = rounds(tag, {"parent": sweep(libs["parent"], v, pos, mass),
+                           "new": sweep(new, v, pos, mass)}, 20, True)[1]
+        record[f"forces_sym_{v}"].update({"parent_device_ms": med["parent"],
+                                          "new_device_ms": med["new"]})
+        tag = f"K15 rect {v} {na}x{nb}"
+        got = rect(new, v, args)()
+        twin = ab.rect_forces_sym_ablation_plain(*args, eps2, v)
+        compare(f"{tag} acc_a vs plain", got[0], twin[0],
+                rel_tol=TC_REL_TOL, abs_floor=TC_ABS_FLOOR)
+        check(not bool(got[1].any()), f"{tag}: B got a force")
+        for other in (ab.rect_forces_sym_ablation(*args, eps2, v),
+                      rect(new, v, args)(), rect(new, v, args, 24 * na)()):
+            check(all(torch.equal(x, y) for x, y in zip(got, other)),
+                  f"{tag}: not the wrapper's result, not bit-reproducible "
+                  f"or not chunk-invariant")
+        med = rounds(tag, {"parent": rect(libs["parent"], v, args),
+                           "new": rect(new, v, args)}, 20, True)[1]
+        record[f"rect_forces_sym_{v}"].update({
+            "parent_device_ms": med["parent"], "new_device_ms": med["new"]})
+    del pos, mass, args
 
-        def new(pr=pr, mr=mr, pa=pa, ma=ma):
-            return pe.rows_sweep(new_pe, pr, mr, pa, ma, eps2)
+    # N = 1M: K5, tmm_full, the parent's and the new forms free and pinned.
+    n = RING_N
+    pos, mass = bodies(n, 6, dev)
+    fns = {"K5": sweep(new, "turbo", pos, mass),
+           "tmm_full": sweep(new, "tmm_full", pos, mass)}
+    for v in TMM_FORMS:
+        for tag in ("parent", "new"):
+            fns[f"{tag} {v}"] = sweep(libs[tag], v, pos, mass)
+            fns[f"{tag} {v} pinned"] = pinned(libs[tag], fns[f"{tag} {v}"])
+    out = {k: fns[k]() for k in ("K5", "tmm_full", "new tmm_noj",
+                                 "new tmm_noj pinned", "new tmm_nomm",
+                                 "new tmm_nomm pinned")}
+    check(torch.equal(out["tmm_full"], out["K5"]), "tmm_full N=1M: not K5")
+    for v in TMM_FORMS:
+        check(bool(torch.isfinite(out[f"new {v}"]).all())
+              and torch.equal(out[f"new {v}"], out[f"new {v} pinned"]),
+              f"{v} N=1M: non-finite, or not the same pinned")
+    del out
+    times, med = rounds(f"K15 N={n}", fns, 1)
+    for v in TMM_FORMS:
+        for pin in ("", " pinned"):
+            check(all(a < b for a, b in zip(times[f"new {v}{pin}"],
+                                            times[f"parent {v}{pin}"])),
+                  f"{v}{pin} N=1M: not faster than the parent's in every "
+                  f"round")
+            key = pin.replace(" ", "_")
+            record[f"forces_sym_{v}"].update({
+                f"new{key}_ms_1m": med[f"new {v}{pin}"],
+                f"parent{key}_ms_1m": med[f"parent {v}{pin}"]})
+    check(all(a < b for a, b in zip(times["new tmm_noj pinned"],
+                                    times["K5"])),
+          "tmm_noj pinned N=1M: not below K5 in every round")
+    k5, noj, nomm = (med["K5"], med["new tmm_noj pinned"],
+                     med["new tmm_nomm pinned"])
+    # tmm_nomm's column loop without its consumer (NOMM_SLOTS_A_LOP3).
+    check(slots["new", "turbo"][1] == 0 and slots["new", "tmm_noj"][1] == 0,
+          "K5's or tmm_noj's column loop has a LOP3: the consumer's slots "
+          "cannot be counted by tmm_nomm's LOP3")
+    with_c = slots["new", "tmm_nomm"][0]
+    consumer = NOMM_SLOTS_A_LOP3 * slots["new", "tmm_nomm"][1]
+    check(0 < consumer < with_c, f"tmm_nomm's consumer: {consumer} slots")
+    floor = nomm * (with_c - consumer) / with_c
+    print(f"[split] tmm_nomm's column loop: {with_c:.3f} issue slots a pair "
+          f"with its consumer, {consumer:.3f} of them the consumer's; "
+          f"consumer-corrected floor {nomm:.3f} x {with_c - consumer:.3f} / "
+          f"{with_c:.3f} = {floor:.3f} ms")
+    print(f"[split] K5 at N={n}, pinned at its CTAs an SM, medians of "
+          f"{REDESIGN_ROUNDS} rounds: K5 {k5:.3f} ms, tmm_noj {noj:.3f}, "
+          f"tmm_nomm {nomm:.3f} (its consumer included); ms an issue slot "
+          f"a pair: " + ", ".join(
+              f"{name} {t / slots['new', v][0]:.3f}" for name, v, t in (
+                  ("K5", "turbo", k5), ("tmm_noj", "tmm_noj", noj),
+                  ("tmm_nomm", "tmm_nomm", nomm))) + f" ({smi})")
+    print(f"[split] K5's j-side pass (K5 less tmm_noj): {(k5 - noj) / k5:.2%}"
+          f" of K5")
+    for what, base in (("consumer-corrected", floor), ("measured", nomm)):
+        print(f"[split] the no-mma floor, pair terms and both roundings "
+              f"({what}): {base / k5:.2%} of K5; it leaves the i-side mma "
+              f"{(noj - base) / k5:.2%} (tmm_noj less the floor, which "
+              f"carries the j side's rounding and tmm_noj does not; a "
+              f"share below 0 means the parts do not add)")
+    print("[split] PR 7's split, of the untrimmed K5 (431 ms): 83.9% pair "
+          "terms + i-side mma, 16.1% j-side pass")
+    nb = -(-n // k2.SYM_TILE)
+    mufu = 1e3 * (nb * (nb - 1) // 2) * k2.SYM_TILE ** 2 / MUFU_RATE
+    print(f"[split] the sweep's off-diagonal pairs at MUFU_RATE: {mufu:.3f} "
+          f"ms for one MUFU rsqrt a pair ({mufu / nomm:.2%} of tmm_nomm's "
+          f"time, {mufu / k5:.2%} of K5's); {2 * mufu:.3f} if one F2FP a "
+          f"pair shared that unit (not probed)")
+    record["forces_sym_turbo"].update({
+        "split_j_side": (k5 - noj) / k5, "split_floor_measured": nomm / k5,
+        "split_floor_corrected": floor / k5})
+    del pos, mass
 
-        def old(pr=pr, mr=mr, pa=pa, ma=ma):
-            return pe_rows_parent(parent_pe, pr, mr, pa, ma, eps2)
-        got = pe.pe_rows(pr, mr, pa, ma, eps2)
-        was = old()
-        check(torch.equal(got, new()) and torch.equal(got, new()),
-              f"{tag}: not bit-reproducible, or the wrapper's result is not "
-              f"its sweep's")
-        slices, tps = pe.rows_slices(nr, n)
-        print(f"[redesign] {tag}: {-(-nr // pe.PE_BLOCK_ROWS)} row blocks x "
-              f"{slices} slices of {tps} tiles; bit-reproducible; MUFU "
-              f"floor {mufu_floor_ms(nr * n):.4f} ms")
-        if small:
-            compare(f"{tag} vs plain", got,
-                    pe.pe_rows_plain(pr, mr, pa, ma, eps2))
-        rows = sampled(nr, n_rows)
-        ref = pe_rows_f64(pr[rows], mr[rows], pa, ma, eps2)
-        compare(f"{tag} vs float64, {len(rows)} rows", got[rows], ref,
-                rel_tol=1e-5)
-        e_new, e_old = rel_errors(got[rows], ref), rel_errors(was[rows], ref)
-        print(f"[redesign] {tag}: |err| / |row| against float64 on "
-              f"{len(rows)} rows, max / median: new {e_new[0]:.3e} / "
-              f"{e_new[1]:.3e}, parent {e_old[0]:.3e} / {e_old[1]:.3e}")
-        record["pe"].update({f"f64_err{key}": e_new[0],
-                             f"parent_f64_err{key}": e_old[0],
-                             f"mufu_floor_ms{key}": mufu_floor_ms(nr * n)})
-        rounds("pe", tag, key, old, new, iters, small)
-        del got, was, ref, pa, ma, pr, mr
-
-    # K14b, the square sweep.
-    for n, key, iters, n_rows in ((8192, "", 20, None),
-                                  (1 << 20, "_1m", 1, 2048)):
-        pos, mass = bodies(n, 41, dev)
-        tag = f"K14b turbof N={n}"
-
-        def sweep(lib, pos=pos, mass=mass):
-            return k2.sweep("forces_sym_turbof", pos, mass, eps2,
-                            k2.SLOT_BUDGET_BYTES, lib.nbt_sym_turbof_pairs,
-                            lib.nbt_sym_tc_descale_reduce)
-        got = ktc.forces_sym_turbof(pos, mass, eps2)
-        was = sweep(parent_tc)
-        check(torch.equal(got, sweep(new_tc))
-              and torch.equal(got, sweep(new_tc)),
-              f"{tag}: not bit-reproducible, or the wrapper's result is not "
-              f"its sweep's")
-        if n <= 8192:
-            turbof_twin(f"{tag} vs plain", got,
-                        ktc.forces_sym_tc_plain(pos, mass, eps2, "turbof"),
-                        pos, mass, pos, mass, eps2, True)
-        rows = sampled(n, n_rows)
-        ref = rect_forces(pos[rows].double(), pos.double(), mass.double(),
-                          eps2, chunk=64)
-        tier_gate("forces_sym_turbof", got[rows], ref)
-        g_new, g_old = gate_numbers(got[rows], ref), gate_numbers(was[rows],
-                                                                  ref)
-        e_new, e_old = row_errors(got[rows], ref), row_errors(was[rows], ref)
-        print(f"[redesign] {tag} against float64 on {len(rows)} rows: p99 / "
-              f"bad fraction at 1% new {g_new[0]:.3e} / {g_new[1]:.3e}, "
-              f"parent {g_old[0]:.3e} / {g_old[1]:.3e}; |err| / |a| max / "
-              f"median new {e_new[0]:.3e} / {e_new[1]:.3e}, parent "
-              f"{e_old[0]:.3e} / {e_old[1]:.3e}")
-        record["forces_sym_turbof"].update({f"p99{key}": g_new[0],
-                                            f"parent_p99{key}": g_old[0]})
-        rounds("forces_sym_turbof", tag, key,
-               lambda s=sweep: s(parent_tc), lambda s=sweep: s(new_tc), iters,
-               n <= 8192)
-        del got, was, ref, pos, mass
-
-    # K2-rect turbof.
-    for n, key, iters, n_rows in ((2048, "", 20, None),
-                                  (RECT_1M, "_1m", 1, 2048)):
-        pa, ma = bodies(n, 41, dev)
-        pb, mb = bodies(n, 42, dev)
-        args = (pa, ma, pb, mb)
-        tag = f"K2-rect turbof {n}x{n}"
-
-        def sweep(lib, args=args):
-            return k2.rect_sweep("rect_forces_sym_turbof", *args, eps2,
-                                 k2.SLOT_BUDGET_BYTES,
-                                 lib.nbt_rect_turbof_pairs,
-                                 lib.nbt_rect_tc_reduce, True)
-        got = ktc.rect_forces_sym_turbof(*args, eps2)
-        was = sweep(parent_tc)
-        check(all(torch.equal(x, y) for x, y in zip(got, sweep(new_tc)))
-              and all(torch.equal(x, y) for x, y in zip(got, sweep(new_tc))),
-              f"{tag}: not bit-reproducible, or the wrapper's result is not "
-              f"its sweep's")
-        if n <= 8192:
-            for side, g, w, ab in zip("ab", got, ktc.rect_forces_sym_tc_plain(
-                    *args, eps2, "turbof"), (args, (pb, mb, pa, ma))):
-                turbof_twin(f"{tag} acc_{side} vs plain", g, w, *ab, eps2,
-                            False)
-        rows = (sampled(n, n_rows), sampled(n, n_rows))
-        ref = (rect_forces(pa[rows[0]].double(), pb.double(), mb.double(),
-                           eps2, chunk=64),
-               rect_forces(pb[rows[1]].double(), pa.double(), ma.double(),
-                           eps2, chunk=64))
-        for side, g, w, r, idx in zip("ab", got, was, ref, rows):
-            tier_gate("forces_sym_turbof", g[idx], r)
-            g_new, g_old = gate_numbers(g[idx], r), gate_numbers(w[idx], r)
-            e_new, e_old = row_errors(g[idx], r), row_errors(w[idx], r)
-            print(f"[redesign] {tag} acc_{side} against float64 on "
-                  f"{len(idx)} rows: p99 / bad fraction at 1% new "
-                  f"{g_new[0]:.3e} / {g_new[1]:.3e}, parent {g_old[0]:.3e} / "
-                  f"{g_old[1]:.3e}; |err| / |a| max / median new "
-                  f"{e_new[0]:.3e} / {e_new[1]:.3e}, parent {e_old[0]:.3e} / "
-                  f"{e_old[1]:.3e}")
-        rounds("rect_forces_sym_turbof", tag, key,
-               lambda s=sweep: s(parent_tc), lambda s=sweep: s(new_tc), iters,
-               n <= 8192)
-        del got, was, ref, pa, ma, pb, mb
+    # The 1M ring's shard pair.
+    n = RECT_1M
+    pa, ma = bodies(n, 41, dev)
+    pb, mb = bodies(n, 42, dev)
+    args = (pa, ma, pb, mb)
+    fns = {"K2-rect turbo": rect(new, "turbo", args)}
+    for v in TMM_FORMS:
+        fns[f"parent {v}"] = rect(libs["parent"], v, args)
+        fns[f"new {v}"] = rect(new, v, args)
+    times, med = rounds(f"K15 rect {n}x{n}", fns, 1)
+    for v in TMM_FORMS:
+        check(all(a < b for a, b in zip(times[f"new {v}"],
+                                        times[f"parent {v}"])),
+              f"rect {v} {n}x{n}: not faster than the parent's in every "
+              f"round")
+        record[f"rect_forces_sym_{v}"].update({
+            "new_ms_1m": med[f"new {v}"],
+            "parent_ms_1m": med[f"parent {v}"]})
+    del pa, ma, pb, mb, args
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
-
 
 def check_fold(dev, eps2):
     """The cluster folds at other cluster sizes: K14d (both maths) at
@@ -2561,6 +2586,12 @@ def main_path(counts, reset):
     print(f"[main path] pe_rows 1024 rows of N=8192: launches {delta}")
     check(all(v == (1 if k == "pe" else 0) for k, v in delta.items()),
           f"pe_rows: launches {delta}")
+    # The same rows against the plain version at the main path's shape (two
+    # row blocks: pe.rows_slices's plan for it, not 8192 x 8192's).
+    compare("K8 pe_rows 1024 x 8192 (the main path's) vs plain", rows,
+            pe.pe_rows_plain(state.pos[:1024].contiguous(),
+                             state.mass[:1024].contiguous(), state.pos,
+                             state.mass, cfg.eps2))
 
     # The sharded path: validate through the mesh at N = 8192 (P = 4:
     # the self shards, one cross rotation through K2-rect, the antipodal
@@ -3023,7 +3054,8 @@ def main():
     # The earlier commits' libraries, built meanwhile too.
     csrc = parent_csrc()
     sass = start_sass_compare(csrc) if csrc else None
-    parent_build = build_parent(csrc, PARENT_LIBS) if csrc else None
+    parent_build = (build_parent(csrc, PARENT_LIBS, report=False) if csrc
+                    else None)
     former = parent_csrc(K7_FORMER_COMMIT, K7_FORMER_CSRC)
     former_build = (build_parent(former, ("forces_sym",), "k7_former",
                                  report=False) if former else None)
@@ -3053,8 +3085,8 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; pe_rows, K14b and K2-rect turbof against
-    # the design before their redesign.
+    # 4. K2 at the 1M headline; K15's tmm_noj and tmm_nomm against the
+    # design before their redesign, and K5's split.
     check_k2_1m(dev)
     if csrc:
         check_redesign(dev, 0.002, record, smi, parent_build)

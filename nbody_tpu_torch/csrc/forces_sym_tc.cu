@@ -82,14 +82,15 @@
 // convert) and turbof's to about 13.1 (K5's with m_i m_j and its product
 // with inv for the two weight multiplies, and half a convert).  turbop,
 // TMM_FULL and TMM_NOSCAT, defined as K5's values, take it too, in both
-// sweeps, and so does K6, mxu; the other ablations and K13 keep
-// pair_inv.  The trimmed tile also unrolls its 16-column loop twice; K6's
-// splits the two weights of a register at once (split2_rn: one bf16x2
-// convert for hi, hi's halves back to float32 by a shift and a mask, the
-// two subtractions, one convert for lo), where split_rn converts each
-// weight and limb alone and packs them after, and turbof's rounds its two
-// weights with one convert (pack2_rn, pack_rn's bits).  On an H100 80GB HBM3 at 700 W an evaluation at N = 1M takes,
-// for K5, 333.5 ms (343.1 with the loop rolled, 433.5 untrimmed); for
+// sweeps, and so do K6, mxu, and K15's TMM_NOJ and TMM_NOMM, so that they
+// ablate K5's tile as it runs; K13 keeps pair_inv.  The trimmed tile also
+// unrolls its 16-column loop twice; K6's splits the two weights of a
+// register at once (split2_rn: one bf16x2 convert for hi, hi's halves back
+// to float32 by a shift and a mask, the two subtractions, one convert for
+// lo), where split_rn converts each weight and limb alone and packs them
+// after, and turbof's rounds its two weights with one convert (pack2_rn,
+// pack_rn's bits).  On an H100 80GB HBM3 at 700 W an evaluation at N = 1M
+// takes, for K5, 333.5 ms (343.1 with the loop rolled, 433.5 untrimmed); for
 // turbo2 288.9 ms (291.6 rolled, 289.2 unrolled four times, 292.6 held to
 // four CTAs an SM, 376.5 untrimmed and rolled): turbo2's pair kernel takes
 // 63 registers, so it already runs four CTAs an SM; for turbof 314.2 ms
@@ -106,8 +107,16 @@
 // Left for later: wgmma, TMA-fed tiles, a persistent schedule.
 //
 // K15's tmm_* ablations (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm)
-// are four more values of the tile's variant, SymTcVariant; their none /
-// fix0 reduce passes are in forces_sym.cu.
+// are four more values of the tile's variant, SymTcVariant, each K5's
+// trimmed tile less the mechanism it prices; their none / fix0 reduce
+// passes are in forces_sym.cu.  TMM_NOJ is K5's i side alone: its row
+// sums are K5's bit for bit.  TMM_NOMM builds K5's two weight registers
+// with K5's bits and converts (pack2_rn: one bf16x2 convert a register)
+// and, with no mma, adds their bf16 halves into its row sums
+// (sym_tc_tile.cuh, nomm_add: a shift or a mask and one add a weight); so
+// it is the floor of K5's pair terms and roundings plus that consumer,
+// whose issue slots tools/sym_tc_variants.py --variant tmm counts in the
+// SASS to take it out again.
 //
 // K2-rect (the rect sweep of _make_rect_kernel, variants turbo, mxu,
 // turbo2 and turbof, and of _make_rect_kernel_turbop, between two disjoint

@@ -12,18 +12,22 @@
 
 // The pair tiles of forces_sym_tc.cu.  TURBOP is TURBO's math on a deferred
 // j-side schedule.  The last four are K15's ablations of TURBO's tile
-// (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm):
+// (nbody_tpu/ops/ablation_sym.py, _tile_turbo_mm), each K5's trimmed tile
+// less exactly the mechanism it prices:
 //   TMM_FULL    TURBO itself: JAX rebuilt the (U,3) j positions from the
 //               transposed tile, which here are both packed from one
 //               float4 tile already (the control);
 //   TMM_NOSCAT  TURBO's tile, its column sums stored in the writer's own
 //               row slot, all added into tile 0's bodies by the reduce;
-//   TMM_NOJ     the i-side product only: no transposed i pack, j-side
-//               weights, movmatrix, second mma chain or partials;
-//   TMM_NOMM    the pair terms and both bf16 roundings, no mma: each row
-//               sums bf16(m_j inv) + bf16(m_i inv) over the tile (the row
-//               reduce that keeps the roundings live), the same sum for
-//               each of its three components.
+//   TMM_NOJ     the i side only: K5's i-side weights, mma chain and
+//               correction, so its row sums are K5's bit for bit; no
+//               transposed i pack, j-side weights, movmatrix, second mma
+//               chain or partials;
+//   TMM_NOMM    K5's pair terms and both its weight registers, rounded as
+//               K5 rounds them (one bf16x2 convert a register), and no mma:
+//               each row sums bf16(m_j inv) + bf16(m_i inv) over the tile
+//               (nomm_add, the cheapest consumer that keeps the roundings
+//               live), the same sum for each of its three components.
 enum SymTcVariant { TURBO, MXU, TURBO2, TURBOF, TURBOP, TMM_FULL, TMM_NOSCAT,
                     TMM_NOJ, TMM_NOMM };
 
@@ -36,10 +40,12 @@ __host__ __device__ constexpr int tc_tile_of(int v) {
 // Whether a pairs kernel of forces_sym_tc.cu runs the trimmed geometry
 // (pair_inv_fma) and the unrolled column loop: K5 and the kernels defined
 // as K5's values, turbop and the TMM_FULL / TMM_NOSCAT controls, so that
-// they stay bit-equal to it; K14a, turbo2; K14b, turbof; and K6, mxu.  The
-// other ablations and K13's tiles (rdma_ring.cu) keep pair_inv.
+// they stay bit-equal to it, and the ablations TMM_NOJ / TMM_NOMM, so that
+// they price K5's tile; K14a, turbo2; K14b, turbof; and K6, mxu.  K13's
+// tiles (rdma_ring.cu) keep pair_inv.
 __host__ __device__ constexpr bool tc_trimmed(int v) {
     return v == TURBO || v == TURBOP || v == TMM_FULL || v == TMM_NOSCAT ||
+           v == TMM_NOJ || v == TMM_NOMM ||
            v == TURBO2 || v == TURBOF || v == MXU;
 }
 
@@ -65,6 +71,14 @@ __device__ __forceinline__ void store_part(SymTcSmem& sm, int w, int k0,
                                            int g, int t, const float dj[4]) {
     sm.part[w][k0 + g][t] = __fadd_rn(dj[0], dj[1]);
     sm.part[w][k0 + g + 8][t] = __fadd_rn(dj[2], dj[3]);
+}
+
+// TMM_NOMM's consumer: the two bf16 weights of a bf16x2 register added
+// into s as float32, each exactly (the low half shifted up, the high half
+// masked): an integer operation and an add a weight, and no convert.
+__device__ __forceinline__ void nomm_add(float& s, uint32_t w) {
+    s += __fadd_rn(__uint_as_float(w << 16),
+                   __uint_as_float(w & 0xffff0000u));
 }
 
 // The pair tile of row tile I of body set i (n_i bodies) against column
@@ -123,8 +137,9 @@ __device__ __forceinline__ void sym_tc_tile(
     float wj_sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
     // The trimmed tile unrolls the 16-column loop twice (K5: 80
     // registers still, three CTAs an SM; K14a: 63, four CTAs an SM; K6:
-    // 67, three CTAs an SM; K14b: tools/sym_tc_variants.py --variant
-    // turbof); the others keep it rolled, their code unchanged.
+    // 67, three CTAs an SM; K14b and the tmm_* ablations:
+    // tools/sym_tc_variants.py --variant turbof | tmm); K13's keep it
+    // rolled, their code unchanged.
 #pragma unroll (TRIM ? 2 : 1)
     for (int k0 = 0; k0 < SYM_TILE; k0 += 16) {
         const int c = k0 + 2 * t;
@@ -152,18 +167,22 @@ __device__ __forceinline__ void sym_tc_tile(
             }
             uint32_t a[4], at[4];
             if (V == TMM_NOMM) {
+                // K5's a[r] and aj[r], each weight added into its row's
+                // sum in place of the mma.  pack2_rn (pack_rn's bits) keeps
+                // K5's one bf16x2 convert a register: with pack_rn the
+                // compiler sees the halves taken apart again and rounds
+                // each weight with integer operations instead.
 #pragma unroll
                 for (int r = 0; r < 4; ++r) {
                     const float mi = xr[rb][r & 1].w;
                     const int qa = (r >> 1) * 2;
-#pragma unroll
-                    for (int e = 0; e < 2; ++e) {
-                        const float f = inv[2 * r + e];
-                        wi_sum[rb][r & 1] += __bfloat162float(
-                            __float2bfloat16_rn(__fmul_rn(q[qa + e].w, f)));
-                        wj_sum[rb][r & 1] += __bfloat162float(
-                            __float2bfloat16_rn(__fmul_rn(mi, f)));
-                    }
+                    a[r] = pack2_rn(__fmul_rn(q[qa].w, inv[2 * r]),
+                                    __fmul_rn(q[qa + 1].w, inv[2 * r + 1]));
+                    const uint32_t aj = pack2_rn(
+                        __fmul_rn(mi, inv[2 * r]),
+                        __fmul_rn(mi, inv[2 * r + 1]));
+                    nomm_add(wi_sum[rb][r & 1], a[r]);
+                    nomm_add(wj_sum[rb][r & 1], aj);
                 }
             } else if (V == MXU) {
                 // The trimmed tile splits both weights of a register at

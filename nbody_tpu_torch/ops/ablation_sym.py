@@ -22,6 +22,13 @@ tmm_nomm    K5's pair terms and both bf16 roundings, no    wrong
             sum bf16(m_i inv) in all three components
 ==========  =============================================  ==========
 
+The ``tmm_*`` forms ablate K5's tile as it runs, on the trimmed geometry
+(``pair_inv_fma``, ``csrc/sym_tc_tile.cuh``: ``tc_trimmed``): ``tmm_noj``'s
+row sums are K5's bit for bit, and ``tmm_nomm`` builds K5's two weight
+registers by K5's roundings; their twins are K5's twin's row half and the
+sums of its bf16 weights (``forces_sym_tc._pair_tiles``,
+``_turbo_weights``), so that the two cannot drift apart.
+
 The ``vpu_*`` forms ablate the tile K7 ran before its redesign for Hopper
 (``sym_tile_core``: one row a thread, a column accumulator shuffled once a
 pair).  K7 itself now runs K2's pair tile (``sym_pair_core``), so their
@@ -78,7 +85,6 @@ from .forces_sym import (RECT_PAIRS_ARGTYPES, RECT_REDUCE_ARGTYPES,
                          SLOT_BUDGET_BYTES, SYM_TILE, check_rect_sets,
                          diag_plain, rect_sweep, rect_sweep_plain, sweep,
                          sweep_plain)
-from .forces_tiled_tc import pair_inv, position_pack, tile_result
 
 ABLATION_NAMES = ("vpu_noj", "vpu_fix0", "vpu_rc",
                   "tmm_full", "tmm_noscat", "tmm_noj", "tmm_nomm")
@@ -102,15 +108,13 @@ def _pair_tiles(eps2: float, name: str):
                 return _k2._pair_tiles(eps2, True, 1)(xi, mi, xj, mj)
             return _ktc._pair_tiles(xi, mi, xj, mj, eps2, "turbo")
         none = xi.new_zeros(xj.shape)
+        # tmm_noj and tmm_nomm on K5's twin: its row half, and the sums of
+        # its bf16 weights (both on pair_inv_fma, as their kernels).
         if name == "tmm_noj":
-            wi = (mj[:, None, :] * pair_inv(xi, xj, eps2)).to(
-                torch.bfloat16).float()
-            return tile_result(wi @ position_pack(xj), xi), none
+            return _ktc._pair_tiles(xi, mi, xj, mj, eps2, "turbo")[0], none
         if name == "tmm_nomm":
-            inv = pair_inv(xi, xj, eps2)
-            wi = (mj[:, None, :] * inv).to(torch.bfloat16).float().sum(2)
-            wj = (mi[:, :, None] * inv).to(torch.bfloat16).float().sum(2)
-            return (wi + wj)[..., None].expand(-1, -1, 3), none
+            wi, wj = _ktc._turbo_weights(xi, mi, xj, mj, eps2)
+            return (wi.sum(2) + wj.sum(2))[..., None].expand(-1, -1, 3), none
         r = xj[:, None, :, :] - xi[:, :, None, :]
         d2 = (r * r).sum(-1) + eps2
         inv = torch.rsqrt(d2 * d2 * d2)

@@ -31,7 +31,9 @@ The geometry of K5, K6, K14a and K14b is trimmed (``csrc/tc_common.cuh``:
 ``pair_inv_fma``): d2 as three fused multiply-adds with eps2 folded in,
 and the rsqrt of d2^3 without rsqrtf's subnormal fix-up.  turbop and
 K15's tmm_full / tmm_noscat controls, defined as K5's values, take it
-too; K13 keeps the unfused ``pair_inv``.  The twin rounds each fused
+too, and so do K15's tmm_noj and tmm_nomm, which ablate K5's tile (their
+twins take K5's, ``_pair_tiles`` and ``_turbo_weights``); K13 keeps the
+unfused ``pair_inv``.  The twin rounds each fused
 multiply-add once (``pair_inv_fma``), so it gives the kernel's float32
 weights and bf16 roundings but for rare double-rounding ties.  turbof's
 weight keeps JAX's order, ``(m_i m_j)`` first, then times ``inv``, then
@@ -114,19 +116,27 @@ def _lib():
     return lib
 
 
+def _turbo_weights(xi, mi, xj, mj, eps2, trimmed=True):
+    """K5's bf16 weights of the pair tiles, as float32 (k, Ti, Tj) each:
+    bf16(m_j inv) for the force on i and bf16(m_i inv) for the force on j,
+    inv from ``pair_inv_fma`` (``trimmed``) or ``pair_inv`` (K13's)."""
+    inv = (pair_inv_fma if trimmed else pair_inv)(xi, xj, eps2)
+    return ((mj[:, None, :] * inv).to(torch.bfloat16).float(),
+            (mi[:, :, None] * inv).to(torch.bfloat16).float())
+
+
 def _pair_tiles(xi, mi, xj, mj, eps2, variant, trimmed=True):
     """Row sums (force on i) and column sums (force on j) of the pair tiles
     (k, T, 3) x (k, T, 3) -> (k, T, 3), (k, T, 3), accelerations.
     ``trimmed``: the trimmed geometry for the variants whose square and
     rect kernels take it (``_TRIMMED``); K13's tiles keep ``pair_inv``."""
-    inv = (pair_inv_fma if trimmed and variant in _TRIMMED
-           else pair_inv)(xi, xj, eps2)                # (k, Ti, Tj)
+    trimmed = trimmed and variant in _TRIMMED
     if variant in ("turbo", "turbop"):
-        wi = (mj[:, None, :] * inv).to(torch.bfloat16).float()
-        wj = (mi[:, :, None] * inv).to(torch.bfloat16).float()
-        out_i = wi @ position_pack(xj)
-        out_j = wj.transpose(1, 2) @ position_pack(xi)
-    elif variant in ("turbo2", "turbof"):
+        wi, wj = _turbo_weights(xi, mi, xj, mj, eps2, trimmed)
+        return (tile_result(wi @ position_pack(xj), xi),
+                tile_result(wj.transpose(1, 2) @ position_pack(xi), xj))
+    inv = (pair_inv_fma if trimmed else pair_inv)(xi, xj, eps2)
+    if variant in ("turbo2", "turbof"):
         # One weight matrix for both sides.
         if variant == "turbo2":
             w = inv.to(torch.bfloat16).float()

@@ -36,6 +36,8 @@ from nbody_tpu_torch import SimConfig, cli
 from nbody_tpu_torch.ops import ablation_sym, forces_sym, forces_sym_tc
 from nbody_tpu_torch.ops import forces_sym_variants as variants
 from nbody_tpu_torch.ops.forces_sym import SYM_TILE
+from nbody_tpu_torch.ops.forces_tiled_tc import (pair_inv_fma, position_pack,
+                                                 tile_result)
 
 EPS2 = 0.002
 NAMES = ablation_sym.ABLATION_NAMES
@@ -242,6 +244,71 @@ def test_unreachable_before_enable(name, capsys):
                   "--impl", name])
     assert exc.value.code == 2
     assert "invalid choice" in capsys.readouterr().err
+
+
+def _tiles(seed, k=2):
+    """k (row tile, column tile) pairs of 256 bodies each, as the sweeps
+    hand them to a pair tile: (xi, mi, xj, mj)."""
+    pos, _, mass = make_small_system(2 * k * SYM_TILE, seed=seed)
+    x = t(pos).view(2 * k, SYM_TILE, 3)
+    m = t(mass).view(2 * k, SYM_TILE)
+    return x[:k], m[:k], x[k:], m[k:]
+
+
+def _k5_weights(xi, mi, xj, mj):
+    """K5's bf16 weights, from its trimmed geometry: bf16(m_j inv) for
+    the force on i, bf16(m_i inv) for the force on j, as float32."""
+    inv = pair_inv_fma(xi, xj, EPS2)
+    return ((mj[:, None, :] * inv).to(torch.bfloat16).float(),
+            (mi[:, :, None] * inv).to(torch.bfloat16).float())
+
+
+def test_tmm_noj_rows_are_k5s_on_two_tiles():
+    """tmm_noj is K5's tile less its j side: on two 256-body tile pairs
+    its row sums are K5's, the bf16(m_j inv) weights times the column
+    positions, bit for bit, and it has no column sums."""
+    tiles = _tiles(160)
+    xi, _, xj, _ = tiles
+    wi, _ = _k5_weights(*tiles)
+    want = tile_result(wi @ position_pack(xj), xi)
+    rows, cols = ablation_sym._pair_tiles(EPS2, "tmm_noj")(*tiles)
+    k5_rows, k5_cols = forces_sym_tc._pair_tiles(*tiles, EPS2, "turbo")
+    assert torch.equal(rows, want) and torch.equal(k5_rows, want)
+    assert k5_cols.any() and not cols.any()
+
+
+@pytest.mark.parametrize("na, nb", [(300, 700), (1000, 257)])
+def test_tmm_noj_rect_acc_a_is_k5s(na, nb):
+    """On ragged sets the rect sweep of tmm_noj gives A K2-rect turbo's
+    acc_a bit for bit (a row reads only its own row sums, added in the
+    same order) and B nothing."""
+    pos, _, mass = make_small_system(na + nb, seed=161)
+    sets = (t(pos[:na]), t(mass[:na]), t(pos[na:]), t(mass[na:]))
+    acc_a, acc_b = ablation_sym.rect_forces_sym_ablation(*sets, EPS2,
+                                                         "tmm_noj")
+    k5_a, k5_b = forces_sym_tc.rect_forces_sym_tc_plain(*sets, EPS2, "turbo")
+    assert torch.equal(acc_a, k5_a)
+    assert k5_b.any() and not acc_b.any()
+
+
+@pytest.mark.parametrize("seed", [162, 163])
+def test_tmm_nomm_sums_k5s_weights(seed):
+    """tmm_nomm's tile is, in each of the three components of a row, the
+    sum over the row of K5's bf16 weights of both sides, bf16(m_j inv) and
+    bf16(m_i inv), those that give K5's twin's row and column sums; it has
+    no column sums."""
+    tiles = _tiles(seed)
+    xi, _, xj, _ = tiles
+    wi, wj = _k5_weights(*tiles)
+    rows, cols = ablation_sym._pair_tiles(EPS2, "tmm_nomm")(*tiles)
+    k5_rows, k5_cols = forces_sym_tc._pair_tiles(*tiles, EPS2, "turbo")
+    assert torch.equal(tile_result(wi @ position_pack(xj), xi), k5_rows)
+    assert torch.equal(
+        tile_result(wj.transpose(1, 2) @ position_pack(xi), xj), k5_cols)
+    want = wi.sum(2) + wj.sum(2)
+    for c in range(3):
+        assert torch.equal(rows[..., c], want)
+    assert not cols.any()
 
 
 def test_wrappers_check_their_inputs():

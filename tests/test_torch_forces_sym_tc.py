@@ -40,7 +40,9 @@ from nbody_tpu.oracle.numpy_oracle import (assert_matches_oracle,
 from nbody_tpu_torch import cli
 from nbody_tpu_torch.ops.forces_sym import (SLOT_BUDGET_BYTES, SYM_TILE,
                                             descale_plain, sweep_plain)
-from nbody_tpu_torch.ops.forces_sym_tc import (_pair_tiles, forces_sym_mxu,
+from nbody_tpu_torch.ops import ablation_sym
+from nbody_tpu_torch.ops.forces_sym_tc import (_pair_tiles, _turbo_weights,
+                                               forces_sym_mxu,
                                                forces_sym_tc,
                                                forces_sym_tc_plain,
                                                forces_sym_turbo,
@@ -252,14 +254,23 @@ def _turbof_square_twin(pos, mass, trimmed):
 
 def test_trimmed_geometry_belongs_to_turbo_k2rect_not_k13():
     """turbo, turbop, turbo2, turbof and mxu take the trimmed geometry in
-    the square and rect twins; K13's turbo, turbo2 and mxu tiles keep
-    pair_inv, as its kernel does (K13 refuses turbof)."""
+    the square and rect twins, and so do K15's tmm_noj and tmm_nomm, which
+    ablate K5's tile; K13's turbo, turbo2 and mxu tiles keep pair_inv, as
+    its kernel does (K13 refuses turbof)."""
     pos, _, mass = make_small_system(512, seed=89)
     x = torch.from_numpy(pos).view(2, 256, 3)
     mm = torch.from_numpy(mass).view(2, 256)
     xi, mi, xj, mj = x[:1], mm[:1], x[1:], mm[1:]
     fused = _pair_tiles(xi, mi, xj, mj, EPS2, "turbo")
     unfused = _pair_tiles(xi, mi, xj, mj, EPS2, "turbo", trimmed=False)
+    # tmm_noj: K5's trimmed row half; tmm_nomm: the sums of K5's trimmed
+    # bf16 weights.  Some bits differ from the same on pair_inv.
+    noj = ablation_sym._pair_tiles(EPS2, "tmm_noj")(xi, mi, xj, mj)[0]
+    assert torch.equal(noj, fused[0])
+    assert not torch.equal(noj, unfused[0])
+    nomm = ablation_sym._pair_tiles(EPS2, "tmm_nomm")(xi, mi, xj, mj)[0]
+    wi, wj = _turbo_weights(xi, mi, xj, mj, EPS2, trimmed=False)
+    assert not torch.equal(nomm[..., 0], wi.sum(2) + wj.sum(2))
     ring = rdma_ring._tile_both("turbo", EPS2)(xi, mi, xj, mj)
     for a, b in zip(ring, unfused):
         assert torch.equal(a, b)

@@ -117,6 +117,26 @@ def finish(name, so, proc):
     return ctypes.CDLL(so)
 
 
+def pe_rows_parent(lib, pos_r, mass_r, pos_a, mass_a, eps2):
+    """pe_rows through an earlier pe.cu (one thread a row): its C entry
+    nbt_pe_rows(pos_r, mass_r, nr, pos_a, mass_a, na, eps2, out, stream)."""
+    import torch
+    from nbody_tpu_torch.ops import _build
+    fn = lib.nbt_pe_rows
+    if fn.argtypes is None:
+        c_ll, c_ptr = ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = [c_ptr, c_ptr, c_ll, c_ptr, c_ptr, c_ll,
+                       ctypes.c_float, c_ptr, c_ptr]
+        fn.restype = ctypes.c_int
+    out = torch.empty(pos_r.shape[0], dtype=torch.float64,
+                      device=pos_r.device)
+    _build.check_launch("the parent's pe_rows", fn(
+        pos_r.data_ptr(), mass_r.data_ptr(), pos_r.shape[0],
+        pos_a.data_ptr(), mass_a.data_ptr(), pos_a.shape[0], float(eps2),
+        out.data_ptr(), _build.stream_handle(out)))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="csrc of an earlier pe.cu to time too")
@@ -129,7 +149,7 @@ def main():
     from nbody_tpu_torch.ops import pe
     from nbody_tpu_torch.utils.device import nvidia_smi_line
     from nbody_tpu_torch.utils.timing import time_ms
-    from chip_smoke import bodies, device_ms, pe_rows_parent
+    from chip_smoke import bodies, device_ms
     smi = nvidia_smi_line()
     shutil.rmtree(WORK, ignore_errors=True)
     jobs = {name: build(name, CSRC, edits)

@@ -12,8 +12,10 @@ kernel it prints its numbers in OLD and NEW and whether its SASS is the
 same instruction for instruction; kernels only in NEW are listed with
 their numbers.  With ``--ops`` it also prints, for every kernel of NEW,
 how many of its SASS instructions are of each of the opcodes in ``OPS``
-(a static count of the code, not of what runs), and the same for every
-kernel of OLD whose SASS differs (``old: `` lines).  Kernels are matched
+(a static count of the code, not of what runs) and, for a kernel with a
+loop, the instructions and MUFU of its longest loop and their ratio, the
+issue slots a pair of a pair loop (one rsqrt a pair); and the same for
+every kernel of OLD whose SASS differs (``old: `` lines).  Kernels are matched
 by their demangled names, with
 template arguments ``true``/``false`` read as ``1``/``0`` (a template on
 a bool that became one on an int keeps its instantiations' names).
@@ -44,7 +46,8 @@ sys.path.insert(0, ROOT)
 from nbody_tpu_torch.ops._build import NVCC_FLAGS, find_nvcc  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "ptxas_compare")
-_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_BRA = re.compile(r"\bBRA\b.*?\b0x([0-9a-f]+)")
 # The opcodes of the pair loops: float32 add / fma / mul, the MUFU rsqrt
 # and the compare of rsqrtf's subnormal fix-up (FSETP), warp shuffles,
 # shared loads and stores, tensor-core mma, bf16 converts (F2FP), global
@@ -53,13 +56,40 @@ OPS = ("FADD", "FFMA", "FMUL", "MUFU", "FSETP", "SHFL", "LDS", "STS", "HMMA",
        "F2FP", "STG", "MOVM")
 
 
+def opcode(insn):
+    return re.sub(r"^@!?U?P\w+\s+", "", insn).split()[0].split(".")[0]
+
+
+def main_loop(insns):
+    """The instructions of a kernel's longest loop, from the target of its
+    longest backward branch to that branch, of its (address, instruction)
+    pairs; None without one.  The pair loops take one MUFU (the rsqrt) a
+    pair, so instructions / MUFU are their issue slots a pair."""
+    span = None
+    for addr, insn in insns:
+        m = _BRA.search(insn)
+        target = int(m.group(1), 16) if m else addr
+        if target < addr and (span is None
+                              or addr - target > span[1] - span[0]):
+            span = (target, addr)
+    if span is None:
+        return None
+    return [insn for addr, insn in insns if span[0] <= addr <= span[1]]
+
+
 def op_counts(insns):
     counts = dict.fromkeys(OPS, 0)
-    for insn in insns:
-        op = re.sub(r"^@!?U?P\w+\s+", "", insn).split()[0].split(".")[0]
+    for _, insn in insns:
+        op = opcode(insn)
         if op in counts:
             counts[op] += 1
-    return " ".join(f"{k} {v}" for k, v in counts.items())
+    text = " ".join(f"{k} {v}" for k, v in counts.items())
+    loop = main_loop(insns) or ()
+    mufu = sum(opcode(insn) == "MUFU" for insn in loop)
+    if mufu:
+        text += (f"; loop {len(loop)} instructions, {mufu} MUFU: "
+                 f"{len(loop) / mufu:.2f} a pair")
+    return text
 
 
 def tool(name):
@@ -75,10 +105,43 @@ def demangle(names):
             for m, p in zip(names, plain)}
 
 
+def sass(so):
+    """mangled kernel name -> [(address, SASS instruction)] of the library
+    ``so``."""
+    out, fn = {}, None
+    dump = subprocess.run([tool("cuobjdump"), "-sass", so],
+                          capture_output=True, text=True, check=True).stdout
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+        elif fn:
+            m = _INSN.search(line)
+            if m:
+                out[fn].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def loop_slots(so, prefix):
+    """(issue slots, LOP3) a pair of the longest loop of the kernel of
+    library ``so`` whose mangled name starts with ``prefix`` (its
+    instructions over its MUFU, one rsqrt a pair), or None."""
+    for fn, insns in sass(so).items():
+        if fn.startswith(prefix):
+            body = main_loop(insns)
+            mufu = sum(opcode(i) == "MUFU" for i in body or ())
+            if not mufu:
+                return None
+            return (len(body) / mufu,
+                    sum(opcode(i) == "LOP3" for i in body) / mufu)
+    return None
+
+
 def build(csrc, name, tag):
     """(kernel -> {"regs", "spill_st", "spill_ld", "smem"}, kernel ->
-    [SASS instructions]) of ``csrc/<name>.cu``, keyed by normalised
-    demangled name."""
+    [(address, SASS instruction)]) of ``csrc/<name>.cu``, keyed by
+    normalised demangled name."""
     os.makedirs(WORK, exist_ok=True)
     so = os.path.join(WORK, f"{tag}_{name}.so")
     log = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", so,
@@ -98,21 +161,10 @@ def build(csrc, name, tag):
                                               line).group(1))
             m = re.search(r"(\d+) bytes smem", line)
             stats[fn]["smem"] = int(m.group(1)) if m else 0
-    sass, fn = {}, None
-    dump = subprocess.run([tool("cuobjdump"), "-sass", so],
-                          capture_output=True, text=True, check=True).stdout
-    for line in dump.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            sass[fn] = []
-        elif fn:
-            m = _INSN.search(line)
-            if m:
-                sass[fn].append(m.group(1))
-    names = demangle(sorted(set(stats) | set(sass)))
+    code = sass(so)
+    names = demangle(sorted(set(stats) | set(code)))
     return ({names[k]: v for k, v in stats.items()},
-            {names[k]: v for k, v in sass.items()})
+            {names[k]: v for k, v in code.items()})
 
 
 def main(argv):

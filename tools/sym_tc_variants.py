@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time source-edited variants of a tensor-core tier's pair pass on the card.
 
-    python3 tools/sym_tc_variants.py [--variant turbo|turbo2|turbof|mxu]
+    python3 tools/sym_tc_variants.py [--variant turbo|turbo2|turbof|mxu|tmm]
         [--n N] [--rounds R]
 
 Copies ``nbody_tpu_torch/csrc`` once per variant into
@@ -67,7 +67,34 @@ time):
   the loop rolled;
 - ``nolot``: a diagnostic, not a candidate: the j side without the lo
   limb (no lo transposes, one j-side mma a block), which prices the
-  second movmatrix set and its product; its output differs by design.
+  second movmatrix set and its product; its output differs by design;
+
+and K15's ``tmm_noj`` and ``tmm_nomm`` (``--variant tmm``), each edit
+confined to those two: for every variant it times both forms' triangular
+sweep (their pair passes and forces_sym.cu's none reduce) free and pinned
+at K5's CTAs an SM (``nbt_sym_tc_abl_pin``), and base's K5 beside them,
+and prints each pair kernel's registers, CTAs an SM free and pinned and
+issue slots a pair (the instructions of its column loop over its MUFU,
+one rsqrt a pair: ``tools/ptxas_compare.py``'s ``main_loop``):
+
+- ``base``: the sources as they are (K5's trimmed tile, the loop
+  unrolled twice; ``tmm_nomm`` adds the halves of K5's two weight
+  registers into its row sums by a shift or a mask and one add a
+  weight, ``nomm_add``);
+- ``parent``: the design before: both on pair_inv with the loop rolled,
+  ``tmm_nomm`` rounding each weight by a convert of its own, converting
+  it back and adding it (their outputs differ by design);
+- ``unroll1``: the loop rolled;
+- ``cvt1``: ``tmm_nomm``'s consumer as before (a convert, a convert
+  back and an add a weight) on the trimmed pair;
+- ``pack1``: ``tmm_nomm``'s weight registers by ``pack_rn``, not
+  ``pack2_rn`` (the same bits; the compiler then rounds each weight
+  with integer operations, no F2FP);
+- ``sink``: a diagnostic, not a candidate: ``tmm_nomm`` with its
+  consumer cut to one XOR of each weight register into the row's
+  accumulator (a LOP3, which ptxas may give three inputs), the least
+  that keeps K5's two weight registers live, which prices the consumer
+  (its row sums are bit patterns, not sums).
 
 Needs a CUDA card and nvcc; takes a few minutes on one H100.
 """
@@ -126,6 +153,40 @@ _NOLOT = ("sym_tc_tile.cuh",
           "                (void)lot;\n"
           "                mma_bf16(dj, at, bi[rb][0], bi[rb][1]);")
 
+# K15's tmm_noj / tmm_nomm: back on pair_inv and rolled (tc_trimmed
+# without them); tmm_nomm's consumer as before, a convert of each weight of
+# its own; no consumer (the diagnostic).
+_TMM_UNTRIMMED = ("sym_tc_tile.cuh",
+                  "v == TMM_NOSCAT ||\n           v == TMM_NOJ || "
+                  "v == TMM_NOMM ||\n", "v == TMM_NOSCAT ||\n")
+_TMM_NOMM_PACK = (
+    "                    a[r] = pack2_rn(__fmul_rn(q[qa].w, inv[2 * r]),\n"
+    "                                    __fmul_rn(q[qa + 1].w, "
+    "inv[2 * r + 1]));\n"
+    "                    const uint32_t aj = pack2_rn(\n"
+    "                        __fmul_rn(mi, inv[2 * r]),\n"
+    "                        __fmul_rn(mi, inv[2 * r + 1]));\n")
+_TMM_PACK1 = ("sym_tc_tile.cuh", _TMM_NOMM_PACK,
+              _TMM_NOMM_PACK.replace("pack2_rn(", "pack_rn(", 2))
+_TMM_CVT1 = (
+    "sym_tc_tile.cuh",
+    _TMM_NOMM_PACK +
+    "                    nomm_add(wi_sum[rb][r & 1], a[r]);\n"
+    "                    nomm_add(wj_sum[rb][r & 1], aj);\n",
+    "#pragma unroll\n"
+    "                    for (int e = 0; e < 2; ++e) {\n"
+    "                        const float f = inv[2 * r + e];\n"
+    "                        wi_sum[rb][r & 1] += __bfloat162float(\n"
+    "                            __float2bfloat16_rn(__fmul_rn(q[qa + e].w, "
+    "f)));\n"
+    "                        wj_sum[rb][r & 1] += __bfloat162float(\n"
+    "                            __float2bfloat16_rn(__fmul_rn(mi, f)));\n"
+    "                    }\n")
+NOMM_SINK = ("sym_tc_tile.cuh",
+             "    s += __fadd_rn(__uint_as_float(w << 16),\n"
+             "                   __uint_as_float(w & 0xffff0000u));",
+             "    s = __uint_as_float(__float_as_uint(s) ^ w);")
+
 VARIANTS = {
     "turbo": {
         "base": [],
@@ -165,14 +226,21 @@ VARIANTS = {
         "ctas4_unroll1": [_ctas4("V == MXU"), _unroll(1, "MXU")],
         "nolot": [_NOLOT],
     },
+    "tmm": {
+        "base": [],
+        "parent": [_TMM_UNTRIMMED, _TMM_CVT1],
+        "unroll1": [_unroll(1, "TMM_NOJ || V == TMM_NOMM")],
+        "cvt1": [_TMM_CVT1],
+        "pack1": [_TMM_PACK1],
+        "sink": [NOMM_SINK],
+    },
 }
-# The tier's pair kernel, sym_tc_pairs_kernel<V>, by its mangled name.
-_MANGLED = {"turbo": "_Z19sym_tc_pairs_kernelILi0E",
-            "mxu": "_Z19sym_tc_pairs_kernelILi1E",
-            "turbo2": "_Z19sym_tc_pairs_kernelILi2E",
-            "turbof": "_Z19sym_tc_pairs_kernelILi3E"}
-# The tier's id in SymTcVariant (csrc/sym_tc_tile.cuh).
-_VARIANT_ID = {"turbo": 0, "mxu": 1, "turbo2": 2, "turbof": 3}
+# The tier's id in SymTcVariant (csrc/sym_tc_tile.cuh), and its pair
+# kernel, sym_tc_pairs_kernel<V>, by its mangled name.
+_VARIANT_ID = {"turbo": 0, "mxu": 1, "turbo2": 2, "turbof": 3,
+               "tmm_noj": 7, "tmm_nomm": 8}
+_MANGLED = {k: f"_Z19sym_tc_pairs_kernelILi{v}E"
+            for k, v in _VARIANT_ID.items()}
 # The reduce pass of the tier: turbof's slots are mass-scaled.
 _REDUCE = {"turbof": "nbt_sym_tc_descale_reduce"}
 
@@ -207,15 +275,25 @@ def main():
     if not torch.cuda.is_available():
         print("sym_tc_variants: needs a CUDA card", file=sys.stderr)
         return 1
+    from nbody_tpu_torch.ops import ablation_sym as ab
     from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.ops import forces_sym_tc as k5
     from nbody_tpu_torch.utils.device import nvidia_smi_line
     from nbody_tpu_torch.utils.timing import time_ms
+    from tools.ptxas_compare import loop_slots
     smi = nvidia_smi_line()
     shutil.rmtree(WORK, ignore_errors=True)
     tier = args.variant
-    pairs_fn = f"nbt_sym_{tier}_pairs"
-    reduce_fn = _REDUCE.get(tier, "nbt_sym_tc_reduce")
+    # The pair kernels timed, each with its C pair entry and the package's
+    # reduce entry: the tier's own, or tmm_noj / tmm_nomm with K15's none
+    # reduce (forces_sym.cu, which no variant edits).
+    if tier == "tmm":
+        kernels = ("tmm_noj", "tmm_nomm")
+        reduce = {k: ab._entries(k)[1] for k in kernels}
+    else:
+        kernels = (tier,)
+        reduce = {tier: getattr(k5._lib(), _REDUCE.get(
+            tier, "nbt_sym_tc_reduce"))}
     jobs = {name: build(name, edits)
             for name, edits in VARIANTS[tier].items()}
     ref = k5._lib()
@@ -225,40 +303,78 @@ def main():
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         lines = log.splitlines()
-        for i, line in enumerate(lines):
-            if f"Compiling entry function '{_MANGLED[tier]}" in line:
-                report = [x.strip() for x in lines[i + 1:i + 4]
-                          if "registers" in x or "spill" in x]
-                print(f"[variants] {name}: {tier} pairs kernel: "
-                      + "; ".join(report))
         lib = ctypes.CDLL(so)
-        for fn in (pairs_fn, reduce_fn):
+        for fn in ("nbt_sym_tc_pairs_ctas", "nbt_sym_tc_abl_pin"):
+            getattr(lib, fn).argtypes = [ctypes.c_int]
+            getattr(lib, fn).restype = ctypes.c_int
+        for k in kernels + (("turbo",) if tier == "tmm" else ()):
+            fn = f"nbt_sym_{k}_pairs"
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        lib.nbt_sym_tc_pairs_ctas.argtypes = [ctypes.c_int]
-        lib.nbt_sym_tc_pairs_ctas.restype = ctypes.c_int
-        print(f"[variants] {name}: {tier} pairs kernel: "
-              f"{lib.nbt_sym_tc_pairs_ctas(_VARIANT_ID[tier])} CTAs an SM")
+        for k in kernels:
+            report = []
+            for i, line in enumerate(lines):
+                if f"Compiling entry function '{_MANGLED[k]}" in line:
+                    report = [x.strip() for x in lines[i + 1:i + 4]
+                              if "registers" in x or "spill" in x]
+            ctas = lib.nbt_sym_tc_pairs_ctas(_VARIANT_ID[k])
+            if tier == "tmm":
+                lib.nbt_sym_tc_abl_pin(1)
+                pinned = lib.nbt_sym_tc_pairs_ctas(_VARIANT_ID[k])
+                ctas = f"{ctas}, pinned {pinned}"
+                lib.nbt_sym_tc_abl_pin(0)
+            slots = loop_slots(so, _MANGLED[k])
+            print(f"[variants] {name}: {k} pairs kernel: "
+                  + "; ".join(report) + f"; {ctas} CTAs an SM; "
+                  + ("slots a pair not found" if slots is None else
+                     f"{slots[0]:.3f} issue slots a pair, {slots[1]:.3f} "
+                     f"of them LOP3 (column loop)"))
         libs[name] = lib
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.n + 10)
     pos = torch.empty(args.n, 3, device=dev).uniform_(-1e5, 1e5, generator=g)
     mass = torch.empty(args.n, device=dev).uniform_(1e5, 1e9, generator=g)
 
-    def run(lib):
-        return k2.sweep("sym_tc_variants", pos, mass, 0.002,
-                        k2.SLOT_BUDGET_BYTES, getattr(lib, pairs_fn),
-                        getattr(lib, reduce_fn))
-    base = run(libs["base"])
+    def form(lib, k, pinned=False, reduce_fn=None):
+        def run():
+            if pinned:
+                lib.nbt_sym_tc_abl_pin(1)
+            try:
+                return k2.sweep("sym_tc_variants", pos, mass, 0.002,
+                                k2.SLOT_BUDGET_BYTES,
+                                getattr(lib, f"nbt_sym_{k}_pairs"),
+                                reduce_fn or reduce[k])
+            finally:
+                if pinned:
+                    lib.nbt_sym_tc_abl_pin(0)
+        return run
+    # What is timed, by label: each variant's kernels (free and pinned for
+    # tmm), and for tmm base's K5.
+    runs = {}
     for name, lib in libs.items():
-        print(f"[variants] {name}: output bit-equal to base: "
-              f"{bool(torch.equal(run(lib), base))}")
-    names = list(libs)
+        for k in kernels:
+            label = name if tier != "tmm" else f"{name} {k}"
+            runs[label] = form(lib, k)
+            if tier == "tmm":
+                runs[f"{label} pinned"] = form(lib, k, True)
+    if tier == "tmm":
+        runs["base turbo (K5)"] = form(libs["base"], "turbo",
+                                       reduce_fn=ref.nbt_sym_tc_reduce)
+    for k in kernels:
+        base = form(libs["base"], k)()
+        for name, lib in libs.items():
+            out = form(lib, k)()
+            print(f"[variants] {name}: {k} output bit-equal to base: "
+                  f"{bool(torch.equal(out, base))}"
+                  + (f", pinned to itself: "
+                     f"{bool(torch.equal(form(lib, k, True)(), out))}"
+                     if tier == "tmm" else ""))
+        del base
+    names = list(runs)
     times = {k: [] for k in names}
     for r in range(args.rounds):
         for k in (names if r % 2 == 0 else names[::-1]):
-            times[k].append(time_ms(lambda: run(libs[k]), dev, iters=1,
-                                    warmup=1))
+            times[k].append(time_ms(runs[k], dev, iters=1, warmup=1))
     for k, v in times.items():
         print(f"[variants] {tier} N={args.n} {k}: median "
               f"{statistics.median(v):.3f} ms (rounds "
