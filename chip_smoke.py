@@ -24,25 +24,28 @@ and 8 CTAs with real massless bodies; K2-rect, every variant
 and both schedules, at the shard shapes 2048 x 2048 and 2144 x 1536, at
 its float64 gates and with massless bodies on both sides, and at the 1M
 ring's 262,144 x 262,144 shard pair on sampled rows against float64;
-K15, the seven bench-only ablations and the vpu_* forms' control
-vpu_tile (K7's math on the tile they ablate, bit for bit K7's former
-tile built from K7_FORMER_COMMIT's sources) in both sweeps, after
+K15, the seven bench-only ablations and vpu_noj's control vpu_tile (K7's
+math on the tile vpu_noj ablates, bit for bit K7's former tile built from
+K7_FORMER_COMMIT's sources) in both sweeps, after
 ``ablation_sym.enable()``, at N = 8192 and 2048 x 6144, vpu_tile, vpu_rc
 and tmm_full also at their float64 gates, vpu_rc and tmm_full bit for bit
-against vpu_tile / K5, then timed at N = 1M in interleaved rounds with K7,
-K5 and turbop, also held at their control's CTAs per SM, and checked and
-timed at the 262,144 x 262,144 shard pair; K13, the fused ring, every
+against K7 / K5 (rect vpu_rc against K2-rect vpu, rect vpu_fix0's and
+tmm_noj's acc_a against K2-rect vpu's / turbo's), then timed at N = 1M in
+interleaved rounds with K7, K5 and turbop, also held at their control's
+CTAs per SM (K5's split from those rounds), and checked and timed at the
+262,144 x 262,144 shard pair; K13, the fused ring, every
 variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
 N = 1,048,576 against the direct-form ``rect_forces``, times K15's
-``tmm_noj`` and ``tmm_nomm`` (N = 8192 and 1,048,576, there also pinned
-at K5's CTAs an SM; 2048 x 6144 and 262,144 x 262,144) against their
+``vpu_rc`` and ``vpu_fix0`` (N = 8192 and 1,048,576, there also pinned
+at K7's CTAs an SM; 2048 x 6144 and 262,144 x 262,144) against their
 design before the redesign for this card (the sources of PARENT_COMMIT,
-built beside the package's) in alternating rounds with K5, each held to
-its twin and to its own bits from call to call, splits K5's time from
-those rounds, and holds every other kernel's SASS to theirs
+built beside the package's) in alternating rounds with K7 and vpu_tile,
+each held to its twin and to its own bits from call to call, prints
+their registers, CTAs an SM and loop issue slots a pair, splits K7's
+time from those rounds, and holds every other kernel's SASS to theirs
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
@@ -227,21 +230,22 @@ RING_PART_ROWS = 256
 # Rounds of single-device K2, 4-shard ring, ring, K2 at N = 1M.
 RING_N = 1 << 20
 RING_ROUNDS = 2
-# K15, the bench-only ablations and the vpu_* forms' control: name ->
-# (control, float32 flops a pair, tensor-core flops a pair) off the
-# diagonal tiles, where the diagonal stays the exact one-sided pass.
-# vpu_tile, the control: K7's math on the tile the vpu_* forms ablate (K7's
-# 26; its own control is K7 on the pair tile).  vpu_noj: K7's geometry and
-# the row side only (3 sub, 6 for d2 + eps2, 2 for the cube, 1 rsqrt, 1
-# weight, 6 for the row sums: 19); vpu_fix0 K7's 26; vpu_rc K7's and 3
+# K15, the bench-only ablations and vpu_noj's control: name -> (control,
+# float32 flops a pair, tensor-core flops a pair) off the diagonal tiles,
+# where the diagonal stays the exact one-sided pass; the controls are
+# ablation_sym.CONTROLS'.  vpu_tile, vpu_noj's control: K7's math on the
+# tile vpu_noj ablates (K7's 26; its own control is K7 on the pair tile).
+# vpu_noj: K7's geometry and the row side only (3 sub, 6 for d2 + eps2, 2
+# for the cube, 1 rsqrt, 1 weight, 6 for the row sums: 19); vpu_fix0, on
+# K7's pair tile, K7's 26; vpu_rc, on K7's pair tile, K7's and 3
 # subtractions (29); tmm_full and tmm_noscat K5's (14, 32); tmm_noj K5's
 # geometry with one weight and one product (13, 16); tmm_nomm K5's
 # geometry and both weights (14) and the two row-sum adds, no product
 # (16, 0).
 ABLATIONS = {"vpu_tile": ("forces_sym_vpu", 26, 0),
              "vpu_noj": ("forces_sym_vpu_tile", 19, 0),
-             "vpu_fix0": ("forces_sym_vpu_tile", 26, 0),
-             "vpu_rc": ("forces_sym_vpu_tile", 29, 0),
+             "vpu_fix0": ("forces_sym_vpu", 26, 0),
+             "vpu_rc": ("forces_sym_vpu", 29, 0),
              "tmm_full": ("forces_sym_turbo", 14, 32),
              "tmm_noscat": ("forces_sym_turbo", 14, 32),
              "tmm_noj": ("forces_sym_turbo", 13, 16),
@@ -311,33 +315,33 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K15's tmm_noj and tmm_nomm on K5's trimmed tensor-core
-# tile for this card, timed against the design before it: the commit that
-# holds it, unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc |
-# tar -x -C build/parent``) into PARENT_CSRC, where check_redesign builds
-# it beside the package's and times both in rounds (the order reversed
-# every other round; medians).  Without those sources and without git, the
-# rounds and the SASS comparison are skipped and say so.
-PARENT_COMMIT = "1e4b2485d027898f908731dfbc7be17f95744090"
+# The redesign of K15's vpu_rc and vpu_fix0 on K7's pair tile for this
+# card, timed against the design before it: the commit that holds it,
+# unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C
+# build/parent``) into PARENT_CSRC, where check_redesign builds it beside
+# the package's and times both in rounds (the order reversed every other
+# round; medians).  Without those sources and without git, the rounds and
+# the SASS comparison are skipped and say so.
+PARENT_COMMIT = "1072ac930b03d2e3364023b0ad1bb892babf9a96"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
-# K7's former pair tile (before K7 moved to K2's pair tile): K15's control
-# vpu_tile must give its results bit for bit (check_ablations).  Unpacked
-# from git as the parent is, into K7_FORMER_CSRC.
+# K7's former pair tile (before K7 moved to K2's pair tile): vpu_noj's
+# control vpu_tile must give its results bit for bit (check_ablations).
+# Unpacked from git as the parent is, into K7_FORMER_CSRC.
 K7_FORMER_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
 K7_FORMER_CSRC = os.path.join(ROOT, "build", "k7_former", "nbody_tpu_torch",
                               "csrc")
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
 # libraries keeps the parent's SASS, but those the redesign changes: K15's
-# tmm_noj and tmm_nomm pair kernels, sym_tc_pairs_kernel<7>, <8> and
-# rect_tc_pairs_kernel<7>, <8> (SymTcVariant TMM_NOJ, TMM_NOMM).
-# SASS_SAME pairs an old kernel with a new name it lives on under (none in
-# this redesign).
+# vpu_rc and vpu_fix0 pair kernels, sym_pairs_kernel<4>, <3> (SymMath
+# VPU_RC, VPU_FIX0), and rect_pairs_kernel<4>, <3>, which are gone: the
+# rect vpu_rc runs the new rect_rc_pairs_kernel, the rect vpu_fix0 K2-rect
+# vpu's rect_k7_pairs_kernel.  SASS_SAME pairs an old kernel with a new
+# name it lives on under (none in this redesign).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bsym_tc_pairs_kernel<[78]>",
-                   r"\brect_tc_pairs_kernel<[78]>")
+SASS_REDESIGNED = (r"\bsym_pairs_kernel<[34]>", r"\brect_pairs_kernel<[34]>")
 SASS_SAME = ()
 
 
@@ -1101,24 +1105,26 @@ def ablation_bound(name, n, rect_n=None):
 
 def check_ablations(dev, eps2, record, smi, former=None):
     """K15 (``ablation_sym.enable()``, then ``forces_pallas_sym`` and
-    ``rect_forces_sym`` with an ablation variant or the vpu_* forms'
-    control vpu_tile): each of the eight forms of both sweeps against its
-    plain twin (triangular at N = 8192 seed 0, rect at 2048 x 6144),
+    ``rect_forces_sym`` with an ablation variant or vpu_noj's control
+    vpu_tile): each of the eight forms of both sweeps against its plain
+    twin (triangular at N = 8192 seed 0, rect at 2048 x 6144),
     bit-reproducible and the same with one offset / column superblock a
     slot chunk, and (triangular) the same at the control's CTAs per SM;
     vpu_tile, vpu_rc and tmm_full also against a float64 direct sum at the
-    exact and the turbo gate, vpu_rc and tmm_full bit-equal to vpu_tile
-    and K5, vpu_tile within the exact tolerance of K7, rect tmm_noj's
-    acc_a bit-equal to K2-rect turbo's (here and at 262,144 x 262,144); the
-    none forms give B nothing.  Then the sweep at N = 1M (K7, vpu_tile and
-    the vpu_* forms, K5, turbop and the tmm_* forms, and each ablation at its
-    control's CTAs per SM) in ABLATION_ROUNDS interleaved rounds, the
-    outputs of vpu_rc and tmm_full bit-equal to vpu_tile and K5 and each
-    pinned form's to its own; and each rect form at the 1M ring's 262,144 x
-    262,144 shard pair beside K2-rect vpu and turbo, checked there on
-    sampled rows and timed once.  With ``former`` (build_parent's function
-    for K7_FORMER_COMMIT's forces_sym.cu), vpu_tile is first held bit for
-    bit to K7's former pair tile, at N = 8192 (seed 41)."""
+    exact and the turbo gate, vpu_rc bit-equal to K7 and tmm_full to K5,
+    vpu_tile within the exact tolerance of K7, rect vpu_rc bit-equal to
+    K2-rect vpu on both sides and the acc_a of rect vpu_fix0 and tmm_noj
+    bit-equal to K2-rect vpu's and turbo's (here and at 262,144 x
+    262,144); the none forms give B nothing.  Then the sweep at N = 1M
+    (K7, vpu_tile and the vpu_* forms, K5, turbop and the tmm_* forms, and
+    each ablation at its control's CTAs per SM) in ABLATION_ROUNDS
+    interleaved rounds, the outputs of vpu_rc and tmm_full bit-equal to K7
+    and K5 and each pinned form's to its own, and K5's split from the
+    tmm_* forms' rounds (k5_split); and each rect form at the 1M ring's
+    262,144 x 262,144 shard pair beside K2-rect vpu and turbo, checked
+    there on sampled rows and timed once.  With ``former`` (build_parent's
+    function for K7_FORMER_COMMIT's forces_sym.cu), vpu_tile is first held
+    bit for bit to K7's former pair tile, at N = 8192 (seed 41)."""
     import torch
     from nbody_tpu_torch.ops import ablation_sym as ab
     from nbody_tpu_torch.ops import forces_sym as k2
@@ -1143,12 +1149,16 @@ def check_ablations(dev, eps2, record, smi, former=None):
                        lib.nbt_sym_vpu_reduce)
         check(torch.equal(was, ab.forces_sym_ablation(pos, mass, eps2,
                                                       ab.CONTROL)),
-              f"K15's control {ab.CONTROL} is not K7's former tile")
+              f"vpu_noj's control {ab.CONTROL} is not K7's former tile")
         print(f"[check] forces_sym_{ab.CONTROL}, N={ABLATION_N}: bit-equal "
               f"to K7's former pair tile ({K7_FORMER_COMMIT[:7]})")
     else:
-        print("[check] K15's control against K7's former tile skipped: no "
-              "sources of K7_FORMER_COMMIT")
+        print("[check] vpu_noj's control against K7's former tile skipped: "
+              "no sources of K7_FORMER_COMMIT")
+    check(all(ABLATIONS[v][0] == f"forces_sym_{c}"
+              for v, c in ab.CONTROLS.items()),
+          "chip_smoke.ABLATIONS names other controls than "
+          "ablation_sym.CONTROLS")
 
     def tol(name):
         return {} if name.startswith("vpu_") else tc
@@ -1222,15 +1232,15 @@ def check_ablations(dev, eps2, record, smi, former=None):
     ctl = forces_pallas_sym(pos, mass, eps2, variant=ab.CONTROL)
     rc = forces_pallas_sym(pos, mass, eps2, variant="vpu_rc")
     full = forces_pallas_sym(pos, mass, eps2, variant="tmm_full")
+    k7 = k2.forces_sym_vpu(pos, mass, eps2)
     tier_gate("forces_sym_vpu", ctl, ref)
     tier_gate("forces_sym_vpu", rc, ref)
     tier_gate("forces_sym_turbo", full, ref)
-    check(torch.equal(rc, ctl), f"vpu_rc, N={n}: differs from vpu_tile")
-    compare(f"forces_sym_vpu_tile vs K7, N={n}", ctl,
-            k2.forces_sym_vpu(pos, mass, eps2))
+    check(torch.equal(rc, k7), f"vpu_rc, N={n}: differs from K7")
+    compare(f"forces_sym_vpu_tile vs K7, N={n}", ctl, k7)
     check(torch.equal(full, ktc.forces_sym_turbo(pos, mass, eps2)),
           f"tmm_full, N={n}: differs from K5")
-    print(f"[check] N={n}: forces_sym_vpu_rc bit-equal to vpu_tile, "
+    print(f"[check] N={n}: forces_sym_vpu_rc bit-equal to K7, "
           f"forces_sym_tmm_full to K5")
     ra = rect_forces(pa.double(), pb.double(), mb.double(), eps2)
     rb = rect_forces(pb.double(), pa.double(), ma.double(), eps2)
@@ -1240,14 +1250,23 @@ def check_ablations(dev, eps2, record, smi, former=None):
         got = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name)
         for g, r in zip(got, (ra, rb)):
             tier_gate(kname, g, r)
-    # tmm_noj's row sums are K5's tile's, and both reduce passes add A's row
-    # slots in column order: acc_a is K2-rect turbo's bit for bit.
+    # tmm_noj's row sums are K5's tile's and vpu_fix0's K7's, and every
+    # reduce pass adds A's row slots in column order: their acc_a is
+    # K2-rect turbo's and vpu's bit for bit; vpu_rc's sums are K7's.
+    k7r = k2.rect_forces_sym_vpu(pa, ma, pb, mb, eps2)
     check(torch.equal(rect_forces_sym(pa, ma, pb, mb, eps2,
                                       variant="tmm_noj")[0],
                       ktc.rect_forces_sym_turbo(pa, ma, pb, mb, eps2)[0]),
           f"rect tmm_noj {na}x{nb}: acc_a differs from K2-rect turbo's")
+    check(torch.equal(rect_forces_sym(pa, ma, pb, mb, eps2,
+                                      variant="vpu_fix0")[0], k7r[0]),
+          f"rect vpu_fix0 {na}x{nb}: acc_a differs from K2-rect vpu's")
+    check(all(torch.equal(x, y) for x, y in zip(
+        rect_forces_sym(pa, ma, pb, mb, eps2, variant="vpu_rc"), k7r)),
+          f"rect vpu_rc {na}x{nb}: differs from K2-rect vpu")
     print(f"[check] {na}x{nb}: rect_forces_sym_tmm_noj's acc_a bit-equal "
-          f"to K2-rect turbo's")
+          f"to K2-rect turbo's, rect_forces_sym_vpu_fix0's to K2-rect "
+          f"vpu's, rect_forces_sym_vpu_rc to K2-rect vpu on both sides")
     del ref, ra, rb
 
     # N = 1M: one evaluation of each form a round, in turns; each
@@ -1274,15 +1293,15 @@ def check_ablations(dev, eps2, record, smi, former=None):
         out[kname] = f(pos, mass, eps2)
         check(bool(torch.isfinite(out[kname]).all()),
               f"{kname} N=1M: non-finite")
-    check(torch.equal(out["forces_sym_vpu_rc"], out["forces_sym_vpu_tile"]),
-          "vpu_rc N=1M: differs from vpu_tile")
+    check(torch.equal(out["forces_sym_vpu_rc"], out["forces_sym_vpu"]),
+          "vpu_rc N=1M: differs from K7")
     check(torch.equal(out["forces_sym_tmm_full"], out["forces_sym_turbo"]),
           "tmm_full N=1M: differs from K5")
     for v in ab.ABLATION_NAMES:
         check(torch.equal(out[f"forces_sym_{v} pinned"],
                           out[f"forces_sym_{v}"]),
               f"{v} N=1M: differs at its control's occupancy")
-    print("[check] N=1M: forces_sym_vpu_rc bit-equal to vpu_tile, "
+    print("[check] N=1M: forces_sym_vpu_rc bit-equal to K7, "
           "forces_sym_tmm_full to K5, each ablation to itself pinned")
     del out
     times = {k: [] for k in forms}
@@ -1308,6 +1327,8 @@ def check_ablations(dev, eps2, record, smi, former=None):
               f"(rounds {', '.join(f'{x:.3f}' for x in ts)}); "
               f"{control} / {kname} median {statistics.median(ratios):.4f} "
               f"(rounds {', '.join(f'{x:.4f}' for x in ratios)}) ({smi})")
+    k5_split({k: statistics.median(ts) for k, ts in times.items()}, n,
+             record, smi)
     del pos, mass
 
     # The 1M ring's shard pair (B in three slot chunks), beside K2-rect:
@@ -1337,7 +1358,7 @@ def check_ablations(dev, eps2, record, smi, former=None):
             compare(f"{what} acc_a vs plain, {RECT_1M_ROWS} sampled rows",
                     got[0][ra], twin, **tol(variant))
             mode = ab.J_MODE[variant]
-            control = ab.CONTROL if variant.startswith("vpu") else "turbo"
+            control = ab.CONTROLS.get(variant, "vpu")
             if mode == "none":
                 check(not bool(got[1].any()), f"{what}: B got a force")
             elif mode == "fix0":
@@ -1362,8 +1383,13 @@ def check_ablations(dev, eps2, record, smi, former=None):
               f"sweep ({smi})")
     check(torch.equal(outs["tmm_noj"][0], outs["turbo"][0]),
           f"rect tmm_noj {n}x{n}: acc_a differs from K2-rect turbo's")
+    check(torch.equal(outs["vpu_fix0"][0], outs["vpu"][0]),
+          f"rect vpu_fix0 {n}x{n}: acc_a differs from K2-rect vpu's")
+    check(all(torch.equal(x, y) for x, y in zip(outs["vpu_rc"], outs["vpu"])),
+          f"rect vpu_rc {n}x{n}: differs from K2-rect vpu")
     print(f"[check] {n}x{n}: rect_forces_sym_tmm_noj's acc_a bit-equal to "
-          f"K2-rect turbo's, every row")
+          f"K2-rect turbo's and rect_forces_sym_vpu_fix0's to K2-rect vpu's, "
+          f"rect_forces_sym_vpu_rc to K2-rect vpu on both sides, every row")
     print(f"[time] K15 checks: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1964,8 +1990,9 @@ def finish_sass_compare(job):
 def build_parent(csrc, names, tag="parent", report=True):
     """Start nvcc on an earlier commit's ``names`` (csrc/<name>.cu) with the
     package's flags into WORK/``tag``, one nvcc each, all at once, in the
-    background; returns a function that waits for them, prints their
-    registers and spills (``report``) and returns the ctypes libraries."""
+    background; returns a function that waits for them, keeps each one's
+    report in WORK/``tag``/<name>.log, prints their registers and spills
+    (``report``) and returns the ctypes libraries."""
     import ctypes
     from nbody_tpu_torch.ops import _build
     out = os.path.join(WORK, tag)
@@ -1983,6 +2010,8 @@ def build_parent(csrc, names, tag="parent", report=True):
         for name, (so, proc) in jobs.items():
             log, _ = proc.communicate()
             check(proc.returncode == 0, f"{tag} {name}.cu: nvcc failed\n{log}")
+            with open(os.path.join(out, f"{name}.log"), "w") as f:
+                f.write(log)
             for line in log.splitlines() if report else ():
                 if "registers" in line or "spill" in line:
                     print(f"[redesign] {tag} {name}.cu: {line.strip()}")
@@ -2031,24 +2060,15 @@ def alternate(fns, dev, iters, warmup=1, device=False):
     return times
 
 
-def report_rounds(what, times, smi):
-    """Print the rounds, the medians and new / parent; returns the
-    medians."""
-    med = {k: statistics.median(v) for k, v in times.items()}
-    rounds = "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v)
-                       for k, v in times.items())
-    print(f"[redesign] {what}: parent {med['parent']:.4f} ms, new "
-          f"{med['new']:.4f} ms, new/parent "
-          f"{med['new'] / med['parent']:.4f} (medians of "
-          f"{REDESIGN_ROUNDS} rounds: {rounds}) ({smi})")
-    return med
-
-
-# The parent's library check_redesign builds and binds: its forces_sym_tc.cu
-# (K15's tmm_noj and tmm_nomm on pair_inv, the column loop rolled,
-# tmm_nomm rounding each weight by a convert of its own), through the
-# package's C entry names.
-PARENT_LIBS = ("forces_sym_tc",)
+# The parent's library check_redesign builds and binds: its forces_sym.cu
+# (K15's vpu_rc and vpu_fix0 on sym_tile_core, K7's former tile, pinned at
+# vpu_tile's CTAs an SM), through the package's C entry names.
+PARENT_LIBS = ("forces_sym",)
+# The redesigned forms, and the SymMath ids (csrc/sym_common.cuh) of the
+# triangular pair kernels check_redesign reads: K7, the two forms and
+# vpu_tile.
+VPU_FORMS = ("vpu_rc", "vpu_fix0")
+SYM_MATH = {"vpu": 1, "vpu_fix0": 3, "vpu_rc": 4, "vpu_tile": 5}
 # The MUFU's rate on one H100 SXM: 16 a clock on each of its 132 SMs at the
 # 1.98 GHz boost clock.  A pair of K5's tile takes one MUFU rsqrt, and K5's
 # and tmm_nomm's one bf16x2 convert (F2FP) a pair too.
@@ -2060,7 +2080,6 @@ MUFU_RATE = 16 * 132 * 1.98e9
 # LOP3 a pair (tools/sym_tc_variants.py --variant tmm's sink, the consumer
 # cut to one XOR, gives the same count).
 NOMM_SLOTS_A_LOP3 = 4
-TMM_FORMS = ("tmm_noj", "tmm_nomm")
 
 # The fold kernels (K14d and the K2-rect folds): name -> (K7's math,
 # rect); tools/fold_variants.py times them.
@@ -2098,91 +2117,172 @@ def fold_sweep(lib, kname, args, eps2, parts="both"):
                     u, (u // 256,))
 
 
-def pinned(lib, fn):
-    """``fn`` with ``lib``'s tmm_* pair launches held at its K5's CTAs an
-    SM (nbt_sym_tc_abl_pin, the pin of ablation_sym.control_occupancy)."""
+def pinned(pin, fn):
+    """``fn`` with a library's ablation pair launches held at their
+    controls' CTAs an SM by ``pin`` (its nbt_sym_abl_pin or
+    nbt_sym_tc_abl_pin, the pins of ablation_sym.control_occupancy)."""
     def run():
-        check(lib.nbt_sym_tc_abl_pin(1) >= 0, "the tmm_* pin failed")
+        check(pin(1) >= 0, f"{pin.__name__}: the pin failed")
         try:
             return fn()
         finally:
-            lib.nbt_sym_tc_abl_pin(0)
+            pin(0)
     return run
 
 
+def kernel_regs(log, prefix):
+    """The registers of the kernel whose mangled name starts with
+    ``prefix``, from nvcc's ``-Xptxas -v`` report ``log``, or None."""
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and fn.startswith(prefix):
+            return int(m.group(1))
+    return None
+
+
+def k5_split(med, n, record, smi):
+    """K5's split from check_ablations' rounds at N = ``n`` (``med``: the
+    medians by kernel name; K5, tmm_noj and tmm_nomm pinned at K5's CTAs
+    an SM): the j-side pass (K5 less tmm_noj), the pair terms with both
+    roundings (the no-mma floor: tmm_nomm as measured, and corrected by
+    its column loop's issue slots a pair without and with its consumer,
+    from tools/ptxas_compare.py's loop_slots) and what each floor leaves
+    to the i-side mma, each a share of K5's median."""
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from tools.ptxas_compare import loop_slots
+    so = str(_build.library_path("forces_sym_tc"))
+    # SymTcVariant ids (csrc/sym_tc_tile.cuh).
+    slots = {v: loop_slots(so, f"_Z19sym_tc_pairs_kernelILi{i}E")
+             for v, i in (("turbo", 0), ("tmm_noj", 7), ("tmm_nomm", 8))}
+    check(None not in slots.values(), "K5, tmm_noj or tmm_nomm: no column "
+          "loop in its SASS")
+    k5, noj, nomm = (med["forces_sym_turbo"],
+                     med["forces_sym_tmm_noj pinned"],
+                     med["forces_sym_tmm_nomm pinned"])
+    # tmm_nomm's column loop without its consumer (NOMM_SLOTS_A_LOP3).
+    check(slots["turbo"][1] == 0 and slots["tmm_noj"][1] == 0,
+          "K5's or tmm_noj's column loop has a LOP3: the consumer's slots "
+          "cannot be counted by tmm_nomm's LOP3")
+    with_c = slots["tmm_nomm"][0]
+    consumer = NOMM_SLOTS_A_LOP3 * slots["tmm_nomm"][1]
+    check(0 < consumer < with_c, f"tmm_nomm's consumer: {consumer} slots")
+    floor = nomm * (with_c - consumer) / with_c
+    print(f"[split] tmm_nomm's column loop: {with_c:.3f} issue slots a pair "
+          f"with its consumer, {consumer:.3f} of them the consumer's; "
+          f"consumer-corrected floor {nomm:.3f} x {with_c - consumer:.3f} / "
+          f"{with_c:.3f} = {floor:.3f} ms")
+    print(f"[split] K5 at N={n}, pinned at its CTAs an SM, medians of "
+          f"{ABLATION_ROUNDS} rounds: K5 {k5:.3f} ms, tmm_noj {noj:.3f}, "
+          f"tmm_nomm {nomm:.3f} (its consumer included); ms an issue slot "
+          f"a pair: " + ", ".join(
+              f"{name} {t / slots[v][0]:.3f}" for name, v, t in (
+                  ("K5", "turbo", k5), ("tmm_noj", "tmm_noj", noj),
+                  ("tmm_nomm", "tmm_nomm", nomm))) + f" ({smi})")
+    print(f"[split] K5's j-side pass (K5 less tmm_noj): {(k5 - noj) / k5:.2%}"
+          f" of K5")
+    for what, base in (("consumer-corrected", floor), ("measured", nomm)):
+        print(f"[split] the no-mma floor, pair terms and both roundings "
+              f"({what}): {base / k5:.2%} of K5; it leaves the i-side mma "
+              f"{(noj - base) / k5:.2%} (tmm_noj less the floor, which "
+              f"carries the j side's rounding and tmm_noj does not; a "
+              f"share below 0 means the parts do not add)")
+    nb = -(-n // k2.SYM_TILE)
+    mufu = 1e3 * (nb * (nb - 1) // 2) * k2.SYM_TILE ** 2 / MUFU_RATE
+    print(f"[split] the sweep's off-diagonal pairs at MUFU_RATE: {mufu:.3f} "
+          f"ms for one MUFU rsqrt a pair ({mufu / nomm:.2%} of tmm_nomm's "
+          f"time, {mufu / k5:.2%} of K5's); {2 * mufu:.3f} if one F2FP a "
+          f"pair shared that unit (not probed)")
+    record["forces_sym_turbo"].update({
+        "split_j_side": (k5 - noj) / k5, "split_floor_measured": nomm / k5,
+        "split_floor_corrected": floor / k5})
+
+
 def check_redesign(dev, eps2, record, smi, parent_build):
-    """K15's tmm_noj and tmm_nomm, redesigned on K5's trimmed tile, against
-    the parent's design (pair_inv, the loop rolled, tmm_nomm's per-weight
-    converts) on the same inputs in alternating rounds, through one host
-    path: the package's sweep / rect_sweep with either library's C pair
-    entries and the package's none reduce (csrc/forces_sym.cu).  At N =
-    8192 (seed 41) and 2048 x 6144 (ablation_rect_sets) each new form is
-    held to its twin, is the wrapper's result, bit-reproducible,
-    chunk-invariant and (triangular) equal to itself pinned, and the card's
-    time alone (device_ms) is taken against the parent's.  At N = 1M (seed
-    6) the rounds time K5, tmm_full and each form of the parent and the
-    new build free and pinned at K5's CTAs an SM; each new form must beat
-    the parent's in every round, and pinned tmm_noj must read below K5 in
-    every round.  The rounds then print K5's split: the j-side pass (K5
-    less tmm_noj), the pair terms with both roundings (the no-mma floor:
-    tmm_nomm as measured, and corrected by its column loop's issue slots
-    a pair without and with its consumer, from tools/ptxas_compare.py's
-    loop_slots) and what each floor leaves to the i-side mma, each a share
-    of K5's median.  At the 1M ring's 262,144 x 262,144 shard pair each
-    rect form against the parent's, with K2-rect turbo, in rounds.
-    ``parent_build``: build_parent's function for the parent's
-    forces_sym_tc.cu."""
+    """K15's vpu_rc and vpu_fix0, redesigned on K7's pair tile, against
+    the parent's design (sym_tile_core, K7's former tile, pinned at
+    vpu_tile's CTAs an SM) on the same inputs in alternating rounds,
+    through one host path: the package's sweep / rect_sweep with either
+    library's C pair entries and the package's reduce passes (K7's slot
+    sum for vpu_rc, fix0's for vpu_fix0).  First each pair kernel's
+    registers, CTAs an SM free and pinned, and its loop's issue slots and
+    FADD a pair (tools/ptxas_compare.py's loop_slots), K7's and
+    vpu_tile's beside them; vpu_rc's loop must carry three FADD a pair
+    more than K7's.  At N = 8192 (seed 41) and 2048 x 6144
+    (ablation_rect_sets) each new form is held to its twin, is the
+    wrapper's result, bit-reproducible, chunk-invariant and (triangular)
+    equal to itself pinned, vpu_rc bit-equal to K7 and K2-rect vpu and
+    rect vpu_fix0's acc_a to K2-rect vpu's; the card's time alone
+    (device_ms) is taken against the parent's.  At N = 1M (seed 6) the
+    rounds time K7, vpu_tile and each form of the parent and the new
+    build, free and pinned (the new at K7's CTAs an SM); each new form
+    must beat the parent's in every round.  The rounds then print K7's
+    split: vpu_fix0 less K7 (JAX's dynamic-offset scatter, a store
+    address here), vpu_rc pinned less K7 (three FADDs a pair), vpu_rc
+    free against pinned.  At the 1M ring's 262,144 x 262,144 shard pair
+    each rect form against the parent's, with K2-rect vpu and vpu_tile's
+    rect sweep, in rounds.  ``parent_build``: build_parent's function for
+    the parent's forces_sym.cu."""
     import ctypes
     import torch
     from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops import ablation_sym as ab
     from nbody_tpu_torch.ops import forces_sym as k2
-    from nbody_tpu_torch.ops import forces_sym_tc as ktc
     from tools.ptxas_compare import loop_slots
     t0 = time.perf_counter()
     ab.enable()
-    new = ktc._lib()
-    entries = {v: ab._entries(v) for v in ("tmm_full",) + TMM_FORMS}
-    libs = {"parent": parent_build()["forces_sym_tc"], "new": new}
+    new = k2._lib()
+    entries = {v: ab._entries(v) for v in VPU_FORMS}
+    libs = {"parent": parent_build()["forces_sym"], "new": new}
     for lib in libs.values():
-        for v in ("turbo", "tmm_full") + TMM_FORMS:
+        for v in VPU_FORMS:
             for kind in ("sym", "rect"):
                 fn = f"nbt_{kind}_{v}_pairs"
                 getattr(lib, fn).argtypes = getattr(new, fn).argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-        for fn in ("nbt_sym_tc_pairs_ctas", "nbt_sym_tc_abl_pin"):
+        for fn in ("nbt_sym_pairs_ctas", "nbt_sym_abl_pin"):
             getattr(lib, fn).argtypes = [ctypes.c_int]
             getattr(lib, fn).restype = ctypes.c_int
-    so = {"parent": os.path.join(WORK, "parent", "libforces_sym_tc.so"),
-          "new": str(_build.library_path("forces_sym_tc"))}
-    # SymTcVariant ids (csrc/sym_tc_tile.cuh).
-    ids = {"turbo": 0, "tmm_noj": 7, "tmm_nomm": 8}
+    so = {"parent": os.path.join(WORK, "parent", "libforces_sym.so"),
+          "new": str(_build.library_path("forces_sym"))}
+    with open(os.path.join(WORK, "parent", "forces_sym.log")) as f:
+        logs = {"parent": f.read(), "new": _build.BUILD_LOG["forces_sym"]}
     slots = {}
     for tag, lib in libs.items():
-        for v in ("turbo",) + TMM_FORMS:
-            slots[tag, v] = s = loop_slots(
-                so[tag], f"_Z19sym_tc_pairs_kernelILi{ids[v]}E")
-            check(s is not None, f"{tag} {v}: no column loop in its SASS")
-            free = lib.nbt_sym_tc_pairs_ctas(ids[v])
-            lib.nbt_sym_tc_abl_pin(1)
-            pin = lib.nbt_sym_tc_pairs_ctas(ids[v])
-            lib.nbt_sym_tc_abl_pin(0)
-            print(f"[redesign] {tag} {v} pair kernel: {free} CTAs an SM, "
-                  f"{pin} pinned; column loop {s[0]:.3f} issue slots a "
-                  f"pair, {s[1]:.3f} of them LOP3")
+        for v, m in SYM_MATH.items():
+            prefix = f"_Z16sym_pairs_kernelILi{m}E"
+            slots[tag, v] = s = loop_slots(so[tag], prefix, ("FADD",))
+            check(s is not None, f"{tag} {v}: no pair loop in its SASS")
+            free = lib.nbt_sym_pairs_ctas(m)
+            check(lib.nbt_sym_abl_pin(1) >= 0, f"{tag}: the vpu_* pin failed")
+            pin = lib.nbt_sym_pairs_ctas(m)
+            lib.nbt_sym_abl_pin(0)
+            print(f"[redesign] {tag} {v} pair kernel: "
+                  f"{kernel_regs(logs[tag], prefix)} registers, {free} CTAs "
+                  f"an SM, {pin} pinned; loop {s[0]:.3f} issue slots a pair, "
+                  f"{s[1]:.3f} of them FADD")
+    for prefix in ("_Z20rect_k7_pairs_kernel", "_Z20rect_rc_pairs_kernel"):
+        s = loop_slots(so["new"], prefix, ("FADD",))
+        print(f"[redesign] new {prefix}: "
+              f"{kernel_regs(logs['new'], prefix)} registers; loop "
+              f"{s[0]:.3f} issue slots a pair, {s[1]:.3f} of them FADD")
+    extra = slots["new", "vpu_rc"][1] - slots["new", "vpu"][1]
+    check(abs(extra - 3) < 1e-6, f"vpu_rc's loop carries {extra:.3f} FADD a "
+          f"pair more than K7's, not 3")
 
     def sweep(lib, v, pos, mass, budget=k2.SLOT_BUDGET_BYTES):
-        reduce = (new.nbt_sym_tc_reduce if v == "turbo"
-                  else entries[v][1])
         return lambda: k2.sweep(f"forces_sym_{v}", pos, mass, eps2, budget,
-                                getattr(lib, f"nbt_sym_{v}_pairs"), reduce)
+                                getattr(lib, f"nbt_sym_{v}_pairs"),
+                                entries[v][1])
 
     def rect(lib, v, args, budget=k2.SLOT_BUDGET_BYTES):
-        reduce = (new.nbt_rect_tc_reduce if v == "turbo"
-                  else entries[v][3])
         pairs = getattr(lib, f"nbt_rect_{v}_pairs")
         return lambda: k2.rect_sweep(f"rect_forces_sym_{v}", *args, eps2,
-                                     budget, pairs, reduce, False)
+                                     budget, pairs, entries[v][3], False)
 
     def rounds(tag, fns, iters, device=False):
         """fns' times in REDESIGN_ROUNDS alternating rounds (CUDA events,
@@ -2208,18 +2308,21 @@ def check_redesign(dev, eps2, record, smi, parent_build):
     n_pad = -(-n // 256) * 256
     na, nb = ABLATION_RECT
     args = ablation_rect_sets(dev)
-    for v in TMM_FORMS:
+    k7 = k2.forces_sym_vpu(pos, mass, eps2)
+    k7r = k2.rect_forces_sym_vpu(*args, eps2)
+    for v in VPU_FORMS:
         tag = f"K15 {v} N={n}"
         got = sweep(new, v, pos, mass)()
         twin = ab.forces_sym_ablation_plain(pos, mass, eps2, v)
-        compare(f"{tag} vs plain", got, twin, rel_tol=TC_REL_TOL,
-                abs_floor=TC_ABS_FLOOR)
+        compare(f"{tag} vs plain", got, twin)
         check(torch.equal(got, ab.forces_sym_ablation(pos, mass, eps2, v))
               and torch.equal(got, sweep(new, v, pos, mass)())
               and torch.equal(got, sweep(new, v, pos, mass, 24 * n_pad)())
-              and torch.equal(got, pinned(new, sweep(new, v, pos, mass))()),
+              and torch.equal(got, pinned(new.nbt_sym_abl_pin,
+                                          sweep(new, v, pos, mass))()),
               f"{tag}: not the wrapper's result, not bit-reproducible, not "
               f"chunk-invariant or not the same pinned")
+        check(v != "vpu_rc" or torch.equal(got, k7), f"{tag}: not K7's bits")
         was = sweep(libs["parent"], v, pos, mass)()
         print(f"[redesign] {tag}: the wrapper's, bit-reproducible, "
               f"chunk-invariant, the same pinned; max |new - twin| "
@@ -2232,9 +2335,10 @@ def check_redesign(dev, eps2, record, smi, parent_build):
         tag = f"K15 rect {v} {na}x{nb}"
         got = rect(new, v, args)()
         twin = ab.rect_forces_sym_ablation_plain(*args, eps2, v)
-        compare(f"{tag} acc_a vs plain", got[0], twin[0],
-                rel_tol=TC_REL_TOL, abs_floor=TC_ABS_FLOOR)
-        check(not bool(got[1].any()), f"{tag}: B got a force")
+        for side, g, w in zip("ab", got, twin):
+            compare(f"{tag} acc_{side} vs plain", g, w)
+        check(torch.equal(got[0], k7r[0]) and (v != "vpu_rc" or torch.equal(
+            got[1], k7r[1])), f"{tag}: not K2-rect vpu's bits")
         for other in (ab.rect_forces_sym_ablation(*args, eps2, v),
                       rect(new, v, args)(), rect(new, v, args, 24 * na)()):
             check(all(torch.equal(x, y) for x, y in zip(got, other)),
@@ -2244,28 +2348,32 @@ def check_redesign(dev, eps2, record, smi, parent_build):
                            "new": rect(new, v, args)}, 20, True)[1]
         record[f"rect_forces_sym_{v}"].update({
             "parent_device_ms": med["parent"], "new_device_ms": med["new"]})
-    del pos, mass, args
+    print(f"[redesign] N={n}: vpu_rc bit-equal to K7; {na}x{nb}: rect "
+          f"vpu_rc to K2-rect vpu on both sides, rect vpu_fix0's acc_a to "
+          f"K2-rect vpu's")
+    del pos, mass, args, k7, k7r
 
-    # N = 1M: K5, tmm_full, the parent's and the new forms free and pinned.
+    # N = 1M: K7, vpu_tile, the parent's and the new forms free and pinned.
     n = RING_N
     pos, mass = bodies(n, 6, dev)
-    fns = {"K5": sweep(new, "turbo", pos, mass),
-           "tmm_full": sweep(new, "tmm_full", pos, mass)}
-    for v in TMM_FORMS:
+    fns = {"K7": lambda: k2.forces_sym_vpu(pos, mass, eps2),
+           "vpu_tile": lambda: ab.forces_sym_ablation(pos, mass, eps2,
+                                                      ab.CONTROL)}
+    for v in VPU_FORMS:
         for tag in ("parent", "new"):
             fns[f"{tag} {v}"] = sweep(libs[tag], v, pos, mass)
-            fns[f"{tag} {v} pinned"] = pinned(libs[tag], fns[f"{tag} {v}"])
-    out = {k: fns[k]() for k in ("K5", "tmm_full", "new tmm_noj",
-                                 "new tmm_noj pinned", "new tmm_nomm",
-                                 "new tmm_nomm pinned")}
-    check(torch.equal(out["tmm_full"], out["K5"]), "tmm_full N=1M: not K5")
-    for v in TMM_FORMS:
+            fns[f"{tag} {v} pinned"] = pinned(libs[tag].nbt_sym_abl_pin,
+                                              fns[f"{tag} {v}"])
+    out = {k: fns[k]() for k in ("K7", "new vpu_rc", "new vpu_rc pinned",
+                                 "new vpu_fix0", "new vpu_fix0 pinned")}
+    check(torch.equal(out["new vpu_rc"], out["K7"]), "vpu_rc N=1M: not K7")
+    for v in VPU_FORMS:
         check(bool(torch.isfinite(out[f"new {v}"]).all())
               and torch.equal(out[f"new {v}"], out[f"new {v} pinned"]),
               f"{v} N=1M: non-finite, or not the same pinned")
     del out
     times, med = rounds(f"K15 N={n}", fns, 1)
-    for v in TMM_FORMS:
+    for v in VPU_FORMS:
         for pin in ("", " pinned"):
             check(all(a < b for a, b in zip(times[f"new {v}{pin}"],
                                             times[f"parent {v}{pin}"])),
@@ -2275,49 +2383,26 @@ def check_redesign(dev, eps2, record, smi, parent_build):
             record[f"forces_sym_{v}"].update({
                 f"new{key}_ms_1m": med[f"new {v}{pin}"],
                 f"parent{key}_ms_1m": med[f"parent {v}{pin}"]})
-    check(all(a < b for a, b in zip(times["new tmm_noj pinned"],
-                                    times["K5"])),
-          "tmm_noj pinned N=1M: not below K5 in every round")
-    k5, noj, nomm = (med["K5"], med["new tmm_noj pinned"],
-                     med["new tmm_nomm pinned"])
-    # tmm_nomm's column loop without its consumer (NOMM_SLOTS_A_LOP3).
-    check(slots["new", "turbo"][1] == 0 and slots["new", "tmm_noj"][1] == 0,
-          "K5's or tmm_noj's column loop has a LOP3: the consumer's slots "
-          "cannot be counted by tmm_nomm's LOP3")
-    with_c = slots["new", "tmm_nomm"][0]
-    consumer = NOMM_SLOTS_A_LOP3 * slots["new", "tmm_nomm"][1]
-    check(0 < consumer < with_c, f"tmm_nomm's consumer: {consumer} slots")
-    floor = nomm * (with_c - consumer) / with_c
-    print(f"[split] tmm_nomm's column loop: {with_c:.3f} issue slots a pair "
-          f"with its consumer, {consumer:.3f} of them the consumer's; "
-          f"consumer-corrected floor {nomm:.3f} x {with_c - consumer:.3f} / "
-          f"{with_c:.3f} = {floor:.3f} ms")
-    print(f"[split] K5 at N={n}, pinned at its CTAs an SM, medians of "
-          f"{REDESIGN_ROUNDS} rounds: K5 {k5:.3f} ms, tmm_noj {noj:.3f}, "
-          f"tmm_nomm {nomm:.3f} (its consumer included); ms an issue slot "
-          f"a pair: " + ", ".join(
-              f"{name} {t / slots['new', v][0]:.3f}" for name, v, t in (
-                  ("K5", "turbo", k5), ("tmm_noj", "tmm_noj", noj),
-                  ("tmm_nomm", "tmm_nomm", nomm))) + f" ({smi})")
-    print(f"[split] K5's j-side pass (K5 less tmm_noj): {(k5 - noj) / k5:.2%}"
-          f" of K5")
-    for what, base in (("consumer-corrected", floor), ("measured", nomm)):
-        print(f"[split] the no-mma floor, pair terms and both roundings "
-              f"({what}): {base / k5:.2%} of K5; it leaves the i-side mma "
-              f"{(noj - base) / k5:.2%} (tmm_noj less the floor, which "
-              f"carries the j side's rounding and tmm_noj does not; a "
-              f"share below 0 means the parts do not add)")
-    print("[split] PR 7's split, of the untrimmed K5 (431 ms): 83.9% pair "
-          "terms + i-side mma, 16.1% j-side pass")
-    nb = -(-n // k2.SYM_TILE)
-    mufu = 1e3 * (nb * (nb - 1) // 2) * k2.SYM_TILE ** 2 / MUFU_RATE
-    print(f"[split] the sweep's off-diagonal pairs at MUFU_RATE: {mufu:.3f} "
-          f"ms for one MUFU rsqrt a pair ({mufu / nomm:.2%} of tmm_nomm's "
-          f"time, {mufu / k5:.2%} of K5's); {2 * mufu:.3f} if one F2FP a "
-          f"pair shared that unit (not probed)")
-    record["forces_sym_turbo"].update({
-        "split_j_side": (k5 - noj) / k5, "split_floor_measured": nomm / k5,
-        "split_floor_corrected": floor / k5})
+    k7_ms, fix0, rc, rc_free = (med["K7"], med["new vpu_fix0 pinned"],
+                                med["new vpu_rc pinned"], med["new vpu_rc"])
+    s7, src = slots["new", "vpu"][0], slots["new", "vpu_rc"][0]
+    print(f"[split] K7 at N={n}, medians of {REDESIGN_ROUNDS} rounds: K7 "
+          f"{k7_ms:.3f} ms, vpu_fix0 {fix0:.3f} and vpu_rc {rc:.3f} pinned "
+          f"at K7's CTAs an SM, vpu_rc free {rc_free:.3f}, vpu_tile "
+          f"{med['vpu_tile']:.3f}; ms an issue slot a pair: K7 "
+          f"{k7_ms / s7:.3f}, vpu_rc {rc / src:.3f} ({smi})")
+    print(f"[split] vpu_fix0 less K7, JAX's dynamic-offset scatter (a store "
+          f"address here; fix0's reduce in place of the slot sum): "
+          f"{(fix0 - k7_ms) / k7_ms:+.2%} of K7")
+    print(f"[split] vpu_rc pinned less K7, three FADDs a pair: "
+          f"{(rc - k7_ms) / k7_ms:+.2%} of K7 ({src:.3f} against {s7:.3f} "
+          f"issue slots a pair: {(src - s7) / s7:+.2%} if the loop ran at "
+          f"K7's issue rate)")
+    print(f"[split] vpu_rc free against pinned, the liveness it frees: "
+          f"{(rc_free - rc) / rc:+.2%}")
+    record["forces_sym_vpu"].update({
+        "split_fix0": (fix0 - k7_ms) / k7_ms, "split_rc": (rc - k7_ms) / k7_ms,
+        "split_rc_free": (rc_free - rc) / rc})
     del pos, mass
 
     # The 1M ring's shard pair.
@@ -2325,12 +2410,14 @@ def check_redesign(dev, eps2, record, smi, parent_build):
     pa, ma = bodies(n, 41, dev)
     pb, mb = bodies(n, 42, dev)
     args = (pa, ma, pb, mb)
-    fns = {"K2-rect turbo": rect(new, "turbo", args)}
-    for v in TMM_FORMS:
+    fns = {"K2-rect vpu": lambda: k2.rect_forces_sym_vpu(*args, eps2),
+           "vpu_tile": lambda: ab.rect_forces_sym_ablation(*args, eps2,
+                                                           ab.CONTROL)}
+    for v in VPU_FORMS:
         fns[f"parent {v}"] = rect(libs["parent"], v, args)
         fns[f"new {v}"] = rect(new, v, args)
     times, med = rounds(f"K15 rect {n}x{n}", fns, 1)
-    for v in TMM_FORMS:
+    for v in VPU_FORMS:
         check(all(a < b for a, b in zip(times[f"new {v}"],
                                         times[f"parent {v}"])),
               f"rect {v} {n}x{n}: not faster than the parent's in every "
@@ -3085,8 +3172,8 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K15's tmm_noj and tmm_nomm against the
-    # design before their redesign, and K5's split.
+    # 4. K2 at the 1M headline; K15's vpu_rc and vpu_fix0 against the
+    # design before their redesign, and K7's split.
     check_k2_1m(dev)
     if csrc:
         check_redesign(dev, 0.002, record, smi, parent_build)
@@ -3235,7 +3322,7 @@ def main():
             ("rdma_ring", "nbody_tpu_torch/csrc/rdma_ring.cu",
              "nbody_tpu/parallel/rdma_ring.py:277"),
             # K15: the triangular sweep (_make_tri) and the panel pair
-            # (_make_rect) of each ablation; their control vpu_tile
+            # (_make_rect) of each ablation; vpu_noj's control vpu_tile
             # computes what JAX's vpu variant does, on K7's former tile.
             *((f"{kind}_{v}", "nbody_tpu_torch/csrc/forces_sym"
                + ("_tc" if v.startswith("tmm_") else "") + ".cu",

@@ -106,17 +106,18 @@
 // K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
 // _make_rect_kernel_fold between two disjoint body sets) runs the pair
 // tile, classic or folded the same way, over a rectangular enumeration.
-// K15's vpu_* ablations
-// (nbody_tpu/ops/ablation_sym.py) and their control VPU_TILE (K7's math)
-// are SymMath values of sym_tile_core, the tile K7 ran before its
-// redesign, with the reduce passes that every K15 form shares; they come
-// last.
+// K15's vpu_* ablations (nbody_tpu/ops/ablation_sym.py) are SymMath values:
+// vpu_rc and vpu_fix0 of the pair tile, ablating K7 as it runs (their
+// control), vpu_noj of sym_tile_core, the tile K7 ran before its redesign,
+// with its control VPU_TILE (K7's math on that tile).  Their reduce
+// passes, shared by every K15 form, come last.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
 
 #include <cooperative_groups.h>
 
+#include <algorithm>
 #include <utility>
 
 #include "sym_common.cuh"
@@ -126,12 +127,10 @@
 
 namespace cg = cooperative_groups;
 
-// K15's tiles, the ablations of K7's former tile and their control
-// (VPU_TILE): sym_tile_core with K7's one-sided weights fi = m_j inv and
-// fj = m_i inv (or an ablation of them), written to sym_pair_tile's
-// slots.  VPU_FIX0 stores the column sums in slot sj[dk][I], the writer's
-// own (J -> I is a bijection for one offset, so every slot keeps one
-// writer); VPU_NOJ stores none.
+// K15's vpu_noj and its control VPU_TILE: sym_tile_core, K7's former tile,
+// with K7's one-sided weights fi = m_j inv and fj = m_i inv (VPU_NOJ: the
+// row side only), written to sym_pair_tile's slots; VPU_NOJ stores no
+// column sums.
 template <int M>
 __device__ __forceinline__ void sym_vpu_pair_tile(
         const float* __restrict__ pos, const float* __restrict__ mass,
@@ -154,14 +153,20 @@ __device__ __forceinline__ void sym_vpu_pair_tile(
     si[slot + 3 * i + 1] = ay;
     si[slot + 3 * i + 2] = az;
     if (M == VPU_NOJ) return;
-    const long long jt = (M == VPU_FIX0) ? i : j;
-    sj[slot + 3 * jt] = -s.x;
-    sj[slot + 3 * jt + 1] = -s.y;
-    sj[slot + 3 * jt + 2] = -s.z;
+    sj[slot + 3 * j] = -s.x;
+    sj[slot + 3 * j + 1] = -s.y;
+    sj[slot + 3 * j + 2] = -s.z;
+}
+
+// Whether SymMath m runs on the pair tile (sym_pair_tile) rather than on
+// sym_tile_core (sym_vpu_pair_tile).
+__host__ __device__ constexpr bool sym_on_pair_tile(int m) {
+    return m == SYM_K2 || m == SYM_K7 || m == VPU_FIX0 || m == VPU_RC;
 }
 
 // One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1:
-// the pair tile with K2's or K7's math, or K15's tiles.
+// the pair tile with K2's or K7's math or K15's vpu_fix0 / vpu_rc, or
+// sym_tile_core with vpu_noj's or vpu_tile's.
 template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_pairs_kernel(const float* __restrict__ pos,
@@ -174,7 +179,7 @@ sym_pairs_kernel(const float* __restrict__ pos,
     const long long I = bid - dk * nb;
     const long long d = d_lo + dk;
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
-    if constexpr (M == SYM_K2 || M == SYM_K7)
+    if constexpr (sym_on_pair_tile(M))
         sym_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
     else
         sym_vpu_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
@@ -221,15 +226,15 @@ sym_reduce_kernel(const float* __restrict__ pos,
     }
 }
 
-// The dynamic shared memory K15's vpu_* pair launches reserve: 0, but
-// while nbt_sym_abl_pin holds them at their control's CTAs per SM.  No
-// kernel reads it.
-static int abl_dyn_smem = 0;
-
 // Whether M is one of the three vpu_* ablations (the pinned launches).
 constexpr bool sym_ablation(int m) {
     return m == VPU_NOJ || m == VPU_FIX0 || m == VPU_RC;
 }
+
+// The dynamic shared memory each vpu_* pair launch reserves, by SymMath:
+// 0, but while nbt_sym_abl_pin holds the form at its control's CTAs per
+// SM.  No kernel reads it.
+static int abl_dyn_smem[VPU_TILE + 1] = {};
 
 template <int M>
 static int launch_pairs(const float* pos, const float* mass, long long n,
@@ -237,7 +242,7 @@ static int launch_pairs(const float* pos, const float* mass, long long n,
                         float eps2, float* si, float* sj, void* stream) {
     if (dc <= 0) return 0;
     sym_pairs_kernel<M><<<(unsigned)(nb * dc), SYM_TILE,
-                           sym_ablation(M) ? abl_dyn_smem : 0,
+                           sym_ablation(M) ? abl_dyn_smem[M] : 0,
                            (cudaStream_t)stream>>>(pos, mass, n, nb, d_lo,
                                                    eps2, si, sj);
     return (int)cudaGetLastError();
@@ -715,12 +720,14 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
 // ms at 262,144 x 262,144 (66.2 on sym_tile_core) and 0.0141 ms of the
 // card's time at 2048 x 2048 (0.0148).
 //
-// K15's rect forms, the ablations of K7's former tile, and their control
-// (K7's math on it, rect_pairs_kernel<SYM_K7>) run rect_pairs_kernel, on
-// sym_tile_core, at sub = 1 only (its fold loop over sub is the former
-// folds', kept so that the four keep their code); VPU_FIX0's column slot
-// is the writer's own (IA, JB) here already, and its reduce adds every
-// column slot into B's superblock 0.
+// K15's rect vpu_noj and its control vpu_tile (K7's math,
+// rect_pairs_kernel<SYM_K7>) run rect_pairs_kernel, on sym_tile_core, at
+// sub = 1 only (its fold loop over sub is the former folds', kept so that
+// the two keep their code).  vpu_rc and vpu_fix0 run the pair tile below:
+// vpu_rc rect_rc_pairs_kernel, and vpu_fix0 K2-rect vpu's classic kernel
+// itself, rect_k7_pairs_kernel, since a column slot here is the writer's
+// own (IA, JB) already; only fix0's reduce, which adds every column slot
+// into B's superblock 0, is its own.
 
 template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
@@ -768,10 +775,10 @@ rect_pairs_kernel(const float* __restrict__ pos_a,
     }
 }
 
-// K2-rect's classic sweep (sub = 1) on the pair tile, K2's math (vpu2) or
-// K7's (vpu): CTA (IA, JB) runs sym_pair_core with row tile IA of A and
-// column tile JB of B, and writes its row sums and its negated column sums
-// to the slots above.
+// K2-rect's classic sweep (sub = 1) on the pair tile, K2's math (vpu2),
+// K7's (vpu) or K15's vpu_rc: CTA (IA, JB) runs sym_pair_core with row
+// tile IA of A and column tile JB of B, and writes its row sums and its
+// negated column sums to the slots above.
 template <int M>
 __device__ __forceinline__ void rect_pair_tile(
         const float* __restrict__ pos_a, const float* __restrict__ mass_a,
@@ -824,7 +831,21 @@ rect_k7_pairs_kernel(const float* __restrict__ pos_a,
                            jc, eps2, si, sj);
 }
 
-// K15's rect forms: rect_pairs_kernel at sub = 1.
+// K15's rect vpu_rc: K2-rect vpu's classic sweep with the differences
+// recomputed for the accumulate (K2-rect vpu's bits on both sides).
+__global__ void __launch_bounds__(SYM_TILE)
+rect_rc_pairs_kernel(const float* __restrict__ pos_a,
+                     const float* __restrict__ mass_a, long long na,
+                     const float* __restrict__ pos_b,
+                     const float* __restrict__ mass_b, long long nb,
+                     long long na_s, long long j_lo, long long jc,
+                     float eps2, float* __restrict__ si,
+                     float* __restrict__ sj) {
+    rect_pair_tile<VPU_RC>(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo,
+                           jc, eps2, si, sj);
+}
+
+// K15's rect vpu_noj and vpu_tile: rect_pairs_kernel at sub = 1.
 template <int M>
 static int launch_rect_pairs(const float* pos_a, const float* mass_a,
                              long long na, const float* pos_b,
@@ -938,7 +959,10 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
 // purpose, and none is reachable from run, validate or bench.  The pair
 // passes are K7's (vpu_*, above) and K5's (tmm_*, forces_sym_tc.cu) on
 // the classic schedule; the diagonal tiles stay exact and one-sided, as
-// JAX's _diag_call.  How each one's j-side sums reach the bodies:
+// JAX's _diag_call.  vpu_rc and vpu_fix0 ablate K7's pair tile and are
+// timed against K7; vpu_noj ablates K7's former tile, sym_tile_core, and
+// is timed against vpu_tile (K7's math there); the tmm_* forms against
+// K5.  How each one's j-side sums reach the bodies:
 //   slots  K7's and K5's own slot sum (vpu_rc, tmm_full);
 //   none   no j-side sums: the reduce reads the row slots only (vpu_noj,
 //          tmm_noj, tmm_nomm; in the rect sweep B gets 0);
@@ -952,7 +976,7 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
 //          over row tiles first, so results are bit-reproducible and the
 //          same for any chunking.
 
-// The exact ablations' pair passes and their control's (VPU_TILE), K7's
+// The vpu_* pair passes and vpu_noj's control's (VPU_TILE), K7's
 // signatures.
 #define ABL_SYM_PAIRS(NAME, M)                                               \
     extern "C" int NAME(const float* pos, const float* mass, long long n,    \
@@ -966,32 +990,57 @@ ABL_SYM_PAIRS(nbt_sym_vpu_fix0_pairs, VPU_FIX0)
 ABL_SYM_PAIRS(nbt_sym_vpu_rc_pairs, VPU_RC)
 ABL_SYM_PAIRS(nbt_sym_vpu_tile_pairs, VPU_TILE)
 
-#define ABL_RECT_PAIRS(NAME, M)                                              \
+// vpu_rc's rect pair pass, on the pair tile at sub = 1.
+static int launch_rect_rc(const float* pos_a, const float* mass_a,
+                          long long na, const float* pos_b,
+                          const float* mass_b, long long nb, long long na_s,
+                          long long j_lo, long long jc, float eps2, float* si,
+                          float* sj, void* stream) {
+    if (jc <= 0 || na_s <= 0) return 0;
+    rect_rc_pairs_kernel<<<(unsigned)(na_s * jc), SYM_TILE, 0,
+                           (cudaStream_t)stream>>>(
+        pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si, sj);
+    return (int)cudaGetLastError();
+}
+
+// vpu_fix0's is K2-rect vpu's classic sweep itself.
+static int launch_rect_fix0(const float* pos_a, const float* mass_a,
+                            long long na, const float* pos_b,
+                            const float* mass_b, long long nb,
+                            long long na_s, long long j_lo, long long jc,
+                            float eps2, float* si, float* sj, void* stream) {
+    return launch_rect_sym_pairs<SYM_K7>(pos_a, mass_a, na, pos_b, mass_b,
+                                         nb, na_s, j_lo, jc, eps2, 1, si, sj,
+                                         stream);
+}
+
+#define ABL_RECT_PAIRS(NAME, LAUNCH)                                         \
     extern "C" int NAME(const float* pos_a, const float* mass_a,             \
                         long long na, const float* pos_b,                    \
                         const float* mass_b, long long nb, long long na_s,   \
                         long long j_lo, long long jc, float eps2, float* si, \
                         float* sj, void* stream) {                           \
-        return launch_rect_pairs<M>(pos_a, mass_a, na, pos_b, mass_b, nb,    \
-                                    na_s, j_lo, jc, eps2, si, sj, stream);   \
+        return LAUNCH(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc,  \
+                      eps2, si, sj, stream);                                 \
     }
-ABL_RECT_PAIRS(nbt_rect_vpu_noj_pairs, VPU_NOJ)
-ABL_RECT_PAIRS(nbt_rect_vpu_fix0_pairs, VPU_FIX0)
-ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, VPU_RC)
-// The control's rect sweep: K7's math on sym_tile_core at sub = 1, the
-// kernel of K2-rect vpu before its redesign (and of the vpu fold before
-// its own).
-ABL_RECT_PAIRS(nbt_rect_vpu_tile_pairs, SYM_K7)
+ABL_RECT_PAIRS(nbt_rect_vpu_noj_pairs, launch_rect_pairs<VPU_NOJ>)
+ABL_RECT_PAIRS(nbt_rect_vpu_fix0_pairs, launch_rect_fix0)
+ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, launch_rect_rc)
+// vpu_noj's control's rect sweep: K7's math on sym_tile_core at sub = 1,
+// the kernel of K2-rect vpu before its redesign (and of the vpu fold
+// before its own).
+ABL_RECT_PAIRS(nbt_rect_vpu_tile_pairs, launch_rect_pairs<SYM_K7>)
 
 // The occupancy pin, a knob for timing the split only.  An ablation that
-// takes fewer registers than its control (VPU_TILE) fits more CTAs on an
-// SM, and a time taken that way prices the residency with the mechanism
-// the ablation removes.  nbt_sym_abl_pin(1) finds the least dynamic shared
-// memory, in 256-byte steps, at which every vpu_* pair kernel runs exactly
-// the control's CTAs per SM,
-// holds it for their launches and returns it (-1, unpinned, if there is
-// none); nbt_sym_abl_pin(0) unpins.  nbt_sym_pairs_ctas(m) is the CTAs per
-// SM of the pair kernel of SymMath m as it launches now.
+// takes fewer registers than its control fits more CTAs on an SM, and a
+// time taken that way prices the residency with the mechanism the
+// ablation removes.  The controls: K7 (sym_pairs_kernel<SYM_K7>) for
+// vpu_rc and vpu_fix0, VPU_TILE for vpu_noj.  nbt_sym_abl_pin(1) finds for
+// each form the least dynamic shared memory, in 256-byte steps, at which
+// its pair kernel runs exactly its control's CTAs per SM, holds those for
+// their launches and returns the largest (-1, all unpinned, if a form has
+// none); nbt_sym_abl_pin(0) unpins.  nbt_sym_pairs_ctas(m) is the CTAs
+// per SM of the pair kernel of SymMath m as it launches now.
 // An ablation's launch at more than 48 KB of shared memory in all needs
 // the opt-in, which pairs_ctas sets to the bytes it asks about.
 template <int M>
@@ -1009,7 +1058,7 @@ static int pairs_ctas(int dyn) {
 }
 
 extern "C" int nbt_sym_pairs_ctas(int m) {
-    const int dyn = sym_ablation(m) ? abl_dyn_smem : 0;
+    const int dyn = sym_ablation(m) ? abl_dyn_smem[m] : 0;
     switch (m) {
         case SYM_K7: return pairs_ctas<SYM_K7>(dyn);
         case VPU_TILE: return pairs_ctas<VPU_TILE>(dyn);
@@ -1020,20 +1069,30 @@ extern "C" int nbt_sym_pairs_ctas(int m) {
     return -1;
 }
 
-extern "C" int nbt_sym_abl_pin(int on) {
-    abl_dyn_smem = 0;
-    if (!on) return 0;
-    const int want = pairs_ctas<VPU_TILE>(0);
+// The least dynamic shared memory at which form M runs exactly control
+// C's CTAs per SM, or -1.
+template <int M, int C>
+static int pin_dyn() {
+    const int want = pairs_ctas<C>(0);
     for (int dyn = 0; dyn <= 96 * 1024; dyn += 256) {
-        const int a = pairs_ctas<VPU_NOJ>(dyn);
-        const int b = pairs_ctas<VPU_FIX0>(dyn);
-        const int c = pairs_ctas<VPU_RC>(dyn);
-        if (a > want || b > want || c > want) continue;
-        if (want < 1 || a != want || b != want || c != want) return -1;
-        abl_dyn_smem = dyn;
-        return dyn;
+        const int ctas = pairs_ctas<M>(dyn);
+        if (ctas > want) continue;
+        return (want >= 1 && ctas == want) ? dyn : -1;
     }
     return -1;
+}
+
+extern "C" int nbt_sym_abl_pin(int on) {
+    for (int& dyn : abl_dyn_smem) dyn = 0;
+    if (!on) return 0;
+    const int fix0 = pin_dyn<VPU_FIX0, SYM_K7>();
+    const int rc = pin_dyn<VPU_RC, SYM_K7>();
+    const int noj = pin_dyn<VPU_NOJ, VPU_TILE>();
+    if (fix0 < 0 || rc < 0 || noj < 0) return -1;
+    abl_dyn_smem[VPU_FIX0] = fix0;
+    abl_dyn_smem[VPU_RC] = rc;
+    abl_dyn_smem[VPU_NOJ] = noj;
+    return std::max(fix0, std::max(rc, noj));
 }
 
 enum AblJ { ABL_NONE = 0, ABL_FIX0 = 1 };

@@ -55,19 +55,21 @@ static_assert(sizeof(SymK2Stage) <= sizeof(float) * SYM_WARPS * SYM_TILE * 3,
               "K2's staging must fit in SymPairSmem::part");
 
 // The pair math of the exact tiles: K2's shared weight, K7's one-sided
-// weights, K15's ablations of K7's tile on sym_tile_core
-// (nbody_tpu/ops/ablation_sym.py), and that tile with K7's math, their
-// control:
-//   VPU_NOJ   K7's row sums only: no column sums, shuffles, partials or
-//             j-side slot (the j half of every pair is dropped);
-//   VPU_FIX0  K7's tile, its column sums stored in the writer's own row
-//             slot (the reduce adds them all into tile 0's bodies);
-//   VPU_RC    K7's tile with the differences recomputed per component in
-//             the accumulate (JAX's liveness ablation, _accum_both_vpu_rc);
-//   VPU_TILE  K7's math on sym_tile_core, the tile the three ablate (K7's
-//             own tile before it moved to sym_pair_core): K15's control.
-// sym_pair_core takes SYM_K2 and SYM_K7; sym_tile_core (sym_tile.cuh)
-// every other value.
+// weights, and K15's ablations of K7 (nbody_tpu/ops/ablation_sym.py), each
+// with the control it is timed against:
+//   VPU_FIX0  K7 on sym_pair_core, its column sums stored in the writer's
+//             own row slot (the reduce adds them all into tile 0's bodies);
+//             control K7;
+//   VPU_RC    K7 on sym_pair_core with the differences recomputed per
+//             component for the six accumulating FMAs (JAX's liveness
+//             ablation, _accum_both_vpu_rc): K7's bits; control K7;
+//   VPU_NOJ   K7's math on sym_tile_core (sym_tile.cuh), row sums only: no
+//             column sums, shuffles, partials or j-side slot (the j half of
+//             every pair is dropped); control VPU_TILE;
+//   VPU_TILE  K7's math on sym_tile_core, the tile K7 ran before it moved
+//             to sym_pair_core: VPU_NOJ's control.
+// sym_pair_core takes SYM_K2, SYM_K7, VPU_FIX0 and VPU_RC; sym_tile_core
+// SYM_K7 (K13's two-sided vpu phase), VPU_NOJ and VPU_TILE.
 enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3,
                VPU_RC = 4, VPU_TILE = 5 };
 
@@ -87,9 +89,11 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 }
 
 // The pair work of one tile, with K2's math (M = SYM_K2: F = m_i m_j inv
-// on both sides) or K7's (M = SYM_K7: fi = m_j inv on the rows, fj = m_i
-// inv on the column): row body i of (pos_r, mass_r) and column body j of
-// (pos_c, mass_c), each thread t staging row t and column t of the tile.
+// on both sides) or K7's (M = SYM_K7 and VPU_FIX0: fi = m_j inv on the
+// rows, fj = m_i inv on the column; VPU_RC: the same, the differences
+// taken again after the rsqrt): row body i of (pos_r, mass_r) and column
+// body j of (pos_c, mass_c), each thread t staging row t and column t of
+// the tile.
 // Returns in rs the sum of row t and in cs the (positive) sum of column t.
 // Every thread of the block calls it; shared memory may be reused once it
 // returns.
@@ -105,7 +109,8 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // multiplies m_i m_j and then F = (m_i m_j) inv, K7 the two weights m_j
 // inv and m_i inv.  The row partials of the eight warps meet once a tile
 // in `part` and are added in warp order: the tile is bit-reproducible.
-// K2's instantiation is the code K3/K4 compile (resident.cu).
+// K2's instantiation is the code K3/K4 compile (resident.cu).  VPU_RC's
+// recomputed differences are K7's bit for bit, three more FADDs a pair.
 template <int M = SYM_K2>
 __device__ __forceinline__ void sym_pair_core(
         const float* pos_r, const float* __restrict__ mass_r, long long i,
@@ -153,6 +158,22 @@ __device__ __forceinline__ void sym_pair_core(
                 bx = fmaf(f, dx, bx);
                 by = fmaf(f, dy, by);
                 bz = fmaf(f, dz, bz);
+            } else if constexpr (M == VPU_RC) {
+                // dx, dy, dz die at d2; the accumulate takes them anew
+                // (__fsub_rn: ptxas keeps the three FADDs a pair, which
+                // chip_smoke.py checks in the SASS).
+                const float inv = rsqrt_normal(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                const float fj = br[r].w * inv;
+                const float rx = __fsub_rn(q.x, br[r].x);
+                const float ry = __fsub_rn(q.y, br[r].y);
+                const float rz = __fsub_rn(q.z, br[r].z);
+                ax[r] = fmaf(fi, rx, ax[r]);
+                ay[r] = fmaf(fi, ry, ay[r]);
+                az[r] = fmaf(fi, rz, az[r]);
+                bx = fmaf(fj, rx, bx);
+                by = fmaf(fj, ry, by);
+                bz = fmaf(fj, rz, bz);
             } else {
                 const float inv = rsqrt_normal(d2 * d2 * d2);
                 const float fi = q.w * inv;
@@ -190,10 +211,11 @@ __device__ __forceinline__ void sym_pair_core(
 }
 
 // Row tile I against column tile J = (I + d) mod nb of the triangular
-// sweep (sym_pair_core with K2's or K7's math); every thread of the block
-// calls it.  The row sums
-// go to slot si[dk][I], the negated column sums to slot sj[dk][J].
-// Shared memory may be reused once it returns.
+// sweep (sym_pair_core with M's math); every thread of the block calls it.
+// The row sums go to slot si[dk][I], the negated column sums to slot
+// sj[dk][J], or for VPU_FIX0 to the writer's own slot sj[dk][I] (J -> I is
+// a bijection for one offset, so every slot keeps one writer).  Shared
+// memory may be reused once it returns.
 template <int M = SYM_K2>
 __device__ __forceinline__ void sym_pair_tile(
         const float* pos, const float* __restrict__ mass,
@@ -210,9 +232,10 @@ __device__ __forceinline__ void sym_pair_tile(
     si[slot + 3 * i] = rs.x;
     si[slot + 3 * i + 1] = rs.y;
     si[slot + 3 * i + 2] = rs.z;
-    sj[slot + 3 * j] = -cs.x;
-    sj[slot + 3 * j + 1] = -cs.y;
-    sj[slot + 3 * j + 2] = -cs.z;
+    const long long jt = (M == VPU_FIX0) ? i : j;
+    sj[slot + 3 * jt] = -cs.x;
+    sj[slot + 3 * jt + 1] = -cs.y;
+    sj[slot + 3 * jt + 2] = -cs.z;
 }
 
 // Adds body b's slots of the offsets d_lo .. d_lo+dc-1 (row tile I) to s,

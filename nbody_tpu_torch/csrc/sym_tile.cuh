@@ -1,14 +1,15 @@
-// The one-row-a-thread exact pair tile of K15's vpu_* ablations and their
-// control (forces_sym.cu) and of K13's two-sided vpu phase (rdma_ring.cu):
+// The one-row-a-thread exact pair tile of K15's vpu_noj and its control
+// vpu_tile (forces_sym.cu) and of K13's two-sided vpu phase (rdma_ring.cu):
 // the pair math of one 256 x 256 tile, a SymMath value (sym_common.cuh)
 // folded at compile time.  One row a thread, the column tile staged once
 // and read (l + k) mod 32 at a time, a column accumulator shuffled once a
 // pair, rsqrtf with its subnormal fix-up.  K2, K3/K4, K7, the folds (K14d
-// and K2-rect's) and K2-rect's classic vpu2 and vpu sweeps run
-// sym_pair_core (sym_common.cuh) instead, eight rows a lane; K7, K2-rect
-// vpu and the folds moved there in their redesigns, and VPU_TILE keeps
-// K7's math on this tile as K15's control.  Moved here from forces_sym.cu
-// so that rdma_ring.cu compiles the same tile.
+// and K2-rect's), K2-rect's classic vpu2 and vpu sweeps and K15's vpu_rc
+// and vpu_fix0 run sym_pair_core (sym_common.cuh) instead, eight rows a
+// lane; K7, K2-rect vpu, the folds, vpu_rc and vpu_fix0 moved there in
+// their redesigns.  VPU_TILE keeps K7's math on this tile as vpu_noj's
+// control (vpu_rc's and vpu_fix0's is K7 itself).  Moved here from
+// forces_sym.cu so that rdma_ring.cu compiles the same tile.
 
 #pragma once
 
@@ -16,8 +17,8 @@
 
 // The pair work of one 256 x 256 tile for the row body bi of this thread,
 // against the column tile staged (and synced) in sm.tile: K7's math (fi =
-// m_j inv, fj = m_i inv; SYM_K7 or VPU_TILE) or an ablation of K7's
-// (SymMath).  K2's math runs on sym_pair_core only.  Adds the row
+// m_j inv, fj = m_i inv; SYM_K7 or VPU_TILE) or its row half (VPU_NOJ).
+// K2's math runs on sym_pair_core only.  Adds the row
 // sums to (ax, ay, az) and returns the column sum of column threadIdx.x
 // over the tile's rows, a positive magnitude (the caller negates; zero for
 // VPU_NOJ).  Every thread of the block calls it; the caller
@@ -26,7 +27,8 @@ template <int M>
 __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
                                                 float& ax, float& ay,
                                                 float& az, SymPairSmem& sm) {
-    static_assert(M != SYM_K2, "K2's math runs on sym_pair_core");
+    static_assert(M == SYM_K7 || M == VPU_NOJ || M == VPU_TILE,
+                  "sym_tile_core takes K7's math or its row half");
     const int t = threadIdx.x;
     const int w = t >> 5;
     const int l = t & 31;
@@ -39,31 +41,16 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
             const float dy = q.y - bi.y;
             const float dz = q.z - bi.z;
             const float d2 = dx * dx + dy * dy + dz * dz + eps2;
-            if (M == VPU_RC) {
-                const float inv = rsqrtf(d2 * d2 * d2);
-                const float fi = q.w * inv;
+            const float inv = rsqrtf(d2 * d2 * d2);
+            const float fi = q.w * inv;
+            ax += fi * dx;
+            ay += fi * dy;
+            az += fi * dz;
+            if (M != VPU_NOJ) {
                 const float fj = bi.w * inv;
-                const float rx = __fsub_rn(q.x, bi.x);
-                ax += fi * rx;
-                bx += fj * rx;
-                const float ry = __fsub_rn(q.y, bi.y);
-                ay += fi * ry;
-                by += fj * ry;
-                const float rz = __fsub_rn(q.z, bi.z);
-                az += fi * rz;
-                bz += fj * rz;
-            } else {
-                const float inv = rsqrtf(d2 * d2 * d2);
-                const float fi = q.w * inv;
-                ax += fi * dx;
-                ay += fi * dy;
-                az += fi * dz;
-                if (M != VPU_NOJ) {
-                    const float fj = bi.w * inv;
-                    bx += fj * dx;
-                    by += fj * dy;
-                    bz += fj * dz;
-                }
+                bx += fj * dx;
+                by += fj * dy;
+                bz += fj * dz;
             }
             if (sym_has_j(M)) {
                 const int src = (l + 1) & 31;

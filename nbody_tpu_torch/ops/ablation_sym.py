@@ -7,20 +7,22 @@ triangular sweep, and ``_make_rect``, the panel pair, both over the tile
 exact tile (``vpu_*``) and K5's tensor-core tile (``tmm_*``).  Four of
 the seven compute wrong physics on purpose:
 
-==========  =============================================  ==========
-name        tile (off-diagonal)                            physics
-==========  =============================================  ==========
-vpu_tile    K7's former tile (the control)                 exact
-vpu_noj     K7's former tile, row sums only                j half dropped
-vpu_fix0    K7's, every column sum added into tile 0       wrong
-vpu_rc      K7's, differences recomputed per component     exact (= vpu_tile)
-tmm_full    K5's (the control)                             = K5
-tmm_noscat  K5's, every column sum added into tile 0       wrong
-tmm_noj     K5's i-side product only                       j half dropped
-tmm_nomm    K5's pair terms and both bf16 roundings, no    wrong
+==========  ============================================  ============  ========
+name        tile (off-diagonal)                           physics       control
+==========  ============================================  ============  ========
+vpu_tile    K7's former tile                              exact         (K7)
+vpu_noj     K7's former tile, row sums only               j half        vpu_tile
+                                                          dropped
+vpu_fix0    K7's, every column sum added into tile 0      wrong         vpu (K7)
+vpu_rc      K7's, differences recomputed per component    exact (= K7)  vpu (K7)
+tmm_full    K5's                                          = K5          turbo
+tmm_noscat  K5's, every column sum added into tile 0      wrong         turbo
+tmm_noj     K5's i-side product only                      j half        turbo
+                                                          dropped
+tmm_nomm    K5's pair terms and both bf16 roundings, no   wrong         turbo
             mma: each row gets sum bf16(m_j inv) +
             sum bf16(m_i inv) in all three components
-==========  =============================================  ==========
+==========  ============================================  ============  ========
 
 The ``tmm_*`` forms ablate K5's tile as it runs, on the trimmed geometry
 (``pair_inv_fma``, ``csrc/sym_tc_tile.cuh``: ``tc_trimmed``): ``tmm_noj``'s
@@ -29,14 +31,23 @@ registers by K5's roundings; their twins are K5's twin's row half and the
 sums of its bf16 weights (``forces_sym_tc._pair_tiles``,
 ``_turbo_weights``), so that the two cannot drift apart.
 
-The ``vpu_*`` forms ablate the tile K7 ran before its redesign for Hopper
-(``sym_tile_core``: one row a thread, a column accumulator shuffled once a
-pair).  K7 itself now runs K2's pair tile (``sym_pair_core``), so their
+``vpu_rc`` and ``vpu_fix0`` ablate K7 as it runs, on K2's pair tile
+(``sym_pair_core``, ``csrc/sym_common.cuh``: eight rows a lane, one column
+accumulator rotating around the warp), and K7 itself is their control:
+``vpu_rc`` takes the differences again for its six accumulating FMAs, so
+its results are K7's bit for bit (its twin's are K7's twin's), and
+``vpu_fix0`` is K7's tile with its column sums stored in the writer's own
+slot; in the rect sweep that is K2-rect vpu's kernel itself, and only
+fix0's reduce is its own.  ``vpu_noj`` still ablates the tile K7 ran
+before its redesign for Hopper (``sym_tile_core``, ``csrc/sym_tile.cuh``:
+one row a thread, a column accumulator shuffled once a pair), and its
 control is a form of its own, ``vpu_tile``: K7's math on that former tile
 (bit for bit K7 before the redesign; the exact physics, held to K7's
-twin).  It is no ablation and has no JAX counterpart (JAX's control is
-K7's own tile), so it is not in ``ABLATION_NAMES``; ``FORMS`` holds the
-seven and the control.
+twin).  ``vpu_tile`` is no ablation and has no JAX counterpart (JAX's
+control is K7's own tile), so it is not in ``ABLATION_NAMES``; ``FORMS``
+holds the seven and ``vpu_tile``.  ``CONTROLS`` names each form's control
+(the variant it is timed against and, under ``control_occupancy()``,
+pinned to).
 
 As in the JAX package, the diagonal tiles stay exact and one-sided for
 all eight forms, nothing is mass-scaled, and the names are reachable only
@@ -57,7 +68,7 @@ own slot and the reduce adds all of them, per offset, into tile 0's
 bodies (``csrc/forces_sym.cu`` states the order), so results are
 bit-reproducible and chunk-invariant.  The C entries are in
 ``csrc/forces_sym.cu`` (``vpu_*`` and the none / fix0 reduce passes) and
-``csrc/forces_sym_tc.cu`` (``tmm_*``); the control's rect sweep is K7's
+``csrc/forces_sym_tc.cu`` (``tmm_*``); ``vpu_tile``'s rect sweep is K7's
 math on ``sym_tile_core`` at one tile a superblock, the kernel K2-rect vpu
 ran before its redesign.
 
@@ -88,10 +99,15 @@ from .forces_sym import (RECT_PAIRS_ARGTYPES, RECT_REDUCE_ARGTYPES,
 
 ABLATION_NAMES = ("vpu_noj", "vpu_fix0", "vpu_rc",
                   "tmm_full", "tmm_noscat", "tmm_noj", "tmm_nomm")
-# The vpu_* forms' control, K7's math on the tile they ablate; and every
-# form reachable after enable().
+# vpu_noj's control, K7's math on the tile it ablates; and every form
+# reachable after enable().
 CONTROL = "vpu_tile"
 FORMS = ABLATION_NAMES + (CONTROL,)
+# Each ablation's control, a variant of forces_pallas_sym: K7 ("vpu") for
+# the vpu_* forms on its pair tile, vpu_tile for vpu_noj, K5 ("turbo") for
+# the tmm_* forms.
+CONTROLS = {"vpu_noj": CONTROL, "vpu_fix0": "vpu", "vpu_rc": "vpu",
+            **{n: "turbo" for n in ABLATION_NAMES if n.startswith("tmm_")}}
 # How each one's column sums reach the bodies: through K7's / K5's slot sum
 # ("slots"), not at all ("none"), or all into tile 0 ("fix0").
 J_MODE = {"vpu_noj": "none", "vpu_fix0": "fix0", "vpu_rc": "slots",
@@ -289,7 +305,8 @@ def ctas_per_sm() -> "dict[str, int]":
 @contextlib.contextmanager
 def control_occupancy():
     """While open, the triangular sweep's ablation pair kernels run at
-    their control's CTAs per SM (vpu_tile's for vpu_*, K5's for tmm_*): each
+    their control's CTAs per SM (``CONTROLS``: K7's for vpu_rc and
+    vpu_fix0, vpu_tile's for vpu_noj, K5's for tmm_*): each
     launch reserves the least dynamic shared memory that brings it there,
     and no kernel reads it.  A knob for timing the split only: an
     ablation with fewer registers than its control fits more CTAs on an

@@ -131,11 +131,60 @@ def test_exact_ablations_match_their_controls(enabled, name, control, rect):
                      tolerance(name))
 
 
+@pytest.mark.parametrize("seed, n, na", [(153, 1000, 300), (164, 1300, 257)])
+@pytest.mark.parametrize("rect", [False, True])
+def test_vpu_rc_twin_is_k7s_bit_for_bit(enabled, rect, seed, n, na):
+    """vpu_rc's twin takes the differences again for the accumulate, as
+    its kernel does; they equal the first ones, so its results are K7's
+    twin's bit for bit, square and rect (both sides, ragged sets), as the
+    card's vpu_rc is K7's."""
+    pos, _, mass = make_small_system(n, seed=seed)
+    if rect:
+        sets = (t(pos[:na]), t(mass[:na]), t(pos[na:]), t(mass[na:]))
+        got = variants.rect_forces_sym(*sets, EPS2, variant="vpu_rc")
+        want = variants.rect_forces_sym(*sets, EPS2, variant="vpu")
+    else:
+        got = [variants.forces_pallas_sym(t(pos), t(mass), EPS2,
+                                          variant="vpu_rc")]
+        want = [variants.forces_pallas_sym(t(pos), t(mass), EPS2,
+                                           variant="vpu")]
+    for g, w in zip(got, want):
+        assert w.any() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("na, nb", [(300, 700), (1000, 257)])
+def test_vpu_fix0_rect_acc_a_is_k2_rect_vpus(na, nb):
+    """Rect vpu_fix0's pair pass is K2-rect vpu's (on the card its very
+    kernel), and both reduce passes add A's row slots in column order:
+    acc_a is K2-rect vpu's bit for bit; B gets only superblock 0's sums."""
+    pos, _, mass = make_small_system(na + nb, seed=165)
+    sets = (t(pos[:na]), t(mass[:na]), t(pos[na:]), t(mass[na:]))
+    acc_a, acc_b = ablation_sym.rect_forces_sym_ablation(*sets, EPS2,
+                                                         "vpu_fix0")
+    k7_a, k7_b = forces_sym.rect_forces_sym_vpu(*sets, EPS2)
+    assert torch.equal(acc_a, k7_a)
+    assert acc_b[:SYM_TILE].any() and not acc_b[SYM_TILE:].any()
+    assert k7_b[SYM_TILE:].any()
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_control_of_each_ablation(enabled, name):
+    """Each ablation's control (the variant it is timed and pinned
+    against): K7 for vpu_rc and vpu_fix0, which run K7's pair tile;
+    vpu_tile for vpu_noj, which runs K7's former tile; K5 for tmm_*.
+    Every control is a variant of the entry point."""
+    want = {"vpu_rc": "vpu", "vpu_fix0": "vpu", "vpu_noj": "vpu_tile"}
+    control = ablation_sym.CONTROLS[name]
+    assert control == want.get(name, "turbo")
+    assert control in variants.SYM_VARIANTS
+    assert set(ablation_sym.CONTROLS) == set(NAMES)
+
+
 @pytest.mark.parametrize("rect", [False, True])
 def test_control_is_k7_on_its_former_tile(enabled, rect):
-    """vpu_tile, the vpu_* forms' control (K7's math on the tile they
-    ablate), against JAX's vpu variant at the exact tolerance, and its
-    twin bit for bit K7's (the twins share K7's tile function)."""
+    """vpu_tile, vpu_noj's control (K7's math on the tile it ablates),
+    against JAX's vpu variant at the exact tolerance, and its twin bit
+    for bit K7's (the twins share K7's tile function)."""
     control = ablation_sym.CONTROL
     assert control not in NAMES and control in ablation_sym.FORMS
     pos, _, mass = make_small_system(1280, seed=158)

@@ -123,10 +123,11 @@ def sass(so):
     return out
 
 
-def loop_slots(so, prefix):
-    """(issue slots, LOP3) a pair of the longest loop of the kernel of
-    library ``so`` whose mangled name starts with ``prefix`` (its
-    instructions over its MUFU, one rsqrt a pair), or None."""
+def loop_slots(so, prefix, ops=("LOP3",)):
+    """(issue slots, then each opcode of ``ops``) a pair of the longest
+    loop of the kernel of library ``so`` whose mangled name starts with
+    ``prefix`` (its instructions over its MUFU, one rsqrt a pair), or
+    None."""
     for fn, insns in sass(so).items():
         if fn.startswith(prefix):
             body = main_loop(insns)
@@ -134,7 +135,8 @@ def loop_slots(so, prefix):
             if not mufu:
                 return None
             return (len(body) / mufu,
-                    sum(opcode(i) == "LOP3" for i in body) / mufu)
+                    *(sum(opcode(i) == op for i in body) / mufu
+                      for op in ops))
     return None
 
 
