@@ -24,28 +24,28 @@ and 8 CTAs with real massless bodies; K2-rect, every variant
 and both schedules, at the shard shapes 2048 x 2048 and 2144 x 1536, at
 its float64 gates and with massless bodies on both sides, and at the 1M
 ring's 262,144 x 262,144 shard pair on sampled rows against float64;
-K15, the seven bench-only ablations and vpu_noj's control vpu_tile (K7's
-math on the tile vpu_noj ablates, bit for bit K7's former tile built from
-K7_FORMER_COMMIT's sources) in both sweeps, after
-``ablation_sym.enable()``, at N = 8192 and 2048 x 6144, vpu_tile, vpu_rc
-and tmm_full also at their float64 gates, vpu_rc and tmm_full bit for bit
-against K7 / K5 (rect vpu_rc against K2-rect vpu, rect vpu_fix0's and
-tmm_noj's acc_a against K2-rect vpu's / turbo's), then timed at N = 1M in
-interleaved rounds with K7, K5 and turbop, also held at their control's
-CTAs per SM (K5's split from those rounds), and checked and timed at the
-262,144 x 262,144 shard pair; K13, the fused ring, every
+K15, the seven bench-only ablations in both sweeps, after
+``ablation_sym.enable()``, at N = 8192 and 2048 x 6144, vpu_rc and
+tmm_full also at their float64 gates, vpu_rc and tmm_full bit for bit
+against K7 / K5 (rect vpu_rc against K2-rect vpu, rect vpu_noj's,
+vpu_fix0's and tmm_noj's acc_a against K2-rect vpu's / turbo's), then
+timed at N = 1M in interleaved rounds with K7, K5 and turbop, also held at
+their control's CTAs per SM (K5's and K7's splits from those rounds), and
+checked and timed at the 262,144 x 262,144 shard pair; K13, the fused
+ring, every
 variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
 N = 1,048,576 against the direct-form ``rect_forces``, times K15's
-``vpu_rc`` and ``vpu_fix0`` (N = 8192 and 1,048,576, there also pinned
-at K7's CTAs an SM; 2048 x 6144 and 262,144 x 262,144) against their
-design before the redesign for this card (the sources of PARENT_COMMIT,
-built beside the package's) in alternating rounds with K7 and vpu_tile,
-each held to its twin and to its own bits from call to call, prints
-their registers, CTAs an SM and loop issue slots a pair, splits K7's
-time from those rounds, and holds every other kernel's SASS to theirs
+``vpu_noj`` (N = 8192 and 1,048,576, there also pinned at K7's CTAs an
+SM; 2048 x 6144 and 262,144 x 262,144) against its design before the
+redesign for this card (the sources of PARENT_COMMIT, built beside the
+package's) in alternating rounds with K7 and the parent's control
+vpu_tile, held to its twin, to its own bits from call to call and to
+K7's row slots, prints the registers, CTAs an SM and loop issue slots a
+pair, splits K7's time from those rounds, and holds every other
+kernel's SASS to the parent's
 (``tools/ptxas_compare.py``, in the background), then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
@@ -230,20 +230,16 @@ RING_PART_ROWS = 256
 # Rounds of single-device K2, 4-shard ring, ring, K2 at N = 1M.
 RING_N = 1 << 20
 RING_ROUNDS = 2
-# K15, the bench-only ablations and vpu_noj's control: name -> (control,
-# float32 flops a pair, tensor-core flops a pair) off the diagonal tiles,
-# where the diagonal stays the exact one-sided pass; the controls are
-# ablation_sym.CONTROLS'.  vpu_tile, vpu_noj's control: K7's math on the
-# tile vpu_noj ablates (K7's 26; its own control is K7 on the pair tile).
-# vpu_noj: K7's geometry and the row side only (3 sub, 6 for d2 + eps2, 2
-# for the cube, 1 rsqrt, 1 weight, 6 for the row sums: 19); vpu_fix0, on
-# K7's pair tile, K7's 26; vpu_rc, on K7's pair tile, K7's and 3
-# subtractions (29); tmm_full and tmm_noscat K5's (14, 32); tmm_noj K5's
-# geometry with one weight and one product (13, 16); tmm_nomm K5's
-# geometry and both weights (14) and the two row-sum adds, no product
-# (16, 0).
-ABLATIONS = {"vpu_tile": ("forces_sym_vpu", 26, 0),
-             "vpu_noj": ("forces_sym_vpu_tile", 19, 0),
+# K15, the bench-only ablations: name -> (control, float32 flops a pair,
+# tensor-core flops a pair) off the diagonal tiles, where the diagonal
+# stays the exact one-sided pass; the controls are ablation_sym.CONTROLS'.
+# On K7's pair tile: vpu_noj K7's geometry and the row side only (3 sub, 6
+# for d2 + eps2, 2 for the cube, 1 rsqrt, 1 weight, 6 for the row sums:
+# 19); vpu_fix0 K7's 26; vpu_rc K7's and 3 subtractions (29).  tmm_full
+# and tmm_noscat K5's (14, 32); tmm_noj K5's geometry with one weight and
+# one product (13, 16); tmm_nomm K5's geometry and both weights (14) and
+# the two row-sum adds, no product (16, 0).
+ABLATIONS = {"vpu_noj": ("forces_sym_vpu", 19, 0),
              "vpu_fix0": ("forces_sym_vpu", 26, 0),
              "vpu_rc": ("forces_sym_vpu", 29, 0),
              "tmm_full": ("forces_sym_turbo", 14, 32),
@@ -315,33 +311,28 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K15's vpu_rc and vpu_fix0 on K7's pair tile for this
-# card, timed against the design before it: the commit that holds it,
+# The redesign of K15's vpu_noj on K7's pair tile for this card, timed
+# against the design before it: the commit that holds it,
 # unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C
 # build/parent``) into PARENT_CSRC, where check_redesign builds it beside
 # the package's and times both in rounds (the order reversed every other
 # round; medians).  Without those sources and without git, the rounds and
 # the SASS comparison are skipped and say so.
-PARENT_COMMIT = "1072ac930b03d2e3364023b0ad1bb892babf9a96"
+PARENT_COMMIT = "cfd771226d2cbd22d0a7f1d7277a8300a89d1719"
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
                            "csrc")
 REDESIGN_ROUNDS = 4
-# K7's former pair tile (before K7 moved to K2's pair tile): vpu_noj's
-# control vpu_tile must give its results bit for bit (check_ablations).
-# Unpacked from git as the parent is, into K7_FORMER_CSRC.
-K7_FORMER_COMMIT = "0a907a7fd5843def67449ab3d6e1167ddb698bcc"
-K7_FORMER_CSRC = os.path.join(ROOT, "build", "k7_former", "nbody_tpu_torch",
-                              "csrc")
 # tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
 # libraries keeps the parent's SASS, but those the redesign changes: K15's
-# vpu_rc and vpu_fix0 pair kernels, sym_pairs_kernel<4>, <3> (SymMath
-# VPU_RC, VPU_FIX0), and rect_pairs_kernel<4>, <3>, which are gone: the
-# rect vpu_rc runs the new rect_rc_pairs_kernel, the rect vpu_fix0 K2-rect
-# vpu's rect_k7_pairs_kernel.  SASS_SAME pairs an old kernel with a new
-# name it lives on under (none in this redesign).
+# vpu_noj pair kernel, sym_pairs_kernel<2> (SymMath VPU_NOJ), and the
+# kernels retired with vpu_tile, which are gone: sym_pairs_kernel<5>
+# (VPU_TILE) and rect_pairs_kernel<2>, <1> (the rect vpu_noj and vpu_tile
+# on sym_tile_core).  The rect vpu_noj runs the new rect_noj_pairs_kernel.
+# SASS_SAME pairs an old kernel with a new name it lives on under (none in
+# this redesign).
 SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bsym_pairs_kernel<[34]>", r"\brect_pairs_kernel<[34]>")
+SASS_REDESIGNED = (r"\bsym_pairs_kernel<[25]>", r"\brect_pairs_kernel<[12]>")
 SASS_SAME = ()
 
 
@@ -1103,28 +1094,25 @@ def ablation_bound(name, n, rect_n=None):
     return bound(fp32 * n * rect_n, 28 * (n + rect_n), tc * n * rect_n)
 
 
-def check_ablations(dev, eps2, record, smi, former=None):
+def check_ablations(dev, eps2, record, smi):
     """K15 (``ablation_sym.enable()``, then ``forces_pallas_sym`` and
-    ``rect_forces_sym`` with an ablation variant or vpu_noj's control
-    vpu_tile): each of the eight forms of both sweeps against its plain
-    twin (triangular at N = 8192 seed 0, rect at 2048 x 6144),
-    bit-reproducible and the same with one offset / column superblock a
-    slot chunk, and (triangular) the same at the control's CTAs per SM;
-    vpu_tile, vpu_rc and tmm_full also against a float64 direct sum at the
-    exact and the turbo gate, vpu_rc bit-equal to K7 and tmm_full to K5,
-    vpu_tile within the exact tolerance of K7, rect vpu_rc bit-equal to
-    K2-rect vpu on both sides and the acc_a of rect vpu_fix0 and tmm_noj
-    bit-equal to K2-rect vpu's and turbo's (here and at 262,144 x
-    262,144); the none forms give B nothing.  Then the sweep at N = 1M
-    (K7, vpu_tile and the vpu_* forms, K5, turbop and the tmm_* forms, and
-    each ablation at its control's CTAs per SM) in ABLATION_ROUNDS
-    interleaved rounds, the outputs of vpu_rc and tmm_full bit-equal to K7
-    and K5 and each pinned form's to its own, and K5's split from the
-    tmm_* forms' rounds (k5_split); and each rect form at the 1M ring's
-    262,144 x 262,144 shard pair beside K2-rect vpu and turbo, checked
-    there on sampled rows and timed once.  With ``former`` (build_parent's
-    function for K7_FORMER_COMMIT's forces_sym.cu), vpu_tile is first held
-    bit for bit to K7's former pair tile, at N = 8192 (seed 41)."""
+    ``rect_forces_sym`` with an ablation variant): each of the seven
+    forms of both sweeps against its plain twin (triangular at N = 8192
+    seed 0, rect at 2048 x 6144), bit-reproducible and the same with one
+    offset / column superblock a slot chunk, and (triangular) the same at
+    the control's CTAs per SM; vpu_rc and tmm_full also against a float64
+    direct sum at the exact and the turbo gate, vpu_rc bit-equal to K7 and
+    tmm_full to K5, rect vpu_rc bit-equal to K2-rect vpu on both sides and
+    the acc_a of rect vpu_noj, vpu_fix0 and tmm_noj bit-equal to K2-rect
+    vpu's, vpu's and turbo's (here and at 262,144 x 262,144); the none
+    forms give B nothing.  Then the sweep at N = 1M (K7 and the vpu_*
+    forms, K5, turbop and the tmm_* forms, and each ablation at its
+    control's CTAs per SM) in ABLATION_ROUNDS interleaved rounds, the
+    outputs of vpu_rc and tmm_full bit-equal to K7 and K5 and each pinned
+    form's to its own, and K5's and K7's splits from those rounds
+    (k5_split, k7_split); and each rect form at the 1M ring's 262,144 x
+    262,144 shard pair beside K2-rect vpu and turbo, checked there on
+    sampled rows and timed once."""
     import torch
     from nbody_tpu_torch.ops import ablation_sym as ab
     from nbody_tpu_torch.ops import forces_sym as k2
@@ -1136,25 +1124,6 @@ def check_ablations(dev, eps2, record, smi, former=None):
     t0 = time.perf_counter()
     ab.enable()
     tc = {"rel_tol": TC_REL_TOL, "abs_floor": TC_ABS_FLOOR}
-
-    if former:
-        import ctypes
-        lib = former()["forces_sym"]
-        for fn in ("nbt_sym_vpu_pairs", "nbt_sym_vpu_reduce"):
-            getattr(lib, fn).argtypes = getattr(k2._lib(), fn).argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        pos, mass = bodies(ABLATION_N, 41, dev)
-        was = k2.sweep("forces_sym_vpu", pos, mass, eps2,
-                       k2.SLOT_BUDGET_BYTES, lib.nbt_sym_vpu_pairs,
-                       lib.nbt_sym_vpu_reduce)
-        check(torch.equal(was, ab.forces_sym_ablation(pos, mass, eps2,
-                                                      ab.CONTROL)),
-              f"vpu_noj's control {ab.CONTROL} is not K7's former tile")
-        print(f"[check] forces_sym_{ab.CONTROL}, N={ABLATION_N}: bit-equal "
-              f"to K7's former pair tile ({K7_FORMER_COMMIT[:7]})")
-    else:
-        print("[check] vpu_noj's control against K7's former tile skipped: "
-              "no sources of K7_FORMER_COMMIT")
     check(all(ABLATIONS[v][0] == f"forces_sym_{c}"
               for v, c in ab.CONTROLS.items()),
           "chip_smoke.ABLATIONS names other controls than "
@@ -1168,7 +1137,7 @@ def check_ablations(dev, eps2, record, smi, former=None):
     n_pad = -(-n // 256) * 256
     na, nb = ABLATION_RECT
     pa, ma, pb, mb = ablation_rect_sets(dev)
-    for name in ab.FORMS:
+    for name in ab.ABLATION_NAMES:
         got = forces_pallas_sym(pos, mass, eps2, variant=name)
         plain = ab.forces_sym_ablation_plain(pos, mass, eps2, name)
         err = compare(f"forces_sym_{name} vs plain, N={n}", got, plain,
@@ -1229,31 +1198,30 @@ def check_ablations(dev, eps2, record, smi, former=None):
 
     # The exact-physics forms: float64 gates, and against the controls.
     ref = rect_forces(pos.double(), pos.double(), mass.double(), eps2)
-    ctl = forces_pallas_sym(pos, mass, eps2, variant=ab.CONTROL)
     rc = forces_pallas_sym(pos, mass, eps2, variant="vpu_rc")
     full = forces_pallas_sym(pos, mass, eps2, variant="tmm_full")
     k7 = k2.forces_sym_vpu(pos, mass, eps2)
-    tier_gate("forces_sym_vpu", ctl, ref)
     tier_gate("forces_sym_vpu", rc, ref)
     tier_gate("forces_sym_turbo", full, ref)
     check(torch.equal(rc, k7), f"vpu_rc, N={n}: differs from K7")
-    compare(f"forces_sym_vpu_tile vs K7, N={n}", ctl, k7)
     check(torch.equal(full, ktc.forces_sym_turbo(pos, mass, eps2)),
           f"tmm_full, N={n}: differs from K5")
     print(f"[check] N={n}: forces_sym_vpu_rc bit-equal to K7, "
           f"forces_sym_tmm_full to K5")
     ra = rect_forces(pa.double(), pb.double(), mb.double(), eps2)
     rb = rect_forces(pb.double(), pa.double(), ma.double(), eps2)
-    for name, kname in ((ab.CONTROL, "forces_sym_vpu"),
-                        ("vpu_rc", "forces_sym_vpu"),
+    for name, kname in (("vpu_rc", "forces_sym_vpu"),
                         ("tmm_full", "forces_sym_turbo")):
         got = rect_forces_sym(pa, ma, pb, mb, eps2, variant=name)
         for g, r in zip(got, (ra, rb)):
             tier_gate(kname, g, r)
-    # tmm_noj's row sums are K5's tile's and vpu_fix0's K7's, and every
-    # reduce pass adds A's row slots in column order: their acc_a is
-    # K2-rect turbo's and vpu's bit for bit; vpu_rc's sums are K7's.
+    # tmm_noj's row sums are K5's tile's and vpu_noj's and vpu_fix0's K7's,
+    # and every reduce pass adds A's row slots in column order: their acc_a
+    # is K2-rect turbo's and vpu's bit for bit; vpu_rc's sums are K7's.
     k7r = k2.rect_forces_sym_vpu(pa, ma, pb, mb, eps2)
+    check(torch.equal(rect_forces_sym(pa, ma, pb, mb, eps2,
+                                      variant="vpu_noj")[0], k7r[0]),
+          f"rect vpu_noj {na}x{nb}: acc_a differs from K2-rect vpu's")
     check(torch.equal(rect_forces_sym(pa, ma, pb, mb, eps2,
                                       variant="tmm_noj")[0],
                       ktc.rect_forces_sym_turbo(pa, ma, pb, mb, eps2)[0]),
@@ -1265,8 +1233,9 @@ def check_ablations(dev, eps2, record, smi, former=None):
         rect_forces_sym(pa, ma, pb, mb, eps2, variant="vpu_rc"), k7r)),
           f"rect vpu_rc {na}x{nb}: differs from K2-rect vpu")
     print(f"[check] {na}x{nb}: rect_forces_sym_tmm_noj's acc_a bit-equal "
-          f"to K2-rect turbo's, rect_forces_sym_vpu_fix0's to K2-rect "
-          f"vpu's, rect_forces_sym_vpu_rc to K2-rect vpu on both sides")
+          f"to K2-rect turbo's, rect_forces_sym_vpu_noj's and vpu_fix0's to "
+          f"K2-rect vpu's, rect_forces_sym_vpu_rc to K2-rect vpu on both "
+          f"sides")
     del ref, ra, rb
 
     # N = 1M: one evaluation of each form a round, in turns; each
@@ -1281,7 +1250,6 @@ def check_ablations(dev, eps2, record, smi, former=None):
                 return forces_pallas_sym(p, m, e, variant=v)
         return f
     forms = {"forces_sym_vpu": k2.forces_sym_vpu,
-             "forces_sym_vpu_tile": form(ab.CONTROL),
              **{f"forces_sym_{v}": form(v) for v in ab.ABLATION_NAMES[:3]},
              "forces_sym_turbo": ktc.forces_sym_turbo,
              "forces_sym_turbop": ktc.forces_sym_turbop,
@@ -1312,12 +1280,11 @@ def check_ablations(dev, eps2, record, smi, former=None):
                                         dev, iters=1, warmup=0))
     for kname, ts in times.items():
         name = kname[len("forces_sym_"):]
-        # Each form against its control (K7 against vpu_tile, the tile it
-        # left; K5 and turbop against K5).
+        # Each form against its control (K7 and K5 against themselves,
+        # turbop against K5).
         control = (ABLATIONS[name.removesuffix(" pinned")][0]
                    if name.removesuffix(" pinned") in ABLATIONS else
-                   "forces_sym_vpu_tile" if name == "vpu" else
-                   "forces_sym_turbo")
+                   "forces_sym_vpu" if name == "vpu" else "forces_sym_turbo")
         ratios = [c / x for c, x in zip(times[control], ts)]
         med = statistics.median(ts)
         if name in ABLATIONS:
@@ -1327,8 +1294,9 @@ def check_ablations(dev, eps2, record, smi, former=None):
               f"(rounds {', '.join(f'{x:.3f}' for x in ts)}); "
               f"{control} / {kname} median {statistics.median(ratios):.4f} "
               f"(rounds {', '.join(f'{x:.4f}' for x in ratios)}) ({smi})")
-    k5_split({k: statistics.median(ts) for k, ts in times.items()}, n,
-             record, smi)
+    med = {k: statistics.median(ts) for k, ts in times.items()}
+    k5_split(med, n, record, smi)
+    k7_split(med, n, record, smi)
     del pos, mass
 
     # The 1M ring's shard pair (B in three slot chunks), beside K2-rect:
@@ -1347,18 +1315,18 @@ def check_ablations(dev, eps2, record, smi, former=None):
     ref_b = rect_forces(pb[rb].double(), pa.double(), ma.double(), eps2,
                         chunk=64)
     outs = {}
-    for variant in ("vpu", "turbo", ab.CONTROL, *ab.ABLATION_NAMES):
+    for variant in ("vpu", "turbo", *ab.ABLATION_NAMES):
         kname = f"rect_forces_sym_{variant}"
         got = outs[variant] = rect_forces_sym(pa, ma, pb, mb, eps2,
                                               variant=variant)
-        if variant in ab.FORMS:
+        if variant in ab.ABLATION_NAMES:
             what = f"{kname}, {n}x{n}"
             twin = ab.rect_forces_sym_ablation_plain(
                 pa[ra], ma[ra], pb, mb, eps2, variant)[0]
             compare(f"{what} acc_a vs plain, {RECT_1M_ROWS} sampled rows",
                     got[0][ra], twin, **tol(variant))
             mode = ab.J_MODE[variant]
-            control = ab.CONTROLS.get(variant, "vpu")
+            control = ab.CONTROLS[variant]
             if mode == "none":
                 check(not bool(got[1].any()), f"{what}: B got a force")
             elif mode == "fix0":
@@ -1368,7 +1336,7 @@ def check_ablations(dev, eps2, record, smi, former=None):
                         cols, **tol(variant))
                 check(not bool(got[1][256:].any()),
                       f"{what}: B beyond superblock 0 got a force")
-            elif variant in ("vpu_rc", ab.CONTROL):
+            elif variant == "vpu_rc":
                 compare(f"{what} acc_b vs float64, {RECT_1M_ROWS} sampled "
                         f"rows", got[1][rb], ref_b)
             else:
@@ -1376,20 +1344,22 @@ def check_ablations(dev, eps2, record, smi, former=None):
         ms = time_ms(lambda: rect_forces_sym(pa, ma, pb, mb, eps2,
                                              variant=variant), dev,
                      iters=1, warmup=0)
-        if variant in ab.FORMS:
+        if variant in ab.ABLATION_NAMES:
             record[kname]["ms_1m"] = ms
             record[kname]["bound_ms_1m"] = ablation_bound(variant, n, n)[0]
         print(f"[1M ring pair ablation] {kname}: {ms:.3f} ms per {n} x {n} "
               f"sweep ({smi})")
     check(torch.equal(outs["tmm_noj"][0], outs["turbo"][0]),
           f"rect tmm_noj {n}x{n}: acc_a differs from K2-rect turbo's")
-    check(torch.equal(outs["vpu_fix0"][0], outs["vpu"][0]),
-          f"rect vpu_fix0 {n}x{n}: acc_a differs from K2-rect vpu's")
+    for v in ("vpu_noj", "vpu_fix0"):
+        check(torch.equal(outs[v][0], outs["vpu"][0]),
+              f"rect {v} {n}x{n}: acc_a differs from K2-rect vpu's")
     check(all(torch.equal(x, y) for x, y in zip(outs["vpu_rc"], outs["vpu"])),
           f"rect vpu_rc {n}x{n}: differs from K2-rect vpu")
     print(f"[check] {n}x{n}: rect_forces_sym_tmm_noj's acc_a bit-equal to "
-          f"K2-rect turbo's and rect_forces_sym_vpu_fix0's to K2-rect vpu's, "
-          f"rect_forces_sym_vpu_rc to K2-rect vpu on both sides, every row")
+          f"K2-rect turbo's and rect_forces_sym_vpu_noj's and vpu_fix0's to "
+          f"K2-rect vpu's, rect_forces_sym_vpu_rc to K2-rect vpu on both "
+          f"sides, every row")
     print(f"[time] K15 checks: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2061,14 +2031,14 @@ def alternate(fns, dev, iters, warmup=1, device=False):
 
 
 # The parent's library check_redesign builds and binds: its forces_sym.cu
-# (K15's vpu_rc and vpu_fix0 on sym_tile_core, K7's former tile, pinned at
-# vpu_tile's CTAs an SM), through the package's C entry names.
+# (K15's vpu_noj on sym_tile_core, K7's former tile, pinned at the CTAs an
+# SM of its control vpu_tile, K7's math on that tile), through the
+# package's C entry names.
 PARENT_LIBS = ("forces_sym",)
-# The redesigned forms, and the SymMath ids (csrc/sym_common.cuh) of the
-# triangular pair kernels check_redesign reads: K7, the two forms and
-# vpu_tile.
-VPU_FORMS = ("vpu_rc", "vpu_fix0")
-SYM_MATH = {"vpu": 1, "vpu_fix0": 3, "vpu_rc": 4, "vpu_tile": 5}
+# The SymMath ids (csrc/sym_common.cuh) of the triangular pair kernels of
+# K7 and the three vpu_* forms, and of the parent's vpu_tile (retired).
+SYM_MATH = {"vpu": 1, "vpu_noj": 2, "vpu_fix0": 3, "vpu_rc": 4}
+PARENT_VPU_TILE = 5
 # The MUFU's rate on one H100 SXM: 16 a clock on each of its 132 SMs at the
 # 1.98 GHz boost clock.  A pair of K5's tile takes one MUFU rsqrt, and K5's
 # and tmm_nomm's one bf16x2 convert (F2FP) a pair too.
@@ -2202,31 +2172,77 @@ def k5_split(med, n, record, smi):
         "split_floor_corrected": floor / k5})
 
 
+def k7_split(med, n, record, smi):
+    """K7's split from check_ablations' rounds at N = ``n`` (``med``: the
+    medians by kernel name; the vpu_* forms pinned at K7's CTAs an SM):
+    K7 less vpu_noj (the j side on the pair tile), vpu_fix0 less K7
+    (JAX's dynamic-offset scatter), vpu_rc less K7 (three FADDs a pair,
+    which its loop must carry beside K7's, by tools/ptxas_compare.py's
+    loop_slots) and vpu_rc free against pinned, each a share of K7."""
+    from nbody_tpu_torch.ops import _build
+    from tools.ptxas_compare import loop_slots
+    so = str(_build.library_path("forces_sym"))
+    slots = {v: loop_slots(so, f"_Z16sym_pairs_kernelILi{SYM_MATH[v]}E",
+                           ("FADD",)) for v in SYM_MATH}
+    check(None not in slots.values(), "K7 or a vpu_* form: no pair loop in "
+          "its SASS")
+    extra = slots["vpu_rc"][1] - slots["vpu"][1]
+    check(abs(extra - 3) < 1e-6, f"vpu_rc's loop carries {extra:.3f} FADD a "
+          f"pair more than K7's, not 3")
+    k7, noj, fix0, rc, rc_free = (
+        med["forces_sym_vpu"], med["forces_sym_vpu_noj pinned"],
+        med["forces_sym_vpu_fix0 pinned"], med["forces_sym_vpu_rc pinned"],
+        med["forces_sym_vpu_rc"])
+    print(f"[split] K7 at N={n}, the vpu_* forms pinned at its CTAs an SM, "
+          f"medians of {ABLATION_ROUNDS} rounds: K7 {k7:.3f} ms, vpu_noj "
+          f"{noj:.3f}, vpu_fix0 {fix0:.3f}, vpu_rc {rc:.3f} (free "
+          f"{rc_free:.3f}); ms an issue slot a pair: " + ", ".join(
+              f"{v} {med[k] / slots[v][0]:.3f}" for v, k in (
+                  ("vpu", "forces_sym_vpu"),
+                  ("vpu_noj", "forces_sym_vpu_noj pinned"),
+                  ("vpu_rc", "forces_sym_vpu_rc pinned"))) + f" ({smi})")
+    print(f"[split] K7 less vpu_noj, the j side on the pair tile: "
+          f"{(k7 - noj) / k7:.2%} of K7 ({slots['vpu'][0]:.3f} against "
+          f"{slots['vpu_noj'][0]:.3f} issue slots a pair)")
+    print(f"[split] vpu_fix0 less K7, JAX's dynamic-offset scatter (a store "
+          f"address here; fix0's reduce in place of the slot sum): "
+          f"{(fix0 - k7) / k7:+.2%} of K7")
+    print(f"[split] vpu_rc pinned less K7, three FADDs a pair: "
+          f"{(rc - k7) / k7:+.2%} of K7 ({slots['vpu_rc'][0]:.3f} against "
+          f"{slots['vpu'][0]:.3f} issue slots a pair)")
+    print(f"[split] vpu_rc free against pinned, the liveness it frees: "
+          f"{(rc_free - rc) / rc:+.2%}")
+    record["forces_sym_vpu"].update({
+        "split_noj": (k7 - noj) / k7, "split_fix0": (fix0 - k7) / k7,
+        "split_rc": (rc - k7) / k7, "split_rc_free": (rc_free - rc) / rc})
+
+
 def check_redesign(dev, eps2, record, smi, parent_build):
-    """K15's vpu_rc and vpu_fix0, redesigned on K7's pair tile, against
-    the parent's design (sym_tile_core, K7's former tile, pinned at
-    vpu_tile's CTAs an SM) on the same inputs in alternating rounds,
-    through one host path: the package's sweep / rect_sweep with either
-    library's C pair entries and the package's reduce passes (K7's slot
-    sum for vpu_rc, fix0's for vpu_fix0).  First each pair kernel's
-    registers, CTAs an SM free and pinned, and its loop's issue slots and
-    FADD a pair (tools/ptxas_compare.py's loop_slots), K7's and
-    vpu_tile's beside them; vpu_rc's loop must carry three FADD a pair
-    more than K7's.  At N = 8192 (seed 41) and 2048 x 6144
-    (ablation_rect_sets) each new form is held to its twin, is the
+    """K15's vpu_noj, redesigned on K7's pair tile (K7's row side alone),
+    against the parent's design (sym_tile_core, K7's former tile, pinned
+    at the parent's vpu_tile's CTAs an SM) on the same inputs in
+    alternating rounds, through one host path: the package's sweep /
+    rect_sweep with either library's C pair entries and the package's
+    reduce passes (the none reduce for vpu_noj, K7's for the parent's
+    vpu_tile).  First each pair kernel's registers, CTAs an SM free and
+    pinned, and its loop's issue slots, FFMA and SHFL a pair
+    (tools/ptxas_compare.py's loop_slots), K7's and the parent's vpu_tile
+    beside them; the new loop must carry no SHFL and K7's FFMA less the
+    three of its column sums.  At N = 8192 (seed 41) and 2048 x 6144
+    (ablation_rect_sets) the new form is held to its twin, is the
     wrapper's result, bit-reproducible, chunk-invariant and (triangular)
-    equal to itself pinned, vpu_rc bit-equal to K7 and K2-rect vpu and
-    rect vpu_fix0's acc_a to K2-rect vpu's; the card's time alone
-    (device_ms) is taken against the parent's.  At N = 1M (seed 6) the
-    rounds time K7, vpu_tile and each form of the parent and the new
-    build, free and pinned (the new at K7's CTAs an SM); each new form
-    must beat the parent's in every round.  The rounds then print K7's
-    split: vpu_fix0 less K7 (JAX's dynamic-offset scatter, a store
-    address here), vpu_rc pinned less K7 (three FADDs a pair), vpu_rc
-    free against pinned.  At the 1M ring's 262,144 x 262,144 shard pair
-    each rect form against the parent's, with K2-rect vpu and vpu_tile's
-    rect sweep, in rounds.  ``parent_build``: build_parent's function for
-    the parent's forces_sym.cu."""
+    equal to itself pinned; its square row slots are K7's pair pass's
+    bit for bit, and its rect acc_a is K2-rect vpu's with acc_b zero; the
+    card's time alone (device_ms) is taken against the parent's.  At N =
+    1M (seed 6) the rounds time K7, the parent's vpu_tile and pinned
+    vpu_noj, and the new vpu_noj free and pinned at K7's CTAs an SM; the
+    new must beat the parent's in every round.  They give K7's split, K7
+    less pinned vpu_noj (the j side on the pair tile), against the former
+    tile's, the parent's vpu_tile less its vpu_noj.  At the 1M ring's
+    262,144 x 262,144 shard pair the new rect form against the parent's,
+    with K2-rect vpu and the parent's rect vpu_tile, in rounds.
+    ``parent_build``: build_parent's function for the parent's
+    forces_sym.cu."""
     import ctypes
     import torch
     from nbody_tpu_torch.ops import _build
@@ -2236,14 +2252,18 @@ def check_redesign(dev, eps2, record, smi, parent_build):
     t0 = time.perf_counter()
     ab.enable()
     new = k2._lib()
-    entries = {v: ab._entries(v) for v in VPU_FORMS}
-    libs = {"parent": parent_build()["forces_sym"], "new": new}
-    for lib in libs.values():
-        for v in VPU_FORMS:
-            for kind in ("sym", "rect"):
-                fn = f"nbt_{kind}_{v}_pairs"
-                getattr(lib, fn).argtypes = getattr(new, fn).argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+    noj = ab._entries("vpu_noj")
+    # The reduce passes: vpu_noj's none reduce, and for the parent's
+    # vpu_tile K7's slot sum (vpu_rc's entries).
+    reduces = {"vpu_noj": noj[1::2], "vpu_tile": ab._entries("vpu_rc")[1::2]}
+    parent = parent_build()["forces_sym"]
+    libs = {"parent": parent, "new": new}
+    for tag, lib in libs.items():
+        for v in ("vpu_noj", "vpu_tile") if tag == "parent" else ("vpu_noj",):
+            for kind, like in (("sym", noj[0]), ("rect", noj[2])):
+                fn = getattr(lib, f"nbt_{kind}_{v}_pairs")
+                fn.argtypes = like.argtypes
+                fn.restype = ctypes.c_int
         for fn in ("nbt_sym_pairs_ctas", "nbt_sym_abl_pin"):
             getattr(lib, fn).argtypes = [ctypes.c_int]
             getattr(lib, fn).restype = ctypes.c_int
@@ -2251,11 +2271,15 @@ def check_redesign(dev, eps2, record, smi, parent_build):
           "new": str(_build.library_path("forces_sym"))}
     with open(os.path.join(WORK, "parent", "forces_sym.log")) as f:
         logs = {"parent": f.read(), "new": _build.BUILD_LOG["forces_sym"]}
+    ids = {"parent": {"vpu": SYM_MATH["vpu"], "vpu_noj": SYM_MATH["vpu_noj"],
+                      "vpu_tile": PARENT_VPU_TILE},
+           "new": {"vpu": SYM_MATH["vpu"], "vpu_noj": SYM_MATH["vpu_noj"]}}
+    ops = ("FFMA", "SHFL")
     slots = {}
     for tag, lib in libs.items():
-        for v, m in SYM_MATH.items():
+        for v, m in ids[tag].items():
             prefix = f"_Z16sym_pairs_kernelILi{m}E"
-            slots[tag, v] = s = loop_slots(so[tag], prefix, ("FADD",))
+            slots[tag, v] = s = loop_slots(so[tag], prefix, ops)
             check(s is not None, f"{tag} {v}: no pair loop in its SASS")
             free = lib.nbt_sym_pairs_ctas(m)
             check(lib.nbt_sym_abl_pin(1) >= 0, f"{tag}: the vpu_* pin failed")
@@ -2264,30 +2288,49 @@ def check_redesign(dev, eps2, record, smi, parent_build):
             print(f"[redesign] {tag} {v} pair kernel: "
                   f"{kernel_regs(logs[tag], prefix)} registers, {free} CTAs "
                   f"an SM, {pin} pinned; loop {s[0]:.3f} issue slots a pair, "
-                  f"{s[1]:.3f} of them FADD")
-    for prefix in ("_Z20rect_k7_pairs_kernel", "_Z20rect_rc_pairs_kernel"):
-        s = loop_slots(so["new"], prefix, ("FADD",))
-        print(f"[redesign] new {prefix}: "
-              f"{kernel_regs(logs['new'], prefix)} registers; loop "
-              f"{s[0]:.3f} issue slots a pair, {s[1]:.3f} of them FADD")
-    extra = slots["new", "vpu_rc"][1] - slots["new", "vpu"][1]
-    check(abs(extra - 3) < 1e-6, f"vpu_rc's loop carries {extra:.3f} FADD a "
-          f"pair more than K7's, not 3")
+                  f"{s[1]:.3f} FFMA and {s[2]:.3f} SHFL a pair")
+    for tag, prefix in (("new", "_Z20rect_k7_pairs_kernel"),
+                        ("new", "_Z21rect_noj_pairs_kernel"),
+                        ("parent", "_Z17rect_pairs_kernelILi2E")):
+        s = loop_slots(so[tag], prefix, ops)
+        check(s is not None, f"{tag} {prefix}: no pair loop in its SASS")
+        print(f"[redesign] {tag} {prefix}: "
+              f"{kernel_regs(logs[tag], prefix)} registers; loop "
+              f"{s[0]:.3f} issue slots a pair, {s[1]:.3f} FFMA and "
+              f"{s[2]:.3f} SHFL a pair")
+    s7, sn = slots["new", "vpu"], slots["new", "vpu_noj"]
+    check(sn[2] == 0 and abs(sn[1] - (s7[1] - 3)) < 1e-6,
+          f"vpu_noj's loop: {sn[2]:.3f} SHFL and {sn[1]:.3f} FFMA a pair, "
+          f"not 0 and K7's {s7[1]:.3f} less its three column FMAs")
 
     def sweep(lib, v, pos, mass, budget=k2.SLOT_BUDGET_BYTES):
         return lambda: k2.sweep(f"forces_sym_{v}", pos, mass, eps2, budget,
                                 getattr(lib, f"nbt_sym_{v}_pairs"),
-                                entries[v][1])
+                                reduces[v][0])
 
     def rect(lib, v, args, budget=k2.SLOT_BUDGET_BYTES):
         pairs = getattr(lib, f"nbt_rect_{v}_pairs")
         return lambda: k2.rect_sweep(f"rect_forces_sym_{v}", *args, eps2,
-                                     budget, pairs, entries[v][3], False)
+                                     budget, pairs, reduces[v][1], False)
+
+    def slots_of(pairs, pos, mass):
+        """The row and column slots of one pair pass of ``pairs`` over
+        every offset, in one chunk (zeros where nothing writes)."""
+        n = pos.shape[0]
+        nb = -(-n // k2.SYM_TILE)
+        n_pad = nb * k2.SYM_TILE
+        (d_lo, dc), = k2.offset_chunks(nb, n_pad)
+        si, sj = (pos.new_zeros(dc * n_pad * 3) for _ in "ij")
+        _build.check_launch("pair slots", pairs(
+            pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, float(eps2),
+            si.data_ptr(), sj.data_ptr(), _build.stream_handle(pos)))
+        torch.cuda.synchronize()
+        return si, sj
 
     def rounds(tag, fns, iters, device=False):
         """fns' times in REDESIGN_ROUNDS alternating rounds (CUDA events,
         or with ``device`` the card's time alone); prints them, their
-        medians and each new form's against the parent's; returns (rounds,
+        medians and the new form's against the parent's; returns (rounds,
         medians)."""
         times = alternate(fns, dev, iters, warmup=0 if iters == 1 else 1,
                           device=device)
@@ -2295,9 +2338,9 @@ def check_redesign(dev, eps2, record, smi, parent_build):
         print(f"[redesign] {tag}: " + "; ".join(
             f"{k} {med[k]:.4f} ms (" + ", ".join(f"{t:.4f}" for t in v)
             + ")" for k, v in times.items()) + f" ({smi})")
+        old = next(k for k in fns if k.startswith("parent vpu_noj"))
         for k in fns:
             if k.startswith("new"):
-                old = "parent" + k[3:]
                 print(f"[redesign] {tag}: {k} / {old} "
                       f"{med[k] / med[old]:.4f}")
         return times, med
@@ -2308,101 +2351,102 @@ def check_redesign(dev, eps2, record, smi, parent_build):
     n_pad = -(-n // 256) * 256
     na, nb = ABLATION_RECT
     args = ablation_rect_sets(dev)
-    k7 = k2.forces_sym_vpu(pos, mass, eps2)
-    k7r = k2.rect_forces_sym_vpu(*args, eps2)
-    for v in VPU_FORMS:
-        tag = f"K15 {v} N={n}"
-        got = sweep(new, v, pos, mass)()
-        twin = ab.forces_sym_ablation_plain(pos, mass, eps2, v)
-        compare(f"{tag} vs plain", got, twin)
-        check(torch.equal(got, ab.forces_sym_ablation(pos, mass, eps2, v))
-              and torch.equal(got, sweep(new, v, pos, mass)())
-              and torch.equal(got, sweep(new, v, pos, mass, 24 * n_pad)())
-              and torch.equal(got, pinned(new.nbt_sym_abl_pin,
-                                          sweep(new, v, pos, mass))()),
-              f"{tag}: not the wrapper's result, not bit-reproducible, not "
-              f"chunk-invariant or not the same pinned")
-        check(v != "vpu_rc" or torch.equal(got, k7), f"{tag}: not K7's bits")
-        was = sweep(libs["parent"], v, pos, mass)()
-        print(f"[redesign] {tag}: the wrapper's, bit-reproducible, "
-              f"chunk-invariant, the same pinned; max |new - twin| "
-              f"{float((got - twin).abs().max()):.4e}, |parent - twin| "
-              f"{float((was - twin).abs().max()):.4e}")
-        med = rounds(tag, {"parent": sweep(libs["parent"], v, pos, mass),
-                           "new": sweep(new, v, pos, mass)}, 20, True)[1]
-        record[f"forces_sym_{v}"].update({"parent_device_ms": med["parent"],
-                                          "new_device_ms": med["new"]})
-        tag = f"K15 rect {v} {na}x{nb}"
-        got = rect(new, v, args)()
-        twin = ab.rect_forces_sym_ablation_plain(*args, eps2, v)
-        for side, g, w in zip("ab", got, twin):
-            compare(f"{tag} acc_{side} vs plain", g, w)
-        check(torch.equal(got[0], k7r[0]) and (v != "vpu_rc" or torch.equal(
-            got[1], k7r[1])), f"{tag}: not K2-rect vpu's bits")
-        for other in (ab.rect_forces_sym_ablation(*args, eps2, v),
-                      rect(new, v, args)(), rect(new, v, args, 24 * na)()):
-            check(all(torch.equal(x, y) for x, y in zip(got, other)),
-                  f"{tag}: not the wrapper's result, not bit-reproducible "
-                  f"or not chunk-invariant")
-        med = rounds(tag, {"parent": rect(libs["parent"], v, args),
-                           "new": rect(new, v, args)}, 20, True)[1]
-        record[f"rect_forces_sym_{v}"].update({
-            "parent_device_ms": med["parent"], "new_device_ms": med["new"]})
-    print(f"[redesign] N={n}: vpu_rc bit-equal to K7; {na}x{nb}: rect "
-          f"vpu_rc to K2-rect vpu on both sides, rect vpu_fix0's acc_a to "
-          f"K2-rect vpu's")
-    del pos, mass, args, k7, k7r
+    tag = f"K15 vpu_noj N={n}"
+    got = sweep(new, "vpu_noj", pos, mass)()
+    twin = ab.forces_sym_ablation_plain(pos, mass, eps2, "vpu_noj")
+    compare(f"{tag} vs plain", got, twin)
+    check(torch.equal(got, ab.forces_sym_ablation(pos, mass, eps2, "vpu_noj"))
+          and torch.equal(got, sweep(new, "vpu_noj", pos, mass)())
+          and torch.equal(got, sweep(new, "vpu_noj", pos, mass,
+                                     24 * n_pad)())
+          and torch.equal(got, pinned(new.nbt_sym_abl_pin,
+                                      sweep(new, "vpu_noj", pos, mass))()),
+          f"{tag}: not the wrapper's result, not bit-reproducible, not "
+          f"chunk-invariant or not the same pinned")
+    si, sj = slots_of(new.nbt_sym_vpu_noj_pairs, pos, mass)
+    si7, sj7 = slots_of(new.nbt_sym_vpu_pairs, pos, mass)
+    check(torch.equal(si, si7) and si7.any() and sj7.any()
+          and not sj.any(), f"{tag}: its row slots are not K7's pair "
+          f"pass's, or it wrote a column slot")
+    was = sweep(parent, "vpu_noj", pos, mass)()
+    print(f"[redesign] {tag}: the wrapper's, bit-reproducible, "
+          f"chunk-invariant, the same pinned, its row slots K7's pair "
+          f"pass's bit for bit; max |new - twin| "
+          f"{float((got - twin).abs().max()):.4e}, |parent - twin| "
+          f"{float((was - twin).abs().max()):.4e}")
+    med = rounds(tag, {"parent vpu_noj": sweep(parent, "vpu_noj", pos, mass),
+                       "new vpu_noj": sweep(new, "vpu_noj", pos, mass)},
+                 20, True)[1]
+    record["forces_sym_vpu_noj"].update({
+        "parent_device_ms": med["parent vpu_noj"],
+        "new_device_ms": med["new vpu_noj"]})
+    tag = f"K15 rect vpu_noj {na}x{nb}"
+    got = rect(new, "vpu_noj", args)()
+    twin = ab.rect_forces_sym_ablation_plain(*args, eps2, "vpu_noj")
+    compare(f"{tag} acc_a vs plain", got[0], twin[0])
+    check(torch.equal(got[0], k2.rect_forces_sym_vpu(*args, eps2)[0])
+          and not got[1].any(), f"{tag}: acc_a is not K2-rect vpu's, or B "
+          f"got a force")
+    for other in (ab.rect_forces_sym_ablation(*args, eps2, "vpu_noj"),
+                  rect(new, "vpu_noj", args)(),
+                  rect(new, "vpu_noj", args, 24 * na)()):
+        check(all(torch.equal(x, y) for x, y in zip(got, other)),
+              f"{tag}: not the wrapper's result, not bit-reproducible or "
+              f"not chunk-invariant")
+    med = rounds(tag, {"parent vpu_noj": rect(parent, "vpu_noj", args),
+                       "new vpu_noj": rect(new, "vpu_noj", args)},
+                 20, True)[1]
+    record["rect_forces_sym_vpu_noj"].update({
+        "parent_device_ms": med["parent vpu_noj"],
+        "new_device_ms": med["new vpu_noj"]})
+    print(f"[redesign] N={n}: vpu_noj's row slots bit-equal to K7's; "
+          f"{na}x{nb}: rect vpu_noj's acc_a to K2-rect vpu's, B zero")
+    del pos, mass, args, si, sj, si7, sj7
 
-    # N = 1M: K7, vpu_tile, the parent's and the new forms free and pinned.
+    # N = 1M: K7, the parent's vpu_tile and pinned vpu_noj, the new
+    # vpu_noj free and pinned.
     n = RING_N
     pos, mass = bodies(n, 6, dev)
     fns = {"K7": lambda: k2.forces_sym_vpu(pos, mass, eps2),
-           "vpu_tile": lambda: ab.forces_sym_ablation(pos, mass, eps2,
-                                                      ab.CONTROL)}
-    for v in VPU_FORMS:
-        for tag in ("parent", "new"):
-            fns[f"{tag} {v}"] = sweep(libs[tag], v, pos, mass)
-            fns[f"{tag} {v} pinned"] = pinned(libs[tag].nbt_sym_abl_pin,
-                                              fns[f"{tag} {v}"])
-    out = {k: fns[k]() for k in ("K7", "new vpu_rc", "new vpu_rc pinned",
-                                 "new vpu_fix0", "new vpu_fix0 pinned")}
-    check(torch.equal(out["new vpu_rc"], out["K7"]), "vpu_rc N=1M: not K7")
-    for v in VPU_FORMS:
-        check(bool(torch.isfinite(out[f"new {v}"]).all())
-              and torch.equal(out[f"new {v}"], out[f"new {v} pinned"]),
-              f"{v} N=1M: non-finite, or not the same pinned")
+           "parent vpu_tile": sweep(parent, "vpu_tile", pos, mass),
+           "parent vpu_noj pinned": pinned(parent.nbt_sym_abl_pin,
+                                           sweep(parent, "vpu_noj", pos,
+                                                 mass)),
+           "new vpu_noj": sweep(new, "vpu_noj", pos, mass),
+           "new vpu_noj pinned": pinned(new.nbt_sym_abl_pin,
+                                        sweep(new, "vpu_noj", pos, mass))}
+    out = {k: fns[k]() for k in ("new vpu_noj", "new vpu_noj pinned")}
+    check(bool(torch.isfinite(out["new vpu_noj"]).all())
+          and torch.equal(out["new vpu_noj"], out["new vpu_noj pinned"]),
+          "vpu_noj N=1M: non-finite, or not the same pinned")
     del out
     times, med = rounds(f"K15 N={n}", fns, 1)
-    for v in VPU_FORMS:
-        for pin in ("", " pinned"):
-            check(all(a < b for a, b in zip(times[f"new {v}{pin}"],
-                                            times[f"parent {v}{pin}"])),
-                  f"{v}{pin} N=1M: not faster than the parent's in every "
-                  f"round")
-            key = pin.replace(" ", "_")
-            record[f"forces_sym_{v}"].update({
-                f"new{key}_ms_1m": med[f"new {v}{pin}"],
-                f"parent{key}_ms_1m": med[f"parent {v}{pin}"]})
-    k7_ms, fix0, rc, rc_free = (med["K7"], med["new vpu_fix0 pinned"],
-                                med["new vpu_rc pinned"], med["new vpu_rc"])
-    s7, src = slots["new", "vpu"][0], slots["new", "vpu_rc"][0]
+    for pin in ("", " pinned"):
+        check(all(a < b for a, b in zip(times[f"new vpu_noj{pin}"],
+                                        times["parent vpu_noj pinned"])),
+              f"vpu_noj{pin} N=1M: not faster than the parent's in every "
+              f"round")
+    record["forces_sym_vpu_noj"].update({
+        "new_ms_1m": med["new vpu_noj"],
+        "new_pinned_ms_1m": med["new vpu_noj pinned"],
+        "parent_pinned_ms_1m": med["parent vpu_noj pinned"]})
+    k7_ms, noj_ms = med["K7"], med["new vpu_noj pinned"]
+    tile, tile_noj = med["parent vpu_tile"], med["parent vpu_noj pinned"]
     print(f"[split] K7 at N={n}, medians of {REDESIGN_ROUNDS} rounds: K7 "
-          f"{k7_ms:.3f} ms, vpu_fix0 {fix0:.3f} and vpu_rc {rc:.3f} pinned "
-          f"at K7's CTAs an SM, vpu_rc free {rc_free:.3f}, vpu_tile "
-          f"{med['vpu_tile']:.3f}; ms an issue slot a pair: K7 "
-          f"{k7_ms / s7:.3f}, vpu_rc {rc / src:.3f} ({smi})")
-    print(f"[split] vpu_fix0 less K7, JAX's dynamic-offset scatter (a store "
-          f"address here; fix0's reduce in place of the slot sum): "
-          f"{(fix0 - k7_ms) / k7_ms:+.2%} of K7")
-    print(f"[split] vpu_rc pinned less K7, three FADDs a pair: "
-          f"{(rc - k7_ms) / k7_ms:+.2%} of K7 ({src:.3f} against {s7:.3f} "
-          f"issue slots a pair: {(src - s7) / s7:+.2%} if the loop ran at "
-          f"K7's issue rate)")
-    print(f"[split] vpu_rc free against pinned, the liveness it frees: "
-          f"{(rc_free - rc) / rc:+.2%}")
+          f"{k7_ms:.3f} ms, vpu_noj {noj_ms:.3f} pinned at its CTAs an SM "
+          f"(free {med['new vpu_noj']:.3f}); the former tile: vpu_tile "
+          f"{tile:.3f}, its vpu_noj {tile_noj:.3f} pinned; ms an issue slot "
+          f"a pair: K7 {k7_ms / s7[0]:.3f}, vpu_noj {noj_ms / sn[0]:.3f}, "
+          f"vpu_tile {tile / slots['parent', 'vpu_tile'][0]:.3f}, the "
+          f"parent's vpu_noj {tile_noj / slots['parent', 'vpu_noj'][0]:.3f} "
+          f"({smi})")
+    print(f"[split] the j side on K7's pair tile, K7 less pinned vpu_noj: "
+          f"{(k7_ms - noj_ms) / k7_ms:.2%} of K7 ({s7[0]:.3f} against "
+          f"{sn[0]:.3f} issue slots a pair); on the former tile, vpu_tile "
+          f"less its vpu_noj: {(tile - tile_noj) / tile:.2%} of vpu_tile")
     record["forces_sym_vpu"].update({
-        "split_fix0": (fix0 - k7_ms) / k7_ms, "split_rc": (rc - k7_ms) / k7_ms,
-        "split_rc_free": (rc_free - rc) / rc})
+        "split_j_side": (k7_ms - noj_ms) / k7_ms,
+        "split_j_side_former_tile": (tile - tile_noj) / tile})
     del pos, mass
 
     # The 1M ring's shard pair.
@@ -2411,22 +2455,25 @@ def check_redesign(dev, eps2, record, smi, parent_build):
     pb, mb = bodies(n, 42, dev)
     args = (pa, ma, pb, mb)
     fns = {"K2-rect vpu": lambda: k2.rect_forces_sym_vpu(*args, eps2),
-           "vpu_tile": lambda: ab.rect_forces_sym_ablation(*args, eps2,
-                                                           ab.CONTROL)}
-    for v in VPU_FORMS:
-        fns[f"parent {v}"] = rect(libs["parent"], v, args)
-        fns[f"new {v}"] = rect(new, v, args)
+           "parent vpu_tile": rect(parent, "vpu_tile", args),
+           "parent vpu_noj": rect(parent, "vpu_noj", args),
+           "new vpu_noj": rect(new, "vpu_noj", args)}
+    got, k7r = fns["new vpu_noj"](), fns["K2-rect vpu"]()
+    check(torch.equal(got[0], k7r[0]) and not got[1].any(),
+          f"rect vpu_noj {n}x{n}: acc_a is not K2-rect vpu's, or B got a "
+          f"force")
+    del got, k7r
     times, med = rounds(f"K15 rect {n}x{n}", fns, 1)
-    for v in VPU_FORMS:
-        check(all(a < b for a, b in zip(times[f"new {v}"],
-                                        times[f"parent {v}"])),
-              f"rect {v} {n}x{n}: not faster than the parent's in every "
-              f"round")
-        record[f"rect_forces_sym_{v}"].update({
-            "new_ms_1m": med[f"new {v}"],
-            "parent_ms_1m": med[f"parent {v}"]})
+    check(all(a < b for a, b in zip(times["new vpu_noj"],
+                                    times["parent vpu_noj"])),
+          f"rect vpu_noj {n}x{n}: not faster than the parent's in every "
+          f"round")
+    record["rect_forces_sym_vpu_noj"].update({
+        "new_ms_1m": med["new vpu_noj"],
+        "parent_ms_1m": med["parent vpu_noj"]})
     del pa, ma, pb, mb, args
     print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
+
 
 def check_fold(dev, eps2):
     """The cluster folds at other cluster sizes: K14d (both maths) at
@@ -2782,7 +2829,7 @@ def main_path(counts, reset):
     from nbody_tpu_torch.ops import ablation_sym
     ablation_sym.enable()
     pa, ma, pb, mb = ablation_rect_sets("cuda")
-    for variant in ablation_sym.FORMS:
+    for variant in ablation_sym.ABLATION_NAMES:
         for kernel, call in (
                 (f"forces_sym_{variant}", lambda: [forces_pallas_sym(
                     state.pos, state.mass, cfg.eps2, variant=variant)]),
@@ -3137,15 +3184,12 @@ def main():
                 print(f"[build]   {line.strip()}")
 
     # The parent's sources for the redesign rounds, and its SASS against
-    # this build's, compiled in the background meanwhile.
-    # The earlier commits' libraries, built meanwhile too.
+    # this build's, compiled in the background meanwhile; the parent's
+    # libraries, built meanwhile too.
     csrc = parent_csrc()
     sass = start_sass_compare(csrc) if csrc else None
     parent_build = (build_parent(csrc, PARENT_LIBS, report=False) if csrc
                     else None)
-    former = parent_csrc(K7_FORMER_COMMIT, K7_FORMER_CSRC)
-    former_build = (build_parent(former, ("forces_sym",), "k7_former",
-                                 report=False) if former else None)
 
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.ops import forces_sym as k2
@@ -3163,7 +3207,7 @@ def main():
     check_k14(dev, 0.002, record, smi)
     check_rect(dev, 0.002, record, smi)
     check_fold(dev, 0.002)
-    check_ablations(dev, 0.002, record, smi, former_build)
+    check_ablations(dev, 0.002, record, smi)
     check_rdma(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
@@ -3172,8 +3216,8 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K15's vpu_rc and vpu_fix0 against the
-    # design before their redesign, and K7's split.
+    # 4. K2 at the 1M headline; K15's vpu_noj against the design before
+    # its redesign, and K7's split.
     check_k2_1m(dev)
     if csrc:
         check_redesign(dev, 0.002, record, smi, parent_build)
@@ -3322,15 +3366,12 @@ def main():
             ("rdma_ring", "nbody_tpu_torch/csrc/rdma_ring.cu",
              "nbody_tpu/parallel/rdma_ring.py:277"),
             # K15: the triangular sweep (_make_tri) and the panel pair
-            # (_make_rect) of each ablation; vpu_noj's control vpu_tile
-            # computes what JAX's vpu variant does, on K7's former tile.
+            # (_make_rect) of each ablation.
             *((f"{kind}_{v}", "nbody_tpu_torch/csrc/forces_sym"
                + ("_tc" if v.startswith("tmm_") else "") + ".cu",
-               f"nbody_tpu/ops/forces_pallas_sym.py:{k7_line}"
-               if v == "vpu_tile" else
                f"nbody_tpu/ops/ablation_sym.py:{line}")
-              for kind, line, k7_line in (("forces_sym", 131, 353),
-                                          ("rect_forces_sym", 155, 686))
+              for kind, line in (("forces_sym", 131),
+                                 ("rect_forces_sym", 155))
               for v in ABLATIONS)):
         r = dict(record[kname])
         bound_ms, bound_by = r.pop("bound")

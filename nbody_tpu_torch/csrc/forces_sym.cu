@@ -75,9 +75,7 @@
 // sums on the tensor cores.
 //
 // The pair tile, the slot sum and the diagonal tile are in sym_common.cuh,
-// shared with the resident kernels (resident.cu); the one-row-a-thread
-// tile of K15 and K13's two-sided vpu phase (sym_tile_core) is in
-// sym_tile.cuh, shared with K13 (rdma_ring.cu).
+// shared with the resident kernels (resident.cu).
 //
 // K7 (variant "vpu" of _make_sym_kernel: _pair_terms, _accum_i_vpu,
 // _accum_j_vpu) shares the schedule, slots and reduce pass.  Per pair it
@@ -106,11 +104,11 @@
 // K7's.  K2-rect (the rect sweeps of _make_rect_kernel and
 // _make_rect_kernel_fold between two disjoint body sets) runs the pair
 // tile, classic or folded the same way, over a rectangular enumeration.
-// K15's vpu_* ablations (nbody_tpu/ops/ablation_sym.py) are SymMath values:
-// vpu_rc and vpu_fix0 of the pair tile, ablating K7 as it runs (their
-// control), vpu_noj of sym_tile_core, the tile K7 ran before its redesign,
-// with its control VPU_TILE (K7's math on that tile).  Their reduce
-// passes, shared by every K15 form, come last.
+// K15's vpu_* ablations (nbody_tpu/ops/ablation_sym.py) are SymMath values
+// of the pair tile, each ablating K7 as it runs, their control: vpu_noj
+// its row side alone, vpu_fix0 its column sums in the writer's own slot,
+// vpu_rc its differences taken again.  Their reduce passes, shared by
+// every K15 form, come last.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC   (no --use_fast_math).
@@ -122,51 +120,13 @@
 
 #include "sym_common.cuh"
 #include "rect_common.cuh"
-#include "sym_tile.cuh"
 #include "onesided_tile.cuh"
 
 namespace cg = cooperative_groups;
 
-// K15's vpu_noj and its control VPU_TILE: sym_tile_core, K7's former tile,
-// with K7's one-sided weights fi = m_j inv and fj = m_i inv (VPU_NOJ: the
-// row side only), written to sym_pair_tile's slots; VPU_NOJ stores no
-// column sums.
-template <int M>
-__device__ __forceinline__ void sym_vpu_pair_tile(
-        const float* __restrict__ pos, const float* __restrict__ mass,
-        long long n, long long nb, long long I, long long d, long long dk,
-        float eps2, float* __restrict__ si, float* __restrict__ sj,
-        SymPairSmem& sm) {
-    const long long J = (I + d) % nb;
-    const int t = threadIdx.x;
-    const long long i = I * SYM_TILE + t;
-    const long long j = J * SYM_TILE + t;
-
-    const float4 bi = load_body(pos, mass, i, n);
-    sm.tile[t] = load_body(pos, mass, j, n);
-    __syncthreads();
-
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    const float3 s = sym_tile_core<M>(bi, eps2, ax, ay, az, sm);
-    const long long slot = dk * nb * SYM_TILE * 3;
-    si[slot + 3 * i] = ax;
-    si[slot + 3 * i + 1] = ay;
-    si[slot + 3 * i + 2] = az;
-    if (M == VPU_NOJ) return;
-    sj[slot + 3 * j] = -s.x;
-    sj[slot + 3 * j + 1] = -s.y;
-    sj[slot + 3 * j + 2] = -s.z;
-}
-
-// Whether SymMath m runs on the pair tile (sym_pair_tile) rather than on
-// sym_tile_core (sym_vpu_pair_tile).
-__host__ __device__ constexpr bool sym_on_pair_tile(int m) {
-    return m == SYM_K2 || m == SYM_K7 || m == VPU_FIX0 || m == VPU_RC;
-}
-
 // One CTA per (row tile I, offset d) of the chunk d = d_lo .. d_lo+dc-1:
-// the pair tile with K2's or K7's math or K15's vpu_fix0 / vpu_rc, or
-// sym_tile_core with vpu_noj's or vpu_tile's.
+// the pair tile with K2's or K7's math or K15's vpu_noj / vpu_fix0 /
+// vpu_rc.
 template <int M>
 __global__ void __launch_bounds__(SYM_TILE)
 sym_pairs_kernel(const float* __restrict__ pos,
@@ -179,10 +139,7 @@ sym_pairs_kernel(const float* __restrict__ pos,
     const long long I = bid - dk * nb;
     const long long d = d_lo + dk;
     if (2 * d == nb && 2 * I >= nb) return;   // even nb: half offset
-    if constexpr (sym_on_pair_tile(M))
-        sym_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
-    else
-        sym_vpu_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
+    sym_pair_tile<M>(pos, mass, n, nb, I, d, dk, eps2, si, sj, sm);
 }
 
 // One CTA per tile: folds the chunk's slots into the running sum, and on the
@@ -234,7 +191,7 @@ constexpr bool sym_ablation(int m) {
 // The dynamic shared memory each vpu_* pair launch reserves, by SymMath:
 // 0, but while nbt_sym_abl_pin holds the form at its control's CTAs per
 // SM.  No kernel reads it.
-static int abl_dyn_smem[VPU_TILE + 1] = {};
+static int abl_dyn_smem[VPU_RC + 1] = {};
 
 template <int M>
 static int launch_pairs(const float* pos, const float* mass, long long n,
@@ -720,65 +677,17 @@ extern "C" int nbt_sym_vpu_fold_reduce(const float* pos, const float* mass,
 // ms at 262,144 x 262,144 (66.2 on sym_tile_core) and 0.0141 ms of the
 // card's time at 2048 x 2048 (0.0148).
 //
-// K15's rect vpu_noj and its control vpu_tile (K7's math,
-// rect_pairs_kernel<SYM_K7>) run rect_pairs_kernel, on sym_tile_core, at
-// sub = 1 only (its fold loop over sub is the former folds', kept so that
-// the two keep their code).  vpu_rc and vpu_fix0 run the pair tile below:
+// K15's rect vpu_* forms run the pair tile below: vpu_noj
+// rect_noj_pairs_kernel (A's row slots only, K2-rect vpu's bit for bit),
 // vpu_rc rect_rc_pairs_kernel, and vpu_fix0 K2-rect vpu's classic kernel
 // itself, rect_k7_pairs_kernel, since a column slot here is the writer's
 // own (IA, JB) already; only fix0's reduce, which adds every column slot
 // into B's superblock 0, is its own.
 
-template <int M>
-__global__ void __launch_bounds__(SYM_TILE)
-rect_pairs_kernel(const float* __restrict__ pos_a,
-                  const float* __restrict__ mass_a, long long na,
-                  const float* __restrict__ pos_b,
-                  const float* __restrict__ mass_b, long long nb,
-                  long long na_s, long long j_lo, long long jc, float eps2,
-                  int sub, float* __restrict__ si, float* __restrict__ sj) {
-    __shared__ SymPairSmem sm;
-    const long long bid = blockIdx.x;
-    const long long jk = bid / na_s;
-    const long long IA = bid - jk * na_s;
-    const long long JB = j_lo + jk;
-    const long long u = (long long)sub * SYM_TILE;
-    const long long na_pad = na_s * u;
-    const int t = threadIdx.x;
-    float3 fold[FOLD_SUB_MAX];                // column t of each column tile
-    for (int c = 0; c < sub; ++c) fold[c] = make_float3(0.f, 0.f, 0.f);
-    for (int r = 0; r < sub; ++r) {
-        const long long i = IA * u + r * SYM_TILE + t;
-        const float4 bi = load_body(pos_a, mass_a, i, na);
-        float ax = 0.f, ay = 0.f, az = 0.f;
-        for (int c = 0; c < sub; ++c) {
-            __syncthreads();                  // the last tile's readers
-            sm.tile[t] = load_body(pos_b, mass_b, JB * u + c * SYM_TILE + t,
-                                   nb);
-            __syncthreads();
-            const float3 s = sym_tile_core<M>(bi, eps2, ax, ay, az, sm);
-            fold[c].x += s.x;
-            fold[c].y += s.y;
-            fold[c].z += s.z;
-        }
-        const long long o = (jk * na_pad + i) * 3;
-        si[o] = ax;
-        si[o + 1] = ay;
-        si[o + 2] = az;
-    }
-    if (M == VPU_NOJ) return;
-    for (int c = 0; c < sub; ++c) {
-        const long long o = ((IA * jc + jk) * u + c * SYM_TILE + t) * 3;
-        sj[o] = -fold[c].x;
-        sj[o + 1] = -fold[c].y;
-        sj[o + 2] = -fold[c].z;
-    }
-}
-
 // K2-rect's classic sweep (sub = 1) on the pair tile, K2's math (vpu2),
-// K7's (vpu) or K15's vpu_rc: CTA (IA, JB) runs sym_pair_core with row
-// tile IA of A and column tile JB of B, and writes its row sums and its
-// negated column sums to the slots above.
+// K7's (vpu) or K15's vpu_rc / vpu_noj: CTA (IA, JB) runs sym_pair_core
+// with row tile IA of A and column tile JB of B, and writes its row sums
+// and (but for VPU_NOJ) its negated column sums to the slots above.
 template <int M>
 __device__ __forceinline__ void rect_pair_tile(
         const float* __restrict__ pos_a, const float* __restrict__ mass_a,
@@ -799,6 +708,7 @@ __device__ __forceinline__ void rect_pair_tile(
     si[o] = rs.x;
     si[o + 1] = rs.y;
     si[o + 2] = rs.z;
+    if constexpr (M == VPU_NOJ) return;
     const long long oj = ((IA * jc + jk) * SYM_TILE + t) * 3;
     sj[oj] = -cs.x;
     sj[oj + 1] = -cs.y;
@@ -845,19 +755,18 @@ rect_rc_pairs_kernel(const float* __restrict__ pos_a,
                            jc, eps2, si, sj);
 }
 
-// K15's rect vpu_noj and vpu_tile: rect_pairs_kernel at sub = 1.
-template <int M>
-static int launch_rect_pairs(const float* pos_a, const float* mass_a,
-                             long long na, const float* pos_b,
-                             const float* mass_b, long long nb,
-                             long long na_s, long long j_lo, long long jc,
-                             float eps2, float* si, float* sj, void* stream) {
-    if (jc <= 0 || na_s <= 0) return 0;
-    rect_pairs_kernel<M><<<(unsigned)(na_s * jc), SYM_TILE, 0,
-                            (cudaStream_t)stream>>>(
-        pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, 1, si,
-        sj);
-    return (int)cudaGetLastError();
+// K15's rect vpu_noj: K2-rect vpu's classic sweep, A's row sums only (K2-rect
+// vpu's row slots bit for bit); B's slots are not written.
+__global__ void __launch_bounds__(SYM_TILE)
+rect_noj_pairs_kernel(const float* __restrict__ pos_a,
+                      const float* __restrict__ mass_a, long long na,
+                      const float* __restrict__ pos_b,
+                      const float* __restrict__ mass_b, long long nb,
+                      long long na_s, long long j_lo, long long jc,
+                      float eps2, float* __restrict__ si,
+                      float* __restrict__ sj) {
+    rect_pair_tile<VPU_NOJ>(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo,
+                            jc, eps2, si, sj);
 }
 
 // The rect folds: one cluster of sub CTAs per (IA, JB) of the chunk (jk =
@@ -959,10 +868,13 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
 // purpose, and none is reachable from run, validate or bench.  The pair
 // passes are K7's (vpu_*, above) and K5's (tmm_*, forces_sym_tc.cu) on
 // the classic schedule; the diagonal tiles stay exact and one-sided, as
-// JAX's _diag_call.  vpu_rc and vpu_fix0 ablate K7's pair tile and are
-// timed against K7; vpu_noj ablates K7's former tile, sym_tile_core, and
-// is timed against vpu_tile (K7's math there); the tmm_* forms against
-// K5.  How each one's j-side sums reach the bodies:
+// JAX's _diag_call.  The vpu_* forms ablate K7's pair tile and are timed
+// against K7, the tmm_* forms against K5.  vpu_noj, K7's row side alone,
+// is FP32 issue bound as K7 is: 13.28 issue slots a pair against K7's
+// 17.69, at 79 registers and K7's three CTAs an SM; on an H100 80GB HBM3
+// at 700 W it takes 298.5 ms at N = 1,048,576 against K7's 405.1, so the
+// j side is 26% of K7 (chip_smoke.py check_redesign).  How each one's
+// j-side sums reach the bodies:
 //   slots  K7's and K5's own slot sum (vpu_rc, tmm_full);
 //   none   no j-side sums: the reduce reads the row slots only (vpu_noj,
 //          tmm_noj, tmm_nomm; in the rect sweep B gets 0);
@@ -976,8 +888,7 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
 //          over row tiles first, so results are bit-reproducible and the
 //          same for any chunking.
 
-// The vpu_* pair passes and vpu_noj's control's (VPU_TILE), K7's
-// signatures.
+// The vpu_* pair passes, K7's signature.
 #define ABL_SYM_PAIRS(NAME, M)                                               \
     extern "C" int NAME(const float* pos, const float* mass, long long n,    \
                         long long nb, long long d_lo, long long dc,          \
@@ -988,17 +899,20 @@ extern "C" int nbt_rect_reduce(const float* pos_a, const float* mass_a,
 ABL_SYM_PAIRS(nbt_sym_vpu_noj_pairs, VPU_NOJ)
 ABL_SYM_PAIRS(nbt_sym_vpu_fix0_pairs, VPU_FIX0)
 ABL_SYM_PAIRS(nbt_sym_vpu_rc_pairs, VPU_RC)
-ABL_SYM_PAIRS(nbt_sym_vpu_tile_pairs, VPU_TILE)
 
-// vpu_rc's rect pair pass, on the pair tile at sub = 1.
-static int launch_rect_rc(const float* pos_a, const float* mass_a,
-                          long long na, const float* pos_b,
-                          const float* mass_b, long long nb, long long na_s,
-                          long long j_lo, long long jc, float eps2, float* si,
-                          float* sj, void* stream) {
+// vpu_rc's and vpu_noj's rect pair passes: kernel K, one CTA a tile pair.
+using RectTileKernel = void (*)(const float*, const float*, long long,
+                                const float*, const float*, long long,
+                                long long, long long, long long, float,
+                                float*, float*);
+template <RectTileKernel K>
+static int launch_rect_tile(const float* pos_a, const float* mass_a,
+                            long long na, const float* pos_b,
+                            const float* mass_b, long long nb, long long na_s,
+                            long long j_lo, long long jc, float eps2,
+                            float* si, float* sj, void* stream) {
     if (jc <= 0 || na_s <= 0) return 0;
-    rect_rc_pairs_kernel<<<(unsigned)(na_s * jc), SYM_TILE, 0,
-                           (cudaStream_t)stream>>>(
+    K<<<(unsigned)(na_s * jc), SYM_TILE, 0, (cudaStream_t)stream>>>(
         pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc, eps2, si, sj);
     return (int)cudaGetLastError();
 }
@@ -1023,19 +937,16 @@ static int launch_rect_fix0(const float* pos_a, const float* mass_a,
         return LAUNCH(pos_a, mass_a, na, pos_b, mass_b, nb, na_s, j_lo, jc,  \
                       eps2, si, sj, stream);                                 \
     }
-ABL_RECT_PAIRS(nbt_rect_vpu_noj_pairs, launch_rect_pairs<VPU_NOJ>)
+ABL_RECT_PAIRS(nbt_rect_vpu_noj_pairs,
+               launch_rect_tile<rect_noj_pairs_kernel>)
 ABL_RECT_PAIRS(nbt_rect_vpu_fix0_pairs, launch_rect_fix0)
-ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, launch_rect_rc)
-// vpu_noj's control's rect sweep: K7's math on sym_tile_core at sub = 1,
-// the kernel of K2-rect vpu before its redesign (and of the vpu fold
-// before its own).
-ABL_RECT_PAIRS(nbt_rect_vpu_tile_pairs, launch_rect_pairs<SYM_K7>)
+ABL_RECT_PAIRS(nbt_rect_vpu_rc_pairs, launch_rect_tile<rect_rc_pairs_kernel>)
 
 // The occupancy pin, a knob for timing the split only.  An ablation that
 // takes fewer registers than its control fits more CTAs on an SM, and a
 // time taken that way prices the residency with the mechanism the
-// ablation removes.  The controls: K7 (sym_pairs_kernel<SYM_K7>) for
-// vpu_rc and vpu_fix0, VPU_TILE for vpu_noj.  nbt_sym_abl_pin(1) finds for
+// ablation removes.  The control of all three vpu_* forms is K7
+// (sym_pairs_kernel<SYM_K7>).  nbt_sym_abl_pin(1) finds for
 // each form the least dynamic shared memory, in 256-byte steps, at which
 // its pair kernel runs exactly its control's CTAs per SM, holds those for
 // their launches and returns the largest (-1, all unpinned, if a form has
@@ -1061,7 +972,6 @@ extern "C" int nbt_sym_pairs_ctas(int m) {
     const int dyn = sym_ablation(m) ? abl_dyn_smem[m] : 0;
     switch (m) {
         case SYM_K7: return pairs_ctas<SYM_K7>(dyn);
-        case VPU_TILE: return pairs_ctas<VPU_TILE>(dyn);
         case VPU_NOJ: return pairs_ctas<VPU_NOJ>(dyn);
         case VPU_FIX0: return pairs_ctas<VPU_FIX0>(dyn);
         case VPU_RC: return pairs_ctas<VPU_RC>(dyn);
@@ -1087,7 +997,7 @@ extern "C" int nbt_sym_abl_pin(int on) {
     if (!on) return 0;
     const int fix0 = pin_dyn<VPU_FIX0, SYM_K7>();
     const int rc = pin_dyn<VPU_RC, SYM_K7>();
-    const int noj = pin_dyn<VPU_NOJ, VPU_TILE>();
+    const int noj = pin_dyn<VPU_NOJ, SYM_K7>();
     if (fix0 < 0 || rc < 0 || noj < 0) return -1;
     abl_dyn_smem[VPU_FIX0] = fix0;
     abl_dyn_smem[VPU_RC] = rc;

@@ -30,11 +30,11 @@ __device__ __forceinline__ float4 load_body(const float* pos,
                    : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// Shared memory of one pair tile (28 KB).  sym_tile_core (sym_tile.cuh)
-// stages the column tile in `tile` and keeps a warp's column partials in
-// `part`; sym_pair_core and K13's one-sided tile (onesided_pair_rows,
-// onesided_tile.cuh) use `part` alone (their staging over it, then the
-// row partials).
+// Shared memory of one pair tile (28 KB).  sym_tile_core (sym_tile.cuh,
+// K13's two-sided vpu phase) stages the column tile in `tile` and keeps a
+// warp's column partials in `part`; sym_pair_core and K13's one-sided tile
+// (onesided_pair_rows, onesided_tile.cuh) use `part` alone (their staging
+// over it, then the row partials).
 struct SymPairSmem {
     float4 tile[SYM_TILE];
     float part[SYM_WARPS][SYM_TILE * 3];
@@ -55,28 +55,19 @@ static_assert(sizeof(SymK2Stage) <= sizeof(float) * SYM_WARPS * SYM_TILE * 3,
               "K2's staging must fit in SymPairSmem::part");
 
 // The pair math of the exact tiles: K2's shared weight, K7's one-sided
-// weights, and K15's ablations of K7 (nbody_tpu/ops/ablation_sym.py), each
-// with the control it is timed against:
-//   VPU_FIX0  K7 on sym_pair_core, its column sums stored in the writer's
-//             own row slot (the reduce adds them all into tile 0's bodies);
-//             control K7;
-//   VPU_RC    K7 on sym_pair_core with the differences recomputed per
-//             component for the six accumulating FMAs (JAX's liveness
-//             ablation, _accum_both_vpu_rc): K7's bits; control K7;
-//   VPU_NOJ   K7's math on sym_tile_core (sym_tile.cuh), row sums only: no
-//             column sums, shuffles, partials or j-side slot (the j half of
-//             every pair is dropped); control VPU_TILE;
-//   VPU_TILE  K7's math on sym_tile_core, the tile K7 ran before it moved
-//             to sym_pair_core: VPU_NOJ's control.
-// sym_pair_core takes SYM_K2, SYM_K7, VPU_FIX0 and VPU_RC; sym_tile_core
-// SYM_K7 (K13's two-sided vpu phase), VPU_NOJ and VPU_TILE.
+// weights, and K15's ablations of K7 (nbody_tpu/ops/ablation_sym.py), all
+// on sym_pair_core and each timed against K7, its control:
+//   VPU_NOJ   K7's row side alone: fi = m_j inv and the three row FMAs; no
+//             fj, column accumulator, shuffles or column slot (the j half
+//             of every pair is dropped): K7's row slots bit for bit;
+//   VPU_FIX0  K7, its column sums stored in the writer's own row slot (the
+//             reduce adds them all into tile 0's bodies);
+//   VPU_RC    K7 with the differences recomputed per component for the six
+//             accumulating FMAs (JAX's liveness ablation,
+//             _accum_both_vpu_rc): K7's bits.
+// K13's two-sided vpu phase runs K7's math on sym_tile_core (sym_tile.cuh).
 enum SymMath { SYM_K2 = 0, SYM_K7 = 1, VPU_NOJ = 2, VPU_FIX0 = 3,
-               VPU_RC = 4, VPU_TILE = 5 };
-
-// Whether tile M sums columns (the j side) at all.
-__host__ __device__ constexpr bool sym_has_j(int m) {
-    return m != VPU_NOJ;
-}
+               VPU_RC = 4 };
 
 // rsqrt(x) on the MUFU without rsqrtf's fix-up for a subnormal x (a
 // compare and two predicated multiplies a call): for x = d2^3 with d2 >=
@@ -91,10 +82,11 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // The pair work of one tile, with K2's math (M = SYM_K2: F = m_i m_j inv
 // on both sides) or K7's (M = SYM_K7 and VPU_FIX0: fi = m_j inv on the
 // rows, fj = m_i inv on the column; VPU_RC: the same, the differences
-// taken again after the rsqrt): row body i of (pos_r, mass_r) and column
-// body j of (pos_c, mass_c), each thread t staging row t and column t of
-// the tile.
-// Returns in rs the sum of row t and in cs the (positive) sum of column t.
+// taken again after the rsqrt; VPU_NOJ: the rows only): row body i of
+// (pos_r, mass_r) and column body j of (pos_c, mass_c), each thread t
+// staging row t and column t of the tile.
+// Returns in rs the sum of row t and in cs the (positive) sum of column t
+// (zero for VPU_NOJ).
 // Every thread of the block calls it; shared memory may be reused once it
 // returns.
 //
@@ -111,6 +103,9 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 // in `part` and are added in warp order: the tile is bit-reproducible.
 // K2's instantiation is the code K3/K4 compile (resident.cu).  VPU_RC's
 // recomputed differences are K7's bit for bit, three more FADDs a pair.
+// VPU_NOJ runs K7's row FMAs in K7's order and adds the row partials in
+// warp order, so its row sums are K7's bit for bit, at three FFMAs, a
+// weight multiply and 3/8 of a shuffle fewer a pair.
 template <int M = SYM_K2>
 __device__ __forceinline__ void sym_pair_core(
         const float* pos_r, const float* __restrict__ mass_r, long long i,
@@ -174,6 +169,12 @@ __device__ __forceinline__ void sym_pair_core(
                 bx = fmaf(fj, rx, bx);
                 by = fmaf(fj, ry, by);
                 bz = fmaf(fj, rz, bz);
+            } else if constexpr (M == VPU_NOJ) {
+                const float inv = rsqrt_normal(d2 * d2 * d2);
+                const float fi = q.w * inv;
+                ax[r] = fmaf(fi, dx, ax[r]);
+                ay[r] = fmaf(fi, dy, ay[r]);
+                az[r] = fmaf(fi, dz, az[r]);
             } else {
                 const float inv = rsqrt_normal(d2 * d2 * d2);
                 const float fi = q.w * inv;
@@ -186,9 +187,11 @@ __device__ __forceinline__ void sym_pair_core(
                 bz = fmaf(fj, dz, bz);
             }
         }
-        bx = __shfl_sync(0xffffffffu, bx, src);
-        by = __shfl_sync(0xffffffffu, by, src);
-        bz = __shfl_sync(0xffffffffu, bz, src);
+        if constexpr (M != VPU_NOJ) {
+            bx = __shfl_sync(0xffffffffu, bx, src);
+            by = __shfl_sync(0xffffffffu, by, src);
+            bz = __shfl_sync(0xffffffffu, bz, src);
+        }
     }
     __syncthreads();                      // every warp is done with st
 #pragma unroll
@@ -214,8 +217,8 @@ __device__ __forceinline__ void sym_pair_core(
 // sweep (sym_pair_core with M's math); every thread of the block calls it.
 // The row sums go to slot si[dk][I], the negated column sums to slot
 // sj[dk][J], or for VPU_FIX0 to the writer's own slot sj[dk][I] (J -> I is
-// a bijection for one offset, so every slot keeps one writer).  Shared
-// memory may be reused once it returns.
+// a bijection for one offset, so every slot keeps one writer); VPU_NOJ
+// writes no column slot.  Shared memory may be reused once it returns.
 template <int M = SYM_K2>
 __device__ __forceinline__ void sym_pair_tile(
         const float* pos, const float* __restrict__ mass,
@@ -232,6 +235,7 @@ __device__ __forceinline__ void sym_pair_tile(
     si[slot + 3 * i] = rs.x;
     si[slot + 3 * i + 1] = rs.y;
     si[slot + 3 * i + 2] = rs.z;
+    if constexpr (M == VPU_NOJ) return;
     const long long jt = (M == VPU_FIX0) ? i : j;
     sj[slot + 3 * jt] = -cs.x;
     sj[slot + 3 * jt + 1] = -cs.y;

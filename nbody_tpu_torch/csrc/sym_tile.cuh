@@ -1,15 +1,10 @@
-// The one-row-a-thread exact pair tile of K15's vpu_noj and its control
-// vpu_tile (forces_sym.cu) and of K13's two-sided vpu phase (rdma_ring.cu):
-// the pair math of one 256 x 256 tile, a SymMath value (sym_common.cuh)
-// folded at compile time.  One row a thread, the column tile staged once
-// and read (l + k) mod 32 at a time, a column accumulator shuffled once a
-// pair, rsqrtf with its subnormal fix-up.  K2, K3/K4, K7, the folds (K14d
-// and K2-rect's), K2-rect's classic vpu2 and vpu sweeps and K15's vpu_rc
-// and vpu_fix0 run sym_pair_core (sym_common.cuh) instead, eight rows a
-// lane; K7, K2-rect vpu, the folds, vpu_rc and vpu_fix0 moved there in
-// their redesigns.  VPU_TILE keeps K7's math on this tile as vpu_noj's
-// control (vpu_rc's and vpu_fix0's is K7 itself).  Moved here from
-// forces_sym.cu so that rdma_ring.cu compiles the same tile.
+// The one-row-a-thread exact pair tile of K13's two-sided vpu phase
+// (rdma_ring.cu), its one caller: K7's math on one 256 x 256 tile.  One
+// row a thread, the column tile staged once and read (l + k) mod 32 at a
+// time, a column accumulator shuffled once a pair, rsqrtf with its
+// subnormal fix-up.  Every other exact tile (K2, K3/K4, K7, the folds,
+// K2-rect's classic vpu2 and vpu sweeps, K15's vpu_* ablations) runs
+// sym_pair_core (sym_common.cuh) instead, eight rows a lane.
 
 #pragma once
 
@@ -17,18 +12,15 @@
 
 // The pair work of one 256 x 256 tile for the row body bi of this thread,
 // against the column tile staged (and synced) in sm.tile: K7's math (fi =
-// m_j inv, fj = m_i inv; SYM_K7 or VPU_TILE) or its row half (VPU_NOJ).
-// K2's math runs on sym_pair_core only.  Adds the row
-// sums to (ax, ay, az) and returns the column sum of column threadIdx.x
-// over the tile's rows, a positive magnitude (the caller negates; zero for
-// VPU_NOJ).  Every thread of the block calls it; the caller
-// syncs before restaging sm.
+// m_j inv, fj = m_i inv; M = SYM_K7 only).  Adds the row sums to (ax, ay,
+// az) and returns the column sum of column threadIdx.x over the tile's
+// rows, a positive magnitude (the caller negates).  Every thread of the
+// block calls it; the caller syncs before restaging sm.
 template <int M>
 __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
                                                 float& ax, float& ay,
                                                 float& az, SymPairSmem& sm) {
-    static_assert(M == SYM_K7 || M == VPU_NOJ || M == VPU_TILE,
-                  "sym_tile_core takes K7's math or its row half");
+    static_assert(M == SYM_K7, "sym_tile_core takes K7's math only");
     const int t = threadIdx.x;
     const int w = t >> 5;
     const int l = t & 31;
@@ -46,27 +38,20 @@ __device__ __forceinline__ float3 sym_tile_core(float4 bi, float eps2,
             ax += fi * dx;
             ay += fi * dy;
             az += fi * dz;
-            if (M != VPU_NOJ) {
-                const float fj = bi.w * inv;
-                bx += fj * dx;
-                by += fj * dy;
-                bz += fj * dz;
-            }
-            if (sym_has_j(M)) {
-                const int src = (l + 1) & 31;
-                bx = __shfl_sync(0xffffffffu, bx, src);
-                by = __shfl_sync(0xffffffffu, by, src);
-                bz = __shfl_sync(0xffffffffu, bz, src);
-            }
+            const float fj = bi.w * inv;
+            bx += fj * dx;
+            by += fj * dy;
+            bz += fj * dz;
+            const int src = (l + 1) & 31;
+            bx = __shfl_sync(0xffffffffu, bx, src);
+            by = __shfl_sync(0xffffffffu, by, src);
+            bz = __shfl_sync(0xffffffffu, bz, src);
         }
-        if (sym_has_j(M)) {
-            const int col = c * 32 + l;
-            sm.part[w][3 * col] = bx;
-            sm.part[w][3 * col + 1] = by;
-            sm.part[w][3 * col + 2] = bz;
-        }
+        const int col = c * 32 + l;
+        sm.part[w][3 * col] = bx;
+        sm.part[w][3 * col + 1] = by;
+        sm.part[w][3 * col + 2] = bz;
     }
-    if (!sym_has_j(M)) return make_float3(0.f, 0.f, 0.f);
     __syncthreads();
     float sx = 0.f, sy = 0.f, sz = 0.f;
 #pragma unroll

@@ -10,8 +10,7 @@ the seven compute wrong physics on purpose:
 ==========  ============================================  ============  ========
 name        tile (off-diagonal)                           physics       control
 ==========  ============================================  ============  ========
-vpu_tile    K7's former tile                              exact         (K7)
-vpu_noj     K7's former tile, row sums only               j half        vpu_tile
+vpu_noj     K7's, row sums only                           j half        vpu (K7)
                                                           dropped
 vpu_fix0    K7's, every column sum added into tile 0      wrong         vpu (K7)
 vpu_rc      K7's, differences recomputed per component    exact (= K7)  vpu (K7)
@@ -24,33 +23,28 @@ tmm_nomm    K5's pair terms and both bf16 roundings, no   wrong         turbo
             sum bf16(m_i inv) in all three components
 ==========  ============================================  ============  ========
 
-The ``tmm_*`` forms ablate K5's tile as it runs, on the trimmed geometry
-(``pair_inv_fma``, ``csrc/sym_tc_tile.cuh``: ``tc_trimmed``): ``tmm_noj``'s
-row sums are K5's bit for bit, and ``tmm_nomm`` builds K5's two weight
-registers by K5's roundings; their twins are K5's twin's row half and the
-sums of its bf16 weights (``forces_sym_tc._pair_tiles``,
-``_turbo_weights``), so that the two cannot drift apart.
+Every form ablates the tile its control runs.  The ``tmm_*`` forms ablate
+K5's tile, on the trimmed geometry (``pair_inv_fma``,
+``csrc/sym_tc_tile.cuh``: ``tc_trimmed``): ``tmm_noj``'s row sums are K5's
+bit for bit, and ``tmm_nomm`` builds K5's two weight registers by K5's
+roundings; their twins are K5's twin's row half and the sums of its bf16
+weights (``forces_sym_tc._pair_tiles``, ``_turbo_weights``), so that the
+two cannot drift apart.
 
-``vpu_rc`` and ``vpu_fix0`` ablate K7 as it runs, on K2's pair tile
-(``sym_pair_core``, ``csrc/sym_common.cuh``: eight rows a lane, one column
-accumulator rotating around the warp), and K7 itself is their control:
-``vpu_rc`` takes the differences again for its six accumulating FMAs, so
-its results are K7's bit for bit (its twin's are K7's twin's), and
-``vpu_fix0`` is K7's tile with its column sums stored in the writer's own
-slot; in the rect sweep that is K2-rect vpu's kernel itself, and only
-fix0's reduce is its own.  ``vpu_noj`` still ablates the tile K7 ran
-before its redesign for Hopper (``sym_tile_core``, ``csrc/sym_tile.cuh``:
-one row a thread, a column accumulator shuffled once a pair), and its
-control is a form of its own, ``vpu_tile``: K7's math on that former tile
-(bit for bit K7 before the redesign; the exact physics, held to K7's
-twin).  ``vpu_tile`` is no ablation and has no JAX counterpart (JAX's
-control is K7's own tile), so it is not in ``ABLATION_NAMES``; ``FORMS``
-holds the seven and ``vpu_tile``.  ``CONTROLS`` names each form's control
-(the variant it is timed against and, under ``control_occupancy()``,
-pinned to).
+The ``vpu_*`` forms ablate K7, on K2's pair tile (``sym_pair_core``,
+``csrc/sym_common.cuh``: eight rows a lane, one column accumulator rotating
+around the warp), and K7 itself is their control: ``vpu_noj`` is K7's row
+side alone, so its row sums are K7's bit for bit (its twin is K7's twin's
+row half); ``vpu_rc`` takes the differences again for its six
+accumulating FMAs, so its results are K7's bit for bit (its twin's are
+K7's twin's); and ``vpu_fix0`` is K7's tile with its column sums stored in
+the writer's own slot; in the rect sweep that is K2-rect vpu's kernel
+itself, and only fix0's reduce is its own.  ``CONTROLS`` names each form's
+control (the variant it is timed against and, under
+``control_occupancy()``, pinned to).
 
 As in the JAX package, the diagonal tiles stay exact and one-sided for
-all eight forms, nothing is mass-scaled, and the names are reachable only
+all seven forms, nothing is mass-scaled, and the names are reachable only
 after ``enable()``: it registers the wrappers with the variant entry points
 (``ops/forces_sym_variants.py``: ``forces_pallas_sym(variant=...)`` and
 ``rect_forces_sym(variant=...)``, classic schedule only) and adds the
@@ -68,9 +62,7 @@ own slot and the reduce adds all of them, per offset, into tile 0's
 bodies (``csrc/forces_sym.cu`` states the order), so results are
 bit-reproducible and chunk-invariant.  The C entries are in
 ``csrc/forces_sym.cu`` (``vpu_*`` and the none / fix0 reduce passes) and
-``csrc/forces_sym_tc.cu`` (``tmm_*``); ``vpu_tile``'s rect sweep is K7's
-math on ``sym_tile_core`` at one tile a superblock, the kernel K2-rect vpu
-ran before its redesign.
+``csrc/forces_sym_tc.cu`` (``tmm_*``).
 
 The wrappers take the plain twins (``forces_sym_ablation_plain``,
 ``rect_forces_sym_ablation_plain``: the kernels' tiles, enumeration, slot
@@ -99,45 +91,43 @@ from .forces_sym import (RECT_PAIRS_ARGTYPES, RECT_REDUCE_ARGTYPES,
 
 ABLATION_NAMES = ("vpu_noj", "vpu_fix0", "vpu_rc",
                   "tmm_full", "tmm_noscat", "tmm_noj", "tmm_nomm")
-# vpu_noj's control, K7's math on the tile it ablates; and every form
-# reachable after enable().
-CONTROL = "vpu_tile"
-FORMS = ABLATION_NAMES + (CONTROL,)
 # Each ablation's control, a variant of forces_pallas_sym: K7 ("vpu") for
-# the vpu_* forms on its pair tile, vpu_tile for vpu_noj, K5 ("turbo") for
-# the tmm_* forms.
-CONTROLS = {"vpu_noj": CONTROL, "vpu_fix0": "vpu", "vpu_rc": "vpu",
-            **{n: "turbo" for n in ABLATION_NAMES if n.startswith("tmm_")}}
+# the vpu_* forms, K5 ("turbo") for the tmm_* forms.
+CONTROLS = {n: "vpu" if n.startswith("vpu_") else "turbo"
+            for n in ABLATION_NAMES}
 # How each one's column sums reach the bodies: through K7's / K5's slot sum
 # ("slots"), not at all ("none"), or all into tile 0 ("fix0").
 J_MODE = {"vpu_noj": "none", "vpu_fix0": "fix0", "vpu_rc": "slots",
           "tmm_full": "slots", "tmm_noscat": "fix0", "tmm_noj": "none",
-          "tmm_nomm": "none", CONTROL: "slots"}
+          "tmm_nomm": "none"}
 
 
 def _pair_tiles(eps2: float, name: str):
     """The plain tile of ablation ``name``: (k, T, 3) x (k, T, 3) -> row
     sums, column sums (k, T, 3), as the kernel's tile computes them."""
+    k7 = _k2._pair_tiles(eps2, True, 1)
+
     def pair_tiles(xi, mi, xj, mj):
-        if name in ("vpu_fix0", CONTROL, "tmm_full", "tmm_noscat"):
-            if name in ("vpu_fix0", CONTROL):
-                return _k2._pair_tiles(eps2, True, 1)(xi, mi, xj, mj)
+        if name == "vpu_fix0":
+            return k7(xi, mi, xj, mj)
+        if name in ("tmm_full", "tmm_noscat"):
             return _ktc._pair_tiles(xi, mi, xj, mj, eps2, "turbo")
         none = xi.new_zeros(xj.shape)
-        # tmm_noj and tmm_nomm on K5's twin: its row half, and the sums of
-        # its bf16 weights (both on pair_inv_fma, as their kernels).
+        # vpu_noj on K7's twin and tmm_noj and tmm_nomm on K5's: their row
+        # halves, and the sums of K5's bf16 weights (on pair_inv_fma, as
+        # the kernels).
+        if name == "vpu_noj":
+            return k7(xi, mi, xj, mj)[0], none
         if name == "tmm_noj":
             return _ktc._pair_tiles(xi, mi, xj, mj, eps2, "turbo")[0], none
         if name == "tmm_nomm":
             wi, wj = _ktc._turbo_weights(xi, mi, xj, mj, eps2)
             return (wi.sum(2) + wj.sum(2))[..., None].expand(-1, -1, 3), none
+        # vpu_rc: the differences again for the accumulate.
         r = xj[:, None, :, :] - xi[:, :, None, :]
         d2 = (r * r).sum(-1) + eps2
         inv = torch.rsqrt(d2 * d2 * d2)
         fi = (mj[:, None, :] * inv)[..., None]
-        if name == "vpu_noj":
-            return (fi * r).sum(2), none
-        # vpu_rc: the differences again for the accumulate.
         fj = (mi[:, :, None] * inv)[..., None]
         r = xj[:, None, :, :] - xi[:, :, None, :]
         return (fi * r).sum(2), -(fj * r).sum(1)
@@ -224,8 +214,9 @@ def _entries(name: str):
 
 
 def _check(name: str) -> None:
-    if name not in FORMS:
-        raise ValueError(f"ablation must be one of {FORMS}, got {name!r}")
+    if name not in ABLATION_NAMES:
+        raise ValueError(f"ablation must be one of {ABLATION_NAMES}, got "
+                         f"{name!r}")
 
 
 def forces_sym_ablation(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
@@ -279,23 +270,23 @@ def _wrapper(name: str, rect: bool):
 
 # One wrapper and launch counter a form, by name: the triangular sweep
 # (``forces_sym_<name>``) and the rect sweep (``rect_forces_sym_<name>``).
-SYM_WRAPPERS = {n: _wrapper(n, False) for n in FORMS}
-RECT_WRAPPERS = {n: _wrapper(n, True) for n in FORMS}
+SYM_WRAPPERS = {n: _wrapper(n, False) for n in ABLATION_NAMES}
+RECT_WRAPPERS = {n: _wrapper(n, True) for n in ABLATION_NAMES}
 
 
 # The triangular sweep's pair kernels by their ids in SymMath
-# (csrc/sym_common.cuh) and SymTcVariant (csrc/sym_tc_tile.cuh): K7
-# ("vpu"), the controls vpu_tile and K5 ("turbo"), and the seven ablations.
-_PAIRS_ID = {"vpu": 1, CONTROL: 5, "vpu_noj": 2, "vpu_fix0": 3, "vpu_rc": 4,
+# (csrc/sym_common.cuh) and SymTcVariant (csrc/sym_tc_tile.cuh): the
+# controls K7 ("vpu") and K5 ("turbo"), and the seven ablations.
+_PAIRS_ID = {"vpu": 1, "vpu_noj": 2, "vpu_fix0": 3, "vpu_rc": 4,
              "turbo": 0, "tmm_full": 5, "tmm_noscat": 6, "tmm_noj": 7,
              "tmm_nomm": 8}
 
 
 def ctas_per_sm() -> "dict[str, int]":
-    """The CTAs per SM of the triangular sweep's pair kernels of K7
-    ("vpu"), the controls (vpu_tile, K5 "turbo") and the seven ablations,
-    as they launch now (the occupancy the card's runtime computes; needs
-    the card)."""
+    """The CTAs per SM of the triangular sweep's pair kernels of the
+    controls (K7 "vpu", K5 "turbo") and the seven ablations, as they
+    launch now (the occupancy the card's runtime computes; needs the
+    card)."""
     sym, tc = _k2._lib(), _ktc._lib()
     return {name: (sym.nbt_sym_pairs_ctas(i) if name.startswith("vpu")
                    else tc.nbt_sym_tc_pairs_ctas(i))
@@ -305,13 +296,13 @@ def ctas_per_sm() -> "dict[str, int]":
 @contextlib.contextmanager
 def control_occupancy():
     """While open, the triangular sweep's ablation pair kernels run at
-    their control's CTAs per SM (``CONTROLS``: K7's for vpu_rc and
-    vpu_fix0, vpu_tile's for vpu_noj, K5's for tmm_*): each
-    launch reserves the least dynamic shared memory that brings it there,
-    and no kernel reads it.  A knob for timing the split only: an
-    ablation with fewer registers than its control fits more CTAs on an
-    SM, and would price that with the mechanism it removes.  Raises if a
-    form cannot be brought to its control's count."""
+    their control's CTAs per SM (``CONTROLS``: K7's for the vpu_* forms,
+    K5's for tmm_*): each launch reserves the least dynamic shared memory
+    that brings it there, and no kernel reads it.  A knob for timing the
+    split only: an ablation with fewer registers than its control fits
+    more CTAs on an SM, and would price that with the mechanism it
+    removes.  Raises if a form cannot be brought to its control's
+    count."""
     pins = (_k2._lib().nbt_sym_abl_pin, _ktc._lib().nbt_sym_tc_abl_pin)
     try:
         for pin in pins:
@@ -326,11 +317,11 @@ def control_occupancy():
 
 
 def enable() -> None:
-    """Register the ablation kernels and their control with the variant
-    entry points and make the names dispatchable through
-    ``forces_pallas_sym(variant=...)`` and ``rect_forces_sym(variant=...)``;
-    calling it again changes nothing."""
+    """Register the ablation kernels with the variant entry points and
+    make the names dispatchable through ``forces_pallas_sym(variant=...)``
+    and ``rect_forces_sym(variant=...)``; calling it again changes
+    nothing."""
     _variants.ABLATION_SYM_KERNELS.update(SYM_WRAPPERS)
     _variants.ABLATION_RECT_KERNELS.update(RECT_WRAPPERS)
     _variants.SYM_VARIANTS = _variants.SYM_VARIANTS + tuple(
-        n for n in FORMS if n not in _variants.SYM_VARIANTS)
+        n for n in ABLATION_NAMES if n not in _variants.SYM_VARIANTS)

@@ -61,8 +61,8 @@ and column sums in one-writer slots reduced in a fixed order
 (``csrc/rect_common.cuh`` states the layout), B's superblocks in chunks
 of ``rect_chunks``.  Every exact sweep, classic or fold, runs the pair
 tile, ``sym_pair_core`` (``csrc/sym_common.cuh``: eight rows a lane in
-registers, row partials added in warp order) with K2's or K7's math;
-K15's rect forms run ``sym_tile_core`` (``csrc/sym_tile.cuh``).  The
+registers, row partials added in warp order) with K2's or K7's math,
+and so do K15's vpu_* rect forms (``ops/ablation_sym.py``).  The
 mass-scaled vpu2 sums are divided by m on both sides, and a real
 massless body's cross sum is recomputed one-sided over the other set.
 Its twins (``rect_forces_sym_plain``) share the square twins' tile

@@ -22,14 +22,13 @@ classic schedule, vpu and vpu2 also on the fold schedule, each A x B pair
 once, the acceleration of A from B and of B from A.  It is the cross
 rotation of the Newton's-third-law ring (``parallel/ring.py``).
 
-K15, the bench-only ablations of K7's former tile and K5's tile and the
-former's control ``vpu_tile`` (``ops/ablation_sym.py``), are not in these
-tables: ``ablation_sym.enable()`` registers them in
-``ABLATION_SYM_KERNELS`` and ``ABLATION_RECT_KERNELS``
-and adds their names to ``SYM_VARIANTS``, and both entry points check the
-registries before ``CLASSIC`` and ``RECT_CLASSIC``.  They run on the
-classic schedule only; no impl, ``auto``, ``SimConfig`` or CLI verb
-reaches them, as in the JAX package.
+K15, the bench-only ablations of K7's pair tile and K5's tile
+(``ops/ablation_sym.py``), are not in these tables:
+``ablation_sym.enable()`` registers them in ``ABLATION_SYM_KERNELS`` and
+``ABLATION_RECT_KERNELS`` and adds their names to ``SYM_VARIANTS``, and
+both entry points check the registries before ``CLASSIC`` and
+``RECT_CLASSIC``.  They run on the classic schedule only; no impl,
+``auto``, ``SimConfig`` or CLI verb reaches them, as in the JAX package.
 
 The classic schedule's tiles are fixed at 256 bodies (``SYM_TILE``); the
 fold schedule's superblock is ``block_u`` bodies (default

@@ -170,61 +170,14 @@ def test_vpu_fix0_rect_acc_a_is_k2_rect_vpus(na, nb):
 @pytest.mark.parametrize("name", NAMES)
 def test_control_of_each_ablation(enabled, name):
     """Each ablation's control (the variant it is timed and pinned
-    against): K7 for vpu_rc and vpu_fix0, which run K7's pair tile;
-    vpu_tile for vpu_noj, which runs K7's former tile; K5 for tmm_*.
-    Every control is a variant of the entry point."""
-    want = {"vpu_rc": "vpu", "vpu_fix0": "vpu", "vpu_noj": "vpu_tile"}
+    against) is the kernel whose tile it ablates: K7 for vpu_noj, vpu_rc
+    and vpu_fix0, which run K7's pair tile; K5 for tmm_*.  Every control
+    is a variant of the entry point."""
+    want = {"vpu_rc": "vpu", "vpu_fix0": "vpu", "vpu_noj": "vpu"}
     control = ablation_sym.CONTROLS[name]
     assert control == want.get(name, "turbo")
     assert control in variants.SYM_VARIANTS
     assert set(ablation_sym.CONTROLS) == set(NAMES)
-
-
-@pytest.mark.parametrize("rect", [False, True])
-def test_control_is_k7_on_its_former_tile(enabled, rect):
-    """vpu_tile, vpu_noj's control (K7's math on the tile it ablates),
-    against JAX's vpu variant at the exact tolerance, and its twin bit
-    for bit K7's (the twins share K7's tile function)."""
-    control = ablation_sym.CONTROL
-    assert control not in NAMES and control in ablation_sym.FORMS
-    pos, _, mass = make_small_system(1280, seed=158)
-    if rect:
-        sets = (pos[:512], mass[:512], pos[512:], mass[512:])
-        want = jax_fps.rect_forces_sym(*(jnp.asarray(x) for x in sets), EPS2,
-                                       block_i=128, block_u=SYM_TILE,
-                                       variant="vpu")
-        got = variants.rect_forces_sym(*(t(x) for x in sets), EPS2,
-                                       variant=control)
-        k7 = variants.rect_forces_sym(*(t(x) for x in sets), EPS2,
-                                      variant="vpu")
-    else:
-        want = [jax_fps.forces_pallas_sym(
-            jnp.asarray(pos), jnp.asarray(mass), EPS2, block_i=128,
-            block_u=SYM_TILE, variant="vpu")]
-        got = [variants.forces_pallas_sym(t(pos), t(mass), EPS2,
-                                          variant=control)]
-        k7 = [variants.forces_pallas_sym(t(pos), t(mass), EPS2,
-                                         variant="vpu")]
-    for g, w, k in zip(got, want, k7):
-        assert_close(g.numpy(), np.asarray(w), f"{control} vs JAX vpu",
-                     tolerance(control))
-        np.testing.assert_array_equal(g.numpy(), k.numpy())
-
-
-def test_control_unreachable_before_enable():
-    """The control is bench-only like the ablations: no variant, impl or
-    CLI choice names it before enable()."""
-    control = ablation_sym.CONTROL
-    assert control not in variants.SYM_VARIANTS
-    pos, _, mass = make_small_system(600, seed=159)
-    p, m = t(pos), t(mass)
-    with pytest.raises(ValueError, match="enable"):
-        variants.forces_pallas_sym(p, m, EPS2, variant=control)
-    with pytest.raises(ValueError, match="enable"):
-        variants.rect_forces_sym(p[:256], m[:256], p[256:], m[256:], EPS2,
-                                 variant=control)
-    with pytest.raises(ValueError, match="impl"):
-        SimConfig(impl=control)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -302,6 +255,39 @@ def _tiles(seed, k=2):
     x = t(pos).view(2 * k, SYM_TILE, 3)
     m = t(mass).view(2 * k, SYM_TILE)
     return x[:k], m[:k], x[k:], m[k:]
+
+
+@pytest.mark.parametrize("seed", [166, 167])
+def test_vpu_noj_rows_are_k7s_on_two_tiles(seed):
+    """vpu_noj is K7's pair tile less its j side: on two 256-body tile
+    pairs its row sums are K7's twin's bit for bit, within the exact
+    tolerance of a float64 sum of m_j r / (|r|^2 + eps2)^(3/2), and it
+    has no column sums."""
+    tiles = _tiles(seed)
+    xi, _, xj, mj = tiles
+    rows, cols = ablation_sym._pair_tiles(EPS2, "vpu_noj")(*tiles)
+    k7_rows, k7_cols = forces_sym._pair_tiles(EPS2, True, 1)(*tiles)
+    assert torch.equal(rows, k7_rows)
+    assert k7_cols.any() and not cols.any()
+    r = (xj[:, None, :, :] - xi[:, :, None, :]).double()
+    d2 = (r * r).sum(-1) + EPS2
+    want = ((mj.double()[:, None, :] * d2 ** -1.5)[..., None] * r).sum(2)
+    assert_close(rows.numpy(), want.numpy(), "vpu_noj rows vs float64",
+                 tolerance("vpu_noj"))
+
+
+@pytest.mark.parametrize("na, nb", [(300, 700), (1000, 257)])
+def test_vpu_noj_rect_acc_a_is_k2_rect_vpus(na, nb):
+    """On ragged sets the rect sweep of vpu_noj gives A K2-rect vpu's
+    acc_a bit for bit (its row slots are K2-rect vpu's, added in the same
+    order) and B nothing."""
+    pos, _, mass = make_small_system(na + nb, seed=168)
+    sets = (t(pos[:na]), t(mass[:na]), t(pos[na:]), t(mass[na:]))
+    acc_a, acc_b = ablation_sym.rect_forces_sym_ablation(*sets, EPS2,
+                                                         "vpu_noj")
+    k7_a, k7_b = forces_sym.rect_forces_sym_vpu(*sets, EPS2)
+    assert torch.equal(acc_a, k7_a)
+    assert k7_b.any() and not acc_b.any()
 
 
 def _k5_weights(xi, mi, xj, mj):
