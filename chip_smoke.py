@@ -64,7 +64,16 @@ after ``ablation_sym.enable()``, for each K15 ablation, and the
 checkpoint, K4 with yoshida4, auto routing, N = 1M with ``--energy``,
 N = 1M with ``pallas_sym_turbo`` and with ``pallas_sym_turbo2``, K12 with
 ``--sort-every`` at N = 8192 and 1M, and a resume that must equal one
-uninterrupted run).
+uninterrupted run), then the closed-form two-body gates
+(``check_kepler``): ``validate --analytic`` through every impl at N = 2
+(K1, K11, K12, K9, K10, K2, K7, K5, K6, K14a; 1024 and 2048 steps a
+period; float64 through xla_nxn), and the split form, body 1 at index 256
+behind 255 massless bodies, through the pair-symmetric impls' pair tiles
+and K3 / K4 (bit-equal to per-step K2), each gate's error held to the JAX
+package's CPU figures (``JAX_KEPLER``); and the ``--init`` presets at full
+width (``check_presets``: plummer-virial at 1M with ``--energy``, the
+collision through auto's K3, the disk through K12 with ``--sort-every``,
+``validate`` from plummer-virial), each state held to its contract.
 Then 200 steps under the momentum and angular-momentum gates, the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
 one 4-shard K13 step at N = 1M against the single-device K2 step (on the
@@ -334,6 +343,140 @@ SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
              "pe", "rdma_ring", "resident", "forces_fast")
 SASS_REDESIGNED = (r"\bsym_pairs_kernel<[25]>", r"\brect_pairs_kernel<[12]>")
 SASS_SAME = ()
+# The closed-form two-body gates (nbody_tpu_torch/models/kepler.py) on the
+# card: ``validate --analytic`` through the CLI for each impl at N = 2
+# ("pair") at KEPLER_STEPS steps a period, and the split form ("split":
+# body 1 at index 256 behind 255 massless bodies, so that the
+# pair-symmetric impls compute the pair on their pair tile) through
+# run_steps and the resident entry points.  Each impl's kernel (None: no
+# kernel) and the JAX package's impl whose figures it is held to.
+KEPLER_STEPS = (1024, 2048)
+KEPLER_PAIR_IMPLS = {"auto": "forces_tiled", "pallas": "forces_tiled",
+                     "pallas_kahan": "forces_tiled_kahan",
+                     "pallas_fast": "forces_fast",
+                     "pallas_turbo": "forces_tiled_turbo",
+                     "pallas_mxu": "forces_tiled_mxu",
+                     "pallas_sym2": "forces_sym",
+                     "pallas_sym": "forces_sym_vpu",
+                     "pallas_sym_turbo": "forces_sym_turbo",
+                     "pallas_sym_mxu": "forces_sym_mxu",
+                     "pallas_sym_turbo2": "forces_sym_turbo2"}
+KEPLER_SPLIT_IMPLS = ("pallas_sym2", "pallas_sym", "pallas_sym_turbo",
+                      "pallas_sym_mxu", "pallas_sym_turbo2")
+# auto runs K1 at N = 2 on the card (below SYM_CROSSOVER_N).
+KEPLER_JAX_IMPL = {"auto": "pallas"}
+KEPLER_SPLIT_AT = 256
+# The JAX package's gate errors, float32 on the CPU with the Pallas impls
+# in interpret mode, as ``PYTHONPATH=. python tests/kepler_jax_figures.py``
+# prints them (the JAX package at commit
+# 22cd32cd22cab26631757ca4be0b1b16d38eccaa): for
+# each (placement, impl, S) the five gates in run_analytic_gates' order,
+# each at S + k steps a period for k in KEPLER_OFFSETS (float64: S only).
+# A gate's float32 error is often rounding noise: where the JAX figures
+# over those five step counts differ by more than 2x, the card's error is
+# held to at most twice the larger of their largest and the gates' float32
+# noise term (KEPLER_NOISE), elsewhere to within a factor of 2 of the
+# figures both ways; where the figure at S is more than 25% from its
+# tolerance, the card's verdict must be the JAX package's.
+# JAX_KEPLER_SAME: cells whose figures equal another's.
+KEPLER_OFFSETS = (-16, -8, 0, 8, 16)
+KEPLER_NOISE = {"float32": 5e-5, "float64": 1e-12}
+JAX_KEPLER = {
+    ('pair', 'pallas', 1024): (
+        (0.000209443, 0.000206923, 0.000212371, 0.000206357, 0.000207095),
+        (5.70264e-05, 3.43572e-05, 5.04971e-05, 5.15523e-05, 5.31694e-05),
+        (1.05654e-05, 1.199e-05, 4.49269e-06, 4.82009e-06, 2.12651e-05),
+        (0.00355337, 0.00345814, 0.00347729, 0.0034218, 0.00333698),
+        (1.55586e-05, 6.23152e-05, 4.51756e-06, 6.04019e-05, 6.16004e-05),
+    ),
+    ('pair', 'pallas', 2048): (
+        (9.46332e-05, 9.49779e-05, 9.61638e-05, 9.82235e-05, 9.52911e-05),
+        (5.3099e-06, 4.15771e-06, 6.08275e-06, 4.22062e-05, 1.18371e-05),
+        (1.41941e-05, 2.37754e-06, 1.82409e-05, 8.95076e-06, 2.49827e-06),
+        (0.000879467, 0.000898789, 0.000839242, 0.000842908, 0.000857099),
+        (0.000130794, 4.06996e-05, 7.42639e-05, 5.85329e-05, 3.75893e-05),
+    ),
+    ('pair', 'pallas_fast', 1024): (
+        (0.000211114, 0.000208926, 0.000214948, 0.000207354, 0.000207389),
+        (6.7618e-05, 3.55199e-05, 5.30441e-05, 5.21714e-05, 5.05332e-05),
+        (5.32421e-06, 2.68598e-05, 6.9787e-06, 1.58148e-05, 6.37006e-06),
+        (0.00354655, 0.00346264, 0.00350175, 0.00341968, 0.00333159),
+        (1.16861e-05, 8.12236e-05, 3.40376e-06, 5.87668e-05, 8.02974e-06),
+    ),
+    ('pair', 'pallas_fast', 2048): (
+        (9.41022e-05, 9.47501e-05, 9.68354e-05, 9.55715e-05, 9.48674e-05),
+        (3.86243e-06, 6.20875e-06, 1.5407e-06, 3.9487e-05, 1.48713e-05),
+        (1.84675e-05, 5.25784e-06, 1.83156e-05, 1.05887e-05, 1.37506e-06),
+        (0.000892783, 0.000916197, 0.000857417, 0.000841393, 0.000864089),
+        (0.000140377, 3.02799e-05, 8.70632e-05, 7.60875e-05, 4.64901e-05),
+    ),
+    ('pair', 'pallas_mxu', 1024): (
+        (0.00021105, 0.000208929, 0.000214442, 0.000207586, 0.00020785),
+        (5.85846e-05, 3.49607e-05, 5.32133e-05, 5.29277e-05, 4.87779e-05),
+        (1.00238e-05, 2.83813e-05, 2.31618e-05, 1.93595e-05, 2.09495e-05),
+        (0.00354079, 0.0034624, 0.00350419, 0.00342533, 0.0033308),
+        (5.85956e-05, 7.57751e-05, 3.1565e-05, 5.43499e-05, 3.0444e-05),
+    ),
+    ('pair', 'pallas_mxu', 2048): (
+        (9.42385e-05, 9.37151e-05, 9.70552e-05, 9.43993e-05, 9.4714e-05),
+        (8.4528e-06, 7.1435e-06, 3.13301e-06, 4.05029e-05, 1.30894e-05),
+        (5.58486e-06, 1.92672e-05, 1.89008e-05, 2.21019e-05, 1.64593e-06),
+        (0.000896389, 0.000916903, 0.000852374, 0.000864268, 0.000861244),
+        (0.000136697, 1.21463e-05, 7.76027e-05, 8.39648e-05, 3.08301e-05),
+    ),
+    ('pair', 'pallas_turbo', 1024): (
+        (0.00144426, 0.00145817, 0.00148027, 0.0014801, 0.00149195),
+        (0.00171727, 0.0017173, 0.00171626, 0.00171767, 0.00171766),
+        (0.00172131, 0.00172343, 0.00172354, 0.00172303, 0.00172503),
+        (0.00518774, 0.013194, 0.0109151, 0.00746667, 0.00925895),
+        (0.00445329, 0.0046026, 0.00606917, 0.00941141, 0.00499407),
+    ),
+    ('pair', 'pallas_turbo', 2048): (
+        (0.00184915, 0.00183678, 0.00186379, 0.00187144, 0.00187415),
+        (0.0017222, 0.00172257, 0.00172228, 0.00172023, 0.00172211),
+        (0.00172126, 0.00172541, 0.00172585, 0.00172162, 0.00172395),
+        (0.00614132, 0.000822424, 0.0046175, 0.00370638, 0.00169564),
+        (0.00811291, 8.27995e-05, 0.00304367, 0.00397174, 0.00138862),
+    ),
+    ('pair', 'xla_nxn/float64', 1024): (
+        (0.000206499,),
+        (4.91825e-05,),
+        (5.18621e-09,),
+        (0.00343017,),
+        (1.76606e-06,),
+    ),
+    ('pair', 'xla_nxn/float64', 2048): (
+        (9.49208e-05,),
+        (1.22957e-05,),
+        (3.24104e-10,),
+        (0.000857179,),
+        (9.14692e-08,),
+    ),
+}
+JAX_KEPLER_SAME = {
+    ('pair', 'pallas_kahan', 1024): ('pair', 'pallas', 1024),
+    ('pair', 'pallas_kahan', 2048): ('pair', 'pallas', 2048),
+    ('pair', 'pallas_sym', 1024): ('pair', 'pallas', 1024),
+    ('pair', 'pallas_sym', 2048): ('pair', 'pallas', 2048),
+    ('pair', 'pallas_sym2', 1024): ('pair', 'pallas', 1024),
+    ('pair', 'pallas_sym2', 2048): ('pair', 'pallas', 2048),
+    ('pair', 'pallas_sym_mxu', 1024): ('pair', 'pallas', 1024),
+    ('pair', 'pallas_sym_mxu', 2048): ('pair', 'pallas', 2048),
+    ('pair', 'pallas_sym_turbo', 1024): ('pair', 'pallas', 1024),
+    ('pair', 'pallas_sym_turbo', 2048): ('pair', 'pallas', 2048),
+    ('pair', 'pallas_sym_turbo2', 1024): ('pair', 'pallas', 1024),
+    ('pair', 'pallas_sym_turbo2', 2048): ('pair', 'pallas', 2048),
+    ('split', 'pallas_sym', 1024): ('pair', 'pallas', 1024),
+    ('split', 'pallas_sym', 2048): ('pair', 'pallas', 2048),
+    ('split', 'pallas_sym2', 1024): ('pair', 'pallas', 1024),
+    ('split', 'pallas_sym2', 2048): ('pair', 'pallas', 2048),
+    ('split', 'pallas_sym_mxu', 1024): ('pair', 'pallas_mxu', 1024),
+    ('split', 'pallas_sym_mxu', 2048): ('pair', 'pallas_mxu', 2048),
+    ('split', 'pallas_sym_turbo', 1024): ('pair', 'pallas_turbo', 1024),
+    ('split', 'pallas_sym_turbo', 2048): ('pair', 'pallas_turbo', 2048),
+    ('split', 'pallas_sym_turbo2', 1024): ('pair', 'pallas_turbo', 1024),
+    ('split', 'pallas_sym_turbo2', 2048): ('pair', 'pallas_turbo', 2048),
+}
 
 
 def check(cond, what):
@@ -2609,6 +2752,290 @@ def crossovers(dev, smi):
                   f"({ts / tr:.3f}x)")
 
 
+def jax_kepler(place, impl, spp):
+    """The JAX package's cell for ``impl`` at S = ``spp``: five gates of
+    errors at S + KEPLER_OFFSETS (float64: one)."""
+    key = (place, KEPLER_JAX_IMPL.get(impl, impl), spp)
+    return JAX_KEPLER[JAX_KEPLER_SAME.get(key, key)]
+
+
+def hold_kepler(what, results, cell, spp, dtype="float32"):
+    """Print each gate's error and tolerance on the card beside the JAX
+    package's figures, and hold them to the rules of JAX_KEPLER."""
+    from nbody_tpu_torch.models.kepler import gate_cases
+    offsets = KEPLER_OFFSETS if dtype == "float32" else (0,)
+    tols = [c.tol for c in gate_cases(dtype, spp, "cpu")]
+    for g, r in enumerate(results):
+        errs = cell[g]
+        lo, hi = min(errs), max(errs)
+        j0, t0 = errs[offsets.index(0)], tols[g]
+        noise = hi > 2.0 * lo
+        top = max(hi, KEPLER_NOISE[dtype]) if noise else hi
+        print(f"[kepler] {what} S={spp} {r['gate']}: card "
+              f"{r['max_rel_err']:.4e} tol {r['tol']:.4e} "
+              f"{'OK ' if r['ok'] else 'FAIL'} | JAX {j0:.4e} "
+              f"{'OK ' if j0 <= t0 else 'FAIL'} (S-16..S+16: "
+              f"{lo:.3e}..{hi:.3e}{', noise' if noise else ''})")
+        check(r["max_rel_err"] <= 2.0 * top
+              and (noise or r["max_rel_err"] >= 0.5 * lo),
+              f"kepler {what} S={spp} {r['gate']}: card error "
+              f"{r['max_rel_err']:.4e} not within a factor of 2 of the "
+              f"JAX package's {lo:.4e}..{top:.4e}")
+        if abs(j0 - t0) > 0.25 * t0:
+            check(r["ok"] == (j0 <= t0), f"kepler {what} S={spp} "
+                  f"{r['gate']}: the card's verdict is not the JAX "
+                  f"package's ({j0:.4e} against {t0:.4e})")
+
+
+_GATE_LINE = re.compile(r"\[(OK |FAIL)\] (\S+): max rel pos err (\S+) after "
+                        r"(\d+) steps \(1 period; tol (\S+)\)")
+
+
+def kepler_cli(counts, impl, steps, dtype="float32"):
+    """``validate --analytic`` through the CLI with the launch counters:
+    the gates' results as the CLI prints them.  The impl's kernel (if any)
+    launches once a force evaluation, 9 S + 4 times (S, S + 1, 3 S + 1, S +
+    1 and 3 S + 1 over the five gates), and no other kernel launches."""
+    import io
+    from nbody_tpu_torch.cli import main as cli_main
+    argv = ["validate", "--analytic", "--impl", impl, "--dtype", dtype]
+    if steps:
+        argv += ["--steps", str(steps)]
+    spp = steps or 2048
+    before = counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    text = out.getvalue()
+    sys.stdout.write(text)
+    delta = {k: v - before[k] for k, v in counts().items()}
+    kernel = KEPLER_PAIR_IMPLS.get(impl) if dtype == "float32" else None
+    check(all(v == (9 * spp + 4 if k == kernel else 0)
+              for k, v in delta.items()),
+          f"validate --analytic --impl {impl}: launches "
+          f"{ {k: v for k, v in delta.items() if v} }")
+    results = [{"gate": m[2], "max_rel_err": float(m[3]), "steps": int(m[4]),
+                "tol": float(m[5]), "ok": m[1] == "OK "}
+               for m in _GATE_LINE.finditer(text)]
+    check(len(results) == 5 and all(r["steps"] == spp for r in results),
+          f"validate --analytic --impl {impl}: {len(results)} gate lines")
+    ok = all(r["ok"] for r in results)
+    check(rc == (0 if ok else 1) and text.rstrip().endswith(
+        "Analytic verification " + ("PASSED" if ok else "FAILED")),
+        f"validate --analytic --impl {impl}: exit {rc}")
+    return results, rc
+
+
+def check_kepler(counts):
+    """The closed-form gates on the card: every impl through ``validate
+    --analytic`` at N = 2 (KEPLER_STEPS and the default), float64 once;
+    the split form for the pair-symmetric impls through run_steps, and K3
+    / K4 through the resident entry points, bit-equal to per-step K2."""
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.models.kepler import (gate_cases, gate_result,
+                                               split_pair)
+    from nbody_tpu_torch.ops import resident
+    t0 = time.perf_counter()
+    for impl in KEPLER_PAIR_IMPLS:
+        for steps in (1024, None):
+            spp = steps or 2048
+            results, rc = kepler_cli(counts, impl, steps)
+            # K9 fails at 1024 steps a period as JAX's does; every other
+            # impl passes there.
+            check(rc == 0 or steps != 1024 or impl == "pallas_turbo",
+                  f"validate --analytic --steps 1024 --impl {impl}: exit "
+                  f"{rc}")
+            hold_kepler(
+                f"pair {impl} (validate --analytic"
+                f"{' --steps 1024' if steps else ''}: exit {rc})", results,
+                jax_kepler("pair", impl, spp), spp)
+    for spp in KEPLER_STEPS:   # 2048 as validate's default
+        results, rc = kepler_cli(counts, "xla_nxn", spp if spp != 2048
+                                 else None, "float64")
+        check(rc == 0, f"validate --analytic --dtype float64: exit {rc}")
+        hold_kepler(
+            "pair xla_nxn float64", results,
+            jax_kepler("pair", "xla_nxn/float64", spp), spp, "float64")
+    print(f"[time] validate --analytic, {len(KEPLER_PAIR_IMPLS)} impls x 2 "
+          f"+ float64: {time.perf_counter() - t0:.1f} s")
+
+    # The split form: bodies 0 and 256 in two superblocks.
+    t0 = time.perf_counter()
+    n = KEPLER_SPLIT_AT + 1
+    for spp in KEPLER_STEPS:
+        per_step = {}
+        for impl in KEPLER_SPLIT_IMPLS:
+            kernel = KEPLER_PAIR_IMPLS[impl]
+            results = []
+            before = counts()
+            for case in gate_cases("float32", spp, "cuda"):
+                cfg = nt.SimConfig(n_bodies=n, dt=case.dt, eps2=case.eps2,
+                                   impl=impl, integrator=case.integrator)
+                st = split_pair(case.state, KEPLER_SPLIT_AT)
+                if case.integrator != "reference":
+                    st = nt.ops.step.prime_kdk(st, cfg)
+                out = nt.run_steps(st, cfg, spp)
+                check(bool(torch.isfinite(out.pos).all()),
+                      f"kepler split {impl}: non-finite state")
+                if impl == "pallas_sym2":
+                    per_step[case.gate] = (st, out)
+                results.append(gate_result(
+                    case, out.pos[[0, KEPLER_SPLIT_AT]]))
+            delta = {k: v - before[k] for k, v in counts().items()}
+            check(all(v == (9 * spp + 4 if k == kernel else 0)
+                      for k, v in delta.items()),
+                  f"kepler split {impl}: launches "
+                  f"{ {k: v for k, v in delta.items() if v} }")
+            hold_kepler(
+                f"split {impl}", results, jax_kepler("split", impl, spp),
+                spp)
+        # K3 (reference) and K4 (kdk, yoshida4): one launch a gate from
+        # the same (primed) split states, bit-equal to per-step K2.
+        results = []
+        before = counts()
+        for case in gate_cases("float32", spp, "cuda"):
+            cfg = nt.SimConfig(n_bodies=n, dt=case.dt, eps2=case.eps2,
+                               impl="pallas_sym2",
+                               integrator=case.integrator)
+            st, want = per_step[case.gate]
+            got = resident.run_steps_resident(st, cfg, spp)
+            check(states_equal(got, want),
+                  f"kepler split {case.gate}: {spp} resident steps differ "
+                  f"from {spp} per-step K2 steps")
+            results.append(gate_result(case, got.pos[[0, KEPLER_SPLIT_AT]]))
+        delta = {k: v - before[k] for k, v in counts().items()}
+        check(delta["resident"] == 1 and delta["resident_kdk"] == 4
+              and all(v == 0 for k, v in delta.items()
+                      if k not in ("resident", "resident_kdk")),
+              f"kepler split K3/K4: launches "
+              f"{ {k: v for k, v in delta.items() if v} }")
+        hold_kepler(
+            "split K3/K4 (resident, bit-equal to per-step K2)", results,
+            jax_kepler("split", "pallas_sym2", spp), spp)
+    print(f"[time] kepler split form, {len(KEPLER_SPLIT_IMPLS)} impls and "
+          f"K3/K4 x 2: {time.perf_counter() - t0:.1f} s")
+
+
+# The presets at full width through the CLI: (name, argv, the launches of
+# each kernel (others 0)).  validate's dt = 0.01 resolves the virialised
+# core (~0.03 scale radii a step; at the default dt = 0.1 the JAX
+# package's own validate fails this preset at N = 8192 on the CPU).
+PRESET_PHASES = (
+    ("plummer-virial", ["run", "--n", "1048576", "--steps", "2",
+                        "--energy"], {"forces_sym": 2, "pe_total": 2}),
+    ("collision", ["run", "--n", "8192", "--steps", "100"],
+     {"resident": 1}),
+    ("disk", ["run", "--n", "8192", "--impl", "pallas_fast",
+              "--sort-every", "10", "--steps", "100"], {"forces_fast": 100}),
+    ("plummer-virial", ["validate", "--n", "8192", "--steps", "10",
+                        "--long-steps", "0", "--dt", "0.01",
+                        "--oracle", "native"], {"forces_sym": 10}))
+VIRIAL_SAMPLE = 8192
+
+
+def preset_contract(name, state, eps2, max_pos):
+    """The statistical contract of ``tests/test_init_presets.py`` on a
+    card state: the virial ratio (about 1 for plummer-virial, from at most
+    VIRIAL_SAMPLE bodies with their masses scaled by N / n, which keeps
+    2K / |W| unbiased), zero momentum, the disk thin and every body
+    prograde, the collision's two clusters approaching."""
+    import numpy as np
+    import torch
+    from nbody_tpu_torch.analysis import lagrangian_radii, virial_ratio
+    from nbody_tpu_torch.models.state import state_to_numpy
+    h = state_to_numpy(state)
+    pos, vel, mass = (h[k].astype(np.float64) for k in ("pos", "vel",
+                                                         "mass"))
+    n = len(mass)
+    check(all(np.isfinite(x).all() for x in (pos, vel, mass)),
+          f"preset {name}: non-finite state")
+    idx = np.arange(n)
+    if n > VIRIAL_SAMPLE:
+        g = torch.Generator().manual_seed(1)
+        idx = torch.randperm(n, generator=g)[:VIRIAL_SAMPLE].numpy()
+    q = virial_ratio(pos[idx], vel[idx], mass[idx] * (n / len(idx)), eps2)
+    p = np.sum(mass[:, None] * vel, axis=0)
+    p_rel = float(np.abs(p).max() / np.sum(mass * np.linalg.norm(vel,
+                                                                 axis=1)))
+    r_half = lagrangian_radii(pos, mass, (0.5,))[0]
+    line = (f"[preset] {name} N={n}: virial ratio 2K/|W| {q:.4f} "
+            f"({len(idx)} bodies), |P|/scale {p_rel:.3e}, half-mass "
+            f"radius {r_half:.4e}")
+    if name == "plummer-virial":
+        check(0.7 < q < 1.3, f"preset {name}: virial ratio {q}")
+        check(p_rel < 1e-6, f"preset {name}: momentum {p_rel}")
+    elif name == "disk":
+        a = max_pos / 4.0
+        z95 = float(np.percentile(np.abs(pos[:, 2]), 95))
+        r_max = float(np.linalg.norm(pos[:, :2], axis=1).max())
+        ang = np.sum(mass[:, None] * np.cross(pos, vel), axis=0)
+        lz = pos[:, 0] * vel[:, 1] - pos[:, 1] * vel[:, 0]
+        line += (f", |z| 95th pct {z95 / a:.4f} a, max R {r_max / a:.6f} "
+                 f"a, L_z / max(|L_x|, |L_y|) "
+                 f"{abs(ang[2]) / max(abs(ang[0]), abs(ang[1])):.1f}, "
+                 f"prograde {int((lz > 0).sum())}/{n}")
+        check(z95 < 0.2 * a and r_max <= a * 1.0001, f"preset {name}: "
+              f"not thin (|z| 95th pct {z95}, max R {r_max})")
+        check(abs(ang[2]) > 50 * max(abs(ang[0]), abs(ang[1]))
+              and bool(np.all(lz > 0)), f"preset {name}: not rotating")
+    elif name == "collision":
+        a = max_pos / 10.0
+        left = pos[:, 0] < 0
+        xl, xr = pos[left, 0].mean(), pos[~left, 0].mean()
+        vl, vr = vel[left, 0].mean(), vel[~left, 0].mean()
+        line += (f", left {left.mean():.4f} of the bodies, mean x "
+                 f"{xl / a:.3f} a / {xr / a:.3f} a, mean v_x {vl:.4e} / "
+                 f"{vr:.4e}")
+        check(p_rel < 1e-6, f"preset {name}: momentum {p_rel}")
+        check(0.3 < left.mean() < 0.7 and xl < -2 * a and xr > 2 * a
+              and vl > 0 and vr < 0, f"preset {name}: not two clusters "
+              f"approaching")
+    print(line)
+
+
+def check_presets(counts):
+    """run and validate with each --init preset at full width through the
+    CLI with the launch counters, the card's initial state (the maker's,
+    from the same seed) held to its contract, every end state finite."""
+    import numpy as np
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.models.init import INIT_MAKERS
+    os.makedirs(WORK, exist_ok=True)
+    for name, argv, expect in PRESET_PHASES:
+        t0 = time.perf_counter()
+        argv = [argv[0], "--init", name, *argv[1:]]
+        end = None
+        if argv[0] == "run":
+            end = os.path.join(WORK, f"preset_{name}.npz")
+            argv += ["--checkpoint", end]
+        what = " ".join(argv[:-2] if end else argv)
+        before = counts()
+        rc = cli_main(argv)
+        check(rc == 0, f"{what}: exit {rc}")
+        delta = {k: v - before[k] for k, v in counts().items()}
+        print(f"[main path] {what}: launches "
+              f"{ {k: v for k, v in delta.items() if v} }")
+        for k, v in delta.items():
+            want = expect.get(k, 0)
+            check(v >= 1 if (k == "resident" and want) else v == want,
+                  f"{what}: {k} launched {v} times")
+        n = int(argv[argv.index("--n") + 1])
+        dt = float(argv[argv.index("--dt") + 1]) if "--dt" in argv else 0.1
+        cfg = nt.SimConfig(n_bodies=n, dt=dt)
+        preset_contract(
+            name, INIT_MAKERS[name](cfg), cfg.eps2, cfg.max_pos)
+        if end:
+            with np.load(end) as z:
+                check(all(np.isfinite(z[k]).all() for k in ("pos", "vel",
+                                                             "acc")),
+                      f"{what}: non-finite end state")
+                print(f"[preset] {what}: end state finite after "
+                      f"{int(z['step'])} steps")
+        print(f"[time] {what}: {time.perf_counter() - t0:.1f} s")
+
+
 def share_oracle_runs():
     """validate's numpy oracle is a pure function of its inputs and takes
     ~50 s a run at N = 8192 on the card's host; the validate phases at
@@ -2633,10 +3060,10 @@ def share_oracle_runs():
 def main_path(counts, reset):
     """The CLI's main paths with the launch counters: validate at N = 8192
     (K1, K2, K7, K11, and the tensor-core tiers K9, K10, K5, K6, K14a), the
-    entry point ``forces_pallas_sym`` at N = 8192 (K14b, K14c, K14d), and
-    the run verb (K3, K4, auto, K8 at 1M, K5 and K14a at 1M, K12 with
-    --sort-every at 8192 and 1M, resume).  Returns the launches of every
-    kernel over all of them."""
+    entry point ``forces_pallas_sym`` at N = 8192 (K14b, K14c, K14d), the
+    run verb (K3, K4, auto, K8 at 1M, K5 and K14a at 1M, K12 with
+    --sort-every at 8192 and 1M, resume), the closed-form gates and the
+    presets.  Returns the launches of every kernel over all of them."""
     import numpy as np
     from nbody_tpu_torch.cli import main as cli_main
 
@@ -2918,6 +3345,9 @@ def main_path(counts, reset):
                   f"|x| {np.abs(z['pos']).max():.4e}")
         print(f"[time] run --impl pallas_fast at N={n}: "
               f"{time.perf_counter() - t0:.1f} s")
+    # The closed-form gates through every impl, and the --init presets.
+    check_kepler(counts)
+    check_presets(counts)
     launches = counts()
     print(f"[main path] launch counts: {launches}")
     check(all(v > 0 for v in launches.values()),

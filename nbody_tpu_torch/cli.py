@@ -12,10 +12,13 @@ sweeps them with ``--comm ring`` (the Newton's-third-law ring for the
 fused ring K13, one launch a force evaluation over every shard of one
 card).  ``validate --oracle native`` runs the C++/OpenMP oracle
 (``oracle/native.py``), and the long-horizon phase prefers it unless
-``--oracle numpy`` is given.  Choices that name parts not ported yet
-(``--init`` presets, ``--analytic``; for ``run`` the ``--viz*`` sinks)
-are refused with the ROADMAP item that will bring them.  ``run --profile
-DIR`` writes a ``torch.profiler`` trace (``DIR/trace.json``).
+``--oracle numpy`` is given.  ``validate --analytic`` runs the closed-form
+two-body gates (``models/kepler.py``) through the chosen impl instead.
+``--init`` takes the presets of ``models/init.py`` for ``run`` and
+``validate``; ``bench`` times the uniform box, as the JAX package's does.
+The ``--viz*`` sinks of ``run``, not ported yet, are refused with the
+ROADMAP item that will bring them.  ``run --profile DIR`` writes a
+``torch.profiler`` trace (``DIR/trace.json``).
 """
 
 from __future__ import annotations
@@ -85,8 +88,9 @@ def _add_sim_args(p: argparse.ArgumentParser):
     p.add_argument("--init", default="uniform",
                    choices=["uniform", "plummer", "plummer-virial", "disk",
                             "collision"],
-                   help="initial conditions (only the uniform box is "
-                        "ported)")
+                   help="initial conditions: the reference's uniform box "
+                        "or a preset (run, validate; bench times the "
+                        "uniform box)")
     p.add_argument("--max-pos", type=float, default=100_000.0,
                    action=_TrackedStore)
     p.add_argument("--min-mass", type=float, default=100_000.0,
@@ -143,17 +147,11 @@ def _refuse_unported(args) -> Optional[str]:
     if args.shards and getattr(args, "analytic", False):
         return ("--analytic gates are two-body closed-form checks and run "
                 "single-device; drop --shards")
-    if args.init != "uniform":
-        return (f"--init {args.init}: only the uniform box is ported "
-                f"(presets come later, ROADMAP Queue 1 item 2)")
     for flag in ("viz", "viz_avi", "viz_serve"):
         value = getattr(args, flag, None)
         if value is not None and value is not False:   # --viz-serve 0
             return (f"--{flag.replace('_', '-')}: the viz sinks are not "
                     f"ported yet (ROADMAP Queue 1 item 12)")
-    if getattr(args, "analytic", False):
-        return ("--analytic: the Kepler gates are not ported yet "
-                "(ROADMAP Queue 1 item 9)")
     return None
 
 
@@ -166,6 +164,7 @@ def _make_mesh(args):
 
 
 def _make_sim(args, cfg, logger):
+    from .models.init import INIT_MAKERS
     from .models.simulation import Simulation
     mesh = _make_mesh(args)
     if args.resume:
@@ -175,7 +174,10 @@ def _make_sim(args, cfg, logger):
         return Simulation.resume(args.resume, logger=logger,
                                  overrides=overrides, device=args.device,
                                  mesh=mesh, comm=args.comm)
-    return Simulation(cfg, logger=logger, mesh=mesh, comm=args.comm)
+    # The uniform box is left to Simulation (state=None), as in JAX.
+    maker = INIT_MAKERS.get(args.init)
+    return Simulation(cfg, state=maker(cfg) if maker is not None else None,
+                      logger=logger, mesh=mesh, comm=args.comm)
 
 
 def _save_trajectory(args, sim) -> int:
@@ -268,6 +270,26 @@ def _oracle_run(which: str):
     return oracle_run
 
 
+def _validate_analytic(args) -> int:
+    """``validate --analytic``: the five closed-form two-body gates of
+    ``models/kepler.py`` through ``--impl``, one period each at
+    ``--steps`` steps a period (2048 when ``--steps`` is 20 or fewer, as
+    validate's default of 10 is)."""
+    from .models.kepler import run_analytic_gates
+    results = run_analytic_gates(
+        impl=args.impl, dtype=args.dtype,
+        steps_per_period=args.steps if args.steps > 20 else 2048,
+        block_i=args.block_i, block_u=args.block_u, device=args.device)
+    ok = True
+    for r in results:
+        ok = ok and r["ok"]
+        print(f"[{'OK ' if r['ok'] else 'FAIL'}] {r['gate']}: max rel pos "
+              f"err {r['max_rel_err']:.3e} after {r['steps']} steps "
+              f"(1 period; tol {r['tol']:.3e})")
+    print("Analytic verification " + ("PASSED" if ok else "FAILED"))
+    return 0 if ok else 1
+
+
 def cmd_validate(args) -> int:
     """Lock-step differential test against a float64 oracle (numpy, or the
     C++/OpenMP one with ``--oracle native``), the gates of ``nbody
@@ -277,10 +299,11 @@ def cmd_validate(args) -> int:
     angular momentum of the device run.  The native oracle twins the
     reference and kdk schemes only: yoshida4, or a library that cannot be
     built, takes numpy with a message; the long phase prefers native
-    unless ``--oracle numpy`` was given explicitly."""
+    unless ``--oracle numpy`` was given explicitly.  ``--analytic`` runs
+    the closed-form gates instead (one device: ``--shards`` is refused)."""
     from .analysis import invariant_drifts
     from .models.energy import energy_f64
-    from .models.init import init_state
+    from .models.init import INIT_MAKERS, init_state
     from .models.state import SimState, state_to_numpy
     from .ops.forces import resolve_impl
     from .ops.step import prime_kdk, run_steps
@@ -290,6 +313,8 @@ def cmd_validate(args) -> int:
     if msg:
         print(msg, file=sys.stderr)
         return 2
+    if args.analytic:
+        return _validate_analytic(args)
     cfg = _make_cfg(args)
     mesh = _make_mesh(args)
     impl = resolve_impl(cfg, sharded=mesh is not None)
@@ -316,7 +341,7 @@ def cmd_validate(args) -> int:
         def prime(st):
             return prime_kdk(st, cfg, impl=impl)
     print(f"[INFO] impl={impl} device={cfg.device} n={cfg.n_bodies}")
-    state = init_state(cfg)
+    state = INIT_MAKERS.get(args.init, init_state)(cfg)
     if cfg.integrator != "reference":
         state = prime(state)
     host0 = state_to_numpy(state)
@@ -410,6 +435,9 @@ def cmd_bench(args) -> int:
         print(msg, file=sys.stderr)
         return 2
     _make_cfg(args)   # refuses the unported execution modes
+    if args.init != "uniform":
+        print(f"bench times the uniform box; --init {args.init} is not "
+              f"used", file=sys.stderr)
     explicit = getattr(args, "_explicit", set())
     result = run_benchmark(
         n=args.n, steps=args.steps if "steps" in explicit else None,
@@ -488,7 +516,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "given explicitly")
     vp.add_argument("--oracle-f32", action="store_true")
     vp.add_argument("--analytic", action="store_true",
-                    help="closed-form Kepler gates (not ported yet)")
+                    help="closed-form two-body (Kepler) gates through "
+                         "--impl instead of the oracle; --steps > 20 sets "
+                         "the steps a period (default 2048)")
     vp.add_argument("--long-steps", type=int, default=1000)
     vp.add_argument("--energy-gate", type=float, default=1e-3)
     vp.add_argument("--invariant-gate", type=float, default=1e-3)

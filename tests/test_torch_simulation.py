@@ -188,7 +188,7 @@ def test_cli_run_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--viz"], "item 12"), (["--viz-avi", "v.avi"], "item 12"),
-    (["--viz-serve", "0"], "item 12"), (["--init", "plummer"], "item 2")])
+    (["--viz-serve", "0"], "item 12")])
 def test_cli_run_refuses_unported_flags(flags, item, capsys):
     assert cli.main(["run", "--n", "64", "--steps", "1", "--device", "cpu",
                      *flags]) == 2

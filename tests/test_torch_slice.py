@@ -126,8 +126,10 @@ def test_cli_validate_long_horizon_and_refusals(capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "[OK ] momentum" in out and "[OK ] angular momentum" in out
+    # --init presets are ported: validate starts from the preset.
     assert cli.main(["validate", "--n", "256", "--init", "plummer",
-                     "--device", "cpu"]) == 2
+                     "--steps", "5", "--long-steps", "0", "--dt", "0.001",
+                     "--device", "cpu"]) == 0
     assert cli.main(["validate", "--n", "256", "--steps", "5",
                      "--long-steps", "10", "--oracle", "native",
                      "--device", "cpu"]) == 0
