@@ -73,8 +73,17 @@ and K3 / K4 (bit-equal to per-step K2), each gate's error held to the JAX
 package's CPU figures (``JAX_KEPLER``); and the ``--init`` presets at full
 width (``check_presets``: plummer-virial at 1M with ``--energy``, the
 collision through auto's K3, the disk through K12 with ``--sort-every``,
-``validate`` from plummer-virial), each state held to its contract.
-Then 200 steps under the momentum and angular-momentum gates, the K1/K2
+``validate`` from plummer-virial), each state held to its contract; and
+the viz phase (``check_viz``): config #5, ``run --n 65536 --steps 120
+--viz --viz-every 1`` (K2 a step), timed in rounds with the same run
+headless, its last frame and K3's at 8192 (auto) equal to the host's
+render of the checkpointed end state, K3's frames bit-equal to the
+per-step chain's, the 4-shard mesh's frames equal to renders of the
+gathered state, the AVI sink, ``render`` and ``analyze`` of a 1M
+trajectory, the live viewer's frame, camera and stop, and
+``interactive`` with kernels 0 (K1) and 1 (K10).
+Then 200 steps under the momentum and angular-momentum gates
+(their change from the initial state), the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
 one 4-shard K13 step at N = 1M against the single-device K2 step (on the
 rows where the ring and K2 differ and on sampled rows, each of the ring's
@@ -2994,6 +3003,395 @@ def preset_contract(name, state, eps2, max_pos):
     print(line)
 
 
+# Config #5 (BASELINE.md: N = 65,536, the interactive viz loop, frames/s)
+# and the viz phase's other shapes.
+VIZ_N = 65536
+VIZ_STEPS = 120
+VIZ_ROUNDS = ("off", "on", "on", "off")
+
+
+def png_pixels(path):
+    """The (H, W, 3) uint8 pixels of a PNG the port wrote: 8-bit RGB, one
+    IDAT stream, filter 0 on every row."""
+    import struct
+    import zlib
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    idat, off = b"", 8
+    while off < len(data):
+        (length,) = struct.unpack(">I", data[off:off + 4])
+        if data[off + 4:off + 8] == b"IDAT":
+            idat += data[off + 8:off + 8 + length]
+        off += 12 + length
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    check(rows.shape[1] == 1 + 3 * w and not rows[:, 0].any(),
+          f"{path}: not 8-bit RGB rows with filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def host_render(pos, mass, cfg, view=None):
+    """The host's colorized render of a state: the port's raster on the
+    CPU, the reference every frame the card renders is held to."""
+    import torch
+    from nbody_tpu_torch.viz.raster import colorize, render_weights
+    mv, cu, cv = view or (cfg.max_view, 0.0, 0.0)
+    return colorize(render_weights(
+        torch.as_tensor(pos).float().cpu(), torch.as_tensor(mass).float()
+        .cpu(), cfg.min_mass, cfg.max_mass, mv, cfg.viz_width,
+        cfg.viz_height, 2, cu, cv))
+
+
+def check_viz(counts):
+    """The viz and trajectory I/O through the CLI and the API with the
+    launch counters: config #5 (``run --viz`` at N = 65,536, every step
+    a frame, K2) timed against the same run headless, its last frame and
+    K3's at 8192 equal to the host's render of the checkpointed end state;
+    K3's frames against the per-step chain's; the mesh's frames against
+    renders of the gathered state; the AVI sink; ``render`` and
+    ``analyze`` of a 1M trajectory; the live viewer's frame, camera and
+    stop; ``interactive`` with kernels 0 (K1) and 1 (K10)."""
+    import builtins
+    import contextlib
+    import io
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.ops.step import run_trajectory_frames
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    from nbody_tpu_torch.parallel.ring import (render_weights_sharded,
+                                               run_steps_sharded)
+    from nbody_tpu_torch.utils.device import nvidia_smi_line
+    from nbody_tpu_torch.viz import native_png
+    from nbody_tpu_torch.viz.png import read_png_size
+    from nbody_tpu_torch.viz.raster import colorize, render_weights
+    from nbody_tpu_torch.viz.server import LiveViewer
+    t_viz = time.perf_counter()
+    work = os.path.join(WORK, "viz")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    start = counts()
+
+    def phase(what, argv, expect):
+        before = counts()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{what}: exit {rc}")
+        delta = {k: v - before[k] for k, v in counts().items()}
+        print(f"[viz] {what}: launches "
+              f"{ {k: v for k, v in delta.items() if v} }, {wall:.3f} s")
+        for k, v in delta.items():
+            check(expect.get(k, lambda v: v == 0)(v),
+                  f"{what}: {k} launched {v} times")
+        return wall, out.getvalue()
+
+    lib = native_png._load()
+    print(f"[viz] PNG encoders: frame files viz/png.py (Python zlib), the "
+          f"live viewer "
+          + ("native (native/libnbody_native.so)" if lib is not None
+             else "viz/png.py (no native library)"))
+
+    # Config #5: every step a frame at 65,536 through K2, against the same
+    # run headless, in rounds off, on, on, off after a warm-up run;
+    # frames/s counts the PNG drain (the streamer's close) and the set-up,
+    # as a user sees them.
+    walls, step_ms = {"on": [], "off": []}, []
+    for k, mode in enumerate(("off",) + VIZ_ROUNDS):
+        d = os.path.join(work, f"c5_{k}")
+        end = os.path.join(work, f"c5_{k}.npz")
+        argv = ["run", "--n", str(VIZ_N), "--steps", str(VIZ_STEPS),
+                "--checkpoint", end]
+        if mode == "on":
+            argv += ["--viz", "--viz-every", "1", "--viz-dir", d]
+        wall, out = phase(f"run --n {VIZ_N} --steps {VIZ_STEPS}"
+                          + (" --viz --viz-every 1" if mode == "on" else ""),
+                          argv, {"forces_sym": lambda v: v == VIZ_STEPS})
+        if k == 0:
+            continue                      # the warm-up run
+        walls[mode].append(wall)
+        if mode == "off":
+            step_ms.append(float(re.search(
+                r"Simulation complete: \d+ steps, ([\d.]+) ms/step",
+                out).group(1)))
+        if mode == "on":
+            names = sorted(os.listdir(d))
+            check(names == [f"frame_{i:06d}.png" for i in range(VIZ_STEPS)],
+                  f"config #5: {len(names)} frames")
+            check(all(read_png_size(os.path.join(d, f)) == (800, 600)
+                      for f in names), "config #5: a frame is not 800x600")
+            cfg = nt.SimConfig(n_bodies=VIZ_N)
+            with np.load(end) as z:
+                want = host_render(z["pos"], z["mass"], cfg)
+            got = png_pixels(os.path.join(d, names[-1]))
+            check(np.array_equal(got, want), "config #5: the last frame "
+                  f"differs from the host's render of the end state on "
+                  f"{int((got != want).any(-1).sum())} pixels")
+            print(f"[viz] config #5 round {k}: {len(names)} frames 800x600, "
+                  f"the last equal to the host's render of the end state "
+                  f"({int(want.any(-1).sum())} lit pixels); {out.strip()}")
+    fps = {m: [VIZ_STEPS / w for w in ws] for m, ws in walls.items()}
+    busy = VIZ_STEPS * statistics.median(step_ms) / 1000.0
+    print(f"[viz] config #5, N={VIZ_N}, {VIZ_STEPS} steps, auto (K2 per "
+          f"step): frames/s with --viz --viz-every 1 (sim + render + "
+          f"stream, PNG drain included) "
+          f"{', '.join(f'{f:.2f}' for f in fps['on'])}; steps/s headless "
+          f"{', '.join(f'{f:.2f}' for f in fps['off'])}; median "
+          f"{statistics.median(fps['on']):.2f} against "
+          f"{statistics.median(fps['off']):.2f}; the headless run's "
+          f"ms/step {', '.join(f'{t:.4f}' for t in step_ms)}, so the card "
+          f"is busy ~{busy:.3f} s of the viz run's median "
+          f"{statistics.median(walls['on']):.3f} s (idle share "
+          f"~{1 - busy / statistics.median(walls['on']):.3f}) "
+          f"({nvidia_smi_line()})")
+    viz_host_split(os.path.join(work, "c5_2"),
+                   os.path.join(work, "c5_2.npz"))
+
+    # K3 at 8192 under auto: frames from K3 launches of viz_every steps;
+    # the last equal to the host's render of the checkpointed end state
+    # and to the card's.
+    d, end = os.path.join(work, "k3"), os.path.join(work, "k3.npz")
+    phase("run --n 8192 --steps 100 --viz --viz-every 10 (auto)",
+          ["run", "--n", "8192", "--steps", "100", "--viz", "--viz-every",
+           "10", "--viz-dir", d, "--checkpoint", end],
+          {"resident": lambda v: v == 10})
+    cfg = nt.SimConfig(n_bodies=8192)
+    names = sorted(os.listdir(d))
+    check(len(names) == 10, f"K3 frames: {len(names)}")
+    with np.load(end) as z:
+        want = host_render(z["pos"], z["mass"], cfg)
+        card = colorize(render_weights(
+            torch.as_tensor(z["pos"], device="cuda"),
+            torch.as_tensor(z["mass"], device="cuda"), cfg.min_mass,
+            cfg.max_mass, cfg.max_view, 800, 600))
+    got = png_pixels(os.path.join(d, names[-1]))
+    check(np.array_equal(got, want) and np.array_equal(card, want),
+          "K3's last frame differs from the host's render of the end state")
+    print(f"[viz] K3 at 8192: 10 frames, the last equal to the host's and "
+          f"the card's render of the checkpointed end state "
+          f"({int(want.any(-1).sum())} lit pixels)")
+
+    # K3 and the per-step chain in lockstep on a second state.
+    cfg = nt.SimConfig(n_bodies=8192, seed=7)
+    state = nt.init_state(cfg)
+    out = {}
+    for resident in (True, False):
+        before = counts()
+        out[resident] = run_trajectory_frames(
+            state, cfg, 50, frame_every=10, impl="pallas_sym2", packed=True,
+            resident=resident)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in counts().items()
+                 if v - before[k]}
+        check(delta == ({"resident": 5} if resident
+                        else {"forces_sym": 50}),
+              f"run_trajectory_frames resident={resident}: launches {delta}")
+    check(torch.equal(out[True][1], out[False][1])
+          and states_equal(out[True][0], out[False][0]),
+          "K3's frames differ from the per-step K2 chain's")
+    print(f"[viz] K3 and per-step K2 in lockstep at 8192 (seed 7): 5 frames "
+          f"bit-equal, end states bit-equal")
+
+    # The mesh: 4 shards on this card, each frame the render of the
+    # gathered state.
+    d = os.path.join(work, "mesh")
+    phase("run --shards 4 --n 8192 --steps 20 --viz --viz-every 5",
+          ["run", "--shards", "4", "--n", "8192", "--steps", "20", "--viz",
+           "--viz-every", "5", "--viz-dir", d],
+          {"forces_sym": lambda v: v == 80,
+           "rect_forces_sym_vpu2": lambda v: v == 80,
+           "forces_tiled": lambda v: v == 80})
+    mesh = make_mesh(4, "cuda")
+    cfg = nt.SimConfig(n_bodies=8192, shards=4)
+    sim = Simulation(cfg, mesh=mesh)
+    names = sorted(os.listdir(d))
+    check(len(names) == 4, f"mesh frames: {len(names)}")
+    for k, name in enumerate(names):
+        ref = run_steps_sharded(sim.state, cfg, mesh, 5 * (k + 1),
+                                impl=sim.impl)
+        w8 = render_weights(ref.pos, ref.mass, cfg.min_mass, cfg.max_mass,
+                            cfg.max_view)
+        check(torch.equal(render_weights_sharded(ref, cfg, mesh), w8),
+              "render_weights_sharded differs from render_weights")
+        check(np.array_equal(png_pixels(os.path.join(d, name)),
+                             colorize(w8)),
+              f"mesh frame {k} differs from the gathered state's render")
+    print(f"[viz] mesh, 4 shards on this card ({sim.impl}): 4 frames, each "
+          f"equal to the render of the gathered state")
+
+    # The AVI sink: raw DIB frames without Pillow.
+    from nbody_tpu_torch.viz.avi import _pil_available
+    avi = os.path.join(work, "run.avi")
+    phase("run --n 8192 --steps 20 --viz-avi --viz-every 2",
+          ["run", "--n", "8192", "--steps", "20", "--viz-avi", avi,
+           "--viz-every", "2"], {"resident": lambda v: v == 10})
+    codec, sizes = avi_chunks(avi)
+    check(codec == ("MJPG" if _pil_available() else "DIB ")
+          and len(sizes) == 10
+          and (codec == "MJPG" or set(sizes) == {800 * 600 * 3}),
+          f"AVI: codec {codec!r}, {len(sizes)} frames")
+    print(f"[viz] AVI sink: {len(sizes)} frames, codec {codec!r} "
+          f"({'Pillow' if _pil_available() else 'no Pillow on this host'})")
+
+    # render and analyze of a 1M trajectory with velocities.
+    traj = os.path.join(work, "t1m.npz")
+    phase("run --n 1048576 --steps 2 --save-trajectory --traj-vel",
+          ["run", "--n", "1048576", "--steps", "2", "--save-trajectory",
+           traj, "--traj-vel"], {"forces_sym": lambda v: v == 2})
+    d, gif = os.path.join(work, "r1m"), os.path.join(work, "t1m.gif")
+    phase("render (1M, 2 snapshots) --gif",
+          ["render", traj, "--out-dir", d, "--gif", gif], {})
+    names = sorted(os.listdir(d))
+    check(len(names) == 2 and all(read_png_size(os.path.join(d, f))
+                                  == (800, 600) for f in names),
+          f"render: {names}")
+    with np.load(traj) as z:
+        want = host_render(z["snapshots"][1], z["mass"],
+                           nt.SimConfig(n_bodies=1 << 20))
+    check(np.array_equal(png_pixels(os.path.join(d, names[1])), want),
+          "render: the card's frame differs from the host's render")
+    with open(gif, "rb") as f:
+        data = f.read()
+    check(data[:6] == b"GIF89a" and data.count(b"\x21\xF9\x04") >= 2,
+          "render: GIF")
+    _, text = phase("analyze (1M) --json", ["analyze", traj, "--json"], {})
+    res = json.loads(text)
+    check(res["steps"] == [1, 2] and "energy" not in res
+          and "N=1048576" in res.get("energy_note", "")
+          and "g_r_note" in res
+          and all(np.isfinite(res[k]).all() for k in (
+              "com_drift", "lagrangian_radii", "g_r_first", "g_r_last",
+              "momentum_drift", "ang_mom_drift")),
+          f"analyze 1M: keys {sorted(res)}")
+    print(f"[viz] render 1M: 2 frames and a {len(data)}-byte GIF, the last "
+          f"frame equal to the host's render; analyze 1M: momentum drift "
+          f"{res['momentum_drift'][-1]:.3e}, angular momentum drift "
+          f"{res['ang_mom_drift'][-1]:.3e}; energy_note: "
+          f"{res['energy_note']}; g_r_note: {res['g_r_note']}")
+
+    # The live viewer on 127.0.0.1: one frame, one view change, then stop
+    # ends a long K3 run at its next chunk boundary.
+    cfg = nt.SimConfig(n_bodies=8192, viz_every=10)
+    viewer = LiveViewer(port=0)
+    url = f"http://127.0.0.1:{viewer.port}"
+    result = {}
+
+    def serve():
+        try:
+            result["res"] = Simulation(cfg).run(
+                n_steps=1_000_000, log_every=0, frame_streamer=viewer)
+        except BaseException as e:        # re-raised in the main thread
+            result["err"] = e
+
+    before = counts()
+    runner = threading.Thread(target=serve)
+    try:
+        runner.start()
+        png = urllib.request.urlopen(f"{url}/frame.png", timeout=60).read()
+        check(png[:8] == b"\x89PNG\r\n\x1a\n", "viewer: /frame.png")
+        urllib.request.urlopen(f"{url}/view?op=in", data=b"", timeout=10)
+        check(viewer.view_state() == (1.25, 0.0, 0.0), "viewer: /view")
+        seen = viewer.frames_written
+        while viewer.frames_written < seen + 2 and runner.is_alive():
+            time.sleep(0.01)
+        urllib.request.urlopen(f"{url}/stop", data=b"", timeout=10)
+        runner.join(timeout=120)
+        check(not runner.is_alive(), "viewer: /stop did not end the run")
+    finally:
+        viewer.close()
+    if "err" in result:
+        raise result["err"]
+    steps = result["res"].steps_run
+    delta = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+    check(0 < steps < 1_000_000 and set(delta) == {"resident"},
+          f"viewer: {steps} steps, launches {delta}")
+    print(f"[viz] live viewer: /frame.png {len(png)} bytes, /view?op=in -> "
+          f"zoom 1.25, /stop ended the run after {steps} of 1,000,000 "
+          f"steps ({viewer.frames_written} frames served, launches "
+          f"{delta})")
+
+    # interactive, its three answers on stdin: kernel 0 with frames (K1),
+    # kernel 1 headless (K10).
+    for answers, kernel in ((["0", "y", "20"], "forces_tiled"),
+                            (["1", "n", "20"], "forces_tiled_mxu")):
+        d = os.path.join(work, f"interactive_{answers[0]}")
+        feed = iter(answers)
+        saved, builtins.input = builtins.input, lambda prompt: next(feed)
+        try:
+            _, text = phase(f"interactive {' / '.join(answers)}",
+                            ["interactive", "--n", "8192", "--viz-dir", d],
+                            {kernel: lambda v: v == 20})
+        finally:
+            builtins.input = saved
+        check(("impl=pallas " if kernel == "forces_tiled"
+               else "impl=pallas_mxu ") in text, f"interactive: {text}")
+        check(len(os.listdir(d)) == 20 if answers[1] == "y"
+              else not os.path.exists(d), "interactive: frames")
+    delta = {k: v - start[k] for k, v in counts().items() if v - start[k]}
+    print(f"[viz] launches of the viz phase: {delta}")
+    print(f"[time] viz phase: {time.perf_counter() - t_viz:.1f} s")
+
+
+def viz_host_split(frames_dir, end, count=24):
+    """The host's share of a streamed frame at 800 x 600: the colorize, the
+    PNG encode the frame files take (viz/png.py, zlib level 3, the writer
+    thread) and the live viewer's (the native encoder, level 1), a frame
+    each over ``count`` of config #5's frames (the colorize over the end
+    state's map)."""
+    import numpy as np
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.viz import native_png, png
+    from nbody_tpu_torch.viz.raster import colorize, render_weights
+    names = sorted(os.listdir(frames_dir))[-count:]
+    rgb = [png_pixels(os.path.join(frames_dir, f)) for f in names]
+    cfg = nt.SimConfig(n_bodies=VIZ_N)
+    with np.load(end) as z:
+        w8 = render_weights(torch.as_tensor(z["pos"]),
+                            torch.as_tensor(z["mass"]), cfg.min_mass,
+                            cfg.max_mass, cfg.max_view).numpy()
+    check(np.array_equal(colorize(w8), rgb[-1]), "viz split: the end map")
+    w8 = [w8] * count
+    out = {}
+    for what, fn, items in (
+            ("colorize", colorize, w8),
+            ("PNG encode, viz/png.py level 3",
+             lambda f: png.encode_png(f, 3), rgb),
+            ("PNG encode, native level 1",
+             lambda f: native_png.encode_png(f, 1), rgb)):
+        t0 = time.perf_counter()
+        for x in items:
+            fn(x)
+        out[what] = (time.perf_counter() - t0) * 1000.0 / len(items)
+    print("[viz] the host's ms a frame at 800x600 (config #5's frames): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+
+
+def avi_chunks(path):
+    """(codec fourcc, frame chunk sizes) of an AVI the port wrote."""
+    import struct
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI ", f"{path}: not AVI")
+    codec = data[data.index(b"strh") + 12:][:4]     # after "vids"
+    cid = b"00dc" if codec == b"MJPG" else b"00db"
+    p, sizes = data.index(b"movi") + 4, []
+    while data[p:p + 4] == cid:
+        (size,) = struct.unpack("<I", data[p + 4:p + 8])
+        sizes.append(size)
+        p += 8 + size + (size % 2)
+    check(data[p:p + 4] == b"idx1", f"{path}: movi does not end at idx1")
+    return codec.decode(), sizes
+
+
 def check_presets(counts):
     """run and validate with each --init preset at full width through the
     CLI with the launch counters, the card's initial state (the maker's,
@@ -3348,6 +3746,7 @@ def main_path(counts, reset):
     # The closed-form gates through every impl, and the --init presets.
     check_kepler(counts)
     check_presets(counts)
+    check_viz(counts)
     launches = counts()
     print(f"[main path] launch counts: {launches}")
     check(all(v > 0 for v in launches.values()),
@@ -3700,14 +4099,17 @@ def main():
     # 6. Invariants over 200 device-only steps.
     from nbody_tpu_torch.analysis import invariant_drifts
     cfg = nt.SimConfig(n_bodies=8192, device="cuda")
-    out = nt.run_steps(nt.init_state(cfg), cfg, 200)
-    host = nt.state_to_numpy(out)
+    start = nt.init_state(cfg)
+    host0 = nt.state_to_numpy(start)
+    host = nt.state_to_numpy(nt.run_steps(start, cfg, 200))
     import numpy as np
     check(np.isfinite(host["pos"]).all(), "non-finite state after 200 steps")
     p_drift, l_drift = invariant_drifts(host["pos"], host["vel"],
-                                        host["mass"])
+                                        host["mass"], host0["pos"],
+                                        host0["vel"])
     print(f"[invariants] 200 steps N=8192 ({nt.resolve_impl(cfg)}): "
-          f"|P|/scale {p_drift:.3e}, |L|/scale {l_drift:.3e} (gate 1e-3)")
+          f"|P-P0|/scale {p_drift:.3e}, |L-L0|/scale {l_drift:.3e} "
+          f"(gate 1e-3)")
     check(p_drift <= 1e-3 and l_drift <= 1e-3, "invariant gate")
 
     # 7. Crossovers, and the 4-shard ring step at 1M against K2's.

@@ -1,5 +1,6 @@
-"""Command-line interface:
-``python -m nbody_tpu_torch run|validate|bench|info``.
+"""Command-line interface: ``python -m nbody_tpu_torch VERB`` with the
+verbs ``run``, ``validate``, ``bench``, ``info``, ``interactive``,
+``render`` and ``analyze``.
 
 The flags and defaults are those of ``nbody_tpu/cli.py``, so one command
 line drives both packages, plus ``--device`` (default ``cuda``; ``cpu``
@@ -16,9 +17,13 @@ card).  ``validate --oracle native`` runs the C++/OpenMP oracle
 two-body gates (``models/kepler.py``) through the chosen impl instead.
 ``--init`` takes the presets of ``models/init.py`` for ``run`` and
 ``validate``; ``bench`` times the uniform box, as the JAX package's does.
-The ``--viz*`` sinks of ``run``, not ported yet, are refused with the
-ROADMAP item that will bring them.  ``run --profile DIR`` writes a
-``torch.profiler`` trace (``DIR/trace.json``).
+``run --viz`` (PNG frames), ``--viz-avi`` (a video) and ``--viz-serve``
+(the live HTTP viewer) render frames on the card inside the run
+(``models/simulation.py``); ``render`` rasterizes a saved trajectory or
+checkpoint on ``--device``, ``analyze`` prints a trajectory's series
+(``analysis.analyze_trajectory``), and ``interactive`` is the reference's
+stdin dialog.  ``run --profile DIR`` writes a ``torch.profiler`` trace
+(``DIR/trace.json``).
 """
 
 from __future__ import annotations
@@ -140,18 +145,15 @@ def _make_cfg(args):
         block_i=args.block_i, block_j=args.block_j, block_u=args.block_u,
         chunk=args.chunk, panel_nb=args.panel_nb, prog_cap=args.prog_cap,
         flat_state=args.flat_state, resident=args.resident,
-        shards=args.shards or None, dtype=args.dtype, device=args.device)
+        shards=args.shards or None, dtype=args.dtype, device=args.device,
+        viz=getattr(args, "viz", False),
+        viz_every=getattr(args, "viz_every", 1) or 1)
 
 
 def _refuse_unported(args) -> Optional[str]:
     if args.shards and getattr(args, "analytic", False):
         return ("--analytic gates are two-body closed-form checks and run "
                 "single-device; drop --shards")
-    for flag in ("viz", "viz_avi", "viz_serve"):
-        value = getattr(args, flag, None)
-        if value is not None and value is not False:   # --viz-serve 0
-            return (f"--{flag.replace('_', '-')}: the viz sinks are not "
-                    f"ported yet (ROADMAP Queue 1 item 12)")
     return None
 
 
@@ -212,8 +214,31 @@ def _save_trajectory(args, sim) -> int:
     return out[1].shape[0]
 
 
+def _frame_streamer(args, cfg):
+    """The frame sinks of ``run`` (PNG files, a video, the live viewer),
+    one streamer or a tee of several; None without one."""
+    sinks = []
+    if args.viz:
+        from .viz.stream import FrameStreamer
+        sinks.append(FrameStreamer(args.viz_dir))
+    if args.viz_avi:
+        from .viz.video import video_streamer
+        sinks.append(video_streamer(args.viz_avi, cfg.viz_width,
+                                    cfg.viz_height, fps=args.viz_fps))
+    if args.viz_serve is not None:
+        from .viz.server import LiveViewer
+        viewer = LiveViewer(port=args.viz_serve)
+        print(f"live view: http://127.0.0.1:{viewer.port}/ "
+              f"(PNG multipart stream at /stream)")
+        sinks.append(viewer)
+    if len(sinks) > 1:
+        from .viz.stream import TeeStreamer
+        return TeeStreamer(*sinks)
+    return sinks[0] if sinks else None
+
+
 def cmd_run(args) -> int:
-    """Simulate: the reference's main flow, headless."""
+    """Simulate: the reference's main flow, headless or with frames."""
     from .io.logger import RunLogger
     msg = _refuse_unported(args)
     if msg:
@@ -221,6 +246,7 @@ def cmd_run(args) -> int:
         return 2
     logger = RunLogger(jsonl_path=args.log_jsonl, csv_path=args.log_csv,
                        quiet=args.quiet)
+    streamer = None
     try:
         sim = _make_sim(args, None if args.resume else _make_cfg(args),
                         logger)
@@ -237,11 +263,13 @@ def cmd_run(args) -> int:
                 acts.append(ProfilerActivity.CUDA)
             prof = profile(activities=acts)
             prof.__enter__()
+        streamer = _frame_streamer(args, sim.cfg)
         try:
             result = sim.run(
                 n_steps=args.steps, log_every=args.log_every,
                 checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every,
+                frame_streamer=streamer,
                 track_energy=args.energy, sort_every=args.sort_every)
         finally:
             if prof is not None:
@@ -250,6 +278,8 @@ def cmd_run(args) -> int:
                 prof.export_chrome_trace(
                     os.path.join(args.profile, "trace.json"))
     finally:
+        if streamer is not None:
+            streamer.close()
         logger.close()
     if not args.quiet:
         g = result.ginter_per_s
@@ -258,6 +288,10 @@ def cmd_run(args) -> int:
               f"{g:{'.1f' if g >= 10 else '.3g'}} GInter/s"
               + (f", energy drift {result.energy_drift:.3e}"
                  if result.energy_drift is not None else ""))
+        if streamer is not None and args.viz:
+            print(f"{streamer.frames_written} frames -> {args.viz_dir}")
+        elif streamer is not None:
+            print(f"{streamer.frames_written} frames served")
     return 0
 
 
@@ -376,9 +410,11 @@ def cmd_validate(args) -> int:
         print(f"[{status}] {name}: {frac:.4%} of components outside "
               f"{args.rel_tol:.1%} relative tolerance "
               f"({int(bad.sum())}/{bad.size})")
-    p_drift, l_drift = invariant_drifts(dev["pos"], dev["vel"], mass)
-    print(f"[INFO] momentum drift: |P|_max/scale = {p_drift:.3e}")
-    print(f"[INFO] angular momentum drift: |L|_max/scale = {l_drift:.3e}")
+    p_drift, l_drift = invariant_drifts(dev["pos"], dev["vel"], mass, pos0,
+                                        vel0)
+    print(f"[INFO] momentum drift: |P-P0|_max/scale = {p_drift:.3e}")
+    print(f"[INFO] angular momentum drift: |L-L0|_max/scale = "
+          f"{l_drift:.3e}")
     if args.long_steps > 0:
         ls = args.long_steps
         dev_l = dev_run(state, ls)
@@ -411,13 +447,13 @@ def cmd_validate(args) -> int:
                   f"dt={cfg.dt:g}, eps2={cfg.eps2:g})")
         host_l = state_to_numpy(dev_l)
         p_drift, l_drift = invariant_drifts(host_l["pos"], host_l["vel"],
-                                            mass)
+                                            mass, pos0, vel0)
         for name, sym, value in (("momentum", "P", p_drift),
                                  ("angular momentum", "L", l_drift)):
             status = "OK " if value <= args.invariant_gate else "FAIL"
             if value > args.invariant_gate:
                 ok = False
-            print(f"[{status}] {name}: |{sym}|_max/scale = "
+            print(f"[{status}] {name}: |{sym}-{sym}0|_max/scale = "
                   f"{value:.3e} after {ls} steps (exactly conserved; gate "
                   f"{args.invariant_gate:.1e})")
     print("Verification " + ("PASSED" if ok else "FAILED")
@@ -456,6 +492,155 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_interactive(args) -> int:
+    """The reference's interactive console (``main.cpp:163-228``): kernel
+    type (0 = tiled all-pairs, 1 = interaction-parallel), visualization
+    y/n and the step count, each asked again until valid.  On the card
+    kernel 0 runs ``pallas`` (K1) and kernel 1 ``pallas_mxu`` (K10); with
+    ``--device cpu`` they are ``xla`` and ``xla_nxn``.  As in the JAX
+    package, visualization is asked independently of the kernel (the
+    reference forces it on for the reduction kernel, ``main.cpp:319-322``,
+    which exists only in its render loop)."""
+    import torch
+
+    def ask(prompt, parse, what):
+        while True:
+            try:
+                return parse(input(prompt))
+            except (ValueError, KeyError):
+                print(f"Please insert a valid {what}")
+
+    kernel = ask(
+        "Select the kernel to launch "
+        "(0: tiled all-pairs, 1: interaction-parallel): ",
+        lambda s: {"0": 0, "1": 1}[s.strip()], "kernel type (0 or 1)")
+    viz = ask("Enable visualization? (y/n): ",
+              lambda s: {"y": True, "n": False}[s.strip().lower()],
+              "choice (y or n)")
+    steps = ask("Insert the number of steps to simulate: ",
+                lambda s: int(s), "integer")
+
+    on_card = torch.device(args.device).type == "cuda"
+    if kernel == 0:
+        impl = "pallas" if on_card else "xla"
+    else:
+        # The reduction family's counterpart: the interaction-parallel path.
+        impl = "pallas_mxu" if on_card else "xla_nxn"
+
+    run_args = ["run", "--n", str(args.n), "--steps", str(steps),
+                "--impl", impl, "--device", args.device,
+                "--log-every", str(max(1, min(100, steps // 5)))]
+    if viz:
+        run_args += ["--viz", "--viz-dir", args.viz_dir,
+                     "--viz-every", str(max(1, steps // 100))]
+    print(f"Starting simulation: N={args.n}, steps={steps}, impl={impl}, "
+          f"visualization={'on' if viz else 'off'}")
+    return main(run_args)
+
+
+def _load_trajectory(path: str):
+    """(snapshots (T, N, 3), mass (N,)) from a trajectory NPZ (monolithic,
+    or streamed and read one snapshot at a time) or a checkpoint (one
+    frame).  Masses give the mass-to-colour lerp
+    (``simulation_visualization.cpp:46-56``); a trajectory without them
+    renders at the minimum mass, with a warning."""
+    with np.load(path) as z:
+        checkpoint = ("pos" in z.files and "snapshots" not in z.files
+                      and not any(f.startswith("snap_") for f in z.files))
+    if checkpoint:
+        import torch
+        from .io.checkpoint import load_checkpoint
+        state, _, _ = load_checkpoint(path, dtype=torch.float32,
+                                      device="cpu")
+        return state.pos.numpy()[None], state.mass.numpy()
+    from .io.checkpoint import load_trajectory
+    snaps, mass, _ = load_trajectory(path)
+    if mass is None:
+        print("warning: trajectory has no 'mass' array; rendering with "
+              "uniform minimum mass (flat green)", file=sys.stderr)
+        mass = np.full((snaps.shape[1],), 1e5, np.float32)
+    return snaps, mass
+
+
+def cmd_render(args) -> int:
+    """Rasterize a saved trajectory or checkpoint: each snapshot rendered
+    on ``--device``, colorized on the host, written as PNG frames and
+    optionally a GIF and a video."""
+    import torch
+    from .config import SimConfig
+    from .utils.device import require_device
+    from .viz.raster import colorize, render_weights
+    from .viz.stream import FrameStreamer
+    dev = require_device(args.device)
+    snaps, mass = _load_trajectory(args.trajectory)
+    cfg = SimConfig(n_bodies=snaps.shape[1])
+    mass_t = torch.as_tensor(np.asarray(mass, np.float32), device=dev)
+    rendered = []
+    video = None
+    if args.avi:
+        from .viz.video import video_writer
+        video = video_writer(args.avi, args.width, args.height, fps=args.fps)
+    with FrameStreamer(args.out_dir) as fs:
+        for i, pos in enumerate(snaps):
+            frame = colorize(render_weights(
+                torch.as_tensor(np.asarray(pos, np.float32), device=dev),
+                mass_t, cfg.min_mass, cfg.max_mass, args.max_view,
+                args.width, args.height))
+            fs.submit(i, frame)
+            if video is not None:
+                video.add(frame)
+            if args.gif:
+                rendered.append(frame)
+    print(f"rendered {snaps.shape[0]} frames -> {args.out_dir}")
+    if video is not None:
+        video.close()
+        print(f"wrote {snaps.shape[0]}-frame video -> {args.avi}")
+    if args.gif:
+        from .viz.gif import write_gif
+        n = write_gif(args.gif, rendered, delay_cs=args.gif_delay_cs)
+        print(f"wrote {n}-frame GIF -> {args.gif}")
+    return 0
+
+
+def cmd_analyze(args) -> int:
+    """A trajectory's per-snapshot series (``analyze_trajectory``) as a
+    table, or with ``--json`` as one JSON object."""
+    from .analysis import analyze_trajectory
+    res = analyze_trajectory(args.trajectory, n_bins=args.bins,
+                             energy_max_n=args.energy_max_n)
+    if args.json:
+        print(json.dumps(res))
+        return 0
+    steps = res["steps"]
+    drift = res["com_drift"]
+    lr = res["lagrangian_radii"]
+    fracs = res["fractions"]
+    has_e = "energy" in res
+    has_inv = "momentum_drift" in res
+    hdr = "  ".join(f"r{int(f * 100):02d}%" for f in fracs)
+    ehdr = f"  {'dE/E0':>10}  {'virial_Q':>9}" if has_e else ""
+    ihdr = f"  {'dP_rel':>9}  {'dL_rel':>9}" if has_inv else ""
+    print(f"== trajectory analysis: {args.trajectory} "
+          f"({len(steps)} snapshots) ==")
+    print(f"{'step':>8}  {'com_drift':>12}  {hdr}{ehdr}{ihdr}")
+    for k in range(len(steps)):
+        radii = "  ".join(f"{r:11.4g}" for r in lr[k])
+        erow = (f"  {res['energy_drift'][k]:>10.3e}"
+                f"  {res['virial'][k]:>9.4g}" if has_e else "")
+        irow = (f"  {res['momentum_drift'][k]:>9.2e}"
+                f"  {res['ang_mom_drift'][k]:>9.2e}" if has_inv else "")
+        print(f"{steps[k]:>8}  {drift[k]:>12.4g}  {radii}{erow}{irow}")
+    if "energy_note" in res:
+        print(f"[note] {res['energy_note']}")
+    g0 = np.asarray(res["g_r_first"])
+    g1 = np.asarray(res["g_r_last"])
+    mid = slice(len(g0) // 8, len(g0) // 2)
+    print(f"pair correlation g(r), mid-range mean: "
+          f"first={g0[mid].mean():.3f} last={g1[mid].mean():.3f} "
+          f"(1 = uniform; >1 = clustered)")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m nbody_tpu_torch",
@@ -465,14 +650,20 @@ def build_parser() -> argparse.ArgumentParser:
     runp = sub.add_parser("run", help="run a simulation")
     _add_sim_args(runp)
     runp.add_argument("--viz", action="store_true",
-                      help="stream PNG frames (not ported yet)")
+                      help="stream PNG frames rendered on the card to "
+                           "--viz-dir")
     runp.add_argument("--viz-dir", default="frames")
     runp.add_argument("--viz-every", type=int, default=1)
     runp.add_argument("--viz-avi", "--viz-video", default=None,
-                      metavar="VIDEO", help="video sink (not ported yet)")
-    runp.add_argument("--viz-fps", type=int, default=25)
+                      metavar="VIDEO",
+                      help="write the frames into an MJPEG video during the "
+                           "run; .mp4/.m4v -> MP4 (needs Pillow), else AVI "
+                           "(raw DIB frames without Pillow)")
+    runp.add_argument("--viz-fps", type=int, default=25,
+                      help="playback rate of --viz-avi")
     runp.add_argument("--viz-serve", type=int, default=None, metavar="PORT",
-                      help="live HTTP view (not ported yet)")
+                      help="serve a live view over HTTP on 127.0.0.1:PORT "
+                           "(0 picks a free port)")
     runp.add_argument("--log-every", type=int, default=None,
                       help="progress-log cadence in steps (0 = none); "
                            "default: chunks of ~0.5 s of card work")
@@ -533,6 +724,48 @@ def build_parser() -> argparse.ArgumentParser:
 
     ip = sub.add_parser("info", help="device properties")
     ip.set_defaults(fn=cmd_info)
+
+    itp = sub.add_parser(
+        "interactive",
+        help="the reference's stdin console flow (main.cpp:163-228)")
+    itp.add_argument("--n", type=int, default=8192)
+    itp.add_argument("--viz-dir", default="frames")
+    itp.add_argument("--device", default="cuda",
+                     help="torch device: cuda (K1 / K10) or cpu (xla / "
+                          "xla_nxn)")
+    itp.set_defaults(fn=cmd_interactive)
+
+    rp = sub.add_parser("render", help="rasterize saved trajectory to PNGs")
+    rp.add_argument("trajectory")
+    rp.add_argument("--out-dir", default="frames")
+    rp.add_argument("--width", type=int, default=800)
+    rp.add_argument("--height", type=int, default=600)
+    rp.add_argument("--max-view", type=float, default=200_000.0)
+    rp.add_argument("--gif", default=None, metavar="GIF",
+                    help="also assemble the frames into an animated GIF")
+    rp.add_argument("--gif-delay-cs", type=int, default=4)
+    rp.add_argument("--avi", "--video", default=None, metavar="VIDEO",
+                    help="also write an MJPEG video; .mp4/.m4v -> MP4 "
+                         "(needs Pillow), else AVI")
+    rp.add_argument("--fps", type=int, default=25,
+                    help="video playback rate")
+    rp.add_argument("--device", default="cuda",
+                    help="torch device the frames are rendered on")
+    rp.set_defaults(fn=cmd_render)
+
+    anp = sub.add_parser(
+        "analyze",
+        help="structure/health diagnostics from a saved trajectory "
+             "(COM drift, Lagrangian radii, pair correlation)")
+    anp.add_argument("trajectory")
+    anp.add_argument("--bins", type=int, default=32)
+    anp.add_argument("--json", action="store_true",
+                     help="emit the full series as one JSON object")
+    anp.add_argument("--energy-max-n", type=int, default=16384,
+                     help="skip the O(N^2) host-f64 energy/virial series "
+                          "above this many bodies (needs --traj-vel "
+                          "trajectories)")
+    anp.set_defaults(fn=cmd_analyze)
     return ap
 
 

@@ -21,6 +21,13 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def sync_stream(device) -> None:
+    """Wait for the work queued on ``device``'s current stream only (no-op
+    on the CPU): a copy queued on a side stream runs on."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn()`` over ``iters`` calls after
     ``warmup`` calls: CUDA events on a card, the host clock on the CPU."""

@@ -189,10 +189,16 @@ def test_cli_run_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--viz"], "item 12"), (["--viz-avi", "v.avi"], "item 12"),
     (["--viz-serve", "0"], "item 12")])
-def test_cli_run_refuses_unported_flags(flags, item, capsys):
+def test_cli_run_refuses_unported_flags(flags, item, capsys, tmp_path,
+                                        monkeypatch):
+    """The viz sinks of ROADMAP item 12 were refused until they were
+    ported; each now runs and streams its frame."""
+    monkeypatch.chdir(tmp_path)
     assert cli.main(["run", "--n", "64", "--steps", "1", "--device", "cpu",
-                     *flags]) == 2
-    assert item in capsys.readouterr().err
+                     *flags]) == 0
+    captured = capsys.readouterr()
+    assert item not in captured.err
+    assert "1 frames" in captured.out
 
 
 def test_cli_run_shards_rdma_on_cpu(capsys):
@@ -208,6 +214,9 @@ def test_auto_log_every_prefers_divisors():
     per_step = auto_log_every(cfg, 1000)
     assert 1000 % per_step == 0 and per_step < 1000
     assert auto_log_every(nt.SimConfig(n_bodies=8192), 1000) >= 1000
-    with pytest.raises(NotImplementedError, match="item 12"):
-        nt.Simulation(nt.SimConfig(n_bodies=64, device="cpu")).run(
-            1, frame_streamer=object())
+    # A frame streamer, refused until ROADMAP item 12, now gets a frame.
+    frames = []
+    sink = type("Sink", (), {"submit": lambda self, i, f: frames.append(i)})
+    nt.Simulation(nt.SimConfig(n_bodies=64, device="cpu")).run(
+        1, frame_streamer=sink())
+    assert frames == [0]
