@@ -81,14 +81,23 @@ render of the checkpointed end state, K3's frames bit-equal to the
 per-step chain's, the 4-shard mesh's frames equal to renders of the
 gathered state, the AVI sink, ``render`` and ``analyze`` of a 1M
 trajectory, the live viewer's frame, camera and stop, and
-``interactive`` with kernels 0 (K1) and 1 (K10).
+``interactive`` with kernels 0 (K1) and 1 (K10); and huge N
+(``check_huge_n``): ``run --n 4194304 --steps 2 --energy
+--checkpoint-every 1`` under auto (K2 in two bounded programs an
+evaluation) bit-equal to ``run_steps`` with the bound off and to a resume
+from its step-1 checkpoint, ``run --n 16777216 --steps 1 --flat-state on
+--viz`` (24 programs, the heartbeat's lines, 256 sampled rows of the
+first evaluation at the exact gate against float64, the frame equal to
+the host's render of the checkpointed end state, s/step and peak
+memory), and the 4-shard ring at 4M with ``--prog-cap 2e12`` bit-equal to
+the same run without it.
 Then 200 steps under the momentum and angular-momentum gates
 (their change from the initial state), the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
 one 4-shard K13 step at N = 1M against the single-device K2 step (on the
 rows where the ring and K2 differ and on sampled rows, each of the ring's
 kernels, K11 on its antipodal sweep and K13 against float64; K13's
-phases by partial launches), and the bench lines.
+phases by partial launches), and the bench lines (4M under auto among them).
 Any failed check raises and the script exits nonzero; without a CUDA
 card it exits 1 before doing anything.
 
@@ -3434,6 +3443,211 @@ def check_presets(counts):
         print(f"[time] {what}: {time.perf_counter() - t0:.1f} s")
 
 
+HUGE_N = 1 << 22
+HUGE_FLAT_N = 1 << 24
+HUGE_ROWS = 256
+# The exact tiers' gate against float64 (TIER_GATES' K7, K11, fold): the
+# fraction of components outside 1% with a 1e-4 absolute floor.
+HUGE_GATE = 5e-4
+
+
+class _Tee:
+    """A stdout that also keeps what it is given (the CLI's heartbeat and
+    summary lines, read back by check_huge_n)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def huge_cli(counts, what, argv, expect):
+    """One CLI call of check_huge_n with the launch counters and its
+    standard output kept: returns (its text, seconds).  ``expect``: the
+    launches of every kernel in the call (the others must be 0)."""
+    from nbody_tpu_torch.cli import main as cli_main
+    before = counts()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = cli_main(argv)
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{what}: exit {rc}")
+    delta = {k: v - before[k] for k, v in counts().items()}
+    print(f"[huge] {what}: {secs:.1f} s, launches "
+          f"{ {k: v for k, v in delta.items() if v} }")
+    for k, v in delta.items():
+        check(v == expect.get(k, 0), f"{what}: {k} launched {v} times")
+    return "".join(tee.text), secs
+
+
+def rows_float64(pos, mass, rows, eps2, cols=1 << 22):
+    """The accelerations of bodies ``rows`` from every body, float64 on
+    the card, in column chunks of ``cols`` bodies: d2 of every (row,
+    column) pair by one GEMM of the augmented coordinates [x_i, |x_i|^2,
+    1] . [-2 x_j, 1, |x_j|^2 + eps2], the self pair dropped, then
+    d2^-1.5 @ [m_j x_j, m_j] and a_i = sum w m x - x_i sum w m."""
+    import torch
+    xi = pos[rows].double()
+    ones = torch.ones_like(xi[:, :1])
+    a = torch.cat([xi, (xi * xi).sum(1, keepdim=True), ones], 1)
+    acc = torch.zeros_like(xi)
+    for s in range(0, pos.shape[0], cols):
+        xj, mj = pos[s:s + cols].double(), mass[s:s + cols].double()
+        b = torch.cat([-2.0 * xj, torch.ones_like(xj[:, :1]),
+                       (xj * xj).sum(1, keepdim=True) + eps2], 1)
+        w = (a @ b.T).pow_(-1.5)
+        own = ((rows >= s) & (rows < s + xj.shape[0])).nonzero().flatten()
+        w[own, rows[own] - s] = 0.0
+        mx = torch.cat([mj[:, None] * xj, mj[:, None]], 1)
+        part = w @ mx
+        acc += part[:, :3] - xi * part[:, 3:]
+        del w
+    return acc
+
+
+def check_huge_n(counts):
+    """Huge N through the CLI with the launch counters: (a) N = 4M under
+    auto (K2, bounded: 2 programs an evaluation) with ``--energy`` and a
+    checkpoint a step, bit-equal to ``run_steps`` with the bound off, and a
+    resume from the step-1 checkpoint equal to it; (b) N = 16.7M with the
+    flat state and a frame a step: the heartbeat's lines, 256 sampled rows
+    of the first evaluation at the exact gate against float64, the frame
+    equal to the host's render of the checkpointed end state, s/step and
+    peak memory; (c) the 4-shard ring mesh at 4M with ``--prog-cap 2e12``
+    bit-equal to the same run without it, its heartbeat shown."""
+    import numpy as np
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.ops.forces_sym import sweep_programs
+    from nbody_tpu_torch.ops.forces_sym_variants import DEFAULT_PROG_CAP
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    from nbody_tpu_torch.parallel.multiprog import _ShardedBoundedForces
+    from nbody_tpu_torch.utils.device import nvidia_smi_line
+    smi = nvidia_smi_line()
+    t_all = time.perf_counter()
+    os.makedirs(WORK, exist_ok=True)
+    path = {k: os.path.join(WORK, f"huge_{k}.npz")
+            for k in ("a", "a1", "b1", "flat", "mp", "ring")}
+    n = str(HUGE_N)
+
+    # (a) 4M, auto: two bounded programs an evaluation.
+    cfg = nt.SimConfig(n_bodies=HUGE_N)
+    check(nt.resolve_impl(cfg) == "pallas_sym2", "auto at 4M is not K2")
+    text, secs = huge_cli(
+        counts, "run --n 4194304 --steps 2 --energy --checkpoint-every 1",
+        ["run", "--n", n, "--steps", "2", "--energy", "--checkpoint-every",
+         "1", "--checkpoint", path["a"]], {"forces_sym": 2, "pe_total": 2})
+    print("[huge] 4M: " + [ln for ln in text.splitlines()
+                           if ln.startswith("Simulation complete")][0])
+    ref = nt.run_steps(nt.init_state(cfg), cfg, 2)
+    with np.load(path["a"]) as z:
+        check(int(z["step"]) == 2, "4M: checkpoint step")
+        for k in ("pos", "vel", "acc"):
+            check(np.array_equal(z[k], getattr(ref, k).cpu().numpy()),
+                  f"4M bounded: {k} differs from run_steps unbounded")
+    del ref
+    print("[huge] 4M: bounded (2 programs an evaluation) bit-equal to "
+          "run_steps with the bound off")
+    huge_cli(counts, "run --n 4194304 --steps 1 (the step-1 checkpoint)",
+             ["run", "--n", n, "--steps", "1", "--checkpoint", path["a1"]],
+             {"forces_sym": 1})
+    huge_cli(counts, "run --resume (1 more step)",
+             ["run", "--resume", path["a1"], "--steps", "1", "--checkpoint",
+              path["b1"]], {"forces_sym": 1})
+    with np.load(path["a"]) as za, np.load(path["b1"]) as zb:
+        check(int(zb["step"]) == 2, "4M resume: step")
+        for k in ("pos", "vel", "acc"):
+            check(np.array_equal(za[k], zb[k]),
+                  f"4M resume: {k} differs from the uninterrupted run")
+    print("[huge] 4M: resume from step 1 bit-equal to the uninterrupted run")
+
+    # (b) 16.7M, flat, a frame a step.
+    frames = os.path.join(WORK, "huge_frames")
+    shutil.rmtree(frames, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    text, secs = huge_cli(
+        counts, "run --n 16777216 --steps 1 --flat-state on --viz",
+        ["run", "--n", str(HUGE_FLAT_N), "--steps", "1", "--flat-state",
+         "on", "--viz", "--viz-dir", frames, "--viz-every", "1",
+         "--checkpoint-every", "1", "--checkpoint", path["flat"]],
+        {"forces_sym": 1})
+    peak = torch.cuda.max_memory_allocated()
+    beats = [ln for ln in text.splitlines() if "force eval:" in ln]
+    summary = [ln for ln in text.splitlines()
+               if ln.startswith("Simulation complete")][0]
+    progs = len(sweep_programs(HUGE_FLAT_N, DEFAULT_PROG_CAP)[1])
+    check("(flat)" in text, "16.7M: the run did not take the flat state")
+    check(len(beats) >= 2 and beats[-1].strip().startswith(
+        f"force eval: {progs}/{progs}"), f"16.7M: heartbeat lines {beats}")
+    ms = float(summary.split(", ")[1].split()[0])
+    print(f"[huge] 16.7M flat: {len(beats)} heartbeat lines; "
+          f"{ms / 1e3:.3f} s/step, "
+          f"{float(HUGE_FLAT_N) ** 2 / ms / 1e6:.1f} GInter/s, peak "
+          f"{peak / 1e9:.3f} GB allocated (torch.cuda.max_memory_allocated); "
+          f"the CLI call {secs:.1f} s ({smi})")
+    cfg = nt.SimConfig(n_bodies=HUGE_FLAT_N)
+    start = nt.init_state(cfg)
+    rows = torch.randperm(HUGE_FLAT_N, generator=torch.Generator()
+                          .manual_seed(23))[:HUGE_ROWS].sort()[0].cuda()
+    t0 = time.perf_counter()
+    want = rows_float64(start.pos, start.mass, rows, cfg.eps2)
+    with np.load(path["flat"]) as z:
+        check(int(z["step"]) == 1 and z["pos"].shape == (HUGE_FLAT_N, 3),
+              "16.7M: checkpoint")
+        got = torch.as_tensor(z["acc"][rows.cpu().numpy()])
+        end_pos, end_mass = z["pos"], z["mass"]
+    p99, frac = gate_numbers(got, want.cpu())
+    print(f"[gate] 16.7M first evaluation (K2, {progs} programs), "
+          f"{HUGE_ROWS} "
+          f"sampled rows vs float64: p99 rel err {p99:.3e}, bad fraction "
+          f"at 1% {frac:.3e} (gate {HUGE_GATE}); float64 rows "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(frac <= HUGE_GATE, f"16.7M rows: bad fraction {frac:.3e}")
+    del start, want
+    names = sorted(f for f in os.listdir(frames) if f.endswith(".png"))
+    check(len(names) == 1, f"16.7M: frames {names}")
+    check(np.array_equal(png_pixels(os.path.join(frames, names[0])),
+                         host_render(end_pos, end_mass, cfg)),
+          "16.7M: the frame differs from the host's render of the end state")
+    print("[huge] 16.7M: the frame equals the host's render of the "
+          "checkpointed end state")
+    del end_pos, end_mass
+
+    # (c) the bounded mesh: 4 shards of this card, a 5e11 share a program.
+    mesh_expect = {"forces_sym": 4, "rect_forces_sym_vpu2": 4,
+                   "forces_tiled": 4}
+    text, _ = huge_cli(
+        counts, "run --shards 4 --n 4194304 --steps 1 --prog-cap 2e12",
+        ["run", "--shards", "4", "--n", n, "--steps", "1", "--prog-cap",
+         "2e12", "--checkpoint", path["mp"]], mesh_expect)
+    beats = [ln for ln in text.splitlines() if "force eval:" in ln]
+    progs = _ShardedBoundedForces(nt.SimConfig(n_bodies=HUGE_N),
+                                  make_mesh(4), "pallas_sym2",
+                                  2e12).total_programs
+    check(beats and beats[-1].strip().startswith(
+        f"force eval: {progs}/{progs}"),
+          f"bounded mesh: heartbeat lines {beats}")
+    huge_cli(counts, "run --shards 4 --n 4194304 --steps 1 (the ring)",
+             ["run", "--shards", "4", "--n", n, "--steps", "1",
+              "--checkpoint", path["ring"]], mesh_expect)
+    with np.load(path["mp"]) as za, np.load(path["ring"]) as zb:
+        for k in ("pos", "vel", "acc"):
+            check(np.array_equal(za[k], zb[k]),
+                  f"bounded mesh: {k} differs from the unbounded ring")
+    print(f"[huge] 4-shard mesh at 4M: bounded ({len(beats)} heartbeat "
+          f"lines, {progs} programs) bit-equal to the unbounded ring")
+    for f in path.values():
+        if os.path.exists(f):
+            os.unlink(f)
+    print(f"[time] check_huge_n: {time.perf_counter() - t_all:.1f} s")
+
+
 def share_oracle_runs():
     """validate's numpy oracle is a pure function of its inputs and takes
     ~50 s a run at N = 8192 on the card's host; the validate phases at
@@ -3747,6 +3961,7 @@ def main_path(counts, reset):
     check_kepler(counts)
     check_presets(counts)
     check_viz(counts)
+    check_huge_n(counts)
     launches = counts()
     print(f"[main path] launch counts: {launches}")
     check(all(v > 0 for v in launches.values()),
@@ -4136,7 +4351,9 @@ def main():
                # The fused ring K13 on the same meshes.
                {"n": 8192, "shards": 4, "comm": "rdma"},
                {"n": 8192, "shards": 4, "comm": "rdma_overlap"},
-               {"n": 1 << 20, "shards": 4, "comm": "rdma"}):
+               {"n": 1 << 20, "shards": 4, "comm": "rdma"},
+               # The JAX ladder's scale row: auto at 4M, bounded.
+               {"n": 1 << 22, "steps": 2}):
         t0 = time.perf_counter()
         res = run_benchmark(**kw)
         check(res["finite"], f"bench {kw}: non-finite")

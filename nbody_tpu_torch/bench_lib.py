@@ -14,7 +14,12 @@ that many shards (one card's shards share it) with the ``comm`` tier (the
 rdma comms: one K13 launch a force evaluation), and never the resident
 kernels; forcing them with shards raises, as in the JAX package.
 ``energy`` works at any N: ``energy_f64`` takes kernel K8 above 262,144
-bodies.
+bodies.  Huge N routes as ``Simulation`` does: ``should_use_flat`` runs
+the flat state (``run_steps_flat``; ``"flat": true``),
+``should_use_multiprog`` the bounded dispatch (``run_steps_multiprog``, or
+on a ring mesh ``run_steps_sharded_multiprog``), both bit-equal to the
+unbounded loop; ``prog_cap`` and ``flat_state`` are the config's fields.
+Forcing the resident kernels against them raises, as in the JAX package.
 
 Differences: trials are timed with CUDA events on a card; ``compile_s`` is
 the time spent building the CUDA kernels in this call (0.0 when they were
@@ -36,9 +41,12 @@ from .models.energy import MAX_HOST_ENERGY_N, energy_f64
 from .models.init import init_state
 from .ops import _build
 from .ops.forces import resolve_impl
+from .models.init import init_state_flat
 from .ops.resident import run_steps_resident, should_use_resident
-from .ops.step import run_steps
+from .ops.step import (run_steps, run_steps_flat, run_steps_multiprog,
+                       should_use_flat, should_use_multiprog)
 from .parallel.mesh import make_mesh
+from .parallel.multiprog import run_steps_sharded_multiprog
 from .parallel.ring import _resolve_local_impl, run_steps_sharded
 from .utils.device import nvidia_smi_line, require_device
 from .utils.timing import sync
@@ -62,19 +70,44 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
                   block_u: Optional[int] = None,
                   resident: Optional[bool] = None,
                   device: str = "cuda", shards: Optional[int] = None,
-                  comm: str = "ring") -> dict:
+                  comm: str = "ring", prog_cap: Optional[float] = None,
+                  flat_state: Optional[bool] = None) -> dict:
     dev = require_device(device)
     sharded = bool(shards and shards > 1)
     cfg = SimConfig(n_bodies=n, impl=impl, block_i=block_i, block_j=block_j,
                     chunk=chunk, seed=seed, block_u=block_u,
                     resident=resident, device=device,
-                    shards=shards if sharded else None)
+                    shards=shards if sharded else None, prog_cap=prog_cap,
+                    flat_state=flat_state)
     impl_resolved = resolve_impl(cfg, sharded=sharded)
     if sharded:
         mesh = make_mesh(shards, device)
         impl_resolved = _resolve_local_impl(impl, mesh, comm,
                                             default=impl_resolved)
-    used_resident = should_use_resident(cfg, impl_resolved, sharded=sharded)
+        if flat_state:
+            raise ValueError(
+                "flat-state + mesh is unnecessary by design (a mesh shard is "
+                "(N/P, 3)); drop flat_state — mesh runs at any N route "
+                "through the sharded bounded programs")
+    # Simulation's routing: flat, then the bounded dispatch (a forced
+    # resident run keeps a cap that does not split one step), then the
+    # resident kernels.
+    used_flat = not sharded and should_use_flat(cfg, impl_resolved)
+    forced_resident = (resident is True and not sharded
+                       and (prog_cap is None
+                            or cfg.interactions_per_step <= prog_cap))
+    bounded = used_flat or (
+        (not sharded or comm == "ring") and not forced_resident
+        and should_use_multiprog(cfg, impl_resolved,
+                                 shards if sharded else 1))
+    used_resident = not bounded and should_use_resident(
+        cfg, impl_resolved, sharded=sharded)
+    if resident is True and not used_resident:
+        should_use_resident(cfg, impl_resolved, sharded=sharded)
+        raise ValueError(
+            "resident=True but flat/multiprog routing preempts the resident "
+            "kernels (whole steps in one launch); drop resident=True or the "
+            "scale options")
     on_cuda = dev.type == "cuda"
     if steps is None:
         # Size a trial to ~0.5 s of device work at a rough rate for the
@@ -94,8 +127,21 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
                     if impl_resolved.startswith("pallas") else ()))
 
         def advance(s, k):
+            if bounded:
+                return run_steps_sharded_multiprog(s, cfg, mesh, k,
+                                                   impl=impl_resolved)
             return run_steps_sharded(s, cfg, mesh, k, impl=impl_resolved,
                                      comm=comm)
+    elif used_flat:
+        libs = _KERNEL_LIBS.get(impl_resolved, ())
+
+        def advance(s, k):
+            return run_steps_flat(s, cfg, k, impl=impl_resolved)
+    elif bounded:
+        libs = _KERNEL_LIBS.get(impl_resolved, ())
+
+        def advance(s, k):
+            return run_steps_multiprog(s, cfg, k, impl=impl_resolved)
     elif used_resident:
         libs = ("resident",)
 
@@ -114,7 +160,7 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
         _build.build_all(libs)
         compile_s = time.perf_counter() - t0
 
-    state = init_state(cfg)
+    state = init_state_flat(cfg) if used_flat else init_state(cfg)
     e0 = energy_f64(state, cfg.eps2) if energy else None
 
     if warmup_steps is None:
@@ -166,7 +212,7 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
         "nvidia_smi": nvidia_smi_line() if on_cuda else "not available",
         "devices": len(set(mesh.devices)) if sharded else 1,
         "shards": shards if sharded else 1,
-        "flat": False,
+        "flat": used_flat,
         "resident": used_resident,
     }
     if sharded:

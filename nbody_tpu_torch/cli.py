@@ -23,7 +23,10 @@ two-body gates (``models/kepler.py``) through the chosen impl instead.
 checkpoint on ``--device``, ``analyze`` prints a trajectory's series
 (``analysis.analyze_trajectory``), and ``interactive`` is the reference's
 stdin dialog.  ``run --profile DIR`` writes a ``torch.profiler`` trace
-(``DIR/trace.json``).
+(``DIR/trace.json``).  ``--prog-cap`` and ``--flat-state`` route huge N as
+the JAX package does (``Simulation``): bounded force evaluations with a
+heartbeat line, the flat ``(3N,)`` state, and ``run --save-trajectory``
+streamed snapshot by snapshot through ``Simulation._run_chunk``.
 """
 
 from __future__ import annotations
@@ -111,10 +114,17 @@ def _add_sim_args(p: argparse.ArgumentParser):
                    action=_TrackedStore)
     p.add_argument("--chunk", type=int, default=1024, action=_TrackedStore)
     p.add_argument("--prog-cap", type=float, default=None,
-                   action=_TrackedStore)
+                   action=_TrackedStore,
+                   help="interactions a program of the bounded dispatch "
+                        "(pallas_sym* impls; a heartbeat line every tenth "
+                        "of an evaluation of 6+ programs); auto-engages "
+                        "past 1.2e13 interactions an evaluation")
     p.add_argument("--flat-state", default=None, action=_TrackedStore,
                    type=_parse_flat_state,
-                   choices=[None, True, False], metavar="{auto,on,off}")
+                   choices=[None, True, False], metavar="{auto,on,off}",
+                   help="flat (3N,) state, a view of the (N, 3) one; auto "
+                        "engages above 16,777,216 bodies for pallas_sym* "
+                        "impls, as in the JAX package")
     p.add_argument("--resident", default=None, action=_TrackedStore,
                    type=_parse_flat_state,
                    choices=[None, True, False], metavar="{auto,on,off}",
@@ -182,20 +192,29 @@ def _make_sim(args, cfg, logger):
                       logger=logger, mesh=mesh, comm=args.comm)
 
 
-def _save_trajectory(args, sim) -> int:
+def _save_trajectory(args, sim, logger) -> int:
     """``--save-trajectory``: snapshots every ``--snap-every`` steps, in
     the file layout the JAX package's ``run`` writes on the same route.
-    One device: stepped per step with the run's impl (``run_trajectory``,
-    never the resident kernels, as in JAX), then one ``snapshots`` array.
-    A mesh: stepped through ``Simulation``'s sharded chunks, the snapshots
-    streamed to ``snap_*`` entries one at a time (``TrajectoryWriter``).
-    Both packages' loaders read both layouts; the fork keeps each file in
-    the layout JAX writes for the same command line."""
+    One device below the program cap: stepped per step with the run's
+    impl (``run_trajectory``, never the resident kernels, as in JAX), then
+    one ``snapshots`` array.  A mesh, a flat or bounded run, or a whole
+    run past the cap: stepped through ``Simulation._run_chunk`` (with the
+    heartbeat of a bounded run), the snapshots streamed to ``snap_*``
+    entries one at a time (``TrajectoryWriter``).  Both packages' loaders
+    read both layouts; the fork keeps each file in the layout JAX writes
+    for the same command line."""
     from .io.checkpoint import TrajectoryWriter, save_trajectory
+    from .ops.forces_sym_variants import DEFAULT_PROG_CAP
     from .ops.step import run_trajectory
     snap_every = max(1, args.snap_every)
-    if sim.mesh is not None:
-        with TrajectoryWriter(args.save_trajectory, snap_every, sim.cfg,
+    cfg = sim.cfg
+    if (sim.mesh is not None or sim._use_multiprog
+            or float(args.steps) * cfg.interactions_per_step
+            > (cfg.prog_cap or DEFAULT_PROG_CAP)):
+        if sim._use_multiprog and not args.quiet:
+            from .models.simulation import _ProgressHeartbeat
+            sim.progress = _ProgressHeartbeat(logger)
+        with TrajectoryWriter(args.save_trajectory, snap_every, cfg,
                               mass=sim.state.mass) as tw:
             for _ in range(args.steps // snap_every):
                 sim._run_chunk(snap_every)
@@ -251,7 +270,7 @@ def cmd_run(args) -> int:
         sim = _make_sim(args, None if args.resume else _make_cfg(args),
                         logger)
         if args.save_trajectory:
-            n_snaps = _save_trajectory(args, sim)
+            n_snaps = _save_trajectory(args, sim, logger)
             if not args.quiet:
                 print(f"saved {n_snaps} snapshots -> {args.save_trajectory}")
             return 0
@@ -470,7 +489,7 @@ def cmd_bench(args) -> int:
     if msg:
         print(msg, file=sys.stderr)
         return 2
-    _make_cfg(args)   # refuses the unported execution modes
+    _make_cfg(args)   # checks the options as SimConfig does
     if args.init != "uniform":
         print(f"bench times the uniform box; --init {args.init} is not "
               f"used", file=sys.stderr)
@@ -481,7 +500,8 @@ def cmd_bench(args) -> int:
         chunk=args.chunk, block_u=args.block_u, energy=args.energy,
         warmup_steps=args.warmup, trials=args.trials, seed=args.seed,
         resident=args.resident, device=args.device,
-        shards=args.shards or None, comm=args.comm)
+        shards=args.shards or None, comm=args.comm, prog_cap=args.prog_cap,
+        flat_state=args.flat_state)
     print(json.dumps(result))
     return 0
 

@@ -6,9 +6,11 @@ port adds ``device`` (default ``"cuda"``) and ``torch_dtype``.
 
 Every impl of the vocabulary runs on a kernel of the port.  ``shards`` is
 accepted as in the JAX package, where it records the mesh size; the mesh
-itself is passed to ``Simulation`` (``parallel/mesh.py``).  The TPU
-execution modes the port does not have (``flat_state=True``,
-``prog_cap``) raise ``NotImplementedError`` naming their ROADMAP item.
+itself is passed to ``Simulation`` (``parallel/mesh.py``).  The huge-N
+modes are accepted as in the JAX package: ``prog_cap`` (interactions a
+program of the bounded dispatch, ``ops/step.py::should_use_multiprog``)
+and ``flat_state`` (the flat ``(3N,)`` state, a view of the ``(N, 3)``
+one; ``ops/step.py::should_use_flat``).
 ``resident=True``
 is accepted: it forces the resident kernels K3/K4, and routing
 (``ops/resident.py::should_use_resident``) raises with the reason when the
@@ -88,14 +90,6 @@ class SimConfig:
             raise ValueError("n_bodies must be positive")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {self.dtype!r}")
-        if self.flat_state:
-            raise NotImplementedError(
-                "flat_state=True is a TPU layout workaround, not ported "
-                "(ROADMAP Queue 1 item 13)")
-        if self.prog_cap is not None:
-            raise NotImplementedError(
-                "prog_cap: bounded multi-program dispatch is not ported "
-                "(ROADMAP Queue 1 item 13)")
 
     @property
     def torch_dtype(self) -> torch.dtype:

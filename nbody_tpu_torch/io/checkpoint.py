@@ -6,10 +6,10 @@ The keys are the JAX package's (``pos``, ``vel``, ``acc``, ``mass``,
 ``vel_NNNNNN`` entries with ``mass``, ``snap_every``, ``n_snaps``), so a
 file written by either package loads in the other.  The port's
 ``config_json`` adds ``device``, which the JAX loader ignores as an unknown
-field.  A config written by the JAX package may carry TPU execution modes
-the port does not have (``flat_state=True``, ``prog_cap``): they describe
-how that run was laid out, not what the physics is, so they are cleared
-with a warning.
+field.  The huge-N fields of a config (``flat_state``, ``prog_cap``) are
+carried both ways.  A flat ``(3N,)`` state is stored as ``(N, 3)``, as the
+JAX package stores it, and ``load_checkpoint(flat=True)`` returns a
+``FlatState`` of ``(3N,)`` views.
 
 bfloat16 arrays are stored as the JAX package stores them: NumPy has no
 bfloat16, so ``np.asarray`` of a JAX bf16 array gives 2-byte records that
@@ -18,8 +18,7 @@ same dtype, and reads ``|V2`` arrays back as bfloat16, so a bf16 run
 resumes from either package's file.  (The JAX loader cannot read them:
 ``jnp.asarray`` refuses ``|V2``.)
 
-Not ported: the ``flat=True`` load into a ``FlatState`` (a TPU layout
-workaround) and the Orbax adapter, which belongs to the JAX ecosystem
+Not ported: the Orbax adapter, which belongs to the JAX ecosystem
 (ROADMAP Queue 1 item 7).
 """
 
@@ -29,19 +28,13 @@ import dataclasses
 import json
 import os
 import tempfile
-import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import SimConfig
-from ..models.state import SimState
-
-# TPU execution modes of a JAX config -> whether a stored value asks for
-# the mode (the port then runs with the field at None).
-_TPU_ONLY_FIELDS = {"flat_state": bool,
-                    "prog_cap": lambda v: v is not None}
+from ..models.state import SimState, flat_from_state
 
 # NumPy's record dtype for a bfloat16 array, as np.savez writes JAX's.
 _BF16_RECORD = np.dtype("V2")
@@ -79,20 +72,10 @@ def _config_bytes(cfg: SimConfig) -> np.ndarray:
 
 def config_from_json(raw_bytes) -> SimConfig:
     """A ``SimConfig`` from a stored ``config_json``: unknown fields are
-    dropped (as the JAX loader drops them) and TPU-only execution modes
-    are cleared with a warning."""
+    dropped, as the JAX loader drops them."""
     raw = json.loads(bytes(np.asarray(raw_bytes).tobytes()).decode())
     known = {f.name for f in dataclasses.fields(SimConfig)}
-    kw = {k: v for k, v in raw.items() if k in known}
-    cleared = [f"{k}={kw[k]!r}" for k, asks in _TPU_ONLY_FIELDS.items()
-               if asks(kw.get(k))]
-    if cleared:
-        warnings.warn(
-            "checkpoint config has " + ", ".join(cleared) + ": TPU "
-            "execution modes the port does not have; resuming with them "
-            "cleared (the physics is unchanged)", stacklevel=3)
-        kw.update(dict.fromkeys(_TPU_ONLY_FIELDS))
-    return SimConfig(**kw)
+    return SimConfig(**{k: v for k, v in raw.items() if k in known})
 
 
 def save_checkpoint(path: str, state, step: int,
@@ -121,13 +104,16 @@ def save_checkpoint(path: str, state, step: int,
 
 
 def load_checkpoint(path: str, dtype: Optional[torch.dtype] = None,
-                    device="cuda"
+                    device="cuda", flat: bool = False
                     ) -> Tuple[SimState, int, Optional[SimConfig]]:
     """Load (state, step, config-or-None) from an NPZ checkpoint onto
-    ``device``.  ``dtype=None`` keeps the stored precision."""
+    ``device``.  ``dtype=None`` keeps the stored precision; ``flat=True``
+    returns a ``FlatState`` (the ``(3N,)`` views of the loaded tensors)."""
     with np.load(path) as z:
         state = SimState(*(_tensor(z[k], dtype, device)
                            for k in ("pos", "vel", "acc", "mass")))
+        if flat:
+            state = flat_from_state(state)
         step = int(z["step"])
         cfg = (config_from_json(z["config_json"])
                if "config_json" in z.files else None)

@@ -23,7 +23,7 @@ import torch
 
 from ..config import SimConfig
 from ..utils.device import require_device
-from .state import SimState
+from .state import FlatState, SimState, flat_from_state
 
 
 def _generator(cfg: SimConfig, generator: Optional[torch.Generator]
@@ -55,6 +55,18 @@ def init_state(cfg: SimConfig,
                     device).to(dtype)
     zeros = torch.zeros((n, 3), dtype=dtype, device=device)
     return SimState(pos=pos, vel=zeros, acc=zeros.clone(), mass=mass)
+
+
+def init_state_flat(cfg: SimConfig,
+                    generator: Optional[torch.Generator] = None) -> FlatState:
+    """The uniform box as a ``FlatState`` (``(3N,)`` pos / vel / acc):
+    the views of ``init_state``'s tensors, so the same seed gives the
+    same bodies in either layout.  Float32 only, as in the JAX package
+    (the flat mode drives the float32 pair-symmetric kernels)."""
+    if cfg.dtype != "float32":
+        raise ValueError(f"flat-state mode is float32-only (the kernels); "
+                         f"got dtype={cfg.dtype!r}")
+    return flat_from_state(init_state(cfg, generator))
 
 
 class PlummerDraws(NamedTuple):

@@ -2,8 +2,14 @@
 beside an ``(N,)`` mass vector, the layout of ``nbody_tpu/models/state.py``.
 
 Padding uses zero-mass ghost bodies at the origin: a ghost adds exactly
-zero force, so the kernels need no mask in the hot loop.  The JAX
-package's ``FlatState`` is a TPU tiled-copy workaround and is not ported.
+zero force, so the kernels need no mask in the hot loop.
+
+``FlatState`` is the JAX package's row-major ``(3N,)`` layout of the same
+state.  There it keeps huge-N state out of the TPU's tiled ``(N, 3)``
+copies; here a contiguous ``(N, 3)`` tensor and its ``(3N,)`` form share
+their memory, so ``flat_from_state`` and ``state_from_flat`` are views
+(no copy, no host round trip) and every flat entry point runs the
+``(N, 3)`` path on ``.view(-1, 3)``: flat equals regular bit for bit.
 """
 
 from __future__ import annotations
@@ -25,6 +31,39 @@ class SimState(NamedTuple):
     @property
     def n(self) -> int:
         return self.pos.shape[0]
+
+
+class FlatState(NamedTuple):
+    """The state in flat row-major layout: ``pos``, ``vel`` and ``acc`` are
+    ``(3N,)`` (``[x0, y0, z0, x1, ...]``), ``mass`` is ``(N,)``."""
+
+    pos: torch.Tensor
+    vel: torch.Tensor
+    acc: torch.Tensor
+    mass: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.mass.shape[0]
+
+
+def is_flat(state) -> bool:
+    """True when ``state`` has the flat ``(3N,)`` coordinate layout."""
+    return state.pos.ndim == 1
+
+
+def flat_from_state(state: SimState) -> FlatState:
+    """SimState -> FlatState: ``(3N,)`` views of the contiguous ``(N, 3)``
+    tensors (a copy only for a non-contiguous one)."""
+    return FlatState(pos=state.pos.reshape(-1), vel=state.vel.reshape(-1),
+                     acc=state.acc.reshape(-1), mass=state.mass)
+
+
+def state_from_flat(flat: FlatState) -> SimState:
+    """FlatState -> SimState: ``(N, 3)`` views of the ``(3N,)`` tensors
+    (or host arrays)."""
+    return SimState(pos=flat.pos.reshape(-1, 3), vel=flat.vel.reshape(-1, 3),
+                    acc=flat.acc.reshape(-1, 3), mass=flat.mass)
 
 
 def round_up(n: int, multiple: int) -> int:

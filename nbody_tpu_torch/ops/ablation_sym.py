@@ -155,14 +155,17 @@ def _fix0_tiles(eps2: float, name: str):
 
 def forces_sym_ablation_plain(pos: torch.Tensor, mass: torch.Tensor,
                               eps2: float, name: str,
-                              slot_budget: int = SLOT_BUDGET_BYTES
+                              slot_budget: int = SLOT_BUDGET_BYTES,
+                              progress=None, max_prog_interactions=None
                               ) -> torch.Tensor:
     """Plain PyTorch twin of K15's triangular sweep for ablation ``name``:
     the kernels' tiles, enumeration, slot layout and reduction order (but
     for fix0's sum into tile 0), the slot sums plus the exact one-sided
     diagonal tiles."""
     pair_tiles, tile0 = _fix0_tiles(eps2, name)
-    pt, mt, raw = sweep_plain(pos, mass, slot_budget, pair_tiles)
+    pt, mt, raw = sweep_plain(pos, mass, slot_budget, pair_tiles,
+                              progress=progress,
+                              max_prog_interactions=max_prog_interactions)
     for cols in tile0:
         raw[:SYM_TILE] += cols
     return (diag_plain(pt, mt, eps2) + raw)[:pos.shape[0]]
@@ -170,12 +173,14 @@ def forces_sym_ablation_plain(pos: torch.Tensor, mass: torch.Tensor,
 
 def rect_forces_sym_ablation_plain(pos_a, mass_a, pos_b, mass_b, eps2: float,
                                    name: str,
-                                   slot_budget: int = SLOT_BUDGET_BYTES):
+                                   slot_budget: int = SLOT_BUDGET_BYTES,
+                                   progress=None, max_prog_interactions=None):
     """Plain PyTorch twin of K15's rect sweep for ablation ``name``.
     Returns (acc_a, acc_b)."""
     pair_tiles, tile0 = _fix0_tiles(eps2, name)
-    acc_a, acc_b = rect_sweep_plain(pos_a, mass_a, pos_b, mass_b,
-                                    slot_budget, pair_tiles)
+    acc_a, acc_b = rect_sweep_plain(
+        pos_a, mass_a, pos_b, mass_b, slot_budget, pair_tiles,
+        progress=progress, max_prog_interactions=max_prog_interactions)
     head = acc_b[:SYM_TILE]
     for cols in tile0:
         head += cols[:head.shape[0]]
@@ -220,7 +225,8 @@ def _check(name: str) -> None:
 
 
 def forces_sym_ablation(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
-                        name: str, slot_budget: int = SLOT_BUDGET_BYTES
+                        name: str, slot_budget: int = SLOT_BUDGET_BYTES,
+                        progress=None, max_prog_interactions=None
                         ) -> torch.Tensor:
     """(N,3),(N,) -> (N,3) through K15's triangular sweep for ablation
     ``name``."""
@@ -228,39 +234,48 @@ def forces_sym_ablation(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
     counter = SYM_WRAPPERS[name]
     _build.check_bodies(counter.__name__, pos, mass)
     if pos.device.type == "cpu":
-        return forces_sym_ablation_plain(pos, mass, eps2, name, slot_budget)
+        return forces_sym_ablation_plain(pos, mass, eps2, name, slot_budget,
+                                         progress, max_prog_interactions)
     pairs, reduce = _entries(name)[:2]
     counter.launches += 1
     return sweep(counter.__name__, pos, mass, eps2, slot_budget, pairs,
-                 reduce)
+                 reduce, progress=progress,
+                 max_prog_interactions=max_prog_interactions)
 
 
 def rect_forces_sym_ablation(pos_a, mass_a, pos_b, mass_b, eps2: float,
-                             name: str, slot_budget: int = SLOT_BUDGET_BYTES):
+                             name: str, slot_budget: int = SLOT_BUDGET_BYTES,
+                             progress=None, max_prog_interactions=None):
     """(na,3),(na,),(nb,3),(nb,) -> (acc_a, acc_b) through K15's rect
     sweep for ablation ``name``, each A x B pair computed once."""
     _check(name)
     counter = RECT_WRAPPERS[name]
     check_rect_sets(counter.__name__, pos_a, mass_a, pos_b, mass_b)
     if pos_a.device.type == "cpu":
-        return rect_forces_sym_ablation_plain(pos_a, mass_a, pos_b, mass_b,
-                                              eps2, name, slot_budget)
+        return rect_forces_sym_ablation_plain(
+            pos_a, mass_a, pos_b, mass_b, eps2, name, slot_budget, progress,
+            max_prog_interactions)
     pairs, reduce = _entries(name)[2:]
     counter.launches += 1
     return rect_sweep(counter.__name__, pos_a, mass_a, pos_b, mass_b, eps2,
-                      slot_budget, pairs, reduce, False)
+                      slot_budget, pairs, reduce, False, progress=progress,
+                      max_prog_interactions=max_prog_interactions)
 
 
 def _wrapper(name: str, rect: bool):
     if rect:
         def wrapper(pos_a, mass_a, pos_b, mass_b, eps2: float,
-                    slot_budget: int = SLOT_BUDGET_BYTES):
+                    slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                    max_prog_interactions=None):
             return rect_forces_sym_ablation(pos_a, mass_a, pos_b, mass_b,
-                                            eps2, name, slot_budget)
+                                            eps2, name, slot_budget,
+                                            progress, max_prog_interactions)
     else:
         def wrapper(pos, mass, eps2: float,
-                    slot_budget: int = SLOT_BUDGET_BYTES):
-            return forces_sym_ablation(pos, mass, eps2, name, slot_budget)
+                    slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                    max_prog_interactions=None):
+            return forces_sym_ablation(pos, mass, eps2, name, slot_budget,
+                                       progress, max_prog_interactions)
     kind = "rect_forces_sym" if rect else "forces_sym"
     wrapper.__name__ = wrapper.__qualname__ = f"{kind}_{name}"
     wrapper.__doc__ = f"K15 {'rect' if rect else 'triangular'} sweep, {name}."

@@ -157,13 +157,16 @@ def _pair_tiles(xi, mi, xj, mj, eps2, variant, trimmed=True):
 
 def forces_sym_tc_plain(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
                         variant: str,
-                        slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                        slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                        max_prog_interactions: "float | None" = None
+                        ) -> torch.Tensor:
     """Plain PyTorch twin of the kernels, with their tiles, enumeration,
     slot layout and reduction order (summation within a tile differs): the
     slot sums plus the exact diagonal tiles, descaled by 1/m for turbof."""
     pt, mt, raw = sweep_plain(
         pos, mass, slot_budget,
-        lambda xi, mi, xj, mj: _pair_tiles(xi, mi, xj, mj, eps2, variant))
+        lambda xi, mi, xj, mj: _pair_tiles(xi, mi, xj, mj, eps2, variant),
+        progress=progress, max_prog_interactions=max_prog_interactions)
     if variant in _MASS_SCALED:
         return descale_plain(pt, mt, raw, pos, mass, eps2)
     return (diag_plain(pt, mt, eps2) + raw)[:pos.shape[0]]
@@ -171,52 +174,72 @@ def forces_sym_tc_plain(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
 
 def forces_sym_tc(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
                   variant: str,
-                  slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                  slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                  max_prog_interactions: "float | None" = None
+                  ) -> torch.Tensor:
     """Softened all-pairs accelerations (N,3),(N,) -> (N,3) through K5
     (``variant="turbo"``), K6 (``"mxu"``) or K14a-c (``"turbo2"``,
-    ``"turbof"``, ``"turbop"``), each pair computed once."""
+    ``"turbof"``, ``"turbop"``), each pair computed once (``progress``,
+    ``max_prog_interactions``: the bounded dispatch of ``sweep``)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
     _build.check_bodies(f"forces_sym_{variant}", pos, mass)
     if pos.device.type == "cpu":
-        return forces_sym_tc_plain(pos, mass, eps2, variant, slot_budget)
+        return forces_sym_tc_plain(pos, mass, eps2, variant, slot_budget,
+                                   progress, max_prog_interactions)
     lib = _lib()
     _COUNTERS[variant].launches += 1
     return sweep(f"forces_sym_{variant}", pos, mass, eps2, slot_budget,
                  getattr(lib, f"nbt_sym_{variant}_pairs"),
                  lib.nbt_sym_tc_descale_reduce if variant in _MASS_SCALED
-                 else lib.nbt_sym_tc_reduce)
+                 else lib.nbt_sym_tc_reduce, progress=progress,
+                 max_prog_interactions=max_prog_interactions)
 
 
 def forces_sym_turbo(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
-                     slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                     slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                     max_prog_interactions: "float | None" = None
+                     ) -> torch.Tensor:
     """K5 (``impl="pallas_sym_turbo"``)."""
-    return forces_sym_tc(pos, mass, eps2, "turbo", slot_budget)
+    return forces_sym_tc(pos, mass, eps2, "turbo", slot_budget, progress,
+                         max_prog_interactions)
 
 
 def forces_sym_mxu(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
-                   slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                   slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                   max_prog_interactions: "float | None" = None
+                   ) -> torch.Tensor:
     """K6 (``impl="pallas_sym_mxu"``)."""
-    return forces_sym_tc(pos, mass, eps2, "mxu", slot_budget)
+    return forces_sym_tc(pos, mass, eps2, "mxu", slot_budget, progress,
+                         max_prog_interactions)
 
 
 def forces_sym_turbo2(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
-                      slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                      slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                      max_prog_interactions: "float | None" = None
+                      ) -> torch.Tensor:
     """K14a (``impl="pallas_sym_turbo2"``)."""
-    return forces_sym_tc(pos, mass, eps2, "turbo2", slot_budget)
+    return forces_sym_tc(pos, mass, eps2, "turbo2", slot_budget, progress,
+                         max_prog_interactions)
 
 
 def forces_sym_turbof(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
-                      slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                      slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                      max_prog_interactions: "float | None" = None
+                      ) -> torch.Tensor:
     """K14b (``variant="turbof"``)."""
-    return forces_sym_tc(pos, mass, eps2, "turbof", slot_budget)
+    return forces_sym_tc(pos, mass, eps2, "turbof", slot_budget, progress,
+                         max_prog_interactions)
 
 
 def forces_sym_turbop(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
-                      slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                      slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                      max_prog_interactions: "float | None" = None
+                      ) -> torch.Tensor:
     """K14c (``variant="turbop"``)."""
-    return forces_sym_tc(pos, mass, eps2, "turbop", slot_budget)
+    return forces_sym_tc(pos, mass, eps2, "turbop", slot_budget, progress,
+                         max_prog_interactions)
 
 
 # Force evaluations that launched K5, K6 and K14a-c, through any entry
@@ -235,14 +258,17 @@ _COUNTERS = {"turbo": forces_sym_turbo, "mxu": forces_sym_mxu,
 
 def rect_forces_sym_tc_plain(pos_a, mass_a, pos_b, mass_b, eps2: float,
                              variant: str,
-                             slot_budget: int = SLOT_BUDGET_BYTES):
+                             slot_budget: int = SLOT_BUDGET_BYTES,
+                             progress=None,
+                             max_prog_interactions: "float | None" = None):
     """Plain PyTorch twin of K2-rect for ``variant``: the square twin's
     pair tiles over the rect sweep's 256-wide tiles, enumeration, slots
     and reduction order, descaled by 1/m for turbof.  Returns (acc_a,
     acc_b)."""
     raw_a, raw_b = rect_sweep_plain(
         pos_a, mass_a, pos_b, mass_b, slot_budget,
-        lambda xi, mi, xj, mj: _pair_tiles(xi, mi, xj, mj, eps2, variant))
+        lambda xi, mi, xj, mj: _pair_tiles(xi, mi, xj, mj, eps2, variant),
+        progress=progress, max_prog_interactions=max_prog_interactions)
     if variant not in _MASS_SCALED:
         return raw_a, raw_b
     return (rect_descale_plain(raw_a, pos_a, mass_a, pos_b, mass_b, eps2),
@@ -250,7 +276,9 @@ def rect_forces_sym_tc_plain(pos_a, mass_a, pos_b, mass_b, eps2: float,
 
 
 def rect_forces_sym_tc(pos_a, mass_a, pos_b, mass_b, eps2: float,
-                       variant: str, slot_budget: int = SLOT_BUDGET_BYTES):
+                       variant: str, slot_budget: int = SLOT_BUDGET_BYTES,
+                       progress=None,
+                       max_prog_interactions: "float | None" = None):
     """Cross accelerations of two disjoint body sets through K2-rect on
     the tensor cores (``variant`` turbo, mxu, turbo2, turbof or turbop):
     (na,3),(na,),(nb,3),(nb,) -> (acc_a, acc_b), each A x B pair computed
@@ -262,19 +290,24 @@ def rect_forces_sym_tc(pos_a, mass_a, pos_b, mass_b, eps2: float,
     check_rect_sets(counter.__name__, pos_a, mass_a, pos_b, mass_b)
     if pos_a.device.type == "cpu":
         return rect_forces_sym_tc_plain(pos_a, mass_a, pos_b, mass_b, eps2,
-                                        variant, slot_budget)
+                                        variant, slot_budget, progress,
+                                        max_prog_interactions)
     lib = _lib()
     counter.launches += 1
     return rect_sweep(counter.__name__, pos_a, mass_a, pos_b, mass_b, eps2,
                       slot_budget, getattr(lib, f"nbt_rect_{variant}_pairs"),
-                      lib.nbt_rect_tc_reduce, variant in _MASS_SCALED)
+                      lib.nbt_rect_tc_reduce, variant in _MASS_SCALED,
+                      progress=progress,
+                      max_prog_interactions=max_prog_interactions)
 
 
 def _rect_wrapper(variant):
     def wrapper(pos_a, mass_a, pos_b, mass_b, eps2: float,
-                slot_budget: int = SLOT_BUDGET_BYTES):
+                slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                max_prog_interactions: "float | None" = None):
         return rect_forces_sym_tc(pos_a, mass_a, pos_b, mass_b, eps2,
-                                  variant, slot_budget)
+                                  variant, slot_budget, progress,
+                                  max_prog_interactions)
     wrapper.__name__ = wrapper.__qualname__ = f"rect_forces_sym_{variant}"
     wrapper.__doc__ = f"K2-rect, variant {variant}."
     wrapper.launches = 0

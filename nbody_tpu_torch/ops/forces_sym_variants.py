@@ -36,6 +36,15 @@ fold schedule's superblock is ``block_u`` bodies (default
 The pair-symmetric impls are variants on the classic schedule
 (``SYM_IMPL_VARIANTS``), as in the JAX package; ``ops/forces.py`` takes
 their kernels from ``CLASSIC``, so a variant's kernel is named once.
+
+``forces_pallas_sym_chunked`` and ``forces_pallas_sym_chunked_flat`` are
+the bounded dispatch (JAX's ``forces_pallas_sym_chunked*``): the same
+sweep with its offset chunks grouped into programs of at most
+``max_prog_interactions`` interactions (``DEFAULT_PROG_CAP``, as in the
+JAX package) and ``progress(done, total, out)`` after each program;
+bit-equal to ``forces_pallas_sym``.  Both entry points also take
+``progress`` and ``max_prog_interactions`` themselves, which the bounded
+mesh (``parallel/multiprog.py``) passes through the ring.
 """
 
 from __future__ import annotations
@@ -57,6 +66,10 @@ from .forces_sym_tc import (forces_sym_mxu, forces_sym_turbo,
 
 SYM_VARIANTS = ("vpu", "vpu2", "turbo", "turbof", "turbo2", "mxu",
                 "turbop")
+# Interactions a program of the bounded dispatch when the config names no
+# cap (``nbody_tpu/ops/forces_pallas_sym.py``'s value: one evaluation at
+# N = 4,194,304 is 1.76e13, two programs).
+DEFAULT_PROG_CAP = 1.2e13
 SYM_SCHEDULES = ("classic", "fold")
 _FOLD_VARIANTS = ("vpu", "vpu2")
 
@@ -107,18 +120,58 @@ def _check_variant(variant: str) -> None:
 def forces_pallas_sym(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
                       variant: str = "vpu", schedule: Optional[str] = None,
                       block_u: Optional[int] = None,
-                      slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+                      slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                      max_prog_interactions: Optional[float] = None
+                      ) -> torch.Tensor:
     """Softened all-pairs accelerations (N,3),(N,) -> (N,3), each pair
-    computed once, through the kernel of ``variant`` on ``schedule``."""
+    computed once, through the kernel of ``variant`` on ``schedule``
+    (``progress``, ``max_prog_interactions``: the bounded dispatch of
+    ``ops/forces_sym.py::sweep``)."""
     _check_variant(variant)
     if resolve_schedule(schedule, variant) == "fold":
         return _FOLD[variant](pos, mass, eps2, block_u or FOLD_BLOCK_U,
-                              slot_budget)
+                              slot_budget, progress, max_prog_interactions)
     if block_u not in (None, SYM_TILE):
         raise ValueError(f"the classic schedule's tiles are {SYM_TILE} "
                          f"bodies wide, got block_u={block_u}")
     kernel = ABLATION_SYM_KERNELS.get(variant) or CLASSIC[variant]
-    return kernel(pos, mass, eps2, slot_budget)
+    return kernel(pos, mass, eps2, slot_budget, progress,
+                  max_prog_interactions)
+
+
+def forces_pallas_sym_chunked(pos: torch.Tensor, mass: torch.Tensor,
+                              eps2: float, variant: str = "vpu",
+                              max_prog_interactions: float = DEFAULT_PROG_CAP,
+                              progress=None, schedule: Optional[str] = None,
+                              block_u: Optional[int] = None,
+                              slot_budget: int = SLOT_BUDGET_BYTES
+                              ) -> torch.Tensor:
+    """``forces_pallas_sym`` as bounded programs of at most
+    ``max_prog_interactions`` interactions (N^2 an evaluation, two a
+    pair), ``progress(done, total, out)`` called after each program is
+    queued; bit-equal to ``forces_pallas_sym``.  On the card a program
+    is a run of launches with no host wait between them: the bound sets
+    how often the host hears from a long evaluation, nothing else."""
+    return forces_pallas_sym(pos, mass, eps2, variant, schedule, block_u,
+                             slot_budget, progress, max_prog_interactions)
+
+
+def forces_pallas_sym_chunked_flat(
+        pos_flat: torch.Tensor, mass: torch.Tensor, eps2: float,
+        variant: str = "vpu",
+        max_prog_interactions: float = DEFAULT_PROG_CAP, progress=None,
+        schedule: Optional[str] = None, block_u: Optional[int] = None,
+        slot_budget: int = SLOT_BUDGET_BYTES) -> torch.Tensor:
+    """``forces_pallas_sym_chunked`` on flat row-major ``(3N,)`` positions:
+    runs on the ``(N, 3)`` view and returns the ``(3N,)`` view of the
+    accelerations."""
+    n = mass.shape[0]
+    if pos_flat.shape != (3 * n,):
+        raise ValueError(f"pos_flat must be row-major (3N,) = ({3 * n},), "
+                         f"got {tuple(pos_flat.shape)}")
+    return forces_pallas_sym_chunked(
+        pos_flat.view(n, 3), mass, eps2, variant, max_prog_interactions,
+        progress, schedule, block_u, slot_budget).view(-1)
 
 
 def rect_forces_sym(pos_a: torch.Tensor, mass_a: torch.Tensor,
@@ -127,7 +180,8 @@ def rect_forces_sym(pos_a: torch.Tensor, mass_a: torch.Tensor,
                     block_u: Optional[int] = None,
                     panel_nb: Optional[int] = None, variant: str = "vpu",
                     schedule: Optional[str] = None,
-                    slot_budget: int = SLOT_BUDGET_BYTES):
+                    slot_budget: int = SLOT_BUDGET_BYTES, progress=None,
+                    max_prog_interactions: Optional[float] = None):
     """Two-sided rect sweep between two disjoint body sets (K2-rect):
     every (a, b) pair computed once; returns ``(acc_a, acc_b)``, the
     accelerations of the a-bodies from the b-bodies and of the b-bodies
@@ -149,9 +203,11 @@ def rect_forces_sym(pos_a: torch.Tensor, mass_a: torch.Tensor,
         block_u = block_u or FOLD_BLOCK_U
         if pos_a.shape[0] % block_u == 0:
             return _RECT_FOLD[variant](pos_a, mass_a, pos_b, mass_b, eps2,
-                                       block_u, slot_budget)
+                                       block_u, slot_budget, progress,
+                                       max_prog_interactions)
     elif block_u not in (None, SYM_TILE):
         raise ValueError(f"the classic schedule's tiles are {SYM_TILE} "
                          f"bodies wide, got block_u={block_u}")
     kernel = ABLATION_RECT_KERNELS.get(variant) or RECT_CLASSIC[variant]
-    return kernel(pos_a, mass_a, pos_b, mass_b, eps2, slot_budget)
+    return kernel(pos_a, mass_a, pos_b, mass_b, eps2, slot_budget, progress,
+                  max_prog_interactions)

@@ -3,9 +3,18 @@
 PyTorch runs eagerly, so ``run_steps`` and ``run_trajectory`` are Python
 loops over ``step`` (the JAX package compiles them into ``fori_loop`` /
 ``scan`` programs); the kernels queue on the current stream and nothing
-waits for the card until a caller synchronises.  The bounded
-multi-program and flat-state step loops are TPU workarounds and are not
-ported (ROADMAP Queue 1 item 13).
+waits for the card until a caller synchronises.
+
+Huge N (the JAX package's bounded and flat halves): ``run_steps_multiprog``
+runs each force evaluation through the bounded dispatch
+(``forces_pallas_sym_chunked``), with ``progress`` after every program;
+``should_use_multiprog`` engages it as in the JAX package, when one
+evaluation is past ``DEFAULT_PROG_CAP`` or a ``prog_cap`` is set.  The card
+has no program kill, so the bound is a heartbeat granularity and the
+result is bit-equal to ``run_steps``.  ``run_steps_flat`` and the other
+``*_flat`` entries take the flat ``(3N,)`` state (``should_use_flat``) and
+run the same loop on its ``(N, 3)`` views.  ``max_fused_steps`` is kept
+with the JAX package's truth table; nothing on the card needs it.
 
 ``run_trajectory_frames`` renders frames between the steps into one
 preallocated device buffer.  The JAX package fuses steps and renders into
@@ -23,18 +32,71 @@ import torch
 from ..config import SimConfig
 from ..models.integrators import (KDK_WEIGHTS, kdk_drift, kdk_kick,
                                   reference_update)
-from ..models.state import SimState
+from ..models.state import FlatState, SimState, state_from_flat
 from .forces import compute_forces, resolve_impl
+from .forces_sym_variants import (DEFAULT_PROG_CAP, SYM_IMPL_VARIANTS,
+                                  forces_pallas_sym_chunked)
 from .resident import run_steps_resident
 
+# Above this many bodies ``auto`` runs the flat state (the JAX package's
+# threshold, kept so that both packages route one command line alike).
+FLAT_AUTO_THRESHOLD = 1 << 24
 
-def step(state: SimState, cfg: SimConfig,
-         impl: "str | None" = None) -> SimState:
-    """One step: forces from the current positions, then the fused
-    half-kick + drift (or the KDK-composed sub-steps)."""
-    impl = impl or resolve_impl(cfg)
+
+def should_use_flat(cfg: SimConfig, impl: str) -> bool:
+    """Flat-state routing, as in the JAX package: an explicit
+    ``cfg.flat_state`` wins (True needs a pallas_sym* impl); auto engages
+    above ``FLAT_AUTO_THRESHOLD`` bodies for the pallas_sym* impls."""
+    if cfg.flat_state is not None:
+        if cfg.flat_state and impl not in SYM_IMPL_VARIANTS:
+            raise ValueError(
+                f"flat-state mode requires a pallas_sym* impl, got {impl!r}")
+        return cfg.flat_state
+    return impl in SYM_IMPL_VARIANTS and cfg.n_bodies > FLAT_AUTO_THRESHOLD
+
+
+def should_use_multiprog(cfg: SimConfig, impl: str,
+                         n_devices: int = 1) -> bool:
+    """Bounded-dispatch routing, as in the JAX package: a pallas_sym* impl
+    with an explicit ``cfg.prog_cap``, or one evaluation past
+    ``DEFAULT_PROG_CAP`` interactions a device (N^2 / ``n_devices``)."""
+    return (impl in SYM_IMPL_VARIANTS
+            and (cfg.prog_cap is not None
+                 or float(cfg.n_bodies) ** 2 / max(1, n_devices)
+                 > DEFAULT_PROG_CAP))
+
+
+def max_fused_steps(cfg: SimConfig) -> int:
+    """Steps one fused program may hold under the cap, as in the JAX
+    package (a KDK-composed step costs one evaluation a weight)."""
+    cap = cfg.prog_cap or DEFAULT_PROG_CAP
+    evals = len(KDK_WEIGHTS.get(cfg.integrator, (1.0,)))
+    return max(1, int(cap // max(1, evals * cfg.interactions_per_step)))
+
+
+def _sym_variant(impl: str, what: str) -> str:
+    variant = SYM_IMPL_VARIANTS.get(impl)
+    if variant is None:
+        raise ValueError(f"{what} requires a pallas_sym* impl, got {impl!r}")
+    return variant
+
+
+def compute_forces_bounded(pos, mass, cfg: SimConfig, impl: str,
+                           progress=None,
+                           max_prog_interactions: "float | None" = None):
+    """One force evaluation through the bounded dispatch at the config's
+    cap (or ``max_prog_interactions``)."""
+    return forces_pallas_sym_chunked(
+        pos, mass, cfg.eps2, _sym_variant(impl, "bounded dispatch"),
+        max_prog_interactions or cfg.prog_cap or DEFAULT_PROG_CAP,
+        progress)
+
+
+def _advance(state: SimState, cfg: SimConfig, forces) -> SimState:
+    """One step with ``forces(pos) -> acc``: the fused half-kick + drift,
+    or the KDK-composed sub-steps."""
     if cfg.integrator == "reference":
-        acc = compute_forces(state.pos, state.mass, cfg, impl=impl)
+        acc = forces(state.pos)
         pos, vel = reference_update(state.pos, state.vel, acc, cfg.dt)
         return SimState(pos=pos, vel=vel, acc=acc, mass=state.mass)
     weights = KDK_WEIGHTS.get(cfg.integrator)
@@ -44,18 +106,32 @@ def step(state: SimState, cfg: SimConfig,
             wdt = w * cfg.dt
             vel_half = kdk_kick(vel, acc, wdt)
             pos = kdk_drift(pos, vel_half, wdt)
-            acc = compute_forces(pos, state.mass, cfg, impl=impl)
+            acc = forces(pos)
             vel = kdk_kick(vel_half, acc, wdt)
         return SimState(pos=pos, vel=vel, acc=acc, mass=state.mass)
     raise ValueError(f"unknown integrator {cfg.integrator!r}")
 
 
+def step(state: SimState, cfg: SimConfig,
+         impl: "str | None" = None) -> SimState:
+    """One step: forces from the current positions, then the fused
+    half-kick + drift (or the KDK-composed sub-steps)."""
+    impl = impl or resolve_impl(cfg)
+    return _advance(state, cfg, lambda pos: compute_forces(
+        pos, state.mass, cfg, impl=impl))
+
+
 def prime_kdk(state: SimState, cfg: SimConfig,
-              impl: "str | None" = None) -> SimState:
+              impl: "str | None" = None, progress=None) -> SimState:
     """Seed ``state.acc = a(x_0)`` so the first KDK half-kick is
-    consistent."""
-    acc = compute_forces(state.pos, state.mass, cfg,
-                         impl=impl or resolve_impl(cfg))
+    consistent; through the bounded dispatch where the config engages it
+    (``progress``: its per-program callback)."""
+    impl = impl or resolve_impl(cfg)
+    if should_use_multiprog(cfg, impl):
+        acc = compute_forces_bounded(state.pos, state.mass, cfg, impl,
+                                     progress)
+    else:
+        acc = compute_forces(state.pos, state.mass, cfg, impl=impl)
     return state._replace(acc=acc)
 
 
@@ -66,6 +142,63 @@ def run_steps(state: SimState, cfg: SimConfig, n_steps: int,
     for _ in range(n_steps):
         state = step(state, cfg, impl=impl)
     return state
+
+
+def run_steps_multiprog(state: SimState, cfg: SimConfig, n_steps: int,
+                        impl: "str | None" = None,
+                        max_prog_interactions: "float | None" = None,
+                        progress=None) -> SimState:
+    """``run_steps`` with each force evaluation through the bounded
+    dispatch (``compute_forces_bounded``): programs of at most
+    ``max_prog_interactions`` (default the config's cap, else
+    ``DEFAULT_PROG_CAP``) interactions, ``progress(done, total, out)``
+    after each.  Bit-equal to ``run_steps``."""
+    impl = impl or resolve_impl(cfg)
+    _sym_variant(impl, "run_steps_multiprog")
+
+    def forces(pos):
+        return compute_forces_bounded(pos, state.mass, cfg, impl, progress,
+                                      max_prog_interactions)
+    for _ in range(n_steps):
+        state = _advance(state, cfg, forces)
+    return state
+
+
+def run_steps_multiprog_flat(pos_flat, vel_flat, acc_flat, mass,
+                             cfg: SimConfig, n_steps: int,
+                             impl: "str | None" = None,
+                             max_prog_interactions: "float | None" = None,
+                             progress=None):
+    """``run_steps_multiprog`` on flat ``(3N,)`` pos / vel / acc and
+    ``(N,)`` mass: the same loop on their ``(N, 3)`` views.  Returns the
+    advanced ``(pos_flat, vel_flat, acc_flat)``."""
+    out = run_steps_multiprog(
+        state_from_flat(FlatState(pos_flat, vel_flat, acc_flat, mass)),
+        cfg, n_steps, impl=impl,
+        max_prog_interactions=max_prog_interactions, progress=progress)
+    return out.pos.view(-1), out.vel.view(-1), out.acc.view(-1)
+
+
+def run_steps_flat(flat: FlatState, cfg: SimConfig, n_steps: int,
+                   impl: "str | None" = None,
+                   max_prog_interactions: "float | None" = None,
+                   progress=None) -> FlatState:
+    """The ``FlatState`` step loop (``Simulation`` routes here when
+    ``should_use_flat`` engages): always the bounded dispatch, as in the
+    JAX package."""
+    pos, vel, acc = run_steps_multiprog_flat(
+        flat.pos, flat.vel, flat.acc, flat.mass, cfg, n_steps, impl=impl,
+        max_prog_interactions=max_prog_interactions, progress=progress)
+    return FlatState(pos=pos, vel=vel, acc=acc, mass=flat.mass)
+
+
+def prime_kdk_flat(flat: FlatState, cfg: SimConfig,
+                   impl: "str | None" = None, progress=None) -> FlatState:
+    """Seed ``flat.acc = a(x_0)`` through the bounded dispatch (the flat
+    ``prime_kdk``)."""
+    acc = compute_forces_bounded(flat.pos.view(-1, 3), flat.mass, cfg,
+                                 impl or resolve_impl(cfg), progress)
+    return flat._replace(acc=acc.view(-1))
 
 
 def run_trajectory(state: SimState, cfg: SimConfig, n_steps: int,

@@ -22,8 +22,9 @@ and bodies outside +/-1 never draw.  The scalars are 0-dim tensors on the
 state's device, as JAX's traced scalars are: on CUDA, dividing by a Python
 float may become a multiply by its reciprocal, which moves pixels at the
 edges.  ``max_view``, ``cu`` and ``cv`` change from call to call with
-nothing rebuilt.  ``render_weights_flat`` (flat ``(3N,)`` positions) waits
-for the flat state (ROADMAP Queue 1 item 13).
+nothing rebuilt.  ``render_weights_flat`` takes flat ``(3N,)`` positions
+and renders their ``(N, 3)`` view: the same pixels, with no panel scan
+(the JAX package's panels keep huge N out of the TPU's tiled copies).
 """
 
 from __future__ import annotations
@@ -68,6 +69,16 @@ def render_weights(pos: torch.Tensor, mass: torch.Tensor,
     splat = torch.zeros(sink + 1, dtype=torch.int32, device=dev)
     splat.scatter_reduce_(0, idx, torch.where(inside, w8, 0), "amax")
     return splat[:-1].to(torch.uint8).reshape(height, width)
+
+
+def render_weights_flat(pos_flat: torch.Tensor, mass: torch.Tensor,
+                        min_mass: float, max_mass: float, max_view: float,
+                        width: int = DEFAULT_WIDTH,
+                        height: int = DEFAULT_HEIGHT, view_axis: int = 2,
+                        cu: float = 0.0, cv: float = 0.0) -> torch.Tensor:
+    """``render_weights`` of flat row-major ``(3N,)`` positions."""
+    return render_weights(pos_flat.view(-1, 3), mass, min_mass, max_mass,
+                          max_view, width, height, view_axis, cu, cv)
 
 
 def _weight_lut() -> np.ndarray:

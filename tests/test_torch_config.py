@@ -1,6 +1,7 @@
 """The port's SimConfig against the JAX package's: same fields, defaults
-and vocabulary; unported modes refused; ``resolve_impl`` off
-CUDA as the JAX package resolves off the TPU."""
+and vocabulary; the execution modes (``flat_state``, ``prog_cap``,
+``shards``) accepted and recorded as in the JAX package; ``resolve_impl``
+off CUDA as the JAX package resolves off the TPU."""
 
 import dataclasses
 
@@ -25,20 +26,21 @@ def test_fields_and_defaults_equal_jax():
     assert SimConfig(n_bodies=100).interactions_per_step == 10000
 
 
-# Explicit ids keep each case's name stable.  kw3 (``shards``, item 14)
-# was refused until the one-card mesh landed; it is now accepted and
-# recorded as in the JAX package (the mesh itself goes to Simulation).
-@pytest.mark.parametrize("kw,match", [
-    pytest.param({"flat_state": True}, "item 13", id="kw1-item 13"),
-    pytest.param({"prog_cap": 1e9}, "item 13", id="kw2-item 13"),
-    pytest.param({"shards": 2}, None, id="kw3-item 14"),
+# Explicit ids keep each case's name stable.  The three modes were refused
+# until their slices landed (kw3, ``shards``: the one-card mesh; kw1 and
+# kw2, ``flat_state`` and ``prog_cap``: huge N); each is now accepted and
+# recorded as in the JAX package, and routing decides what runs
+# (``should_use_flat``, ``should_use_multiprog``, the mesh in Simulation).
+@pytest.mark.parametrize("kw", [
+    pytest.param({"flat_state": True}, id="kw1-item 13"),
+    pytest.param({"prog_cap": 1e9}, id="kw2-item 13"),
+    pytest.param({"shards": 2}, id="kw3-item 14"),
 ])
-def test_unported_modes_raise(kw, match):
-    if match is None:
-        assert SimConfig(**kw).shards == JaxSimConfig(**kw).shards == 2
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            SimConfig(**kw)
+def test_unported_modes_raise(kw):
+    (field, value), = kw.items()
+    assert getattr(SimConfig(**kw), field) == value
+    assert getattr(JaxSimConfig(**kw), field) == value
+    assert dataclasses.asdict(SimConfig(**kw))[field] == value
     # None / False keep the per-step path.
     SimConfig(resident=False, flat_state=False)
 

@@ -81,25 +81,30 @@ def test_simulation_run_matches_jax(impl, resident, integrator, tmp_path):
 def test_jax_checkpoint_resumes_in_port_and_back(tmp_path):
     arrays = _arrays(seed=92)
     path = str(tmp_path / "jax.npz")
-    # A JAX config that carries TPU-only execution modes.
-    jax_cfg = JaxSimConfig(n_bodies=N, impl="xla_nxn", dt=0.05, eps2=0.003,
-                           flat_state=True, prog_cap=1e15)
+    # A JAX config that carries the huge-N execution modes: both are
+    # carried, so the resume is flat and bounded (flat needs a pallas_sym*
+    # impl in both packages).
+    jax_cfg = JaxSimConfig(n_bodies=N, impl="pallas_sym2", dt=0.05,
+                           eps2=0.003, flat_state=True, prog_cap=1e15)
     jax_ckpt.save_checkpoint(path, _jax_state(arrays), 7, jax_cfg)
-    with pytest.warns(UserWarning, match="flat_state=True, prog_cap"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         sim = nt.Simulation.resume(path, device="cpu")
     assert sim.step_count == 7 and sim.cfg.device == "cpu"
     assert (sim.cfg.dt, sim.cfg.eps2, sim.cfg.impl) == (0.05, 0.003,
-                                                        "xla_nxn")
-    assert sim.cfg.flat_state is None and sim.cfg.prog_cap is None
+                                                        "pallas_sym2")
+    assert sim.cfg.flat_state is True and sim.cfg.prog_cap == 1e15
+    assert sim._flat and sim._use_multiprog
     for k, v in nt.state_to_numpy(sim.state).items():
-        np.testing.assert_array_equal(v, arrays[k])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        sim.run(n_steps=2, checkpoint_path=str(tmp_path / "port.npz"))
+        np.testing.assert_array_equal(v.reshape(arrays[k].shape), arrays[k])
+    sim.run(n_steps=2, checkpoint_path=str(tmp_path / "port.npz"))
     state, step, cfg = jax_ckpt.load_checkpoint(str(tmp_path / "port.npz"))
     assert step == 9 and cfg.dt == 0.05 and cfg.eps2 == 0.003
+    assert cfg.flat_state is True and cfg.prog_cap == 1e15
     for k, v in nt.state_to_numpy(sim.state).items():
-        np.testing.assert_array_equal(np.asarray(getattr(state, k)), v)
+        np.testing.assert_array_equal(np.asarray(getattr(state, k)),
+                                      v.reshape(np.asarray(
+                                          getattr(state, k)).shape))
     step, cfg, n = port_ckpt.load_checkpoint_meta(str(tmp_path / "port.npz"))
     assert (step, n, cfg.device) == (9, N, "cpu")
 
