@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``nbody_tpu_torch/csrc`` into a clean
-build directory (one ``nvcc`` per source, all at once), holds each kernel
+build root (``utils/compcache.py``: ``build/nbody_tpu_torch/`` unless
+``NBODY_COMPCACHE`` names another; one ``nvcc`` per source, all at once), holds each kernel
 against its plain PyTorch version on the card (K1, K2; the resident
 kernels K3 and K4 also bit for bit against the per-step K2 path; K8's row
 sums also against a float64 direct sum at N = 1,048,576, its symmetric
@@ -89,8 +90,14 @@ from its step-1 checkpoint, ``run --n 16777216 --steps 1 --flat-state on
 --viz`` (24 programs, the heartbeat's lines, 256 sampled rows of the
 first evaluation at the exact gate against float64, the frame equal to
 the host's render of the checkpointed end state, s/step and peak
-memory), and the 4-shard ring at 4M with ``--prog-cap 2e12`` bit-equal to
-the same run without it.
+memory), and the 4-shard ring at 4M with ``--prog-cap 2e12 --energy``
+bit-equal to the same run without them; its two energies take the mesh's
+(``parallel/energy.py``: 12 programs of 4 K8 ``pe_rows`` launches, the
+heartbeat's lines), held on the card against K8's ``pe_total`` of the
+gathered state in alternating rounds, beside one ``pe_rows`` launch at
+the 4M shard shape, and at 8192 on 1 to 5 shards against float64
+(``check_mesh_energy``); and the examples (``examples/demo_torch.py``,
+``examples/orbit_torch.py``) at their defaults (``check_examples``).
 Then 200 steps under the momentum and angular-momentum gates
 (their change from the initial state), the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
@@ -3449,6 +3456,31 @@ HUGE_ROWS = 256
 # The exact tiers' gate against float64 (TIER_GATES' K7, K11, fold): the
 # fraction of components outside 1% with a 1e-4 absolute floor.
 HUGE_GATE = 5e-4
+# The mesh's energy (parallel/energy.py) in check_huge_n: the 4-shard 4M
+# run with --energy takes it past MAX_HOST_ENERGY_N.  Against K8's
+# pe_total of the gathered state on the card: the same float32 tile
+# partials (the self term in a diagonal tile's partial either way), added
+# in other orders and tiles, at check_pe's gate for K8's row-sum total
+# against pe_total at 1M.  pe_total's path subtracts the closed-form self
+# terms, which at 4M (self terms ~0.75 of the pair sums) moves it by
+# ~1e-7 from the sweep's.
+MESH_ENERGY_TOL = 2e-6
+# At 8192 (seed 5) over P = 1 .. 5 against float64 (pe_total_f64): the
+# pair total the sweep implies (self terms included, as pe_total_f64 sums
+# them) at check_pe's float64 gate for pe_total.  The energy is what is
+# left after the self terms, ~390 times the pair sums there, are taken
+# out, so its error is the pair total's over S / |pair sums|: it is held to
+# 2^-22 (two float32 ulps) of the self total S, whose float32 tile
+# partials carry the pair terms.  On an H100 pe_rows's partials lose
+# 1.1e-7 of S there (4.4e-5 of the energy), pe_total's 1.3e-8, the plain
+# twin's 3.8e-9; with the self pair masked, float32 rows are 5e-9 off
+# (tools/pe_self_bias.py).
+MESH_F64_TOL = 1e-5
+MESH_SELF_ULPS = 2.0 ** -22
+MESH_ENERGY_PS = (1, 2, 3, 4, 5)
+# The examples at their defaults (examples/*_torch.py, N and steps).
+EXAMPLES = (("demo_torch", ("4096", "200")),
+            ("orbit_torch", ("4096", "100000")))
 
 
 class _Tee:
@@ -3511,7 +3543,7 @@ def rows_float64(pos, mass, rows, eps2, cols=1 << 22):
     return acc
 
 
-def check_huge_n(counts):
+def check_huge_n(counts, record):
     """Huge N through the CLI with the launch counters: (a) N = 4M under
     auto (K2, bounded: 2 programs an evaluation) with ``--energy`` and a
     checkpoint a step, bit-equal to ``run_steps`` with the bound off, and a
@@ -3520,11 +3552,14 @@ def check_huge_n(counts):
     of the first evaluation at the exact gate against float64, the frame
     equal to the host's render of the checkpointed end state, s/step and
     peak memory; (c) the 4-shard ring mesh at 4M with ``--prog-cap 2e12``
-    bit-equal to the same run without it, its heartbeat shown."""
+    bit-equal to the same run without it, its heartbeat shown, and with
+    ``--energy`` the mesh's energy (``check_mesh_energy``)."""
     import numpy as np
     import torch
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.ops.forces_sym import sweep_programs
+    from nbody_tpu_torch.ops.pe import PE_TILE
+    from nbody_tpu_torch.parallel import energy as penergy
     from nbody_tpu_torch.ops.forces_sym_variants import DEFAULT_PROG_CAP
     from nbody_tpu_torch.parallel.mesh import make_mesh
     from nbody_tpu_torch.parallel.multiprog import _ShardedBoundedForces
@@ -3619,17 +3654,55 @@ def check_huge_n(counts):
           "checkpointed end state")
     del end_pos, end_mass
 
-    # (c) the bounded mesh: 4 shards of this card, a 5e11 share a program.
+    # (c) the bounded mesh: 4 shards of this card, a 5e11 share a program,
+    # with --energy: past MAX_HOST_ENERGY_N its two energies take the
+    # mesh's (parallel/energy.py), 12 programs of 4 K8 row-sum launches.
     mesh_expect = {"forces_sym": 4, "rect_forces_sym_vpu2": 4,
                    "forces_tiled": 4}
-    text, _ = huge_cli(
-        counts, "run --shards 4 --n 4194304 --steps 1 --prog-cap 2e12",
-        ["run", "--shards", "4", "--n", n, "--steps", "1", "--prog-cap",
-         "2e12", "--checkpoint", path["mp"]], mesh_expect)
-    beats = [ln for ln in text.splitlines() if "force eval:" in ln]
+    c = HUGE_N // 4
+    chunks = penergy._row_chunks(c, PE_TILE, 3e11)
+    e_progs = len(penergy.energy_plan(4)) * len(chunks)
+    e_launches = 4 * e_progs
+    print(f"[mesh energy] 4M on 4 shards: c = {c} rows a shard, "
+          f"{len(chunks)} row chunks of {chunks[0][1]}, {e_progs} programs "
+          f"and {e_launches} pe_rows launches an energy")
+    real, e_secs = penergy.total_energy_sharded, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        e_secs.append(time.perf_counter() - t0)
+        return out
+    penergy.total_energy_sharded = timed
+    try:
+        text, _ = huge_cli(
+            counts, "run --shards 4 --n 4194304 --steps 1 --prog-cap 2e12 "
+            "--energy",
+            ["run", "--shards", "4", "--n", n, "--steps", "1", "--prog-cap",
+             "2e12", "--energy", "--checkpoint", path["mp"]],
+            {**mesh_expect, "pe": 2 * e_launches})
+    finally:
+        penergy.total_energy_sharded = real
+    check(len(e_secs) == 2, f"mesh energy: {len(e_secs)} sharded calls")
+    e_beats = [ln for ln in text.splitlines()
+               if "force eval:" in ln and f"/{e_progs} programs" in ln]
+    print("[mesh energy] " + "\n[mesh energy] ".join(
+        ln.strip() for ln in e_beats))
+    check(len(e_beats) == 2 * e_progs and e_beats[-1].strip().startswith(
+        f"force eval: {e_progs}/{e_progs}"),
+          f"mesh energy: heartbeat lines {e_beats}")
+    print(f"[mesh energy] 4M, 4 shards: {e_launches} pe_rows launches an "
+          f"energy; "
+          + ", ".join(f"{t:.3f} s" for t in e_secs) + f" an energy ({smi}); "
+          + [ln for ln in text.splitlines()
+             if ln.startswith("Simulation complete")][0])
     progs = _ShardedBoundedForces(nt.SimConfig(n_bodies=HUGE_N),
                                   make_mesh(4), "pallas_sym2",
                                   2e12).total_programs
+    beats = [ln for ln in text.splitlines()
+             if "force eval:" in ln and f"/{progs} programs" in ln]
     check(beats and beats[-1].strip().startswith(
         f"force eval: {progs}/{progs}"),
           f"bounded mesh: heartbeat lines {beats}")
@@ -3642,10 +3715,121 @@ def check_huge_n(counts):
                   f"bounded mesh: {k} differs from the unbounded ring")
     print(f"[huge] 4-shard mesh at 4M: bounded ({len(beats)} heartbeat "
           f"lines, {progs} programs) bit-equal to the unbounded ring")
+    state, _, _ = nt.load_checkpoint(path["mp"])
+    check_mesh_energy(state, smi, record)
+    del state
     for f in path.values():
         if os.path.exists(f):
             os.unlink(f)
     print(f"[time] check_huge_n: {time.perf_counter() - t_all:.1f} s")
+
+
+def check_mesh_energy(state, smi, record):
+    """The mesh's energy on the card beside the paths it is held to: at 4M
+    (``state``, the 4-shard run's end state) on 4 shards against K8's
+    ``pe_total`` of the gathered state, both timed in the same rounds
+    (the order reversed in the second); one ``pe_rows`` launch at the 4M
+    shard shape timed; at 8192 (seed 5) on 1 to 5 shards against float64.
+    These launches are comparisons, so the counters are put back."""
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.models.energy import (kinetic_energy,
+                                               total_energy_bounded)
+    from nbody_tpu_torch.ops import pe
+    from nbody_tpu_torch.parallel import energy as penergy
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    from nbody_tpu_torch.utils.timing import time_ms
+    saved = pe.pe_rows.launches, pe.pe_total.launches
+    eps2 = nt.SimConfig().eps2
+    mesh = make_mesh(4)
+    paths = {"sharded": lambda: penergy.total_energy_sharded(state, eps2,
+                                                            mesh),
+             "gathered pe_total": lambda: total_energy_bounded(state, eps2)}
+    secs, vals = {k: [] for k in paths}, {}
+    for order in (tuple(paths), tuple(reversed(paths))):
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e = paths[k]()
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t0)
+            check(vals.setdefault(k, e) == e,
+                  f"mesh energy: the {k} energy differs from call to call")
+    rel = abs(vals["sharded"] - vals["gathered pe_total"]) / abs(
+        vals["gathered pe_total"])
+    for k in paths:
+        print(f"[mesh energy] 4M {k}: {vals[k]:.12e} in "
+              + ", ".join(f"{t:.3f}" for t in secs[k]) + f" s ({smi})")
+    print(f"[mesh energy] 4M sharded against the gathered pe_total: rel "
+          f"{rel:.3e} (gate {MESH_ENERGY_TOL:g})")
+    check(rel <= MESH_ENERGY_TOL, "mesh energy: 4M sharded against "
+          "pe_total")
+    # One program's launch on one shard: its first row chunk against a
+    # visiting shard (K8's rows_slices picks the slices as on the path).
+    c = state.n // 4
+    rows = penergy._row_chunks(c, pe.PE_TILE, 3e11)[0][1]
+    pos, mass = state.pos.contiguous(), state.mass.contiguous()
+    ms = time_ms(lambda: pe.pe_rows(pos[:rows], mass[:rows], pos[c:2 * c],
+                                    mass[c:2 * c], eps2), pos.device,
+                 iters=2, warmup=1)
+    record["pe"]["ms_4m_shard"] = ms
+    record["pe"]["bound_ms_4m_shard"] = bound(
+        FLOPS_PE * rows * c, 16 * rows + 16 * c + 8 * rows)[0]
+    print(f"[mesh energy] K8 pe_rows at the 4M shard shape ({rows} rows x "
+          f"{c} bodies): {ms:.3f} ms a launch, bound "
+          f"{record['pe']['bound_ms_4m_shard']:.3f} ms ({smi})")
+
+    # The self term the sweep subtracts is K8's own: one body's row sum
+    # against itself, rsqrt(float32 eps2), bit for bit.
+    one = torch.ones(1, device=pos.device)
+    zero = torch.zeros(1, 3, device=pos.device)
+    r_self = torch.rsqrt(torch.tensor(eps2, dtype=torch.float32,
+                                      device=pos.device))
+    check(float(pe.pe_rows(zero, one, zero, one, eps2)) == float(r_self),
+          "K8's self term differs from torch.rsqrt(float32(eps2))")
+    print(f"[mesh energy] K8's self term rsqrt(float32(eps2)) = "
+          f"{float(r_self)!r} = torch.rsqrt's on the card; 1/sqrt(eps2) = "
+          f"{1 / eps2 ** 0.5!r}")
+
+    s8 = nt.init_state(nt.SimConfig(n_bodies=8192, seed=5))
+    pair64 = pe_total_f64(s8.pos, s8.mass, eps2)
+    ke = float(kinetic_energy(s8.vel.double(), s8.mass.double()))
+    self_total = float(torch.sum(s8.mass.double() ** 2)) / eps2 ** 0.5
+    e64 = ke - 0.5 * (pair64 - self_total)
+    e_tol = MESH_SELF_ULPS * self_total / abs(pair64 - self_total)
+    for p in MESH_ENERGY_PS:
+        e = penergy.total_energy_sharded(s8, eps2, make_mesh(p))
+        pair = 2.0 * (ke - e) + self_total
+        rp, re = abs(pair - pair64) / abs(pair64), abs(e - e64) / abs(e64)
+        print(f"[mesh energy] 8192, seed 5, {p} shards, against float64: "
+              f"pair total rel {rp:.3e} (gate {MESH_F64_TOL:g}), energy rel "
+              f"{re:.3e} (gate 2^-22 x S / |pair sums| = {e_tol:.3e})")
+        check(rp <= MESH_F64_TOL and re <= e_tol,
+              f"mesh energy at 8192 on {p} shards against float64")
+    pe.pe_rows.launches, pe.pe_total.launches = saved
+
+
+def check_examples(counts):
+    """The examples (``examples/*_torch.py``) through their ``main`` on
+    the card, each in the work directory, timed; each must exit 0."""
+    import importlib.util
+    t_all = time.perf_counter()
+    for name, argv in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        before = counts()
+        t0 = time.perf_counter()
+        with contextlib.chdir(WORK):
+            rc = mod.main([*argv, "cuda"])
+        secs = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in counts().items() if
+                 v != before[k]}
+        print(f"[examples] {name} {' '.join(argv)}: exit {rc}, {secs:.1f} "
+              f"s, launches {delta}")
+        check(rc == 0, f"examples/{name}.py: exit {rc}")
+    print(f"[time] check_examples: {time.perf_counter() - t_all:.1f} s")
 
 
 def share_oracle_runs():
@@ -3669,7 +3853,7 @@ def share_oracle_runs():
     numpy_oracle.oracle_run = shared
 
 
-def main_path(counts, reset):
+def main_path(counts, reset, record):
     """The CLI's main paths with the launch counters: validate at N = 8192
     (K1, K2, K7, K11, and the tensor-core tiers K9, K10, K5, K6, K14a), the
     entry point ``forces_pallas_sym`` at N = 8192 (K14b, K14c, K14d), the
@@ -3961,7 +4145,8 @@ def main_path(counts, reset):
     check_kepler(counts)
     check_presets(counts)
     check_viz(counts)
-    check_huge_n(counts)
+    check_huge_n(counts, record)
+    check_examples(counts)
     launches = counts()
     print(f"[main path] launch counts: {launches}")
     check(all(v > 0 for v in launches.values()),
@@ -4214,7 +4399,10 @@ def main():
     # 2. Build every kernel from a clean build directory, in parallel.
     libs = ("forces_tiled", "forces_sym", "resident", "pe",
             "forces_tiled_tc", "forces_sym_tc", "forces_fast", "rdma_ring")
-    shutil.rmtree(_build.BUILD_ROOT, ignore_errors=True)
+    from nbody_tpu_torch.utils import compcache
+    print(f"[build] build root {compcache.build_root()} (NBODY_COMPCACHE="
+          f"{os.environ.get('NBODY_COMPCACHE', '')!r})")
+    shutil.rmtree(compcache.build_root(), ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
     _build.build_all(libs)
@@ -4309,7 +4497,7 @@ def main():
         for w in wrappers.values():
             w.launches = 0
 
-    launches = main_path(counts, reset)
+    launches = main_path(counts, reset, record)
 
     # 6. Invariants over 200 device-only steps.
     from nbody_tpu_torch.analysis import invariant_drifts
@@ -4352,8 +4540,9 @@ def main():
                {"n": 8192, "shards": 4, "comm": "rdma"},
                {"n": 8192, "shards": 4, "comm": "rdma_overlap"},
                {"n": 1 << 20, "shards": 4, "comm": "rdma"},
-               # The JAX ladder's scale row: auto at 4M, bounded.
-               {"n": 1 << 22, "steps": 2}):
+               # The JAX ladder's scale row: auto at 4M, bounded; one trial
+               # (check_huge_n's CLI runs time the same step three times).
+               {"n": 1 << 22, "steps": 2, "trials": 1}):
         t0 = time.perf_counter()
         res = run_benchmark(**kw)
         check(res["finite"], f"bench {kw}: non-finite")

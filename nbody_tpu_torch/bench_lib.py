@@ -72,6 +72,8 @@ def run_benchmark(n: int = 65536, steps: Optional[int] = None,
                   device: str = "cuda", shards: Optional[int] = None,
                   comm: str = "ring", prog_cap: Optional[float] = None,
                   flat_state: Optional[bool] = None) -> dict:
+    from .utils.compcache import enable_compilation_cache
+    enable_compilation_cache()
     dev = require_device(device)
     sharded = bool(shards and shards > 1)
     cfg = SimConfig(n_bodies=n, impl=impl, block_i=block_i, block_j=block_j,

@@ -27,6 +27,8 @@ stdin dialog.  ``run --profile DIR`` writes a ``torch.profiler`` trace
 the JAX package does (``Simulation``): bounded force evaluations with a
 heartbeat line, the flat ``(3N,)`` state, and ``run --save-trajectory``
 streamed snapshot by snapshot through ``Simulation._run_chunk``.
+``NBODY_COMPCACHE`` sets where the kernels are built
+(``utils/compcache.py``).
 """
 
 from __future__ import annotations
@@ -407,7 +409,7 @@ def cmd_validate(args) -> int:
         print("native oracle has no yoshida4 twin; falling back to numpy")
         oracle = "numpy"
     if oracle == "native" and not native.available():
-        print("native oracle unavailable (build native/ with make); "
+        print("native oracle unavailable (needs g++); "
               "falling back to numpy")
         oracle = "numpy"
     opos, ovel, oacc = _oracle_run(oracle)(
@@ -791,6 +793,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional["list[str]"] = None) -> int:
     args = build_parser().parse_args(argv)
+    # The kernels' build root (NBODY_COMPCACHE: a directory, or off).
+    from .utils.compcache import enable_compilation_cache
+    enable_compilation_cache()
     return args.fn(args)
 
 

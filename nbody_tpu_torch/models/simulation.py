@@ -15,9 +15,12 @@ does; the sort permutes body identity.
 With ``mesh=`` (``parallel/mesh.py``) every chunk runs through
 ``run_steps_sharded`` over the mesh with the ``comm`` tier, and a KDK
 prime through ``prime_kdk_sharded``; the state between chunks is the
-gathered, unpadded state, so energy, checkpoints and trajectories take
-the single-device path.  A mesh run never takes the resident kernels, and
-forcing them on a mesh is refused, as in the JAX package.
+gathered, unpadded state, so checkpoints and trajectories take the
+single-device path.  The energy does too up to ``MAX_HOST_ENERGY_N``
+bodies; past it a mesh run's energy is computed on the mesh
+(``parallel/energy.py``: the halved ring of K8 row-sum programs, with the
+heartbeat), as in the JAX package.  A mesh run never takes the resident
+kernels, and forcing them on a mesh is refused, as in the JAX package.
 
 With a ``frame_streamer`` (``viz/stream.py``, ``viz/server.py``,
 ``viz/video.py``) the run renders every ``cfg.viz_every``-th state on the
@@ -62,6 +65,7 @@ from ..ops.step import (prime_kdk, prime_kdk_flat, run_steps,
                         run_steps_flat, run_steps_multiprog,
                         run_trajectory_frames, should_use_flat,
                         should_use_multiprog)
+from ..parallel import energy as penergy
 from ..parallel.multiprog import run_steps_sharded_multiprog
 from ..parallel.ring import (_resolve_local_impl, prime_kdk_sharded,
                              render_weights_sharded,
@@ -136,9 +140,10 @@ class _ProgressHeartbeat:
     the bounded dispatch.  At 16.7M bodies one evaluation is ~24 programs
     and ~100 s of kernels during which the host is otherwise silent.
     Every ``total // 10`` programs (and at the last) it waits for the
-    card's compute stream and prints ``force eval: k/P programs (x%), ETA
-    m:ss``; a program it does not print adds no wait, and an evaluation
-    of fewer than ``min_programs`` programs prints nothing."""
+    compute stream of ``acc``'s card (of every card when ``acc`` is None,
+    as the mesh energy passes it) and prints ``force eval: k/P programs
+    (x%), ETA m:ss``; a program it does not print adds no wait, and an
+    evaluation of fewer than ``min_programs`` programs prints nothing."""
 
     def __init__(self, logger, min_programs: int = 6,
                  sync_every: Optional[int] = None):
@@ -158,7 +163,12 @@ class _ProgressHeartbeat:
         every = self.sync_every or max(1, total // 10)
         if done % every and done != total:
             return
-        sync_stream(acc.device)           # the programs so far have run
+        # The programs so far have run.
+        if acc is not None:
+            sync_stream(acc.device)
+        elif torch.cuda.is_initialized():
+            for d in range(torch.cuda.device_count()):
+                sync_stream(torch.device("cuda", d))
         elapsed = max(time.perf_counter() - self._t0, 1e-9)
         eta = elapsed / done * (total - done)
         self.logger.banner(
@@ -286,7 +296,15 @@ class Simulation:
 
     def _total_energy(self) -> float:
         """Total energy for ``track_energy``: float64 on the host up to
-        ``MAX_HOST_ENERGY_N`` bodies, kernel K8 above."""
+        ``MAX_HOST_ENERGY_N`` bodies, kernel K8 above; past it a mesh run
+        computes on the mesh (``parallel/energy.py``: K8's row sums a
+        shard, no shard sweeping all N^2) with the heartbeat, where the
+        JAX package does.  The threshold is read at each call."""
+        if (self.mesh is not None
+                and self.cfg.n_bodies > penergy.MAX_HOST_ENERGY_N):
+            return penergy.total_energy_sharded(
+                self.state, self.cfg.eps2, self.mesh,
+                progress=self.progress)
         return energy_f64(self.state, self.cfg.eps2)
 
     def _run_chunk(self, n: int) -> None:

@@ -3,10 +3,13 @@
 Each ``csrc/<name>.cu`` file has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds rather than minutes).  Libraries go to
-``build/nbody_tpu_torch/<source-hash>/`` beside the package, keyed by the
-source bytes, the shared headers (``csrc/*.cuh``) and the flags, and are
-built at first use, never at import; ``build_all`` starts one ``nvcc`` per
-missing library at once.
+``<root>/<source-hash>/`` under the build root (``utils/compcache.py``:
+``build/nbody_tpu_torch/`` beside the package unless ``NBODY_COMPCACHE``
+says otherwise), keyed by the source bytes, the shared headers
+(``csrc/*.cuh``) and the flags, and are built at first use, never at
+import; ``build_all`` starts one ``nvcc`` per missing library at once,
+each writing into a temporary directory whose finished file is moved into
+place in one step.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -19,11 +22,11 @@ import os
 import pathlib
 import shutil
 import subprocess
-import tempfile
 import time
 
+from ..utils import compcache
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = CSRC.parent.parent / "build" / "nbody_tpu_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,7 +55,7 @@ def library_path(name: str) -> pathlib.Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
+    return compcache.build_root() / h.hexdigest()[:16] / f"lib{name}.so"
 
 
 def build_all(names) -> None:
@@ -64,8 +67,7 @@ def build_all(names) -> None:
         so = library_path(name)
         if name in _LIBS or so.exists():
             continue
-        so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = pathlib.Path(tempfile.mkdtemp(dir=so.parent))
+        tmp = compcache.staging(so)
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp / so.name),
                str(CSRC / f"{name}.cu")]
         jobs[name] = (so, tmp, subprocess.Popen(
@@ -76,11 +78,11 @@ def build_all(names) -> None:
         BUILD_LOG[name] = out
         BUILD_SECONDS[name] = time.perf_counter() - t0
         if proc.returncode == 0:
-            os.replace(tmp / so.name, so)
+            compcache.publish(tmp, so)
         else:
             failed.append(f"nvcc failed for {name}.cu (exit "
                           f"{proc.returncode}):\n{out}")
-        shutil.rmtree(tmp, ignore_errors=True)
+            shutil.rmtree(tmp, ignore_errors=True)
     if failed:
         raise RuntimeError("\n".join(failed))
 

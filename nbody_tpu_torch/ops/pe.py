@@ -6,7 +6,9 @@ The counterpart of ``nbody_tpu/ops/pe_pallas.py`` (``_pe_kernel``,
 no mask, so each row's self term ``m_i^2 / sqrt(eps2)`` is included and
 the caller subtracts it in float64.  The kernels are in ``csrc/pe.cu``:
 
-- ``pe_rows`` (a row subset against all bodies): K1's (row block, j
+- ``pe_rows`` (a row subset against all bodies; on the main path a
+  shard's row chunk against a visiting shard, ``parallel/energy.py``,
+  the mesh's energy past the host wall): K1's (row block, j
   slice) work items (``ops/forces_tiled.py``: ``slice_plan``) with
   ``pe_total``'s pair; the j-set in tiles of ``PE_TILE`` bodies
   (zero-mass ghosts at the ragged edge), each row's tile summed in a
@@ -25,7 +27,8 @@ the caller subtracts it in float64.  The kernels are in ``csrc/pe.cu``:
 
 Not ported: the row-chunked programs of ``total_energy_bounded`` (the
 relay's program kill) and the flat-state panel pairs; on the card one
-launch covers every row.
+launch covers every row.  The mesh's energy keeps its row chunks as a
+heartbeat granularity (``parallel/energy.py``).
 
 The wrappers take the plain PyTorch versions (``pe_rows_plain``,
 ``pe_total_plain``: the same tiles, slices, offsets, weights and float32 /

@@ -3,49 +3,84 @@
 The reference's validation oracle is native C++ with OpenMP
 (``validation.cpp:28-52``); this is the rebuild's equivalent — structurally
 independent from both the NumPy oracle and the device paths, so three
-implementations cross-check each other.  Builds on demand with the system
-toolchain (``make -C native``, g++ with OpenMP) if the shared library is
-missing, and serial without ``-fopenmp`` where the toolchain has no OpenMP
-runtime; falls back gracefully (callers should use ``available()``).
+implementations cross-check each other.  The library is built at first
+use with g++ and ``native/Makefile``'s flags, serial without
+``-fopenmp`` where the toolchain has no OpenMP runtime; callers should
+use ``available()``.
 
-This file is a copy of ``nbody_tpu/oracle/native.py``: the port must run
+A copy of ``nbody_tpu/oracle/native.py`` (numpy only): the port must run
 where JAX is not installed, and importing anything under ``nbody_tpu``
-imports JAX.  The library and its sources (``native/``) are shared by both
-packages; ``tests/test_torch_native.py`` holds this copy against the numpy
-oracle.
+imports JAX.  It differs in where the library goes.  The JAX binding runs
+``make -C native``, which writes ``native/libnbody_native.so`` in place,
+so several processes building at once can see no library or half of one.
+This one reads ``native/nbody_native.cpp`` (it writes nothing under
+``native/``) and compiles it into the build root (``utils/compcache.py``)
+under a directory keyed by the source and the flags, through a temporary
+directory and ``os.replace``: a process sees no library or a whole one.
+``tests/test_torch_native.py`` holds it against the numpy oracle and
+against the JAX binding loaded from this build.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
+import hashlib
+import pathlib
+import shutil
 import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libnbody_native.so"))
+from ..utils import compcache
+
+SOURCE = (pathlib.Path(__file__).resolve().parent.parent.parent / "native"
+          / "nbody_native.cpp")
+# native/Makefile's CXXFLAGS (less -fopenmp, added where the toolchain has
+# OpenMP) and LDLIBS.
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-Wall")
+LDLIBS = ("-lz",)
 
 _lib: "Optional[ctypes.CDLL]" = None
 _tried = False
 
 
-# The Makefile's flags without -fopenmp: the source guards its OpenMP
-# use, so a toolchain that has no OpenMP runtime builds a serial library.
-_SERIAL_FLAGS = "CXXFLAGS=-O3 -march=native -fPIC -shared -Wall"
+def _flags(openmp: bool) -> tuple:
+    return CXXFLAGS + (("-fopenmp",) if openmp else ())
 
 
-def _build() -> bool:
-    for flags in ([], [_SERIAL_FLAGS]):
-        try:
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR),
-                            *flags], check=True, capture_output=True,
-                           timeout=120)
-            return os.path.exists(_LIB_PATH)
-        except Exception:
-            continue
-    return False
+def library_path(openmp: bool = True) -> pathlib.Path:
+    """Where the build of ``SOURCE`` with (or without) OpenMP goes."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join((*_flags(openmp), *LDLIBS)).encode())
+    return (compcache.build_root() / h.hexdigest()[:16]
+            / "libnbody_native.so")
+
+
+def _compile(openmp: bool) -> bool:
+    so = library_path(openmp)
+    tmp = compcache.staging(so)
+    try:
+        subprocess.run(["g++", *_flags(openmp), "-o", str(tmp / so.name),
+                        str(SOURCE), *LDLIBS], check=True,
+                       capture_output=True, timeout=120)
+        compcache.publish(tmp, so)
+        return True
+    except Exception:
+        shutil.rmtree(tmp, ignore_errors=True)
+        return False
+
+
+def built_library() -> Optional[pathlib.Path]:
+    """The library to load: an existing build (OpenMP first), else a new
+    one (OpenMP, then serial); None where g++ builds neither."""
+    for openmp in (True, False):
+        if library_path(openmp).exists():
+            return library_path(openmp)
+    for openmp in (True, False):
+        if _compile(openmp):
+            return library_path(openmp)
+    return None
 
 
 def _load() -> "Optional[ctypes.CDLL]":
@@ -53,10 +88,11 @@ def _load() -> "Optional[ctypes.CDLL]":
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH) and not _build():
+    path = built_library()
+    if path is None:
         return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(str(path))
     except OSError:
         return None
     f32p = ctypes.POINTER(ctypes.c_float)
@@ -68,9 +104,8 @@ def _load() -> "Optional[ctypes.CDLL]":
                                   ctypes.c_float, ctypes.c_float, i64]
     lib.nbody_run_f64.argtypes = [f64p, f64p, f64p, f64p, i64,
                                   ctypes.c_double, ctypes.c_double, i64]
-    if hasattr(lib, "nbody_run_kdk_f32"):   # older prebuilt .so lacks KDK
-        lib.nbody_run_kdk_f32.argtypes = lib.nbody_run_f32.argtypes
-        lib.nbody_run_kdk_f64.argtypes = lib.nbody_run_f64.argtypes
+    lib.nbody_run_kdk_f32.argtypes = lib.nbody_run_f32.argtypes
+    lib.nbody_run_kdk_f64.argtypes = lib.nbody_run_f64.argtypes
     lib.nbody_num_threads.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -95,7 +130,7 @@ def native_forces(pos: np.ndarray, mass: np.ndarray, eps2: float,
     lib = _load()
     if lib is None:
         raise RuntimeError("native oracle library unavailable "
-                           f"(expected at {_LIB_PATH}; needs g++)")
+                           f"(built from {SOURCE}; needs g++)")
     dtype = np.dtype(dtype)
     pos = np.ascontiguousarray(pos, dtype=dtype)
     mass = np.ascontiguousarray(mass, dtype=dtype)
@@ -125,9 +160,6 @@ def native_run(pos: np.ndarray, vel: np.ndarray, mass: np.ndarray,
         raise RuntimeError("native oracle library unavailable")
     if integrator not in ("reference", "kdk"):
         raise ValueError(f"unknown integrator {integrator!r}")
-    if integrator == "kdk" and not hasattr(lib, "nbody_run_kdk_f64"):
-        raise RuntimeError("native library predates KDK; rebuild with "
-                           "make -C native")
     dtype = np.dtype(dtype)
     pos = np.ascontiguousarray(pos, dtype=dtype).copy()
     vel = np.ascontiguousarray(vel, dtype=dtype).copy()

@@ -15,8 +15,11 @@ communication.  Across cards a hop is a peer copy (``Tensor.to``).
 What does not survive: the born-sharded ``jit`` out_shardings (the state
 is made on one device and split; on the card a shard is a view until it
 moves).  The bounded mesh (``parallel/multiprog.py``) is the ring's host
-loop cut into programs.  A collective backend for several processes
-(``torch.distributed``) is not ported yet (ROADMAP Queue 1 item 14).
+loop cut into programs, and the mesh's energy (``parallel/energy.py``)
+the halved ring of K8 row sums.  A collective backend for several
+processes (``torch.distributed``) is out of scope: the JAX package is one
+process (nothing in it calls ``jax.distributed``), and one process here
+already places a shard on every card.
 """
 
 from __future__ import annotations

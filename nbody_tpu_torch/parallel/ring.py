@@ -16,8 +16,9 @@ shard, written once against a small collective object (``LocalComm``:
 for the per-shard work).  ``LocalComm`` holds every shard in one process
 as a list of tensors: ``ppermute`` is a rotation of the list plus
 ``Tensor.to`` (a no-op on one card, a peer copy across cards) and
-``all_gather`` is ``torch.cat``.  A ``torch.distributed`` object with the
-same five members can carry the same schedule over processes later.
+``all_gather`` is ``torch.cat``.  The JAX package is one process too
+(nothing in it calls ``jax.distributed``), so a collective object over
+processes is not part of the port.
 PyTorch runs eagerly, so the step loop is a Python loop that queues the
 kernels on the card; XLA's async collective scheduling, which overlaps
 the TPU's hops with compute, has no counterpart needed on one card.
@@ -40,8 +41,9 @@ Frames on the mesh (``render_weights_sharded``,
 and the maps are max-combined over the mesh through ``LocalComm``'s
 all-gather, the rasterizer's own brightest-point rule, so the pixels are
 those of the gathered state's render and the zero-mass padding never
-draws.  The ring pair potential rides ROADMAP Queue 1 item 14, with the
-frames across cards.
+draws.  The ring's pair potential, a mesh run's energy past the host
+wall, is ``parallel/energy.py``: K8's row sums of each shard against a
+visitor that walks this module's ``LocalComm``.
 """
 
 from __future__ import annotations

@@ -5,6 +5,13 @@ against the copy, native against the numpy oracle on shared arrays, the
 JAX package's binding on the same arrays, and ``validate --oracle
 native``.  Skipped, as the JAX package's file is, where g++ cannot build
 the library.
+
+The JAX binding runs ``make -C native`` in place, so under xdist one
+worker can read ``native/libnbody_native.so`` while another writes it.
+Its comparison here therefore loads the port's build (the same source,
+the Makefile's flags, written atomically into the build root) through the
+JAX binding's own ``_load``, by pointing the binding's module globals at
+it for the test; ``nbody_tpu/oracle/native.py`` is not edited.
 """
 
 import numpy as np
@@ -20,10 +27,15 @@ EPS2, DT = 0.002, 0.1
 
 
 @pytest.fixture(autouse=True)
-def _built():
-    """Build the library in the test that needs it, not at collection."""
+def _built(monkeypatch):
+    """Build the library in the test that needs it, not at collection,
+    and have the JAX binding load that build, not ``native/``."""
     if not native.available():
         pytest.skip("native library not built (needs g++)")
+    monkeypatch.setattr(jax_native, "_LIB_PATH",
+                        str(native.built_library()))
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_tried", False)
 
 
 def test_native_forces_match_numpy_f64():
@@ -33,6 +45,7 @@ def test_native_forces_match_numpy_f64():
     np.testing.assert_allclose(a_native, a_numpy, rtol=1e-12, atol=1e-12)
     np.testing.assert_array_equal(
         a_native, jax_native.native_forces(pos, mass, EPS2, dtype=np.float64))
+    assert jax_native._lib._name == str(native.built_library())
 
 
 def test_native_forces_f32():
