@@ -98,6 +98,16 @@ gathered state in alternating rounds, beside one ``pe_rows`` launch at
 the 4M shard shape, and at 8192 on 1 to 5 shards against float64
 (``check_mesh_energy``); and the examples (``examples/demo_torch.py``,
 ``examples/orbit_torch.py``) at their defaults (``check_examples``).
+K13's two protocols (``check_rdma_protocols``): the flag kernel, as one
+launch and as G launches on G streams, bit-equal to the grid-sync kernel
+at N = 8192 on 2 to 5 shards, every variant, both protocols, no wait past
+its bound, and both at 1M on 4 shards in alternating rounds.  Every mesh
+of these phases is pinned to ``cuda:0`` (``on_card0``); on a host of
+several cards ``check_cross_card`` spreads meshes over them (every mesh
+path at 8192 and one step of the ring and of K13 at 4M bit-equal to
+cuda:0's, s/step, the efficiency, each card's launches; ``python3
+chip_smoke.py --cross-card`` runs it alone), and on one card it prints a
+skip line.
 Then 200 steps under the momentum and angular-momentum gates
 (their change from the initial state), the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
@@ -502,6 +512,17 @@ JAX_KEPLER_SAME = {
     ('split', 'pallas_sym_turbo2', 1024): ('pair', 'pallas_turbo', 1024),
     ('split', 'pallas_sym_turbo2', 2048): ('pair', 'pallas_turbo', 2048),
 }
+
+
+def on_card0(argv):
+    """``argv`` of a CLI call with its mesh pinned to card 0 (``--device
+    cuda:0`` added where it has ``--shards`` and no ``--device``): the
+    one-card phases measure the same schedule on a host of several cards.
+    check_cross_card spreads its meshes over the cards on purpose."""
+    argv = list(argv)
+    if "--shards" in argv and "--device" not in argv:
+        argv += ["--device", "cuda:0"]
+    return argv
 
 
 def check(cond, what):
@@ -1776,7 +1797,8 @@ def check_rdma(dev, eps2, record, smi):
     print("[check] K13 bit-reproducible, chunk-invariant (3 column tiles a "
           "chunk, both protocols)")
 
-    # Real massless bodies under vpu2, sequential and overlap.
+    # Real massless bodies under vpu2, sequential and overlap; the flag
+    # protocol (one launch, and two launches on two streams) bit-equal.
     p = 4
     pos, mass = rdma_shards(RDMA_N, p, 70, dev)
     zero = [3, 2048, 5000, 8191]
@@ -1786,10 +1808,81 @@ def check_rdma(dev, eps2, record, smi):
         got = k13.rdma_ring(pos, mass, p, eps2, "vpu2", overlap=overlap)
         compare(f"K13 vpu2 P=4 {'overlap' if overlap else 'sequential'}, "
                 f"massless rows vs float64", got[zero], ref)
+        for proto, streams in (("flags", 1), ("flags", 2), ("grid", 1)):
+            check(torch.equal(got, k13._launch(
+                pos, mass, p, eps2, "vpu2", False, overlap,
+                k13.SLOT_BUDGET_BYTES, protocol=proto, streams=streams)),
+                f"K13 massless rows: the {proto} protocol ({streams} "
+                f"launches) differs")
         print(f"[check] K13 massless rows {zero}: |a| "
               f"{[f'{v:.4e}' for v in got[zero].norm(dim=1).tolist()]}; "
-              f"JAX's K13 gives 0 there (_inv_mass_scale)")
+              f"JAX's K13 gives 0 there (_inv_mass_scale); both protocols "
+              f"and the two-launch form bit-equal")
+    k13.check_errors()
+    check_rdma_protocols(dev, eps2, record, smi)
     print(f"[time] K13 checks: {time.perf_counter() - t0:.1f} s")
+
+
+def check_rdma_protocols(dev, eps2, record, smi):
+    """K13's two protocols on one card: the flag-ordered kernel (one
+    launch whose P groups order themselves by the flags) and its test form
+    of G launches on G streams (the launches of G cards with only the peer
+    mapping left out) bit for bit against the grid-sync kernel at N = 8192
+    (seed 5) on 2 to 5 shards, every variant of the sym ladder and the
+    one-sided family, sequential and overlap, no wait past its bound; then
+    both protocols at N = 1M on 4 shards (vpu2, sequential) in alternating
+    rounds, and the two-launch form beside them."""
+    import torch
+    from nbody_tpu_torch.parallel import rdma_ring as k13
+    t0 = time.perf_counter()
+    budget = k13.SLOT_BUDGET_BYTES
+    for p in (2, 3, 4, 5):
+        pos, mass = rdma_shards(RDMA_N, p, 5, dev)
+        for variant, one_sided in RDMA_CASES:
+            for overlap in (False, True):
+                want = k13._launch(pos, mass, p, eps2, variant, one_sided,
+                                   overlap, budget, protocol="grid")
+                for streams in sorted({1, 2, p}):
+                    got = k13._launch(pos, mass, p, eps2, variant, one_sided,
+                                      overlap, budget, protocol="flags",
+                                      streams=streams)
+                    check(torch.equal(got, want),
+                          f"K13 {variant}{' one-sided' if one_sided else ''}"
+                          f" P={p} {'overlap' if overlap else 'sequential'}: "
+                          f"the flag protocol in {streams} launch(es) differs "
+                          f"from the grid-sync kernel")
+        k13.check_errors()
+    print(f"[check] K13's flag protocol (1, 2 and P launches) bit-equal to "
+          f"the grid-sync kernel at N={RDMA_N}, seed 5, P = 2 to 5, every "
+          f"variant, both protocols; no wait ran past its bound")
+    p = 4
+    pos, mass = rdma_shards(RING_N, p, 5, dev)
+    forms = {"grid": {"protocol": "grid"}, "flags": {"protocol": "flags"},
+             "flags, 2 launches": {"protocol": "flags", "streams": 2}}
+    fns = {k: (lambda kw=kw: k13._launch(pos, mass, p, eps2, "vpu2", False,
+                                         False, budget, **kw))
+           for k, kw in forms.items()}
+    outs = {k: fn() for k, fn in fns.items()}
+    check(all(torch.equal(o, outs["grid"]) for o in outs.values()),
+          "K13 at 1M: the protocols differ")
+    order = ["grid", "flags", "flags, 2 launches"]
+    turns = {k: [] for k in order}
+    for r in range(4):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            turns[k].append(device_ms(fns[k], 1))
+    k13.check_errors()
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    for k, v in turns.items():
+        print(f"[time] K13 vpu2 P=4 N={RING_N}, {k}: rounds "
+              f"{', '.join(f'{t:.3f}' for t in v)} ms, median {med[k]:.3f} "
+              f"({smi})")
+    print(f"[time] K13 at 1M: the flag protocol {med['flags'] / med['grid']:.4f}"
+          f"x the grid-sync kernel's time (one launch), "
+          f"{med['flags, 2 launches'] / med['grid']:.4f}x in two launches; "
+          f"checks and rounds {time.perf_counter() - t0:.1f} s")
+    record["rdma_ring"].update({
+        "ms_1m_grid": med["grid"], "ms_1m_flags": med["flags"],
+        "ms_1m_flags_2_launches": med["flags, 2 launches"]})
 
 
 def check_resident(dev, record):
@@ -2259,12 +2352,15 @@ def pinned(pin, fn):
     """``fn`` with a library's ablation pair launches held at their
     controls' CTAs an SM by ``pin`` (its nbt_sym_abl_pin or
     nbt_sym_tc_abl_pin, the pins of ablation_sym.control_occupancy)."""
+    from nbody_tpu_torch.ops import _build
+
     def run():
-        check(pin(1) >= 0, f"{pin.__name__}: the pin failed")
+        check(_build.query("cuda", pin, 1) >= 0,
+              f"{pin.__name__}: the pin failed")
         try:
             return fn()
         finally:
-            pin(0)
+            _build.query("cuda", pin, 0)
     return run
 
 
@@ -2449,10 +2545,11 @@ def check_redesign(dev, eps2, record, smi, parent_build):
             prefix = f"_Z16sym_pairs_kernelILi{m}E"
             slots[tag, v] = s = loop_slots(so[tag], prefix, ops)
             check(s is not None, f"{tag} {v}: no pair loop in its SASS")
-            free = lib.nbt_sym_pairs_ctas(m)
-            check(lib.nbt_sym_abl_pin(1) >= 0, f"{tag}: the vpu_* pin failed")
-            pin = lib.nbt_sym_pairs_ctas(m)
-            lib.nbt_sym_abl_pin(0)
+            free = _build.query("cuda", lib.nbt_sym_pairs_ctas, m)
+            check(_build.query("cuda", lib.nbt_sym_abl_pin, 1) >= 0,
+                  f"{tag}: the vpu_* pin failed")
+            pin = _build.query("cuda", lib.nbt_sym_pairs_ctas, m)
+            _build.query("cuda", lib.nbt_sym_abl_pin, 0)
             print(f"[redesign] {tag} {v} pair kernel: "
                   f"{kernel_regs(logs[tag], prefix)} registers, {free} CTAs "
                   f"an SM, {pin} pinned; loop {s[0]:.3f} issue slots a pair, "
@@ -2489,9 +2586,9 @@ def check_redesign(dev, eps2, record, smi, parent_build):
         n_pad = nb * k2.SYM_TILE
         (d_lo, dc), = k2.offset_chunks(nb, n_pad)
         si, sj = (pos.new_zeros(dc * n_pad * 3) for _ in "ij")
-        _build.check_launch("pair slots", pairs(
-            pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, float(eps2),
-            si.data_ptr(), sj.data_ptr(), _build.stream_handle(pos)))
+        _build.launch("pair slots", pos, pairs, pos.data_ptr(),
+                      mass.data_ptr(), n, nb, d_lo, dc, float(eps2),
+                      si.data_ptr(), sj.data_ptr())
         torch.cuda.synchronize()
         return si, sj
 
@@ -2654,6 +2751,7 @@ def check_fold(dev, eps2):
     massless bodies against float64 (K2's math recomputes such a row
     one-sided)."""
     import torch
+    from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops import forces_sym as k2
     from nbody_tpu_torch.ops.forces_torch import rect_forces
     t0 = time.perf_counter()
@@ -2670,11 +2768,11 @@ def check_fold(dev, eps2):
                         plain(pos, mass, eps2, block_u=u))
                 check(torch.equal(got, fn(pos, mass, eps2, block_u=u)),
                       f"{tag}: not bit-reproducible")
-                lib.nbt_sym_fold_mode(k2.FOLD_CTA)
+                _build.query(None, lib.nbt_sym_fold_mode, k2.FOLD_CTA)
                 try:
                     cta = fn(pos, mass, eps2, block_u=u)
                 finally:
-                    lib.nbt_sym_fold_mode(k2.FOLD_AUTO)
+                    _build.query(None, lib.nbt_sym_fold_mode, k2.FOLD_AUTO)
                 check(torch.equal(got, cta), f"{tag}: one CTA an item "
                       f"differs from the automatic spread")
                 one = fn(pos, mass, eps2, block_u=u,
@@ -2830,7 +2928,7 @@ def kepler_cli(counts, impl, steps, dtype="float32"):
     before = counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli_main(argv)
+        rc = cli_main(on_card0(argv))
     text = out.getvalue()
     sys.stdout.write(text)
     delta = {k: v - before[k] for k, v in counts().items()}
@@ -3099,7 +3197,7 @@ def check_viz(counts):
         t0 = time.perf_counter()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            rc = cli_main(argv)
+            rc = cli_main(on_card0(argv))
         wall = time.perf_counter() - t0
         check(rc == 0, f"{what}: exit {rc}")
         delta = {k: v - before[k] for k, v in counts().items()}
@@ -3225,7 +3323,7 @@ def check_viz(counts):
           {"forces_sym": lambda v: v == 80,
            "rect_forces_sym_vpu2": lambda v: v == 80,
            "forces_tiled": lambda v: v == 80})
-    mesh = make_mesh(4, "cuda")
+    mesh = make_mesh(4, "cuda:0")
     cfg = nt.SimConfig(n_bodies=8192, shards=4)
     sim = Simulation(cfg, mesh=mesh)
     names = sorted(os.listdir(d))
@@ -3426,7 +3524,7 @@ def check_presets(counts):
             argv += ["--checkpoint", end]
         what = " ".join(argv[:-2] if end else argv)
         before = counts()
-        rc = cli_main(argv)
+        rc = cli_main(on_card0(argv))
         check(rc == 0, f"{what}: exit {rc}")
         delta = {k: v - before[k] for k, v in counts().items()}
         print(f"[main path] {what}: launches "
@@ -3507,7 +3605,7 @@ def huge_cli(counts, what, argv, expect):
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        rc = cli_main(argv)
+        rc = cli_main(on_card0(argv))
     secs = time.perf_counter() - t0
     check(rc == 0, f"{what}: exit {rc}")
     delta = {k: v - before[k] for k, v in counts().items()}
@@ -3699,7 +3797,7 @@ def check_huge_n(counts, record):
           + [ln for ln in text.splitlines()
              if ln.startswith("Simulation complete")][0])
     progs = _ShardedBoundedForces(nt.SimConfig(n_bodies=HUGE_N),
-                                  make_mesh(4), "pallas_sym2",
+                                  make_mesh(4, "cuda:0"), "pallas_sym2",
                                   2e12).total_programs
     beats = [ln for ln in text.splitlines()
              if "force eval:" in ln and f"/{progs} programs" in ln]
@@ -3741,7 +3839,7 @@ def check_mesh_energy(state, smi, record):
     from nbody_tpu_torch.utils.timing import time_ms
     saved = pe.pe_rows.launches, pe.pe_total.launches
     eps2 = nt.SimConfig().eps2
-    mesh = make_mesh(4)
+    mesh = make_mesh(4, "cuda:0")
     paths = {"sharded": lambda: penergy.total_energy_sharded(state, eps2,
                                                             mesh),
              "gathered pe_total": lambda: total_energy_bounded(state, eps2)}
@@ -3798,7 +3896,7 @@ def check_mesh_energy(state, smi, record):
     e64 = ke - 0.5 * (pair64 - self_total)
     e_tol = MESH_SELF_ULPS * self_total / abs(pair64 - self_total)
     for p in MESH_ENERGY_PS:
-        e = penergy.total_energy_sharded(s8, eps2, make_mesh(p))
+        e = penergy.total_energy_sharded(s8, eps2, make_mesh(p, "cuda:0"))
         pair = 2.0 * (ke - e) + self_total
         rp, re = abs(pair - pair64) / abs(pair64), abs(e - e64) / abs(e64)
         print(f"[mesh energy] 8192, seed 5, {p} shards, against float64: "
@@ -3865,7 +3963,7 @@ def main_path(counts, reset, record):
 
     def phase(what, argv, expect=None):
         before = counts()
-        rc = cli_main(argv)
+        rc = cli_main(on_card0(argv))
         check(rc == 0, f"{what}: exit {rc}")
         delta = {k: v - before[k] for k, v in counts().items()}
         print(f"[main path] {what}: launches {delta}")
@@ -4154,6 +4252,151 @@ def main_path(counts, reset, record):
     return launches
 
 
+def check_cross_card(counts, record, smi):
+    """The mesh across the host's cards, where it has two or more: the
+    placement and peer-access lines; at N = 8192 (seed 5) on P = the card
+    count shards (and 5 on four cards), the one-sided ring, the N3L ring,
+    the all-gather, K13 under both protocols and the bounded mesh against
+    the same runs pinned to cuda:0 bit for bit, each card's kernel
+    launches, and ``validate --shards P --comm ...`` across the cards
+    (the float64 gate); at N = 4M (config #4's N on the host's cards),
+    one step of the N3L ring and one of K13 across the cards against the
+    same step on cuda:0 bit for bit, with s/step and the scaling
+    efficiency against K2's one-card step, the mesh's energy and one
+    sharded frame against cuda:0's, and ``run --shards P --n 4194304
+    --energy`` through the ring and through K13.  On one card it prints
+    the skip line."""
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops.step import run_steps
+    from nbody_tpu_torch.parallel import energy as penergy
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    from nbody_tpu_torch.parallel.multiprog import run_steps_sharded_multiprog
+    from nbody_tpu_torch.parallel.rdma_ring import check_errors
+    from nbody_tpu_torch.parallel.ring import (render_weights_sharded,
+                                               run_steps_sharded)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[cross-card] skipped: {cards} card")
+        return
+    t0 = time.perf_counter()
+    names = [torch.cuda.get_device_name(i) for i in range(cards)]
+    print(f"[cross-card] {cards} cards: {names} ({smi})")
+    for a in range(cards):
+        print(f"[cross-card] peer access from card {a}: " + ", ".join(
+            f"{b}: {torch.cuda.can_device_access_peer(a, b)}"
+            for b in range(cards) if b != a))
+    shard_counts = sorted({cards, 5} if cards == 4 else {cards})
+
+    def per_card(before):
+        return {i: _build.DEVICE_LAUNCHES[i] - before.get(i, 0)
+                for i in range(cards)}
+
+    def equal(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    cfg = nt.SimConfig(n_bodies=8192, seed=5, device="cuda")
+    start = nt.init_state(cfg)
+    for p in shard_counts:
+        mesh, mesh0 = make_mesh(p, "cuda"), make_mesh(p, "cuda:0")
+        print(f"[cross-card] {mesh.describe()}")
+        for impl, comm in (("pallas", "ring"), ("pallas_sym2", "ring"),
+                           ("pallas_sym2", "allgather"),
+                           ("pallas_sym2", "rdma"),
+                           ("pallas_sym2", "rdma_overlap"),
+                           ("pallas", "rdma")):
+            before = dict(_build.DEVICE_LAUNCHES)
+            got = run_steps_sharded(start, cfg, mesh, 3, impl, comm)
+            torch.cuda.synchronize()
+            launches = per_card(before)
+            want = run_steps_sharded(start, cfg, mesh0, 3, impl, comm)
+            check(equal(got, want), f"cross-card {impl} {comm} P={p}: differs "
+                  f"from the same run on cuda:0")
+            print(f"[cross-card] 8192, P={p}, {impl} --comm {comm}: 3 steps "
+                  f"bit-equal to cuda:0's; launches by card {launches}")
+        got = run_steps_sharded_multiprog(start, cfg, mesh, 2, "pallas_sym2",
+                                          max_prog_interactions=4e6)
+        want = run_steps_sharded_multiprog(start, cfg, mesh0, 2,
+                                           "pallas_sym2",
+                                           max_prog_interactions=4e6)
+        check(equal(got, want), f"cross-card bounded mesh P={p}: differs")
+        print(f"[cross-card] 8192, P={p}, the bounded mesh (4e6 a program): "
+              f"bit-equal to cuda:0's")
+        for comm in ("ring", "allgather", "rdma", "rdma_overlap"):
+            before = dict(_build.DEVICE_LAUNCHES)
+            argv = ["validate", "--n", "8192", "--seed", "5", "--long-steps",
+                    "0", "--shards", str(p), "--comm", comm]
+            rc = cli_main(argv)   # not on_card0: across the cards
+            check(rc == 0, f"cross-card validate P={p} --comm {comm}: exit "
+                  f"{rc}")
+            print(f"[cross-card] validate --shards {p} --comm {comm}: "
+                  f"launches by card {per_card(before)}")
+    check_errors()
+
+    # 4M on the host's cards (config #4's N; the JAX package's config is 8
+    # devices, this is the port on `cards` cards).
+    p = min(cards, 4)
+    cfg = nt.SimConfig(n_bodies=1 << 22, device="cuda")
+    state = nt.init_state(cfg)
+    mesh, mesh0 = make_mesh(p, "cuda"), make_mesh(p, "cuda:0")
+    print(f"[cross-card] {mesh.describe()}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    res = {}
+    _, k2_s = timed(lambda: run_steps(state, cfg, 1, "pallas_sym2"))
+    for comm in ("ring", "rdma"):
+        fn = (lambda m, c=comm: run_steps_sharded(state, cfg, m, 1,
+                                                  "pallas_sym2", c))
+        timed(lambda: fn(mesh))                  # the cards' first launches
+        before = dict(_build.DEVICE_LAUNCHES)
+        got, secs = timed(lambda: fn(mesh))
+        launches = per_card(before)
+        want, secs0 = timed(lambda: fn(mesh0))
+        check(equal(got, want), f"cross-card 4M {comm}: differs from cuda:0")
+        eff = k2_s / (p * secs)
+        res[comm] = {"s_step": secs, "s_step_card0": secs0,
+                     "efficiency": eff, "launches_by_card": launches}
+        print(f"[cross-card] 4M on {p} cards, --comm {comm}: {secs:.4f} s a "
+              f"step (on cuda:0 alone {secs0:.4f} s), bit-equal; K2 on one "
+              f"card {k2_s:.4f} s, efficiency {eff:.3f}; launches by card "
+              f"{launches} ({smi}, {cards} cards)")
+    check_errors()
+    before = dict(_build.DEVICE_LAUNCHES)
+    e, e_s = timed(lambda: penergy.total_energy_sharded(state, cfg.eps2,
+                                                        mesh))
+    e_launches = per_card(before)
+    e0, e0_s = timed(lambda: penergy.total_energy_sharded(state, cfg.eps2,
+                                                          mesh0))
+    check(e == e0, f"cross-card 4M energy {e!r} != cuda:0's {e0!r}")
+    frame = render_weights_sharded(state, cfg, mesh)
+    check(torch.equal(frame, render_weights_sharded(state, cfg, mesh0)),
+          "cross-card 4M frame differs from cuda:0's")
+    print(f"[cross-card] 4M energy on {p} cards: {e_s:.4f} s (cuda:0 alone "
+          f"{e0_s:.4f} s), equal; pe_rows launches by card {e_launches}; "
+          f"the sharded frame equal to cuda:0's")
+    res["energy_s"] = e_s
+    for comm in ("ring", "rdma"):
+        before = dict(_build.DEVICE_LAUNCHES)
+        t = time.perf_counter()
+        rc = cli_main(["run", "--shards", str(p), "--n", str(1 << 22),
+                       "--steps", "2", "--energy", "--comm", comm])
+        check(rc == 0, f"cross-card run 4M --comm {comm}: exit {rc}")
+        print(f"[cross-card] run --shards {p} --n 4194304 --steps 2 --energy "
+              f"--comm {comm}: {time.perf_counter() - t:.1f} s; launches by "
+              f"card {per_card(before)}")
+    check_errors()
+    record["rdma_ring"]["cross_card"] = {"cards": cards, **res}
+    print(f"[time] cross-card phases: {time.perf_counter() - t0:.1f} s")
+
+
 def ring_1m(dev, smi, record):
     """One N3L-ring step at N = RING_N on 4 shards of this card and one
     K13 step (``--comm rdma``) against the single-device K2 step, in rounds
@@ -4178,7 +4421,7 @@ def ring_1m(dev, smi, record):
     cfg = nt.SimConfig(n_bodies=n, impl="pallas_sym2", seed=3,
                        device=str(dev))
     state = nt.init_state(cfg)
-    mesh = make_mesh(p, dev)
+    mesh = make_mesh(p, "cuda:0")
     print(f"[ring 1M] {mesh.describe()}")
 
     def one():
@@ -4408,6 +4651,17 @@ def main():
     _build.build_all(libs)
     print(f"[build] all {len(libs)} libraries: "
           f"{time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["--cross-card"]:
+        # The cross-card phases alone, on a host of several cards.
+        share_oracle_runs()
+        record = {"rdma_ring": {}}
+        check_cross_card(None, record, smi)
+        print(json.dumps(record["rdma_ring"]))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     for lib in libs:
         _build.load(lib)
         print(f"[build] {lib}.cu: done at {_build.BUILD_SECONDS[lib]:.2f} s")
@@ -4498,6 +4752,7 @@ def main():
             w.launches = 0
 
     launches = main_path(counts, reset, record)
+    check_cross_card(counts, record, smi)
 
     # 6. Invariants over 200 device-only steps.
     from nbody_tpu_torch.analysis import invariant_drifts
@@ -4544,7 +4799,8 @@ def main():
                # (check_huge_n's CLI runs time the same step three times).
                {"n": 1 << 22, "steps": 2, "trials": 1}):
         t0 = time.perf_counter()
-        res = run_benchmark(**kw)
+        res = run_benchmark(**({"device": "cuda:0"} if "shards" in kw
+                                  else {}), **kw)
         check(res["finite"], f"bench {kw}: non-finite")
         print("[bench] " + json.dumps(res))
         print(f"[time] bench {kw}: {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,5 @@
-// K13: the fused ring for Hopper (sm_90a), one cooperative launch per force
-// evaluation over every shard of a mesh on one card.
+// K13: the fused ring for Hopper (sm_90a), one launch per card per force
+// evaluation over the shards of a mesh that the card holds.
 //
 // Replaces nbody_tpu/parallel/rdma_ring.py:277 _make_ring_kernel (launched
 // by rdma_forces_local :587, its pallas_call at :637), with its tiles
@@ -55,13 +55,22 @@
 // Results differ from the sequential protocol at rounding only, and repeat
 // bit for bit.
 //
-// What does not survive: the acks, the barrier semaphore, collective_id
-// and the two DMA semaphore pairs.  They exist so that a neighbour's RDMA
-// never overwrites a slot that is still in flight; a grid sync between the
-// grid phase that writes a slot and the one that reads it gives the same
-// ordering on one card.  Across cards the hop needs peer access or one
-// process per card: the wrapper raises if the shards lie on more than one
-// device.
+// The two protocols.  The JAX kernel orders its hops by DMA semaphores,
+// acks and a barrier semaphore.  On one card, rdma_ring_kernel orders them
+// by grid syncs instead: the grid phase that writes a slot and the one that
+// reads it are separated by a cooperative_groups grid sync.  Across cards
+// no grid spans both, and rdma_flag_kernel (below) keeps the JAX protocol:
+// each card's launch runs the shards it holds, one group of CTAs a shard;
+// a payload is pushed into the right neighbour's slot by peer stores
+// (NVLink) and announced by a flag released at system scope in the
+// neighbour's memory, which the neighbour's CTAs acquire before they read;
+// an ack a phase tells the left neighbour a slot is free again, with the
+// prophylactic ack before the loop and the drain after it; the return hop
+// pushes each travel partial into its home shard; flags count up by epoch
+// across launches (collective_id's role).  Within a shard the slots, tiles
+// and fixed-order reduce are the grid-sync kernel's, so both give the same
+// bits; the wrapper takes the grid-sync kernel for a mesh on one card and
+// the flag kernel across cards (see the wrapper for why both stay).
 //
 // Reductions are deterministic, with no atomics: one-writer slots and a
 // fixed-order reduce, the design of rect_common.cuh, in JAX's association
@@ -454,6 +463,525 @@ __device__ __forceinline__ void ring_finish(const RingArgs& a) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// The flag protocol: one launch per card over the shards that card holds,
+// each shard's work done by its own group of the launch's CTAs.  The grid
+// syncs above order every shard of one card inside one launch; across cards
+// no grid spans both, so each hop is ordered as the JAX kernel orders it,
+// by signals in the receiver's memory: the payload is written by peer stores
+// (NVLink; on one card plain stores), then a flag is released at system
+// scope, and the receiver acquires it before it reads.
+//
+// A shard's flag words (u64, on its card, kept across launches by the
+// wrapper).  A word holds epoch + k, epoch = (evaluation number) <<
+// RING_EPOCH_SHIFT, and only grows: a wait for k of this evaluation cannot
+// be met by an earlier evaluation's signal, which is what JAX's "every
+// semaphore returns to zero" buys it.
+//   RF_DATA + k   phase d's payload has landed in slot k = d % 2 (k = d);
+//                 sequential: data and travel rows, overlap: data rows
+//   RF_TRAV + k   overlap: phase d's travel rows in slot k (k = d)
+//   RF_ACK        the right neighbour's acks: 0 when it has entered the
+//                 launch (JAX's prophylactic ack), then d once a phase: its
+//                 slot (d-1) % 2 is free (sequential, after its forward) or
+//                 its slot d % 2 is (overlap, at the end of its phase d)
+//   RF_RET        the return hop's rows have landed (k = 1)
+//   RF_ENTER      this shard's launch has started: its bodies are in place
+//   RF_DONE + r   reader r's massless finish has read this shard's bodies
+#define RING_MAX_SHARDS 64
+#define RING_EPOCH_SHIFT 20
+enum RingFlag { RF_DATA = 0, RF_TRAV = 2, RF_ACK = 4, RF_RET = 5,
+                RF_ENTER = 6, RF_DONE = 8,
+                RF_WORDS = RF_DONE + RING_MAX_SHARDS };
+// The wait that ran out, in the card's error word as (kind << 8) | shard.
+enum RingWait { RW_ACK = 1, RW_DATA = 2, RW_TRAV = 3, RW_RET = 4,
+                RW_ENTER = 5, RW_DONE = 6, RW_GROUP = 7 };
+
+// A shard's payload buffers, one allocation of RING_PEER_FLOATS floats a
+// body, written by its neighbours: data slots (2, C, 3) and (2, C), travel
+// slots (2, C, 3), and the rows of its return hop (C, 3).
+#define RING_PEER_FLOATS 17
+__device__ __forceinline__ float* peer_dpos(float* b, long long c, int k) {
+    return b + k * 3 * c;
+}
+__device__ __forceinline__ float* peer_dmass(float* b, long long c, int k) {
+    return b + 6 * c + k * c;
+}
+__device__ __forceinline__ float* peer_trav(float* b, long long c, int k) {
+    return b + 8 * c + k * 3 * c;
+}
+__device__ __forceinline__ float* peer_ret(float* b, long long c) {
+    return b + 14 * c;
+}
+
+// Shard q of the mesh as every launch of one evaluation sees it: pointers
+// into its card's memory (peer pointers from another card).
+struct RingShard {
+    const float* pos;             // (C, 3) its bodies
+    const float* mass;            // (C)
+    float* peer;                  // its payload buffers
+    unsigned long long* flags;    // its RF_WORDS flag words
+};
+
+struct FlagArgs {
+    RingShard q[RING_MAX_SHARDS];
+    int local[RING_MAX_SHARDS];   // the shard of each group of this launch
+    int groups;
+    float* si;                    // row slots (G, jcw, C, 3)
+    float* sj;                    // column slots (G, nt, jcw * SYM_TILE, 3)
+    float* raw;                   // (G*C, 3), as RingArgs by group
+    float* acc;                   // (G*C, 3)
+    float* out;                   // (G*C, 3)
+    unsigned long long* bar;      // a barrier counter a group, zero at launch
+    unsigned long long* err;      // the card's error word
+    unsigned long long* err_host; // its mirror in pinned host memory
+    long long p, c, nt, jcw;
+    int half, d_final, phases, overlap, descale;
+    float eps2;
+    unsigned long long epoch;     // this evaluation's epoch << SHIFT
+    unsigned long long spin_ns;   // the bound of every wait
+    unsigned long long readers;   // bit s: shard s's finish reads all bodies
+};
+
+struct RingGroup {
+    int g;               // the group's index in the launch
+    long long s;         // its shard
+    long long rank;      // this CTA's rank in the group
+    long long size;      // the group's CTAs
+};
+
+// A relaxed read at system scope: the spins poll with it (an acquire load
+// would drop the SM's L1 lines, the other CTA's too, at every poll) and
+// fence once the flag has come.
+__device__ __forceinline__ unsigned long long flag_poll(
+        const unsigned long long* f) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.sys.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(f) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ unsigned long long counter_poll(
+        const unsigned long long* f) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(f) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void flag_store(unsigned long long* f,
+                                           unsigned long long v) {
+    asm volatile("st.release.sys.global.u64 [%0], %1;"
+                 :: "l"(f), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ring_clock() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+// One thread spins until *f >= want, then fences (the acquire of a
+// relaxed poll; at system scope for a flag, at card scope for a group's
+// barrier counter).  Every spin is bounded: past spin_ns it records `code`
+// in the card's error word and its host mirror (the first error stays)
+// and gives up, as it does at once when another wait on the card has
+// failed, so a schedule that is not co-resident, or a protocol fault, ends
+// the launch with an error instead of hanging the card.
+__device__ __forceinline__ bool spin_until(
+        const FlagArgs& a, const unsigned long long* f,
+        unsigned long long want, unsigned long long code,
+        bool gpu_scope = false) {
+    bool ok = true;
+    auto load = [&]() {
+        return gpu_scope ? counter_poll(f) : flag_poll(f);
+    };
+    if (load() < want) {
+        const unsigned long long t0 = ring_clock();
+        while (load() < want) {
+            __nanosleep(32);
+            if (*(volatile unsigned long long*)a.err != 0) {
+                ok = false;
+                break;
+            }
+            if (ring_clock() - t0 > a.spin_ns) {
+                if (atomicCAS(a.err, 0ULL, code) == 0ULL)
+                    *(volatile unsigned long long*)a.err_host = code;
+                ok = false;
+                break;
+            }
+        }
+    }
+    if (gpu_scope)
+        __threadfence();
+    else
+        __threadfence_system();
+    return ok;
+}
+
+__device__ __forceinline__ unsigned long long wait_code(int kind,
+                                                        long long s) {
+    return ((unsigned long long)kind << 8) | (unsigned long long)s;
+}
+
+// Every CTA of the group waits for the flag itself: its own acquire orders
+// the payload reads that follow (written by another card or CTA).
+__device__ __forceinline__ void cta_wait(const FlagArgs& a,
+                                         const unsigned long long* f,
+                                         unsigned long long want, int kind,
+                                         long long s) {
+    if (threadIdx.x == 0) spin_until(a, f, want, wait_code(kind, s));
+    __syncthreads();
+}
+
+// The group's barrier (a grid sync over the group's CTAs): a counter that
+// each CTA adds one to and that only grows within the launch.
+__device__ __forceinline__ void group_sync(const FlagArgs& a, const RingGroup& G) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        unsigned long long* ctr = a.bar + G.g;
+        const unsigned long long old = atomicAdd(ctr, 1ULL);
+        const unsigned long long want =
+            (old / (unsigned long long)G.size + 1) * (unsigned long long)G.size;
+        spin_until(a, ctr, want, wait_code(RW_GROUP, G.s), true);
+    }
+    __syncthreads();
+}
+
+// A payload push of one tile (body T * SYM_TILE + threadIdx.x): bodies
+// (pos, mass) to (to_pos, to_mass) when to_pos is set, travel rows trav
+// (zeros when null) to to_trav when it is set.
+struct RingPush {
+    const float* pos;
+    const float* mass;
+    float* to_pos;
+    float* to_mass;
+    const float* trav;
+    float* to_trav;
+};
+
+__device__ __forceinline__ void push_tile(const RingPush& cp, long long T) {
+    const long long b = T * SYM_TILE + threadIdx.x;
+    if (cp.to_pos != nullptr) {
+        for (int e = 0; e < 3; ++e) cp.to_pos[3 * b + e] = cp.pos[3 * b + e];
+        cp.to_mass[b] = cp.mass[b];
+    }
+    if (cp.to_trav != nullptr)
+        for (int e = 0; e < 3; ++e)
+            cp.to_trav[3 * b + e] = cp.trav ? cp.trav[3 * b + e] : 0.f;
+}
+
+// Up to two flags the group's leader releases once a push has landed.
+struct RingSignal {
+    unsigned long long* f[2];
+    unsigned long long v[2];
+};
+
+__device__ __forceinline__ bool group_leader(const RingGroup& G) {
+    return G.rank == 0 && threadIdx.x == 0;
+}
+
+// The end of a push by the group's CTAs: each makes its stores visible at
+// system scope, the group meets, and the leader releases the signal.
+__device__ __forceinline__ void push_done(const FlagArgs& a, const RingGroup& G,
+                          const RingSignal* sig) {
+    __threadfence_system();
+    group_sync(a, G);
+    if (sig != nullptr && group_leader(G))
+        for (int k = 0; k < 2; ++k)
+            if (sig->f[k] != nullptr) flag_store(sig->f[k], sig->v[k]);
+}
+
+// ring_reduce for one group's shard: its row slots into its running sum
+// and accumulator, and with `tslot` its visiting bodies' column slots into
+// their travel rows; the same sums in the same order.
+__device__ __forceinline__ void group_reduce(const FlagArgs& a, const RingGroup& G, int d,
+                             bool first, bool last, long long j_lo,
+                             long long jc, float* tslot) {
+    const long long rows = a.c;
+    const long long cols = tslot ? jc * SYM_TILE : 0;
+    const float* si = a.si + G.g * a.jcw * a.c * 3;
+    const float* sj = a.sj + G.g * a.nt * a.jcw * SYM_TILE * 3;
+    float* raw = a.raw + G.g * a.c * 3;
+    float* acc = a.acc + G.g * a.c * 3;
+    const long long stride = G.size * SYM_TILE;
+    for (long long x = G.rank * SYM_TILE + threadIdx.x; x < rows + cols;
+         x += stride) {
+        if (x < rows) {
+            float3 v = first ? make_float3(0.f, 0.f, 0.f)
+                             : make_float3(raw[3 * x], raw[3 * x + 1],
+                                           raw[3 * x + 2]);
+            for (long long jk = 0; jk < jc; ++jk) {
+                const long long o = (jk * a.c + x) * 3;
+                v.x += si[o];
+                v.y += si[o + 1];
+                v.z += si[o + 2];
+            }
+            float* dst = last ? acc : raw;
+            if (last && d > 0) {
+                v.x = acc[3 * x] + v.x;
+                v.y = acc[3 * x + 1] + v.y;
+                v.z = acc[3 * x + 2] + v.z;
+            }
+            dst[3 * x] = v.x;
+            dst[3 * x + 1] = v.y;
+            dst[3 * x + 2] = v.z;
+            continue;
+        }
+        const long long y = x - rows;
+        const long long jk = y / SYM_TILE;
+        const long long col = y - jk * SYM_TILE;
+        const long long b = ((j_lo + jk) * SYM_TILE + col) * 3;
+        const float3 t = make_float3(tslot[b], tslot[b + 1], tslot[b + 2]);
+        float3 v = a.overlap ? make_float3(0.f, 0.f, 0.f) : t;
+        for (long long I = 0; I < a.nt; ++I) {
+            const long long o = ((I * a.jcw + jk) * SYM_TILE + col) * 3;
+            v.x += sj[o];
+            v.y += sj[o + 1];
+            v.z += sj[o + 2];
+        }
+        if (a.overlap) {   // travel + jacc
+            v.x = t.x + v.x;
+            v.y = t.y + v.y;
+            v.z = t.z + v.z;
+        }
+        tslot[b] = v.x;
+        tslot[b + 1] = v.y;
+        tslot[b + 2] = v.z;
+    }
+}
+
+// ring_phase for one group's shard: per column chunk its work items (and
+// on the first chunk the push `cp`, released by `sig` once it has landed)
+// and its reduce, a group barrier after each; under overlap the reduce of a
+// two-sided phase first waits for the phase's travel rows (`trav_flag`).
+// TWO: a two-sided phase (travel rows `tslot`), else one-sided; a loop of
+// one kind of tile apiece, as the grid-sync kernel's self sweep has.
+template <int V, bool TWO>
+__device__ __forceinline__ void group_phase(
+        const FlagArgs& a, const RingGroup& G, int d, const float* cpos,
+        const float* cmass, float* tslot, const RingPush* cp,
+        const RingSignal* sig, const unsigned long long* trav_flag,
+        typename RingSmem<V>::type& sm) {
+    const float* pos = a.q[G.s].pos;
+    const float* mass = a.q[G.s].mass;
+    float* si = a.si + G.g * a.jcw * a.c * 3;
+    float* sj = a.sj + G.g * a.nt * a.jcw * SYM_TILE * 3;
+    for (long long j_lo = 0; j_lo < a.nt; j_lo += a.jcw) {
+        const long long jc = a.nt - j_lo < a.jcw ? a.nt - j_lo : a.jcw;
+        const long long tiles = a.nt * jc;
+        const long long copies = (j_lo == 0 && cp) ? a.nt : 0;
+        for (long long w = G.rank; w < tiles + copies; w += G.size) {
+            if (w >= tiles) {
+                push_tile(*cp, w - tiles);
+                continue;
+            }
+            const long long I = w / jc;
+            const long long jk = w - I * jc;
+            ring_tile<V>(pos, mass, cpos, cmass, a.c, I, j_lo + jk,
+                         a.eps2, TWO, d == 0,
+                         si + (jk * a.c + I * SYM_TILE) * 3,
+                         sj + (I * a.jcw + jk) * SYM_TILE * 3, sm);
+        }
+        if (copies)
+            push_done(a, G, sig);
+        else
+            group_sync(a, G);
+        if (j_lo == 0 && trav_flag != nullptr)
+            cta_wait(a, trav_flag, a.epoch + d, RW_TRAV, G.s);
+        group_reduce(a, G, d, j_lo == 0, j_lo + jc == a.nt, j_lo, jc,
+                     TWO ? tslot : nullptr);
+        group_sync(a, G);
+    }
+}
+
+// The rows of a body of mass 0 under the vpu2 descale: one-sided over the
+// bodies of every shard in shard order (rect_finish's loop over P*C bodies,
+// read through each shard's pointer).
+__device__ __forceinline__ float3 ring_massless(const FlagArgs& a, float4 bi) {
+    float ax = 0.f, ay = 0.f, az = 0.f;
+    for (long long q = 0; q < a.p; ++q) {
+        const float* pos_o = a.q[q].pos;
+        const float* mass_o = a.q[q].mass;
+        for (long long jj = 0; jj < a.c; ++jj) {
+            const float dx = pos_o[3 * jj] - bi.x;
+            const float dy = pos_o[3 * jj + 1] - bi.y;
+            const float dz = pos_o[3 * jj + 2] - bi.z;
+            const float d2 = dx * dx + dy * dy + dz * dz + a.eps2;
+            const float f = mass_o[jj] * rsqrtf(d2 * d2 * d2);
+            ax += f * dx;
+            ay += f * dy;
+            az += f * dz;
+        }
+    }
+    return make_float3(ax, ay, az);
+}
+
+// The ring of one shard under the flags (JAX's _make_ring_kernel protocol,
+// its docstring :47-57 and overlap :487-529, with its ack accounting made
+// to hold for overlap): the self sweep, D hops, the return hop, the finish.
+// One call site of each kind of group_phase.
+template <int V>
+__device__ __forceinline__ void group_ring(const FlagArgs& a,
+                                           const RingGroup& G,
+                                           typename RingSmem<V>::type& sm) {
+    const long long s = G.s, p = a.p, c = a.c;
+    const RingShard& me = a.q[s];
+    const RingShard& rq = a.q[(s + 1) % p];
+    unsigned long long* left_ack = a.q[(s + p - 1) % p].flags + RF_ACK;
+    const unsigned long long E = a.epoch;
+    const bool lead = group_leader(G);
+    const bool any_trav = a.half > 0;
+    const int D = a.d_final;
+    // Entered: this launch's bodies and payload buffers are in place, and
+    // the prophylactic ack lets the left neighbour send.
+    if (lead) {
+        flag_store(me.flags + RF_ENTER, E + 1);
+        if (p > 1) flag_store(left_ack, E);
+    }
+    for (int d = 0; d < a.phases; ++d) {
+        const int src = (d + 1) % 2, dst = d % 2;
+        const bool two = d > 0 && d <= a.half;
+        const bool next = d < D;
+        const float* cpos = peer_dpos(me.peer, c, dst);
+        const float* cmass = peer_dmass(me.peer, c, dst);
+        float* trav = peer_trav(me.peer, c, dst);
+        RingPush cp = {cpos, cmass, peer_dpos(rq.peer, c, src),
+                       peer_dmass(rq.peer, c, src), nullptr, nullptr};
+        RingSignal sig = {{rq.flags + RF_DATA + src, nullptr},
+                          {E + d + 1, 0}};
+        const unsigned long long* trav_flag = nullptr;
+        if (d == 0) {
+            // The self sweep, with the first payload riding it: the
+            // shard's own slot 0 (sequential) or, once the right neighbour
+            // has entered, its slot 1 with the zero travel rows of phase 1
+            // (overlap).
+            cpos = me.pos;
+            cmass = me.mass;
+            cp = {me.pos, me.mass, peer_dpos(me.peer, c, 0),
+                  peer_dmass(me.peer, c, 0), nullptr,
+                  any_trav ? peer_trav(me.peer, c, 0) : nullptr};
+            sig = {{nullptr, nullptr}, {0, 0}};
+            if (a.overlap && next) {
+                cta_wait(a, me.flags + RF_ACK, E, RW_ACK, s);
+                cp.to_pos = peer_dpos(rq.peer, c, 1);
+                cp.to_mass = peer_dmass(rq.peer, c, 1);
+                cp.to_trav = any_trav ? peer_trav(rq.peer, c, 1) : nullptr;
+                sig = {{rq.flags + RF_DATA + 1,
+                        any_trav ? rq.flags + RF_TRAV + 1 : nullptr},
+                       {E + 1, E + 1}};
+            }
+        } else if (!a.overlap) {
+            // Consume an ack (the right neighbour's slot dst is free),
+            // forward slot src there, ack the left neighbour (slot src is
+            // now free), wait for this phase's payload, compute.
+            cta_wait(a, me.flags + RF_ACK, E + d - 1, RW_ACK, s);
+            const RingPush fwd = {
+                peer_dpos(me.peer, c, src), peer_dmass(me.peer, c, src),
+                peer_dpos(rq.peer, c, dst), peer_dmass(rq.peer, c, dst),
+                peer_trav(me.peer, c, src),
+                any_trav ? peer_trav(rq.peer, c, dst) : nullptr};
+            for (long long T = G.rank; T < a.nt; T += G.size)
+                push_tile(fwd, T);
+            const RingSignal arrived = {{rq.flags + RF_DATA + dst, left_ack},
+                                        {E + d, E + d}};
+            push_done(a, G, &arrived);
+            cta_wait(a, me.flags + RF_DATA + dst, E + d, RW_DATA, s);
+        } else {
+            // Overlap: the data of phase d+1 rides this phase's compute
+            // once the right neighbour's slot src is free; this phase's
+            // travel rows arrive during it (the reduce waits for them) and
+            // are forwarded at its end.
+            cta_wait(a, me.flags + RF_DATA + dst, E + d, RW_DATA, s);
+            if (next) cta_wait(a, me.flags + RF_ACK, E + d - 1, RW_ACK, s);
+            if (two) trav_flag = me.flags + RF_TRAV + dst;
+        }
+        const RingPush* ride =
+            (d == 0 ? next : a.overlap && next) ? &cp : nullptr;
+        if (two)
+            group_phase<V, true>(a, G, d, cpos, cmass, trav, ride, &sig,
+                                 trav_flag, sm);
+        else
+            group_phase<V, false>(a, G, d, cpos, cmass, nullptr, ride, &sig,
+                                  nullptr, sm);
+        if (!a.overlap || d == 0) continue;
+        if (any_trav && !two)   // the antipodal phase: travel for the return
+            cta_wait(a, me.flags + RF_TRAV + dst, E + d, RW_TRAV, s);
+        if (any_trav && next) {
+            const RingPush tp = {nullptr, nullptr, nullptr, nullptr, trav,
+                                 peer_trav(rq.peer, c, src)};
+            for (long long T = G.rank; T < a.nt; T += G.size)
+                push_tile(tp, T);
+            const RingSignal t = {{rq.flags + RF_TRAV + src, nullptr},
+                                  {E + d + 1, 0}};
+            push_done(a, G, &t);
+        }
+        if (next && lead) flag_store(left_ack, E + d);   // slot dst is free
+    }
+    // The return hop: this shard's travel rows (slot D % 2) go to shard
+    // (s - D) mod P, and shard (s + D) mod P's arrive here.
+    if (any_trav) {
+        const RingShard& home = a.q[(s + p - D) % p];
+        const RingPush rp = {nullptr, nullptr, nullptr, nullptr,
+                             peer_trav(me.peer, c, D % 2),
+                             peer_ret(home.peer, c)};
+        for (long long T = G.rank; T < a.nt; T += G.size) push_tile(rp, T);
+        const RingSignal ret = {{home.flags + RF_RET, nullptr}, {E + 1, 0}};
+        push_done(a, G, &ret);
+        cta_wait(a, me.flags + RF_RET, E + 1, RW_RET, s);
+    }
+    if (a.overlap && D > 0 && a.phases == D + 1 && lead)
+        flag_store(left_ack, E + D);   // the last slot is free
+    // The finish.  A shard whose bodies include one of mass 0 under the
+    // descale reads every shard's bodies: only once each has entered.
+    const bool reads = a.descale && ((a.readers >> s) & 1ULL);
+    if (reads && threadIdx.x == 0)
+        for (long long q = 0; q < p; ++q)
+            spin_until(a, a.q[q].flags + RF_ENTER, E + 1,
+                       wait_code(RW_ENTER, s));
+    __syncthreads();
+    const float* ret_rows = peer_ret(me.peer, c);
+    const float* acc = a.acc + G.g * c * 3;
+    float* out = a.out + G.g * c * 3;
+    for (long long x = G.rank * SYM_TILE + threadIdx.x; x < c;
+         x += G.size * SYM_TILE) {
+        float3 v = make_float3(acc[3 * x], acc[3 * x + 1], acc[3 * x + 2]);
+        if (any_trav) {
+            v.x += ret_rows[3 * x];
+            v.y += ret_rows[3 * x + 1];
+            v.z += ret_rows[3 * x + 2];
+        }
+        if (a.descale) {
+            const float4 bi = load_body(me.pos, me.mass, x, c);
+            v = bi.w != 0.f ? rect_finish(v, bi.w, bi, nullptr, nullptr, 0, 1,
+                                          a.eps2)
+                            : ring_massless(a, bi);
+        }
+        out[3 * x] = v.x;
+        out[3 * x + 1] = v.y;
+        out[3 * x + 2] = v.z;
+    }
+    // The positions barrier: no shard's launch ends, and so no card's
+    // integrator moves (or frees) its bodies, while a massless finish may
+    // still read them.
+    if (reads) {
+        __threadfence_system();
+        group_sync(a, G);
+        if (lead)
+            for (long long q = 0; q < p; ++q)
+                if (q != s) flag_store(a.q[q].flags + RF_DONE + s, E + 1);
+    }
+    if (lead && a.descale)
+        for (long long r = 0; r < p; ++r)
+            if (r != s && ((a.readers >> r) & 1ULL))
+                spin_until(a, me.flags + RF_DONE + r, E + 1,
+                           wait_code(RW_DONE, s));
+    // JAX's drain: the right neighbour's last ack.
+    if (lead && p > 1)
+        spin_until(a, me.flags + RF_ACK, E + a.phases - 1,
+                   wait_code(RW_ACK, s));
+}
+
 // CTAs an SM the variant's kernel is built for: two (128 registers, no
 // spills), but one for vpu (253 registers), which spills at two and runs
 // 6% slower at N = 1M on 4 shards than at one (tools/k1_ring_variants.py).
@@ -593,6 +1121,161 @@ extern "C" int nbt_rdma_ring(int variant, const float* pos, const float* mass,
     const cudaError_t err = cudaLaunchCooperativeKernel(
         kernel, dim3(grid), dim3(SYM_TILE), args, 0, (cudaStream_t)stream);
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The flag protocol's kernel: group g of the launch is the CTAs b with
+// floor(b * G / grid) == g, and runs shard local[g].
+template <int V>
+__global__ void __launch_bounds__(SYM_TILE, ring_ctas(V))
+rdma_flag_kernel(FlagArgs a) {
+    __shared__ __align__(16) typename RingSmem<V>::type sm;
+    RingGroup G;
+    const long long grid = gridDim.x, groups = a.groups;
+    G.g = (int)((long long)blockIdx.x * groups / grid);
+    const long long lo = (G.g * grid + groups - 1) / groups;
+    const long long hi = ((G.g + 1) * grid + groups - 1) / groups;
+    G.rank = blockIdx.x - lo;
+    G.size = hi - lo;
+    G.s = a.local[G.g];
+    group_ring<V>(a, G, sm);
+}
+
+static const void* flag_kernel(int variant) {
+    switch (variant) {
+        case RING_VPU2: return (const void*)rdma_flag_kernel<RING_VPU2>;
+        case RING_VPU: return (const void*)rdma_flag_kernel<RING_VPU>;
+        case RING_TURBO: return (const void*)rdma_flag_kernel<RING_TURBO>;
+        case RING_MXU: return (const void*)rdma_flag_kernel<RING_MXU>;
+        case RING_TURBO2: return (const void*)rdma_flag_kernel<RING_TURBO2>;
+    }
+    return nullptr;
+}
+
+// The co-resident CTAs of the variant's flag kernel on the current card.
+extern "C" int nbt_rdma_flags_max_blocks(int variant) {
+    const void* k = flag_kernel(variant);
+    return k ? coresident_blocks(k) : -1;
+}
+
+// One card's launch of a force evaluation under the flag protocol: the
+// `groups` shards local[] of p, each c bodies (c a multiple of SYM_TILE);
+// `table` holds every shard's (pos, mass, peer, flags) pointers, 4 p
+// values; si .. out are this card's, packed by group; `bar` holds `groups`
+// zeroed counters; `err` is the card's error word and `err_host` its mirror
+// in pinned host memory, which the host reads without waiting for the card.  `grid` CTAs (0: the
+// co-resident count, never more), cooperative when `coop` (a launch that
+// must be co-resident with itself), else a plain launch (the test form of G
+// launches on G streams of one card, whose grids together fit the card).
+extern "C" int nbt_rdma_flags(int variant, long long p, long long c,
+                              long long jcw, int one_sided, int overlap,
+                              int phases, float eps2, int groups,
+                              const int* local, const long long* table,
+                              unsigned long long epoch,
+                              unsigned long long spin_ns,
+                              unsigned long long readers, float* si,
+                              float* sj, float* raw, float* acc, float* out,
+                              unsigned long long* bar,
+                              unsigned long long* err,
+                              unsigned long long* err_host, int grid,
+                              int coop, void* stream) {
+    const void* kernel = flag_kernel(variant);
+    if (kernel == nullptr || p < 1 || p > RING_MAX_SHARDS || c < SYM_TILE
+        || c % SYM_TILE || jcw < 1 || groups < 1 || groups > p
+        || (one_sided && variant != RING_VPU && variant != RING_TURBO))
+        return (int)cudaErrorInvalidValue;
+    FlagArgs a;
+    for (long long q = 0; q < p; ++q) {
+        a.q[q].pos = (const float*)table[4 * q];
+        a.q[q].mass = (const float*)table[4 * q + 1];
+        a.q[q].peer = (float*)table[4 * q + 2];
+        a.q[q].flags = (unsigned long long*)table[4 * q + 3];
+    }
+    for (int g = 0; g < groups; ++g) {
+        if (local[g] < 0 || local[g] >= p) return (int)cudaErrorInvalidValue;
+        a.local[g] = local[g];
+    }
+    a.groups = groups;
+    a.si = si;
+    a.sj = sj;
+    a.raw = raw;
+    a.acc = acc;
+    a.out = out;
+    a.bar = bar;
+    a.err = err;
+    if (cudaHostGetDevicePointer((void**)&a.err_host, err_host, 0)
+        != cudaSuccess)
+        return (int)cudaErrorInvalidValue;
+    a.p = p;
+    a.c = c;
+    a.nt = c / SYM_TILE;
+    a.jcw = jcw < a.nt ? jcw : a.nt;
+    a.half = one_sided ? 0 : (int)((p - 1) / 2);
+    a.d_final = one_sided ? (int)(p - 1) : (int)(p % 2 ? (p - 1) / 2 : p / 2);
+    a.phases = (phases < 1 || phases > a.d_final + 1) ? a.d_final + 1
+                                                      : phases;
+    a.overlap = overlap;
+    a.descale = variant == RING_VPU2;
+    a.eps2 = eps2;
+    a.epoch = epoch << RING_EPOCH_SHIFT;
+    a.spin_ns = spin_ns;
+    a.readers = readers;
+    const int cap = coresident_blocks(kernel);
+    if (cap <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int blocks = grid > 0 && grid < cap ? grid : cap;
+    if (blocks < groups) return (int)cudaErrorInvalidConfiguration;
+    void* args[] = {&a};
+    const cudaError_t e =
+        coop ? cudaLaunchCooperativeKernel(kernel, dim3(blocks),
+                                           dim3(SYM_TILE), args, 0,
+                                           (cudaStream_t)stream)
+             : cudaLaunchKernel(kernel, dim3(blocks), dim3(SYM_TILE), args, 0,
+                                (cudaStream_t)stream);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The flag protocol's layout, for the wrapper to check its own against:
+// 0 the flag words a shard, 1 the most shards, 2 the epoch shift, 3 the
+// payload floats a body, 4 + k the word index of RingFlag k in
+// (RF_DATA, RF_TRAV, RF_ACK, RF_RET, RF_ENTER, RF_DONE).
+extern "C" long long nbt_rdma_flag_geometry(int k) {
+    const long long words[] = {RF_DATA, RF_TRAV, RF_ACK, RF_RET, RF_ENTER,
+                               RF_DONE};
+    switch (k) {
+        case 0: return RF_WORDS;
+        case 1: return RING_MAX_SHARDS;
+        case 2: return RING_EPOCH_SHIFT;
+        case 3: return RING_PEER_FLOATS;
+    }
+    return k >= 4 && k < 10 ? words[k - 4] : -1;
+}
+
+// Peer access between every ordered pair of the n cards devs[], enabled
+// once (a pair that has it already counts as enabled).  Returns 0, 1 + i *
+// n + j when card devs[i] cannot map card devs[j]'s memory, or -(CUDA
+// error).  The current card is restored.
+extern "C" int nbt_rdma_enable_peers(const int* devs, int n) {
+    int cur = 0;
+    if (cudaGetDevice(&cur) != cudaSuccess) return -1;
+    int rc = 0;
+    for (int i = 0; i < n && rc == 0; ++i)
+        for (int j = 0; j < n && rc == 0; ++j) {
+            if (devs[i] == devs[j]) continue;
+            int ok = 0;
+            cudaError_t e = cudaDeviceCanAccessPeer(&ok, devs[i], devs[j]);
+            if (e != cudaSuccess) { rc = -(int)e; break; }
+            if (!ok) { rc = 1 + i * n + j; break; }
+            if ((e = cudaSetDevice(devs[i])) != cudaSuccess) {
+                rc = -(int)e;
+                break;
+            }
+            e = cudaDeviceEnablePeerAccess(devs[j], 0);
+            if (e == cudaErrorPeerAccessAlreadyEnabled)
+                cudaGetLastError();
+            else if (e != cudaSuccess)
+                rc = -(int)e;
+        }
+    cudaSetDevice(cur);
+    return rc;
 }
 
 extern "C" int nbt_rdma_ring_tile(void) { return SYM_TILE; }

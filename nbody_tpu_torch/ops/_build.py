@@ -12,16 +12,27 @@ each writing into a temporary directory whose finished file is moved into
 place in one step.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
+
+Every call into a built library goes through one device guard:
+``launch(what, t, entry, *args)`` for a kernel launch on ``t``'s card and
+``query(device, entry, *args)`` for an occupancy or layout query.  Both
+make the card current around the call, so that a kernel on shard i's
+tensor is launched into card i's stream with card i current and a
+cooperative grid is sized for the card it runs on; ``load`` hands out the
+library's entries wrapped so that a call outside the guard raises.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 from ..utils import compcache
@@ -31,7 +42,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: "dict[str, ctypes.CDLL]" = {}
+_LIBS: "dict[str, Library]" = {}
 # Seconds each library took to build in this process (wall time from the
 # start of its batch; 0.0 when an existing build was reused) and nvcc's
 # report (ptxas registers / spills).
@@ -87,7 +98,58 @@ def build_all(names) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
+class _Guard(threading.local):
+    # The device of the guarded call in progress on this thread, or
+    # "host" for a query that reads no card; None outside the guard.
+    device = None
+
+
+_GUARD = _Guard()
+# Kernel launches made through ``launch``, by card index.
+DEVICE_LAUNCHES: "collections.Counter[int]" = collections.Counter()
+
+
+class Entry:
+    """A C entry of a built library that raises when it is called outside
+    ``launch`` / ``query``; ``argtypes`` and ``restype`` pass through."""
+
+    __slots__ = ("_name", "_fn")
+
+    def __init__(self, name: str, fn):
+        object.__setattr__(self, "_name", name)
+        object.__setattr__(self, "_fn", fn)
+
+    def __getattr__(self, key):
+        return getattr(self._fn, key)
+
+    def __setattr__(self, key, value):
+        setattr(self._fn, key, value)
+
+    def __call__(self, *args):
+        if _GUARD.device is None:
+            raise RuntimeError(
+                f"{self._name} was called outside the device guard; call "
+                f"it through _build.launch or _build.query")
+        return self._fn(*args)
+
+
+class Library:
+    """A loaded ``csrc/<name>.cu`` whose entries are ``Entry`` objects."""
+
+    def __init__(self, cdll: ctypes.CDLL):
+        self._cdll = cdll
+        self._entries: "dict[str, Entry]" = {}
+
+    def __getattr__(self, key):
+        if key.startswith("_"):
+            raise AttributeError(key)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = Entry(key, getattr(self._cdll, key))
+        return entry
+
+
+def load(name: str) -> Library:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
@@ -96,9 +158,51 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
     else:
         BUILD_SECONDS.setdefault(name, 0.0)
-    lib = ctypes.CDLL(str(library_path(name)))
+    lib = Library(ctypes.CDLL(str(library_path(name))))
     _LIBS[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def _guarded(device):
+    """One guarded call: ``device``'s card current, or no card at all for
+    ``None`` (a layout constant of the library) and for a CPU tensor (the
+    wrappers give built kernels none; only a test's stand-in library
+    sees one)."""
+    import torch
+    if device is None:
+        ctx, device = contextlib.nullcontext(), "host"
+    else:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        ctx = (torch.cuda.device(device) if device.type == "cuda"
+               else contextlib.nullcontext())
+    prev = _GUARD.device
+    with ctx:
+        _GUARD.device = device
+        try:
+            yield
+        finally:
+            _GUARD.device = prev
+
+
+def launch(what: str, t, entry, *args) -> None:
+    """Launch through the C entry ``entry(*args, stream)`` on ``t``'s card:
+    the card current, its current stream passed, the launch counted in
+    ``DEVICE_LAUNCHES`` and its ``cudaGetLastError()`` checked."""
+    with _guarded(t.device):
+        err = entry(*args, stream_handle(t))
+    DEVICE_LAUNCHES[t.device.index] += 1
+    check_launch(what, err)
+
+
+def query(device, entry, *args):
+    """``entry(*args)`` with ``device``'s card current: an occupancy query
+    (co-resident CTAs of a kernel on that card) or, with ``device=None``,
+    a layout constant that reads no card."""
+    with _guarded(device):
+        return entry(*args)
 
 
 def check_bodies(what: str, pos, mass) -> None:

@@ -297,14 +297,14 @@ _PAIRS_ID = {"vpu": 1, "vpu_noj": 2, "vpu_fix0": 3, "vpu_rc": 4,
              "tmm_nomm": 8}
 
 
-def ctas_per_sm() -> "dict[str, int]":
+def ctas_per_sm(device="cuda") -> "dict[str, int]":
     """The CTAs per SM of the triangular sweep's pair kernels of the
     controls (K7 "vpu", K5 "turbo") and the seven ablations, as they
-    launch now (the occupancy the card's runtime computes; needs the
-    card)."""
+    launch now (the occupancy ``device``'s card computes)."""
     sym, tc = _k2._lib(), _ktc._lib()
-    return {name: (sym.nbt_sym_pairs_ctas(i) if name.startswith("vpu")
-                   else tc.nbt_sym_tc_pairs_ctas(i))
+    return {name: _build.query(device, sym.nbt_sym_pairs_ctas
+                               if name.startswith("vpu")
+                               else tc.nbt_sym_tc_pairs_ctas, i)
             for name, i in _PAIRS_ID.items()}
 
 
@@ -321,14 +321,14 @@ def control_occupancy():
     pins = (_k2._lib().nbt_sym_abl_pin, _ktc._lib().nbt_sym_tc_abl_pin)
     try:
         for pin in pins:
-            if pin(1) < 0:
+            if _build.query("cuda", pin, 1) < 0:
                 raise RuntimeError(
                     f"{pin.__name__}: no dynamic shared memory brings every "
                     f"ablation to its control's CTAs per SM")
         yield
     finally:
         for pin in pins:
-            pin(0)
+            _build.query("cuda", pin, 0)
 
 
 def enable() -> None:

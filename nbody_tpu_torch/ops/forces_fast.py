@@ -76,8 +76,9 @@ def _lib():
         for name in ("nbt_fast_tile", "nbt_fast_rows", "nbt_fast_tile_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _c_int
-        if (lib.nbt_fast_tile(), lib.nbt_fast_rows()) != (FAST_TILE_J,
-                                                          FAST_ROWS):
+        if (_build.query(None, lib.nbt_fast_tile),
+                _build.query(None, lib.nbt_fast_rows)) != (FAST_TILE_J,
+                                                           FAST_ROWS):
             raise RuntimeError("FAST_TILE_J or FAST_ROWS differs between "
                                "forces_fast.py and csrc/forces_fast.cu")
     return lib
@@ -201,16 +202,16 @@ def _launch(pos_i, pos_j, mass_j, eps2, self_tile):
     ni, nj = pos_i.shape[0], pos_j.shape[0]
     splits, per = j_splits(ni, nj)
     n_tiles = max(1, -(-nj // FAST_TILE_J))
-    tiles = torch.empty(n_tiles * lib.nbt_fast_tile_bytes(),
+    tiles = torch.empty(n_tiles * _build.query(None, lib.nbt_fast_tile_bytes),
                         dtype=torch.uint8, device=pos_i.device)
     part = pos_i.new_empty(splits * ni * 3) if splits > 1 else None
     acc = torch.empty_like(pos_i)
     forces_fast.launches += 1
-    _build.check_launch("forces_fast", lib.nbt_forces_fast(
-        pos_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj,
-        float(eps2), int(self_tile), splits, per, tiles.data_ptr(),
-        part.data_ptr() if part is not None else None, acc.data_ptr(),
-        _build.stream_handle(acc)))
+    _build.launch("forces_fast", acc, lib.nbt_forces_fast, pos_i.data_ptr(),
+                  ni, pos_j.data_ptr(), mass_j.data_ptr(), nj, float(eps2),
+                  int(self_tile), splits, per, tiles.data_ptr(),
+                  part.data_ptr() if part is not None else None,
+                  acc.data_ptr())
     return acc
 
 

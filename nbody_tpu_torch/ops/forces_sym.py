@@ -181,12 +181,12 @@ def bind(lib) -> None:
         lib.nbt_sym_fold_per_sm.argtypes = [_c_int, _c_int]
         lib.nbt_sym_fold_per_sm.restype = _c_int
     lib.nbt_sym_fold_sub_max.restype = _c_int
-    if lib.nbt_sym_fold_sub_max() != FOLD_SUB_MAX:
+    if _build.query(None, lib.nbt_sym_fold_sub_max) != FOLD_SUB_MAX:
         raise RuntimeError("FOLD_SUB_MAX differs between forces_sym.py "
                            "and csrc/forces_sym.cu")
     lib.nbt_sym_tile.argtypes = []
     lib.nbt_sym_tile.restype = _c_int
-    if lib.nbt_sym_tile() != SYM_TILE:
+    if _build.query(None, lib.nbt_sym_tile) != SYM_TILE:
         raise RuntimeError("SYM_TILE differs between forces_sym.py and "
                            "csrc/forces_sym.cu")
 
@@ -409,19 +409,18 @@ def sweep(what: str, pos: torch.Tensor, mass: torch.Tensor, eps2: float,
     sj = pos.new_empty(slot_len)
     raw = pos.new_empty(n_pad * 3) if len(chunks) > 1 else None
     raw_ptr = raw.data_ptr() if raw is not None else None
-    stream = _build.stream_handle(pos)
     eps2 = float(eps2)
     for g, (lo, hi) in enumerate(groups):
         for k in range(lo, hi):
             d_lo, dc = chunks[k]
-            _build.check_launch(f"{what} pairs", pairs(
-                pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc, eps2,
-                si.data_ptr(), sj.data_ptr(), *extra, stream))
-            _build.check_launch(f"{what} reduce", reduce(
-                pos.data_ptr(), mass.data_ptr(), n, nb, d_lo, dc,
-                si.data_ptr(), sj.data_ptr(), raw_ptr, int(k == 0),
-                int(k == len(chunks) - 1), eps2, out.data_ptr(), *extra,
-                stream))
+            _build.launch(f"{what} pairs", pos, pairs, pos.data_ptr(),
+                          mass.data_ptr(), n, nb, d_lo, dc, eps2,
+                          si.data_ptr(), sj.data_ptr(), *extra)
+            _build.launch(f"{what} reduce", pos, reduce, pos.data_ptr(),
+                          mass.data_ptr(), n, nb, d_lo, dc, si.data_ptr(),
+                          sj.data_ptr(), raw_ptr, int(k == 0),
+                          int(k == len(chunks) - 1), eps2, out.data_ptr(),
+                          *extra)
         if progress is not None:
             progress(g + 1, len(groups), out)
     return out
@@ -654,21 +653,19 @@ def rect_sweep(what, pos_a, mass_a, pos_b, mass_b, eps2, slot_budget,
     si, sj = pos_a.new_empty(slot_len), pos_a.new_empty(slot_len)
     raw = pos_a.new_empty(na_pad * 3) if len(chunks) > 1 else None
     raw_ptr = raw.data_ptr() if raw is not None else None
-    stream = _build.stream_handle(pos_a)
     ptrs = (pos_a.data_ptr(), mass_a.data_ptr(), na, pos_b.data_ptr(),
             mass_b.data_ptr(), nb, na_s)
     eps2 = float(eps2)
     for g, (lo, hi) in enumerate(groups):
         for k in range(lo, hi):
             j_lo, jc = chunks[k]
-            _build.check_launch(f"{what} pairs", pairs(
-                *ptrs, j_lo, jc, eps2, *extra, si.data_ptr(),
-                sj.data_ptr(), stream))
-            _build.check_launch(f"{what} reduce", reduce(
-                *ptrs, width, j_lo, jc, si.data_ptr(), sj.data_ptr(),
-                raw_ptr, int(k == 0), int(k == len(chunks) - 1),
-                int(descale), eps2, acc_a.data_ptr(), acc_b.data_ptr(),
-                stream))
+            _build.launch(f"{what} pairs", pos_a, pairs, *ptrs, j_lo, jc,
+                          eps2, *extra, si.data_ptr(), sj.data_ptr())
+            _build.launch(f"{what} reduce", pos_a, reduce, *ptrs, width,
+                          j_lo, jc, si.data_ptr(), sj.data_ptr(), raw_ptr,
+                          int(k == 0), int(k == len(chunks) - 1),
+                          int(descale), eps2, acc_a.data_ptr(),
+                          acc_b.data_ptr())
         if progress is not None:
             progress(g + 1, len(groups), acc_a)
     return acc_a, acc_b

@@ -110,7 +110,7 @@ def _lib():
         lib.nbt_rect_tc_reduce.restype = _c_int
         lib.nbt_sym_tc_tile.argtypes = []
         lib.nbt_sym_tc_tile.restype = _c_int
-        if lib.nbt_sym_tc_tile() != SYM_TILE:
+        if _build.query(None, lib.nbt_sym_tc_tile) != SYM_TILE:
             raise RuntimeError("SYM_TILE differs between forces_sym.py and "
                                "csrc/forces_sym_tc.cu")
     return lib

@@ -63,9 +63,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         for fn in (lib.nbt_forces_tiled, lib.nbt_forces_tiled_kahan,
                    lib.nbt_forces_tiled_geometry):
             fn.restype = ctypes.c_int
-        if (lib.nbt_forces_tiled_geometry(0),
-                lib.nbt_forces_tiled_geometry(1)) != (K1_TILE,
-                                                      K1_BLOCK_ROWS):
+        if (_build.query(None, lib.nbt_forces_tiled_geometry, 0),
+                _build.query(None, lib.nbt_forces_tiled_geometry, 1)) != (
+                    K1_TILE, K1_BLOCK_ROWS):
             raise RuntimeError("K1_TILE / K1_BLOCK_ROWS differ between "
                                "forces_tiled.py and csrc/forces_tiled.cu")
     return lib
@@ -174,12 +174,11 @@ def sweep(lib, pos_i: torch.Tensor, pos_j: torch.Tensor,
     slots = (pos_i.new_empty((2 if kahan else 1) * slices * ni * 3)
              if slices > 1 else None)
     entry = lib.nbt_forces_tiled_kahan if kahan else lib.nbt_forces_tiled
-    err = entry(pos_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(),
-                nj, tps, slices, float(eps2),
-                slots.data_ptr() if slots is not None else None,
-                acc.data_ptr(), _build.stream_handle(acc))
-    _build.check_launch("forces_tiled_kahan" if kahan else "forces_tiled",
-                        err)
+    _build.launch("forces_tiled_kahan" if kahan else "forces_tiled", acc,
+                  entry, pos_i.data_ptr(), ni, pos_j.data_ptr(),
+                  mass_j.data_ptr(), nj, tps, slices, float(eps2),
+                  slots.data_ptr() if slots is not None else None,
+                  acc.data_ptr())
     return acc
 
 

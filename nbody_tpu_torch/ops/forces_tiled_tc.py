@@ -75,8 +75,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _lib():
     lib = bind(_build.load("forces_tiled_tc"))
-    if (lib.nbt_tiled_tc_geometry(0),
-            lib.nbt_tiled_tc_geometry(1)) != (TC_TILE_J, TC_BLOCK_ROWS):
+    if (_build.query(None, lib.nbt_tiled_tc_geometry, 0),
+            _build.query(None, lib.nbt_tiled_tc_geometry, 1)) != (
+                TC_TILE_J, TC_BLOCK_ROWS):
         raise RuntimeError("TC_TILE_J / TC_BLOCK_ROWS differ between "
                            "forces_tiled_tc.py and csrc/forces_tiled_tc.cu")
     return lib
@@ -208,11 +209,12 @@ def sweep(lib, pos_i: torch.Tensor, pos_j: torch.Tensor,
     acc = torch.empty_like(pos_i)
     slices, tps = tc_slices(ni, nj)
     slots = pos_i.new_empty(slices * ni * 3) if slices > 1 else None
-    _build.check_launch(f"forces_tiled_{variant}", lib.nbt_forces_tiled_tc(
-        pos_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(), nj, tps,
-        slices, float(eps2), int(variant == "mxu"), int(self_tile),
-        slots.data_ptr() if slots is not None else None, acc.data_ptr(),
-        _build.stream_handle(acc)))
+    _build.launch(f"forces_tiled_{variant}", acc, lib.nbt_forces_tiled_tc,
+                  pos_i.data_ptr(), ni, pos_j.data_ptr(), mass_j.data_ptr(),
+                  nj, tps, slices, float(eps2), int(variant == "mxu"),
+                  int(self_tile),
+                  slots.data_ptr() if slots is not None else None,
+                  acc.data_ptr())
     return acc
 
 

@@ -75,14 +75,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.nbt_pe_geometry.argtypes = [ctypes.c_int]
         for fn in (lib.nbt_pe_rows, lib.nbt_pe_total, lib.nbt_pe_geometry):
             fn.restype = ctypes.c_int
-        if lib.nbt_pe_geometry(0) != PE_TILE:
+        if _build.query(None, lib.nbt_pe_geometry, 0) != PE_TILE:
             raise RuntimeError("PE_TILE differs between pe.py and csrc/pe.cu")
     return lib
 
 
 def _lib():
     lib = bind(_build.load("pe"))
-    if lib.nbt_pe_geometry(1) != PE_BLOCK_ROWS:
+    if _build.query(None, lib.nbt_pe_geometry, 1) != PE_BLOCK_ROWS:
         raise RuntimeError("PE_BLOCK_ROWS differs between pe.py and "
                            "csrc/pe.cu")
     return lib
@@ -130,11 +130,11 @@ def rows_sweep(lib, pos_rows, mass_rows, pos_all, mass_all,
     n_slices, tps = rows_slices(nr, n)
     slots = (torch.empty(n_slices * nr, dtype=torch.float64,
                          device=pos_rows.device) if n_slices > 1 else None)
-    _build.check_launch("pe_rows (K8)", lib.nbt_pe_rows(
-        pos_rows.data_ptr(), mass_rows.data_ptr(), nr, pos_all.data_ptr(),
-        mass_all.data_ptr(), n, tps, n_slices, float(eps2),
-        slots.data_ptr() if slots is not None else None, out.data_ptr(),
-        _build.stream_handle(out)))
+    _build.launch("pe_rows (K8)", out, lib.nbt_pe_rows, pos_rows.data_ptr(),
+                  mass_rows.data_ptr(), nr, pos_all.data_ptr(),
+                  mass_all.data_ptr(), n, tps, n_slices, float(eps2),
+                  slots.data_ptr() if slots is not None else None,
+                  out.data_ptr())
     return out
 
 
@@ -208,9 +208,9 @@ def pe_total(pos, mass, eps2: float) -> torch.Tensor:
     partials = torch.empty(nb * -(-(nb // 2 + 1) // chunk),
                            dtype=torch.float64, device=pos.device)
     pe_total.launches += 1
-    _build.check_launch("pe_total (K8)", lib.nbt_pe_total(
-        pos.data_ptr(), mass.data_ptr(), n, chunk, float(eps2),
-        partials.data_ptr(), out.data_ptr(), _build.stream_handle(out)))
+    _build.launch("pe_total (K8)", out, lib.nbt_pe_total, pos.data_ptr(),
+                  mass.data_ptr(), n, chunk, float(eps2), partials.data_ptr(),
+                  out.data_ptr())
     return out
 
 

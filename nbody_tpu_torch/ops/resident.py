@@ -100,21 +100,22 @@ def _lib():
         lib.nbt_resident_group_warps.restype = _c_int
         lib.nbt_resident_tile.argtypes = []
         lib.nbt_resident_tile.restype = _c_int
-        if lib.nbt_resident_tile() != SYM_TILE:
+        if _build.query(None, lib.nbt_resident_tile) != SYM_TILE:
             raise RuntimeError("SYM_TILE differs between forces_sym.py and "
                                "csrc/sym_common.cuh")
     return lib
 
 
-def max_blocks(kdk: bool = False) -> int:
-    """The co-resident grid the card holds for K3 (K4 with ``kdk``)."""
-    return _lib().nbt_resident_max_blocks(int(kdk))
+def max_blocks(kdk: bool = False, device="cuda") -> int:
+    """The co-resident grid ``device``'s card holds for K3 (K4 with
+    ``kdk``)."""
+    return _build.query(device, _lib().nbt_resident_max_blocks, int(kdk))
 
 
-def launch_grid(nb: int, kdk: bool = False) -> int:
-    """The grid the card's launch of K3 (K4 with ``kdk``) takes for ``nb``
-    row tiles: ``resident_grid(nb, max_blocks(kdk))``."""
-    return _lib().nbt_resident_grid(nb, int(kdk))
+def launch_grid(nb: int, kdk: bool = False, device="cuda") -> int:
+    """The grid the launch of K3 (K4 with ``kdk``) on ``device``'s card
+    takes for ``nb`` row tiles: ``resident_grid(nb, max_blocks(kdk))``."""
+    return _build.query(device, _lib().nbt_resident_grid, nb, int(kdk))
 
 
 # -- the kernels' work assignment, mirrored in Python (csrc/resident.cu)
@@ -158,7 +159,7 @@ def group_warps(nb: int, grid: int) -> int:
 
 def kernel_group_warps(nb: int, grid: int) -> int:
     """``group_warps`` as the kernels compute it (csrc/resident.cu)."""
-    return _lib().nbt_resident_group_warps(nb, grid)
+    return _build.query(None, _lib().nbt_resident_group_warps, nb, grid)
 
 
 def finish_groups(nb: int, grid: int) -> dict:
@@ -276,14 +277,13 @@ def resident_steps(pos, vel, mass, eps2: float, dt: float, n_steps: int):
     nb, pos_tmp, diag, si, sj, flags = _scratch(pos)
     pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
     acc_out = torch.empty_like(pos)
-    with torch.cuda.device(pos.device):
-        resident_steps.launches += 1
-        _build.check_launch("resident (K3)", lib.nbt_resident(
-            pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), pos.shape[0],
-            nb, float(eps2), 0.5 * dt, dt, n_steps, pos_out.data_ptr(),
-            vel_out.data_ptr(), acc_out.data_ptr(), pos_tmp.data_ptr(),
-            diag.data_ptr(), si.data_ptr(), sj.data_ptr(), flags.data_ptr(),
-            _build.stream_handle(pos)))
+    resident_steps.launches += 1
+    _build.launch("resident (K3)", pos, lib.nbt_resident, pos.data_ptr(),
+                  vel.data_ptr(), mass.data_ptr(), pos.shape[0], nb,
+                  float(eps2), 0.5 * dt, dt, n_steps, pos_out.data_ptr(),
+                  vel_out.data_ptr(), acc_out.data_ptr(), pos_tmp.data_ptr(),
+                  diag.data_ptr(), si.data_ptr(), sj.data_ptr(),
+                  flags.data_ptr())
     return pos_out, vel_out, acc_out
 
 
@@ -305,14 +305,13 @@ def resident_steps_kdk(pos, vel, acc, mass, eps2: float, dt: float,
     wdt = (_c_f * 3)(*[w * dt for w in weights])
     pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
     acc_out = torch.empty_like(acc)
-    with torch.cuda.device(pos.device):
-        resident_steps_kdk.launches += 1
-        _build.check_launch("resident (K4)", lib.nbt_resident_kdk(
-            pos.data_ptr(), vel.data_ptr(), acc.data_ptr(), mass.data_ptr(),
-            pos.shape[0], nb, float(eps2), h, wdt, len(weights), n_steps,
-            pos_out.data_ptr(), vel_out.data_ptr(), acc_out.data_ptr(),
-            pos_tmp.data_ptr(), diag.data_ptr(), si.data_ptr(),
-            sj.data_ptr(), flags.data_ptr(), _build.stream_handle(pos)))
+    resident_steps_kdk.launches += 1
+    _build.launch("resident (K4)", pos, lib.nbt_resident_kdk, pos.data_ptr(),
+                  vel.data_ptr(), acc.data_ptr(), mass.data_ptr(),
+                  pos.shape[0], nb, float(eps2), h, wdt, len(weights),
+                  n_steps, pos_out.data_ptr(), vel_out.data_ptr(),
+                  acc_out.data_ptr(), pos_tmp.data_ptr(), diag.data_ptr(),
+                  si.data_ptr(), sj.data_ptr(), flags.data_ptr())
     return pos_out, vel_out, acc_out
 
 

@@ -112,8 +112,11 @@ def total_energy_sharded(state, eps2: float, mesh: Mesh,
     m64 = [m.double() for m in mass]
     ke = [0.5 * torch.sum(m * torch.sum(s.vel.double() ** 2, dim=-1))
           for m, s in zip(m64, shards)]
-    self_rows = [m * m * float(torch.rsqrt(torch.tensor(
-        eps2, dtype=torch.float32, device=m.device))) for m in m64]
+    # K8's self term, rsqrt(eps2) as the card rounds it: one host read for
+    # the mesh, before any shard's launches are queued.
+    rs = float(torch.rsqrt(torch.tensor(eps2, dtype=torch.float32,
+                                        device=m64[0].device)))
+    self_rows = [m * m * rs for m in m64]
     pe = [torch.zeros((), dtype=torch.float64, device=x.device)
           for x in pos]
     vpos, vmass = pos, mass

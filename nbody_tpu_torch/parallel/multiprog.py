@@ -68,11 +68,13 @@ class _ShardedBoundedForces:
                  progress=None):
         done = 0
 
-        def tick(_done, _total, acc):
+        def tick(_done, _total, _acc):
+            # The shards' programs run on their own cards: the heartbeat
+            # waits for every card (acc None), not for this shard's alone.
             nonlocal done
             done += 1
             if progress is not None:
-                progress(done, self.total_programs, acc)
+                progress(done, self.total_programs, None)
         acc = ring_forces_local_sym(pos_l, mass_l, cfg, impl, comm,
                                     progress=tick,
                                     max_prog_interactions=self.share)

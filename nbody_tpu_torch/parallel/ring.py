@@ -15,8 +15,12 @@ shard, written once against a small collective object (``LocalComm``:
 ``ppermute``, ``all_gather``, ``axis_size``, ``axis_index`` and ``map``
 for the per-shard work).  ``LocalComm`` holds every shard in one process
 as a list of tensors: ``ppermute`` is a rotation of the list plus
-``Tensor.to`` (a no-op on one card, a peer copy across cards) and
-``all_gather`` is ``torch.cat``.  The JAX package is one process too
+``Tensor.to`` (a no-op on one card, a peer copy across cards, which
+PyTorch queues behind both cards' current streams, so the receiving
+card's next launch waits for it and the host does not) and
+``all_gather`` is ``torch.cat`` onto each card once.  Across cards the
+shards' launches are queued card after card with no host sync between
+them, so the cards run at once.  The JAX package is one process too
 (nothing in it calls ``jax.distributed``), so a collective object over
 processes is not part of the port.
 PyTorch runs eagerly, so the step loop is a Python loop that queues the
@@ -38,8 +42,9 @@ on the mesh, as in the JAX package.
 
 Frames on the mesh (``render_weights_sharded``,
 ``run_trajectory_frames_sharded``): each shard rasterizes its own bodies
-and the maps are max-combined over the mesh through ``LocalComm``'s
-all-gather, the rasterizer's own brightest-point rule, so the pixels are
+and the maps, gathered once onto the state's device (each card's bytes
+moved once), are max-combined, the rasterizer's own brightest-point rule,
+so the pixels are
 those of the gathered state's render and the zero-mass padding never
 draws.  The ring's pair potential, a mesh run's energy past the host
 wall, is ``parallel/energy.py``: K8's row sums of each shard against a
@@ -345,14 +350,14 @@ def run_steps_sharded(state: SimState, cfg: SimConfig, mesh: Mesh,
 def _render_shards(pos: list, mass: list, cfg: SimConfig, coll: LocalComm,
                    view: "tuple | None", device) -> torch.Tensor:
     """One packed ``(H, W)`` uint8 map of the sharded bodies on
-    ``device``: each shard's own map, max-combined over the mesh."""
+    ``device``: each shard's own map, max-combined over the mesh (the
+    maps gathered once, onto ``device`` alone)."""
     from ..viz.raster import render_weights
     mv, cu, cv = view if view is not None else (cfg.max_view, 0.0, 0.0)
     maps = coll.map(lambda p, m: render_weights(
         p, m, cfg.min_mass, cfg.max_mass, mv, cfg.viz_width,
         cfg.viz_height, 2, cu, cv), pos, mass)
-    every = coll.all_gather(maps)[0].to(device)
-    return every.reshape(coll.axis_size, *maps[0].shape).amax(0)
+    return torch.stack([m.to(device) for m in maps]).amax(0)
 
 
 def render_weights_sharded(state: SimState, cfg: SimConfig, mesh: Mesh,

@@ -240,9 +240,10 @@ def test_rdma_twin_contract():
     assert rdma_ring.ring_phases(5, True) == (0, 4)
     assert rdma_ring.rdma_variant("pallas_turbo") == ("turbo", True)
     assert rdma_ring.rdma_variant("pallas_sym_mxu") == ("mxu", False)
-    # Shards on two devices are refused, never swept by another ring.
+    # Shards that are not all on CUDA cards (nor all on the CPU) are
+    # refused, never swept by another ring.
     meta = [torch.empty(256, 3, device="meta"), torch.empty(256, 3)]
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="all lie on CUDA cards"):
         rdma_ring.rdma_forces_local(meta, [torch.empty(256)] * 2,
                                     port_cfg(512, "pallas_sym2"),
                                     "pallas_sym2",

@@ -184,6 +184,7 @@ def finish(name, job):
 
 
 def main():
+    from nbody_tpu_torch.ops import _build
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="csrc of an earlier fold to time")
     ap.add_argument("--rounds", type=int, default=3)
@@ -206,10 +207,11 @@ def main():
     for name, lib in libs.items():
         k2.bind(lib)
         if name in VARIANTS:
-            lib.nbt_sym_fold_mode(VARIANTS[name][1])
+            _build.query(None, lib.nbt_sym_fold_mode, VARIANTS[name][1])
             print(f"[variants] {name}: CTAs an SM, fold pairs K2 / K7, "
                   f"rect K2 / K7: " + ", ".join(
-                      str(lib.nbt_sym_fold_per_sm(k7, rect))
+                      str(_build.query("cuda", lib.nbt_sym_fold_per_sm, k7,
+                                       rect))
                       for rect in (0, 1) for k7 in (0, 1)))
     dev = torch.device("cuda")
     eps2 = 0.002

@@ -130,14 +130,15 @@ def pe_rows_parent(lib, pos_r, mass_r, pos_a, mass_a, eps2):
         fn.restype = ctypes.c_int
     out = torch.empty(pos_r.shape[0], dtype=torch.float64,
                       device=pos_r.device)
-    _build.check_launch("the parent's pe_rows", fn(
-        pos_r.data_ptr(), mass_r.data_ptr(), pos_r.shape[0],
-        pos_a.data_ptr(), mass_a.data_ptr(), pos_a.shape[0], float(eps2),
-        out.data_ptr(), _build.stream_handle(out)))
+    _build.launch("the parent's pe_rows", out, fn, pos_r.data_ptr(),
+                  mass_r.data_ptr(), pos_r.shape[0], pos_a.data_ptr(),
+                  mass_a.data_ptr(), pos_a.shape[0], float(eps2),
+                  out.data_ptr())
     return out
 
 
 def main():
+    from nbody_tpu_torch.ops import _build
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="csrc of an earlier pe.cu to time too")
     ap.add_argument("--rounds", type=int, default=3)
@@ -160,9 +161,10 @@ def main():
     for name, lib in built.items():
         if name != "parent":
             pe.bind(lib)
-            print(f"[variants] {name}: {lib.nbt_pe_geometry(1)} rows a "
-                  f"block, {lib.nbt_pe_geometry(2)} threads, "
-                  f"{lib.nbt_pe_geometry(3)} CTAs an SM")
+            geo = [_build.query("cuda", lib.nbt_pe_geometry, k)
+                   for k in (1, 2, 3)]
+            print(f"[variants] {name}: {geo[0]} rows a block, {geo[1]} "
+                  f"threads, {geo[2]} CTAs an SM")
     dev = torch.device("cuda")
     eps2 = 0.002
 
@@ -172,8 +174,8 @@ def main():
         items = VARIANTS[name][1]
         lib = built["base" if items else name]
         keep = pe.PE_BLOCK_ROWS, pe.PE_ITEMS
-        pe.PE_BLOCK_ROWS, pe.PE_ITEMS = (lib.nbt_pe_geometry(1),
-                                         items or keep[1])
+        pe.PE_BLOCK_ROWS, pe.PE_ITEMS = (
+            _build.query(None, lib.nbt_pe_geometry, 1), items or keep[1])
         try:
             return pe.rows_sweep(lib, pr, mr, pa, ma, eps2)
         finally:

@@ -280,12 +280,13 @@ def main():
     def k3(lib, st, cfg, steps):
         nb, pos_tmp, diag, si, sj, flags = resident._scratch(st.pos)
         out = [torch.empty_like(st.pos) for _ in range(3)]
-        _build.check_launch("resident (K3)", lib.nbt_resident(
-            st.pos.data_ptr(), st.vel.data_ptr(), st.mass.data_ptr(),
-            st.pos.shape[0], nb, cfg.eps2, 0.5 * cfg.dt, cfg.dt, steps,
-            *(o.data_ptr() for o in out), pos_tmp.data_ptr(),
-            diag.data_ptr(), si.data_ptr(), sj.data_ptr(), flags.data_ptr(),
-            _build.stream_handle(st.pos)))
+        _build.launch("resident (K3)", st.pos, lib.nbt_resident,
+                      st.pos.data_ptr(), st.vel.data_ptr(),
+                      st.mass.data_ptr(), st.pos.shape[0], nb, cfg.eps2,
+                      0.5 * cfg.dt, cfg.dt, steps,
+                      *(o.data_ptr() for o in out), pos_tmp.data_ptr(),
+                      diag.data_ptr(), si.data_ptr(), sj.data_ptr(),
+                      flags.data_ptr())
         return out
 
     def k4(lib, st, cfg, steps):
@@ -294,12 +295,13 @@ def main():
         h = (c_f * 3)(*[0.5 * (x * cfg.dt) for x in w])
         wdt = (c_f * 3)(*[x * cfg.dt for x in w])
         out = [torch.empty_like(st.pos) for _ in range(3)]
-        _build.check_launch("resident (K4)", lib.nbt_resident_kdk(
-            st.pos.data_ptr(), st.vel.data_ptr(), st.acc.data_ptr(),
-            st.mass.data_ptr(), st.pos.shape[0], nb, cfg.eps2, h, wdt,
-            len(w), steps, *(o.data_ptr() for o in out), pos_tmp.data_ptr(),
-            diag.data_ptr(), si.data_ptr(), sj.data_ptr(), flags.data_ptr(),
-            _build.stream_handle(st.pos)))
+        _build.launch("resident (K4)", st.pos, lib.nbt_resident_kdk,
+                      st.pos.data_ptr(), st.vel.data_ptr(),
+                      st.acc.data_ptr(), st.mass.data_ptr(),
+                      st.pos.shape[0], nb, cfg.eps2, h, wdt, len(w), steps,
+                      *(o.data_ptr() for o in out), pos_tmp.data_ptr(),
+                      diag.data_ptr(), si.data_ptr(), sj.data_ptr(),
+                      flags.data_ptr())
         return out
 
     runs = [("K3", "reference", n, args.steps) for n in args.n]
@@ -343,11 +345,11 @@ def main():
              "phase (b) as the finish groups + 1 sync", "2 syncs")
     for name, lib in libs.items():
         def split(mode):
-            _build.check_launch(f"split {mode}", lib.nbt_resident_split(
-                mode, st.mass.data_ptr(), n, nb, cfg.eps2, 0.5 * cfg.dt,
-                cfg.dt, steps, pos.data_ptr(), vel.data_ptr(),
-                pos_tmp.data_ptr(), diag.data_ptr(), si.data_ptr(),
-                sj.data_ptr(), flags.data_ptr(), _build.stream_handle(pos)))
+            _build.launch(f"split {mode}", pos, lib.nbt_resident_split,
+                          mode, st.mass.data_ptr(), n, nb, cfg.eps2,
+                          0.5 * cfg.dt, cfg.dt, steps, pos.data_ptr(),
+                          vel.data_ptr(), pos_tmp.data_ptr(), diag.data_ptr(),
+                          si.data_ptr(), sj.data_ptr(), flags.data_ptr())
         us = {}
         for mode, what in enumerate(modes):
             us[what] = 1e3 * statistics.median(

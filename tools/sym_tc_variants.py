@@ -266,6 +266,7 @@ def build(name, edits):
 
 
 def main():
+    from nbody_tpu_torch.ops import _build
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", choices=sorted(VARIANTS), default="turbo")
     ap.add_argument("--n", type=int, default=1 << 20)
@@ -317,12 +318,14 @@ def main():
                 if f"Compiling entry function '{_MANGLED[k]}" in line:
                     report = [x.strip() for x in lines[i + 1:i + 4]
                               if "registers" in x or "spill" in x]
-            ctas = lib.nbt_sym_tc_pairs_ctas(_VARIANT_ID[k])
+            ctas = _build.query("cuda", lib.nbt_sym_tc_pairs_ctas,
+                                _VARIANT_ID[k])
             if tier == "tmm":
-                lib.nbt_sym_tc_abl_pin(1)
-                pinned = lib.nbt_sym_tc_pairs_ctas(_VARIANT_ID[k])
+                _build.query("cuda", lib.nbt_sym_tc_abl_pin, 1)
+                pinned = _build.query("cuda", lib.nbt_sym_tc_pairs_ctas,
+                                      _VARIANT_ID[k])
                 ctas = f"{ctas}, pinned {pinned}"
-                lib.nbt_sym_tc_abl_pin(0)
+                _build.query("cuda", lib.nbt_sym_tc_abl_pin, 0)
             slots = loop_slots(so, _MANGLED[k])
             print(f"[variants] {name}: {k} pairs kernel: "
                   + "; ".join(report) + f"; {ctas} CTAs an SM; "
@@ -338,7 +341,7 @@ def main():
     def form(lib, k, pinned=False, reduce_fn=None):
         def run():
             if pinned:
-                lib.nbt_sym_tc_abl_pin(1)
+                _build.query("cuda", lib.nbt_sym_tc_abl_pin, 1)
             try:
                 return k2.sweep("sym_tc_variants", pos, mass, 0.002,
                                 k2.SLOT_BUDGET_BYTES,
@@ -346,7 +349,7 @@ def main():
                                 reduce_fn or reduce[k])
             finally:
                 if pinned:
-                    lib.nbt_sym_tc_abl_pin(0)
+                    _build.query("cuda", lib.nbt_sym_tc_abl_pin, 0)
         return run
     # What is timed, by label: each variant's kernels (free and pinned for
     # tmm), and for tmm base's K5.

@@ -141,28 +141,28 @@ def main():
     def plan(name, ni, nj):
         items = VARIANTS.get(name, ([], None))[1]
         lib = libs["base" if items else name]
-        rows = lib.nbt_tiled_tc_geometry(1)
+        rows = _build.query(None, lib.nbt_tiled_tc_geometry, 1)
         return lib, slice_plan(ni, nj, k910.TC_TILE_J, rows,
                                items or k910.TC_ITEMS, 12)
 
     def call(name, pi, pj, mj, variant, self_tile):
         acc = torch.empty_like(pi)
         if name == "parent":
-            err = libs["parent"].nbt_forces_tiled_tc(
-                pi.data_ptr(), pi.shape[0], pj.data_ptr(), mj.data_ptr(),
-                pj.shape[0], eps2, int(variant == "mxu"), int(self_tile),
-                acc.data_ptr(), _build.stream_handle(acc))
+            _build.launch(f"{name} {variant}", acc,
+                          libs["parent"].nbt_forces_tiled_tc, pi.data_ptr(),
+                          pi.shape[0], pj.data_ptr(), mj.data_ptr(),
+                          pj.shape[0], eps2, int(variant == "mxu"),
+                          int(self_tile), acc.data_ptr())
         else:
             lib, (slices, tps) = plan(name, pi.shape[0], pj.shape[0])
             slots = (pi.new_empty(slices * pi.shape[0] * 3) if slices > 1
                      else None)
-            err = lib.nbt_forces_tiled_tc(
-                pi.data_ptr(), pi.shape[0], pj.data_ptr(), mj.data_ptr(),
-                pj.shape[0], tps, slices, eps2, int(variant == "mxu"),
-                int(self_tile),
-                slots.data_ptr() if slots is not None else None,
-                acc.data_ptr(), _build.stream_handle(acc))
-        _build.check_launch(f"{name} {variant}", err)
+            _build.launch(f"{name} {variant}", acc, lib.nbt_forces_tiled_tc,
+                          pi.data_ptr(), pi.shape[0], pj.data_ptr(),
+                          mj.data_ptr(), pj.shape[0], tps, slices, eps2,
+                          int(variant == "mxu"), int(self_tile),
+                          slots.data_ptr() if slots is not None else None,
+                          acc.data_ptr())
         return acc
 
     names = [n for n in VARIANTS] + (["parent"] if args.parent else [])
