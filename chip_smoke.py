@@ -103,9 +103,12 @@ launch and as G launches on G streams, bit-equal to the grid-sync kernel
 at N = 8192 on 2 to 5 shards, every variant, both protocols, no wait past
 its bound, and both at 1M on 4 shards in alternating rounds.  Every mesh
 of these phases is pinned to ``cuda:0`` (``on_card0``); on a host of
-several cards ``check_cross_card`` spreads meshes over them (every mesh
-path at 8192 and one step of the ring and of K13 at 4M bit-equal to
-cuda:0's, s/step, the efficiency, each card's launches; ``python3
+several cards ``check_cross_card`` spreads meshes over them (at 8192
+every (impl, comm) pair the mesh takes, with its float64 gate, kdk and
+yoshida4, the bounded mesh on each tier of the ladder and ``run --shards
+4`` on a tensor-core tier; at 4M one step of the ring on each tier of the
+ladder and of K13; each bit-equal to cuda:0's, with each card's launches,
+and at 4M s/step, the efficiency and each card's peak memory; ``python3
 chip_smoke.py --cross-card`` runs it alone), and on one card it prints a
 skip line.
 Then 200 steps under the momentum and angular-momentum gates
@@ -4252,30 +4255,104 @@ def main_path(counts, reset, record):
     return launches
 
 
+# The mesh across cards (check_cross_card, ``--cross-card``).  Every (impl,
+# comm) pair that ``run_steps_sharded`` takes on a card: the one-sided
+# family and the pair-symmetric ladder through the ring and the all-gather
+# (parallel/ring.py: _RECT_VARIANTS; the ladder's ring is the N3L ring,
+# _SYM_VARIANTS), and K13's two families under both rdma comms
+# (_SYM_VARIANTS, parallel/rdma_ring.py: _RDMA_ONE_SIDED).
+# tests/test_torch_cross_card.py holds these tuples to the port's tables.
+CROSS_N = 8192
+CROSS_SEED = 5
+CROSS_STEPS = 3
+CROSS_ONE_SIDED = ("pallas", "pallas_kahan", "pallas_fast", "pallas_mxu",
+                   "pallas_turbo")
+CROSS_SYM = ("pallas_sym", "pallas_sym2", "pallas_sym_turbo",
+             "pallas_sym_mxu", "pallas_sym_turbo2")
+CROSS_RDMA = ("pallas", "pallas_turbo", *CROSS_SYM)
+CROSS_PAIRS = (*((impl, comm) for comm in ("ring", "allgather")
+                 for impl in CROSS_ONE_SIDED + CROSS_SYM),
+               *((impl, comm) for comm in ("rdma", "rdma_overlap")
+                 for impl in CROSS_RDMA))
+# Each impl's gate on its first evaluation against float64 (p99 of the
+# relative error or None, the largest fraction of components outside 1%):
+# validate's allowances, --max-bad-frac-acc's default for the exact tiers,
+# the tier's own for the tensor-core tiers (TIER_GATES).  K12's tier gate
+# (1e-3) holds for Morton-sorted bodies, and the mesh does not sort: on
+# the box of seed 5 it put 1.099e-3 of the components outside (P = 4,
+# the ring, an H100), so the mesh's K12 is held at the JAX package's gate
+# for its fast tier on the ring, on unsorted bodies (tests/test_ring.py,
+# test_sharded_masked_variants_interpret: 2e-3 outside 1% + 1e-4).
+VALIDATE_ACC_FRAC = 5e-4
+MESH_FAST_FRAC = 2e-3
+CROSS_GATES = {"pallas": (None, VALIDATE_ACC_FRAC),
+               "pallas_sym2": (None, VALIDATE_ACC_FRAC),
+               "pallas_sym": TIER_GATES["forces_sym_vpu"],
+               "pallas_kahan": TIER_GATES["forces_tiled_kahan"],
+               "pallas_fast": (None, MESH_FAST_FRAC),
+               **{impl: TIER_GATES[k] for k, impl in TIER_IMPLS.items()}}
+# The KDK-composed integrators, primed on the mesh: (integrator, impl,
+# comm).
+CROSS_INTEGRATORS = (("kdk", "pallas_sym2", "ring"),
+                     ("yoshida4", "pallas_sym2", "ring"),
+                     ("kdk", "pallas_sym_turbo2", "ring"),
+                     ("yoshida4", "pallas_sym_turbo2", "ring"),
+                     ("kdk", "pallas_sym2", "rdma"),
+                     ("yoshida4", "pallas_sym2", "rdma"))
+# The bounded mesh (parallel/multiprog.py) takes the pair-symmetric ladder.
+CROSS_BOUNDED = CROSS_SYM
+CROSS_PROG_CAP = 4e6
+# Config #4's N on four cards: one step of each (impl, comm) against the
+# same step on cuda:0 and the impl's one-card step.
+CROSS_4M_N = 1 << 22
+CROSS_4M = (("pallas_sym2", "ring"), ("pallas_sym2", "rdma"),
+            ("pallas_sym", "ring"), ("pallas_sym_turbo", "ring"),
+            ("pallas_sym_mxu", "ring"), ("pallas_sym_turbo2", "ring"),
+            ("pallas_sym_turbo2", "rdma"))
+# run --shards 4 through Simulation on a tensor-core tier.
+CROSS_CLI_IMPL = "pallas_sym_turbo2"
+
+
+def smi_by_card():
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``,
+    one line a card (none without nvidia-smi)."""
+    if shutil.which("nvidia-smi") is None:
+        return []
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60)
+    return [line.strip() for line in proc.stdout.splitlines()
+            if line.strip()]
+
+
+def sync_cards():
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def check_cross_card(counts, record, smi):
     """The mesh across the host's cards, where it has two or more: the
     placement and peer-access lines; at N = 8192 (seed 5) on P = the card
-    count shards (and 5 on four cards), the one-sided ring, the N3L ring,
-    the all-gather, K13 under both protocols and the bounded mesh against
-    the same runs pinned to cuda:0 bit for bit, each card's kernel
-    launches, and ``validate --shards P --comm ...`` across the cards
-    (the float64 gate); at N = 4M (config #4's N on the host's cards),
-    one step of the N3L ring and one of K13 across the cards against the
-    same step on cuda:0 bit for bit, with s/step and the scaling
-    efficiency against K2's one-card step, the mesh's energy and one
-    sharded frame against cuda:0's, and ``run --shards P --n 4194304
-    --energy`` through the ring and through K13.  On one card it prints
-    the skip line."""
+    count shards (and 5 on four cards), every (impl, comm) pair of
+    ``CROSS_PAIRS`` for 3 steps against the same run pinned to cuda:0 bit
+    for bit, with each card's kernel launches (every card must launch),
+    and its first evaluation at its tier's float64 gate; kdk and yoshida4
+    primed on the mesh (``CROSS_INTEGRATORS``), the bounded mesh on every
+    tier of the ladder (against cuda:0's and the unbounded ring), and
+    ``validate --shards P --comm ...`` across the cards; then
+    ``cross_card_cli`` and ``cross_card_4m``.  On one card it prints the
+    skip line."""
+    import dataclasses
     import torch
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.cli import main as cli_main
     from nbody_tpu_torch.ops import _build
-    from nbody_tpu_torch.ops.step import run_steps
-    from nbody_tpu_torch.parallel import energy as penergy
+    from nbody_tpu_torch.ops.forces_torch import rect_forces
     from nbody_tpu_torch.parallel.mesh import make_mesh
     from nbody_tpu_torch.parallel.multiprog import run_steps_sharded_multiprog
     from nbody_tpu_torch.parallel.rdma_ring import check_errors
-    from nbody_tpu_torch.parallel.ring import (render_weights_sharded,
+    from nbody_tpu_torch.parallel.ring import (prime_kdk_sharded,
                                                run_steps_sharded)
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -4283,7 +4360,12 @@ def check_cross_card(counts, record, smi):
         return
     t0 = time.perf_counter()
     names = [torch.cuda.get_device_name(i) for i in range(cards)]
-    print(f"[cross-card] {cards} cards: {names} ({smi})")
+    print(f"[cross-card] {cards} cards: {names}")
+    lines = smi_by_card()
+    for i, line in enumerate(lines):
+        print(f"[cross-card] nvidia-smi name, power.limit, card {i}: {line}")
+    if lines:
+        smi = f"{'; '.join(dict.fromkeys(lines))}: each of {len(lines)} cards"
     for a in range(cards):
         print(f"[cross-card] peer access from card {a}: " + ", ".join(
             f"{b}: {torch.cuda.can_device_access_peer(a, b)}"
@@ -4297,78 +4379,222 @@ def check_cross_card(counts, record, smi):
     def equal(a, b):
         return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
-    cfg = nt.SimConfig(n_bodies=8192, seed=5, device="cuda")
+    def on_every_card(what, launches):
+        check(all(launches[i] > 0 for i in range(min(cards, p))),
+              f"{what}: a card launched nothing: {launches}")
+
+    cfg = nt.SimConfig(n_bodies=CROSS_N, seed=CROSS_SEED, device="cuda")
     start = nt.init_state(cfg)
+    ref = rect_forces(start.pos.double(), start.pos.double(),
+                      start.mass.double(), cfg.eps2)
+    res = {"pairs": 0}
     for p in shard_counts:
         mesh, mesh0 = make_mesh(p, "cuda"), make_mesh(p, "cuda:0")
         print(f"[cross-card] {mesh.describe()}")
-        for impl, comm in (("pallas", "ring"), ("pallas_sym2", "ring"),
-                           ("pallas_sym2", "allgather"),
-                           ("pallas_sym2", "rdma"),
-                           ("pallas_sym2", "rdma_overlap"),
-                           ("pallas", "rdma")):
+        for impl, comm in CROSS_PAIRS:
+            what = f"{CROSS_N}, P={p}, {impl} --comm {comm}"
             before = dict(_build.DEVICE_LAUNCHES)
-            got = run_steps_sharded(start, cfg, mesh, 3, impl, comm)
-            torch.cuda.synchronize()
+            got = run_steps_sharded(start, cfg, mesh, CROSS_STEPS, impl,
+                                    comm)
             launches = per_card(before)
-            want = run_steps_sharded(start, cfg, mesh0, 3, impl, comm)
-            check(equal(got, want), f"cross-card {impl} {comm} P={p}: differs "
-                  f"from the same run on cuda:0")
-            print(f"[cross-card] 8192, P={p}, {impl} --comm {comm}: 3 steps "
+            want = run_steps_sharded(start, cfg, mesh0, CROSS_STEPS, impl,
+                                     comm)
+            check(equal(got, want), f"cross-card {what}: differs from the "
+                  f"same run on cuda:0")
+            on_every_card(what, launches)
+            first = prime_kdk_sharded(start, cfg, mesh, impl, comm).acc
+            p99, frac = gate_numbers(first, ref)
+            p99_gate, frac_gate = CROSS_GATES[impl]
+            check(p99_gate is None or p99 < p99_gate,
+                  f"cross-card {what}: p99 {p99:.3e} against float64")
+            check(frac <= frac_gate, f"cross-card {what}: bad fraction "
+                  f"{frac:.3e} against float64")
+            res["pairs"] += 1
+            print(f"[cross-card] {what}: {CROSS_STEPS} steps bit-equal to "
+                  f"cuda:0's; launches by card {launches}; the first "
+                  f"evaluation against float64: p99 rel err {p99:.3e} (gate "
+                  f"{p99_gate}), bad fraction at 1% {frac:.3e} (gate "
+                  f"{frac_gate})")
+        check_errors()
+        for integrator, impl, comm in CROSS_INTEGRATORS:
+            icfg = dataclasses.replace(cfg, integrator=integrator)
+            before = dict(_build.DEVICE_LAUNCHES)
+            got = run_steps_sharded(
+                prime_kdk_sharded(start, icfg, mesh, impl, comm), icfg, mesh,
+                2, impl, comm)
+            launches = per_card(before)
+            want = run_steps_sharded(
+                prime_kdk_sharded(start, icfg, mesh0, impl, comm), icfg,
+                mesh0, 2, impl, comm)
+            what = f"{CROSS_N}, P={p}, {integrator} {impl} --comm {comm}"
+            check(equal(got, want), f"cross-card {what}: differs from "
+                  f"cuda:0's")
+            on_every_card(what, launches)
+            print(f"[cross-card] {what}: primed on the mesh, 2 steps "
                   f"bit-equal to cuda:0's; launches by card {launches}")
-        got = run_steps_sharded_multiprog(start, cfg, mesh, 2, "pallas_sym2",
-                                          max_prog_interactions=4e6)
-        want = run_steps_sharded_multiprog(start, cfg, mesh0, 2,
-                                           "pallas_sym2",
-                                           max_prog_interactions=4e6)
-        check(equal(got, want), f"cross-card bounded mesh P={p}: differs")
-        print(f"[cross-card] 8192, P={p}, the bounded mesh (4e6 a program): "
-              f"bit-equal to cuda:0's")
+        for impl in CROSS_BOUNDED:
+            before = dict(_build.DEVICE_LAUNCHES)
+            got = run_steps_sharded_multiprog(
+                start, cfg, mesh, 2, impl,
+                max_prog_interactions=CROSS_PROG_CAP)
+            launches = per_card(before)
+            want = run_steps_sharded_multiprog(
+                start, cfg, mesh0, 2, impl,
+                max_prog_interactions=CROSS_PROG_CAP)
+            what = f"{CROSS_N}, P={p}, the bounded mesh, {impl}"
+            check(equal(got, want), f"cross-card {what}: differs from "
+                  f"cuda:0's")
+            check(equal(got, run_steps_sharded(start, cfg, mesh, 2, impl,
+                                               "ring")),
+                  f"cross-card {what}: differs from the unbounded ring")
+            on_every_card(what, launches)
+            print(f"[cross-card] {what} ({CROSS_PROG_CAP:g} a program): "
+                  f"2 steps bit-equal to cuda:0's and to the unbounded "
+                  f"ring; launches by card {launches}")
+        check_errors()
         for comm in ("ring", "allgather", "rdma", "rdma_overlap"):
             before = dict(_build.DEVICE_LAUNCHES)
-            argv = ["validate", "--n", "8192", "--seed", "5", "--long-steps",
-                    "0", "--shards", str(p), "--comm", comm]
+            argv = ["validate", "--n", str(CROSS_N), "--seed",
+                    str(CROSS_SEED), "--long-steps", "0", "--shards", str(p),
+                    "--comm", comm]
             rc = cli_main(argv)   # not on_card0: across the cards
             check(rc == 0, f"cross-card validate P={p} --comm {comm}: exit "
                   f"{rc}")
             print(f"[cross-card] validate --shards {p} --comm {comm}: "
                   f"launches by card {per_card(before)}")
     check_errors()
+    print(f"[time] cross-card at {CROSS_N}: {time.perf_counter() - t0:.1f} "
+          f"s")
+    cross_card_cli(cards, per_card)
+    res.update(cross_card_4m(cards, per_card, equal, smi))
+    record["rdma_ring"]["cross_card"] = {"cards": cards, **res}
+    print(f"[time] cross-card phases: {time.perf_counter() - t0:.1f} s")
 
-    # 4M on the host's cards (config #4's N; the JAX package's config is 8
-    # devices, this is the port on `cards` cards).
+
+def cross_card_cli(cards, per_card):
+    """``run --shards 4`` through ``Simulation`` on a tensor-core tier
+    across the cards: --energy, --checkpoint, --viz every 2 steps, against
+    the same run on cuda:0 (checkpoint and frames bit for bit), and 2 steps
+    checkpointed then resumed for 2 more across the cards, against the
+    uninterrupted 4."""
+    import numpy as np
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    work = os.path.join(WORK, "cross")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    base = ["--n", str(CROSS_N), "--seed", str(CROSS_SEED), "--shards", "4",
+            "--impl", CROSS_CLI_IMPL, "--energy"]
+
+    def run(tag, argv):
+        before = dict(_build.DEVICE_LAUNCHES)
+        rc = cli_main(["run", *argv])
+        check(rc == 0, f"cross-card run {tag}: exit {rc}")
+        launches = per_card(before)
+        print(f"[cross-card] run {' '.join(argv)}: launches by card "
+              f"{launches}")
+        return launches
+
+    def ck(tag):
+        return os.path.join(work, f"{tag}.npz")
+
+    def frames(tag):
+        return os.path.join(work, f"frames_{tag}")
+
+    for tag, extra in (("cards", []), ("card0", ["--device", "cuda:0"])):
+        launches = run(tag, [*base, "--steps", "4", "--checkpoint", ck(tag),
+                             "--viz", "--viz-every", "2", "--viz-dir",
+                             frames(tag), *extra])
+        if tag == "cards":
+            check(all(launches[i] > 0 for i in range(min(cards, 4))),
+                  f"cross-card run: a card launched nothing: {launches}")
+    run("half", [*base, "--steps", "2", "--checkpoint", ck("half")])
+    run("resumed", ["--resume", ck("half"), "--steps", "2", "--shards", "4",
+                    "--energy", "--checkpoint", ck("resumed")])
+    a, b, r = (np.load(ck(t)) for t in ("cards", "card0", "resumed"))
+    for k in ("pos", "vel", "acc"):
+        check(np.array_equal(a[k], b[k]), f"cross-card run: {k} differs "
+              f"from cuda:0's")
+        check(np.array_equal(a[k], r[k]), f"cross-card run: the resumed "
+              f"{k} differs from the uninterrupted run's")
+    names = sorted(os.listdir(frames("cards")))
+    check(len(names) == 2 and names == sorted(os.listdir(frames("card0"))),
+          f"cross-card run: frames {names}")
+    for name in names:
+        check(np.array_equal(png_pixels(os.path.join(frames("cards"), name)),
+                             png_pixels(os.path.join(frames("card0"),
+                                                     name))),
+              f"cross-card run: frame {name} differs from cuda:0's")
+    print(f"[cross-card] run --shards 4 --impl {CROSS_CLI_IMPL} --energy "
+          f"--viz across the cards: the checkpoint and {len(names)} frames "
+          f"equal to cuda:0's; 2 steps resumed from a step-2 checkpoint "
+          f"equal to the uninterrupted 4 ({time.perf_counter() - t0:.1f} s)")
+
+
+def cross_card_4m(cards, per_card, equal, smi):
+    """Config #4's N on the host's cards (the JAX package's config is 8
+    devices; this is the port on ``cards`` cards): for each (impl, comm)
+    of ``CROSS_4M`` one step across the cards (after an untimed one)
+    against the same step on cuda:0 bit for bit, with s/step, the
+    efficiency against the impl's one-card step and every card's peak
+    memory (after a reset on each);
+    the mesh's energy and a sharded frame against cuda:0's, and ``run
+    --shards P --n 4194304 --energy`` through the ring and K13."""
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.cli import main as cli_main
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops.step import run_steps
+    from nbody_tpu_torch.parallel import energy as penergy
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    from nbody_tpu_torch.parallel.rdma_ring import check_errors
+    from nbody_tpu_torch.parallel.ring import (render_weights_sharded,
+                                               run_steps_sharded)
     p = min(cards, 4)
-    cfg = nt.SimConfig(n_bodies=1 << 22, device="cuda")
+    cfg = nt.SimConfig(n_bodies=CROSS_4M_N, device="cuda")
     state = nt.init_state(cfg)
     mesh, mesh0 = make_mesh(p, "cuda"), make_mesh(p, "cuda:0")
     print(f"[cross-card] {mesh.describe()}")
 
     def timed(fn):
-        torch.cuda.synchronize()
+        sync_cards()
         t = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync_cards()
         return out, time.perf_counter() - t
 
-    res = {}
-    _, k2_s = timed(lambda: run_steps(state, cfg, 1, "pallas_sym2"))
-    for comm in ("ring", "rdma"):
-        fn = (lambda m, c=comm: run_steps_sharded(state, cfg, m, 1,
-                                                  "pallas_sym2", c))
-        timed(lambda: fn(mesh))                  # the cards' first launches
+    res, single = {}, {}
+    for impl, comm in CROSS_4M:
+        if impl not in single:
+            single[impl] = timed(lambda: run_steps(state, cfg, 1, impl))[1]
+        # Untimed: each card's first buffers at this shape.
+        run_steps_sharded(state, cfg, mesh, 1, impl, comm)
+        for i in range(cards):
+            torch.cuda.reset_peak_memory_stats(i)
         before = dict(_build.DEVICE_LAUNCHES)
-        got, secs = timed(lambda: fn(mesh))
+        got, secs = timed(lambda: run_steps_sharded(state, cfg, mesh, 1, impl,
+                                                    comm))
         launches = per_card(before)
-        want, secs0 = timed(lambda: fn(mesh0))
-        check(equal(got, want), f"cross-card 4M {comm}: differs from cuda:0")
-        eff = k2_s / (p * secs)
-        res[comm] = {"s_step": secs, "s_step_card0": secs0,
-                     "efficiency": eff, "launches_by_card": launches}
-        print(f"[cross-card] 4M on {p} cards, --comm {comm}: {secs:.4f} s a "
-              f"step (on cuda:0 alone {secs0:.4f} s), bit-equal; K2 on one "
-              f"card {k2_s:.4f} s, efficiency {eff:.3f}; launches by card "
-              f"{launches} ({smi}, {cards} cards)")
-    check_errors()
+        peak = [torch.cuda.max_memory_allocated(i) / 1e9
+                for i in range(cards)]
+        want, secs0 = timed(lambda: run_steps_sharded(state, cfg, mesh0, 1,
+                                                      impl, comm))
+        check(equal(got, want), f"cross-card 4M {impl} --comm {comm}: "
+              f"differs from cuda:0")
+        del got, want
+        eff = single[impl] / (p * secs)
+        res[f"{impl} {comm}"] = {
+            "s_step": secs, "s_step_card0": secs0,
+            "s_step_one_card": single[impl], "efficiency": eff,
+            "peak_gb_by_card": peak, "launches_by_card": launches}
+        print(f"[cross-card] 4M on {p} cards, {impl} --comm {comm}: "
+              f"{secs:.4f} s a step (the same step on cuda:0 alone "
+              f"{secs0:.4f} s), bit-equal; {impl} on one card "
+              f"{single[impl]:.4f} s, efficiency {eff:.3f}; peak memory by "
+              f"card {', '.join(f'{g:.3f}' for g in peak)} GB; launches by "
+              f"card {launches} ({smi})")
+        check_errors()
     before = dict(_build.DEVICE_LAUNCHES)
     e, e_s = timed(lambda: penergy.total_energy_sharded(state, cfg.eps2,
                                                         mesh))
@@ -4386,15 +4612,14 @@ def check_cross_card(counts, record, smi):
     for comm in ("ring", "rdma"):
         before = dict(_build.DEVICE_LAUNCHES)
         t = time.perf_counter()
-        rc = cli_main(["run", "--shards", str(p), "--n", str(1 << 22),
+        rc = cli_main(["run", "--shards", str(p), "--n", str(CROSS_4M_N),
                        "--steps", "2", "--energy", "--comm", comm])
         check(rc == 0, f"cross-card run 4M --comm {comm}: exit {rc}")
         print(f"[cross-card] run --shards {p} --n 4194304 --steps 2 --energy "
               f"--comm {comm}: {time.perf_counter() - t:.1f} s; launches by "
               f"card {per_card(before)}")
     check_errors()
-    record["rdma_ring"]["cross_card"] = {"cards": cards, **res}
-    print(f"[time] cross-card phases: {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def ring_1m(dev, smi, record):
@@ -4622,6 +4847,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     dev = torch.device("cuda")
     from nbody_tpu_torch.ops import _build
 
@@ -4656,6 +4882,8 @@ def main():
         share_oracle_runs()
         record = {"rdma_ring": {}}
         check_cross_card(None, record, smi)
+        print(f"[time] --cross-card total, the build included: "
+              f"{time.perf_counter() - t_main:.1f} s")
         print(json.dumps(record["rdma_ring"]))
         print(smi)
         print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ grid-sync kernel and to its twin on the card by ``chip_smoke.py``.
 """
 
 import ast
+import importlib.util
 import pathlib
 import re
 
@@ -27,9 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from nbody_tpu_torch.config import _VALID_IMPLS
+from nbody_tpu_torch.models.integrators import KDK_WEIGHTS
 from nbody_tpu_torch.ops import _build
 from nbody_tpu_torch.ops.forces_sym import rect_descale_plain
-from nbody_tpu_torch.parallel import rdma_ring
+from nbody_tpu_torch.parallel import multiprog, rdma_ring, ring
 from nbody_tpu_torch.parallel.mesh import make_mesh, placement
 from nbody_tpu_torch.parallel.rdma_ring import (EPOCH_SHIFT, FLAG,
                                                 launch_plan, ring_phases)
@@ -37,6 +40,18 @@ from nbody_tpu_torch.parallel.rdma_ring import (EPOCH_SHIFT, FLAG,
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 EPS2 = 0.002
 T = rdma_ring.SYM_TILE
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Every case runs small sweeps on the CPU: torch's intra-op threads
+    only contend with the other test workers' there."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 # -- placement
@@ -546,3 +561,87 @@ class _CTypesLike:
 
     def __init__(self):
         self.nbt_x = self._Fn()
+
+
+# -- the card's matrix (chip_smoke.py --cross-card)
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _accepts(impl, comm):
+    """Whether the port's sharded entry points take ``impl`` under
+    ``comm`` with a kernel: the rect kernels' table for the ring and the
+    all-gather, K13's families (``rdma_variant``) for the rdma comms."""
+    if comm.startswith("rdma"):
+        try:
+            ring._local_impl(impl, make_mesh(2, "cpu"), comm)
+        except ValueError:
+            return False
+        return True
+    return impl in ring._RECT_VARIANTS
+
+
+def test_cross_card_pairs_are_every_pair_the_mesh_takes():
+    """The 8192 matrix is exactly the (impl, comm) pairs that
+    ``_RECT_VARIANTS``, ``_SYM_VARIANTS`` and ``_RDMA_ONE_SIDED`` accept:
+    34 a shard count, none twice, each with a float64 gate."""
+    smoke = _chip_smoke()
+    impls = [i for i in _VALID_IMPLS if i != "auto"]
+    want = {(impl, comm) for impl in impls for comm in ring.COMMS
+            if _accepts(impl, comm)}
+    assert len(smoke.CROSS_PAIRS) == len(set(smoke.CROSS_PAIRS)) == 34
+    assert set(smoke.CROSS_PAIRS) == want
+    assert {i for i, c in want if c.startswith("rdma")} == {
+        *ring._SYM_VARIANTS, *rdma_ring._RDMA_ONE_SIDED}
+    assert set(smoke.CROSS_GATES) == set(ring._RECT_VARIANTS)
+
+
+def test_cross_card_integrators_and_bounded_mesh_are_complete():
+    """Every KDK-composed integrator runs under the N3L ring on an exact
+    and a tensor-core tier and under K13; the bounded mesh runs every tier
+    it takes (``multiprog._bounded_impl``) and only those; config #4's N
+    runs the N3L ring on every tier of the ladder and K13 on K14a's form."""
+    smoke = _chip_smoke()
+    assert set(smoke.CROSS_INTEGRATORS) == {
+        (integrator, impl, comm) for integrator in KDK_WEIGHTS
+        for impl, comm in (("pallas_sym2", "ring"),
+                           ("pallas_sym_turbo2", "ring"),
+                           ("pallas_sym2", "rdma"))}
+    assert all((impl, comm) in smoke.CROSS_PAIRS
+               for _, impl, comm in smoke.CROSS_INTEGRATORS)
+    bounded = set()
+    for impl in _VALID_IMPLS:
+        try:
+            multiprog._bounded_impl(impl)
+        except ValueError:
+            continue
+        bounded.add(impl)
+    assert bounded - {"auto"} == set(smoke.CROSS_BOUNDED) == set(
+        ring._SYM_VARIANTS)
+    assert {i for i, c in smoke.CROSS_4M if c == "ring"} == set(
+        ring._SYM_VARIANTS)
+    assert ("pallas_sym_turbo2", "rdma") in smoke.CROSS_4M
+    assert smoke.CROSS_CLI_IMPL in ring._SYM_VARIANTS
+    assert smoke.CROSS_CLI_IMPL not in ("pallas_sym", "pallas_sym2")
+
+
+@pytest.mark.parametrize("fn,names", [
+    ("check_cross_card", {"CROSS_PAIRS", "CROSS_GATES", "CROSS_INTEGRATORS",
+                          "CROSS_BOUNDED", "cross_card_cli",
+                          "cross_card_4m"}),
+    ("cross_card_4m", {"CROSS_4M", "CROSS_4M_N"}),
+    ("cross_card_cli", {"CROSS_CLI_IMPL"})])
+def test_cross_card_runs_its_tables(fn, names):
+    """The cross-card phases loop over the tables above (so a pair added
+    to a table runs on the cards), and ``--cross-card`` calls them."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    used = {n.id for n in ast.walk(funcs[fn]) if isinstance(n, ast.Name)}
+    assert names <= used, names - used
+    main = {n.id for n in ast.walk(funcs["main"]) if isinstance(n, ast.Name)}
+    assert "check_cross_card" in main

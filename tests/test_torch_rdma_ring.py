@@ -46,6 +46,18 @@ MATRIX = [("pallas_sym2", p) for p in (1, 2, 3, 4, 5)] \
     + [("pallas_turbo", p) for p in (2, 3, 4, 5)]
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Every case runs small sweeps on the CPU: torch's intra-op threads
+    only contend with the other test workers' there."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 def arrays(n, seed):
     pos, vel, mass = make_small_system(n, seed=seed)
     return pos, vel, np.zeros((n, 3), np.float32), mass

@@ -44,6 +44,18 @@ from nbody_tpu_torch.viz.server import LiveViewer
 MIN_MASS, MAX_MASS = 1e5, 1e9
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Every case runs small sweeps on the CPU: torch's intra-op threads
+    only contend with the other test workers' there."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 def _bodies(n, seed, spread=2.2e5, ghosts=0.1):
     """Positions a little past the default view box, masses in the
     reference's range, about ``ghosts`` of them zero-mass."""
