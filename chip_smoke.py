@@ -38,16 +38,7 @@ variant on 1, 2,
 3, 4, 5 and 8 shards at N = 8192, both protocols, bit-reproducible and
 chunk-invariant, at its tiers' float64 gates and with real massless
 bodies), checks K2 at
-N = 1,048,576 against the direct-form ``rect_forces``, times K15's
-``vpu_noj`` (N = 8192 and 1,048,576, there also pinned at K7's CTAs an
-SM; 2048 x 6144 and 262,144 x 262,144) against its design before the
-redesign for this card (the sources of PARENT_COMMIT, built beside the
-package's) in alternating rounds with K7 and the parent's control
-vpu_tile, held to its twin, to its own bits from call to call and to
-K7's row slots, prints the registers, CTAs an SM and loop issue slots a
-pair, splits K7's time from those rounds, and holds every other
-kernel's SASS to the parent's
-(``tools/ptxas_compare.py``, in the background), then drives the
+N = 1,048,576 against the direct-form ``rect_forces``, then drives the
 port's main paths through the CLI with the kernels' launch counters reset
 just before and read just after: ``validate`` at N = 8192 (exact with K1,
 K2, K7 and K11, and each tensor-core tier, ``pallas_sym_turbo2`` among
@@ -83,10 +74,10 @@ per-step chain's, the 4-shard mesh's frames equal to renders of the
 gathered state, the AVI sink, ``render`` and ``analyze`` of a 1M
 trajectory, the live viewer's frame, camera and stop, and
 ``interactive`` with kernels 0 (K1) and 1 (K10); and huge N
-(``check_huge_n``): ``run --n 4194304 --steps 2 --energy
---checkpoint-every 1`` under auto (K2 in two bounded programs an
-evaluation) bit-equal to ``run_steps`` with the bound off and to a resume
-from its step-1 checkpoint, ``run --n 16777216 --steps 1 --flat-state on
+(``check_huge_n``): ``run --n 4194304 --steps 1`` under auto (K2 in two
+bounded programs an evaluation) and a resume of one more step with
+``--energy --checkpoint-every 1``, bit-equal to two steps of
+``run_steps`` with the bound off, ``run --n 16777216 --steps 1 --flat-state on
 --viz`` (24 programs, the heartbeat's lines, 256 sampled rows of the
 first evaluation at the exact gate against float64, the frame equal to
 the host's render of the checkpointed end state, s/step and peak
@@ -110,7 +101,13 @@ yoshida4, the bounded mesh on each tier of the ladder and ``run --shards
 ladder and of K13; each bit-equal to cuda:0's, with each card's launches,
 and at 4M s/step, the efficiency and each card's peak memory; ``python3
 chip_smoke.py --cross-card`` runs it alone), and on one card it prints a
-skip line.
+skip line.  The sampler (``check_sampler``): 24 seeded draws of the
+routes a user reaches (N up to 40,000 with the K1/K2 crossover and the
+resident window's edges, every impl, integrator, comm and preset, 1-5
+shards, the resident and flat modes, bounded or not, resumed or not),
+each route read from the launch counters against the port's predicates,
+the first evaluation against float64 rows and, up to N = 8192, against
+the same call on the CPU.
 Then 200 steps under the momentum and angular-momentum gates
 (their change from the initial state), the K1/K2
 and resident crossovers that set ``auto``, one 4-shard N3L-ring step and
@@ -124,17 +121,24 @@ card it exits 1 before doing anything.
 The last three lines of standard output are the kernels' JSON record, the
 ``nvidia-smi`` name / power-limit line, and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --long-horizon EPS2 [--integrator kdk]
+
+runs config #2's long-horizon gate alone (``long_horizon``): validate's
+1000-step phase at N = 8192 on every route (K3 through ``run``, the
+per-step kernels, the ring and K13 on 4 shards, ``xla``), one native
+float64 oracle run shared by all of them; at eps2 = 1e7 every verdict
+gated, at other eps2 the energy where the oracle is well-posed.
 """
 
-import atexit
 import contextlib
+import functools
 import importlib.metadata
 import importlib.util
 import json
 import os
 import re
 import shutil
-import signal
 import statistics
 import subprocess
 import sys
@@ -296,10 +300,11 @@ ABLATIONS = {"vpu_noj": ("forces_sym_vpu", 19, 0),
 # The twin shapes: the triangular forms at N = 8192, the rect forms at
 # 2048 x 6144 (B spans 24 superblocks, so B's superblock 0 differs from the
 # others for vpu_fix0 and tmm_noscat); the 1M sweep in rounds, each round
-# every form once, the order reversed every other round.
+# every form once, the order reversed every other round (two: four rounds
+# spread under 1% a form on an H100, PERF.md).
 ABLATION_N = 8192
 ABLATION_RECT = (2048, 6144)
-ABLATION_ROUNDS = 4
+ABLATION_ROUNDS = 2
 # K13, the fused ring: (variant, one_sided) cases at N = RDMA_N on each
 # of RDMA_SHARDS shards (8192 / P real bodies a shard padded to whole
 # 256-body tiles with zero-mass ghosts), both protocols.
@@ -339,11 +344,11 @@ RDMA_TC_MAX_BAD = 1e-4
 # K13, a large weight makes that term ~1e6 where a component is ~1e2, and
 # the kernel's tensor-core float32 accumulation and the twin's matmul each
 # round it.  tools/turbof_twin_outliers.py --seeds 32 on an H100 80GB HBM3
-# at 700 W, the same values from the kernels of PARENT_COMMIT: K14b, 4 of
-# 843,084 components outside on 35 body sets (N = 8192 on seeds 1-32, 8205
-# and 41, N = 2500 on 2513), at most 1 a set, the kernel the closer every
-# time (seed 6: kernel 166.315, twin 166.887, turbof's float64 sums
-# 166.278); K2-rect turbof, 5 of 428,832 on 35 pairs of sets (2048 x 2048
+# at 700 W, the package's kernels: K14b, 4 of 843,084 components outside
+# on 35 body sets (N = 8192 on seeds 1-32, 8205 and 41, N = 2500 on
+# 2513), at most 1 a set, the kernel the closer every time (seed 6:
+# kernel 166.315, twin 166.887, turbof's float64 sums 166.278); K2-rect
+# turbof, 5 of 428,832 on 35 pairs of sets (2048 x 2048
 # on seeds (s, 32 + s), (2069, 2070) and (41, 42); 2144 x 1536), at most 1
 # a side, the kernel off its float64 sums by up to 3.75e-6 of the
 # correction term (31 units; the twin up to 2.1e-6).
@@ -358,29 +363,6 @@ RDMA_TIERS = {("turbo", False): "forces_sym_turbo",
               ("turbo", True): "forces_tiled_turbo"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# The redesign of K15's vpu_noj on K7's pair tile for this card, timed
-# against the design before it: the commit that holds it,
-# unpacked (``git archive PARENT_COMMIT nbody_tpu_torch/csrc | tar -x -C
-# build/parent``) into PARENT_CSRC, where check_redesign builds it beside
-# the package's and times both in rounds (the order reversed every other
-# round; medians).  Without those sources and without git, the rounds and
-# the SASS comparison are skipped and say so.
-PARENT_COMMIT = "cfd771226d2cbd22d0a7f1d7277a8300a89d1719"
-PARENT_CSRC = os.path.join(ROOT, "build", "parent", "nbody_tpu_torch",
-                           "csrc")
-REDESIGN_ROUNDS = 4
-# tools/ptxas_compare.py against PARENT_CSRC: every kernel of these
-# libraries keeps the parent's SASS, but those the redesign changes: K15's
-# vpu_noj pair kernel, sym_pairs_kernel<2> (SymMath VPU_NOJ), and the
-# kernels retired with vpu_tile, which are gone: sym_pairs_kernel<5>
-# (VPU_TILE) and rect_pairs_kernel<2>, <1> (the rect vpu_noj and vpu_tile
-# on sym_tile_core).  The rect vpu_noj runs the new rect_noj_pairs_kernel.
-# SASS_SAME pairs an old kernel with a new name it lives on under (none in
-# this redesign).
-SASS_LIBS = ("forces_tiled", "forces_sym", "forces_sym_tc", "forces_tiled_tc",
-             "pe", "rdma_ring", "resident", "forces_fast")
-SASS_REDESIGNED = (r"\bsym_pairs_kernel<[25]>", r"\brect_pairs_kernel<[12]>")
-SASS_SAME = ()
 # The closed-form two-body gates (nbody_tpu_torch/models/kepler.py) on the
 # card: ``validate --analytic`` through the CLI for each impl at N = 2
 # ("pair") at KEPLER_STEPS steps a period, and the split form ("split":
@@ -2154,113 +2136,6 @@ def check_k2_1m(dev):
             acc[rows], ref)
 
 
-def parent_csrc(commit=PARENT_COMMIT, csrc=PARENT_CSRC):
-    """``csrc`` (by default PARENT_CSRC), unpacked from ``commit`` with git
-    where it is not there yet; None where neither is to be had."""
-    if not os.path.isdir(csrc):
-        root = os.path.dirname(os.path.dirname(csrc))
-        try:
-            tar = subprocess.run(
-                ["git", "-C", ROOT, "archive", commit,
-                 "nbody_tpu_torch/csrc"], capture_output=True, check=True,
-                timeout=120).stdout
-            os.makedirs(root, exist_ok=True)
-            subprocess.run(["tar", "-x", "-C", root], input=tar, check=True,
-                           timeout=120)
-        except (OSError, subprocess.SubprocessError) as err:
-            print(f"[redesign] no sources of {commit[:7]} at {csrc} and "
-                  f"none from git ({type(err).__name__})")
-            return None
-    return csrc if os.path.isdir(csrc) else None
-
-
-def start_sass_compare(csrc):
-    """tools/ptxas_compare.py of SASS_LIBS against the parent's sources,
-    in the background (its builds overlap the card's phases)."""
-    os.makedirs(WORK, exist_ok=True)
-    log = open(os.path.join(WORK, "ptxas_compare.log"), "w")
-    cmd = [sys.executable, os.path.join(ROOT, "tools", "ptxas_compare.py"),
-           csrc, os.path.join(ROOT, "nbody_tpu_torch", "csrc"), *SASS_LIBS,
-           "--ops"]
-    for pattern in SASS_REDESIGNED:
-        cmd += ["--allow", pattern]
-    for old, new in SASS_SAME:
-        cmd += ["--same", old, new]
-    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                            start_new_session=True)
-
-    def stop():
-        # A failed phase ends the script before finish_sass_compare: stop
-        # the comparison and the nvcc it runs.
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    atexit.register(stop)
-    return proc, log
-
-
-def finish_sass_compare(job):
-    """Wait for the comparison and fail unless every kernel outside
-    SASS_REDESIGNED kept the parent's SASS."""
-    proc, log = job
-    rc = proc.wait(timeout=600)
-    log.close()
-    with open(log.name) as f:
-        lines = f.read().splitlines()
-    redesigned = [re.compile(p) for p in SASS_REDESIGNED]
-    for line in lines:
-        name = line.strip().removeprefix("new: ").removeprefix("old: ")
-        if ("==" in line or "DIFFERS" in line or "MISSING" in line
-                or "ptxas_compare" in line or "same:" in line
-                or any(p.search(name) for p in redesigned)):
-            print(f"[sass] {line.strip()}")
-    kept = sum("identical" in line for line in lines)
-    print(f"[sass] {kept} kernels of {', '.join(SASS_LIBS)} with the "
-          f"parent's SASS; allowed to change: {', '.join(SASS_REDESIGNED)}")
-    check(rc == 0, "tools/ptxas_compare.py: a kernel outside the redesign "
-          "changed its SASS, or a SASS_SAME pair differs")
-
-
-def build_parent(csrc, names, tag="parent", report=True):
-    """Start nvcc on an earlier commit's ``names`` (csrc/<name>.cu) with the
-    package's flags into WORK/``tag``, one nvcc each, all at once, in the
-    background; returns a function that waits for them, keeps each one's
-    report in WORK/``tag``/<name>.log, prints their registers and spills
-    (``report``) and returns the ctypes libraries."""
-    import ctypes
-    from nbody_tpu_torch.ops import _build
-    out = os.path.join(WORK, tag)
-    os.makedirs(out, exist_ok=True)
-    jobs = {}
-    for name in names:
-        so = os.path.join(out, f"lib{name}.so")
-        jobs[name] = (so, subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
-             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, start_new_session=True))
-
-    def finish():
-        libs = {}
-        for name, (so, proc) in jobs.items():
-            log, _ = proc.communicate()
-            check(proc.returncode == 0, f"{tag} {name}.cu: nvcc failed\n{log}")
-            with open(os.path.join(out, f"{name}.log"), "w") as f:
-                f.write(log)
-            for line in log.splitlines() if report else ():
-                if "registers" in line or "spill" in line:
-                    print(f"[redesign] {tag} {name}.cu: {line.strip()}")
-            libs[name] = ctypes.CDLL(so)
-        return libs
-
-    def stop():
-        for _, proc in jobs.values():
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-    atexit.register(stop)
-    return finish
-
-
 def device_ms(fn, iters, spin=10_000_000):
     """Milliseconds of the card's work for one of ``iters`` calls of
     ``fn``, not of the host's: a spin kernel holds the card busy while the
@@ -2280,29 +2155,9 @@ def device_ms(fn, iters, spin=10_000_000):
     return start.elapsed_time(end) / iters
 
 
-def alternate(fns, dev, iters, warmup=1, device=False):
-    """{name: [ms of each round]}: every function of ``fns`` timed once a
-    round (CUDA events, ``iters`` calls; with ``device``, device_ms), the
-    order reversed every other round."""
-    from nbody_tpu_torch.utils.timing import time_ms
-    names = list(fns)
-    times = {k: [] for k in names}
-    for r in range(REDESIGN_ROUNDS):
-        for k in (names if r % 2 == 0 else names[::-1]):
-            times[k].append(device_ms(fns[k], iters) if device else
-                            time_ms(fns[k], dev, iters=iters, warmup=warmup))
-    return times
-
-
-# The parent's library check_redesign builds and binds: its forces_sym.cu
-# (K15's vpu_noj on sym_tile_core, K7's former tile, pinned at the CTAs an
-# SM of its control vpu_tile, K7's math on that tile), through the
-# package's C entry names.
-PARENT_LIBS = ("forces_sym",)
 # The SymMath ids (csrc/sym_common.cuh) of the triangular pair kernels of
-# K7 and the three vpu_* forms, and of the parent's vpu_tile (retired).
+# K7 and the three vpu_* forms.
 SYM_MATH = {"vpu": 1, "vpu_noj": 2, "vpu_fix0": 3, "vpu_rc": 4}
-PARENT_VPU_TILE = 5
 # The MUFU's rate on one H100 SXM: 16 a clock on each of its 132 SMs at the
 # 1.98 GHz boost clock.  A pair of K5's tile takes one MUFU rsqrt, and K5's
 # and tmm_nomm's one bf16x2 convert (F2FP) a pair too.
@@ -2314,41 +2169,6 @@ MUFU_RATE = 16 * 132 * 1.98e9
 # LOP3 a pair (tools/sym_tc_variants.py --variant tmm's sink, the consumer
 # cut to one XOR, gives the same count).
 NOMM_SLOTS_A_LOP3 = 4
-
-# The fold kernels (K14d and the K2-rect folds): name -> (K7's math,
-# rect); tools/fold_variants.py times them.
-FOLD_KERNELS = {"forces_sym_fold": (False, False),
-                "forces_sym_vpu_fold": (True, False),
-                "rect_forces_sym_fold": (False, True),
-                "rect_forces_sym_vpu_fold": (True, True)}
-
-
-def fold_sweep(lib, kname, args, eps2, parts="both"):
-    """One evaluation of fold kernel ``kname`` through ``lib``'s C entries
-    (the package's build or the parent's) on the package's host path
-    (ops/forces_sym.py sweep / rect_sweep, without the wrappers' checks and
-    counters), at FOLD_BLOCK_U.  ``args``: (pos, mass) or (pos_a, mass_a,
-    pos_b, mass_b).  ``parts`` "pairs" or "reduce" launches that pass only
-    (the other's entry is a no-op), to time the two apart."""
-    from nbody_tpu_torch.ops import forces_sym as k2
-    k7, rect = FOLD_KERNELS[kname]
-    u = k2.FOLD_BLOCK_U
-    if rect:
-        pairs = lib.nbt_rect_sym_vpu_pairs if k7 else lib.nbt_rect_sym_pairs
-        reduce = lib.nbt_rect_reduce
-    else:
-        prefix = "nbt_sym_vpu_fold" if k7 else "nbt_sym_fold"
-        pairs = getattr(lib, f"{prefix}_pairs")
-        reduce = getattr(lib, f"{prefix}_reduce")
-    if parts == "pairs":
-        reduce = lambda *a: 0                   # noqa: E731
-    elif parts == "reduce":
-        pairs = lambda *a: 0                    # noqa: E731
-    if rect:
-        return k2.rect_sweep(kname, *args, eps2, k2.SLOT_BUDGET_BYTES, pairs,
-                             reduce, not k7, u, (u // 256,))
-    return k2.sweep(kname, *args, eps2, k2.SLOT_BUDGET_BYTES, pairs, reduce,
-                    u, (u // 256,))
 
 
 def pinned(pin, fn):
@@ -2365,20 +2185,6 @@ def pinned(pin, fn):
         finally:
             _build.query("cuda", pin, 0)
     return run
-
-
-def kernel_regs(log, prefix):
-    """The registers of the kernel whose mangled name starts with
-    ``prefix``, from nvcc's ``-Xptxas -v`` report ``log``, or None."""
-    fn = None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn and fn.startswith(prefix):
-            return int(m.group(1))
-    return None
 
 
 def k5_split(med, n, record, smi):
@@ -2482,265 +2288,6 @@ def k7_split(med, n, record, smi):
     record["forces_sym_vpu"].update({
         "split_noj": (k7 - noj) / k7, "split_fix0": (fix0 - k7) / k7,
         "split_rc": (rc - k7) / k7, "split_rc_free": (rc_free - rc) / rc})
-
-
-def check_redesign(dev, eps2, record, smi, parent_build):
-    """K15's vpu_noj, redesigned on K7's pair tile (K7's row side alone),
-    against the parent's design (sym_tile_core, K7's former tile, pinned
-    at the parent's vpu_tile's CTAs an SM) on the same inputs in
-    alternating rounds, through one host path: the package's sweep /
-    rect_sweep with either library's C pair entries and the package's
-    reduce passes (the none reduce for vpu_noj, K7's for the parent's
-    vpu_tile).  First each pair kernel's registers, CTAs an SM free and
-    pinned, and its loop's issue slots, FFMA and SHFL a pair
-    (tools/ptxas_compare.py's loop_slots), K7's and the parent's vpu_tile
-    beside them; the new loop must carry no SHFL and K7's FFMA less the
-    three of its column sums.  At N = 8192 (seed 41) and 2048 x 6144
-    (ablation_rect_sets) the new form is held to its twin, is the
-    wrapper's result, bit-reproducible, chunk-invariant and (triangular)
-    equal to itself pinned; its square row slots are K7's pair pass's
-    bit for bit, and its rect acc_a is K2-rect vpu's with acc_b zero; the
-    card's time alone (device_ms) is taken against the parent's.  At N =
-    1M (seed 6) the rounds time K7, the parent's vpu_tile and pinned
-    vpu_noj, and the new vpu_noj free and pinned at K7's CTAs an SM; the
-    new must beat the parent's in every round.  They give K7's split, K7
-    less pinned vpu_noj (the j side on the pair tile), against the former
-    tile's, the parent's vpu_tile less its vpu_noj.  At the 1M ring's
-    262,144 x 262,144 shard pair the new rect form against the parent's,
-    with K2-rect vpu and the parent's rect vpu_tile, in rounds.
-    ``parent_build``: build_parent's function for the parent's
-    forces_sym.cu."""
-    import ctypes
-    import torch
-    from nbody_tpu_torch.ops import _build
-    from nbody_tpu_torch.ops import ablation_sym as ab
-    from nbody_tpu_torch.ops import forces_sym as k2
-    from tools.ptxas_compare import loop_slots
-    t0 = time.perf_counter()
-    ab.enable()
-    new = k2._lib()
-    noj = ab._entries("vpu_noj")
-    # The reduce passes: vpu_noj's none reduce, and for the parent's
-    # vpu_tile K7's slot sum (vpu_rc's entries).
-    reduces = {"vpu_noj": noj[1::2], "vpu_tile": ab._entries("vpu_rc")[1::2]}
-    parent = parent_build()["forces_sym"]
-    libs = {"parent": parent, "new": new}
-    for tag, lib in libs.items():
-        for v in ("vpu_noj", "vpu_tile") if tag == "parent" else ("vpu_noj",):
-            for kind, like in (("sym", noj[0]), ("rect", noj[2])):
-                fn = getattr(lib, f"nbt_{kind}_{v}_pairs")
-                fn.argtypes = like.argtypes
-                fn.restype = ctypes.c_int
-        for fn in ("nbt_sym_pairs_ctas", "nbt_sym_abl_pin"):
-            getattr(lib, fn).argtypes = [ctypes.c_int]
-            getattr(lib, fn).restype = ctypes.c_int
-    so = {"parent": os.path.join(WORK, "parent", "libforces_sym.so"),
-          "new": str(_build.library_path("forces_sym"))}
-    with open(os.path.join(WORK, "parent", "forces_sym.log")) as f:
-        logs = {"parent": f.read(), "new": _build.BUILD_LOG["forces_sym"]}
-    ids = {"parent": {"vpu": SYM_MATH["vpu"], "vpu_noj": SYM_MATH["vpu_noj"],
-                      "vpu_tile": PARENT_VPU_TILE},
-           "new": {"vpu": SYM_MATH["vpu"], "vpu_noj": SYM_MATH["vpu_noj"]}}
-    ops = ("FFMA", "SHFL")
-    slots = {}
-    for tag, lib in libs.items():
-        for v, m in ids[tag].items():
-            prefix = f"_Z16sym_pairs_kernelILi{m}E"
-            slots[tag, v] = s = loop_slots(so[tag], prefix, ops)
-            check(s is not None, f"{tag} {v}: no pair loop in its SASS")
-            free = _build.query("cuda", lib.nbt_sym_pairs_ctas, m)
-            check(_build.query("cuda", lib.nbt_sym_abl_pin, 1) >= 0,
-                  f"{tag}: the vpu_* pin failed")
-            pin = _build.query("cuda", lib.nbt_sym_pairs_ctas, m)
-            _build.query("cuda", lib.nbt_sym_abl_pin, 0)
-            print(f"[redesign] {tag} {v} pair kernel: "
-                  f"{kernel_regs(logs[tag], prefix)} registers, {free} CTAs "
-                  f"an SM, {pin} pinned; loop {s[0]:.3f} issue slots a pair, "
-                  f"{s[1]:.3f} FFMA and {s[2]:.3f} SHFL a pair")
-    for tag, prefix in (("new", "_Z20rect_k7_pairs_kernel"),
-                        ("new", "_Z21rect_noj_pairs_kernel"),
-                        ("parent", "_Z17rect_pairs_kernelILi2E")):
-        s = loop_slots(so[tag], prefix, ops)
-        check(s is not None, f"{tag} {prefix}: no pair loop in its SASS")
-        print(f"[redesign] {tag} {prefix}: "
-              f"{kernel_regs(logs[tag], prefix)} registers; loop "
-              f"{s[0]:.3f} issue slots a pair, {s[1]:.3f} FFMA and "
-              f"{s[2]:.3f} SHFL a pair")
-    s7, sn = slots["new", "vpu"], slots["new", "vpu_noj"]
-    check(sn[2] == 0 and abs(sn[1] - (s7[1] - 3)) < 1e-6,
-          f"vpu_noj's loop: {sn[2]:.3f} SHFL and {sn[1]:.3f} FFMA a pair, "
-          f"not 0 and K7's {s7[1]:.3f} less its three column FMAs")
-
-    def sweep(lib, v, pos, mass, budget=k2.SLOT_BUDGET_BYTES):
-        return lambda: k2.sweep(f"forces_sym_{v}", pos, mass, eps2, budget,
-                                getattr(lib, f"nbt_sym_{v}_pairs"),
-                                reduces[v][0])
-
-    def rect(lib, v, args, budget=k2.SLOT_BUDGET_BYTES):
-        pairs = getattr(lib, f"nbt_rect_{v}_pairs")
-        return lambda: k2.rect_sweep(f"rect_forces_sym_{v}", *args, eps2,
-                                     budget, pairs, reduces[v][1], False)
-
-    def slots_of(pairs, pos, mass):
-        """The row and column slots of one pair pass of ``pairs`` over
-        every offset, in one chunk (zeros where nothing writes)."""
-        n = pos.shape[0]
-        nb = -(-n // k2.SYM_TILE)
-        n_pad = nb * k2.SYM_TILE
-        (d_lo, dc), = k2.offset_chunks(nb, n_pad)
-        si, sj = (pos.new_zeros(dc * n_pad * 3) for _ in "ij")
-        _build.launch("pair slots", pos, pairs, pos.data_ptr(),
-                      mass.data_ptr(), n, nb, d_lo, dc, float(eps2),
-                      si.data_ptr(), sj.data_ptr())
-        torch.cuda.synchronize()
-        return si, sj
-
-    def rounds(tag, fns, iters, device=False):
-        """fns' times in REDESIGN_ROUNDS alternating rounds (CUDA events,
-        or with ``device`` the card's time alone); prints them, their
-        medians and the new form's against the parent's; returns (rounds,
-        medians)."""
-        times = alternate(fns, dev, iters, warmup=0 if iters == 1 else 1,
-                          device=device)
-        med = {k: statistics.median(v) for k, v in times.items()}
-        print(f"[redesign] {tag}: " + "; ".join(
-            f"{k} {med[k]:.4f} ms (" + ", ".join(f"{t:.4f}" for t in v)
-            + ")" for k, v in times.items()) + f" ({smi})")
-        old = next(k for k in fns if k.startswith("parent vpu_noj"))
-        for k in fns:
-            if k.startswith("new"):
-                print(f"[redesign] {tag}: {k} / {old} "
-                      f"{med[k] / med[old]:.4f}")
-        return times, med
-
-    # The small shapes: checks, then the card's time alone.
-    n = ABLATION_N
-    pos, mass = bodies(n, 41, dev)
-    n_pad = -(-n // 256) * 256
-    na, nb = ABLATION_RECT
-    args = ablation_rect_sets(dev)
-    tag = f"K15 vpu_noj N={n}"
-    got = sweep(new, "vpu_noj", pos, mass)()
-    twin = ab.forces_sym_ablation_plain(pos, mass, eps2, "vpu_noj")
-    compare(f"{tag} vs plain", got, twin)
-    check(torch.equal(got, ab.forces_sym_ablation(pos, mass, eps2, "vpu_noj"))
-          and torch.equal(got, sweep(new, "vpu_noj", pos, mass)())
-          and torch.equal(got, sweep(new, "vpu_noj", pos, mass,
-                                     24 * n_pad)())
-          and torch.equal(got, pinned(new.nbt_sym_abl_pin,
-                                      sweep(new, "vpu_noj", pos, mass))()),
-          f"{tag}: not the wrapper's result, not bit-reproducible, not "
-          f"chunk-invariant or not the same pinned")
-    si, sj = slots_of(new.nbt_sym_vpu_noj_pairs, pos, mass)
-    si7, sj7 = slots_of(new.nbt_sym_vpu_pairs, pos, mass)
-    check(torch.equal(si, si7) and si7.any() and sj7.any()
-          and not sj.any(), f"{tag}: its row slots are not K7's pair "
-          f"pass's, or it wrote a column slot")
-    was = sweep(parent, "vpu_noj", pos, mass)()
-    print(f"[redesign] {tag}: the wrapper's, bit-reproducible, "
-          f"chunk-invariant, the same pinned, its row slots K7's pair "
-          f"pass's bit for bit; max |new - twin| "
-          f"{float((got - twin).abs().max()):.4e}, |parent - twin| "
-          f"{float((was - twin).abs().max()):.4e}")
-    med = rounds(tag, {"parent vpu_noj": sweep(parent, "vpu_noj", pos, mass),
-                       "new vpu_noj": sweep(new, "vpu_noj", pos, mass)},
-                 20, True)[1]
-    record["forces_sym_vpu_noj"].update({
-        "parent_device_ms": med["parent vpu_noj"],
-        "new_device_ms": med["new vpu_noj"]})
-    tag = f"K15 rect vpu_noj {na}x{nb}"
-    got = rect(new, "vpu_noj", args)()
-    twin = ab.rect_forces_sym_ablation_plain(*args, eps2, "vpu_noj")
-    compare(f"{tag} acc_a vs plain", got[0], twin[0])
-    check(torch.equal(got[0], k2.rect_forces_sym_vpu(*args, eps2)[0])
-          and not got[1].any(), f"{tag}: acc_a is not K2-rect vpu's, or B "
-          f"got a force")
-    for other in (ab.rect_forces_sym_ablation(*args, eps2, "vpu_noj"),
-                  rect(new, "vpu_noj", args)(),
-                  rect(new, "vpu_noj", args, 24 * na)()):
-        check(all(torch.equal(x, y) for x, y in zip(got, other)),
-              f"{tag}: not the wrapper's result, not bit-reproducible or "
-              f"not chunk-invariant")
-    med = rounds(tag, {"parent vpu_noj": rect(parent, "vpu_noj", args),
-                       "new vpu_noj": rect(new, "vpu_noj", args)},
-                 20, True)[1]
-    record["rect_forces_sym_vpu_noj"].update({
-        "parent_device_ms": med["parent vpu_noj"],
-        "new_device_ms": med["new vpu_noj"]})
-    print(f"[redesign] N={n}: vpu_noj's row slots bit-equal to K7's; "
-          f"{na}x{nb}: rect vpu_noj's acc_a to K2-rect vpu's, B zero")
-    del pos, mass, args, si, sj, si7, sj7
-
-    # N = 1M: K7, the parent's vpu_tile and pinned vpu_noj, the new
-    # vpu_noj free and pinned.
-    n = RING_N
-    pos, mass = bodies(n, 6, dev)
-    fns = {"K7": lambda: k2.forces_sym_vpu(pos, mass, eps2),
-           "parent vpu_tile": sweep(parent, "vpu_tile", pos, mass),
-           "parent vpu_noj pinned": pinned(parent.nbt_sym_abl_pin,
-                                           sweep(parent, "vpu_noj", pos,
-                                                 mass)),
-           "new vpu_noj": sweep(new, "vpu_noj", pos, mass),
-           "new vpu_noj pinned": pinned(new.nbt_sym_abl_pin,
-                                        sweep(new, "vpu_noj", pos, mass))}
-    out = {k: fns[k]() for k in ("new vpu_noj", "new vpu_noj pinned")}
-    check(bool(torch.isfinite(out["new vpu_noj"]).all())
-          and torch.equal(out["new vpu_noj"], out["new vpu_noj pinned"]),
-          "vpu_noj N=1M: non-finite, or not the same pinned")
-    del out
-    times, med = rounds(f"K15 N={n}", fns, 1)
-    for pin in ("", " pinned"):
-        check(all(a < b for a, b in zip(times[f"new vpu_noj{pin}"],
-                                        times["parent vpu_noj pinned"])),
-              f"vpu_noj{pin} N=1M: not faster than the parent's in every "
-              f"round")
-    record["forces_sym_vpu_noj"].update({
-        "new_ms_1m": med["new vpu_noj"],
-        "new_pinned_ms_1m": med["new vpu_noj pinned"],
-        "parent_pinned_ms_1m": med["parent vpu_noj pinned"]})
-    k7_ms, noj_ms = med["K7"], med["new vpu_noj pinned"]
-    tile, tile_noj = med["parent vpu_tile"], med["parent vpu_noj pinned"]
-    print(f"[split] K7 at N={n}, medians of {REDESIGN_ROUNDS} rounds: K7 "
-          f"{k7_ms:.3f} ms, vpu_noj {noj_ms:.3f} pinned at its CTAs an SM "
-          f"(free {med['new vpu_noj']:.3f}); the former tile: vpu_tile "
-          f"{tile:.3f}, its vpu_noj {tile_noj:.3f} pinned; ms an issue slot "
-          f"a pair: K7 {k7_ms / s7[0]:.3f}, vpu_noj {noj_ms / sn[0]:.3f}, "
-          f"vpu_tile {tile / slots['parent', 'vpu_tile'][0]:.3f}, the "
-          f"parent's vpu_noj {tile_noj / slots['parent', 'vpu_noj'][0]:.3f} "
-          f"({smi})")
-    print(f"[split] the j side on K7's pair tile, K7 less pinned vpu_noj: "
-          f"{(k7_ms - noj_ms) / k7_ms:.2%} of K7 ({s7[0]:.3f} against "
-          f"{sn[0]:.3f} issue slots a pair); on the former tile, vpu_tile "
-          f"less its vpu_noj: {(tile - tile_noj) / tile:.2%} of vpu_tile")
-    record["forces_sym_vpu"].update({
-        "split_j_side": (k7_ms - noj_ms) / k7_ms,
-        "split_j_side_former_tile": (tile - tile_noj) / tile})
-    del pos, mass
-
-    # The 1M ring's shard pair.
-    n = RECT_1M
-    pa, ma = bodies(n, 41, dev)
-    pb, mb = bodies(n, 42, dev)
-    args = (pa, ma, pb, mb)
-    fns = {"K2-rect vpu": lambda: k2.rect_forces_sym_vpu(*args, eps2),
-           "parent vpu_tile": rect(parent, "vpu_tile", args),
-           "parent vpu_noj": rect(parent, "vpu_noj", args),
-           "new vpu_noj": rect(new, "vpu_noj", args)}
-    got, k7r = fns["new vpu_noj"](), fns["K2-rect vpu"]()
-    check(torch.equal(got[0], k7r[0]) and not got[1].any(),
-          f"rect vpu_noj {n}x{n}: acc_a is not K2-rect vpu's, or B got a "
-          f"force")
-    del got, k7r
-    times, med = rounds(f"K15 rect {n}x{n}", fns, 1)
-    check(all(a < b for a, b in zip(times["new vpu_noj"],
-                                    times["parent vpu_noj"])),
-          f"rect vpu_noj {n}x{n}: not faster than the parent's in every "
-          f"round")
-    record["rect_forces_sym_vpu_noj"].update({
-        "new_ms_1m": med["new vpu_noj"],
-        "parent_ms_1m": med["parent vpu_noj"]})
-    del pa, ma, pb, mb, args
-    print(f"[time] redesign rounds: {time.perf_counter() - t0:.1f} s")
 
 
 def check_fold(dev, eps2):
@@ -3646,9 +3193,10 @@ def rows_float64(pos, mass, rows, eps2, cols=1 << 22):
 
 def check_huge_n(counts, record):
     """Huge N through the CLI with the launch counters: (a) N = 4M under
-    auto (K2, bounded: 2 programs an evaluation) with ``--energy`` and a
-    checkpoint a step, bit-equal to ``run_steps`` with the bound off, and a
-    resume from the step-1 checkpoint equal to it; (b) N = 16.7M with the
+    auto (K2, bounded: 2 programs an evaluation), one step to a
+    checkpoint and a resume of one more with ``--energy`` and a checkpoint
+    a step, bit-equal to two steps of ``run_steps`` with the bound off;
+    (b) N = 16.7M with the
     flat state and a frame a step: the heartbeat's lines, 256 sampled rows
     of the first evaluation at the exact gate against float64, the frame
     equal to the host's render of the checkpointed end state, s/step and
@@ -3669,39 +3217,33 @@ def check_huge_n(counts, record):
     t_all = time.perf_counter()
     os.makedirs(WORK, exist_ok=True)
     path = {k: os.path.join(WORK, f"huge_{k}.npz")
-            for k in ("a", "a1", "b1", "flat", "mp", "ring")}
+            for k in ("a1", "b1", "flat", "mp", "ring")}
     n = str(HUGE_N)
 
-    # (a) 4M, auto: two bounded programs an evaluation.
+    # (a) 4M, auto: two bounded programs an evaluation; one step to a
+    # checkpoint, then a resume with --energy and a checkpoint a step.
     cfg = nt.SimConfig(n_bodies=HUGE_N)
     check(nt.resolve_impl(cfg) == "pallas_sym2", "auto at 4M is not K2")
-    text, secs = huge_cli(
-        counts, "run --n 4194304 --steps 2 --energy --checkpoint-every 1",
-        ["run", "--n", n, "--steps", "2", "--energy", "--checkpoint-every",
-         "1", "--checkpoint", path["a"]], {"forces_sym": 2, "pe_total": 2})
-    print("[huge] 4M: " + [ln for ln in text.splitlines()
-                           if ln.startswith("Simulation complete")][0])
-    ref = nt.run_steps(nt.init_state(cfg), cfg, 2)
-    with np.load(path["a"]) as z:
-        check(int(z["step"]) == 2, "4M: checkpoint step")
-        for k in ("pos", "vel", "acc"):
-            check(np.array_equal(z[k], getattr(ref, k).cpu().numpy()),
-                  f"4M bounded: {k} differs from run_steps unbounded")
-    del ref
-    print("[huge] 4M: bounded (2 programs an evaluation) bit-equal to "
-          "run_steps with the bound off")
     huge_cli(counts, "run --n 4194304 --steps 1 (the step-1 checkpoint)",
              ["run", "--n", n, "--steps", "1", "--checkpoint", path["a1"]],
              {"forces_sym": 1})
-    huge_cli(counts, "run --resume (1 more step)",
-             ["run", "--resume", path["a1"], "--steps", "1", "--checkpoint",
-              path["b1"]], {"forces_sym": 1})
-    with np.load(path["a"]) as za, np.load(path["b1"]) as zb:
-        check(int(zb["step"]) == 2, "4M resume: step")
+    text, secs = huge_cli(
+        counts, "run --resume (1 more step) --energy --checkpoint-every 1",
+        ["run", "--resume", path["a1"], "--steps", "1", "--energy",
+         "--checkpoint-every", "1", "--checkpoint", path["b1"]],
+        {"forces_sym": 1, "pe_total": 2})
+    print("[huge] 4M: " + [ln for ln in text.splitlines()
+                           if ln.startswith("Simulation complete")][0])
+    ref = nt.run_steps(nt.init_state(cfg), cfg, 2)
+    with np.load(path["b1"]) as z:
+        check(int(z["step"]) == 2, "4M resume: checkpoint step")
         for k in ("pos", "vel", "acc"):
-            check(np.array_equal(za[k], zb[k]),
-                  f"4M resume: {k} differs from the uninterrupted run")
-    print("[huge] 4M: resume from step 1 bit-equal to the uninterrupted run")
+            check(np.array_equal(z[k], getattr(ref, k).cpu().numpy()),
+                  f"4M bounded and resumed: {k} differs from run_steps "
+                  f"unbounded and uninterrupted")
+    del ref
+    print("[huge] 4M: bounded (2 programs an evaluation) and resumed from "
+          "step 1, bit-equal to run_steps unbounded and uninterrupted")
 
     # (b) 16.7M, flat, a frame a step.
     frames = os.path.join(WORK, "huge_frames")
@@ -3933,25 +3475,220 @@ def check_examples(counts):
     print(f"[time] check_examples: {time.perf_counter() - t_all:.1f} s")
 
 
-def share_oracle_runs():
-    """validate's numpy oracle is a pure function of its inputs and takes
-    ~50 s a run at N = 8192 on the card's host; the validate phases at
-    seed 5 (K2, K1, K7, K11 and each tensor-core tier) start from one
-    state, so each distinct oracle run is computed once and handed to every
-    phase that asks for it."""
+def share_oracle_runs(seconds=None):
+    """validate's oracles are pure functions of their inputs and take ~50 s
+    (numpy, 10 steps) or minutes (native, serial on the card's host, 1000
+    steps) a run at N = 8192: the phases that start from one state (the
+    validate phases at seed 5; each route of ``--long-horizon``) share
+    each distinct run of either oracle, computed once, keyed by a hash of
+    its arrays and its other arguments, each caller handed its own copy.
+    The (name, seconds) of every run computed are appended to ``seconds``
+    where it is a list.  Returns a function that puts the unshared oracles
+    back."""
     import hashlib
-    from nbody_tpu_torch.oracle import numpy_oracle
-    run, runs = numpy_oracle.oracle_run, {}
+    import numpy as np
+    from nbody_tpu_torch.oracle import native, numpy_oracle
+    runs, undo = {}, []
 
-    def shared(pos, vel, mass, *args, **kw):
-        h = hashlib.sha256()
-        for a in (pos, vel, mass):
-            h.update(a.tobytes())
-        key = (h.hexdigest(), args, tuple(sorted(kw.items())))
-        if key not in runs:
-            runs[key] = run(pos, vel, mass, *args, **kw)
-        return runs[key]
-    numpy_oracle.oracle_run = shared
+    def share(module, name):
+        run = getattr(module, name)
+
+        def shared(pos, vel, mass, *args, **kw):
+            h = hashlib.sha256()
+            for a in (pos, vel, mass):
+                h.update(np.ascontiguousarray(a).tobytes())
+            key = (name, h.hexdigest(), args, tuple(sorted(kw.items())))
+            if key not in runs:
+                t0 = time.perf_counter()
+                runs[key] = run(pos, vel, mass, *args, **kw)
+                if seconds is not None:
+                    seconds.append((name, time.perf_counter() - t0))
+            return tuple(a.copy() for a in runs[key])
+        setattr(module, name, shared)
+        undo.append(lambda: setattr(module, name, run))
+
+    share(numpy_oracle, "oracle_run")
+    share(native, "native_run")
+    return lambda: [u() for u in undo]
+
+
+# Config #2's long-horizon gate (``--long-horizon EPS2``): validate's own
+# long phase, 1000 steps at N = 8192 from validate's defaults (seed 0, dt
+# 0.1), one call a route, against one native float64 oracle run shared by
+# every route.  A route: (label, the CLI verb and its options, the counter
+# that must launch, its launches, the lock-step allowance (a kernel of
+# TIER_GATES, the gate of a tier's fraction, or None for validate's)).
+# ``evals`` counts a validate's force evaluations: 10 lock-step steps and
+# the long phase's.  validate steps with ``run_steps`` in both packages,
+# so K3 and K4 are reached through ``run`` (auto in the resident window),
+# their end state held to the per-step K2 run's bit for bit: their drifts
+# are then the numbers of the per-step K2 route (LONG_K2), which runs
+# before them.
+LONG_N = 8192
+LONG_STEPS = 1000
+LONG_EPS2_GATED = 1e7
+LONG_KNAMES = {"forces_tiled": "K1", "forces_tiled_kahan": "K11",
+               "forces_fast": "K12", "forces_tiled_turbo": "K9",
+               "forces_tiled_mxu": "K10", "forces_sym_vpu": "K7",
+               "forces_sym_turbo": "K5", "forces_sym_mxu": "K6",
+               "forces_sym_turbo2": "K14a"}
+LONG_K2 = "--resident off pallas_sym2 (K2)"
+
+
+def long_routes(integrator):
+    """The routes of ``--long-horizon`` for ``integrator``: (label, argv,
+    {kernel: launches}, lock-step allowance)."""
+    evals = 10 + LONG_STEPS
+    k2 = (LONG_K2, ["validate", "--resident", "off", "--impl", "pallas_sym2"])
+    if integrator == "kdk":
+        # A KDK prime, then one evaluation a step.
+        return ((*k2, {"forces_sym": 1 + evals}, None),
+                ("auto (K4 resident)", ["run"],
+                 {"resident_kdk": None, "forces_sym": 1}, None),
+                ("--shards 4 --comm rdma (K13)",
+                 ["validate", "--shards", "4", "--comm", "rdma"],
+                 {"rdma_ring": 1 + evals}, None),
+                ("xla (the plain path)", ["validate", "--impl", "xla"], {},
+                 None))
+    routes = [(*k2, {"forces_sym": evals}, None),
+              ("auto (K3 resident)", ["run"], {"resident": None}, None)]
+    for impl, kernel, allow in (
+            ("pallas", "forces_tiled", None),
+            ("pallas_kahan", "forces_tiled_kahan", None),
+            ("pallas_fast", "forces_fast", MESH_FAST_FRAC),
+            ("pallas_turbo", "forces_tiled_turbo", None),
+            ("pallas_mxu", "forces_tiled_mxu", None),
+            ("pallas_sym", "forces_sym_vpu", None),
+            ("pallas_sym_turbo", "forces_sym_turbo", None),
+            ("pallas_sym_mxu", "forces_sym_mxu", None),
+            ("pallas_sym_turbo2", "forces_sym_turbo2", None)):
+        if allow is None and kernel in TIER_IMPLS:
+            allow = TIER_GATES[kernel][1]
+        routes.append((f"{impl} ({LONG_KNAMES[kernel]})",
+                       ["validate", "--impl", impl], {kernel: evals}, allow))
+    routes += [("--shards 4 --comm ring pallas_sym2 (K2, K2-rect, K1)",
+                ["validate", "--shards", "4", "--comm", "ring", "--impl",
+                 "pallas_sym2"],
+                {"forces_sym": 4 * evals, "rect_forces_sym_vpu2": 4 * evals,
+                 "forces_tiled": 4 * evals}, None),
+               ("--shards 4 --comm rdma (K13)",
+                ["validate", "--shards", "4", "--comm", "rdma"],
+                {"rdma_ring": evals}, None),
+               ("xla (the plain path)", ["validate", "--impl", "xla"], {},
+                None)]
+    return tuple(routes)
+
+
+_LONG_LINES = {
+    "chaos": re.compile(r"oracle self-conservation \|dE\|/\|E0\| = (\S+)"),
+    "drift": re.compile(r"energy: device vs oracle drift (\S+)"),
+    "p": re.compile(r"momentum: \|P-P0\|_max/scale = (\S+)"),
+    "l": re.compile(r"angular momentum: \|L-L0\|_max/scale = (\S+)"),
+}
+
+
+def long_horizon(eps2, integrator, counts, smi):
+    """``--long-horizon EPS2``: every route of ``long_routes`` through
+    the CLI, each route's line (the oracle's self-conservation and whether
+    it is well-posed, the device-vs-oracle energy drift with its verdict,
+    |P - P0| and |L - L0|, the launches, the seconds).  At eps2 =
+    ``LONG_EPS2_GATED`` every verdict of a route is gated: validate's exit
+    code 0 (the lock-step phase, both invariants, the energy where the
+    oracle is well-posed), and the device-vs-oracle energy drift within
+    the gate whether or not validate calls the oracle well-posed (K3/K4:
+    their end state bit-equal to LONG_K2's, whose numbers they report); at
+    another eps2 the energy drift
+    is gated where the oracle is well-posed and the rest is reported.
+    Any failure raises.  Returns the routes' numbers."""
+    import torch
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.cli import main as cli_main
+    gate, inv_gate = 1e-3, 1e-3
+    gated = eps2 == LONG_EPS2_GATED
+    base = ["--n", str(LONG_N), "--eps2", repr(eps2), "--integrator",
+            integrator]
+    from nbody_tpu_torch.ops.step import prime_kdk
+    cfg = nt.SimConfig(n_bodies=LONG_N, eps2=eps2, integrator=integrator)
+    state0 = nt.init_state(cfg)
+    out, numbers = [], {}
+    os.makedirs(WORK, exist_ok=True)
+    for label, argv, expect, allow in long_routes(integrator):
+        verb, opts = argv[0], argv[1:]
+        before = counts()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        if verb == "validate":
+            extra = ["--long-steps", str(LONG_STEPS), "--oracle", "native"]
+            if allow is not None:
+                extra += ["--max-bad-frac", str(allow),
+                          "--max-bad-frac-acc", str(max(allow, 5e-4))]
+            with contextlib.redirect_stdout(tee):
+                rc = cli_main(on_card0(["validate", *base, *opts, *extra]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            text = "".join(tee.text)
+            found = {k: rx.search(text) for k, rx in _LONG_LINES.items()}
+            check(all(found.values()),
+                  f"long {label}: validate printed no long-phase line "
+                  f"(exit {rc})")
+            nums = {k: float(m.group(1)) for k, m in found.items()}
+        else:
+            end_path = os.path.join(WORK, "long_end.npz")
+            with contextlib.redirect_stdout(tee):
+                rc = cli_main(on_card0(["run", *base, "--steps",
+                                        str(LONG_STEPS), "--checkpoint",
+                                        end_path]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            end, step, _ = nt.load_checkpoint(end_path, device="cuda")
+            check(step == LONG_STEPS and rc == 0,
+                  f"long {label}: run exit {rc}, checkpoint step {step}")
+            nums = dict(numbers[LONG_K2])
+        numbers[label] = nums
+        delta = {k: v - before[k] for k, v in counts().items()}
+        for k, v in delta.items():
+            want = expect.get(k, 0)
+            check(v > 0 if want is None else v == want,
+                  f"long {label}: {k} launched {v} times (want "
+                  f"{'some' if want is None else want})")
+        if verb == "run":
+            # K3/K4's end state: bit-equal to the per-step K2 run, so
+            # LONG_K2's numbers are its own.
+            ref = nt.run_steps(
+                prime_kdk(state0, cfg, impl="pallas_sym2")
+                if integrator != "reference" else state0, cfg, LONG_STEPS,
+                impl="pallas_sym2")
+            check(states_equal(end, ref),
+                  f"long {label}: end state differs from per-step K2's")
+        well = nums["chaos"] <= gate
+        e_ok = nums["drift"] <= gate
+        e_gated = gated or well
+        p_ok, l_ok = nums["p"] <= inv_gate, nums["l"] <= inv_gate
+        launched = {k: v for k, v in delta.items() if v}
+        print(f"[long] eps2={eps2:g} {integrator} {label}: oracle "
+              f"|dE|/|E0| {nums['chaos']:.3e} "
+              f"({'well-posed' if well else 'chaos-dominated'}); device vs "
+              f"oracle {nums['drift']:.3e} "
+              + (("OK" if e_ok else "FAIL") if e_gated else "not gated")
+              + f" (gate {gate:.0e}); |P-P0| {nums['p']:.3e} "
+              f"{'OK' if p_ok else 'over'}, |L-L0| {nums['l']:.3e} "
+              f"{'OK' if l_ok else 'over'} (gate {inv_gate:.0e}); exit {rc}; "
+              f"launches {launched}; {secs:.1f} s"
+              + (f"; the numbers of {LONG_K2}, its end state bit-equal"
+                 if verb == "run" else "") + f" ({smi})")
+        if gated:
+            check(rc == 0 and e_ok and p_ok and l_ok,
+                  f"long {label} at eps2={eps2:g}: a gate failed")
+        elif well:
+            check(e_ok, f"long {label} at eps2={eps2:g}: energy drift "
+                  f"{nums['drift']:.3e} past the gate on a well-posed run")
+        out.append({"route": label, "secs": secs, "rc": rc,
+                    "launches": launched, "well_posed": bool(well),
+                    **{k: float(v) for k, v in nums.items()}})
+    if gated and integrator == "reference":
+        k1 = [r for r in out if r["route"].startswith("pallas (K1)")][0]
+        check(k1["drift"] <= gate, "pallas (K1) drift past 1e-3 at eps2=1e7")
+    return out
 
 
 def main_path(counts, reset, record):
@@ -4841,6 +4578,412 @@ def ring_parts(state, cfg, p, ring_acc, diff_rows, dev):
             check(e[-1] <= gate, f"ring 1M: {k} off by {e[-1]:.3e} of |a|")
 
 
+# The sampler (check_sampler on the card; tests/test_torch_sampler.py on
+# the CPU against the JAX package): seeded draws of the routes a user
+# reaches, both from ``sampler_draws`` (numpy.random.default_rng
+# (SAMPLER_SEED)) at their own sizes.  On the card each route is read from
+# the launch counters against the one ``simulation_route`` names, its
+# first evaluation held to float64 rows and, up to SAMPLER_PLAIN_MAX_N, to
+# the same call on the CPU (the kernels' plain versions); there every
+# draw is a combination the port runs (the refusals are the CPU's).
+SAMPLER_SEED = 27
+SAMPLER_DRAWS = 24
+SAMPLER_FIXED_N = (1535, 1536, 1537, 16384, 16385)
+SAMPLER_MAX_N = 40000
+SAMPLER_PER_DEVICE = 8000
+SAMPLER_SHARDS = (None, None, 1, 2, 3, 4, 5)
+SAMPLER_DTYPES = ("float32",) * 4 + ("float64",)
+SAMPLER_ROWS = 1024
+# A tier's float64 gate is a statistic (a p99, a fraction of components):
+# it is held where the sampled rows give at least this many components;
+# below, the draw is held to its plain version, and the exact gate (no
+# component outside 1%) at any N.
+SAMPLER_GATE_MIN = 3072
+SAMPLER_PLAIN_MAX_N = 8192
+SAMPLER_IMPLS = ("auto", "xla", "xla_nxn", "pallas", "pallas_kahan",
+                 "pallas_mxu", "pallas_fast", "pallas_turbo", "pallas_sym",
+                 "pallas_sym2", "pallas_sym_turbo", "pallas_sym_turbo2",
+                 "pallas_sym_mxu")
+SAMPLER_PALLAS = SAMPLER_IMPLS[3:]
+SAMPLER_SYM = ("pallas_sym2", "pallas_sym", "pallas_sym_turbo",
+               "pallas_sym_turbo2", "pallas_sym_mxu")
+SAMPLER_RDMA = ("auto", "pallas", "pallas_turbo", *SAMPLER_SYM)
+SAMPLER_INTEGRATORS = ("reference", "kdk", "yoshida4")
+SAMPLER_COMMS = ("ring", "allgather", "rdma", "rdma_overlap")
+SAMPLER_INITS = ("uniform", "plummer", "plummer-virial", "disk", "collision")
+SAMPLER_NXN_MAX_N = 16384
+IMPL_KERNELS = {"pallas": "forces_tiled", "pallas_kahan":
+                "forces_tiled_kahan", "pallas_fast": "forces_fast",
+                "pallas_turbo": "forces_tiled_turbo",
+                "pallas_mxu": "forces_tiled_mxu",
+                "pallas_sym": "forces_sym_vpu", "pallas_sym2": "forces_sym",
+                "pallas_sym_turbo": "forces_sym_turbo",
+                "pallas_sym_turbo2": "forces_sym_turbo2",
+                "pallas_sym_mxu": "forces_sym_mxu"}
+ONE_SIDED_KERNELS = {"vpu": "forces_tiled", "vpu_kahan": "forces_tiled_kahan",
+                     "fast": "forces_fast", "turbo": "forces_tiled_turbo",
+                     "mxu": "forces_tiled_mxu"}
+SAMPLER_GATES = {**{impl: (None, VALIDATE_ACC_FRAC) for impl in (
+    "auto", "xla", "xla_nxn", "pallas", "pallas_sym2")},
+    "pallas_sym": TIER_GATES["forces_sym_vpu"],
+    "pallas_kahan": TIER_GATES["forces_tiled_kahan"],
+    "pallas_fast": (None, MESH_FAST_FRAC),
+    **{impl: TIER_GATES[k] for k, impl in TIER_IMPLS.items()}}
+
+
+def sampler_cycle(rng, values, k):
+    """``k`` values, each of ``values`` as often as the others (± 1), in
+    the order of consecutive permutations drawn from ``rng``."""
+    out = []
+    while len(out) < k:
+        out += [values[i] for i in rng.permutation(len(values))]
+    return out[:k]
+
+
+@functools.lru_cache(maxsize=None)
+def sampler_primes(lo, hi):
+    return [p for p in range(max(2, lo), hi + 1)
+            if all(p % d for d in range(2, int(p ** 0.5) + 1))]
+
+
+def sampler_n(rng, lo, hi):
+    """N in [lo, hi], weighted towards odd N, primes and tile ± 1."""
+    kind = rng.choice(["prime", "odd", "tile", "any"], p=[.3, .2, .3, .2])
+    pool = {"prime": lambda: sampler_primes(lo, hi),
+            "tile": lambda: [t + d for t in range(128, hi + 2, 128)
+                             for d in (-1, 0, 1) if lo <= t + d <= hi],
+            "odd": lambda: range(lo | 1, hi + 1, 2),
+            "any": lambda: range(lo, hi + 1)}[kind]()
+    pool = pool or range(lo, hi + 1)
+    return int(pool[rng.integers(len(pool))])
+
+
+def sampler_fit(d, rng):
+    """Make a draw's options fit one another: a forced resident mode takes
+    an exact sym tier on one device in float32, a forced flat state a sym
+    tier on one device, K13's comms an impl they serve."""
+    one = d["shards"] is None
+    if d["flat_state"] and (not one or d["resident"]):
+        d["flat_state"] = None
+    if d["resident"]:
+        if one and d["dtype"] == "float32":
+            if d["impl"] not in SAMPLER_SYM[:2]:
+                d["impl"] = SAMPLER_SYM[rng.integers(2)]
+        else:
+            d["resident"] = None
+    if d["flat_state"]:
+        if d["dtype"] == "float32":
+            if d["impl"] not in SAMPLER_SYM:
+                d["impl"] = SAMPLER_SYM[rng.integers(len(SAMPLER_SYM))]
+        else:
+            d["flat_state"] = None
+    if d["comm"] in ("rdma", "rdma_overlap") and d["impl"] not in SAMPLER_RDMA:
+        d["comm"] = ("ring", "allgather")[rng.integers(2)]
+
+
+def sampler_draws(k=SAMPLER_DRAWS, n_max=SAMPLER_MAX_N,
+                  per_device=SAMPLER_PER_DEVICE, shards=SAMPLER_SHARDS,
+                  dtypes=SAMPLER_DTYPES, fixed_n=SAMPLER_FIXED_N, every=True):
+    """``k`` draws from numpy.random.default_rng(SAMPLER_SEED) of (N,
+    impl, integrator, dtype, JAX's x64, resident, flat_state, prog_cap,
+    JAX's block_i / block_j / block_u, shards, comm, steps, the --init
+    preset, a checkpoint-resume): N in [2, ``n_max``] on one device and
+    [P, ``per_device`` P] on P ``shards``, weighted towards odd N, primes
+    and tile ± 1; each axis cycled so that its values come alike; a cap
+    binding (a third of a step's pairs) or not (twice them).  Two draws of
+    three are made to fit (``sampler_fit``) and the third keeps its
+    combination, a refusal, unless ``every``: then every draw fits, and
+    takes only what the port runs (the kernels float32, a forced resident
+    mode no binding cap).  The first draws take ``fixed_n`` under auto on
+    one device in float32.  Each draw's ``id`` spells it out."""
+    import numpy as np
+    rng = np.random.default_rng(SAMPLER_SEED)
+    dtypes = sampler_cycle(rng, list(dtypes), k)
+    f32_impls = iter(sampler_cycle(rng, list(SAMPLER_IMPLS), k))
+    # A state of another dtype takes the plain paths, or a kernel's refusal.
+    other_impls = iter(sampler_cycle(rng, ["auto", "xla", "xla_nxn",
+                                           SAMPLER_PALLAS[rng.integers(
+                                               len(SAMPLER_PALLAS))]], k))
+    columns = {"integrator": sampler_cycle(rng, list(SAMPLER_INTEGRATORS), k),
+               "shards": sampler_cycle(rng, list(shards), k),
+               "comm": sampler_cycle(rng, list(SAMPLER_COMMS), k),
+               "resident": sampler_cycle(rng, [None, None, True, False], k),
+               "flat_state": sampler_cycle(rng, [None, None, None, True,
+                                                 False], k),
+               "prog_cap": sampler_cycle(rng, [None, None, "binding",
+                                               "non-binding"], k),
+               "init": sampler_cycle(rng, list(SAMPLER_INITS), k),
+               "block_i": sampler_cycle(rng, [128, 256, 512], k),
+               "block_j": sampler_cycle(rng, [128, 256, 512, 2048], k),
+               "block_u": sampler_cycle(rng, [None, 256, 512, 1024], k),
+               "resume": sampler_cycle(rng, [False, True], k)}
+    out = []
+    for i in range(k):
+        d = {key: col[i] for key, col in columns.items()}
+        fixed = i < len(fixed_n)
+        d["dtype"] = "float32" if fixed else dtypes[i]
+        d["impl"] = "auto" if fixed else next(
+            f32_impls if d["dtype"] == "float32" else other_impls)
+        d["x64"] = bool(d["dtype"] == "float64" and rng.integers(2))
+        if rng.integers(3) or every:
+            sampler_fit(d, rng)
+        if every:
+            if d["dtype"] != "float32":
+                if d["impl"] in SAMPLER_PALLAS:
+                    d["impl"] = "auto"
+                if d["comm"] in ("rdma", "rdma_overlap"):
+                    d["comm"] = "allgather"
+            if d["resident"]:
+                d["prog_cap"] = None
+        if fixed:
+            d.update(impl="auto", shards=None, resident=None,
+                     flat_state=None, prog_cap=None)
+        p = d["shards"]
+        if p is None:
+            d["comm"] = None
+            d["n"] = sampler_n(rng, 2, n_max)
+            d["steps"] = int(rng.integers(1, 4))
+        else:
+            d["n"] = sampler_n(rng, max(2, p), per_device * p)
+            d["steps"] = int(rng.integers(1, 3))
+        if fixed:
+            d["n"] = fixed_n[i]
+        if d["impl"] == "xla_nxn":
+            d["n"] = min(d["n"], SAMPLER_NXN_MAX_N)
+        if d["block_u"] is not None:
+            d["block_u"] = max(d["block_u"], d["block_i"])
+        cap = d["prog_cap"]
+        if cap is not None:
+            n2 = float(d["n"]) ** 2 / (p or 1)
+            d["prog_cap"] = (max(1.0, n2 / 3) if cap == "binding"
+                             else 2.0 * n2)
+        d["seed"] = int(rng.integers(1000))
+        d["id"] = "-".join(str(x) for x in (
+            f"{i:02d}", f"n{d['n']}", d["impl"], d["integrator"], d["dtype"]
+            + ("-x64" if d["x64"] else ""), f"res{d['resident']}",
+            f"flat{d['flat_state']}",
+            "cap" + ("None" if cap is None else cap),
+            f"bi{d['block_i']}", f"bj{d['block_j']}", f"bu{d['block_u']}",
+            f"p{p}" + (f"-{d['comm']}" if p else ""), f"s{d['steps']}",
+            d["init"], "resume" if d["resume"] else "once"))
+        out.append(d)
+    return out
+
+
+def sampler_start(d, device):
+    """The draw's seeded start state on ``device`` (its preset)."""
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.models.init import INIT_MAKERS
+    cfg = nt.SimConfig(n_bodies=d["n"], dtype=d["dtype"], seed=d["seed"],
+                       device=device)
+    return INIT_MAKERS.get(d["init"], nt.init_state)(cfg)
+
+
+def sampler_sim(d, device, start, first_only=False, path=None,
+                progress=None):
+    """The draw through ``Simulation`` on ``device`` (a mesh of its shards
+    there) from ``start``: its end state, or its first force evaluation
+    (the KDK prime's, or the first reference step's), or with ``path``
+    half the steps, a checkpoint, a resume and the rest.  Returns
+    (Simulation, state)."""
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    cfg = nt.SimConfig(n_bodies=d["n"], impl=d["impl"],
+                       integrator=d["integrator"], dtype=d["dtype"],
+                       resident=d["resident"], flat_state=d["flat_state"],
+                       prog_cap=d["prog_cap"], seed=d["seed"], device=device)
+    start = nt.SimState(*(t.to(device) for t in start))
+    mesh = make_mesh(d["shards"], device) if d["shards"] else None
+    kw = {"mesh": mesh, "comm": d["comm"] or "ring"}
+    sim = nt.Simulation(cfg, start, **kw)
+    sim.progress = progress
+    if first_only:
+        if d["integrator"] == "reference":
+            sim.run(1)
+        return sim, sim.state
+    if path is None:
+        sim.run(d["steps"])
+        return sim, sim.state
+    half = max(1, d["steps"] // 2)
+    sim.run(half)
+    nt.save_checkpoint(path, sim.state, half, cfg)
+    sim = nt.Simulation.resume(path, device=device, **kw)
+    sim.progress = progress
+    if d["steps"] > half:
+        sim.run(d["steps"] - half)
+    return sim, sim.state
+
+
+def sampler_route(d, device):
+    """The route ``Simulation`` takes for the draw on ``device``
+    (``simulation_route``) and the kernels whose counters must move on it
+    and no others: (route, kernels)."""
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.models.simulation import simulation_route
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    from nbody_tpu_torch.parallel.ring import _RECT_VARIANTS, _SYM_VARIANTS
+    cfg = nt.SimConfig(n_bodies=d["n"], impl=d["impl"],
+                       integrator=d["integrator"], dtype=d["dtype"],
+                       resident=d["resident"], flat_state=d["flat_state"],
+                       prog_cap=d["prog_cap"], device=device)
+    p, comm = d["shards"], d["comm"] or "ring"
+    route = simulation_route(cfg, make_mesh(p, device) if p else None, comm)
+    impl = route.impl
+    if p and comm.startswith("rdma"):
+        kernels = {"rdma_ring"}
+    elif p and not impl.startswith("pallas"):
+        kernels = set()
+    elif p and comm == "ring" and impl in _SYM_VARIANTS:
+        v = _SYM_VARIANTS[impl]
+        kernels = ({IMPL_KERNELS[impl]}
+                   | ({f"rect_forces_sym_{v}"} if p >= 3 else set())
+                   | ({ONE_SIDED_KERNELS[_RECT_VARIANTS[impl]]}
+                      if p % 2 == 0 else set()))
+    elif p:
+        kernels = {ONE_SIDED_KERNELS[_RECT_VARIANTS[impl]]}
+    elif route.resident:
+        kernels = {"resident" if d["integrator"] == "reference"
+                   else "resident_kdk"}
+        if d["integrator"] != "reference":
+            kernels.add("forces_sym")     # the KDK prime, on K2's sums
+    else:
+        kernels = {IMPL_KERNELS[impl]} if impl in IMPL_KERNELS else set()
+    return route, kernels
+
+
+def check_sampler(counts, smi):
+    """SAMPLER_DRAWS seeded draws on one card (``sampler_draws``): for
+    each, the launch counters of the run (and of its resume) name the
+    route that ``simulation_route`` names, the bounded runs call their
+    heartbeat and the others do not, a flat route ends in a flat state, a
+    resumed run ends bit-equal to the uninterrupted one, the first
+    evaluation meets the
+    tier's float64 gate on SAMPLER_ROWS sampled rows (``rows_float64``)
+    and, up to SAMPLER_PLAIN_MAX_N, the same call on the CPU (the plain
+    versions) at the kernel-vs-twin tolerance."""
+    import torch
+    from nbody_tpu_torch.models.state import is_flat, state_from_flat
+    t_all = time.perf_counter()
+    os.makedirs(WORK, exist_ok=True)
+
+    def rows_of(state):
+        return state_from_flat(state) if is_flat(state) else state
+    for d in sampler_draws():
+        t0 = time.perf_counter()
+        route, kernels = sampler_route(d, "cuda:0")
+        impl = route.impl
+        beats = []
+        start = sampler_start(d, "cuda:0")
+        before = counts()
+        sim, end = sampler_sim(d, "cuda:0", start,
+                               progress=lambda done, total, acc:
+                               beats.append(total))
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in counts().items()}
+        moved = {k for k, v in delta.items() if v}
+        check(moved == kernels, f"sampler {d['id']}: launched {moved}, the "
+              f"route ({impl}) names {kernels}")
+        check(bool(beats) == route.bounded and is_flat(end) == route.flat,
+              f"sampler {d['id']}: heartbeat {len(beats)}, flat "
+              f"{is_flat(end)} against the route's {route}")
+        end = rows_of(end)
+        check(all(bool(torch.isfinite(getattr(end, k)).all())
+                  for k in ("pos", "vel", "acc")),
+              f"sampler {d['id']}: non-finite state")
+        if d["resume"]:
+            before = counts()
+            _, resumed = sampler_sim(d, "cuda:0", start,
+                                     path=os.path.join(WORK, "sampler.npz"))
+            torch.cuda.synchronize()
+            moved = {k for k, v in counts().items() if v - before[k]}
+            check(moved == kernels and states_equal(rows_of(resumed), end),
+                  f"sampler {d['id']}: the resumed run (launched {moved}) "
+                  f"differs from the uninterrupted one")
+        # The first evaluation is the force at the start positions.
+        _, first = sampler_sim(d, "cuda:0", start, first_only=True)
+        first = rows_of(first)
+        gen = torch.Generator().manual_seed(d["seed"])
+        rows = torch.randperm(d["n"], generator=gen)[:SAMPLER_ROWS].cuda()
+        want = rows_float64(start.pos, start.mass, rows, 0.002)
+        p99, frac = gate_numbers(first.acc[rows], want)
+        p99_gate, frac_gate = SAMPLER_GATES[impl]
+        held = (3 * rows.numel() >= SAMPLER_GATE_MIN
+                or (p99_gate, frac_gate) == (None, VALIDATE_ACC_FRAC))
+        check(not held or ((p99_gate is None or p99 < p99_gate)
+                           and frac <= frac_gate),
+              f"sampler {d['id']}: p99 {p99:.3e}, bad fraction {frac:.3e} "
+              f"against the gate ({p99_gate}, {frac_gate})")
+        plain = ""
+        if d["n"] <= SAMPLER_PLAIN_MAX_N:
+            # The kernels' plain versions: the resolved impl on the CPU
+            # (where auto would take the plain paths).
+            _, cpu = sampler_sim(dict(d, impl=impl), "cpu", start,
+                                 first_only=True)
+            rel, floor = ((FAST_REL_TOL, TC_ABS_FLOOR)
+                          if impl == "pallas_fast" else
+                          (TC_REL_TOL, TC_ABS_FLOOR)
+                          if IMPL_KERNELS.get(impl) in TIER_IMPLS
+                          else (REL_TOL, ABS_FLOOR))
+            _, max_rel, _ = compare(f"sampler {d['id']} first evaluation "
+                                    f"vs the plain versions", first.acc,
+                                    rows_of(cpu).acc, rel, floor)
+            plain = f"; plain max rel {max_rel:.3e}"
+        print(f"[sampler] {d['id']}: route {impl}"
+              + (" resident" if route.resident else "")
+              + (f" bounded ({max(beats)} programs)" if route.bounded
+                 else "")
+              + (" flat" if route.flat else "")
+              + f", launches { {k: delta[k] for k in sorted(kernels)} }; "
+              f"vs float64 rows p99 {p99:.3e}, bad fraction {frac:.3e}"
+              + ("" if held else " (too few components for the tier's "
+                 "gate)") + f"{plain}; {time.perf_counter() - t0:.1f} s")
+    print(f"[time] check_sampler: {time.perf_counter() - t_all:.1f} s "
+          f"({smi})")
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper by name: each counts its launches in
+    ``.launches``."""
+    from nbody_tpu_torch.ops import forces_sym as k2
+    from nbody_tpu_torch.ops import forces_tiled as k1
+    from nbody_tpu_torch.ops import forces_sym_tc as k56
+    from nbody_tpu_torch.ops import forces_tiled_tc as k910
+    from nbody_tpu_torch.ops import forces_fast as k12
+    from nbody_tpu_torch.ops import pe, resident
+    from nbody_tpu_torch.ops import ablation_sym
+    from nbody_tpu_torch.parallel import rdma_ring as k13
+    return {"forces_tiled": k1.forces_tiled, "forces_sym": k2.forces_sym,
+            "resident": resident.resident_steps,
+            "resident_kdk": resident.resident_steps_kdk,
+            "pe": pe.pe_rows, "pe_total": pe.pe_total,
+            "forces_tiled_turbo": k910.forces_tiled_turbo,
+            "forces_tiled_mxu": k910.forces_tiled_mxu,
+            "forces_sym_turbo": k56.forces_sym_turbo,
+            "forces_sym_mxu": k56.forces_sym_mxu,
+            "forces_sym_vpu": k2.forces_sym_vpu,
+            "forces_tiled_kahan": k1.forces_tiled_kahan,
+            "forces_fast": k12.forces_fast,
+            "forces_sym_turbo2": k56.forces_sym_turbo2,
+            "forces_sym_turbof": k56.forces_sym_turbof,
+            "forces_sym_turbop": k56.forces_sym_turbop,
+            "forces_sym_fold": k2.forces_sym_fold,
+            "forces_sym_vpu_fold": k2.forces_sym_vpu_fold,
+            "rect_forces_sym_vpu2": k2.rect_forces_sym_vpu2,
+            "rect_forces_sym_vpu": k2.rect_forces_sym_vpu,
+            "rect_forces_sym_fold": k2.rect_forces_sym_fold,
+            "rect_forces_sym_vpu_fold": k2.rect_forces_sym_vpu_fold,
+            "rect_forces_sym_turbo": k56.rect_forces_sym_turbo,
+            "rect_forces_sym_mxu": k56.rect_forces_sym_mxu,
+            "rect_forces_sym_turbo2": k56.rect_forces_sym_turbo2,
+            "rect_forces_sym_turbof": k56.rect_forces_sym_turbof,
+            "rect_forces_sym_turbop": k56.rect_forces_sym_turbop,
+            "rdma_ring": k13.rdma_ring,
+            **{f"forces_sym_{v}": w
+               for v, w in ablation_sym.SYM_WRAPPERS.items()},
+            **{f"rect_forces_sym_{v}": w
+               for v, w in ablation_sym.RECT_WRAPPERS.items()}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4877,6 +5020,34 @@ def main():
     _build.build_all(libs)
     print(f"[build] all {len(libs)} libraries: "
           f"{time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:2] == ["--long-horizon"]:
+        # Config #2's long-horizon gate alone: one eps2 a call.
+        args = sys.argv[2:]
+        check(len(args) in (1, 3) and (len(args) == 1 or args[1:] == [
+            "--integrator", "kdk"]), "usage: chip_smoke.py --long-horizon "
+              "EPS2 [--integrator kdk]")
+        eps2 = float(args[0])
+        integrator = args[2] if len(args) == 3 else "reference"
+        wrappers = kernel_wrappers()
+        oracle_s = []
+        share_oracle_runs(oracle_s)
+        routes = long_horizon(
+            eps2, integrator, lambda: {k: w.launches
+                                       for k, w in wrappers.items()}, smi)
+        for oracle, secs in oracle_s:
+            print(f"[long] oracle run ({oracle}): {secs:.1f} s on the host, "
+                  f"shared by {len(routes)} routes")
+        print(f"[time] --long-horizon {eps2:g} {integrator} total, the "
+              f"build included: {time.perf_counter() - t_main:.1f} s")
+        print(json.dumps({"long_horizon": {
+            "eps2": eps2, "integrator": integrator, "n": LONG_N,
+            "steps": LONG_STEPS, "oracle_s": oracle_s,
+            "routes": routes}}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--cross-card"]:
         # The cross-card phases alone, on a host of several cards.
         share_oracle_runs()
@@ -4897,13 +5068,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
 
-    # The parent's sources for the redesign rounds, and its SASS against
-    # this build's, compiled in the background meanwhile; the parent's
-    # libraries, built meanwhile too.
-    csrc = parent_csrc()
-    sass = start_sass_compare(csrc) if csrc else None
-    parent_build = (build_parent(csrc, PARENT_LIBS, report=False) if csrc
-                    else None)
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
 
     import nbody_tpu_torch as nt
     from nbody_tpu_torch.ops import forces_sym as k2
@@ -4930,47 +5095,11 @@ def main():
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) ({smi})")
 
-    # 4. K2 at the 1M headline; K15's vpu_noj against the design before
-    # its redesign, and K7's split.
+    # 4. K2 at the 1M headline.
     check_k2_1m(dev)
-    if csrc:
-        check_redesign(dev, 0.002, record, smi, parent_build)
-    else:
-        print("[redesign] skipped: no parent sources (PARENT_CSRC)")
 
     # 5. The main paths, through the CLI, with the launch counters.
-    from nbody_tpu_torch.ops import ablation_sym
-    from nbody_tpu_torch.parallel import rdma_ring as k13
-    wrappers = {"forces_tiled": k1.forces_tiled, "forces_sym": k2.forces_sym,
-                "resident": resident.resident_steps,
-                "resident_kdk": resident.resident_steps_kdk,
-                "pe": pe.pe_rows, "pe_total": pe.pe_total,
-                "forces_tiled_turbo": k910.forces_tiled_turbo,
-                "forces_tiled_mxu": k910.forces_tiled_mxu,
-                "forces_sym_turbo": k56.forces_sym_turbo,
-                "forces_sym_mxu": k56.forces_sym_mxu,
-                "forces_sym_vpu": k2.forces_sym_vpu,
-                "forces_tiled_kahan": k1.forces_tiled_kahan,
-                "forces_fast": k12.forces_fast,
-                "forces_sym_turbo2": k56.forces_sym_turbo2,
-                "forces_sym_turbof": k56.forces_sym_turbof,
-                "forces_sym_turbop": k56.forces_sym_turbop,
-                "forces_sym_fold": k2.forces_sym_fold,
-                "forces_sym_vpu_fold": k2.forces_sym_vpu_fold,
-                "rect_forces_sym_vpu2": k2.rect_forces_sym_vpu2,
-                "rect_forces_sym_vpu": k2.rect_forces_sym_vpu,
-                "rect_forces_sym_fold": k2.rect_forces_sym_fold,
-                "rect_forces_sym_vpu_fold": k2.rect_forces_sym_vpu_fold,
-                "rect_forces_sym_turbo": k56.rect_forces_sym_turbo,
-                "rect_forces_sym_mxu": k56.rect_forces_sym_mxu,
-                "rect_forces_sym_turbo2": k56.rect_forces_sym_turbo2,
-                "rect_forces_sym_turbof": k56.rect_forces_sym_turbof,
-                "rect_forces_sym_turbop": k56.rect_forces_sym_turbop,
-                "rdma_ring": k13.rdma_ring,
-                **{f"forces_sym_{v}": w
-                   for v, w in ablation_sym.SYM_WRAPPERS.items()},
-                **{f"rect_forces_sym_{v}": w
-                   for v, w in ablation_sym.RECT_WRAPPERS.items()}}
+    wrappers = kernel_wrappers()
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -4981,6 +5110,7 @@ def main():
 
     launches = main_path(counts, reset, record)
     check_cross_card(counts, record, smi)
+    check_sampler(counts, smi)
 
     # 6. Invariants over 200 device-only steps.
     from nbody_tpu_torch.analysis import invariant_drifts
@@ -5006,7 +5136,9 @@ def main():
     from nbody_tpu_torch.bench_lib import run_benchmark
     for kw in ({"n": 8192}, {"n": 8192, "resident": False},
                {"n": 8192, "resident": True}, {"n": 8192, "impl": "pallas"},
-               {"n": 8192, "impl": "xla"}, {"n": 1 << 20, "energy": True},
+               # The plain path: 100 steps (1000 take ~10 s on an H100).
+               {"n": 8192, "impl": "xla", "steps": 100},
+               {"n": 1 << 20, "energy": True},
                *({"n": 8192, "impl": impl} for impl in TIER_IMPLS.values()),
                {"n": 1 << 20, "impl": "pallas_sym_turbo"},
                # K7 per step (auto would hand pallas_sym to K3 at 8192).
@@ -5032,11 +5164,6 @@ def main():
         check(res["finite"], f"bench {kw}: non-finite")
         print("[bench] " + json.dumps(res))
         print(f"[time] bench {kw}: {time.perf_counter() - t0:.1f} s")
-
-    if sass:
-        finish_sass_compare(sass)
-    else:
-        print("[sass] skipped: no parent sources (PARENT_CSRC)")
 
     kernels = []
     for kname, src, repl in (

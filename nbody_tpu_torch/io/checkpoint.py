@@ -18,8 +18,11 @@ same dtype, and reads ``|V2`` arrays back as bfloat16, so a bf16 run
 resumes from either package's file.  (The JAX loader cannot read them:
 ``jnp.asarray`` refuses ``|V2``.)
 
-Not ported: the Orbax adapter, which belongs to the JAX ecosystem
-(ROADMAP Queue 1 item 7).
+Not ported: the Orbax adapter (``save_checkpoint_orbax`` /
+``load_checkpoint_orbax``), which belongs to the JAX ecosystem (the card's
+host has no ``orbax``); the NPZ file carries what it gives: the whole
+state with its step and config, written atomically and resumed by either
+package.
 """
 
 from __future__ import annotations

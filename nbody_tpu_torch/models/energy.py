@@ -1,5 +1,11 @@
 """Energy diagnostics: ``nbody_tpu/models/energy.py``'s ``kinetic_energy``,
+``potential_energy``, ``total_energy``, ``total_momentum``,
 ``total_energy_bounded`` and ``energy_f64``.
+
+``potential_energy`` and ``total_energy`` sum in the state's own dtype
+(row chunks against every body, the self pair masked in place, as the JAX
+package does), ``total_momentum`` is sum(m v) in that dtype; the drift
+gates take ``energy_f64``.
 
 The pair potential consistent with the softened force is the Plummer
 potential ``phi_ij = -m_i m_j / sqrt(|r|^2 + eps2)``.  ``energy_f64`` sums
@@ -46,6 +52,38 @@ def _tensor(x) -> torch.Tensor:
 
 def kinetic_energy(vel: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.sum(mass * torch.sum(vel * vel, dim=-1))
+
+
+def potential_energy(pos: torch.Tensor, mass: torch.Tensor, eps2: float,
+                     chunk: int = 2048) -> torch.Tensor:
+    """-1/2 sum_{i != j} m_i m_j / sqrt(|r_ij|^2 + eps2) in ``pos``'s
+    dtype, over row chunks of ``chunk`` bodies.  The self pair is masked
+    before the sum: its m_i^2 / sqrt(eps2) dwarfs the pair terms, so
+    subtracting it afterwards would cancel in float32."""
+    pos, mass = _tensor(pos), _tensor(mass)
+    n = pos.shape[0]
+    cols = torch.arange(n, device=pos.device)
+    total = pos.new_zeros(())
+    for s in range(0, n, max(1, chunk)):
+        pc, mc = pos[s:s + chunk], mass[s:s + chunk]
+        r = pos[None, :, :] - pc[:, None, :]
+        inv = torch.rsqrt(torch.sum(r * r, dim=-1) + eps2)
+        rows = torch.arange(s, s + pc.shape[0], device=pos.device)
+        inv = torch.where(cols[None, :] == rows[:, None],
+                          inv.new_zeros(()), inv)
+        total = total + torch.sum(mc[:, None] * mass[None, :] * inv)
+    return -0.5 * total
+
+
+def total_energy(state, eps2: float) -> torch.Tensor:
+    """Kinetic plus softened potential energy in the state's dtype."""
+    return (kinetic_energy(_tensor(state.vel), _tensor(state.mass))
+            + potential_energy(state.pos, state.mass, eps2))
+
+
+def total_momentum(vel: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
+    """Total momentum sum_i m_i v_i, a (3,) tensor."""
+    return torch.sum(_tensor(mass)[:, None] * _tensor(vel), dim=0)
 
 
 def total_energy_bounded(state, eps2: float) -> float:

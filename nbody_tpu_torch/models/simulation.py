@@ -50,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -177,6 +177,51 @@ class _ProgressHeartbeat:
             f"{int(eta % 60):02d}")
 
 
+class Route(NamedTuple):
+    """Where a ``Simulation`` sends its steps."""
+    impl: str           # the force impl (a shard's, on a mesh)
+    flat: bool          # the flat state (one device)
+    bounded: bool       # the bounded dispatch (prog_cap's programs)
+    resident: bool      # the resident kernels K3 / K4
+
+
+def simulation_route(cfg: SimConfig, mesh=None, comm: str = "ring") -> Route:
+    """The route a ``Simulation`` of ``cfg`` (on ``mesh`` under ``comm``)
+    takes; raises where the config's options refuse one another."""
+    impl = resolve_impl(cfg, sharded=mesh is not None)
+    if mesh is not None:
+        impl = _resolve_local_impl(cfg.impl, mesh, comm, default=impl)
+    if mesh is not None and cfg.flat_state:
+        raise ValueError(
+            "flat-state + mesh is unnecessary by design: a mesh shard "
+            "is (N/P, 3), and mesh runs at any N route through the "
+            "sharded bounded programs (parallel/multiprog.py); drop "
+            "--flat-state (or --shards for the single-device flat mode)")
+    flat = mesh is None and should_use_flat(cfg, impl)
+    # The bounded dispatch: the flat mode always; else a pallas_sym* impl
+    # with a prog_cap or one evaluation past the default cap (a device, or
+    # a shard of a ring mesh).  A forced resident run keeps a cap that
+    # does not split one step.
+    forced_resident = (
+        cfg.resident is True and mesh is None
+        and (cfg.prog_cap is None
+             or cfg.interactions_per_step <= cfg.prog_cap))
+    bounded = flat or (
+        (mesh is None or comm == "ring") and not forced_resident
+        and should_use_multiprog(cfg, impl,
+                                 mesh.size if mesh is not None else 1))
+    # Raises naming the reasons when resident=True is out of scope.
+    resident = (not bounded and should_use_resident(
+        cfg, impl, sharded=mesh is not None))
+    if cfg.resident is True and not resident:
+        should_use_resident(cfg, impl, sharded=mesh is not None)
+        raise ValueError(
+            "resident=True but flat/multiprog routing preempts the "
+            "resident kernels (whole steps in one launch); drop "
+            "--resident on or the conflicting scale options")
+    return Route(impl, flat, bounded, resident)
+
+
 class Simulation:
     """Owns a state + config; runs chunks of steps with host-side services
     (logging / checkpoints / watchdog / energy) between chunks."""
@@ -188,17 +233,11 @@ class Simulation:
         self.logger = logger or RunLogger(quiet=True)
         self.mesh = mesh
         self.comm = comm
-        self.impl = resolve_impl(cfg, sharded=mesh is not None)
-        if mesh is not None:
-            self.impl = _resolve_local_impl(cfg.impl, mesh, comm,
-                                            default=self.impl)
-        if mesh is not None and cfg.flat_state:
-            raise ValueError(
-                "flat-state + mesh is unnecessary by design: a mesh shard "
-                "is (N/P, 3), and mesh runs at any N route through the "
-                "sharded bounded programs (parallel/multiprog.py); drop "
-                "--flat-state (or --shards for the single-device flat mode)")
-        self._flat = mesh is None and should_use_flat(cfg, self.impl)
+        route = simulation_route(cfg, mesh, comm)
+        self.impl = route.impl
+        self._flat = route.flat
+        self._use_multiprog = route.bounded
+        self._resident = route.resident
         if state is None:
             state = init_state_flat(cfg) if self._flat else init_state(cfg)
         elif self._flat and not is_flat(state):
@@ -206,27 +245,6 @@ class Simulation:
         elif not self._flat and is_flat(state):
             state = state_from_flat(state)
         self.state = state
-        # The bounded dispatch: the flat mode always; else a pallas_sym*
-        # impl with a prog_cap or one evaluation past the default cap (a
-        # device, or a shard of a ring mesh).  A forced resident run keeps
-        # a cap that does not split one step.
-        forced_resident = (
-            cfg.resident is True and mesh is None
-            and (cfg.prog_cap is None
-                 or cfg.interactions_per_step <= cfg.prog_cap))
-        self._use_multiprog = self._flat or (
-            (mesh is None or comm == "ring") and not forced_resident
-            and should_use_multiprog(cfg, self.impl,
-                                     mesh.size if mesh is not None else 1))
-        # Raises naming the reasons when resident=True is out of scope.
-        self._resident = (not self._use_multiprog and should_use_resident(
-            cfg, self.impl, sharded=mesh is not None))
-        if cfg.resident is True and not self._resident:
-            should_use_resident(cfg, self.impl, sharded=mesh is not None)
-            raise ValueError(
-                "resident=True but flat/multiprog routing preempts the "
-                "resident kernels (whole steps in one launch); drop "
-                "--resident on or the conflicting scale options")
         if cfg.integrator != "reference":
             # The prime is a whole force evaluation: it gets a heartbeat.
             beat = (_ProgressHeartbeat(self.logger)
@@ -240,7 +258,13 @@ class Simulation:
                 self.state = prime_kdk_flat(self.state, cfg, impl=self.impl,
                                             progress=beat)
             else:
-                self.state = prime_kdk(self.state, cfg, impl=self.impl,
+                # The resident kernels compute K2's sums for either impl
+                # they serve (RESIDENT_IMPLS), so a resident run primes on
+                # K2 too: a resume, which primes again, then repeats the
+                # uninterrupted run's bits (the JAX package primes
+                # ``pallas_sym`` on its own tile and differs by a rounding).
+                prime_impl = "pallas_sym2" if self._resident else self.impl
+                self.state = prime_kdk(self.state, cfg, impl=prime_impl,
                                        progress=beat)
         self.step_count = 0
         # The bounded dispatch's per-program callback f(done, total, acc);

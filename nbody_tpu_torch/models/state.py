@@ -70,6 +70,11 @@ def round_up(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
+def pad_state(state: SimState, multiple: int) -> SimState:
+    """Pad with zero-mass ghost bodies so N is a multiple of ``multiple``."""
+    return pad_state_to(state, round_up(state.n, multiple))
+
+
 def pad_state_to(state: SimState, n_pad: int) -> SimState:
     """Pad with zero-mass ghost bodies up to exactly ``n_pad`` bodies."""
     n = state.n

@@ -21,9 +21,12 @@ its cards when it is made, and raises if a pair cannot reach each other.
 
 What does not survive: the born-sharded ``jit`` out_shardings (the state
 is made on one device and split; on the card a shard is a view until it
-moves).  The bounded mesh (``parallel/multiprog.py``) is the ring's host
-loop cut into programs, and the mesh's energy (``parallel/energy.py``)
-the halved ring of K8 row sums.  A collective backend for several
+moves); and ``body_sharding``, a ``jax.sharding.NamedSharding`` that
+tells XLA to split a global array over the mesh: here ``shard_state``
+splits it and each shard is its own tensor.  The bounded mesh
+(``parallel/multiprog.py``) is the ring's host loop cut into programs,
+and the mesh's energy (``parallel/energy.py``) the halved ring of K8 row
+sums.  A collective backend for several
 processes (``torch.distributed``) is out of scope: the JAX package is one
 process (nothing in it calls ``jax.distributed``), and one process here
 already places a shard on every card.

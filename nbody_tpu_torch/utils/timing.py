@@ -1,5 +1,5 @@
-"""Timing: completion barriers, CUDA-event timing and the run loop's
-``StepTimer`` (``nbody_tpu/utils/timing.py``).
+"""Timing: completion barriers, CUDA-event timing, ``measure_steps`` and
+the run loop's ``StepTimer`` (``nbody_tpu/utils/timing.py``).
 
 PyTorch returns before the card finishes, so a host clock measures only
 the enqueue unless the work ends in ``torch.cuda.synchronize()``: callers
@@ -46,6 +46,21 @@ def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1000.0 / iters
+
+
+def measure_steps(fn, state, n_steps: int, warmup: bool = True):
+    """Time ``fn(state, n_steps) -> state`` on the host clock, the card
+    synchronised before each reading; with ``warmup`` one untimed call
+    first (the kernels' build and load).  Returns (final state,
+    seconds)."""
+    device = state.pos.device
+    if warmup:
+        fn(state, n_steps)
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn(state, n_steps)
+    sync(device)
+    return out, time.perf_counter() - t0
 
 
 @dataclass
