@@ -115,6 +115,18 @@ one 4-shard K13 step at N = 1M against the single-device K2 step (on the
 rows where the ring and K2 differ and on sampled rows, each of the ring's
 kernels, K11 on its antipodal sweep and K13 against float64; K13's
 phases by partial launches), and the bench lines (4M under auto among them).
+The JAX rounds' platform probes (``ops/probes.py``, ``csrc/probes.cu``),
+run on the main path through both probe scripts (``probe_scripts``): r3's
+column sums of a bf16 pack built on the card, the same bits round-tripped
+through the host and the pack derived in the kernel with the tiers'
+``split_bf16``, bit-equal to each other and to their plain versions; r8's
+copies (a device workspace, shared-memory staging, a row slice, a value
+row split, an (8, 3) buffer, a transpose, and the remote copy to itself
+as K13's peer store and flag at P = 1), each its plain version bit for
+bit; ``check_probes`` times them for the kernels line.  The ladder
+(``nbody_tpu_torch/bench_suite.py``): rows 1 and 3 as a user runs them,
+``python -m nbody_tpu_torch.bench_suite --configs 1,3`` in a process of
+its own (``ladder_smoke``).
 Any failed check raises and the script exits nonzero; without a CUDA
 card it exits 1 before doing anything.
 
@@ -129,6 +141,14 @@ runs config #2's long-horizon gate alone (``long_horizon``): validate's
 per-step kernels, the ring and K13 on 4 shards, ``xla``), one native
 float64 oracle run shared by all of them; at eps2 = 1e7 every verdict
 gated, at other eps2 the energy where the oracle is well-posed.
+
+    python3 chip_smoke.py --ladder [KEY,KEY,...]
+
+runs the JAX rounds' ladder alone (``check_ladder``; every row by
+default, row 5 on every card of the host), each row's kernels read from
+the launch counters against its route, row 1's gate, and rows 2 and 7
+against the drift of validate's 1000-step phase at the same N, eps2 and
+seed (``--long-horizon``'s K3 / per-step K2 numbers, PERF.md section 6).
 """
 
 import contextlib
@@ -2110,6 +2130,232 @@ def check_pe(dev, record, smi):
           f"{total_ms:.2f} ms per launch over 1,048,576 bodies ({smi})")
 
 
+# The JAX rounds' platform probes (ops/probes.py, csrc/probes.cu): each
+# kernel's name in the kernels line, the TPU kernel it replaces (the body's
+# line) and the pallas_call that launched it.
+PROBE_KERNELS = {
+    "probe_pack_sum": ("scripts/r3_platbug.py:69",
+                       "scripts/r3_platbug.py:78"),
+    "probe_derive_pack_sum": ("scripts/r3_platbug.py:91",
+                              "scripts/r3_platbug.py:106"),
+    "probe_workspace_copy": ("scripts/r8_mosaic_rules.py:50",
+                             "scripts/r8_mosaic_rules.py:31"),
+    "probe_staged_copy": ("scripts/r8_mosaic_rules.py:63",
+                          "scripts/r8_mosaic_rules.py:31"),
+    "probe_ref_slice": ("scripts/r8_mosaic_rules.py:72",
+                        "scripts/r8_mosaic_rules.py:31"),
+    "probe_value_slice": ("scripts/r8_mosaic_rules.py:82",
+                          "scripts/r8_mosaic_rules.py:31"),
+    "probe_narrow_copy": ("scripts/r8_mosaic_rules.py:94",
+                          "scripts/r8_mosaic_rules.py:31"),
+    "probe_value_transpose": ("scripts/r8_mosaic_rules.py:105",
+                              "scripts/r8_mosaic_rules.py:31"),
+    "probe_peer_copy": ("scripts/r8_mosaic_rules.py:121",
+                        "scripts/r8_mosaic_rules.py:129"),
+}
+# Launches of one run of both probe scripts: r3's pack sum twice (the
+# pack built on the card, then round-tripped through the host), r8's
+# workspace copy twice (1a, 1b), every other probe once.
+PROBE_LAUNCHES = {k: 2 if k in ("probe_pack_sum", "probe_workspace_copy")
+                  else 1 for k in PROBE_KERNELS}
+
+
+def probe_wrappers():
+    """The probe kernels' wrappers by their names in the kernels line."""
+    from nbody_tpu_torch.ops import probes
+    return {f"probe_{w.__name__}": w for w in (
+        probes.pack_sum, probes.derive_pack_sum, probes.workspace_copy,
+        probes.staged_copy, probes.ref_slice, probes.value_slice,
+        probes.narrow_copy, probes.value_transpose, probes.peer_copy)}
+
+
+def check_probes(dev, record, smi):
+    """The probe kernels' records at their scripts' shapes: each timed
+    beside its plain version and the one PyTorch call that computes the
+    same function, where one does, with its largest difference from its
+    plain version on the same input.  The bit checks (r3's three variants
+    equal, every probe equal to its plain version) are the probe scripts'
+    own, run on the main path (``probe_scripts``)."""
+    import torch
+    import torch.nn.functional as F
+    from nbody_tpu_torch.ops import probes
+    from nbody_tpu_torch.utils.timing import time_ms
+    t_all = time.perf_counter()
+    pos = torch.from_numpy(probes.r3_positions()).to(dev)
+    n = pos.shape[0]
+    pack = probes.pack8(pos * 1.0)
+    x = torch.from_numpy(probes.r8_tile()).to(dev)
+    # 2b's function as one multiply by a constant (8, 1) scale.
+    scale = torch.tensor([2.0] * 3 + [1.0] * 5, device=dev).view(8, 1)
+    tile = x.numel() * 4
+    # name: (kernel, plain, one PyTorch call or None, float32 flops, bytes
+    # the function must read and write).  2a reads rows 0-2 and writes the
+    # tile (rows 3-7 NaN); 3a reads columns 0-2; 3b reads rows 0-3 and
+    # writes a (4, 128) tile.
+    cases = {
+        "probe_pack_sum": (lambda: probes.pack_sum(pack),
+                           lambda: probes.pack_sum_plain(pack),
+                           lambda: pack.float().sum(0), 8 * n, 16 * n + 32),
+        "probe_derive_pack_sum": (lambda: probes.derive_pack_sum(pos),
+                                  lambda: probes.derive_pack_sum_plain(pos),
+                                  None, 8 * n, 12 * n + 32),
+        "probe_workspace_copy": (lambda: probes.workspace_copy(x),
+                                 lambda: probes.workspace_copy_plain(x),
+                                 lambda: x.clone(), 0, 2 * tile),
+        "probe_staged_copy": (lambda: probes.staged_copy(x),
+                              lambda: probes.staged_copy_plain(x),
+                              lambda: x.clone(), 0, 2 * tile),
+        "probe_ref_slice": (lambda: probes.ref_slice(x),
+                            lambda: probes.ref_slice_plain(x),
+                            lambda: F.pad(x[:3], (0, 0, 0, 5),
+                                          value=float("nan")),
+                            0, 3 * 128 * 4 + tile),
+        "probe_value_slice": (lambda: probes.value_slice(x),
+                              lambda: probes.value_slice_plain(x),
+                              lambda: x * scale, 3 * 128, 2 * tile),
+        "probe_narrow_copy": (lambda: probes.narrow_copy(x),
+                              lambda: probes.narrow_copy_plain(x),
+                              lambda: F.pad(x[:, :3], (0, 125)), 0,
+                              8 * 3 * 4 + tile),
+        "probe_value_transpose": (lambda: probes.value_transpose(x),
+                                  lambda: probes.value_transpose_plain(x),
+                                  None, 3 * 128, 2 * 4 * 128 * 4),
+        "probe_peer_copy": (lambda: probes.peer_copy(x),
+                            lambda: probes.peer_copy_plain(x),
+                            lambda: x.clone(), 0, 2 * tile),
+    }
+    for kname, (fn, plain, library, flops, nbytes) in cases.items():
+        got, want = fn(), plain()
+        r3 = kname in ("probe_pack_sum", "probe_derive_pack_sum")
+        record[kname] = {
+            "shape": (f"N={n} rows in blocks of {probes.R3_U}" if r3
+                      else "an (8, 128) float32 tile"),
+            "max_abs_err": float((got.nan_to_num() - want.nan_to_num())
+                                 .abs().max()),
+            "ms": time_ms(fn, dev, iters=200),
+            "card_ms": device_ms(fn, 100),
+            "plain_ms": time_ms(plain, dev, iters=20 if r3 else 200),
+            "library_ms": (time_ms(library, dev, iters=200)
+                           if library is not None else None),
+            "bound": bound(flops, nbytes)}
+        r = record[kname]
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else "none")
+        print(f"[time] {kname}: kernel {r['ms']:.4f} ms (the card "
+              f"{r['card_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound'][0]:.7f} ms, max abs err "
+              f"{r['max_abs_err']:g} ({smi})")
+    probes.peer_copy_errors()
+    print(f"[time] check_probes: {time.perf_counter() - t_all:.1f} s")
+
+
+def probe_scripts(counts):
+    """The probes through their scripts' mains (scripts/r3_platbug_torch.py,
+    scripts/r8_mosaic_rules_torch.py), each exit 0, with the launches of
+    ``PROBE_LAUNCHES`` and no other kernel."""
+    before = counts()
+    for script in ("r3_platbug_torch", "r8_mosaic_rules_torch"):
+        spec = importlib.util.spec_from_file_location(
+            script, os.path.join(ROOT, "scripts", f"{script}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        rc = mod.main(["--device", "cuda"])
+        check(rc == 0, f"scripts/{script}.py: exit {rc}")
+    delta = {k: v - before[k] for k, v in counts().items()}
+    print(f"[main path] the probe scripts: launches "
+          f"{ {k: v for k, v in delta.items() if v} }")
+    check(all(v == PROBE_LAUNCHES.get(k, 0) for k, v in delta.items()),
+          f"the probe scripts: launches {delta}")
+
+
+# The ladder (nbody_tpu_torch/bench_suite.py): the drift of rows 2 and 7
+# as ``--long-horizon 0.002`` and ``--long-horizon 1e6`` read it on an H100
+# (validate's 1000-step phase at N = 8192, seed 0: K3 = per-step K2,
+# PERF.md section 6), to the printed digits.
+LADDER_LONG_GATE = {"2": 1.237e-2, "7": 6.527e-3}
+
+
+def ladder_route(key, cards):
+    """The kernels ladder row ``key`` launches: K2 a step (per step at or
+    above the K1/K2 crossover, bounded at 4M); the ring row on ``cards``
+    shards, the N3L ring: K2 on the self shards, K2-rect on the cross
+    rotations, K1 on the antipodal sweep of an even count."""
+    route = {"forces_sym"}
+    if key == "5":
+        if (cards - 1) // 2:
+            route.add("rect_forces_sym_vpu2")
+        if cards > 1 and cards % 2 == 0:
+            route.add("forces_tiled")
+    return route
+
+
+def ladder_smoke():
+    """Ladder rows 1 and 3 as a user runs them, ``python -m
+    nbody_tpu_torch.bench_suite --configs 1,3`` in a subprocess: exit 0,
+    no row in error, row 1 passed."""
+    os.makedirs(WORK, exist_ok=True)
+    out = os.path.join(WORK, "ladder.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nbody_tpu_torch.bench_suite", "--configs",
+         "1,3", "--out", out], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"[ladder] {line}")
+    check(proc.returncode == 0,
+          f"bench_suite --configs 1,3: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    check([r["config"] for r in recs] == ["oracle-gate", "throughput-64k"]
+          and not any("error" in r for r in recs), f"ladder rows: {recs}")
+    check(recs[0]["passed"], f"ladder row 1 failed its gate: {recs[0]}")
+    print(f"[time] bench_suite --configs 1,3 (a process): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def check_ladder(keys, counts, reset, smi):
+    """``--ladder``: the ladder's rows in this process on every card of the
+    host, each with the launch counters reset before it: no row in error,
+    each row's kernels its route (``ladder_route``), row 1 passed, rows 2
+    and 7 ``LADDER_LONG_GATE``; each record printed with the seconds it
+    took and its launches by card."""
+    import torch
+    from nbody_tpu_torch import bench_suite
+    from nbody_tpu_torch.ops import _build
+    cards = torch.cuda.device_count()
+    records = []
+    for key in keys:
+        name = bench_suite.CONFIGS[key][0]
+        reset()
+        by_card = dict(_build.DEVICE_LAUNCHES)
+        t0 = time.perf_counter()
+        rec = bench_suite.run_config(key)
+        secs = time.perf_counter() - t0
+        launched = {k: v for k, v in counts().items() if v}
+        per_card = {c: n - by_card.get(c, 0)
+                    for c, n in sorted(_build.DEVICE_LAUNCHES.items())
+                    if n - by_card.get(c, 0)}
+        print(f"[ladder] row {key} {name} on {cards} card(s): {secs:.1f} s, "
+              f"launches {launched}, by card {per_card} ({smi})")
+        print("[ladder] " + json.dumps(rec))
+        records.append(rec)
+        check("error" not in rec, f"ladder row {key}: {rec.get('error')}")
+        check(set(launched) == ladder_route(key, cards),
+              f"ladder row {key}: launched {launched}, its route "
+              f"{sorted(ladder_route(key, cards))}")
+        if key == "1":
+            check(rec["passed"], f"ladder row 1 failed its gate: {rec}")
+        if key in LADDER_LONG_GATE:
+            drift, want = rec["energy_drift_vs_oracle"], LADDER_LONG_GATE[key]
+            print(f"[ladder] row {key} drift {drift:.3e} against validate's "
+                  f"1000-step phase's {want:.3e}")
+            check(f"{drift:.3e}" == f"{want:.3e}",
+                  f"ladder row {key}: drift {drift} is not {want}")
+    bench_suite.print_table(records)
+    return records
+
+
 def check_k2_1m(dev):
     """K2 at the 1M headline, sampled rows vs the direct form."""
     import torch
@@ -3985,6 +4231,7 @@ def main_path(counts, reset, record):
     check_viz(counts)
     check_huge_n(counts, record)
     check_examples(counts)
+    probe_scripts(counts)
     launches = counts()
     print(f"[main path] launch counts: {launches}")
     check(all(v > 0 for v in launches.values()),
@@ -4981,7 +5228,8 @@ def kernel_wrappers():
             **{f"forces_sym_{v}": w
                for v, w in ablation_sym.SYM_WRAPPERS.items()},
             **{f"rect_forces_sym_{v}": w
-               for v, w in ablation_sym.RECT_WRAPPERS.items()}}
+               for v, w in ablation_sym.RECT_WRAPPERS.items()},
+            **probe_wrappers()}
 
 
 def main():
@@ -5010,7 +5258,8 @@ def main():
 
     # 2. Build every kernel from a clean build directory, in parallel.
     libs = ("forces_tiled", "forces_sym", "resident", "pe",
-            "forces_tiled_tc", "forces_sym_tc", "forces_fast", "rdma_ring")
+            "forces_tiled_tc", "forces_sym_tc", "forces_fast", "rdma_ring",
+            "probes")
     from nbody_tpu_torch.utils import compcache
     print(f"[build] build root {compcache.build_root()} (NBODY_COMPCACHE="
           f"{os.environ.get('NBODY_COMPCACHE', '')!r})")
@@ -5043,6 +5292,29 @@ def main():
             "eps2": eps2, "integrator": integrator, "n": LONG_N,
             "steps": LONG_STEPS, "oracle_s": oracle_s,
             "routes": routes}}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:2] == ["--ladder"]:
+        # The JAX rounds' ladder alone, every row by default, on every card
+        # of the host (row 5's shards).
+        from nbody_tpu_torch.bench_suite import CONFIGS
+        keys = sys.argv[2].split(",") if len(sys.argv) > 2 else list(CONFIGS)
+        check(len(sys.argv) <= 3 and all(k in CONFIGS for k in keys),
+              "usage: chip_smoke.py --ladder [KEY,KEY,...] (keys 1-8)")
+        wrappers = kernel_wrappers()
+
+        def reset():
+            for w in wrappers.values():
+                w.launches = 0
+        records = check_ladder(
+            keys, lambda: {k: w.launches for k, w in wrappers.items()},
+            reset, smi)
+        print(f"[time] --ladder {','.join(keys)} total, the build included: "
+              f"{time.perf_counter() - t_main:.1f} s")
+        print(json.dumps({"ladder": records}))
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -5090,6 +5362,7 @@ def main():
     check_rdma(dev, 0.002, record, smi)
     check_resident(dev, record)
     check_pe(dev, record, smi)
+    check_probes(dev, record, smi)
     for kname, r in record.items():
         print(f"[time] {kname} ({r['shape']}): kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
@@ -5111,6 +5384,7 @@ def main():
     launches = main_path(counts, reset, record)
     check_cross_card(counts, record, smi)
     check_sampler(counts, smi)
+    ladder_smoke()
 
     # 6. Invariants over 200 device-only steps.
     from nbody_tpu_torch.analysis import invariant_drifts
@@ -5221,16 +5495,19 @@ def main():
                f"nbody_tpu/ops/ablation_sym.py:{line}")
               for kind, line in (("forces_sym", 131),
                                  ("rect_forces_sym", 155))
-              for v in ABLATIONS)):
+              for v in ABLATIONS),
+            *((k, "nbody_tpu_torch/csrc/probes.cu", repl)
+              for k, (repl, _) in PROBE_KERNELS.items())):
         r = dict(record[kname])
         bound_ms, bound_by = r.pop("bound")
-        # No single PyTorch call computes any of these functions.
+        # No single PyTorch call computes any of the force or energy
+        # kernels' functions; the probes' records carry theirs.
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[kname],
                         "max_abs_err": r.pop("max_abs_err"),
                         "ms": r.pop("ms"), "plain_ms": r.pop("plain_ms"),
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None, **r})
+                        "library_ms": r.pop("library_ms", None), **r})
     # The pair-symmetric kernels also replace the exact diagonal pass, and
     # K2-rect the rect call that launches it.
     for k in kernels:
@@ -5242,6 +5519,10 @@ def main():
             k["also_replaces"] = "nbody_tpu/parallel/rdma_ring.py:587"
         elif k["name"] == "pe_total":
             k["also_replaces"] = "nbody_tpu/ops/pe_pallas.py:92"
+        elif k["name"] in PROBE_KERNELS:
+            k["also_replaces"] = PROBE_KERNELS[k["name"]][1]
+    print(f"[time] chip_smoke.py total, the build included: "
+          f"{time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -117,6 +117,7 @@
 #include <cooperative_groups.h>
 
 #include "onesided_tile.cuh"
+#include "peer_flags.cuh"
 #include "rect_common.cuh"
 #include "sym_common.cuh"
 #include "sym_tc_tile.cuh"
@@ -549,35 +550,12 @@ struct RingGroup {
     long long size;      // the group's CTAs
 };
 
-// A relaxed read at system scope: the spins poll with it (an acquire load
-// would drop the SM's L1 lines, the other CTA's too, at every poll) and
-// fence once the flag has come.
-__device__ __forceinline__ unsigned long long flag_poll(
-        const unsigned long long* f) {
-    unsigned long long v;
-    asm volatile("ld.relaxed.sys.global.u64 %0, [%1];"
-                 : "=l"(v) : "l"(f) : "memory");
-    return v;
-}
-
 __device__ __forceinline__ unsigned long long counter_poll(
         const unsigned long long* f) {
     unsigned long long v;
     asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
                  : "=l"(v) : "l"(f) : "memory");
     return v;
-}
-
-__device__ __forceinline__ void flag_store(unsigned long long* f,
-                                           unsigned long long v) {
-    asm volatile("st.release.sys.global.u64 [%0], %1;"
-                 :: "l"(f), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long ring_clock() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
 }
 
 // One thread spins until *f >= want, then fences (the acquire of a
